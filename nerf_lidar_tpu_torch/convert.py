@@ -9,11 +9,14 @@ and every torch parameter filled, or it raises.
 
 `load_npz_params` reads the same tree from a flat `.npz` keyed by
 '/'-joined Flax paths (`params/nerf_mlp/table`, ...), which is what the
-CLI's `--params` takes; `flatten_params` writes that layout.
+CLI's `--params` takes; `save_npz_params` writes that layout.
+`state_dict_to_flax` is the inverse of `flax_to_state_dict`, so a field
+the port trains loads in both packages.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict
 
@@ -59,6 +62,16 @@ def load_npz_params(path: str) -> dict:
         return unflatten_params({k: z[k] for k in z.files})
 
 
+def save_npz_params(path: str, params: dict) -> str:
+    """Write a Flax param tree as a flat '/'-keyed .npz (written under a
+    temporary name, then renamed, so a cut write leaves no file)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flatten_params(params))
+    os.replace(tmp, path)
+    return path
+
+
 def _torch_name(flax_path: str) -> str:
     """'nerf_mlp/density_layers_0/kernel' -> 'nerf_mlp.density_layers.0.weight'."""
     parts = flax_path.split("/")
@@ -99,3 +112,30 @@ def flax_to_state_dict(params: dict, model_cfg: ModelConfig
     if missing:
         raise KeyError(f"torch parameters with no Flax leaf: {missing}")
     return out
+
+
+def _flax_path(torch_name: str) -> str:
+    """'nerf_mlp.density_layers.0.weight' -> 'nerf_mlp/density_layers_0/kernel'
+    (the inverse of `_torch_name`)."""
+    parts = torch_name.split(".")
+    if parts[0] == "prop_mlps":
+        module, rest = f"prop_mlps_{parts[1]}", parts[2:]
+    else:
+        module, rest = parts[0], parts[1:]
+    if rest == ["table"]:
+        return f"{module}/table"
+    *layer, leaf = rest
+    return "/".join([module, "_".join(layer),
+                     "kernel" if leaf == "weight" else leaf])
+
+
+def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """State dict of the port's `Model` -> {'params': Flax tree} with numpy
+    leaves (Linear weights transposed back to Dense kernels)."""
+    flat = {}
+    for name, value in state_dict.items():
+        v = value.detach().cpu().numpy()
+        path = _flax_path(name)
+        flat[path] = np.ascontiguousarray(v.T if path.endswith("/kernel")
+                                          else v)
+    return {"params": unflatten_params(flat)}

@@ -29,8 +29,39 @@
 //   keeps the [B*n, C] per-corner gathers of the plain version out of
 //   device memory. Out-of-range points contribute 0 and read no corner.
 //
+// K3 scatter_add_rows: replaces the Pallas kernel
+//   experiments/scatter_variants.py:pallas_mxu_scatter (out[r] += sum of
+//   vals[i] with idx[i] == r). The TPU kernel built a one-hot [block, rows]
+//   matrix in VMEM and kept the [rows, C] sum there across a sequential
+//   grid; Hopper's blocks run in no order, so the cross-block sum goes into
+//   device memory with atomics. Bound by atomic throughput at the L2, and
+//   by same-address serialisation when many indices share a row (the
+//   hash-decay segment sum puts a whole level of up to 2^21 rows on one
+//   output row). Design: a warp takes 32 * kScatterRun consecutive values
+//   of the flattened [N, C] vals, lane j the values j, j + 32, ..., which
+//   share one channel because C divides 32; a lane sums while the row stays
+//   the same and adds one atomic when it changes, and a warp whose lanes
+//   all end on one row sums each channel across lanes by shuffles and adds
+//   C atomics. Sorted runs (the segment sum) thus cost one atomic per
+//   channel per warp; random rows cost one per value, as a plain scatter.
+//   Indices outside [0, rows) are dropped, as the one-hot drops them.
+//
+// H1 backward hash_encode_ms_bwd: the gradient of hash_encode_ms, which JAX
+//   gets by autodiff through the gathers of _ms_encode_impl
+//   (diff_inputs=True). d_table: every in-range corner adds
+//   w_corner * erf_w / n * g_out[b, l] to its row through add_row, the
+//   routine K3 uses. d_x01 / d_stds (only when asked for): the derivative
+//   of the trilinear weights times scale_l, and of the erf weight, each
+//   against <g_out, corner row>. Bound like K3 by table atomics: one row
+//   update per corner (C4 rows of a 240 MB table for the NeRF grid), with
+//   heavy contention at the coarse tiled levels, where millions of updates
+//   land on a few thousand rows. Design: as the forward, one thread per
+//   (sample, level), level-major; d_x01 / d_stds sum the levels of a point
+//   with atomics. Atomics make every sum order change from run to run.
+//
 // Later PRs make these fast (warp per ray, shared-memory staging,
-// vectorised loads); this version is the simple correct one.
+// vectorised loads, warp-aggregated or sorted scatters in the H1
+// backward); this version is the simple correct one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,6 +194,167 @@ __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
   for (int k = 0; k < C; ++k) o[k] = acc[k] / (float)n;
 }
 
+// dst[0..C) += v[0..C) in device memory. sm_90 adds a 2- or 4-float row in
+// one vector atomic (dst must then be 8- or 16-byte aligned, which rows of
+// a contiguous [rows, C] float tensor are).
+template <int C>
+__device__ __forceinline__ void add_row(float* dst, const float* v) {
+  if constexpr (C == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (C == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < C; ++k) atomicAdd(dst + k, v[k]);
+  }
+}
+
+constexpr int kScatterRun = 16;  // values per lane in scatter_add_rows
+
+// C = 1 << log2c divides 32, so value e = base + 32 j + lane has channel
+// lane % C for every j.
+__global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
+                                        const float* __restrict__ vals,
+                                        float* __restrict__ out, int64_t N,
+                                        int log2c, int64_t rows) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+  const int64_t total = N << log2c;
+  const int64_t base = warp * (32 * kScatterRun);
+  if (base >= total) return;  // the whole warp: shuffles below need all 32
+  const int C = 1 << log2c;
+  const int c = lane & (C - 1);
+  int32_t cur = -1;  // the row being summed; -1 is dropped like any other
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kScatterRun; ++j) {
+    const int64_t e = base + 32 * j + lane;
+    if (e >= total) break;
+    const int32_t r = idx[e >> log2c];
+    if (r != cur) {
+      if (cur >= 0 && cur < rows)
+        add_row<1>(out + (int64_t)cur * C + c, &acc);
+      cur = r;
+      acc = 0.f;
+    }
+    acc += vals[e];
+  }
+  const int32_t r0 = __shfl_sync(0xffffffffu, cur, 0);
+  if (__all_sync(0xffffffffu, cur == r0)) {
+    for (int off = 16; off >= C; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane < C && r0 >= 0 && r0 < rows)
+      add_row<1>(out + (int64_t)r0 * C + lane, &acc);
+  } else if (cur >= 0 && cur < rows) {
+    add_row<1>(out + (int64_t)cur * C + c, &acc);
+  }
+}
+
+template <int C>
+__global__ void hash_encode_ms_bwd_kernel(
+    const float* __restrict__ table, const float* __restrict__ x01,
+    const float* __restrict__ stds, const float* __restrict__ g_out,
+    float* __restrict__ d_table, float* __restrict__ d_x01,
+    float* __restrict__ d_stds, int64_t B, int n, int L, GridLevels lv) {
+  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (tid >= B * L) return;
+  const int l = (int)(tid / B);
+  const int64_t b = tid - (int64_t)l * B;
+  const float scale = lv.scale[l];
+  const float g = lv.grid_size[l];
+  const float g2 = g * g;
+  const uint32_t res = lv.res[l];
+  const uint32_t rows = lv.rows[l];
+  const bool tiled = lv.tiled[l] != 0;
+  const int64_t row0 = (int64_t)lv.offset[l];
+  const bool need_dot = d_x01 != nullptr || d_stds != nullptr;
+  const float inv_n = 1.0f / (float)n;
+
+  float gv[C];
+  const float* gp = g_out + b * (int64_t)(L * C) + (int64_t)l * C;
+#pragma unroll
+  for (int k = 0; k < C; ++k) gv[k] = gp[k];
+
+  for (int j = 0; j < n; ++j) {
+    const int64_t p = b * n + j;
+    const float x = x01[3 * p], y = x01[3 * p + 1], z = x01[3 * p + 2];
+    if (x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f)
+      continue;  // encoded to 0 by a select: no gradient anywhere
+    const float s = stds[p];
+    const float u = 8.0f * (s * s) * g2;
+    const float v = 1.0f / sqrtf(fmaxf(u, 1e-10f));
+    const float wl = erff(v);
+    const float coef = wl * inv_n;  // d out[b, l] / d feat of point j
+    const float px = __fadd_rn(__fmul_rn(x, scale), 0.5f);
+    const float py = __fadd_rn(__fmul_rn(y, scale), 0.5f);
+    const float pz = __fadd_rn(__fmul_rn(z, scale), 0.5f);
+    const float gx = floorf(px), gy = floorf(py), gz = floorf(pz);
+    const float rx = px - gx, ry = py - gy, rz = pz - gz;
+    const int ix = (int)gx, iy = (int)gy, iz = (int)gz;
+
+    float fdot = 0.f, dfx = 0.f, dfy = 0.f, dfz = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int cx = c & 1, cy = (c >> 1) & 1, cz = (c >> 2) & 1;
+      const float wx = cx ? rx : 1.f - rx;
+      const float wy = cy ? ry : 1.f - ry;
+      const float wz = cz ? rz : 1.f - rz;
+      const uint32_t ux = (uint32_t)(ix + cx);
+      const uint32_t uy = (uint32_t)(iy + cy);
+      const uint32_t uz = (uint32_t)(iz + cz);
+      uint32_t idx = tiled ? (ux + uy * res + uz * res * res)
+                           : ((ux * 1u) ^ (uy * 2654435761u) ^
+                              (uz * 805459861u));
+      idx %= rows;
+      const int64_t row = (row0 + (int64_t)idx) * C;
+      if (d_table != nullptr) {
+        const float cw = coef * (wx * wy * wz);
+        float add[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) add[k] = cw * gv[k];
+        add_row<C>(d_table + row, add);
+      }
+      if (need_dot) {
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < C; ++k) dot += gv[k] * table[row + k];
+        fdot += (wx * wy * wz) * dot;
+        dfx += (cx ? 1.f : -1.f) * wy * wz * dot;
+        dfy += wx * (cy ? 1.f : -1.f) * wz * dot;
+        dfz += wx * wy * (cz ? 1.f : -1.f) * dot;
+      }
+    }
+    if (d_x01 != nullptr) {
+      const float k = coef * scale;  // d frac / d x = scale (floor: 0)
+      atomicAdd(d_x01 + 3 * p, k * dfx);
+      atomicAdd(d_x01 + 3 * p + 1, k * dfy);
+      atomicAdd(d_x01 + 3 * p + 2, k * dfz);
+    }
+    if (d_stds != nullptr && u > 1e-10f) {
+      // d erf(v) / ds with v = u^-1/2, u = 8 s^2 g^2 (0 where u is clamped).
+      const float dwl = 1.1283791671f * expf(-v * v) * (-0.5f * v / u) *
+                        (16.0f * s * g2);
+      atomicAdd(d_stds + p, inv_n * dwl * fdot);
+    }
+  }
+}
+
+void fill_levels(GridLevels* lv, int L, const float* scale,
+                 const float* grid_size, const unsigned int* res,
+                 const unsigned int* rows, const unsigned int* offset,
+                 const int* tiled) {
+  *lv = {};
+  for (int l = 0; l < L; ++l) {
+    lv->scale[l] = scale[l];
+    lv->grid_size[l] = grid_size[l];
+    lv->res[l] = res[l];
+    lv->rows[l] = rows[l];
+    lv->offset[l] = offset[l];
+    lv->tiled[l] = tiled[l];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -197,15 +389,8 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  GridLevels lv = {};
-  for (int l = 0; l < L; ++l) {
-    lv.scale[l] = scale[l];
-    lv.grid_size[l] = grid_size[l];
-    lv.res[l] = res[l];
-    lv.rows[l] = rows[l];
-    lv.offset[l] = offset[l];
-    lv.tiled[l] = tiled[l];
-  }
+  GridLevels lv;
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
   const long long total = B * L;
   if (total == 0) return cudaSuccess;
   const int threads = 256;
@@ -228,6 +413,67 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
     default:
       return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// d_table, d_x01, d_stds: zero-filled by the caller, each nullptr when not
+// wanted.
+int nl_hash_encode_ms_bwd(const float* table, const float* x01,
+                          const float* stds, const float* g_out,
+                          float* d_table, float* d_x01, float* d_stds,
+                          long long B, int n, int L, int C, const float* scale,
+                          const float* grid_size, const unsigned int* res,
+                          const unsigned int* rows,
+                          const unsigned int* offset, const int* tiled,
+                          int device, void* stream) {
+  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  GridLevels lv;
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
+  const long long total = B * L;
+  if (total == 0) return cudaSuccess;
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1:
+      hash_encode_ms_bwd_kernel<1><<<blocks, threads, 0, s>>>(
+          table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, lv);
+      break;
+    case 2:
+      hash_encode_ms_bwd_kernel<2><<<blocks, threads, 0, s>>>(
+          table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, lv);
+      break;
+    case 4:
+      hash_encode_ms_bwd_kernel<4><<<blocks, threads, 0, s>>>(
+          table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, lv);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// out: [rows, C], zero-filled (or holding a sum to add to) by the caller.
+// C must be a power of two up to 32.
+int nl_scatter_add_rows(const int* idx, const float* vals, float* out,
+                        long long N, int C, long long rows, int device,
+                        void* stream) {
+  int log2c = 0;
+  while ((1 << log2c) < C && log2c < 5) ++log2c;
+  if (C <= 0 || (1 << log2c) != C) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long total = N * C;
+  if (total == 0) return cudaSuccess;
+  const int threads = 256;
+  const long long per_block = (long long)threads * kScatterRun;
+  const unsigned int blocks =
+      (unsigned int)((total + per_block - 1) / per_block);
+  scatter_add_rows_kernel<<<blocks, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      idx, vals, out, N, log2c, rows);
   return cudaGetLastError();
 }
 

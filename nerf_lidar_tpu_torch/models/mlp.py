@@ -1,8 +1,9 @@
-"""The ZipNeRF MLP (port of `nerf_lidar_tpu/models/mlp.py:ZipMLP`, inference
-subset).
+"""The ZipNeRF MLP (port of `nerf_lidar_tpu/models/mlp.py:ZipMLP`, static
+scene subset).
 
 Per call: contract the multisample Gaussians -> hash-grid encode with erf
-downweighting (kernel H1 on CUDA) -> density trunk -> softplus; for the NeRF
+downweighting (kernel H1 on CUDA, its backward kernel in training) ->
+density trunk (+ density noise in training) -> softplus; for the NeRF
 level also the semantic head (v3 separate layers or v4 in-density channels),
 the intensity head and the view-dependent RGB branch (posenc viewdirs with
 the skip concat, sigmoid, padding).
@@ -155,17 +156,25 @@ class ZipMLP(nn.Module):
 
     def forward(self, means: torch.Tensor, stds: torch.Tensor,
                 viewdirs: Optional[torch.Tensor] = None,
-                use_kernels: bool = True) -> Dict[str, Optional[torch.Tensor]]:
-        """means: [..., S, n, 3], stds: [..., S, n], viewdirs: [..., 3].
-        Returns dict(density [..., S], rgb [..., S, 3], semantic
-        [..., S, K] or None, intensity [..., S, 1] or None)."""
+                use_kernels: bool = True,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
+        """means: [..., S, n, 3], stds: [..., S, n], viewdirs: [..., 3];
+        generator: draws the density and bottleneck noise (training), or
+        None for none. Returns dict(density [..., S], rgb [..., S, 3],
+        semantic [..., S, K] or None, intensity [..., S, 1] or None)."""
         c = self.cfg
         x = self._encode(means, stds, use_kernels)
         for i, layer in enumerate(self.density_layers):
             x = layer(x)
             if i != len(self.density_layers) - 1:
                 x = F.relu(x)
-        density = F.softplus(x[..., 0] + c.density_bias)
+        raw_density = x[..., 0]
+        if generator is not None and c.density_noise > 0:
+            raw_density = raw_density + c.density_noise * torch.randn(
+                raw_density.shape, generator=generator,
+                device=raw_density.device)
+        density = F.softplus(raw_density + c.density_bias)
         out = dict(density=density, rgb=None, semantic=None, intensity=None)
         if c.disable_rgb:
             out["rgb"] = density.new_zeros(density.shape + (3,))
@@ -181,7 +190,11 @@ class ZipMLP(nn.Module):
             out["intensity"] = self.intensity_layers[1](
                 F.relu(self.intensity_layers[0](x)))
 
-        parts = [x]
+        bottleneck = x
+        if generator is not None and c.bottleneck_noise > 0:
+            bottleneck = bottleneck + c.bottleneck_noise * torch.randn(
+                bottleneck.shape, generator=generator, device=x.device)
+        parts = [bottleneck]
         if viewdirs is not None:
             dir_enc = coord.pos_enc(viewdirs, min_deg=0, max_deg=c.deg_view,
                                     append_identity=True)

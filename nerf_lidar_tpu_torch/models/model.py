@@ -1,17 +1,18 @@
 """Scene model: hierarchical proposal sampling + ZipNeRF field (port of
-`nerf_lidar_tpu/models/model.py:Model.__call__` for inference: `key=None`,
-no dynamic objects, no GLO, no exposure, constant background).
+`nerf_lidar_tpu/models/model.py:Model.__call__` for a static scene: no
+dynamic objects, no GLO, no exposure, constant background).
 
 The level loop is the reference's: ray warps, per-level dilation, anneal,
-resampling, `cast_rays`, the level's MLP, compositing. With `fused_final`
-the final level composites through `ops/render_fused.fused_composite`
-(kernel K1 on CUDA tensors).
+resampling (jittered in training), `cast_rays`, the level's MLP,
+compositing. With `fused_final` the final level of an inference call
+composites through `ops/render_fused.fused_composite` (kernel K1 on CUDA
+tensors).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,16 +60,24 @@ class Model(nn.Module):
             mlp.init_weights(generator)
 
     def forward(self, batch: Dict[str, torch.Tensor], train_frac: float = 1.0,
-                fused_final: bool = False, use_kernels: bool = True
-                ) -> List[Dict[str, torch.Tensor]]:
+                fused_final: bool = False, use_kernels: bool = True,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[List[Dict[str, torch.Tensor]],
+                           List[Dict[str, torch.Tensor]]]:
         """Render a batch of rays.
 
         batch: dict of [R, ...] tensors: origins, directions, viewdirs,
           radii [R,1], base_x, base_y, near [R,1], far [R,1].
-        fused_final: composite the final level with `fused_composite`.
+        fused_final: composite the final level with `fused_composite`
+          (never when `train`: K1 has no backward, and the reference trains
+          through the plain chain).
         use_kernels: False sends the hash encode and the fused composite to
           their plain torch versions on every device (for comparisons).
-        Returns the renderings, one dict per level.
+        generator: the randomness of training (sample jitter, spiral phase,
+          MLP noise), on the batch's device; None is the JAX `key=None`.
+        Returns (renderings, ray_history): one dict per level each; the
+        history holds the level's sdist, weights and tdist for the losses.
         """
         c = self.cfg
         _, s_to_t = coord.construct_ray_warps(
@@ -85,7 +94,7 @@ class Model(nn.Module):
         prod_num_samples = 1
         bg = float(c.bg_intensity_range[0])
 
-        renderings = []
+        renderings, ray_history = [], []
         for i_level in range(c.num_levels):
             is_prop = i_level < c.num_levels - 1
             num_samples = (c.num_prop_samples[i_level] if is_prop
@@ -107,27 +116,33 @@ class Model(nn.Module):
                 sdist[..., 1:] > sdist[..., :-1],
                 anneal * torch.log(weights + c.resample_padding),
                 torch.full_like(weights, -math.inf))
+            # One generator serves the level's sampling, spiral phase and MLP
+            # noise in that order, as the JAX key splits three ways.
             sdist = stepfun.sample_intervals(
                 sdist, logits_resample, num_samples,
-                domain=(init_s_near, init_s_far))
+                domain=(init_s_near, init_s_far), generator=generator,
+                single_jitter=c.single_jitter)
+            if c.stop_level_grad:
+                sdist = sdist.detach()
             tdist = s_to_t(sdist)
 
             means, stds = render.cast_rays(
                 tdist, batch["origins"], batch["directions"],
                 batch["base_x"], batch["base_y"], batch["radii"],
-                n=c.sample_n, m=c.sample_m, std_scale=c.std_scale)
+                n=c.sample_n, m=c.sample_m, std_scale=c.std_scale,
+                generator=generator)
             mlp = self.prop_mlps[i_level] if is_prop else self.nerf_mlp
             ray_results = mlp(
                 means, stds,
                 viewdirs=batch["viewdirs"] if c.use_viewdirs else None,
-                use_kernels=use_kernels)
+                use_kernels=use_kernels, generator=generator)
 
             is_final = not is_prop
             sem = ray_results["semantic"] if (is_final and c.use_semantic) \
                 else None
             intensity = (ray_results["intensity"]
                          if (is_final and c.use_intensity) else None)
-            if fused_final and is_final:
+            if fused_final and is_final and not train:
                 composite = (render_fused.fused_composite if use_kernels
                              else render_fused.fused_composite_plain)
                 rendering = composite(
@@ -143,7 +158,9 @@ class Model(nn.Module):
                     opaque_background=c.opaque_background)
                 rendering = render.volumetric_rendering(
                     ray_results["rgb"], weights, tdist, bg, semantic=sem,
-                    intensity=intensity)
+                    intensity=intensity, sem_detach=c.sem_detach)
 
             renderings.append(rendering)
-        return renderings
+            ray_history.append(dict(sdist=sdist, weights=weights,
+                                    tdist=tdist))
+        return renderings, ray_history

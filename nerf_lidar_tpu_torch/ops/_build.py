@@ -40,6 +40,12 @@ _SIGNATURES = {
     # table, x01, stds, out, B, n, L, C, scale, grid_size, res, rows,
     # offset, tiled, device, stream
     "nl_hash_encode_ms": [_P] * 4 + [_LL, _I, _I, _I] + [_P] * 6 + [_I, _P],
+    # table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, C, scale,
+    # grid_size, res, rows, offset, tiled, device, stream
+    "nl_hash_encode_ms_bwd": [_P] * 7 + [_LL, _I, _I, _I] + [_P] * 6
+                             + [_I, _P],
+    # idx, vals, out, N, C, rows, device, stream
+    "nl_scatter_add_rows": [_P] * 3 + [_LL, _I, _LL, _I, _P],
 }
 
 
@@ -112,13 +118,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, t: torch.Tensor, shape) -> None:
-    """Raise unless t is a contiguous float32 CUDA tensor of `shape`
+def require_cuda(name: str, t: torch.Tensor, shape,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless t is a contiguous CUDA tensor of `dtype` and `shape`
     (entries of None match any size)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if len(t.shape) != len(shape) or any(

@@ -7,6 +7,8 @@ both ends behave exactly as in the JAX version.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _TINY = 1e-20
@@ -42,3 +44,36 @@ def sorted_interp(x: torch.Tensor, xp: torch.Tensor,
     xp0, xp1 = _find_interval(mask, xp)
     offset = torch.clamp(safe_div(x - xp0, xp1 - xp0), 0, 1)
     return fp0 + offset * (fp1 - fp0)
+
+
+def sorted_interp_quad(x, xp, fpdf, fcdf):
+    """Quadratic-CDF interp (integrates a piecewise-linear pdf), used by the
+    anti-aliased interlevel loss."""
+    mask = x[..., None, :] >= xp[..., :, None]
+    fpdf0, fpdf1 = _find_interval(mask, fpdf)
+    fcdf0, _ = _find_interval(mask, fcdf)
+    xp0, xp1 = _find_interval(mask, xp)
+    offset = torch.clamp(safe_div(x - xp0, xp1 - xp0), 0, 1)
+    return fcdf0 + (x - xp0) * (fpdf0 + fpdf1 * offset
+                                + fpdf0 * (1 - offset)) / 2
+
+
+def log_lerp(t: float, v0: float, v1: float) -> float:
+    """Interpolate log-linearly from v0 (t=0) to v1 (t=1)."""
+    if v0 <= 0 or v1 <= 0:
+        raise ValueError(f"Interpolants {v0} and {v1} must be positive.")
+    lv0, lv1 = math.log(v0), math.log(v1)
+    return math.exp(min(max(t, 0.0), 1.0) * (lv1 - lv0) + lv0)
+
+
+def learning_rate_decay(step: int, lr_init: float, lr_final: float,
+                        max_steps: int, lr_delay_steps: int = 0,
+                        lr_delay_mult: float = 1.0) -> float:
+    """Log-linear decay with an optional reverse-cosine warmup window (on the
+    host: the optimizer takes the rate as a Python float each step)."""
+    if lr_delay_steps > 0:
+        delay_rate = lr_delay_mult + (1 - lr_delay_mult) * math.sin(
+            0.5 * math.pi * min(max(step / lr_delay_steps, 0.0), 1.0))
+    else:
+        delay_rate = 1.0
+    return delay_rate * log_lerp(step / max_steps, lr_init, lr_final)

@@ -1,6 +1,6 @@
 """Volume rendering: multisample ray casting and alpha compositing (port of
-`nerf_lidar_tpu/ops/render.py`, inference subset: no random spiral phase,
-no distance statistics)."""
+`nerf_lidar_tpu/ops/render.py`, without the distance statistics of
+`compute_extras`)."""
 
 from __future__ import annotations
 
@@ -14,11 +14,14 @@ _EPS = float(np.finfo(np.float32).eps)
 
 
 def cast_rays(tdist, origins, directions, base_x, base_y, radii,
-              n: int = 7, m: int = 3, std_scale: float = 0.35):
+              n: int = 7, m: int = 3, std_scale: float = 0.35,
+              generator: Optional[torch.Generator] = None):
     """Turn distance intervals into n spiral multisample points per frustum.
 
     tdist: [..., S+1]; origins/directions/base_x/base_y: [..., 3];
-    radii: [..., 1]. Returns (means [..., S, n, 3], stds [..., S, n]).
+    radii: [..., 1]; generator (on tdist's device): a random spiral phase
+    per point, or None for none. Returns (means [..., S, n, 3], stds
+    [..., S, n]).
     """
     t0 = tdist[..., :-1]
     t1 = tdist[..., 1:]
@@ -26,6 +29,9 @@ def cast_rays(tdist, origins, directions, base_x, base_y, radii,
     j = torch.arange(n, dtype=tdist.dtype, device=tdist.device)
     t = t0[..., None] + (t1[..., None] - t0[..., None]) * (j + 0.5) / n
     deg = (2 * math.pi * m * j / n).expand(t.shape)
+    if generator is not None:
+        deg = deg + torch.rand(t.shape, generator=generator, dtype=t.dtype,
+                               device=t.device) * (2 * math.pi)
     r = radii[..., None]
     means = torch.stack([
         r * t * torch.cos(deg) / 2,
@@ -64,12 +70,15 @@ def compute_alpha_weights(density, tdist, dirs, opaque_background=False):
 
 def volumetric_rendering(rgbs, weights, tdist, bg_rgbs: float,
                          semantic: Optional[torch.Tensor] = None,
-                         intensity: Optional[torch.Tensor] = None
+                         intensity: Optional[torch.Tensor] = None,
+                         sem_detach: bool = True
                          ) -> Dict[str, torch.Tensor]:
     """Composite per-sample quantities along rays (no `compute_extras`).
 
     rgbs: [..., S, 3]; weights: [..., S]; tdist: [..., S+1];
-    semantic: [..., S, K]; intensity: [..., S] or [..., S, 1].
+    semantic: [..., S, K], composited with detached weights when
+    `sem_detach`; intensity: [..., S] or [..., S, 1], always composited
+    with detached weights.
     """
     rendering = {}
     acc = weights.sum(dim=-1)
@@ -81,9 +90,10 @@ def volumetric_rendering(rgbs, weights, tdist, bg_rgbs: float,
                           / torch.clamp(acc, min=_EPS))
 
     if semantic is not None:
-        rendering["semantic"] = (weights[..., None] * semantic).sum(dim=-2)
+        w_sem = weights.detach() if sem_detach else weights
+        rendering["semantic"] = (w_sem[..., None] * semantic).sum(dim=-2)
     if intensity is not None:
         if intensity.ndim == weights.ndim + 1:
             intensity = intensity[..., 0]
-        rendering["intensity"] = (weights * intensity).sum(dim=-1)
+        rendering["intensity"] = (weights.detach() * intensity).sum(dim=-1)
     return rendering

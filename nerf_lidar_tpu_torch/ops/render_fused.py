@@ -52,16 +52,16 @@ def fused_composite(density: torch.Tensor, tdist: torch.Tensor,
     k = semantic.shape[-1] if semantic is not None else 0
     density, tdist, dirs, rgb = (t.contiguous()
                                  for t in (density, tdist, dirs, rgb))
-    _build.require_cuda_f32("density", density, (r, s))
-    _build.require_cuda_f32("tdist", tdist, (r, s + 1))
-    _build.require_cuda_f32("dirs", dirs, (r, 3))
-    _build.require_cuda_f32("rgb", rgb, (r, s, 3))
+    _build.require_cuda("density", density, (r, s))
+    _build.require_cuda("tdist", tdist, (r, s + 1))
+    _build.require_cuda("dirs", dirs, (r, 3))
+    _build.require_cuda("rgb", rgb, (r, s, 3))
     if semantic is not None:
         semantic = semantic.contiguous()
-        _build.require_cuda_f32("semantic", semantic, (r, s, k))
+        _build.require_cuda("semantic", semantic, (r, s, k))
     if intensity is not None:
         intensity = intensity.contiguous()
-        _build.require_cuda_f32("intensity", intensity, (r, s))
+        _build.require_cuda("intensity", intensity, (r, s))
 
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=density.device)

@@ -1,13 +1,15 @@
 """Step-function resampling (port of `nerf_lidar_tpu/ops/stepfun.py`).
 
-Deterministic (`key=None`) branch only: inference samples on a fixed
-linspace. The CDF inversion and the dilation keep the reference's dense
-comparison grids, so ties and end clamps match it exactly.
+Sampling is deterministic without a generator (the JAX `key=None`: a fixed
+linspace) and jittered with one (training). The CDF inversion and the
+dilation keep the reference's dense comparison grids, so ties and end
+clamps match it exactly.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -77,29 +79,72 @@ def invert_cdf(u, t, w_logits):
     return mathx.sorted_interp(u, cw, t)
 
 
-def sample(t, w_logits, num_samples: int, deterministic_center: bool = False):
-    """Deterministic piecewise-constant PDF sampling from a step function.
+def sample(t, w_logits, num_samples: int, deterministic_center: bool = False,
+           generator: Optional[torch.Generator] = None,
+           single_jitter: bool = False):
+    """Piecewise-constant PDF sampling from a step function.
 
     t: [..., M+1] sorted bin endpoints; w_logits: [..., M] bin weight logits.
+    generator: None samples a fixed linspace; a generator (on t's device)
+      jitters a strided linspace, by one offset per ray with
+      `single_jitter`, so samples stay sorted.
     Returns [..., num_samples].
     """
-    if deterministic_center:
-        pad = 1 / (2 * num_samples)
-        u = _linspace(pad, 1.0 - pad - _EPS, num_samples, t)
+    if generator is None:
+        if deterministic_center:
+            pad = 1 / (2 * num_samples)
+            u = _linspace(pad, 1.0 - pad - _EPS, num_samples, t)
+        else:
+            u = _linspace(0, 1.0 - _EPS, num_samples, t)
+        u = u.expand(t.shape[:-1] + (num_samples,))
     else:
-        u = _linspace(0, 1.0 - _EPS, num_samples, t)
-    u = u.expand(t.shape[:-1] + (num_samples,))
+        u_max = _EPS + (1 - _EPS) / num_samples
+        max_jitter = (1 - u_max) / (num_samples - 1) - _EPS
+        d = 1 if single_jitter else num_samples
+        jitter = torch.rand(t.shape[:-1] + (d,), generator=generator,
+                            dtype=t.dtype, device=t.device)
+        u = _linspace(0, 1 - u_max, num_samples, t) + jitter * max_jitter
     return invert_cdf(u, t, w_logits)
 
 
 def sample_intervals(t, w_logits, num_samples: int,
-                     domain=(-math.inf, math.inf)):
+                     domain=(-math.inf, math.inf),
+                     generator: Optional[torch.Generator] = None,
+                     single_jitter: bool = False):
     """Sample *intervals* (fenceposts) from a step function: [..., S+1]."""
     if num_samples <= 1:
         raise ValueError(f"num_samples must be > 1, is {num_samples}.")
-    centers = sample(t, w_logits, num_samples, deterministic_center=True)
+    centers = sample(t, w_logits, num_samples, deterministic_center=True,
+                     generator=generator, single_jitter=single_jitter)
     mid = (centers[..., 1:] + centers[..., :-1]) / 2
     minval, maxval = domain
     first = torch.clamp(2 * centers[..., :1] - mid[..., :1], min=minval)
     last = torch.clamp(2 * centers[..., -1:] - mid[..., -1:], max=maxval)
     return torch.cat([first, mid, last], dim=-1)
+
+
+def lossfun_distortion(t, w):
+    """iint w_i w_j |t_i - t_j|: the mip-NeRF 360 distortion loss."""
+    ut = (t[..., 1:] + t[..., :-1]) / 2
+    dut = torch.abs(ut[..., :, None] - ut[..., None, :])
+    loss_inter = (w * (w[..., None, :] * dut).sum(dim=-1)).sum(dim=-1)
+    loss_intra = (w**2 * (t[..., 1:] - t[..., :-1])).sum(dim=-1) / 3
+    return loss_inter + loss_intra
+
+
+def blur_stepfun(x, y, r: float):
+    """Convolve a step function (x, y) with a box filter of radius r.
+
+    Returns (xr, yr): the blurred piecewise-linear function's 2M knots and
+    values, with yr[..., 0] = 0 (for the anti-aliased interlevel loss).
+    """
+    xr, xr_idx = torch.sort(torch.cat([x - r, x + r], dim=-1), dim=-1,
+                            stable=True)
+    zero = torch.zeros_like(y[..., :1])
+    y1 = (torch.cat([y, zero], dim=-1) - torch.cat([zero, y], dim=-1)) / (
+        2 * r)
+    y2 = torch.gather(torch.cat([y1, -y1], dim=-1), -1, xr_idx[..., :-1])
+    yr = torch.clamp(torch.cumsum(
+        (xr[..., 1:] - xr[..., :-1]) * torch.cumsum(y2, dim=-1), dim=-1),
+        min=0)
+    return xr, torch.cat([torch.zeros_like(yr[..., :1]), yr], dim=-1)

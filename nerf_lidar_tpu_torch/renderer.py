@@ -57,9 +57,9 @@ class ChunkRenderer:
         for i in range(0, n_pad, self.chunk):
             batch = {k: torch.from_numpy(v[i:i + self.chunk]).to(device)
                      for k, v in rays_p.items()}
-            renderings = self.model(batch, train_frac=1.0,
-                                    fused_final=self.fused,
-                                    use_kernels=self.use_kernels)
+            renderings, _ = self.model(batch, train_frac=1.0,
+                                       fused_final=self.fused,
+                                       use_kernels=self.use_kernels)
             outs.append({k: v.cpu().numpy()
                          for k, v in renderings[-1].items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0)[:n]

@@ -1,4 +1,6 @@
-"""Flax -> torch weight conversion on `tiny_debug` parameters (exact)."""
+"""Flax <-> torch weight conversion on `tiny_debug` parameters (exact)."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +62,23 @@ def test_npz_round_trip(tiny, tmp_path):
     assert set(a) == set(b)
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+def test_state_dict_to_flax_inverts_and_saves(tiny, tmp_path):
+    """The port's weights back to the Flax tree: exactly the tree they came
+    from, through the .npz layout `--params` reads."""
+    cfg, params = tiny
+    model = Model(cfg.model)
+    model.load_state_dict(convert.flax_to_state_dict(params, cfg.model))
+    tree = convert.state_dict_to_flax(model.state_dict())
+    path = convert.save_npz_params(str(tmp_path / "p.npz"), tree)
+    assert sorted(os.listdir(tmp_path)) == ["p.npz"]
+    want = convert.flatten_params(params)
+    for got in (convert.flatten_params(tree),
+                convert.flatten_params(convert.load_npz_params(path))):
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_leftover_or_missing_leaves_raise(tiny):

@@ -7,7 +7,9 @@ without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: as tests/test_torch_render_fused.py for K1; features rtol 1e-5
-/ atol 1e-6 for H1 (the kernels change only the order of float sums).
+/ atol 1e-6 for H1 (the kernels change only the order of float sums); the
+H1 backward and K3 sum with atomics, in an order that changes from run to
+run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 """
 
 import pytest
@@ -88,6 +90,83 @@ def test_hash_encode_kernel_matches_plain(dev, level_dim):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _close_to_max(got, want, name):
+    scale = float(want.abs().max())
+    assert scale > 0, name
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale,
+                               msg=name)
+
+
+@pytest.mark.parametrize("level_dim", [1, 2, 4])
+def test_hash_encode_bwd_kernel_matches_plain(dev, level_dim):
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=level_dim, base_resolution=4, desired_resolution=96,
+        log2_hashmap_size=9))
+    g = torch.Generator(device=dev).manual_seed(10 + level_dim)
+    table = torch.rand(spec.total_rows, level_dim, device=dev,
+                       generator=g) * 2 - 1
+    x01 = torch.rand(3, 50, 7, 3, device=dev, generator=g) * 1.2 - 0.1
+    stds = torch.rand(3, 50, 7, device=dev, generator=g) * 0.05 + 1e-4
+    g_out = torch.randn(3, 50, spec.output_dim, device=dev, generator=g)
+    grads = {}
+    for name, encode in (
+            ("kernel", grid.hash_encode_multisample),
+            ("plain", lambda *a: grid.hash_encode_multisample_plain(*a)[0])):
+        leaves = [t.clone().requires_grad_(True) for t in (table, x01, stds)]
+        out = encode(*leaves, spec)
+        assert out.grad_fn is not None
+        before = grid.hash_encode_multisample_bwd.launches
+        out.backward(g_out)
+        launched = grid.hash_encode_multisample_bwd.launches - before
+        assert launched == (1 if name == "kernel" else 0)
+        grads[name] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    written = grid.hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
+                                                     spec)
+    for i, name in enumerate(("table", "x01", "stds")):
+        _close_to_max(grads["kernel"][i], grads["plain"][i], name)
+        _close_to_max(written[i], grads["plain"][i], f"bwd_plain {name}")
+
+
+def test_hash_encode_bwd_kernel_table_only(dev):
+    """The train path: positions need no gradient, so the kernel writes
+    d_table alone."""
+    spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
+                       generator=g).requires_grad_(True)
+    x01 = torch.rand(64, 3, 3, device=dev, generator=g)
+    stds = torch.rand(64, 3, device=dev, generator=g) * 0.01
+    grid.hash_encode_multisample(table, x01, stds, spec).square().sum() \
+        .backward()
+    want = torch.autograd.grad(
+        grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
+        .square().sum(), table)[0]
+    _close_to_max(table.grad, want, "table")
+
+
+@pytest.mark.parametrize("rows,n,c", [(4096, 1 << 16, 16), (1 << 17, 5000, 1),
+                                      (10, 100_000, 4), (7, 3, 2),
+                                      (3, 100_003, 32)])
+def test_scatter_add_rows_kernel_matches_index_add(dev, rows, n, c):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    idx = torch.randint(-2, rows + 2, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    vals = torch.randn(n, c, device=dev, generator=g, requires_grad=True)
+    before = grid.scatter_add_rows.launches
+    got = grid.scatter_add_rows(idx, vals, rows)
+    assert grid.scatter_add_rows.launches == before + 1
+    want = grid.scatter_add_rows_plain(idx, vals.detach(), rows)
+    torch.cuda.synchronize()
+    _close_to_max(got.detach(), want, "sum")
+    g_out = torch.randn(rows, c, device=dev, generator=g)
+    got.backward(g_out)
+    ok = (idx >= 0) & (idx < rows)
+    want_grad = torch.where(ok[:, None], g_out[idx.clamp(0, rows - 1).long()],
+                            0.0)
+    torch.testing.assert_close(vals.grad, want_grad, rtol=0, atol=0)
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take(dev):
     spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
     table = torch.zeros(spec.total_rows, spec.level_dim, device=dev)
@@ -108,3 +187,45 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         render_fused.fused_composite(**dict(args, tdist=args["tdist"][:, 1:]))
     with pytest.raises(ValueError, match="CUDA"):
         render_fused.fused_composite(**dict(args, dirs=args["dirs"].cpu()))
+
+    # The H1 backward.
+    g_out = torch.rand(4, spec.output_dim, device=dev)
+    with pytest.raises(ValueError, match="g_out"):
+        grid.hash_encode_multisample_bwd(table, x01, stds, g_out[:, 1:], spec)
+    with pytest.raises(ValueError, match="float32"):
+        grid.hash_encode_multisample_bwd(table, x01, stds, g_out.double(),
+                                         spec)
+    with pytest.raises(ValueError, match="CUDA"):
+        grid.hash_encode_multisample_bwd(table, x01.cpu(), stds, g_out, spec)
+    with pytest.raises(NotImplementedError, match="level_dim"):
+        grid.hash_encode_multisample_bwd(
+            torch.zeros(wide.total_rows, 8, device=dev), x01, stds,
+            torch.rand(4, wide.output_dim, device=dev), wide)
+
+    # K3.
+    idx = torch.zeros(5, dtype=torch.int32, device=dev)
+    vals = torch.rand(5, 16, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        grid.scatter_add_rows(idx.long(), vals, 8)
+    with pytest.raises(ValueError, match="float32"):
+        grid.scatter_add_rows(idx, vals.double(), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        grid.scatter_add_rows(idx, vals.cpu(), 8)
+    with pytest.raises(ValueError, match="idx"):
+        grid.scatter_add_rows(idx[:4], vals, 8)
+    with pytest.raises(NotImplementedError, match="C in"):
+        grid.scatter_add_rows(idx, vals[:, :3], 8)
+
+
+def test_scatter_add_rows_kernel_sums_sorted_segments(dev):
+    """The hash-decay use: every row of a level onto one output row, in
+    sorted runs far longer than a warp's share."""
+    spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
+    g = torch.Generator(device=dev).manual_seed(4)
+    table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
+                       generator=g) * 2 - 1
+    ids = grid.level_ids(spec, dev)
+    got = grid.scatter_add_rows(ids, table**2, spec.num_levels)
+    want = grid.scatter_add_rows_plain(ids, table**2, spec.num_levels)
+    torch.cuda.synchronize()
+    _close_to_max(got, want, "level sums")

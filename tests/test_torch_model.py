@@ -103,8 +103,8 @@ def test_model_levels_match_jax(tiny, fused_final):
         p, None, b, fused_final=fused_final))(
             params, {k: jnp.asarray(v) for k, v in rays.items()})
     with torch.no_grad():
-        got = model({k: torch.from_numpy(v) for k, v in rays.items()},
-                    fused_final=fused_final)
+        got, _ = model({k: torch.from_numpy(v) for k, v in rays.items()},
+                       fused_final=fused_final)
     assert len(got) == len(want) == cfg.model.num_levels
     for level, (g, w) in enumerate(zip(got, want)):
         assert set(g) == set(w), level
