@@ -37,8 +37,25 @@ Phases (each raises on failure, so the script exits non-zero):
    of the first, the loss of each); then 100 steps at the full learning
    rate (no warm-up), where the data loss must fall;
 9. train -> render: `render_lidar --params` renders one full sweep from the
-   params_<step>.npz that [8] wrote, through K1 and H1.
-Prints the kernels' JSON line, the nvidia-smi line, then as its last line
+   params_<step>.npz that [8] wrote, through K1 and H1;
+10. the in-tile gathers (`ops/tile_gather.py`, `csrc/gather.cu`) at the TPU
+   kernels' own shapes: K2 `tile_lane_gather` [8, 128], K4's other four
+   forms (`take_along_axis` on (256, 128), (128, 128) axis 0 and (8, 2^15);
+   `take_rows` (512, 128) <- 256) and K5 (`tile_grid_gather`, tbl [8, 128],
+   idx [1024, 8, 128]), each exactly equal to its plain version, NaN
+   positions included, on in-range indices and on negative and
+   out-of-range ones; kernel, plain and library-call (`take_along_dim` /
+   `index_select`) device times from torch.profiler;
+11. the port's gather-bench entry (`experiments/gather_bench.py`),
+   in-process, at the JAX bench's sizes: every probe line prints, the K4
+   forms pass, and the launch counts of that run; then the device time of
+   one call of its row gather (both layouts) and row scatter-add at the
+   hash grid's 2^19 x 16, without the bench's host loop.
+Then it fails if any module of jax, jaxlib, flax, optax or the JAX package
+(`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
+JSON line (every kernel's launches on each path, times, and its bound: the
+larger of its bytes over the card's memory rate and its operations over
+its float32 rate), the nvidia-smi line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -53,6 +70,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "nerf_lidar_tpu_torch/csrc/kernels.cu"
+GATHER_SOURCE = "nerf_lidar_tpu_torch/csrc/gather.cu"
+# Published peaks of one H100 SXM at 700 W: device memory 3.35 TB/s, float32
+# outside the tensor cores 67 TFLOP/s (per millisecond below).
+HBM_BYTES_PER_MS = 3.35e9
+FP32_FLOP_PER_MS = 67e9
+MODULES_BARRED = ("jax", "jaxlib", "flax", "optax", "nerf_lidar_tpu")
 # The main paths: the port's `render_lidar` and `train` entries, as a user
 # would call them.
 SLICE_ARGV = ["render_lidar", "--config", "nuscenes_single",
@@ -127,8 +150,62 @@ def cuda_ms_once(fn):
     return start.elapsed_time(end), out
 
 
+def device_ms(fn, iters=50):
+    """Device milliseconds per call of fn: the summed time of the device
+    activities (kernels, copies, fills) of `iters` calls under
+    torch.profiler, so host launch gaps between short kernels do not
+    count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take: {"bound_ms", "bound_by"}, the
+    larger of bytes over the memory rate and float32 operations over the
+    float32 rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, flops / FP32_FLOP_PER_MS
+    if by_bytes >= by_ops:
+        return dict(bound_ms=by_bytes, bound_by="bytes")
+    return dict(bound_ms=by_ops, bound_by="operations")
+
+
+def hash_rows_read(spec, x01):
+    """(distinct table rows the encode of x01 reads, points in range)."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import grid
+    x = x01.reshape(-1, 3)
+    x = x[~((x < 0) | (x > 1)).any(-1)]
+    read = torch.zeros(spec.total_rows, dtype=torch.bool, device=x.device)
+    for l in range(spec.num_levels):
+        ig = torch.floor(x * spec.scales[l] + 0.5).long()
+        for c in range(8):
+            read[spec.offsets[l] + grid._corner_index(
+                spec, l, ig[:, 0] + (c & 1), ig[:, 1] + (c >> 1 & 1),
+                ig[:, 2] + (c >> 2 & 1))] = True
+    return int(read.sum()), x.shape[0]
+
+
 def phase_composite(dev):
-    """K1 vs plain on the card. Returns (max_abs_err, ms, plain_ms)."""
+    """K1 vs plain on the card. Returns the numbers of its kernels line at
+    R = 16,384 (opaque, no intensity)."""
     import torch
     from nerf_lidar_tpu_torch.ops import render_fused
 
@@ -162,15 +239,26 @@ def phase_composite(dev):
             timed = args
     ms = cuda_ms(lambda: render_fused.fused_composite(**timed))
     plain_ms = cuda_ms(lambda: render_fused.fused_composite_plain(**timed))
+    # Bound: every input read once, every output written once; operations,
+    # the weighted sums of depth, rgb and semantics (2 per sample each).
+    out = render_fused.fused_composite(**timed)
+    r, s = timed["density"].shape
+    k = timed["semantic"].shape[-1]
+    lim = bound(nbytes(*(v for v in timed.values()
+                         if isinstance(v, torch.Tensor)), *out.values()),
+                2 * r * s * (4 + k))
     print(f"[3] composite vs plain: max abs err {worst:.3e}; "
-          f"R=16384 S=32 K=19: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+          f"R=16384 S=32 K=19: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=None, **lim)
 
 
 def phase_hash_encode(dev, cfg):
     """H1 vs plain on the card, each grid at the batch the main path gives
-    it: a render chunk times that level's samples. Returns (max_abs_err, ms,
-    plain_ms) of the NeRF grid."""
+    it: a render chunk times that level's samples. Returns the numbers of
+    its kernels line: the worst error, and the NeRF grid's times and
+    bound."""
     import torch
     from nerf_lidar_tpu_torch.ops import grid
 
@@ -197,14 +285,23 @@ def phase_hash_encode(dev, cfg):
         plain_ms = cuda_ms(lambda: grid.hash_encode_multisample_plain(
             table, x01, stds, spec), iters=5, warmup=1)
         oob = float(((x01 < 0) | (x01 > 1)).any(-1).float().mean())
-        print(f"[4] hash_encode_ms {name}: {spec.num_levels} levels x "
-              f"C{spec.level_dim}, {spec.total_rows} rows, B={b} n={n} "
-              f"(out of range {oob:.3f}): max abs err {err:.3e}; "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        line = (f"[4] hash_encode_ms {name}: {spec.num_levels} levels x "
+                f"C{spec.level_dim}, {spec.total_rows} rows, B={b} n={n} "
+                f"(out of range {oob:.3f}): max abs err {err:.3e}; "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         if result is None:
-            result = (ms, plain_ms)
+            # Bound: the points, the features and the distinct table rows
+            # read; operations, one multiply-add per corner channel.
+            rows, pts = hash_rows_read(spec, x01)
+            lim = bound(nbytes(x01, stds, got) + rows * spec.level_dim * 4,
+                        2 * pts * spec.num_levels * 8 * spec.level_dim)
+            result = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          rows_read=rows, **lim)
+            line += (f"; {rows} distinct rows read; bound "
+                     f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+        print(line)
         del table, x01, stds, got, want
-    return (worst,) + result
+    return dict(max_abs_err=worst, **result)
 
 
 def phase_slice(dev):
@@ -318,9 +415,9 @@ def phase_hash_encode_bwd(dev, cfg):
     """H1 backward vs its written-out plain twin, each grid at the train
     step's batch; on prop0 (the smallest grid) also vs plain autograd
     through the plain encode, which takes seconds there (an accumulating
-    index_put_ per corner and level). Returns {"nerf": (max abs err of
-    d_table, kernel ms, twin ms), "prop0": (max abs err over the three
-    gradients, kernel ms, autograd ms)}."""
+    index_put_ per corner and level). Returns {"nerf": the numbers of its
+    kernels line (d_table vs the twin, with the bound), "prop0": (max abs
+    err over the three gradients, kernel ms, autograd ms)}."""
     import torch
     from nerf_lidar_tpu_torch.ops import grid
 
@@ -358,7 +455,16 @@ def phase_hash_encode_bwd(dev, cfg):
                 f"(d_table only), twin {twin_ms:.1f} ms"
                 f"{' (all three inputs)' if inputs else ''}")
         if name == "nerf":
-            result[name] = (errs["d_table"][0], ms, twin_ms)
+            # Bound: the points and g_out read, the whole d_table written;
+            # operations, a multiply and an add per corner channel.
+            pts = int((~((x01 < 0) | (x01 > 1)).any(-1)).sum())
+            lim = bound(nbytes(x01, stds, g_out)
+                        + spec.total_rows * spec.level_dim * 4,
+                        2 * pts * spec.num_levels * 8 * spec.level_dim)
+            result[name] = dict(max_abs_err=errs["d_table"][0], ms=ms,
+                                plain_ms=twin_ms, library_ms=None, **lim)
+            line += (f"; bound {lim['bound_ms']:.4f} ms "
+                     f"({lim['bound_by']})")
         if inputs:
             ms_all = cuda_ms(lambda: grid.hash_encode_multisample_bwd(
                 table, x01, stds, g_out, spec, needs=needs), iters=3,
@@ -373,8 +479,9 @@ def phase_hash_encode_bwd(dev, cfg):
                          for i, key in enumerate(GRADS)}
             line += (f"; vs plain autograd {auto_errs}; all three inputs: "
                      f"kernel {ms_all:.3f} ms, autograd {auto_ms:.1f} ms")
-            result[name] = (max(e[0] for e in auto_errs.values()), ms_all,
-                            auto_ms)
+            result[name] = dict(
+                max_abs_err=max(e[0] for e in auto_errs.values()),
+                ms=ms_all, plain_ms=auto_ms)
             del leaves, out, auto
         print(line)
         del table, x01, stds, g_out, want, got
@@ -393,9 +500,9 @@ PATH_SCATTER_TOL = 1e-4
 
 def phase_scatter(dev, cfg):
     """K3 vs index_add_, at the train path's shapes (the hash-decay level
-    sums of each grid, table uniform(-1, 1)) and at K3's own. Returns
-    (max abs err, kernel ms, plain ms) of the NeRF grid's level sums, and
-    the same at K3's rows 2^17, N 2^22."""
+    sums of each grid, table uniform(-1, 1)) and at K3's own. Returns the
+    numbers of its kernels line for the NeRF grid's level sums, and the
+    same at K3's rows 2^17, N 2^22."""
     import torch
     from nerf_lidar_tpu_torch.ops import grid
 
@@ -420,12 +527,23 @@ def phase_scatter(dev, cfg):
         ms = cuda_ms(lambda: grid.scatter_add_rows(ids, vals, rows))
         plain_ms = cuda_ms(lambda: grid.scatter_add_rows_plain(ids, vals,
                                                                rows))
-        print(f"[7] scatter_add_rows hash decay {name}: N={spec.total_rows} "
-              f"rows onto {rows} C={spec.level_dim}: max abs err {err:.3e} "
-              f"({rel:.2e} of max; index_add_ in float32 {plain32:.2e}); "
-              f"kernel {ms:.4f} ms, index_add_ {plain_ms:.4f} ms")
+        line = (f"[7] scatter_add_rows hash decay {name}: N={spec.total_rows}"
+                f" rows onto {rows} C={spec.level_dim}: max abs err "
+                f"{err:.3e} ({rel:.2e} of max; index_add_ in float32 "
+                f"{plain32:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if path is None:
-            path = (err, ms, plain_ms)
+            ids64 = ids.long()
+            library_ms = cuda_ms(lambda: vals.new_zeros(
+                rows, spec.level_dim).index_add_(0, ids64, vals), iters=5,
+                warmup=1)
+            # Bound: idx and vals read, the sums written; one add a value.
+            lim = bound(nbytes(ids, vals, got), vals.numel())
+            path = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, **lim)
+            line += (f", index_add_ alone {library_ms:.4f} ms; bound "
+                     f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+            del ids64
+        print(line)
         del table, vals, got, want
 
     c, own = 16, None
@@ -445,7 +563,9 @@ def phase_scatter(dev, cfg):
             print(f"[7] scatter_add_rows rows={rows} N={n} C={c}: max abs "
                   f"err {err:.3e} ({rel:.2e} of max); kernel {ms:.4f} ms, "
                   f"index_add_ {plain_ms:.4f} ms")
-            own = (err, ms, plain_ms)
+            own = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=plain_ms,
+                       **bound(nbytes(idx, vals, got), vals.numel()))
     return path, own
 
 
@@ -650,6 +770,155 @@ def phase_train_to_render(dev, params):
           f"{depth.max():.3f} (median {np.median(depth):.3f})")
 
 
+def _bad_indices(idx, size, g):
+    """idx's shape, values in [-2 size, 2 size) (wrapped, in range and NaN
+    cases) and the int32 extremes, -size, size and -1 in its first cells."""
+    import torch
+    bad = torch.randint(-2 * size, 2 * size, idx.shape, device=idx.device,
+                        generator=g, dtype=torch.int32)
+    flat = bad.view(-1)
+    flat[:5] = torch.tensor([-2**31, 2**31 - 1, -size, size, -1],
+                            dtype=torch.int32)
+    return bad
+
+
+def phase_gathers(dev):
+    """K2, K4's five forms and K5 vs their plain versions, exactly, at the
+    TPU kernels' shapes, on in-range and on negative / out-of-range
+    indices; device times of kernel, plain version and library call, and
+    the bound. Returns {"K2" | "K4" | "K5": numbers of its kernels line};
+    K4's are the sums over its forms 2-5 (form 1 is K2), each beside."""
+    import torch
+    from nerf_lidar_tpu_torch.experiments import gather_bench
+    from nerf_lidar_tpu_torch.ops import tile_gather as tg
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    forms = gather_bench.mosaic_forms(dev)
+    k5 = "K5 (8,128) x 1024 tiles"
+    forms[k5] = (tg.tile_grid_gather, tg.tile_grid_gather_plain, (
+        torch.randn(8, 128, device=dev, generator=g),
+        torch.randint(0, 128, (1024, 8, 128), device=dev, generator=g,
+                      dtype=torch.int32)))
+    result = {}
+    for name, (fn, plain, args) in forms.items():
+        tbl, idx, rest = args[0], args[1], args[2:]
+        rows = fn is tg.take_rows
+        axis = 0 if rows else (rest[0] if rest else 1)
+        size = tbl.shape[axis]
+        nan_share = 0.0
+        for case in (idx, _bad_indices(idx, size, g)):
+            got, want = fn(tbl, case, *rest), plain(tbl, case, *rest)
+            torch.cuda.synchronize()
+            if not tg.same_values(got, want):
+                fail(f"gather {name}: the kernel differs from its plain "
+                     f"version (indices in [{int(case.min())}, "
+                     f"{int(case.max())}])")
+            nan_share = float(got.isnan().float().mean())
+        if not 0 < nan_share < 1:
+            fail(f"gather {name}: the out-of-range case gave NaN share "
+                 f"{nan_share}")
+        idx64 = idx.long()
+        if rows:
+            library = lambda: tbl.index_select(0, idx)
+            read = int(torch.unique(idx64).numel()) * tbl.shape[1]
+        else:
+            src = tbl if idx.dim() == 2 else tbl[None]
+            library = lambda: torch.take_along_dim(src, idx64, dim=axis - 2)
+            lanes = torch.arange(idx.shape[-2 + (1 - axis)], device=dev)
+            lanes = lanes[:, None] if axis == 1 else lanes[None, :]
+            flat = (lanes * tbl.shape[1] + idx64 if axis == 1
+                    else idx64 * tbl.shape[1] + lanes)
+            read = int(torch.unique(flat).numel())
+        out = fn(tbl, idx, *rest)
+        if not tg.same_values(library(), out):
+            fail(f"gather {name}: the library call differs from the kernel")
+        # Bound: the indices read, the output written, and the distinct
+        # table entries the indices touch; no arithmetic.
+        nums = dict(max_abs_err=0.0,
+                    ms=device_ms(lambda: fn(tbl, idx, *rest)),
+                    plain_ms=device_ms(lambda: plain(tbl, idx, *rest)),
+                    library_ms=device_ms(library),
+                    **bound(nbytes(idx, out) + 4 * read, 0))
+        print(f"[10] {fn.__name__} {name}: idx {tuple(idx.shape)}, exact on "
+              f"in-range and on out-of-range indices (NaN share "
+              f"{nan_share:.3f}); device ms: kernel {nums['ms']:.5f}, plain "
+              f"{nums['plain_ms']:.5f}, library {nums['library_ms']:.5f}; "
+              f"bound {nums['bound_ms']:.6f} ({nums['bound_by']})")
+        result[name] = nums
+    k2 = "take_along_axis (8,128)"
+    k4 = {k: v for k, v in result.items() if k not in (k2, k5)}
+    sums = {key: sum(v[key] for v in k4.values())
+            for key in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                        "bound_ms")}
+    return {"K2": dict(result[k2], shape=k2),
+            "K4": dict(sums, bound_by="bytes", forms=k4),
+            "K5": dict(result[k5], shape=k5)}
+
+
+BENCH_RATE_PROBES = 17
+BENCH_FORMS = 5
+
+
+def phase_gather_bench(dev):
+    """The port's gather-bench entry at the JAX bench's sizes. Returns the
+    launch counts of its run, by kernels-line entry."""
+    import math
+    from nerf_lidar_tpu_torch.experiments import gather_bench
+    from nerf_lidar_tpu_torch.ops import tile_gather as tg
+
+    counters = dict(tile_lane_gather=tg.tile_lane_gather,
+                    take_along_axis=tg.take_along_axis,
+                    take_rows=tg.take_rows,
+                    tile_grid_gather=tg.tile_grid_gather)
+    for fn in counters.values():
+        fn.launches = 0
+    recs = gather_bench.main(["--device", "cuda"])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rates = [r for r in recs if "rate_M_per_s" in r]
+    forms = [r for r in recs if "result" in r]
+    if len(rates) != BENCH_RATE_PROBES or len(forms) != BENCH_FORMS \
+            or any(r["result"] != "ok" for r in forms):
+        fail(f"gather_bench: {len(rates)} rate lines (want "
+             f"{BENCH_RATE_PROBES}), forms {forms}")
+    if not all(math.isfinite(r["rate_M_per_s"]) and r["rate_M_per_s"] > 0
+               for r in rates):
+        fail(f"gather_bench: a rate is not finite and positive: {rates}")
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched on the gather-bench path")
+    print(f"[11] gather_bench: {len(rates)} probes and {len(forms)} kernel "
+          f"forms; launches {launches}")
+
+    # The bench times 20 chained iterations of eager torch ops, so the host
+    # may bound a probe. The device time of one call of its central row
+    # gather and scatter-add at the hash grid's size (2^19 x 16), alone:
+    import torch
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows, c = 2**19, 16
+    tbl = torch.randn(rows, c, device=dev, generator=g)
+    idx = torch.randint(0, rows, (2**20,), device=dev, generator=g,
+                        dtype=torch.int32)
+    vals = torch.randn(2**18, c, device=dev, generator=g)
+    lanes = tbl.T.contiguous()  # [C, R], the JAX production layout
+    calls = {
+        "gather_row N=2^20 (index_select dim 0)":
+            (2**20, lambda: tbl.index_select(0, idx)),
+        "gather_lane N=2^20 (index_select dim 1 of [C, R])":
+            (2**20, lambda: lanes.index_select(1, idx)),
+        "scatter_row N=2^18 (zeros + index_add_ dim 0)":
+            (2**18, lambda: tbl.new_zeros(rows, c).index_add_(
+                0, idx[:2**18], vals)),
+    }
+    for name, (n, fn) in calls.items():
+        ms = device_ms(fn, iters=20)
+        print(f"[11] device time, R=2^19 C=16 {name}: {ms:.4f} ms, "
+              f"{n / ms / 1e3:,.0f} M indices/s")
+    return dict(tile_lane_gather=launches["tile_lane_gather"],
+                mosaic_gather_forms=launches["take_along_axis"]
+                + launches["take_rows"],
+                tile_grid_gather=launches["tile_grid_gather"])
+
+
 def main():
     try:
         import torch
@@ -699,38 +968,46 @@ def main():
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
     train_launches, params = timed("[8]", phase_train, dev)
     timed("[9]", phase_train_to_render, dev, params)
-    if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
-           for m in sys.modules):
-        fail("the port imported JAX")
+    gathers = timed("[10]", phase_gathers, dev)
+    bench_launches = timed("[11]", phase_gather_bench, dev)
+    barred = sorted(m for m in sys.modules
+                    if m.split(".")[0] in MODULES_BARRED)
+    if barred:
+        fail(f"the port imported JAX or the JAX package: {barred[:10]}")
 
-    # Launches per main path: the render entry's run [5] and the train
-    # entry's run [8]; `launches` is their sum.
-    by_path = {name: {p: counts.get(name, 0) for p, counts in (
-        ("render_lidar", render_launches), ("train", train_launches))}
-        for name in ("composite", "hash_encode_ms", "hash_encode_ms_bwd",
-                     "scatter_add_rows")}
+    # Launches per main path: the render entry's run [5], the train entry's
+    # run [8] and the gather bench's run [11]; `launches` is their sum.
+    paths = (("render_lidar", render_launches), ("train", train_launches),
+             ("gather_bench", bench_launches))
 
-    def entry(name, replaces, err_ms_plain, **extra):
-        return dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=replaces,
-                    launches=sum(by_path[name].values()),
-                    launches_by_path=by_path[name],
-                    max_abs_err=err_ms_plain[0], ms=err_ms_plain[1],
-                    plain_ms=err_ms_plain[2], **extra)
-
-    def timing(err_ms_plain):
-        return dict(zip(("max_abs_err", "ms", "plain_ms"), err_ms_plain))
+    def entry(name, source, replaces, nums, **extra):
+        by_path = {p: counts[name] for p, counts in paths if name in counts}
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=sum(by_path.values()),
+                    launches_by_path=by_path, **nums, **extra)
 
     kernels = [
-        entry("composite", "nerf_lidar_tpu/ops/render_pallas.py:109", k1),
+        entry("composite", KERNEL_SOURCE,
+              "nerf_lidar_tpu/ops/render_pallas.py:109", k1),
         # At the render path's chunk (NeRF grid).
-        entry("hash_encode_ms", "nerf_lidar_tpu/ops/grid.py:366", h1),
+        entry("hash_encode_ms", KERNEL_SOURCE,
+              "nerf_lidar_tpu/ops/grid.py:366", h1),
         # NeRF grid, d_table, vs the written-out twin; prop0 vs autograd.
-        entry("hash_encode_ms_bwd", "nerf_lidar_tpu/ops/grid.py:366",
-              h1_bwd["nerf"], prop0_vs_autograd=timing(h1_bwd["prop0"])),
+        entry("hash_encode_ms_bwd", KERNEL_SOURCE,
+              "nerf_lidar_tpu/ops/grid.py:366", h1_bwd["nerf"],
+              prop0_vs_autograd=h1_bwd["prop0"]),
         # The NeRF grid's hash-decay level sums; K3's own shape beside.
-        entry("scatter_add_rows", "experiments/scatter_variants.py:81",
-              k3_path, k3_shape_rows131072_n4194304_c16=timing(k3_own)),
+        entry("scatter_add_rows", KERNEL_SOURCE,
+              "experiments/scatter_variants.py:81", k3_path,
+              k3_shape_rows131072_n4194304_c16=k3_own),
+        # K2, on the bench's path as K4's form 1 (which computes the same).
+        entry("tile_lane_gather", GATHER_SOURCE,
+              "nerf_lidar_tpu/ops/grid_pallas.py:51", gathers["K2"]),
+        # K4's forms 2-5 (wrappers take_along_axis and take_rows), summed.
+        entry("mosaic_gather_forms", GATHER_SOURCE,
+              "experiments/gather_bench.py:263", gathers["K4"]),
+        entry("tile_grid_gather", GATHER_SOURCE,
+              "experiments/gather_bench.py:327", gathers["K5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

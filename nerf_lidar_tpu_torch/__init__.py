@@ -5,14 +5,16 @@ the name and layout of its JAX counterpart (`ops/`, `models/`, `renderer.py`,
 `lidar/render.py`, `cli.py`) and is tested against it on the same inputs and
 the same weights (`tests/test_torch_*.py`).
 
-This package imports torch and never jax. It reuses the JAX package's
-jax-free modules instead of copying them: `nerf_lidar_tpu.configs`,
-`nerf_lidar_tpu.lidar.{sensor,transforms}`, `nerf_lidar_tpu.data.*` and the
-config/scene helpers at the top of `nerf_lidar_tpu.cli`.
+This package imports torch and nothing of jax or of the JAX package. It
+keeps its own copies of the host-side numpy code it needs (`configs.py`,
+`lidar/{sensor,transforms}.py`, `data/*.py` and the config/scene helpers
+of `cli.py`), held equal to the originals by `tests/test_torch_host.py`.
 
-Ported so far: the LiDAR sweep render path (static scene, inference). The
-two kernels on that path are hand-written CUDA for sm_90a under `csrc/`:
-the fused compositor (`ops/render_fused.py`, replacing the Pallas
-`render_pallas.fused_composite`) and the hash-grid multisample encode
-(`ops/grid.py`). Each has a plain PyTorch twin that CPU tensors take.
+Ported so far: the LiDAR sweep render path (static scene, inference), the
+train step, and the hash-table gather microbenchmark
+(`experiments/gather_bench.py`). Their kernels are hand-written CUDA for
+sm_90a under `csrc/`: the fused compositor (`ops/render_fused.py`), the
+hash-grid multisample encode, its backward and the row scatter-add
+(`ops/grid.py`), and the in-tile gathers (`ops/tile_gather.py`). Each has a
+plain PyTorch twin that CPU tensors take.
 """

@@ -6,9 +6,10 @@
       --exp_name myscene --mode simu --num_sweeps 10 \
       --params exp/myscene/params_1000.npz
 
-Config, overrides and scene loading are the JAX package's own jax-free
-helpers (`build_config`, `apply_overrides`, `load_scene_for`, `exp_dir`), so
-a preset and a `--set` mean the same thing in both packages. `train` writes
+Config, overrides and scene loading (`build_config`, `apply_overrides`,
+`load_scene_for`, `exp_dir`) are copies of the JAX CLI's helpers over the
+port's own `configs` and `data` modules, so a preset and a `--set` mean the
+same thing in both packages (`tests/test_torch_host.py`). `train` writes
 the weights as a Flax param tree in a flat .npz (see `convert.py`), which
 `render_lidar --params` and the JAX package both read; `render_lidar` can
 also start from a seeded fresh init for debugging (`--allow_fresh`).
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import time
 import types
@@ -26,11 +28,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from nerf_lidar_tpu.cli import build_config, exp_dir, load_scene_for
-from nerf_lidar_tpu.data.batching import RayBatcher
-from nerf_lidar_tpu.lidar import sensor
-
-from . import convert
+from . import configs, convert
+from .data.batching import RayBatcher
+from .lidar import sensor
 from .lidar.render import render_sweeps_to_dir
 from .models.model import Model
 from .ops import grid
@@ -40,6 +40,107 @@ from .train import checkpoints, train_step
 # The presets whose every flag is ported (the `_fast`, `_mxu` and `_speed`
 # presets set `ms_coarse_res_cutoff`, which is not).
 CONFIGS = ["nuscenes_single", "nuscenes_multi", "tiny_debug", "default"]
+
+
+# Copied from nerf_lidar_tpu/cli.py (`_coerce` .. `build_config`,
+# `load_scene_for`, `exp_dir`).
+def _coerce(cur, val: str):
+    if isinstance(cur, bool):
+        return val.lower() in ("1", "true", "yes")
+    if isinstance(cur, int):
+        return int(val)
+    if isinstance(cur, float):
+        return float(val)
+    if isinstance(cur, tuple):
+        parts = [p for p in val.strip("()[] ").split(",") if p]
+        elem = cur[0] if cur else 0
+        return tuple(type(elem)(p) for p in parts)
+    if cur is None:
+        for t in (int, float):
+            try:
+                return t(val)
+            except ValueError:
+                pass
+        return val
+    return type(cur)(val)
+
+
+def apply_overrides(cfg, overrides: List[str]):
+    """--set a.b.c=value on nested frozen dataclasses."""
+    for ov in overrides or []:
+        key, val = ov.split("=", 1)
+        parts = key.split(".")
+        cfg = _set_path(cfg, parts, val)
+    return cfg
+
+
+def _set_path(obj, parts: List[str], val: str):
+    name = parts[0]
+    cur = getattr(obj, name)
+    if len(parts) == 1:
+        return dataclasses.replace(obj, **{name: _coerce(cur, val)})
+    return dataclasses.replace(obj, **{name: _set_path(cur, parts[1:], val)})
+
+
+def build_config(args) -> configs.Config:
+    if getattr(args, "config_json", None):
+        with open(args.config_json) as f:
+            base = configs.Config.from_dict(json.load(f))
+        cfg = apply_overrides(base, args.set)
+        if args.data_dir:
+            cfg = dataclasses.replace(cfg, data_dir=args.data_dir)
+        if args.exp_name:
+            cfg = dataclasses.replace(cfg, exp_name=args.exp_name)
+        return cfg
+    base = {
+        "nuscenes_single": configs.nuscenes_single,
+        "nuscenes_single_fast": configs.nuscenes_single_fast,
+        "nuscenes_multi": configs.nuscenes_multi,
+        "nuscenes_multi_fast": configs.nuscenes_multi_fast,
+        "nuscenes_single_mxu": configs.nuscenes_single_mxu,
+        "nuscenes_multi_mxu": configs.nuscenes_multi_mxu,
+        "nuscenes_single_speed": configs.nuscenes_single_speed,
+        "nuscenes_multi_speed": configs.nuscenes_multi_speed,
+        "tiny_debug": configs.tiny_debug,
+        "default": configs.Config,
+    }[args.config]()
+    cfg = apply_overrides(base, args.set)
+    if args.data_dir:
+        cfg = dataclasses.replace(cfg, data_dir=args.data_dir)
+    if args.exp_name:
+        cfg = dataclasses.replace(cfg, exp_name=args.exp_name)
+    return cfg
+
+
+def load_scene_for(cfg: configs.Config, split: str = "train"):
+    """Dataset registry: {synthetic, nusc/waymo}. The llff / blender /
+    colmap and tat / dtu loaders are not ported yet."""
+    if cfg.dataset_loader in ("llff", "blender", "colmap", "tat_nerfpp",
+                              "tat_fvs", "dtu"):
+        raise SystemExit(
+            f"dataset_loader={cfg.dataset_loader!r} is not ported yet: use "
+            "nerf_lidar_tpu.cli")
+    if cfg.dataset_loader == "synthetic" or cfg.data_dir is None:
+        from .data import synthetic
+        from .lidar.transforms import SceneFrame
+        _, data, _ = synthetic.make_scene_data(far=min(cfg.far, 12.0))
+        return types.SimpleNamespace(
+            data=data, tracks=None, track_mask=None, track_classes=[],
+            lidar=None, frame=SceneFrame.identity())
+    # 'nusc' and 'waymo' share the poses_bounds scene-dir format
+    # (reference load_nuscenes.load_waymo_meta).
+    from .data import nuscenes
+    return nuscenes.load_scene(
+        cfg.data_dir, split=split, factor=max(cfg.factor, 1),
+        sensor_num=cfg.sensor_num,
+        load_lidar=cfg.lidar_supervision or split == "lidar",
+        load_objects=cfg.model.instance_obj,
+        semantic_dilate=cfg.semantic_dilate,
+        load_normals=cfg.normal_supervision and split == "train")
+
+
+def exp_dir(cfg: configs.Config) -> str:
+    return os.path.join("exp", cfg.exp_name)
 
 
 def _device(name: str) -> torch.device:

@@ -23,8 +23,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from nerf_lidar_tpu.configs import ModelConfig
-
+from .configs import ModelConfig
 from .models.model import Model
 
 _LIST_LAYER = re.compile(r"(density_layers|sem_layers|intensity_layers|"

@@ -12,10 +12,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from nerf_lidar_tpu.lidar.sensor import Sweep
-from nerf_lidar_tpu.lidar.transforms import SceneFrame
-
 from ..renderer import ChunkRenderer
+from .sensor import Sweep
+from .transforms import SceneFrame
 
 
 def render_sweep(renderer: ChunkRenderer, sweep: Sweep, near: float,

@@ -23,8 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_lidar_tpu.configs import MLPConfig
-
+from ..configs import MLPConfig
 from ..ops import coord
 from ..ops import grid as gridlib
 

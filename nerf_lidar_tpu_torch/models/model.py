@@ -18,8 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from nerf_lidar_tpu.configs import ModelConfig
-
+from ..configs import ModelConfig
 from ..ops import coord, render, render_fused, stepfun
 from .mlp import ZipMLP
 

@@ -46,6 +46,10 @@ _SIGNATURES = {
                              + [_I, _P],
     # idx, vals, out, N, C, rows, device, stream
     "nl_scatter_add_rows": [_P] * 3 + [_LL, _I, _LL, _I, _P],
+    # tbl, idx, out, A, B, G, I, J, axis, device, stream
+    "nl_take_along_axis": [_P] * 3 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+    # tbl, idx, out, R, C, N, device, stream
+    "nl_take_rows": [_P] * 3 + [_I, _I, _LL, _I, _P],
 }
 
 

@@ -16,8 +16,7 @@ from typing import Dict, List
 
 import torch
 
-from nerf_lidar_tpu.configs import Config
-
+from ..configs import Config
 from ..ops import grid as gridlib
 from ..ops import mathx, stepfun
 

@@ -15,8 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from nerf_lidar_tpu.configs import Config
-
+from ..configs import Config
 from ..ops import mathx
 from . import losses as losses_lib
 

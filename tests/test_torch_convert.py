@@ -10,6 +10,7 @@ import torch
 
 from nerf_lidar_tpu import configs
 from nerf_lidar_tpu.models.model import Model as JaxModel
+from nerf_lidar_tpu_torch import configs as tconfigs
 from nerf_lidar_tpu_torch import convert
 from nerf_lidar_tpu_torch.models.model import Model
 
@@ -27,10 +28,10 @@ def _probe_batch(n=8):
 
 @pytest.fixture(scope="module")
 def tiny():
-    cfg = configs.tiny_debug()
-    params = jax.jit(JaxModel(cfg.model).init)(jax.random.PRNGKey(0), None,
-                                               _probe_batch())
-    return cfg, jax.tree_util.tree_map(np.asarray, params)
+    """(the port's tiny_debug config, JAX tiny_debug params)."""
+    params = jax.jit(JaxModel(configs.tiny_debug().model).init)(
+        jax.random.PRNGKey(0), None, _probe_batch())
+    return tconfigs.tiny_debug(), jax.tree_util.tree_map(np.asarray, params)
 
 
 def test_every_leaf_maps_and_every_parameter_fills(tiny):
@@ -96,7 +97,7 @@ def test_leftover_or_missing_leaves_raise(tiny):
 
 
 def test_fresh_init_is_seeded():
-    cfg = configs.tiny_debug()
+    cfg = tconfigs.tiny_debug()
     a, b = Model(cfg.model), Model(cfg.model)
     a.init_weights(torch.Generator().manual_seed(3))
     b.init_weights(torch.Generator().manual_seed(3))

@@ -10,13 +10,14 @@ Tolerances: as tests/test_torch_render_fused.py for K1; features rtol 1e-5
 / atol 1e-6 for H1 (the kernels change only the order of float sums); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
+The in-tile gathers copy values: exactly equal, NaN positions included.
 """
 
 import pytest
 import torch
 
-from nerf_lidar_tpu import configs
-from nerf_lidar_tpu_torch.ops import grid, render_fused
+from nerf_lidar_tpu_torch import configs
+from nerf_lidar_tpu_torch.ops import grid, render_fused, tile_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -229,3 +230,73 @@ def test_scatter_add_rows_kernel_sums_sorted_segments(dev):
     want = grid.scatter_add_rows_plain(ids, table**2, spec.num_levels)
     torch.cuda.synchronize()
     _close_to_max(got, want, "level sums")
+
+
+def _gather_indices(dev, shape, size, seed):
+    """Indices in [-2 size, 2 size) (wrapped, in range and NaN cases) with
+    the int32 extremes, -size, size and -1 in the first cells."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(-2 * size, 2 * size, shape, device=dev, generator=g,
+                        dtype=torch.int32)
+    idx.view(-1)[:5] = torch.tensor([-2**31, 2**31 - 1, -size, size, -1],
+                                    dtype=torch.int32)
+    return idx
+
+
+@pytest.mark.parametrize("tbl_shape,idx_shape,axis", [
+    ((8, 128), (8, 128), 1), ((256, 128), (256, 128), 1),
+    ((128, 128), (128, 128), 0), ((8, 2**15), (8, 128), 1),
+    ((8, 128), (1024, 8, 128), 1), ((96, 3), (5, 7, 3), 0),
+    ((3, 20_000), (2, 3, 5), 1)])
+def test_take_along_axis_kernel_matches_plain(dev, tbl_shape, idx_shape,
+                                              axis):
+    g = torch.Generator(device=dev).manual_seed(len(idx_shape))
+    tbl = torch.randn(*tbl_shape, device=dev, generator=g)
+    idx = _gather_indices(dev, idx_shape, tbl_shape[axis], 1)
+    before = tile_gather.take_along_axis.launches
+    got = tile_gather.take_along_axis(tbl, idx, axis)
+    assert tile_gather.take_along_axis.launches == before + 1
+    want = tile_gather.take_along_axis_plain(tbl, idx, axis)
+    torch.cuda.synchronize()
+    assert tile_gather.same_values(got, want)
+    assert 0 < float(want.isnan().float().mean()) < 1
+
+
+@pytest.mark.parametrize("name,idx_shape", [
+    ("tile_lane_gather", (8, 128)), ("tile_grid_gather", (1024, 8, 128)),
+    ("tile_grid_gather", (3, 8, 128))])
+def test_tile_gather_kernels_match_plain(dev, name, idx_shape):
+    """K2 and K5 on in-range and on out-of-range indices."""
+    fn = getattr(tile_gather, name)
+    plain = getattr(tile_gather, name + "_plain")
+    tbl = torch.randn(8, 128, device=dev)
+    for seed in (0, 1):
+        idx = (_gather_indices(dev, idx_shape, 128, seed) if seed else
+               torch.randint(0, 128, idx_shape, device=dev,
+                             dtype=torch.int32))
+        before = fn.launches
+        got = fn(tbl, idx)
+        assert fn.launches == before + 1
+        assert tile_gather.same_values(got, plain(tbl, idx))
+
+
+@pytest.mark.parametrize("r,c,n", [(512, 128, 256), (7, 1, 1000),
+                                   (100_000, 16, 4096)])
+def test_take_rows_kernel_matches_plain(dev, r, c, n):
+    tbl = torch.randn(r, c, device=dev)
+    idx = _gather_indices(dev, (n,), r, r)
+    before = tile_gather.take_rows.launches
+    got = tile_gather.take_rows(tbl, idx)
+    assert tile_gather.take_rows.launches == before + 1
+    assert tile_gather.same_values(got, tile_gather.take_rows_plain(tbl, idx))
+
+
+def test_gather_wrappers_reject_what_they_do_not_take(dev):
+    tbl = torch.randn(8, 128, device=dev)
+    idx = torch.zeros(8, 128, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        tile_gather.take_along_axis(tbl, idx.long(), 1)
+    with pytest.raises(ValueError, match="float32"):
+        tile_gather.take_rows(tbl.double(), idx[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        tile_gather.tile_lane_gather(tbl, idx.cpu())

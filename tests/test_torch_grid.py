@@ -14,12 +14,14 @@ import torch
 
 from nerf_lidar_tpu import configs
 from nerf_lidar_tpu.ops import grid as jgrid
+from nerf_lidar_tpu_torch import configs as tconfigs
 from nerf_lidar_tpu_torch.ops import grid
 
 
-def _grid_cfgs():
-    tiny = configs.tiny_debug().model
-    full = configs.nuscenes_single().model
+def _grid_cfgs(cfgs=configs):
+    """The grids of the presets, from the JAX `configs` or the port's."""
+    tiny = cfgs.tiny_debug().model
+    full = cfgs.nuscenes_single().model
     return {
         "tiny_nerf": tiny.nerf_mlp.grid,
         "tiny_prop0": tiny.prop_mlp_for_level(0).grid,
@@ -31,8 +33,8 @@ def _grid_cfgs():
 
 @pytest.mark.parametrize("name", sorted(_grid_cfgs()))
 def test_spec_matches_jax(name):
-    g = _grid_cfgs()[name]
-    got, want = grid.spec_for(g), jgrid.spec_for(g)
+    got = grid.spec_for(_grid_cfgs(tconfigs)[name])
+    want = jgrid.spec_for(_grid_cfgs()[name])
     assert got.offsets == want.offsets
     assert got.rows_per_level == want.rows_per_level
     assert got.resolutions == want.resolutions
@@ -44,7 +46,7 @@ def test_spec_matches_jax(name):
 
 
 def test_nuscenes_single_nerf_spec_size():
-    spec = grid.spec_for(configs.nuscenes_single().model.nerf_mlp.grid)
+    spec = grid.spec_for(tconfigs.nuscenes_single().model.nerf_mlp.grid)
     assert spec.total_rows == 14_995_560
     assert [spec.is_tiled(l) for l in range(10)] == [True] * 3 + [False] * 7
 
@@ -53,10 +55,10 @@ def test_nuscenes_single_nerf_spec_size():
 def test_plain_encode_matches_jax(level_dim):
     # A small hashmap forces hashing on the fine levels while the coarse
     # ones stay tiled; uniform(-1, 1) tables keep the values informative.
-    g = configs.GridConfig(level_dim=level_dim, base_resolution=4,
-                           desired_resolution=96, log2_hashmap_size=9)
-    spec_j = jgrid.spec_for(g)
-    spec = grid.spec_for(g)
+    kw = dict(level_dim=level_dim, base_resolution=4, desired_resolution=96,
+              log2_hashmap_size=9)
+    spec_j = jgrid.spec_for(configs.GridConfig(**kw))
+    spec = grid.spec_for(tconfigs.GridConfig(**kw))
     tiled = [spec.is_tiled(l) for l in range(spec.num_levels)]
     assert any(tiled) and not all(tiled)
 
@@ -83,7 +85,7 @@ def test_plain_encode_matches_jax(level_dim):
 
 
 def test_unported_grid_flags_raise():
-    g = configs.tiny_debug().model.nerf_mlp.grid
+    g = tconfigs.tiny_debug().model.nerf_mlp.grid
     with pytest.raises(NotImplementedError):
         grid.spec_for(dataclasses.replace(g, encoder="dense_fourier"))
     spec = grid.spec_for(dataclasses.replace(g, interp="tetra"))

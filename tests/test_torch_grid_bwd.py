@@ -24,6 +24,7 @@ import torch
 
 from nerf_lidar_tpu import configs
 from nerf_lidar_tpu.ops import grid as jgrid
+from nerf_lidar_tpu_torch import configs as tconfigs
 from nerf_lidar_tpu_torch.ops import grid
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,9 +36,10 @@ RTOL, ATOL = 1e-4, 1e-5
 def _inputs(level_dim, seed):
     # A small hashmap forces hashing on the fine levels while the coarse
     # ones stay tiled; uniform(-1, 1) tables keep the values informative.
-    g = configs.GridConfig(level_dim=level_dim, base_resolution=4,
-                           desired_resolution=96, log2_hashmap_size=9)
-    spec = grid.spec_for(g)
+    kw = dict(level_dim=level_dim, base_resolution=4, desired_resolution=96,
+              log2_hashmap_size=9)
+    g = configs.GridConfig(**kw)  # the JAX side's
+    spec = grid.spec_for(tconfigs.GridConfig(**kw))
     tiled = [spec.is_tiled(l) for l in range(spec.num_levels)]
     assert any(tiled) and not all(tiled)
     rng = np.random.RandomState(seed)
@@ -86,7 +88,7 @@ def test_wrapper_output_has_grad_fn():
     """The wrapper's features carry a backward whenever the table requires
     grad (the CUDA branch once returned a plain tensor, and a loss on it
     left table.grad None)."""
-    spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
+    spec = grid.spec_for(tconfigs.tiny_debug().model.nerf_mlp.grid)
     table = torch.zeros(spec.total_rows, spec.level_dim, requires_grad=True)
     out = grid.hash_encode_multisample(table, torch.rand(4, 3, 3) * 0.9,
                                        torch.rand(4, 3) * 0.01, spec)
@@ -140,7 +142,7 @@ def test_scatter_add_rows_drops_out_of_range_and_differentiates():
 
 
 def test_level_ids_match_jax():
-    spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
+    spec = grid.spec_for(tconfigs.tiny_debug().model.nerf_mlp.grid)
     want = jgrid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
     np.testing.assert_array_equal(grid.level_ids(spec).numpy(),
                                   want.level_ids())

@@ -26,6 +26,9 @@ from nerf_lidar_tpu.models.mlp import ZipMLP as JaxZipMLP
 from nerf_lidar_tpu.models.model import Model as JaxModel
 from nerf_lidar_tpu.renderer import ChunkRenderer as JaxChunkRenderer
 from nerf_lidar_tpu_torch import cli, convert
+from nerf_lidar_tpu_torch import configs as tconfigs
+from nerf_lidar_tpu_torch.lidar import sensor as tsensor
+from nerf_lidar_tpu_torch.lidar import transforms as ttransforms
 from nerf_lidar_tpu_torch.lidar.render import render_sweeps_to_dir
 from nerf_lidar_tpu_torch.models.mlp import ZipMLP
 from nerf_lidar_tpu_torch.models.model import Model
@@ -51,12 +54,12 @@ def _rays(n, seed):
 
 @pytest.fixture(scope="module")
 def tiny():
-    """tiny_debug config, JAX params (numpy) with informative tables, and
-    the port model holding the same weights."""
-    cfg = configs.tiny_debug()
+    """tiny_debug config (the JAX one, the port's), JAX params (numpy) with
+    informative tables, and the port model holding the same weights."""
+    jcfg, cfg = configs.tiny_debug(), tconfigs.tiny_debug()
     probe = {k: jnp.asarray(v) for k, v in _rays(8, 0).items()}
-    params = jax.jit(JaxModel(cfg.model).init)(jax.random.PRNGKey(0), None,
-                                               probe)
+    params = jax.jit(JaxModel(jcfg.model).init)(jax.random.PRNGKey(0), None,
+                                                probe)
     params = jax.tree_util.tree_map(np.asarray, params)
     # Fresh tables are +-1e-4, which makes every feature nearly 0; scale
     # them so the encode shapes the field.
@@ -66,21 +69,21 @@ def tiny():
             np.float32)
     model = Model(cfg.model)
     model.load_state_dict(convert.flax_to_state_dict(params, cfg.model))
-    return cfg, params, model
+    return jcfg, cfg, params, model
 
 
 @pytest.mark.parametrize("level", ["nerf_mlp", "prop_mlps_0"])
 def test_zip_mlp_matches_jax(tiny, level):
-    cfg, params, model = tiny
+    jcfg, _, params, model = tiny
     rng = np.random.RandomState(2)
     means = (rng.randn(16, 8, 3, 3) * 1.5).astype(np.float32)
     stds = rng.uniform(1e-3, 0.05, (16, 8, 3)).astype(np.float32)
     viewdirs = rng.randn(16, 3).astype(np.float32)
     viewdirs /= np.linalg.norm(viewdirs, axis=-1, keepdims=True)
     if level == "nerf_mlp":
-        mcfg, mlp = cfg.model.nerf_mlp, model.nerf_mlp
+        mcfg, mlp = jcfg.model.nerf_mlp, model.nerf_mlp
     else:
-        mcfg, mlp = cfg.model.prop_mlp_for_level(0), model.prop_mlps[0]
+        mcfg, mlp = jcfg.model.prop_mlp_for_level(0), model.prop_mlps[0]
     want = JaxZipMLP(mcfg).apply({"params": params["params"][level]},
                                  jnp.asarray(means), jnp.asarray(stds),
                                  viewdirs=jnp.asarray(viewdirs))
@@ -97,9 +100,9 @@ def test_zip_mlp_matches_jax(tiny, level):
 
 @pytest.mark.parametrize("fused_final", [False, True])
 def test_model_levels_match_jax(tiny, fused_final):
-    cfg, params, model = tiny
+    jcfg, cfg, params, model = tiny
     rays = _rays(96, 3)
-    want, _ = jax.jit(lambda p, b: JaxModel(cfg.model).apply(
+    want, _ = jax.jit(lambda p, b: JaxModel(jcfg.model).apply(
         p, None, b, fused_final=fused_final))(
             params, {k: jnp.asarray(v) for k, v in rays.items()})
     with torch.no_grad():
@@ -115,11 +118,12 @@ def test_model_levels_match_jax(tiny, fused_final):
                                        atol=1e-5, err_msg=f"{k} {level}")
 
 
-def _small_sweeps():
-    """Two sweeps of 4 elevations x 64 azimuths on a straight drive."""
-    sweeps, _ = sensor.simulated_sweeps(
+def _small_sweeps(sensor_mod=sensor, frame=SceneFrame):
+    """Two sweeps of 4 elevations x 64 azimuths on a straight drive, from
+    the JAX sensor model or the port's."""
+    sweeps, _ = sensor_mod.simulated_sweeps(
         np.array([0.0, 0.0, 0.6]), np.array([1.0, 0.0, 0.6]), np.eye(4),
-        SceneFrame.identity(), num_sweeps=2,
+        frame.identity(), num_sweeps=2,
         elevations_deg=(-20.0, -8.0, 0.0, 6.0), points_per_beam=64)
     return sweeps
 
@@ -127,17 +131,19 @@ def _small_sweeps():
 def test_slice_matches_both_jax_paths(tiny, tmp_path):
     """The whole render slice: sweep -> ChunkRenderer -> the .npy trio, in
     the port (CPU) and in JAX with plain and with fused compositing."""
-    cfg, params, model = tiny
-    sweeps = _small_sweeps()
+    jcfg, cfg, params, model = tiny
     chunk = 96  # 256 rays per sweep: exercises the last-ray padding
     port_dir = tmp_path / "port"
-    render_sweeps_to_dir(ChunkRenderer(model, cfg, chunk), sweeps, 0.2, 8.0,
-                         SceneFrame.identity(), str(port_dir))
+    frame = ttransforms.SceneFrame
+    render_sweeps_to_dir(ChunkRenderer(model, cfg, chunk),
+                         _small_sweeps(tsensor, frame), 0.2, 8.0,
+                         frame.identity(), str(port_dir))
     for fused in (False, True):
         jax_dir = tmp_path / f"jax_fused{fused}"
         jax_render_sweeps_to_dir(
-            JaxChunkRenderer(JaxModel(cfg.model), cfg, chunk, fused=fused),
-            params, sweeps, 0.2, 8.0, SceneFrame.identity(), str(jax_dir))
+            JaxChunkRenderer(JaxModel(jcfg.model), jcfg, chunk, fused=fused),
+            params, _small_sweeps(), 0.2, 8.0, SceneFrame.identity(),
+            str(jax_dir))
         names = sorted(os.listdir(jax_dir))
         assert names == sorted(os.listdir(port_dir))
         assert len(names) == 6
@@ -194,7 +200,7 @@ def test_cli_import_leaves_jax_out():
 
 
 def test_unported_flags_raise():
-    m = configs.tiny_debug().model
+    m = tconfigs.tiny_debug().model
     with pytest.raises(NotImplementedError):
         Model(dataclasses.replace(m, instance_obj=True, num_objects=2),
               device="meta")

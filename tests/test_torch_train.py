@@ -18,6 +18,7 @@ rate, 3.1e-3 at the second step).
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -37,13 +38,15 @@ from nerf_lidar_tpu.renderer import ChunkRenderer as JaxChunkRenderer
 from nerf_lidar_tpu.train import losses as jlosses
 from nerf_lidar_tpu.train import train_step as jtrain
 from nerf_lidar_tpu_torch import cli, convert
+from nerf_lidar_tpu_torch import configs as tconfigs
 from nerf_lidar_tpu_torch.models.model import Model
 from nerf_lidar_tpu_torch.ops import mathx, render, stepfun
 from nerf_lidar_tpu_torch.train import losses, train_step
 
 
-def _cfg():
-    return dataclasses.replace(configs.tiny_debug(), batch_size=256,
+def _cfg(cfgs=configs):
+    """The test's config, from the JAX `configs` or the port's."""
+    return dataclasses.replace(cfgs.tiny_debug(), batch_size=256,
                                lidar_supervision=True,
                                dataset_loader="synthetic")
 
@@ -54,8 +57,9 @@ def _tensors(batch):
 
 @pytest.fixture(scope="module")
 def setup():
-    """Config, two batches, JAX params with informative tables, and the
-    JAX loss terms and gradients on the first batch at step 0."""
+    """The port's config, two batches, JAX params with informative tables,
+    the JAX model, the JAX loss terms and gradients on the first batch at
+    step 0, and the JAX config."""
     cfg = _cfg()
     scene = load_scene_for(cfg, "train")
     batcher = RayBatcher(scene.data, cfg.batch_size, cfg.patch_size,
@@ -85,7 +89,7 @@ def setup():
                 loss=float(loss),
                 grads=convert.flatten_params(
                     jax.tree_util.tree_map(np.asarray, grads)))
-    return cfg, batches, jb, params, jmodel, want
+    return _cfg(tconfigs), batches, jb, params, jmodel, want, cfg
 
 
 def _port_model(cfg, params):
@@ -102,7 +106,7 @@ def _port_losses(cfg, model, batch):
 
 
 def test_loss_terms_match_jax(setup):
-    cfg, batches, _, params, _, want = setup
+    cfg, batches, _, params, _, want, _ = setup
     terms = _port_losses(cfg, _port_model(cfg, params), batches[0])
     assert set(terms) == set(want["terms"])
     assert {"data", "depth", "sem", "interlevel", "distortion",
@@ -115,7 +119,7 @@ def test_loss_terms_match_jax(setup):
 
 
 def test_every_gradient_matches_jax(setup):
-    cfg, batches, _, params, _, want = setup
+    cfg, batches, _, params, _, want, _ = setup
     model = _port_model(cfg, params)
     losses.total_loss(_port_losses(cfg, model, batches[0])).backward()
     grads = convert.flatten_params(convert.state_dict_to_flax(
@@ -130,10 +134,10 @@ def test_every_gradient_matches_jax(setup):
 
 
 def test_two_steps_match_jax_train_step(setup):
-    cfg, batches, jb, params, jmodel, _ = setup
+    cfg, batches, jb, params, jmodel, _, jcfg = setup
     state, tx = jtrain.create_train_state(
-        cfg, jax.tree_util.tree_map(jnp.asarray, params))
-    step_fn = jtrain.make_train_step(jmodel, tx, cfg, donate=False,
+        jcfg, jax.tree_util.tree_map(jnp.asarray, params))
+    step_fn = jtrain.make_train_step(jmodel, tx, jcfg, donate=False,
                                      num_patch_rays=64)
     model = _port_model(cfg, params)
     opt = train_step.make_optimizer(model, cfg)
@@ -166,7 +170,7 @@ def test_two_steps_match_jax_train_step(setup):
                                     configs.nuscenes_single])
 def test_learning_rate_decay_matches_jax(cfg_fn):
     c = cfg_fn()
-    fn = train_step.lr_schedule(c)
+    fn = train_step.lr_schedule(getattr(tconfigs, cfg_fn.__name__)())
     for step in (0, 1, 2, 3, 5, 7, 49, 50, 1000, 5000, 12345, 25000, 30000):
         want = float(jmathx.learning_rate_decay(
             jnp.asarray(step), c.lr_init, c.lr_final, c.max_steps,
@@ -224,7 +228,7 @@ def test_random_spiral_phase_keeps_radius_and_is_seeded():
 
 
 def test_train_forward_with_generator_is_seeded(setup):
-    cfg, batches, _, params, _, _ = setup
+    cfg, batches, _, params, _, _, _ = setup
     model = _port_model(cfg, params)
     run = lambda seed: model(_tensors(batches[0]), train_frac=0.3,
                              train=True,
@@ -240,7 +244,7 @@ def test_train_forward_with_generator_is_seeded(setup):
 
 
 def test_unported_losses_and_refinement_raise():
-    base = configs.tiny_debug()
+    base = tconfigs.tiny_debug()
     for kw in (dict(orientation_loss_mult=0.1),
                dict(predicted_normal_loss_mult=0.1),
                dict(normal_supervision=True), dict(pose_refine=True),
@@ -251,7 +255,7 @@ def test_unported_losses_and_refinement_raise():
     with pytest.raises(NotImplementedError, match="track"):
         train_step.check_ported(dataclasses.replace(base, track_refine=True),
                                 has_tracks=True)
-    train_step.check_ported(configs.nuscenes_single())
+    train_step.check_ported(tconfigs.nuscenes_single())
 
 
 def test_train_then_render_in_both_packages(tmp_path, monkeypatch):
@@ -274,10 +278,11 @@ def test_train_then_render_in_both_packages(tmp_path, monkeypatch):
     rendered = cli.main(["render_lidar", *base, "--num_sweeps", "1",
                          "--azimuth_steps", "8", "--params", run.params])
     params = convert.load_npz_params(run.params)
+    jcfg = configs.Config.from_dict(json.loads(rendered.cfg.to_json()))
     jax_dir = tmp_path / "jax"
     jax_render_sweeps_to_dir(
-        JaxChunkRenderer(JaxModel(rendered.cfg.model), rendered.cfg,
-                         rendered.cfg.render_chunk_size, fused=False),
+        JaxChunkRenderer(JaxModel(jcfg.model), jcfg,
+                         jcfg.render_chunk_size, fused=False),
         params, rendered.sweeps, rendered.near, rendered.far,
         rendered.frame, str(jax_dir))
     names = sorted(os.listdir(jax_dir))
