@@ -11,19 +11,24 @@ Phases (each raises on failure, so the script exits non-zero):
 4. H1 `hash_encode_ms` vs its plain torch version on the `nuscenes_single`
    NeRF (10 x C4, 14,995,560 rows) and proposal (C1) grids, each at the
    batch the main path gives it (16,384-ray chunk x 32 NeRF or 64 proposal
-   samples), n = 7 multisamples, with out-of-range points;
+   samples), n = 7 multisamples: on uniform points with out-of-range ones,
+   and on the (x01, stds) of the first render chunk of [5]; times and the
+   bound per grid on both;
 5. the slice: the port's `render_lidar` entry, in-process, renders two
    full 35,200-ray sweeps of `nuscenes_single` at full width (seeded fresh
    weights) with the kernels on; checks the files and values and counts the
-   kernel launches of that run; times one sweep kernels on and off
+   kernel launches of that run; records the encode's inputs of one more
+   sweep's first chunk; times one sweep kernels on and off
    (`use_kernels=False`); then gives every hash table seeded uniform(-1, 1)
    values, so that the encode moves density, colour and the resampling,
    and compares the kernels-on render with the kernels-off one;
 6. the H1 backward `hash_encode_ms_bwd` at the train step's shapes (20,480
    rays x 32 NeRF or 64 proposal samples, n = 7) vs its written-out plain
-   twin (`index_add_`) on every grid: d_table, and d_x01 / d_stds on the
-   smallest proposal grid, where it is also held against plain autograd
-   through the plain encode;
+   twin (`index_add_`) on every grid, on uniform points and on the
+   (x01, stds, g_out) one warm step of [8] gave it: d_table, and d_x01 /
+   d_stds on the smallest proposal grid's uniform points, where it is also
+   held against plain autograd through the plain encode; times and the
+   bound per grid;
 7. K3 `scatter_add_rows` vs `index_add_` at the shapes the train path gives
    it (the hash-decay level sums of the three grids: every row of a level
    onto one output row) and at K3's own shapes (rows 4,096 and 2^17, N 2^20
@@ -32,7 +37,8 @@ Phases (each raises on failure, so the script exits non-zero):
    fits `nuscenes_single` on the synthetic scene at full width for 30 steps
    with the kernels on: finite losses, a non-zero gradient on every hash
    table, the launch counts of H1, its backward and K3, warm ms/step,
-   rays/s and peak memory; then 3 steps kernels on vs off from the same
+   rays/s and peak memory; records the encode backward's inputs of one more
+   step (for [6]); then 3 steps kernels on vs off from the same
    weights, batches and randomness (every gradient and the hash-decay term
    of the first, the loss of each); then 100 steps at the full learning
    rate (no warm-up), where the data loss must fall;
@@ -45,17 +51,21 @@ Phases (each raises on failure, so the script exits non-zero):
    idx [1024, 8, 128]), each exactly equal to its plain version, NaN
    positions included, on in-range indices and on negative and
    out-of-range ones; kernel, plain and library-call (`take_along_dim` /
-   `index_select`) device times from torch.profiler;
+   `index_select`) device times from torch.profiler, kernel and library
+   call in turns (kernel, library, library, kernel; 50 calls each);
 11. the port's gather-bench entry (`experiments/gather_bench.py`),
    in-process, at the JAX bench's sizes: every probe line prints, the K4
    forms pass, and the launch counts of that run; then the device time of
    one call of its row gather (both layouts) and row scatter-add at the
    hash grid's 2^19 x 16, without the bench's host loop.
-Then it fails if any module of jax, jaxlib, flax, optax or the JAX package
+The phases run in the order 1, 2, 3, 5, 4, 7, 8, 6, 9, 10, 11: [4] and [6]
+time the encode on the inputs that [5] and [8] record. Then it fails if any
+module of jax, jaxlib, flax, optax or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
 JSON line (every kernel's launches on each path, times, and its bound: the
 larger of its bytes over the card's memory rate and its operations over
-its float32 rate), the nvidia-smi line, then as its last line
+its float32 rate; H1 and its backward per grid too), the nvidia-smi line,
+then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -187,22 +197,6 @@ def bound(n_bytes, flops):
     return dict(bound_ms=by_ops, bound_by="operations")
 
 
-def hash_rows_read(spec, x01):
-    """(distinct table rows the encode of x01 reads, points in range)."""
-    import torch
-    from nerf_lidar_tpu_torch.ops import grid
-    x = x01.reshape(-1, 3)
-    x = x[~((x < 0) | (x > 1)).any(-1)]
-    read = torch.zeros(spec.total_rows, dtype=torch.bool, device=x.device)
-    for l in range(spec.num_levels):
-        ig = torch.floor(x * spec.scales[l] + 0.5).long()
-        for c in range(8):
-            read[spec.offsets[l] + grid._corner_index(
-                spec, l, ig[:, 0] + (c & 1), ig[:, 1] + (c >> 1 & 1),
-                ig[:, 2] + (c >> 2 & 1))] = True
-    return int(read.sum()), x.shape[0]
-
-
 def phase_composite(dev):
     """K1 vs plain on the card. Returns the numbers of its kernels line at
     R = 16,384 (opaque, no intensity)."""
@@ -254,62 +248,75 @@ def phase_composite(dev):
                 library_ms=None, **lim)
 
 
-def phase_hash_encode(dev, cfg):
+def main_path_grids(cfg):
+    """[(name, GridConfig, samples per ray)] of the NeRF and proposal grids."""
+    m = cfg.model
+    return [("nerf", m.nerf_mlp.grid, m.num_nerf_samples)] + [
+        (f"prop{i}", m.prop_mlp_for_level(i).grid, samples)
+        for i, samples in enumerate(m.num_prop_samples)]
+
+
+def phase_hash_encode(dev, cfg, render_inputs):
     """H1 vs plain on the card, each grid at the batch the main path gives
-    it: a render chunk times that level's samples. Returns the numbers of
-    its kernels line: the worst error, and the NeRF grid's times and
-    bound."""
+    it (a render chunk times that grid's samples): on uniform points, and
+    on `render_inputs` ({grid: (table, x01, stds, spec)} of a render chunk
+    of [5]). Returns the numbers of its kernels line: the NeRF grid's on the
+    render's points, with every grid's beside."""
     import torch
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
 
     g = torch.Generator(device=dev).manual_seed(1)
-    m, n = cfg.model, cfg.model.sample_n
-    grids = [("nerf", m.nerf_mlp.grid, m.num_nerf_samples)] + [
-        (f"prop{i}", m.prop_mlp_for_level(i).grid, samples)
-        for i, samples in enumerate(m.num_prop_samples)]
-    worst, result = 0.0, None
-    for name, grid_cfg, samples in grids:
+    n = cfg.model.sample_n
+    worst, grids = 0.0, {}
+    for name, grid_cfg, samples in main_path_grids(cfg):
         b = cfg.render_chunk_size * samples
         spec = grid.spec_for(grid_cfg)
         table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
                            generator=g) * 2 - 1
         x01 = torch.rand(b, n, 3, device=dev, generator=g) * 1.1 - 0.05
         stds = torch.rand(b, n, device=dev, generator=g) * 0.01 + 1e-5
-        got = grid.hash_encode_multisample(table, x01, stds, spec)
-        want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
-        torch.cuda.synchronize()
-        err = close(f"hash_encode_ms {name}", got, want, 1e-5, 1e-6)
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: grid.hash_encode_multisample(
-            table, x01, stds, spec), iters=5, warmup=1)
-        plain_ms = cuda_ms(lambda: grid.hash_encode_multisample_plain(
-            table, x01, stds, spec), iters=5, warmup=1)
-        oob = float(((x01 < 0) | (x01 > 1)).any(-1).float().mean())
-        line = (f"[4] hash_encode_ms {name}: {spec.num_levels} levels x "
-                f"C{spec.level_dim}, {spec.total_rows} rows, B={b} n={n} "
-                f"(out of range {oob:.3f}): max abs err {err:.3e}; "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if result is None:
+        nums = {}
+        for inputs, args in (("uniform", (table, x01, stds, spec)),
+                             ("render", render_inputs[name])):
+            got = grid.hash_encode_multisample(*args)
+            want = grid.hash_encode_multisample_plain(*args)[0]
+            torch.cuda.synchronize()
+            err = close(f"hash_encode_ms {name} {inputs}", got, want, 1e-5,
+                        1e-6)
+            worst = max(worst, err)
+            ms = cuda_ms(lambda: grid.hash_encode_multisample(*args),
+                         iters=5, warmup=1)
+            plain_ms = cuda_ms(lambda: grid.hash_encode_multisample_plain(
+                *args), iters=5, warmup=1)
             # Bound: the points, the features and the distinct table rows
             # read; operations, one multiply-add per corner channel.
-            rows, pts = hash_rows_read(spec, x01)
-            lim = bound(nbytes(x01, stds, got) + rows * spec.level_dim * 4,
-                        2 * pts * spec.num_levels * 8 * spec.level_dim)
-            result = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          rows_read=rows, **lim)
-            line += (f"; {rows} distinct rows read; bound "
-                     f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
-        print(line)
-        del table, x01, stds, got, want
-    return dict(max_abs_err=worst, **result)
+            lim = bound(*hb.fwd_bound(spec, args[1], args[2]))
+            x = args[1]
+            oob = float(((x < 0) | (x > 1)).any(-1).float().mean())
+            print(f"[4] hash_encode_ms {name} on {inputs} points: "
+                  f"{spec.num_levels} levels x C{spec.level_dim}, "
+                  f"{spec.total_rows} rows, B={args[2].numel() // n} n={n} "
+                  f"(out of range {oob:.3f}): max abs err {err:.3e}; kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms; bound "
+                  f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+            nums[inputs] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                **lim)
+            del got, want
+        grids[name] = nums
+        del table, x01, stds
+    return dict(grids["nerf"]["render"], max_abs_err=worst, library_ms=None,
+                grids=grids)
 
 
 def phase_slice(dev):
     """The port's render_lidar entry at full width, kernels on; then the
-    same sweep kernels off. Returns the launch counts of the entry's run."""
+    same sweep kernels off. Returns the launch counts of the entry's run
+    and the encode's inputs of one sweep's first chunk, per grid."""
     import numpy as np
     import torch
     from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.lidar.render import render_sweep
     from nerf_lidar_tpu_torch.ops import grid, render_fused
     from nerf_lidar_tpu_torch.renderer import ChunkRenderer
@@ -369,6 +376,10 @@ def phase_slice(dev):
             fail(f"{what}: depth outside [near, far]: {out['depth'].min()} "
                  f"{out['depth'].max()}")
 
+    # The points and stds H1 gets from one render chunk, for [4].
+    render_inputs = hb.record_render_inputs(kern, sweep, run.near, run.far,
+                                            run.frame)
+
     # Timing, on the entry's own (fresh) weights.
     times = dict(kernels=[], plain=[])
     for _ in range(3):
@@ -401,7 +412,7 @@ def phase_slice(dev):
               if k in ("depth", "rgb", "semantic")}
     print(f"[5] kernels on vs off (uniform(-1, 1) tables), max abs diff "
           f"{errs}; std across rays of the kernels' render {spread}")
-    return launches
+    return launches, render_inputs
 
 
 # Atomics sum each gradient row in an order that changes from run to run:
@@ -411,24 +422,24 @@ BWD_TOL = 1e-4
 GRADS = ("d_table", "d_x01", "d_stds")
 
 
-def phase_hash_encode_bwd(dev, cfg):
+def phase_hash_encode_bwd(dev, cfg, train_inputs):
     """H1 backward vs its written-out plain twin, each grid at the train
-    step's batch; on prop0 (the smallest grid) also vs plain autograd
-    through the plain encode, which takes seconds there (an accumulating
-    index_put_ per corner and level). Returns {"nerf": the numbers of its
-    kernels line (d_table vs the twin, with the bound), "prop0": (max abs
-    err over the three gradients, kernel ms, autograd ms)}."""
+    step's batch: on uniform points, and on `train_inputs` ({grid: (table,
+    x01, stds, g_out, spec, needs)} of a train step of [8]); on prop0's
+    uniform points (the smallest grid) also vs plain autograd through the
+    plain encode, which takes seconds there (an accumulating index_put_ per
+    corner and level). Returns the numbers of its kernels line: the NeRF
+    grid's d_table on the train step's inputs, with every grid's beside,
+    and "prop0_vs_autograd"."""
     import torch
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
 
     g = torch.Generator(device=dev).manual_seed(6)
-    m, n = cfg.model, cfg.model.sample_n
+    n = cfg.model.sample_n
     rays = cfg.batch_size + cfg.batch_size // cfg.lidar_batch_ratio
-    grids = [("nerf", m.nerf_mlp.grid, m.num_nerf_samples)] + [
-        (f"prop{i}", m.prop_mlp_for_level(i).grid, samples)
-        for i, samples in enumerate(m.num_prop_samples)]
-    result = {}
-    for name, grid_cfg, samples in grids:
+    grids, vs_autograd = {}, None
+    for name, grid_cfg, samples in main_path_grids(cfg):
         b = rays * samples
         spec = grid.spec_for(grid_cfg)
         table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
@@ -437,56 +448,61 @@ def phase_hash_encode_bwd(dev, cfg):
         stds = torch.rand(b, n, device=dev, generator=g) * 0.01 + 1e-5
         g_out = torch.randn(b, spec.output_dim, device=dev, generator=g)
         inputs = name == "prop0"
-        needs = (True, inputs, inputs)
-        got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
-                                               needs=needs)
-        twin_ms, want = cuda_ms_once(
-            lambda: grid.hash_encode_multisample_bwd_plain(
-                table, x01, stds, g_out, spec, needs=needs))
-        errs = {key: rel_err(f"hash_encode_ms_bwd {name} {key} vs twin",
-                             got[i], want[i], BWD_TOL)
-                for i, key in enumerate(GRADS) if needs[i]}
-        ms = cuda_ms(lambda: grid.hash_encode_multisample_bwd(
-            table, x01, stds, g_out, spec, needs=(True, False, False)),
-            iters=3, warmup=1)
-        line = (f"[6] hash_encode_ms_bwd {name}: {spec.num_levels} levels x "
-                f"C{spec.level_dim}, B={b} n={n}: vs written-out twin "
-                f"(max abs err, relative to max) {errs}; kernel {ms:.3f} ms "
-                f"(d_table only), twin {twin_ms:.1f} ms"
-                f"{' (all three inputs)' if inputs else ''}")
-        if name == "nerf":
+        nums = {}
+        for kind, (args, needs) in (
+                ("uniform", ((table, x01, stds, g_out, spec),
+                             (True, inputs, inputs))),
+                ("train", (train_inputs[name][:5], train_inputs[name][5]))):
+            got = grid.hash_encode_multisample_bwd(*args, needs=needs)
+            twin_ms, want = cuda_ms_once(
+                lambda: grid.hash_encode_multisample_bwd_plain(
+                    *args, needs=needs))
+            errs = {key: rel_err(f"hash_encode_ms_bwd {name} {kind} {key} "
+                                 "vs twin", got[i], want[i], BWD_TOL)
+                    for i, key in enumerate(GRADS) if needs[i]}
+            ms = cuda_ms(lambda: grid.hash_encode_multisample_bwd(
+                *args, needs=(True, False, False)), iters=3, warmup=1)
             # Bound: the points and g_out read, the whole d_table written;
             # operations, a multiply and an add per corner channel.
-            pts = int((~((x01 < 0) | (x01 > 1)).any(-1)).sum())
-            lim = bound(nbytes(x01, stds, g_out)
-                        + spec.total_rows * spec.level_dim * 4,
-                        2 * pts * spec.num_levels * 8 * spec.level_dim)
-            result[name] = dict(max_abs_err=errs["d_table"][0], ms=ms,
-                                plain_ms=twin_ms, library_ms=None, **lim)
-            line += (f"; bound {lim['bound_ms']:.4f} ms "
-                     f"({lim['bound_by']})")
-        if inputs:
-            ms_all = cuda_ms(lambda: grid.hash_encode_multisample_bwd(
-                table, x01, stds, g_out, spec, needs=needs), iters=3,
-                warmup=1)
-            leaves = [t.clone().requires_grad_(True)
-                      for t in (table, x01, stds)]
-            out = grid.hash_encode_multisample_plain(*leaves, spec)[0]
-            auto_ms, auto = cuda_ms_once(lambda: torch.autograd.grad(
-                out, leaves, g_out))
-            auto_errs = {key: rel_err(f"hash_encode_ms_bwd {name} {key} vs "
-                                      "autograd", got[i], auto[i], BWD_TOL)
-                         for i, key in enumerate(GRADS)}
-            line += (f"; vs plain autograd {auto_errs}; all three inputs: "
-                     f"kernel {ms_all:.3f} ms, autograd {auto_ms:.1f} ms")
-            result[name] = dict(
-                max_abs_err=max(e[0] for e in auto_errs.values()),
-                ms=ms_all, plain_ms=auto_ms)
-            del leaves, out, auto
-        print(line)
-        del table, x01, stds, g_out, want, got
+            lim = bound(*hb.bwd_bound(spec, *args[1:4]))
+            print(f"[6] hash_encode_ms_bwd {name} on {kind} points: "
+                  f"{spec.num_levels} levels x C{spec.level_dim}, "
+                  f"B={args[2].numel() // n} n={n}: vs written-out twin (max "
+                  f"abs err, relative to max) {errs}; kernel {ms:.3f} ms "
+                  f"(d_table only), twin {twin_ms:.1f} ms"
+                  f"{' (all three inputs)' if all(needs) else ''}; bound "
+                  f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+            nums[kind] = dict(max_abs_err=errs["d_table"][0], ms=ms,
+                              plain_ms=twin_ms, **lim)
+            if kind == "uniform" and inputs:
+                vs_autograd = _bwd_vs_autograd(name, spec, args, got)
+            del got, want
+        grids[name] = nums
+        del table, x01, stds, g_out
         torch.cuda.empty_cache()
-    return result
+    return dict(grids["nerf"]["train"], library_ms=None, grids=grids,
+                prop0_vs_autograd=vs_autograd)
+
+
+def _bwd_vs_autograd(name, spec, args, got):
+    """H1-bwd's three gradients (`got`) vs plain autograd through the plain
+    encode; prints and returns (max abs err, kernel ms, autograd ms)."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import grid
+    table, x01, stds, g_out = args[:4]
+    ms_all = cuda_ms(lambda: grid.hash_encode_multisample_bwd(*args),
+                     iters=3, warmup=1)
+    leaves = [t.clone().requires_grad_(True) for t in (table, x01, stds)]
+    out = grid.hash_encode_multisample_plain(*leaves, spec)[0]
+    auto_ms, auto = cuda_ms_once(lambda: torch.autograd.grad(out, leaves,
+                                                             g_out))
+    errs = {key: rel_err(f"hash_encode_ms_bwd {name} {key} vs autograd",
+                         got[i], auto[i], BWD_TOL)
+            for i, key in enumerate(GRADS)}
+    print(f"[6] hash_encode_ms_bwd {name} vs plain autograd {errs}; all "
+          f"three inputs: kernel {ms_all:.3f} ms, autograd {auto_ms:.1f} ms")
+    return dict(max_abs_err=max(e[0] for e in errs.values()), ms=ms_all,
+                plain_ms=auto_ms)
 
 
 # Relative to the largest sum. At K3's own shapes (~1,000 values a row),
@@ -634,10 +650,11 @@ def phase_train(dev):
     off for 3 steps; then the learning check. Each entry starts from a
     fresh experiment directory (it would resume from a checkpoint there).
     Returns (launch counts of the entry's run, path of the params it
-    wrote)."""
+    wrote, the encode backward's inputs of one more warm step per grid)."""
     import numpy as np
     import torch
     from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
     from nerf_lidar_tpu_torch.train import train_step
 
@@ -673,6 +690,10 @@ def phase_train(dev):
           f"{peak / 2**30:.2f} GiB; loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f}")
 
+    # The points, stds and feature gradients the H1 backward gets in one
+    # warm step, for [6].
+    train_inputs = hb.record_train_inputs(run, TRAIN_STEPS)
+
     # Kernels on vs off: the same weights, optimizer state, batches and
     # random draws (tolerances above).
     cfg = run.cfg
@@ -686,7 +707,7 @@ def phase_train(dev):
     step_s = dict(on=[], off=[])
     torch.cuda.reset_peak_memory_stats(dev)
     for i, batch in enumerate(batches):
-        step = TRAIN_STEPS + i
+        step = TRAIN_STEPS + 1 + i
         t0 = time.perf_counter()
         on = train_step.train_step(run.model, run.optimizer, cfg, batch,
                                    step, run.batcher.num_patch_rays, gens[0])
@@ -739,7 +760,7 @@ def phase_train(dev):
           f"{learn.history[-1]['psnr']:.2f}")
     del learn
     torch.cuda.empty_cache()
-    return launches, params
+    return launches, params, train_inputs
 
 
 def phase_train_to_render(dev, params):
@@ -832,18 +853,23 @@ def phase_gathers(dev):
         out = fn(tbl, idx, *rest)
         if not tg.same_values(library(), out):
             fail(f"gather {name}: the library call differs from the kernel")
+        # Kernel and library call in turns (kernel, library, library,
+        # kernel), 50 calls each: at the card's launch floor they move by
+        # more between runs than they differ.
+        kern = lambda: fn(tbl, idx, *rest)
+        turns = [device_ms(f) for f in (kern, library, library, kern)]
         # Bound: the indices read, the output written, and the distinct
         # table entries the indices touch; no arithmetic.
-        nums = dict(max_abs_err=0.0,
-                    ms=device_ms(lambda: fn(tbl, idx, *rest)),
+        nums = dict(max_abs_err=0.0, ms=(turns[0] + turns[3]) / 2,
                     plain_ms=device_ms(lambda: plain(tbl, idx, *rest)),
-                    library_ms=device_ms(library),
+                    library_ms=(turns[1] + turns[2]) / 2, turns=turns,
                     **bound(nbytes(idx, out) + 4 * read, 0))
         print(f"[10] {fn.__name__} {name}: idx {tuple(idx.shape)}, exact on "
               f"in-range and on out-of-range indices (NaN share "
               f"{nan_share:.3f}); device ms: kernel {nums['ms']:.5f}, plain "
-              f"{nums['plain_ms']:.5f}, library {nums['library_ms']:.5f}; "
-              f"bound {nums['bound_ms']:.6f} ({nums['bound_by']})")
+              f"{nums['plain_ms']:.5f}, library {nums['library_ms']:.5f} "
+              f"(kernel, library, library, kernel: {turns}); bound "
+              f"{nums['bound_ms']:.6f} ({nums['bound_by']})")
         result[name] = nums
     k2 = "take_along_axis (8,128)"
     k4 = {k: v for k, v in result.items() if k not in (k2, k5)}
@@ -962,11 +988,13 @@ def main():
         return out
 
     k1 = timed("[3]", phase_composite, dev)
-    h1 = timed("[4]", phase_hash_encode, dev, cfg)
-    render_launches = timed("[5]", phase_slice, dev)
-    h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg)
+    render_launches, render_inputs = timed("[5]", phase_slice, dev)
+    h1 = timed("[4]", phase_hash_encode, dev, cfg, render_inputs)
+    del render_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
-    train_launches, params = timed("[8]", phase_train, dev)
+    train_launches, params, train_inputs = timed("[8]", phase_train, dev)
+    h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
+    del train_inputs
     timed("[9]", phase_train_to_render, dev, params)
     gathers = timed("[10]", phase_gathers, dev)
     bench_launches = timed("[11]", phase_gather_bench, dev)
@@ -989,13 +1017,14 @@ def main():
     kernels = [
         entry("composite", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/render_pallas.py:109", k1),
-        # At the render path's chunk (NeRF grid).
+        # The NeRF grid on a render chunk's points; every grid's numbers on
+        # those and on uniform points under "grids".
         entry("hash_encode_ms", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/grid.py:366", h1),
-        # NeRF grid, d_table, vs the written-out twin; prop0 vs autograd.
+        # The NeRF grid's d_table on a train step's inputs, vs the
+        # written-out twin; every grid under "grids"; prop0 vs autograd.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,
-              "nerf_lidar_tpu/ops/grid.py:366", h1_bwd["nerf"],
-              prop0_vs_autograd=h1_bwd["prop0"]),
+              "nerf_lidar_tpu/ops/grid.py:366", h1_bwd),
         # The NeRF grid's hash-decay level sums; K3's own shape beside.
         entry("scatter_add_rows", KERNEL_SOURCE,
               "experiments/scatter_variants.py:81", k3_path,

@@ -21,13 +21,23 @@
 //
 // H1 hash_encode_ms: replaces the XLA gathers of
 //   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample,
-//   linear interpolation, no coarse cutoff). Bound by random 4..64-byte
-//   table reads: 8 corners x n multisamples x L levels per sample, from
-//   tables up to 240 MB (larger than the 50 MB L2). Design: one thread per
-//   (sample, level), level-major so that neighbouring threads read
-//   neighbouring points; a loop over the n multisamples and the 8 corners
-//   keeps the [B*n, C] per-corner gathers of the plain version out of
-//   device memory. Out-of-range points contribute 0 and read no corner.
+//   linear interpolation, no coarse cutoff). Bound by table reads: 8 corners
+//   x n multisamples x L levels per sample, at random rows of tables up to
+//   240 MB (larger than the 50 MB L2). Design, per (sample, level):
+//   - corner-run merge: at the coarse levels the n multisamples of a sample
+//     mostly share one cell, so while a point's integer cell equals the
+//     previous in-range point's, its erf-weighted trilinear weights add into
+//     8 per-corner sums, and each corner row is read once per run;
+//   - a row is one float4 (C4) or float2 (C2) load through __ldg;
+//   - a block takes one level and a tile of consecutive samples, with the
+//     levels varying fastest across blocks, so that a tile's points and
+//     output rows are used by all levels while they sit in L2; the tile's
+//     x01 / stds are staged through shared memory in one coalesced copy;
+//   - a level whose table slice fits in shared memory (level 0 of every
+//     grid, level 1 of the C1 grids) runs in a launch of its own, whose
+//     persistent blocks copy the slice once and read it there.
+//   Which level takes which path is the launch plan of
+//   ops/grid.py:launch_plan, passed in as per-level arrays.
 //
 // K3 scatter_add_rows: replaces the Pallas kernel
 //   experiments/scatter_variants.py:pallas_mxu_scatter (out[r] += sum of
@@ -49,19 +59,23 @@
 // H1 backward hash_encode_ms_bwd: the gradient of hash_encode_ms, which JAX
 //   gets by autodiff through the gathers of _ms_encode_impl
 //   (diff_inputs=True). d_table: every in-range corner adds
-//   w_corner * erf_w / n * g_out[b, l] to its row through add_row, the
-//   routine K3 uses. d_x01 / d_stds (only when asked for): the derivative
-//   of the trilinear weights times scale_l, and of the erf weight, each
-//   against <g_out, corner row>. Bound like K3 by table atomics: one row
-//   update per corner (C4 rows of a 240 MB table for the NeRF grid), with
-//   heavy contention at the coarse tiled levels, where millions of updates
-//   land on a few thousand rows. Design: as the forward, one thread per
-//   (sample, level), level-major; d_x01 / d_stds sum the levels of a point
-//   with atomics. Atomics make every sum order change from run to run.
-//
-// Later PRs make these fast (warp per ray, shared-memory staging,
-// vectorised loads, warp-aggregated or sorted scatters in the H1
-// backward); this version is the simple correct one.
+//   w_corner * erf_w / n * g_out[b, l] to its row. d_x01 / d_stds (only
+//   when asked for): the derivative of the trilinear weights times scale_l,
+//   and of the erf weight, each against <g_out, corner row>, per point,
+//   summed over the levels with atomics. Bound by table atomics, and at the
+//   coarse levels by same-row serialisation: training points cluster along
+//   rays, so millions of updates land on a few thousand rows. Design, with
+//   the forward's blocks, staging and launch plan:
+//   - the corner-run merge: 8 row updates per run of same-cell points
+//     instead of 8 per point (56 -> 8 at the coarse levels for n = 7);
+//   - a level whose gradient slice fits in shared memory is summed there
+//     by persistent blocks with shared-memory atomics, and each block adds
+//     its non-zero rows to d_table once at the end;
+//   - on the plan's aggregated levels, neighbouring lanes (neighbouring
+//     samples of a ray) whose runs end in the same cell sum their updates
+//     with a segmented shuffle scan, and the segment's last lane adds them;
+//   - the other levels add each run through add_row, K3's row atomic.
+//   Atomics make every sum order change from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +84,15 @@ namespace {
 
 constexpr int kMaxLevels = 32;
 constexpr float kEps = 1.1920929e-07f;  // float32 eps, as in the reference
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Per-level flags of the launch plan (ops/grid.py:launch_plan).
+constexpr int kMerge = 1;      // corner-run merge of same-cell multisamples
+constexpr int kAggregate = 2;  // backward: warp-aggregated row updates
+constexpr int kShared = 4;     // the level's slice in shared memory
+constexpr int kStage = 8;      // x01 / stds staged through shared memory
+constexpr int kMaxSharedBytes = 232448;  // dynamic shared memory of a block
+constexpr int kDefaultSharedBytes = 48 * 1024;
 
 struct GridLevels {
   float scale[kMaxLevels];      // exp2(l * log2(per_level_scale)) * H - 1
@@ -78,6 +101,8 @@ struct GridLevels {
   uint32_t rows[kMaxLevels];    // rows of the level's table slice
   uint32_t offset[kMaxLevels];  // first row of the level in the table
   int tiled[kMaxLevels];        // 1: direct index, 0: XOR-prime hash
+  int flags[kMaxLevels];        // kMerge | kAggregate | kShared | kStage
+  int order[kMaxLevels];        // the levels of the device-memory launch
 };
 
 __global__ void composite_kernel(
@@ -129,69 +154,253 @@ __global__ void composite_kernel(
   }
 }
 
+// One level's constants, as a thread uses them.
+struct Level {
+  float scale, g2;
+  uint32_t res, rows;
+  bool tiled;
+  int flags;
+};
+
+__device__ __forceinline__ Level level_of(const GridLevels& lv, int l) {
+  const float g = lv.grid_size[l];
+  return Level{lv.scale[l], g * g, lv.res[l], lv.rows[l], lv.tiled[l] != 0,
+               lv.flags[l]};
+}
+
+// A point's cell at one level and its fractions within it.
+struct Cell {
+  int ix, iy, iz;
+  float rx, ry, rz;
+};
+
+__device__ __forceinline__ bool in_unit_cube(float x, float y, float z) {
+  return !(x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f);
+}
+
+__device__ __forceinline__ Cell cell_of(float x, float y, float z,
+                                        float scale) {
+  // pos = x * scale + 0.5, rounded after each operation (never an FMA),
+  // so floor() picks the same cell as the reference.
+  const float px = __fadd_rn(__fmul_rn(x, scale), 0.5f);
+  const float py = __fadd_rn(__fmul_rn(y, scale), 0.5f);
+  const float pz = __fadd_rn(__fmul_rn(z, scale), 0.5f);
+  const float gx = floorf(px), gy = floorf(py), gz = floorf(pz);
+  return Cell{(int)gx, (int)gy, (int)gz, px - gx, py - gy, pz - gz};
+}
+
+__device__ __forceinline__ bool same_cell(const Cell& p, int ix, int iy,
+                                          int iz) {
+  return p.ix == ix && p.iy == iy && p.iz == iz;
+}
+
+// Corner c = (c & 1, c >> 1 & 1, c >> 2 & 1) of the unit cell.
+__device__ __forceinline__ float corner_weight(const Cell& p, int c) {
+  return ((c & 1) ? p.rx : 1.f - p.rx) * ((c & 2) ? p.ry : 1.f - p.ry) *
+         ((c & 4) ? p.rz : 1.f - p.rz);
+}
+
+// Row of corner c of cell (ix, iy, iz) within the level's slice: uint32
+// arithmetic and `% rows`, as the reference.
+__device__ __forceinline__ uint32_t corner_row(int ix, int iy, int iz, int c,
+                                               const Level& v) {
+  const uint32_t ux = (uint32_t)(ix + (c & 1));
+  const uint32_t uy = (uint32_t)(iy + ((c >> 1) & 1));
+  const uint32_t uz = (uint32_t)(iz + ((c >> 2) & 1));
+  const uint32_t idx =
+      v.tiled ? (ux + uy * v.res + uz * v.res * v.res)
+              : ((ux * 1u) ^ (uy * 2654435761u) ^ (uz * 805459861u));
+  return idx % v.rows;
+}
+
+// v[0..C) = p[0..C): one vector load for C = 2 and 4 (p is 8- or 16-byte
+// aligned: rows of a [rows, C] float table whose base the wrapper checks);
+// through the read-only cache when kLdg.
+template <int C, bool kLdg>
+__device__ __forceinline__ void load_row(const float* p, float* v) {
+  if constexpr (C == 4) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    float4 t;
+    if constexpr (kLdg) t = __ldg(q); else t = *q;
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (C == 2) {
+    const float2* q = reinterpret_cast<const float2*>(p);
+    float2 t;
+    if constexpr (kLdg) t = __ldg(q); else t = *q;
+    v[0] = t.x; v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if constexpr (kLdg) v[k] = __ldg(p + k); else v[k] = p[k];
+    }
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_row(float* p, const float* v) {
+  if constexpr (C == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (C == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < C; ++k) p[k] = v[k];
+  }
+}
+
+// Samples in the tile that starts at b0: blockDim.x, or fewer at the end.
+__device__ __forceinline__ int tile_count(int64_t B, int64_t b0) {
+  const int64_t rem = B - b0;
+  return rem < (int64_t)blockDim.x ? (int)rem : (int)blockDim.x;
+}
+
+// The tile of samples [b0, b0 + cnt): x01 [cnt, n, 3] into sx and stds
+// [cnt, n] into ss, consecutive threads on consecutive words.
+__device__ __forceinline__ void stage_tile(const float* __restrict__ x01,
+                                           const float* __restrict__ stds,
+                                           int64_t b0, int cnt, int n,
+                                           float* sx, float* ss) {
+  const float* gx = x01 + b0 * n * 3;
+  const float* gs = stds + b0 * n;
+  for (int i = threadIdx.x; i < cnt * n * 3; i += blockDim.x) sx[i] = gx[i];
+  for (int i = threadIdx.x; i < cnt * n; i += blockDim.x) ss[i] = gs[i];
+}
+
+// This thread's points (3n floats) and stds (n floats) in a tile of cnt
+// samples starting at b0: in the staged copy at `stage`, or in device
+// memory when stage is nullptr.
+struct Points {
+  const float* x;
+  const float* s;
+};
+
+__device__ __forceinline__ Points points_of(const float* x01,
+                                            const float* stds, int64_t b0,
+                                            int cnt, int n,
+                                            const float* stage) {
+  const int t = threadIdx.x;
+  if (stage != nullptr) return Points{stage + t * n * 3, stage + cnt * n * 3 + t * n};
+  return Points{x01 + (b0 + t) * n * 3, stds + (b0 + t) * n};
+}
+
+// Adds sum_c W[c] * row_c of cell (ix, iy, iz) into acc.
+template <int C, bool kLdg>
+__device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
+                                           int iz, const float* W,
+                                           const Level& v, float* acc) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float row[C];
+    load_row<C, kLdg>(tbl + (int64_t)corner_row(ix, iy, iz, c, v) * C, row);
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] += W[c] * row[k];
+  }
+}
+
+// The encode of one sample at one level, before the division by n:
+// acc[k] = sum over in-range points j of erf_w_j sum_c w_jc row_c[k], each
+// corner row read once per run of same-cell points (kMerge). tbl: the
+// level's slice, in device memory (kLdg) or shared memory.
+template <int C, bool kLdg>
+__device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
+                                           const Level& v, float* acc) {
+  const bool merge = (v.flags & kMerge) != 0;
+  float W[8];
+  int cx = 0, cy = 0, cz = 0;
+  bool have = false;
+  for (int j = 0; j < n; ++j) {
+    const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
+    if (!in_unit_cube(x, y, z)) continue;  // encodes to 0, breaks no run
+    const float s = pt.s[j];
+    const float wl = erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * v.g2, 1e-10f)));
+    const Cell p = cell_of(x, y, z, v.scale);
+    if (have && !(merge && same_cell(p, cx, cy, cz))) {
+      gather_run<C, kLdg>(tbl, cx, cy, cz, W, v, acc);
+      have = false;
+    }
+    if (!have) {
+      cx = p.ix;
+      cy = p.iy;
+      cz = p.iz;
+      have = true;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) W[c] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) W[c] += wl * corner_weight(p, c);
+  }
+  if (have) gather_run<C, kLdg>(tbl, cx, cy, cz, W, v, acc);
+}
+
+template <int C>
+__device__ __forceinline__ void write_feature(float* out, int64_t b, int l,
+                                              int L, int n, float* acc) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = acc[k] / (float)n;
+  store_row<C>(out + (b * L + l) * C, acc);
+}
+
+// The levels of lv.order (device-memory tables): block i takes level
+// lv.order[i % n_order] of the tile of samples i / n_order.
 template <int C>
 __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
                                       const float* __restrict__ x01,
                                       const float* __restrict__ stds,
                                       float* __restrict__ out, int64_t B,
-                                      int n, int L, GridLevels lv) {
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (tid >= B * L) return;
-  const int l = (int)(tid / B);
-  const int64_t b = tid - (int64_t)l * B;
-  const float scale = lv.scale[l];
-  const float g = lv.grid_size[l];
-  const float g2 = g * g;
-  const uint32_t res = lv.res[l];
-  const uint32_t rows = lv.rows[l];
-  const bool tiled = lv.tiled[l] != 0;
-  const float* tbl = table + (int64_t)lv.offset[l] * C;
-
-  float acc[C];
-#pragma unroll
-  for (int k = 0; k < C; ++k) acc[k] = 0.f;
-
-  for (int j = 0; j < n; ++j) {
-    const int64_t p = b * n + j;
-    const float x = x01[3 * p], y = x01[3 * p + 1], z = x01[3 * p + 2];
-    if (x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f)
-      continue;
-    const float s = stds[p];
-    const float wl = erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * g2, 1e-10f)));
-    // pos = x * scale + 0.5, rounded after each operation (never an FMA),
-    // so floor() picks the same cell as the reference.
-    const float px = __fadd_rn(__fmul_rn(x, scale), 0.5f);
-    const float py = __fadd_rn(__fmul_rn(y, scale), 0.5f);
-    const float pz = __fadd_rn(__fmul_rn(z, scale), 0.5f);
-    const float gx = floorf(px), gy = floorf(py), gz = floorf(pz);
-    const float rx = px - gx, ry = py - gy, rz = pz - gz;
-    const int ix = (int)gx, iy = (int)gy, iz = (int)gz;
-
-    float feat[C];
-#pragma unroll
-    for (int k = 0; k < C; ++k) feat[k] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int cx = c & 1, cy = (c >> 1) & 1, cz = (c >> 2) & 1;
-      const float w = (cx ? rx : 1.f - rx) * (cy ? ry : 1.f - ry) *
-                      (cz ? rz : 1.f - rz);
-      const uint32_t ux = (uint32_t)(ix + cx);
-      const uint32_t uy = (uint32_t)(iy + cy);
-      const uint32_t uz = (uint32_t)(iz + cz);
-      uint32_t idx = tiled ? (ux + uy * res + uz * res * res)
-                           : ((ux * 1u) ^ (uy * 2654435761u) ^
-                              (uz * 805459861u));
-      idx %= rows;
-      const float* row = tbl + (int64_t)idx * C;
-#pragma unroll
-      for (int k = 0; k < C; ++k) feat[k] += w * row[k];
-    }
-#pragma unroll
-    for (int k = 0; k < C; ++k) acc[k] += feat[k] * wl;
+                                      int n, int L, int n_order,
+                                      GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const int l = lv.order[blockIdx.x % n_order];
+  const int64_t b0 = (int64_t)(blockIdx.x / n_order) * blockDim.x;
+  const int cnt = tile_count(B, b0);
+  const Level v = level_of(lv, l);
+  const bool stage = (v.flags & kStage) != 0;
+  if (stage) {
+    stage_tile(x01, stds, b0, cnt, n, smem, smem + cnt * n * 3);
+    __syncthreads();
   }
-  float* o = out + b * (int64_t)(L * C) + (int64_t)l * C;
-#pragma unroll
-  for (int k = 0; k < C; ++k) o[k] = acc[k] / (float)n;
+  if ((int)threadIdx.x >= cnt) return;
+  float acc[C] = {};
+  encode_one<C, true>(table + (int64_t)lv.offset[l] * C,
+                      points_of(x01, stds, b0, cnt, n, stage ? smem : nullptr),
+                      n, v, acc);
+  write_feature<C>(out, b0 + threadIdx.x, l, L, n, acc);
+}
+
+// Level l from a shared-memory copy of its slice: persistent blocks walk
+// the tiles of samples.
+template <int C>
+__global__ void hash_encode_ms_shared_kernel(const float* __restrict__ table,
+                                             const float* __restrict__ x01,
+                                             const float* __restrict__ stds,
+                                             float* __restrict__ out,
+                                             int64_t B, int n, int L, int l,
+                                             GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const Level v = level_of(lv, l);
+  const int slice = (int)v.rows * C;  // a multiple of 8 floats
+  float* const stage = smem + slice;
+  const float4* src =
+      reinterpret_cast<const float4*>(table + (int64_t)lv.offset[l] * C);
+  for (int i = threadIdx.x; i < slice / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(smem)[i] = __ldg(src + i);
+  const bool staged = (v.flags & kStage) != 0;
+  for (int64_t b0 = (int64_t)blockIdx.x * blockDim.x; b0 < B;
+       b0 += (int64_t)gridDim.x * blockDim.x) {
+    const int cnt = tile_count(B, b0);
+    __syncthreads();  // the slice is in; the previous tile is read
+    if (staged) {
+      stage_tile(x01, stds, b0, cnt, n, stage, stage + cnt * n * 3);
+      __syncthreads();
+    }
+    if ((int)threadIdx.x < cnt) {
+      float acc[C] = {};
+      encode_one<C, false>(
+          smem, points_of(x01, stds, b0, cnt, n, staged ? stage : nullptr), n,
+          v, acc);
+      write_feature<C>(out, b0 + threadIdx.x, l, L, n, acc);
+    }
+  }
 }
 
 // dst[0..C) += v[0..C) in device memory. sm_90 adds a 2- or 4-float row in
@@ -251,99 +460,239 @@ __global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
   }
 }
 
+// Row update into a shared-memory slice (kSmem) or device memory.
+template <int C, bool kSmem>
+__device__ __forceinline__ void add_to(float* dst, const float* v) {
+  if constexpr (kSmem) {
+#pragma unroll
+    for (int k = 0; k < C; ++k) atomicAdd(dst + k, v[k]);
+  } else {
+    add_row<C>(dst, v);
+  }
+}
+
+// The row updates of a run that ends: corner c of cell (ix, iy, iz) gets
+// W[c] * g, where `act` says this lane has a run. With `agg` all 32 lanes
+// call (warp-uniform): a lane whose run is in the same cell as its left
+// neighbour's joins that lane's segment, a segmented scan sums each
+// segment, and its last lane adds the sum.
+template <int C, bool kSmem>
+__device__ __forceinline__ void add_runs(bool agg, bool act, int ix, int iy,
+                                         int iz, const float* W,
+                                         const float* g, float* dst,
+                                         const Level& v) {
+  const int lane = threadIdx.x & 31;
+  int start = lane;
+  bool last = act, scan = false;
+  if (agg) {
+    const int px = __shfl_up_sync(kFullMask, ix, 1);
+    const int py = __shfl_up_sync(kFullMask, iy, 1);
+    const int pz = __shfl_up_sync(kFullMask, iz, 1);
+    const bool pact = __shfl_up_sync(kFullMask, (int)act, 1) != 0;
+    const bool head = lane == 0 || !act || !pact || px != ix || py != iy ||
+                      pz != iz;
+    const unsigned heads = __ballot_sync(kFullMask, head);
+    start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
+    last = act && (lane == 31 || ((heads >> (lane + 1)) & 1u));
+    scan = heads != kFullMask;
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float u[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k) u[k] = W[c] * g[k];
+    if (scan) {
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          const float t = __shfl_up_sync(kFullMask, u[k], off);
+          if (lane - off >= start) u[k] += t;
+        }
+      }
+    }
+    if (last)
+      add_to<C, kSmem>(dst + (int64_t)corner_row(ix, iy, iz, c, v) * C, u);
+  }
+}
+
+// The backward of one sample at one level. Every lane of the warp calls
+// (`active`: this lane holds a sample), because aggregated levels shuffle.
+// gp: g_out[b, l]; tbl: the level's table slice; dst: its gradient slice in
+// device or shared memory (kSmem), nullptr when d_table is not wanted;
+// dx / ds: this sample's d_x01 / d_stds, nullptr when not wanted.
+template <int C, bool kSmem>
+__device__ __forceinline__ void backward_one(bool active, Points pt,
+                                             const float* gp,
+                                             const float* tbl, float* dst,
+                                             float* dx, float* ds, int n,
+                                             const Level& v) {
+  const bool merge = (v.flags & kMerge) != 0;
+  const bool agg = (v.flags & kAggregate) != 0;
+  const float inv_n = 1.0f / (float)n;
+  float g[C] = {};
+  if (active) load_row<C, true>(gp, g);
+  float W[8] = {};
+  int cx = 0, cy = 0, cz = 0;
+  bool have = false;
+  for (int j = 0; j < n; ++j) {
+    float x = 0.f, y = 0.f, z = 0.f, s = 0.f;
+    if (active) {
+      x = pt.x[3 * j];
+      y = pt.x[3 * j + 1];
+      z = pt.x[3 * j + 2];
+      s = pt.s[j];
+    }
+    // Out-of-range points are encoded to 0 by a select: no gradient.
+    const bool in = active && in_unit_cube(x, y, z);
+    const float u = 8.0f * (s * s) * v.g2;
+    const float vs = 1.0f / sqrtf(fmaxf(u, 1e-10f));
+    const float coef = erff(vs) * inv_n;  // d out[b, l] / d feat of point j
+    const Cell p = cell_of(x, y, z, v.scale);
+    if (dst != nullptr) {
+      const bool ends = in && have && !(merge && same_cell(p, cx, cy, cz));
+      if (agg) {
+        if (__any_sync(kFullMask, ends))
+          add_runs<C, kSmem>(true, ends, cx, cy, cz, W, g, dst, v);
+      } else if (ends) {
+        add_runs<C, kSmem>(false, true, cx, cy, cz, W, g, dst, v);
+      }
+      if (ends) have = false;
+      if (in) {
+        if (!have) {
+          cx = p.ix;
+          cy = p.iy;
+          cz = p.iz;
+          have = true;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) W[c] = 0.f;
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) W[c] += coef * corner_weight(p, c);
+      }
+    }
+    if ((dx != nullptr || ds != nullptr) && in) {
+      float fdot = 0.f, dfx = 0.f, dfy = 0.f, dfz = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float wx = (c & 1) ? p.rx : 1.f - p.rx;
+        const float wy = (c & 2) ? p.ry : 1.f - p.ry;
+        const float wz = (c & 4) ? p.rz : 1.f - p.rz;
+        float row[C];
+        load_row<C, true>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz, c, v) * C,
+                          row);
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < C; ++k) dot += g[k] * row[k];
+        fdot += (wx * wy * wz) * dot;
+        dfx += ((c & 1) ? 1.f : -1.f) * wy * wz * dot;
+        dfy += wx * ((c & 2) ? 1.f : -1.f) * wz * dot;
+        dfz += wx * wy * ((c & 4) ? 1.f : -1.f) * dot;
+      }
+      if (dx != nullptr) {
+        const float k = coef * v.scale;  // d frac / d x = scale (floor: 0)
+        atomicAdd(dx + 3 * j, k * dfx);
+        atomicAdd(dx + 3 * j + 1, k * dfy);
+        atomicAdd(dx + 3 * j + 2, k * dfz);
+      }
+      if (ds != nullptr && u > 1e-10f) {
+        // d erf(v) / ds with v = u^-1/2, u = 8 s^2 g^2 (0 where u is
+        // clamped).
+        const float dwl = 1.1283791671f * expf(-vs * vs) * (-0.5f * vs / u) *
+                          (16.0f * s * v.g2);
+        atomicAdd(ds + j, inv_n * dwl * fdot);
+      }
+    }
+  }
+  if (dst != nullptr) {
+    if (agg) {
+      if (__any_sync(kFullMask, have))
+        add_runs<C, kSmem>(true, have, cx, cy, cz, W, g, dst, v);
+    } else if (have) {
+      add_runs<C, kSmem>(false, true, cx, cy, cz, W, g, dst, v);
+    }
+  }
+}
+
+// The levels of lv.order, d_table in device memory; blocks as the forward.
 template <int C>
 __global__ void hash_encode_ms_bwd_kernel(
     const float* __restrict__ table, const float* __restrict__ x01,
     const float* __restrict__ stds, const float* __restrict__ g_out,
     float* __restrict__ d_table, float* __restrict__ d_x01,
-    float* __restrict__ d_stds, int64_t B, int n, int L, GridLevels lv) {
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (tid >= B * L) return;
-  const int l = (int)(tid / B);
-  const int64_t b = tid - (int64_t)l * B;
-  const float scale = lv.scale[l];
-  const float g = lv.grid_size[l];
-  const float g2 = g * g;
-  const uint32_t res = lv.res[l];
-  const uint32_t rows = lv.rows[l];
-  const bool tiled = lv.tiled[l] != 0;
-  const int64_t row0 = (int64_t)lv.offset[l];
-  const bool need_dot = d_x01 != nullptr || d_stds != nullptr;
-  const float inv_n = 1.0f / (float)n;
+    float* __restrict__ d_stds, int64_t B, int n, int L, int n_order,
+    GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const int l = lv.order[blockIdx.x % n_order];
+  const int64_t b0 = (int64_t)(blockIdx.x / n_order) * blockDim.x;
+  const int cnt = tile_count(B, b0);
+  const Level v = level_of(lv, l);
+  const bool stage = (v.flags & kStage) != 0;
+  if (stage) {
+    stage_tile(x01, stds, b0, cnt, n, smem, smem + cnt * n * 3);
+    __syncthreads();
+  }
+  // No early return: the lanes past B join the warp's shuffles.
+  const int64_t b = b0 + threadIdx.x;
+  const int64_t off = (int64_t)lv.offset[l] * C;
+  backward_one<C, false>(
+      (int)threadIdx.x < cnt,
+      points_of(x01, stds, b0, cnt, n, stage ? smem : nullptr),
+      g_out + (b * L + l) * C, table + off,
+      d_table != nullptr ? d_table + off : nullptr,
+      d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr,
+      d_stds != nullptr ? d_stds + b * n : nullptr, n, v);
+}
 
-  float gv[C];
-  const float* gp = g_out + b * (int64_t)(L * C) + (int64_t)l * C;
-#pragma unroll
-  for (int k = 0; k < C; ++k) gv[k] = gp[k];
-
-  for (int j = 0; j < n; ++j) {
-    const int64_t p = b * n + j;
-    const float x = x01[3 * p], y = x01[3 * p + 1], z = x01[3 * p + 2];
-    if (x < 0.f || x > 1.f || y < 0.f || y > 1.f || z < 0.f || z > 1.f)
-      continue;  // encoded to 0 by a select: no gradient anywhere
-    const float s = stds[p];
-    const float u = 8.0f * (s * s) * g2;
-    const float v = 1.0f / sqrtf(fmaxf(u, 1e-10f));
-    const float wl = erff(v);
-    const float coef = wl * inv_n;  // d out[b, l] / d feat of point j
-    const float px = __fadd_rn(__fmul_rn(x, scale), 0.5f);
-    const float py = __fadd_rn(__fmul_rn(y, scale), 0.5f);
-    const float pz = __fadd_rn(__fmul_rn(z, scale), 0.5f);
-    const float gx = floorf(px), gy = floorf(py), gz = floorf(pz);
-    const float rx = px - gx, ry = py - gy, rz = pz - gz;
-    const int ix = (int)gx, iy = (int)gy, iz = (int)gz;
-
-    float fdot = 0.f, dfx = 0.f, dfy = 0.f, dfz = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int cx = c & 1, cy = (c >> 1) & 1, cz = (c >> 2) & 1;
-      const float wx = cx ? rx : 1.f - rx;
-      const float wy = cy ? ry : 1.f - ry;
-      const float wz = cz ? rz : 1.f - rz;
-      const uint32_t ux = (uint32_t)(ix + cx);
-      const uint32_t uy = (uint32_t)(iy + cy);
-      const uint32_t uz = (uint32_t)(iz + cz);
-      uint32_t idx = tiled ? (ux + uy * res + uz * res * res)
-                           : ((ux * 1u) ^ (uy * 2654435761u) ^
-                              (uz * 805459861u));
-      idx %= rows;
-      const int64_t row = (row0 + (int64_t)idx) * C;
-      if (d_table != nullptr) {
-        const float cw = coef * (wx * wy * wz);
-        float add[C];
-#pragma unroll
-        for (int k = 0; k < C; ++k) add[k] = cw * gv[k];
-        add_row<C>(d_table + row, add);
-      }
-      if (need_dot) {
-        float dot = 0.f;
-#pragma unroll
-        for (int k = 0; k < C; ++k) dot += gv[k] * table[row + k];
-        fdot += (wx * wy * wz) * dot;
-        dfx += (cx ? 1.f : -1.f) * wy * wz * dot;
-        dfy += wx * (cy ? 1.f : -1.f) * wz * dot;
-        dfz += wx * wy * (cz ? 1.f : -1.f) * dot;
-      }
+// Level l's gradient summed in a shared-memory slice by persistent blocks;
+// each block then adds its non-zero rows to d_table.
+template <int C>
+__global__ void hash_encode_ms_bwd_shared_kernel(
+    const float* __restrict__ table, const float* __restrict__ x01,
+    const float* __restrict__ stds, const float* __restrict__ g_out,
+    float* __restrict__ d_table, float* __restrict__ d_x01,
+    float* __restrict__ d_stds, int64_t B, int n, int L, int l,
+    GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const Level v = level_of(lv, l);
+  const int slice = (int)v.rows * C;
+  float* const stage = smem + slice;
+  for (int i = threadIdx.x; i < slice; i += blockDim.x) smem[i] = 0.f;
+  const bool staged = (v.flags & kStage) != 0;
+  const int64_t off = (int64_t)lv.offset[l] * C;
+  for (int64_t b0 = (int64_t)blockIdx.x * blockDim.x; b0 < B;
+       b0 += (int64_t)gridDim.x * blockDim.x) {
+    const int cnt = tile_count(B, b0);
+    __syncthreads();  // the slice is zeroed; the previous tile is read
+    if (staged) {
+      stage_tile(x01, stds, b0, cnt, n, stage, stage + cnt * n * 3);
+      __syncthreads();
     }
-    if (d_x01 != nullptr) {
-      const float k = coef * scale;  // d frac / d x = scale (floor: 0)
-      atomicAdd(d_x01 + 3 * p, k * dfx);
-      atomicAdd(d_x01 + 3 * p + 1, k * dfy);
-      atomicAdd(d_x01 + 3 * p + 2, k * dfz);
+    const int64_t b = b0 + threadIdx.x;
+    backward_one<C, true>(
+        (int)threadIdx.x < cnt,
+        points_of(x01, stds, b0, cnt, n, staged ? stage : nullptr),
+        g_out + (b * L + l) * C, table + off, smem,
+        d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr,
+        d_stds != nullptr ? d_stds + b * n : nullptr, n, v);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < (int)v.rows; r += blockDim.x) {
+    float u[C];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      u[k] = smem[r * C + k];
+      any = any || u[k] != 0.f;
     }
-    if (d_stds != nullptr && u > 1e-10f) {
-      // d erf(v) / ds with v = u^-1/2, u = 8 s^2 g^2 (0 where u is clamped).
-      const float dwl = 1.1283791671f * expf(-v * v) * (-0.5f * v / u) *
-                        (16.0f * s * g2);
-      atomicAdd(d_stds + p, inv_n * dwl * fdot);
-    }
+    if (any) add_row<C>(d_table + off + (int64_t)r * C, u);
   }
 }
 
 void fill_levels(GridLevels* lv, int L, const float* scale,
                  const float* grid_size, const unsigned int* res,
                  const unsigned int* rows, const unsigned int* offset,
-                 const int* tiled) {
+                 const int* tiled, const int* flags) {
   *lv = {};
   for (int l = 0; l < L; ++l) {
     lv->scale[l] = scale[l];
@@ -352,7 +701,120 @@ void fill_levels(GridLevels* lv, int L, const float* scale,
     lv->rows[l] = rows[l];
     lv->offset[l] = offset[l];
     lv->tiled[l] = tiled[l];
+    lv->flags[l] = flags[l];
   }
+}
+
+// The launch plan of ops/grid.py:launch_plan: per level, its flags, the
+// threads of its blocks, the persistent blocks of a shared-memory level and
+// the dynamic shared memory of its blocks.
+struct Plan {
+  const int* threads;
+  const int* blocks;
+  const int* smem;
+};
+
+// Refuses a plan whose blocks are not whole warps, or whose shared memory
+// does not hold what its kernels keep there.
+cudaError_t check_plan(const GridLevels& lv, int L, int n, int C, Plan p) {
+  for (int l = 0; l < L; ++l) {
+    const int t = p.threads[l];
+    if (t < 32 || t > 1024 || t % 32 != 0) return cudaErrorInvalidValue;
+    long long need = (lv.flags[l] & kStage) ? 16LL * t * n : 0;
+    if (lv.flags[l] & kShared) {
+      need += 4LL * C * lv.rows[l];
+      if (p.blocks[l] <= 0) return cudaErrorInvalidValue;
+    }
+    if (need > p.smem[l] || p.smem[l] > kMaxSharedBytes)
+      return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t allow_smem(const void* kernel, int bytes) {
+  if (bytes <= kDefaultSharedBytes) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// The kShared levels, one launch each; then one launch of the
+// device-memory kernel over the other levels, whose blocks must all have
+// the same threads. launch_shared(l, blocks, threads, smem)
+// and launch_global(blocks, threads, smem, n_order) launch.
+template <typename Shared, typename Global>
+cudaError_t launch_levels(GridLevels& lv, int L, int64_t B, Plan p,
+                          const void* shared_kernel,
+                          const void* global_kernel, Shared launch_shared,
+                          Global launch_global) {
+  int n_order = 0, threads = 0, smem = 0;
+  for (int l = 0; l < L; ++l) {
+    if (lv.flags[l] & kShared) {
+      cudaError_t err = allow_smem(shared_kernel, p.smem[l]);
+      if (err != cudaSuccess) return err;
+      const int64_t tiles = (B + p.threads[l] - 1) / p.threads[l];
+      launch_shared(l, (unsigned)(tiles < p.blocks[l] ? tiles : p.blocks[l]),
+                    p.threads[l], p.smem[l]);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    } else {
+      if (n_order > 0 && p.threads[l] != threads) return cudaErrorInvalidValue;
+      threads = p.threads[l];
+      smem = p.smem[l] > smem ? p.smem[l] : smem;
+      lv.order[n_order++] = l;
+    }
+  }
+  if (n_order == 0) return cudaSuccess;
+  const int64_t blocks = (B + threads - 1) / threads * n_order;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(global_kernel, smem);
+  if (err != cudaSuccess) return err;
+  launch_global((unsigned)blocks, threads, smem, n_order);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t encode_levels(const float* table, const float* x01,
+                          const float* stds, float* out, int64_t B, int n,
+                          int L, GridLevels& lv, Plan p, cudaStream_t s) {
+  cudaError_t err = check_plan(lv, L, n, C, p);
+  if (err != cudaSuccess) return err;
+  return launch_levels(
+      lv, L, B, p, (const void*)hash_encode_ms_shared_kernel<C>,
+      (const void*)hash_encode_ms_kernel<C>,
+      [&](int l, unsigned blocks, int threads, int smem) {
+        hash_encode_ms_shared_kernel<C><<<blocks, threads, smem, s>>>(
+            table, x01, stds, out, B, n, L, l, lv);
+      },
+      [&](unsigned blocks, int threads, int smem, int n_order) {
+        hash_encode_ms_kernel<C><<<blocks, threads, smem, s>>>(
+            table, x01, stds, out, B, n, L, n_order, lv);
+      });
+}
+
+template <int C>
+cudaError_t backward_levels(const float* table, const float* x01,
+                            const float* stds, const float* g_out,
+                            float* d_table, float* d_x01, float* d_stds,
+                            int64_t B, int n, int L, GridLevels& lv, Plan p,
+                            cudaStream_t s) {
+  cudaError_t err = check_plan(lv, L, n, C, p);
+  if (err != cudaSuccess) return err;
+  // A shared-memory level sums d_table: without it, the plan has none.
+  for (int l = 0; l < L && d_table == nullptr; ++l)
+    if (lv.flags[l] & kShared) return cudaErrorInvalidValue;
+  return launch_levels(
+      lv, L, B, p, (const void*)hash_encode_ms_bwd_shared_kernel<C>,
+      (const void*)hash_encode_ms_bwd_kernel<C>,
+      [&](int l, unsigned blocks, int threads, int smem) {
+        hash_encode_ms_bwd_shared_kernel<C><<<blocks, threads, smem, s>>>(
+            table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, l, lv);
+      },
+      [&](unsigned blocks, int threads, int smem, int n_order) {
+        hash_encode_ms_bwd_kernel<C><<<blocks, threads, smem, s>>>(
+            table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L,
+            n_order, lv);
+      });
 }
 
 }  // namespace
@@ -380,44 +842,37 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
   return cudaGetLastError();
 }
 
+// flags, threads, blocks, smem: the launch plan, one entry per level.
 int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                       float* out, long long B, int n, int L, int C,
                       const float* scale, const float* grid_size,
                       const unsigned int* res, const unsigned int* rows,
                       const unsigned int* offset, const int* tiled,
-                      int device, void* stream) {
+                      const int* flags, const int* threads, const int* blocks,
+                      const int* smem, int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
-  const long long total = B * L;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, flags);
+  if (B == 0) return cudaSuccess;
+  const Plan p{threads, blocks, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
-      hash_encode_ms_kernel<1><<<blocks, threads, 0, s>>>(table, x01, stds,
-                                                          out, B, n, L, lv);
-      break;
+      return encode_levels<1>(table, x01, stds, out, B, n, L, lv, p, s);
     case 2:
-      hash_encode_ms_kernel<2><<<blocks, threads, 0, s>>>(table, x01, stds,
-                                                          out, B, n, L, lv);
-      break;
+      return encode_levels<2>(table, x01, stds, out, B, n, L, lv, p, s);
     case 4:
-      hash_encode_ms_kernel<4><<<blocks, threads, 0, s>>>(table, x01, stds,
-                                                          out, B, n, L, lv);
-      break;
+      return encode_levels<4>(table, x01, stds, out, B, n, L, lv, p, s);
     // The ported presets' grids: C = 1 (proposal), 4 (NeRF), 2 (tiny_debug).
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // d_table, d_x01, d_stds: zero-filled by the caller, each nullptr when not
-// wanted.
+// wanted. flags, threads, blocks, smem: the launch plan, as the forward's.
 int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* stds, const float* g_out,
                           float* d_table, float* d_x01, float* d_stds,
@@ -425,34 +880,30 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* grid_size, const unsigned int* res,
                           const unsigned int* rows,
                           const unsigned int* offset, const int* tiled,
-                          int device, void* stream) {
+                          const int* flags, const int* threads,
+                          const int* blocks, const int* smem, int device,
+                          void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
-  const long long total = B * L;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, flags);
+  if (B == 0) return cudaSuccess;
+  const Plan p{threads, blocks, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
-      hash_encode_ms_bwd_kernel<1><<<blocks, threads, 0, s>>>(
-          table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, lv);
-      break;
+      return backward_levels<1>(table, x01, stds, g_out, d_table, d_x01,
+                                d_stds, B, n, L, lv, p, s);
     case 2:
-      hash_encode_ms_bwd_kernel<2><<<blocks, threads, 0, s>>>(
-          table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, lv);
-      break;
+      return backward_levels<2>(table, x01, stds, g_out, d_table, d_x01,
+                                d_stds, B, n, L, lv, p, s);
     case 4:
-      hash_encode_ms_bwd_kernel<4><<<blocks, threads, 0, s>>>(
-          table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, lv);
-      break;
+      return backward_levels<4>(table, x01, stds, g_out, d_table, d_x01,
+                                d_stds, B, n, L, lv, p, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // out: [rows, C], zero-filled (or holding a sum to add to) by the caller.

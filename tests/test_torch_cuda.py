@@ -7,7 +7,8 @@ without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: as tests/test_torch_render_fused.py for K1; features rtol 1e-5
-/ atol 1e-6 for H1 (the kernels change only the order of float sums); the
+/ atol 1e-6 for H1 (the kernels change only the order of float sums, also
+where they merge the corner weights of same-cell multisamples); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
@@ -127,6 +128,112 @@ def test_hash_encode_bwd_kernel_matches_plain(dev, level_dim):
     for i, name in enumerate(("table", "x01", "stds")):
         _close_to_max(grads["kernel"][i], grads["plain"][i], name)
         _close_to_max(written[i], grads["plain"][i], f"bwd_plain {name}")
+
+
+def _ray_points(dev, rays, samples, n, g):
+    """[rays * samples, n, 3] points and stds along rays, as `cast_rays`
+    makes them (the spiral of n multisamples per interval), mapped into the
+    unit cube as the model's contraction leaves them."""
+    from nerf_lidar_tpu_torch.ops import render
+    normal = torch.nn.functional.normalize
+    origins = torch.rand(rays, 3, device=dev, generator=g) * 0.4 - 0.2
+    dirs = normal(torch.randn(rays, 3, device=dev, generator=g), dim=-1)
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(dirs)
+    base_x = normal(torch.cross(dirs, up, dim=-1), dim=-1)
+    base_y = torch.cross(dirs, base_x, dim=-1)
+    tdist = torch.linspace(0.05, 1.5, samples + 1, device=dev).expand(
+        rays, samples + 1)
+    radii = torch.full((rays, 1), 0.002, device=dev)
+    means, stds = render.cast_rays(tdist, origins, dirs, base_x, base_y,
+                                   radii, n=n)
+    return ((means / 2 + 1) / 2).reshape(-1, n, 3), stds.reshape(-1, n)
+
+
+def _merge_case(dev, spec, case, g):
+    """Points that stress the corner-run merge of H1 and its backward."""
+    b, n = 3000, 1 if case == "n1" else 7
+    rand = lambda *shape: torch.rand(*shape, device=dev, generator=g)
+    stds = rand(b, n) * 0.05 + 1e-4
+    if case == "rays":
+        return _ray_points(dev, 40, 75, n, g)
+    if case in ("one_cell", "oob_breaks"):
+        # All n points of a sample within 1e-4 of one point: one cell at
+        # every coarse level.
+        x01 = rand(b, 1, 3) * 0.9 + 0.05 + (rand(b, n, 3) - 0.5) * 2e-4
+        if case == "oob_breaks":
+            x01[:, 1::2, 0] = 1.5  # runs broken by out-of-range points
+            x01[::3, :, 1] = -0.2  # samples with no point in range
+        return x01, stds
+    if case == "faces":
+        # pos = x * scale + 0.5 exactly integral at level 2, and x = 1.0 or
+        # 0.0 on some axes.
+        k = torch.randint(0, int(spec.scales[2]), (b, n, 3), device=dev,
+                          generator=g).float()
+        x01 = (k + 0.5) / spec.scales[2]
+        x01[:, 0, :] = 1.0
+        x01[:, 1, 0] = 0.0
+        return x01, stds
+    return rand(b, n, 3) * 1.2 - 0.1, stds  # n1: uniform, one point each
+
+
+def _check_encode_kernels(dev, spec, x01, stds, g):
+    """H1 vs plain (rtol 1e-5 / atol 1e-6) and its backward vs the
+    written-out twin, d_table alone and all three gradients."""
+    table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
+                       generator=g) * 2 - 1
+    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
+                        generator=g)
+    before = grid.hash_encode_multisample.launches
+    got = grid.hash_encode_multisample(table, x01, stds, spec)
+    assert grid.hash_encode_multisample.launches == before + 1
+    want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for needs in ((True, False, False), (True, True, True)):
+        got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
+                                               needs)
+        want = grid.hash_encode_multisample_bwd_plain(table, x01, stds,
+                                                      g_out, spec, needs)
+        torch.cuda.synchronize()
+        for i, name in enumerate(("table", "x01", "stds")):
+            if needs[i]:
+                _close_to_max(got[i], want[i], f"{name} {needs}")
+
+
+@pytest.mark.parametrize("case", ["one_cell", "rays", "oob_breaks", "faces",
+                                  "n1"])
+@pytest.mark.parametrize("level_dim", [1, 2, 4])
+def test_hash_encode_kernels_on_merge_cases(dev, level_dim, case):
+    """Levels 0-2 (C4) or 0-3 (C1, C2) from shared memory, the finer ones
+    hashed in device memory."""
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=level_dim, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16))
+    plan = grid.launch_plan(spec, 1 if case == "n1" else 7)
+    shared = (plan.flags & grid.PLAN_SHARED) != 0
+    assert shared.any() and not shared.all()
+    g = torch.Generator(device=dev).manual_seed(20 + level_dim)
+    x01, stds = _merge_case(dev, spec, case, g)
+    _check_encode_kernels(dev, spec, x01, stds, g)
+
+
+# Level 0 just under and just over the shared-memory budget at n = 7 (as in
+# tests/test_torch_grid_plan.py).
+BUDGET_EDGES = {"c1_under": (1, 36, 16), "c1_over": (1, 37, 16),
+                "c4_under": (4, 22, 14), "c4_over": (4, 23, 14)}
+
+
+@pytest.mark.parametrize("name", sorted(BUDGET_EDGES))
+def test_hash_encode_kernels_at_the_shared_memory_budget(dev, name):
+    c, base, log2 = BUDGET_EDGES[name]
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=c, base_resolution=base, desired_resolution=2 * base,
+        log2_hashmap_size=log2))
+    plan = grid.launch_plan(spec, 7)
+    assert bool(plan.flags[0] & grid.PLAN_SHARED) == name.endswith("under")
+    g = torch.Generator(device=dev).manual_seed(30)
+    x01, stds = _ray_points(dev, 64, 64, 7, g)
+    _check_encode_kernels(dev, spec, x01, stds, g)
 
 
 def test_hash_encode_bwd_kernel_table_only(dev):
