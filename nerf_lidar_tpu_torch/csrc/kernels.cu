@@ -23,21 +23,22 @@
 //   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample,
 //   linear interpolation, no coarse cutoff). Bound by table reads: 8 corners
 //   x n multisamples x L levels per sample, at random rows of tables up to
-//   240 MB (larger than the 50 MB L2). Design, per (sample, level):
+//   240 MB (larger than the 50 MB L2). Design, one thread per (sample,
+//   level):
 //   - corner-run merge: at the coarse levels the n multisamples of a sample
 //     mostly share one cell, so while a point's integer cell equals the
 //     previous in-range point's, its erf-weighted trilinear weights add into
 //     8 per-corner sums, and each corner row is read once per run;
 //   - a row is one float4 (C4) or float2 (C2) load through __ldg;
-//   - a block takes one level and a tile of consecutive samples, with the
-//     levels varying fastest across blocks, so that a tile's points and
-//     output rows are used by all levels while they sit in L2; the tile's
-//     x01 / stds are staged through shared memory in one coalesced copy;
-//   - a level whose table slice fits in shared memory (level 0 of every
-//     grid, level 1 of the C1 grids) runs in a launch of its own, whose
-//     persistent blocks copy the slice once and read it there.
+//   - a block takes one level and a tile of consecutive samples, whose
+//     x01 / stds it stages through shared memory in one coalesced copy;
+//     the plan orders the blocks level-major or with the levels of a tile
+//     side by side (which writes a tile's [samples, L * C] features whole).
 //   Which level takes which path is the launch plan of
-//   ops/grid.py:launch_plan, passed in as per-level arrays.
+//   ops/grid.py:launch_plan, passed in as per-level flags. Measured and
+//   dropped: a shared-memory copy of the coarse levels' slices in
+//   persistent blocks, slower than these reads on the render's and the
+//   train step's points (PERF.md).
 //
 // K3 scatter_add_rows: replaces the Pallas kernel
 //   experiments/scatter_variants.py:pallas_mxu_scatter (out[r] += sum of
@@ -65,17 +66,19 @@
 //   summed over the levels with atomics. Bound by table atomics, and at the
 //   coarse levels by same-row serialisation: training points cluster along
 //   rays, so millions of updates land on a few thousand rows. Design, with
-//   the forward's blocks, staging and launch plan:
+//   the forward's threads, staging and launch plan:
 //   - the corner-run merge: 8 row updates per run of same-cell points
 //     instead of 8 per point (56 -> 8 at the coarse levels for n = 7);
-//   - a level whose gradient slice fits in shared memory is summed there
-//     by persistent blocks with shared-memory atomics, and each block adds
-//     its non-zero rows to d_table once at the end;
 //   - on the plan's aggregated levels, neighbouring lanes (neighbouring
 //     samples of a ray) whose runs end in the same cell sum their updates
 //     with a segmented shuffle scan, and the segment's last lane adds them;
-//   - the other levels add each run through add_row, K3's row atomic.
-//   Atomics make every sum order change from run to run.
+//     the other levels add each run through add_row, K3's row atomic;
+//   - blocks walk the levels one after another, so that a level's d_table
+//     slice (up to 33.5 MB) takes its atomics in L2.
+//   Measured and dropped: summing the coarse levels in shared memory
+//   (persistent blocks, one flush per block), slower than the merged device
+//   atomics on the train step's points (PERF.md). Atomics make every sum
+//   order change from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,8 +92,7 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // Per-level flags of the launch plan (ops/grid.py:launch_plan).
 constexpr int kMerge = 1;      // corner-run merge of same-cell multisamples
 constexpr int kAggregate = 2;  // backward: warp-aggregated row updates
-constexpr int kShared = 4;     // the level's slice in shared memory
-constexpr int kStage = 8;      // x01 / stds staged through shared memory
+constexpr int kStage = 4;      // x01 / stds staged through shared memory
 constexpr int kMaxSharedBytes = 232448;  // dynamic shared memory of a block
 constexpr int kDefaultSharedBytes = 48 * 1024;
 
@@ -101,8 +103,7 @@ struct GridLevels {
   uint32_t rows[kMaxLevels];    // rows of the level's table slice
   uint32_t offset[kMaxLevels];  // first row of the level in the table
   int tiled[kMaxLevels];        // 1: direct index, 0: XOR-prime hash
-  int flags[kMaxLevels];        // kMerge | kAggregate | kShared | kStage
-  int order[kMaxLevels];        // the levels of the device-memory launch
+  int flags[kMaxLevels];        // kMerge | kAggregate | kStage
 };
 
 __global__ void composite_kernel(
@@ -213,26 +214,20 @@ __device__ __forceinline__ uint32_t corner_row(int ix, int iy, int iz, int c,
   return idx % v.rows;
 }
 
-// v[0..C) = p[0..C): one vector load for C = 2 and 4 (p is 8- or 16-byte
-// aligned: rows of a [rows, C] float table whose base the wrapper checks);
-// through the read-only cache when kLdg.
-template <int C, bool kLdg>
+// v[0..C) = p[0..C) through the read-only cache: one vector load for C = 2
+// and 4 (p is 8- or 16-byte aligned: rows of a [rows, C] float tensor whose
+// start the wrapper checks).
+template <int C>
 __device__ __forceinline__ void load_row(const float* p, float* v) {
   if constexpr (C == 4) {
-    const float4* q = reinterpret_cast<const float4*>(p);
-    float4 t;
-    if constexpr (kLdg) t = __ldg(q); else t = *q;
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else if constexpr (C == 2) {
-    const float2* q = reinterpret_cast<const float2*>(p);
-    float2 t;
-    if constexpr (kLdg) t = __ldg(q); else t = *q;
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
     v[0] = t.x; v[1] = t.y;
   } else {
 #pragma unroll
-    for (int k = 0; k < C; ++k) {
-      if constexpr (kLdg) v[k] = __ldg(p + k); else v[k] = p[k];
-    }
+    for (int k = 0; k < C; ++k) v[k] = __ldg(p + k);
   }
 }
 
@@ -246,6 +241,20 @@ __device__ __forceinline__ void store_row(float* p, const float* v) {
 #pragma unroll
     for (int k = 0; k < C; ++k) p[k] = v[k];
   }
+}
+
+// A block's level and its tile's first sample. Level-major: the tiles of
+// one level in consecutive blocks; else the L levels of one tile.
+struct Work {
+  int l;
+  int64_t b0;
+};
+
+__device__ __forceinline__ Work work_of(int64_t tiles, int L,
+                                        bool level_major) {
+  const int64_t i = blockIdx.x;
+  if (level_major) return Work{(int)(i / tiles), (i % tiles) * blockDim.x};
+  return Work{(int)(i % L), (i / L) * blockDim.x};
 }
 
 // Samples in the tile that starts at b0: blockDim.x, or fewer at the end.
@@ -279,19 +288,20 @@ __device__ __forceinline__ Points points_of(const float* x01,
                                             int cnt, int n,
                                             const float* stage) {
   const int t = threadIdx.x;
-  if (stage != nullptr) return Points{stage + t * n * 3, stage + cnt * n * 3 + t * n};
+  if (stage != nullptr)
+    return Points{stage + t * n * 3, stage + cnt * n * 3 + t * n};
   return Points{x01 + (b0 + t) * n * 3, stds + (b0 + t) * n};
 }
 
 // Adds sum_c W[c] * row_c of cell (ix, iy, iz) into acc.
-template <int C, bool kLdg>
+template <int C>
 __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
                                            int iz, const float* W,
                                            const Level& v, float* acc) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float row[C];
-    load_row<C, kLdg>(tbl + (int64_t)corner_row(ix, iy, iz, c, v) * C, row);
+    load_row<C>(tbl + (int64_t)corner_row(ix, iy, iz, c, v) * C, row);
 #pragma unroll
     for (int k = 0; k < C; ++k) acc[k] += W[c] * row[k];
   }
@@ -300,8 +310,8 @@ __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
 // The encode of one sample at one level, before the division by n:
 // acc[k] = sum over in-range points j of erf_w_j sum_c w_jc row_c[k], each
 // corner row read once per run of same-cell points (kMerge). tbl: the
-// level's slice, in device memory (kLdg) or shared memory.
-template <int C, bool kLdg>
+// level's slice of the table.
+template <int C>
 __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
                                            const Level& v, float* acc) {
   const bool merge = (v.flags & kMerge) != 0;
@@ -315,7 +325,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
     const float wl = erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * v.g2, 1e-10f)));
     const Cell p = cell_of(x, y, z, v.scale);
     if (have && !(merge && same_cell(p, cx, cy, cz))) {
-      gather_run<C, kLdg>(tbl, cx, cy, cz, W, v, acc);
+      gather_run<C>(tbl, cx, cy, cz, W, v, acc);
       have = false;
     }
     if (!have) {
@@ -329,78 +339,34 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
 #pragma unroll
     for (int c = 0; c < 8; ++c) W[c] += wl * corner_weight(p, c);
   }
-  if (have) gather_run<C, kLdg>(tbl, cx, cy, cz, W, v, acc);
+  if (have) gather_run<C>(tbl, cx, cy, cz, W, v, acc);
 }
 
-template <int C>
-__device__ __forceinline__ void write_feature(float* out, int64_t b, int l,
-                                              int L, int n, float* acc) {
-#pragma unroll
-  for (int k = 0; k < C; ++k) acc[k] = acc[k] / (float)n;
-  store_row<C>(out + (b * L + l) * C, acc);
-}
-
-// The levels of lv.order (device-memory tables): block i takes level
-// lv.order[i % n_order] of the tile of samples i / n_order.
 template <int C>
 __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
                                       const float* __restrict__ x01,
                                       const float* __restrict__ stds,
                                       float* __restrict__ out, int64_t B,
-                                      int n, int L, int n_order,
-                                      GridLevels lv) {
+                                      int n, int L, int64_t tiles,
+                                      int level_major, GridLevels lv) {
   extern __shared__ __align__(16) float smem[];
-  const int l = lv.order[blockIdx.x % n_order];
-  const int64_t b0 = (int64_t)(blockIdx.x / n_order) * blockDim.x;
-  const int cnt = tile_count(B, b0);
-  const Level v = level_of(lv, l);
+  const Work w = work_of(tiles, L, level_major != 0);
+  const int cnt = tile_count(B, w.b0);
+  const Level v = level_of(lv, w.l);
   const bool stage = (v.flags & kStage) != 0;
   if (stage) {
-    stage_tile(x01, stds, b0, cnt, n, smem, smem + cnt * n * 3);
+    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
     __syncthreads();
   }
   if ((int)threadIdx.x >= cnt) return;
   float acc[C] = {};
-  encode_one<C, true>(table + (int64_t)lv.offset[l] * C,
-                      points_of(x01, stds, b0, cnt, n, stage ? smem : nullptr),
-                      n, v, acc);
-  write_feature<C>(out, b0 + threadIdx.x, l, L, n, acc);
-}
-
-// Level l from a shared-memory copy of its slice: persistent blocks walk
-// the tiles of samples.
-template <int C>
-__global__ void hash_encode_ms_shared_kernel(const float* __restrict__ table,
-                                             const float* __restrict__ x01,
-                                             const float* __restrict__ stds,
-                                             float* __restrict__ out,
-                                             int64_t B, int n, int L, int l,
-                                             GridLevels lv) {
-  extern __shared__ __align__(16) float smem[];
-  const Level v = level_of(lv, l);
-  const int slice = (int)v.rows * C;  // a multiple of 8 floats
-  float* const stage = smem + slice;
-  const float4* src =
-      reinterpret_cast<const float4*>(table + (int64_t)lv.offset[l] * C);
-  for (int i = threadIdx.x; i < slice / 4; i += blockDim.x)
-    reinterpret_cast<float4*>(smem)[i] = __ldg(src + i);
-  const bool staged = (v.flags & kStage) != 0;
-  for (int64_t b0 = (int64_t)blockIdx.x * blockDim.x; b0 < B;
-       b0 += (int64_t)gridDim.x * blockDim.x) {
-    const int cnt = tile_count(B, b0);
-    __syncthreads();  // the slice is in; the previous tile is read
-    if (staged) {
-      stage_tile(x01, stds, b0, cnt, n, stage, stage + cnt * n * 3);
-      __syncthreads();
-    }
-    if ((int)threadIdx.x < cnt) {
-      float acc[C] = {};
-      encode_one<C, false>(
-          smem, points_of(x01, stds, b0, cnt, n, staged ? stage : nullptr), n,
-          v, acc);
-      write_feature<C>(out, b0 + threadIdx.x, l, L, n, acc);
-    }
-  }
+  encode_one<C>(table + (int64_t)lv.offset[w.l] * C,
+                points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr), n,
+                v, acc);
+  const int64_t b = w.b0 + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < C; ++k) acc[k] = acc[k] / (float)n;
+  store_row<C>(out + (b * L + w.l) * C, acc);
 }
 
 // dst[0..C) += v[0..C) in device memory. sm_90 adds a 2- or 4-float row in
@@ -460,23 +426,12 @@ __global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
   }
 }
 
-// Row update into a shared-memory slice (kSmem) or device memory.
-template <int C, bool kSmem>
-__device__ __forceinline__ void add_to(float* dst, const float* v) {
-  if constexpr (kSmem) {
-#pragma unroll
-    for (int k = 0; k < C; ++k) atomicAdd(dst + k, v[k]);
-  } else {
-    add_row<C>(dst, v);
-  }
-}
-
 // The row updates of a run that ends: corner c of cell (ix, iy, iz) gets
 // W[c] * g, where `act` says this lane has a run. With `agg` all 32 lanes
 // call (warp-uniform): a lane whose run is in the same cell as its left
 // neighbour's joins that lane's segment, a segmented scan sums each
 // segment, and its last lane adds the sum.
-template <int C, bool kSmem>
+template <int C>
 __device__ __forceinline__ void add_runs(bool agg, bool act, int ix, int iy,
                                          int iz, const float* W,
                                          const float* g, float* dst,
@@ -512,16 +467,16 @@ __device__ __forceinline__ void add_runs(bool agg, bool act, int ix, int iy,
       }
     }
     if (last)
-      add_to<C, kSmem>(dst + (int64_t)corner_row(ix, iy, iz, c, v) * C, u);
+      add_row<C>(dst + (int64_t)corner_row(ix, iy, iz, c, v) * C, u);
   }
 }
 
 // The backward of one sample at one level. Every lane of the warp calls
 // (`active`: this lane holds a sample), because aggregated levels shuffle.
-// gp: g_out[b, l]; tbl: the level's table slice; dst: its gradient slice in
-// device or shared memory (kSmem), nullptr when d_table is not wanted;
-// dx / ds: this sample's d_x01 / d_stds, nullptr when not wanted.
-template <int C, bool kSmem>
+// gp: g_out[b, l]; tbl: the level's table slice; dst: its d_table slice,
+// nullptr when d_table is not wanted; dx / ds: this sample's d_x01 /
+// d_stds, nullptr when not wanted.
+template <int C>
 __device__ __forceinline__ void backward_one(bool active, Points pt,
                                              const float* gp,
                                              const float* tbl, float* dst,
@@ -531,7 +486,7 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
   const bool agg = (v.flags & kAggregate) != 0;
   const float inv_n = 1.0f / (float)n;
   float g[C] = {};
-  if (active) load_row<C, true>(gp, g);
+  if (active) load_row<C>(gp, g);
   float W[8] = {};
   int cx = 0, cy = 0, cz = 0;
   bool have = false;
@@ -553,9 +508,9 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
       const bool ends = in && have && !(merge && same_cell(p, cx, cy, cz));
       if (agg) {
         if (__any_sync(kFullMask, ends))
-          add_runs<C, kSmem>(true, ends, cx, cy, cz, W, g, dst, v);
+          add_runs<C>(true, ends, cx, cy, cz, W, g, dst, v);
       } else if (ends) {
-        add_runs<C, kSmem>(false, true, cx, cy, cz, W, g, dst, v);
+        add_runs<C>(false, true, cx, cy, cz, W, g, dst, v);
       }
       if (ends) have = false;
       if (in) {
@@ -579,8 +534,8 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
         const float wy = (c & 2) ? p.ry : 1.f - p.ry;
         const float wz = (c & 4) ? p.rz : 1.f - p.rz;
         float row[C];
-        load_row<C, true>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz, c, v) * C,
-                          row);
+        load_row<C>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz, c, v) * C,
+                    row);
         float dot = 0.f;
 #pragma unroll
         for (int k = 0; k < C; ++k) dot += g[k] * row[k];
@@ -607,86 +562,39 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
   if (dst != nullptr) {
     if (agg) {
       if (__any_sync(kFullMask, have))
-        add_runs<C, kSmem>(true, have, cx, cy, cz, W, g, dst, v);
+        add_runs<C>(true, have, cx, cy, cz, W, g, dst, v);
     } else if (have) {
-      add_runs<C, kSmem>(false, true, cx, cy, cz, W, g, dst, v);
+      add_runs<C>(false, true, cx, cy, cz, W, g, dst, v);
     }
   }
 }
 
-// The levels of lv.order, d_table in device memory; blocks as the forward.
 template <int C>
 __global__ void hash_encode_ms_bwd_kernel(
     const float* __restrict__ table, const float* __restrict__ x01,
     const float* __restrict__ stds, const float* __restrict__ g_out,
     float* __restrict__ d_table, float* __restrict__ d_x01,
-    float* __restrict__ d_stds, int64_t B, int n, int L, int n_order,
-    GridLevels lv) {
+    float* __restrict__ d_stds, int64_t B, int n, int L, int64_t tiles,
+    int level_major, GridLevels lv) {
   extern __shared__ __align__(16) float smem[];
-  const int l = lv.order[blockIdx.x % n_order];
-  const int64_t b0 = (int64_t)(blockIdx.x / n_order) * blockDim.x;
-  const int cnt = tile_count(B, b0);
-  const Level v = level_of(lv, l);
+  const Work w = work_of(tiles, L, level_major != 0);
+  const int cnt = tile_count(B, w.b0);
+  const Level v = level_of(lv, w.l);
   const bool stage = (v.flags & kStage) != 0;
   if (stage) {
-    stage_tile(x01, stds, b0, cnt, n, smem, smem + cnt * n * 3);
+    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
     __syncthreads();
   }
   // No early return: the lanes past B join the warp's shuffles.
-  const int64_t b = b0 + threadIdx.x;
-  const int64_t off = (int64_t)lv.offset[l] * C;
-  backward_one<C, false>(
+  const int64_t b = w.b0 + threadIdx.x;
+  const int64_t off = (int64_t)lv.offset[w.l] * C;
+  backward_one<C>(
       (int)threadIdx.x < cnt,
-      points_of(x01, stds, b0, cnt, n, stage ? smem : nullptr),
-      g_out + (b * L + l) * C, table + off,
+      points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr),
+      g_out + (b * L + w.l) * C, table + off,
       d_table != nullptr ? d_table + off : nullptr,
       d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr,
       d_stds != nullptr ? d_stds + b * n : nullptr, n, v);
-}
-
-// Level l's gradient summed in a shared-memory slice by persistent blocks;
-// each block then adds its non-zero rows to d_table.
-template <int C>
-__global__ void hash_encode_ms_bwd_shared_kernel(
-    const float* __restrict__ table, const float* __restrict__ x01,
-    const float* __restrict__ stds, const float* __restrict__ g_out,
-    float* __restrict__ d_table, float* __restrict__ d_x01,
-    float* __restrict__ d_stds, int64_t B, int n, int L, int l,
-    GridLevels lv) {
-  extern __shared__ __align__(16) float smem[];
-  const Level v = level_of(lv, l);
-  const int slice = (int)v.rows * C;
-  float* const stage = smem + slice;
-  for (int i = threadIdx.x; i < slice; i += blockDim.x) smem[i] = 0.f;
-  const bool staged = (v.flags & kStage) != 0;
-  const int64_t off = (int64_t)lv.offset[l] * C;
-  for (int64_t b0 = (int64_t)blockIdx.x * blockDim.x; b0 < B;
-       b0 += (int64_t)gridDim.x * blockDim.x) {
-    const int cnt = tile_count(B, b0);
-    __syncthreads();  // the slice is zeroed; the previous tile is read
-    if (staged) {
-      stage_tile(x01, stds, b0, cnt, n, stage, stage + cnt * n * 3);
-      __syncthreads();
-    }
-    const int64_t b = b0 + threadIdx.x;
-    backward_one<C, true>(
-        (int)threadIdx.x < cnt,
-        points_of(x01, stds, b0, cnt, n, staged ? stage : nullptr),
-        g_out + (b * L + l) * C, table + off, smem,
-        d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr,
-        d_stds != nullptr ? d_stds + b * n : nullptr, n, v);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < (int)v.rows; r += blockDim.x) {
-    float u[C];
-    bool any = false;
-#pragma unroll
-    for (int k = 0; k < C; ++k) {
-      u[k] = smem[r * C + k];
-      any = any || u[k] != 0.f;
-    }
-    if (any) add_row<C>(d_table + off + (int64_t)r * C, u);
-  }
 }
 
 void fill_levels(GridLevels* lv, int L, const float* scale,
@@ -705,29 +613,23 @@ void fill_levels(GridLevels* lv, int L, const float* scale,
   }
 }
 
-// The launch plan of ops/grid.py:launch_plan: per level, its flags, the
-// threads of its blocks, the persistent blocks of a shared-memory level and
-// the dynamic shared memory of its blocks.
-struct Plan {
-  const int* threads;
-  const int* blocks;
-  const int* smem;
-};
-
-// Refuses a plan whose blocks are not whole warps, or whose shared memory
-// does not hold what its kernels keep there.
-cudaError_t check_plan(const GridLevels& lv, int L, int n, int C, Plan p) {
-  for (int l = 0; l < L; ++l) {
-    const int t = p.threads[l];
-    if (t < 32 || t > 1024 || t % 32 != 0) return cudaErrorInvalidValue;
-    long long need = (lv.flags[l] & kStage) ? 16LL * t * n : 0;
-    if (lv.flags[l] & kShared) {
-      need += 4LL * C * lv.rows[l];
-      if (p.blocks[l] <= 0) return cudaErrorInvalidValue;
-    }
-    if (need > p.smem[l] || p.smem[l] > kMaxSharedBytes)
-      return cudaErrorInvalidValue;
-  }
+// The launch of B samples x L levels in blocks of `threads` samples:
+// `tiles` per level, `blocks` in all, `smem` bytes of staged points per
+// block. Refuses blocks that are not whole warps, and staged tiles larger
+// than a block's shared memory.
+cudaError_t grid_of(const GridLevels& lv, int L, int64_t B, int n,
+                    int threads, int64_t* tiles, unsigned* blocks,
+                    int* smem) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  bool stage = false;
+  for (int l = 0; l < L; ++l) stage = stage || (lv.flags[l] & kStage);
+  const long long bytes = stage ? 16LL * threads * n : 0;
+  *tiles = (B + threads - 1) / threads;
+  if (bytes > kMaxSharedBytes || *tiles * L > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  *blocks = (unsigned)(*tiles * L);
+  *smem = (int)bytes;
   return cudaSuccess;
 }
 
@@ -738,83 +640,39 @@ cudaError_t allow_smem(const void* kernel, int bytes) {
                               bytes);
 }
 
-// The kShared levels, one launch each; then one launch of the
-// device-memory kernel over the other levels, whose blocks must all have
-// the same threads. launch_shared(l, blocks, threads, smem)
-// and launch_global(blocks, threads, smem, n_order) launch.
-template <typename Shared, typename Global>
-cudaError_t launch_levels(GridLevels& lv, int L, int64_t B, Plan p,
-                          const void* shared_kernel,
-                          const void* global_kernel, Shared launch_shared,
-                          Global launch_global) {
-  int n_order = 0, threads = 0, smem = 0;
-  for (int l = 0; l < L; ++l) {
-    if (lv.flags[l] & kShared) {
-      cudaError_t err = allow_smem(shared_kernel, p.smem[l]);
-      if (err != cudaSuccess) return err;
-      const int64_t tiles = (B + p.threads[l] - 1) / p.threads[l];
-      launch_shared(l, (unsigned)(tiles < p.blocks[l] ? tiles : p.blocks[l]),
-                    p.threads[l], p.smem[l]);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return err;
-    } else {
-      if (n_order > 0 && p.threads[l] != threads) return cudaErrorInvalidValue;
-      threads = p.threads[l];
-      smem = p.smem[l] > smem ? p.smem[l] : smem;
-      lv.order[n_order++] = l;
-    }
-  }
-  if (n_order == 0) return cudaSuccess;
-  const int64_t blocks = (B + threads - 1) / threads * n_order;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(global_kernel, smem);
+template <int C>
+cudaError_t encode(const float* table, const float* x01, const float* stds,
+                   float* out, int64_t B, int n, int L, const GridLevels& lv,
+                   int threads, int level_major, cudaStream_t s) {
+  int64_t tiles;
+  unsigned blocks;
+  int smem;
+  cudaError_t err = grid_of(lv, L, B, n, threads, &tiles, &blocks, &smem);
+  if (err == cudaSuccess)
+    err = allow_smem((const void*)hash_encode_ms_kernel<C>, smem);
   if (err != cudaSuccess) return err;
-  launch_global((unsigned)blocks, threads, smem, n_order);
+  hash_encode_ms_kernel<C><<<blocks, threads, smem, s>>>(
+      table, x01, stds, out, B, n, L, tiles, level_major, lv);
   return cudaGetLastError();
 }
 
 template <int C>
-cudaError_t encode_levels(const float* table, const float* x01,
-                          const float* stds, float* out, int64_t B, int n,
-                          int L, GridLevels& lv, Plan p, cudaStream_t s) {
-  cudaError_t err = check_plan(lv, L, n, C, p);
+cudaError_t backward(const float* table, const float* x01, const float* stds,
+                     const float* g_out, float* d_table, float* d_x01,
+                     float* d_stds, int64_t B, int n, int L,
+                     const GridLevels& lv, int threads, int level_major,
+                     cudaStream_t s) {
+  int64_t tiles;
+  unsigned blocks;
+  int smem;
+  cudaError_t err = grid_of(lv, L, B, n, threads, &tiles, &blocks, &smem);
+  if (err == cudaSuccess)
+    err = allow_smem((const void*)hash_encode_ms_bwd_kernel<C>, smem);
   if (err != cudaSuccess) return err;
-  return launch_levels(
-      lv, L, B, p, (const void*)hash_encode_ms_shared_kernel<C>,
-      (const void*)hash_encode_ms_kernel<C>,
-      [&](int l, unsigned blocks, int threads, int smem) {
-        hash_encode_ms_shared_kernel<C><<<blocks, threads, smem, s>>>(
-            table, x01, stds, out, B, n, L, l, lv);
-      },
-      [&](unsigned blocks, int threads, int smem, int n_order) {
-        hash_encode_ms_kernel<C><<<blocks, threads, smem, s>>>(
-            table, x01, stds, out, B, n, L, n_order, lv);
-      });
-}
-
-template <int C>
-cudaError_t backward_levels(const float* table, const float* x01,
-                            const float* stds, const float* g_out,
-                            float* d_table, float* d_x01, float* d_stds,
-                            int64_t B, int n, int L, GridLevels& lv, Plan p,
-                            cudaStream_t s) {
-  cudaError_t err = check_plan(lv, L, n, C, p);
-  if (err != cudaSuccess) return err;
-  // A shared-memory level sums d_table: without it, the plan has none.
-  for (int l = 0; l < L && d_table == nullptr; ++l)
-    if (lv.flags[l] & kShared) return cudaErrorInvalidValue;
-  return launch_levels(
-      lv, L, B, p, (const void*)hash_encode_ms_bwd_shared_kernel<C>,
-      (const void*)hash_encode_ms_bwd_kernel<C>,
-      [&](int l, unsigned blocks, int threads, int smem) {
-        hash_encode_ms_bwd_shared_kernel<C><<<blocks, threads, smem, s>>>(
-            table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, l, lv);
-      },
-      [&](unsigned blocks, int threads, int smem, int n_order) {
-        hash_encode_ms_bwd_kernel<C><<<blocks, threads, smem, s>>>(
-            table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L,
-            n_order, lv);
-      });
+  hash_encode_ms_bwd_kernel<C><<<blocks, threads, smem, s>>>(
+      table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, tiles,
+      level_major, lv);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -842,29 +700,31 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
   return cudaGetLastError();
 }
 
-// flags, threads, blocks, smem: the launch plan, one entry per level.
+// flags (one per level), threads, level_major: the launch plan.
 int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                       float* out, long long B, int n, int L, int C,
                       const float* scale, const float* grid_size,
                       const unsigned int* res, const unsigned int* rows,
                       const unsigned int* offset, const int* tiled,
-                      const int* flags, const int* threads, const int* blocks,
-                      const int* smem, int device, void* stream) {
+                      const int* flags, int threads, int level_major,
+                      int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
   fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, flags);
   if (B == 0) return cudaSuccess;
-  const Plan p{threads, blocks, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
-      return encode_levels<1>(table, x01, stds, out, B, n, L, lv, p, s);
+      return encode<1>(table, x01, stds, out, B, n, L, lv, threads,
+                       level_major, s);
     case 2:
-      return encode_levels<2>(table, x01, stds, out, B, n, L, lv, p, s);
+      return encode<2>(table, x01, stds, out, B, n, L, lv, threads,
+                       level_major, s);
     case 4:
-      return encode_levels<4>(table, x01, stds, out, B, n, L, lv, p, s);
+      return encode<4>(table, x01, stds, out, B, n, L, lv, threads,
+                       level_major, s);
     // The ported presets' grids: C = 1 (proposal), 4 (NeRF), 2 (tiny_debug).
     default:
       return cudaErrorInvalidValue;
@@ -872,7 +732,7 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
 }
 
 // d_table, d_x01, d_stds: zero-filled by the caller, each nullptr when not
-// wanted. flags, threads, blocks, smem: the launch plan, as the forward's.
+// wanted. flags, threads, level_major: the launch plan, as the forward's.
 int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* stds, const float* g_out,
                           float* d_table, float* d_x01, float* d_stds,
@@ -880,27 +740,25 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* grid_size, const unsigned int* res,
                           const unsigned int* rows,
                           const unsigned int* offset, const int* tiled,
-                          const int* flags, const int* threads,
-                          const int* blocks, const int* smem, int device,
-                          void* stream) {
+                          const int* flags, int threads, int level_major,
+                          int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
   fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, flags);
   if (B == 0) return cudaSuccess;
-  const Plan p{threads, blocks, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
-      return backward_levels<1>(table, x01, stds, g_out, d_table, d_x01,
-                                d_stds, B, n, L, lv, p, s);
+      return backward<1>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
+                         n, L, lv, threads, level_major, s);
     case 2:
-      return backward_levels<2>(table, x01, stds, g_out, d_table, d_x01,
-                                d_stds, B, n, L, lv, p, s);
+      return backward<2>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
+                         n, L, lv, threads, level_major, s);
     case 4:
-      return backward_levels<4>(table, x01, stds, g_out, d_table, d_x01,
-                                d_stds, B, n, L, lv, p, s);
+      return backward<4>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
+                         n, L, lv, threads, level_major, s);
     default:
       return cudaErrorInvalidValue;
   }

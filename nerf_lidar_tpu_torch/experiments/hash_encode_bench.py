@@ -10,7 +10,8 @@ warm step hands `grid.hash_encode_multisample_bwd` for each grid, renders
 one sweep through `render_lidar` from the weights it wrote, and records the
 (x01, stds) of the sweep's first chunk per grid. Then, per grid: H1-bwd on
 the train inputs and H1 on the render inputs, each also on uniform points
-of the same shape, timed with CUDA events after a warm-up and held against
+of the same shape, and H1 on the train inputs (the step's forward encodes
+the same points), timed with CUDA events after a warm-up and held against
 its plain version. One JSON line per measurement, after nvidia-smi's name
 and power limit of the card.
 
@@ -36,6 +37,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Relative to the largest value, as chip_smoke.py holds them.
@@ -207,38 +209,24 @@ def measure_bwd(spec, table, x01, stds, g_out, needs, fn, plain=None):
     return cuda_ms(fn), err, plain
 
 
-def plan_variant(plan, n_ms, clear=0, set_=0, shared=True):
-    """`plan` with the flags `clear` off and `set_` on; without `shared`
-    every level runs in the device-memory launch."""
-    import numpy as np
-    from nerf_lidar_tpu_torch.ops import grid
-    flags = (plan.flags & ~clear) | set_
-    threads, blocks, smem = (plan.threads.copy(), plan.blocks.copy(),
-                             plan.smem.copy())
-    if not shared:
-        flags &= ~grid.PLAN_SHARED
-        threads[:], blocks[:] = grid._TILE_THREADS, 0
-    for l, f in enumerate(flags):
-        stage = grid._stage_bytes(int(threads[l]), n_ms) \
-            if f & grid.PLAN_STAGE else 0
-        if f & grid.PLAN_SHARED:
-            stage += int(plan.smem[l]) - grid._stage_bytes(
-                int(plan.threads[l]), n_ms)  # the slice
-        smem[l] = stage
-    return grid.LaunchPlan(flags.astype(np.int32), threads, blocks, smem)
-
-
-def variants(grid, plan, n_ms):
-    """{name: plan} of the launch plan with each part off."""
+def variants(grid, spec, plan):
+    """{name: plan} of the launch plan with each of its parts changed: the
+    merge and the warp aggregation off, aggregation on the tiled levels
+    only, the staging and the block order the other way; and "none" of
+    them, level-major, as the kernels before the redesign ran."""
+    import dataclasses
+    tiled = np.asarray([spec.is_tiled(l) for l in range(spec.num_levels)])
+    vary = lambda flags, **kw: dataclasses.replace(
+        plan, flags=flags.astype(np.int32), **kw)
     return {
-        "no_merge": plan_variant(plan, n_ms, clear=grid.PLAN_MERGE),
-        "no_shared": plan_variant(plan, n_ms, shared=False),
-        "no_aggregate": plan_variant(plan, n_ms, clear=grid.PLAN_AGGREGATE),
-        "aggregate_all": plan_variant(plan, n_ms, set_=grid.PLAN_AGGREGATE),
-        "no_stage": plan_variant(plan, n_ms, clear=grid.PLAN_STAGE),
-        "none": plan_variant(plan, n_ms, clear=grid.PLAN_MERGE
-                             | grid.PLAN_AGGREGATE | grid.PLAN_STAGE,
-                             shared=False),
+        "no_merge": vary(plan.flags & ~grid.PLAN_MERGE),
+        "no_aggregate": vary(plan.flags & ~grid.PLAN_AGGREGATE),
+        "aggregate_tiled_only": vary(np.where(
+            tiled, plan.flags, plan.flags & ~grid.PLAN_AGGREGATE)),
+        "other_staging": vary(plan.flags ^ grid.PLAN_STAGE),
+        "other_order": vary(plan.flags, level_major=not plan.level_major),
+        "none": vary(plan.flags & ~(grid.PLAN_MERGE | grid.PLAN_AGGREGATE
+                                    | grid.PLAN_STAGE), level_major=True),
     }
 
 
@@ -366,13 +354,13 @@ def main(argv=None):
             ms, err, plain = measure_bwd(spec, table, x, s, g_out, needs, fn)
             n_bytes, flops = bwd_bound(spec, x, s, g_out)
             emit(root=root, kernel="hash_encode_ms_bwd", grid=name,
-                 inputs=inputs, B=s.numel() // n_ms, n=n_ms, needs=list(needs),
+                 inputs=inputs, B=s.numel() // n_ms, n=n_ms,
+                 needs=list(needs),
                  ms=ms, max_rel_err=err, bound_ms=bound_ms(n_bytes, flops),
                  bytes=n_bytes, flops=flops)
             if args.variants and inputs == "train":
-                plan = grid.launch_plan(spec, n_ms, grid._sm_count(
-                    x.device.index), shared=bool(needs[0]))
-                for vname, vplan in variants(grid, plan, n_ms).items():
+                plan = grid.launch_plan(spec, n_ms, backward=True)
+                for vname, vplan in variants(grid, spec, plan).items():
                     vms, verr, _ = measure_bwd(
                         spec, table, x, s, g_out, needs,
                         lambda: grid._bwd_kernel(table, x, s, g_out, spec,
@@ -381,7 +369,15 @@ def main(argv=None):
                          inputs=inputs, variant=vname, ms=vms,
                          max_rel_err=verr)
             del plain
-        del train[name]
+        # The train step's forward encodes the same points.
+        want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
+        fn = lambda: grid.hash_encode_multisample(table, x01, stds, spec)
+        err = check_fwd(f"hash_encode_ms {name} train", fn(), want)
+        n_bytes, flops = fwd_bound(spec, x01, stds)
+        emit(root=root, kernel="hash_encode_ms", grid=name, inputs="train",
+             B=stds.numel() // n_ms, n=n_ms, ms=cuda_ms(fn), max_abs_err=err,
+             bound_ms=bound_ms(n_bytes, flops), bytes=n_bytes, flops=flops)
+        del train[name], want
         torch.cuda.empty_cache()
 
     for name in GRIDS:
@@ -394,14 +390,14 @@ def main(argv=None):
             err = check_fwd(f"hash_encode_ms {name}", fn(), want)
             n_bytes, flops = fwd_bound(spec, x, s)
             emit(root=root, kernel="hash_encode_ms", grid=name,
-                 inputs=inputs, B=s.numel() // n_ms, n=n_ms, ms=cuda_ms(fn),
+                 inputs=inputs, B=s.numel() // n_ms, n=n_ms,
+                 ms=cuda_ms(fn),
                  max_abs_err=err, bound_ms=bound_ms(n_bytes, flops),
                  bytes=n_bytes, flops=flops)
             if args.variants and inputs == "render":
-                plan = grid.launch_plan(spec, n_ms,
-                                        grid._sm_count(x.device.index))
-                for vname, vplan in variants(grid, plan, n_ms).items():
-                    if vname in ("no_aggregate", "aggregate_all"):
+                plan = grid.launch_plan(spec, n_ms)
+                for vname, vplan in variants(grid, spec, plan).items():
+                    if "aggregate" in vname:
                         continue  # the forward does not aggregate
                     vfn = lambda: grid._encode_kernel(table, x, s, spec,
                                                       vplan)

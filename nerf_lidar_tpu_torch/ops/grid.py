@@ -270,35 +270,23 @@ def _kernel_levels(spec: HashGridSpec):
                        np.int32))
 
 
-# Kernel H1's launch plan (csrc/kernels.cu), per level: flags of the paths
-# it takes (the kernel's kMerge, kAggregate, kShared, kStage), ...
-PLAN_MERGE, PLAN_AGGREGATE, PLAN_SHARED, PLAN_STAGE = 1, 2, 4, 8
-# ... and the H100's limits it is sized by: the dynamic shared memory one
-# block may use, an SM's shared memory (1 KiB of it reserved per block),
-# and its streaming multiprocessors.
+# Kernel H1's launch plan (csrc/kernels.cu): per level, flags of the paths
+# it takes (the kernel's kMerge, kAggregate, kStage).
+PLAN_MERGE, PLAN_AGGREGATE, PLAN_STAGE = 1, 2, 4
+# The H100's dynamic shared memory per block and L2 cache, in bytes; threads
+# (= samples) of a block.
 SHARED_BYTES = 232_448
-_SM_SHARED_BYTES = 233_472
-H100_SMS = 132
-# Threads (= samples) of a block of the device-memory launch and of a
-# persistent shared-memory block; persistent blocks per SM at most (each
-# adds its slice to d_table once).
+L2_BYTES = 50 * 2**20
 _TILE_THREADS = 128
-_SHARED_THREADS = 256
-_MAX_BLOCKS_PER_SM = 4
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LaunchPlan:
-    """Per level, int32 arrays: `flags` (PLAN_*), `threads` of its blocks,
-    persistent `blocks` (shared-memory levels; 0 elsewhere) and the dynamic
-    shared memory of a block in bytes (`smem`)."""
+    """`flags`: int32 [L] of PLAN_* per level; `threads`: samples per block;
+    `level_major`: the blocks of one level run before the next level's."""
     flags: np.ndarray
-    threads: np.ndarray
-    blocks: np.ndarray
-    smem: np.ndarray
-
-    def arrays(self):
-        return self.flags, self.threads, self.blocks, self.smem
+    threads: int
+    level_major: bool
 
 
 def _stage_bytes(threads: int, n_ms: int) -> int:
@@ -307,45 +295,28 @@ def _stage_bytes(threads: int, n_ms: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def launch_plan(spec: HashGridSpec, n_ms: int, sm_count: int = H100_SMS,
-                shared: bool = True) -> LaunchPlan:
-    """Which path kernel H1 and its backward take at each level, for n_ms
-    multisamples on a card with `sm_count` SMs:
-    - every level merges runs of same-cell multisamples and stages the
-      block's x01 / stds through shared memory (while the tile fits);
-    - with `shared` (the forward, and a backward that sums d_table), a level
-      whose slice and staged tile fit SHARED_BYTES runs from shared memory
-      in persistent blocks, as many per SM (up to 4) as fit its shared
-      memory; the others run in one device-memory launch of
-      `_TILE_THREADS`-sample blocks;
-    - the backward aggregates a warp's row updates on the tiled levels,
-      where neighbouring samples of a ray share cells.
+def launch_plan(spec: HashGridSpec, n_ms: int,
+                backward: bool = False) -> LaunchPlan:
+    """How kernel H1 (or, with `backward`, its backward) runs each level
+    for n_ms multisamples, in blocks of `_TILE_THREADS` samples, as measured
+    on the train step's and a render chunk's points (PERF.md):
+    - every level merges runs of same-cell multisamples; the backward also
+      aggregates a warp's row updates;
+    - a table larger than the L2 (the NeRF grid's 240 MB) runs level-major,
+      so that one level's slice (up to 33.5 MB) takes the reads or atomics
+      in L2, and each block stages its tile of x01 / stds through shared
+      memory (while the tile fits SHARED_BYTES), since the tile comes from
+      device memory once per level;
+    - a table that fits (the proposal grids' 26 and 43 MB) runs a tile's
+      levels in neighbouring blocks, which find the tile in L2 and read it
+      directly.
     """
-    levels = range(spec.num_levels)
-    flags = np.zeros(spec.num_levels, np.int32)
-    threads = np.full(spec.num_levels, _TILE_THREADS, np.int32)
-    blocks = np.zeros(spec.num_levels, np.int32)
-    smem = np.zeros(spec.num_levels, np.int32)
-    tile = _stage_bytes(_TILE_THREADS, n_ms)
-    for l in levels:
-        flags[l] = PLAN_MERGE | (PLAN_AGGREGATE if spec.is_tiled(l) else 0)
-        need = (spec.rows_per_level[l] * spec.level_dim * 4
-                + _stage_bytes(_SHARED_THREADS, n_ms))
-        if shared and need <= SHARED_BYTES:
-            per_sm = min(_MAX_BLOCKS_PER_SM, _SM_SHARED_BYTES // (need + 1024))
-            flags[l] |= PLAN_SHARED | PLAN_STAGE
-            threads[l] = _SHARED_THREADS
-            blocks[l] = sm_count * per_sm
-            smem[l] = need
-        elif tile <= SHARED_BYTES:
-            flags[l] |= PLAN_STAGE
-            smem[l] = tile
-    return LaunchPlan(flags, threads, blocks, smem)
-
-
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    level_major = spec.total_rows * spec.level_dim * 4 > L2_BYTES
+    stage = level_major and _stage_bytes(_TILE_THREADS, n_ms) <= SHARED_BYTES
+    flag = (PLAN_MERGE | (PLAN_AGGREGATE if backward else 0)
+            | (PLAN_STAGE if stage else 0))
+    return LaunchPlan(np.full(spec.num_levels, flag, np.int32), _TILE_THREADS,
+                      level_major)
 
 
 def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
@@ -380,20 +351,19 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
 def _encode_kernel(table, x01, stds, spec: HashGridSpec,
                    plan: LaunchPlan = None) -> torch.Tensor:
     """Launch kernel H1 (`hash_encode_ms`): [..., L*C] features. `plan`:
-    `launch_plan`'s for this card, unless a measurement gives another."""
+    `launch_plan`'s, unless a measurement gives another."""
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
-    if plan is None:
-        plan = launch_plan(spec, n_ms, _sm_count(x.device.index))
+    plan = plan or launch_plan(spec, n_ms)
     out = torch.empty((b, spec.output_dim), dtype=torch.float32,
                       device=x.device)
-    arrays = _kernel_levels(spec) + plan.arrays()  # alive through the call
+    arrays = _kernel_levels(spec) + (plan.flags,)  # alive through the call
     lib = _build.library()
     rc = lib.nl_hash_encode_ms(
         table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(),
         b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays), x.device.index,
-        _build.stream_of(x))
+        *(a.ctypes.data for a in arrays), plan.threads, plan.level_major,
+        x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
     hash_encode_multisample.launches += 1
     return out.reshape(x01.shape[:-2] + (spec.output_dim,))
@@ -405,22 +375,20 @@ def _bwd_kernel(table, x01, stds, g_out, spec: HashGridSpec, needs,
     `_encode_kernel`."""
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
-    if plan is None:
-        plan = launch_plan(spec, n_ms, _sm_count(x.device.index),
-                           shared=bool(needs[0]))
+    plan = plan or launch_plan(spec, n_ms, backward=True)
     g = g_out.contiguous()
     _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
     g = _aligned("g_out", g.reshape(b, spec.output_dim), spec.level_dim)
     outs = [torch.zeros_like(t) if need else None
             for t, need in zip((table, x, s), needs)]
     ptr = lambda t: None if t is None else t.data_ptr()
-    arrays = _kernel_levels(spec) + plan.arrays()  # alive through the call
+    arrays = _kernel_levels(spec) + (plan.flags,)  # alive through the call
     lib = _build.library()
     rc = lib.nl_hash_encode_ms_bwd(
         table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
         *(ptr(t) for t in outs), b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays), x.device.index,
-        _build.stream_of(x))
+        *(a.ctypes.data for a in arrays), plan.threads, plan.level_major,
+        x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms_bwd")
     hash_encode_multisample_bwd.launches += 1
     d_table, d_x, d_s = outs

@@ -204,36 +204,88 @@ def _check_encode_kernels(dev, spec, x01, stds, g):
                                   "n1"])
 @pytest.mark.parametrize("level_dim", [1, 2, 4])
 def test_hash_encode_kernels_on_merge_cases(dev, level_dim, case):
-    """Levels 0-2 (C4) or 0-3 (C1, C2) from shared memory, the finer ones
-    hashed in device memory."""
+    """Tiled coarse levels (merged runs, aggregated updates on shared cells)
+    and hashed fine ones."""
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=128,
         log2_hashmap_size=16))
-    plan = grid.launch_plan(spec, 1 if case == "n1" else 7)
-    shared = (plan.flags & grid.PLAN_SHARED) != 0
-    assert shared.any() and not shared.all()
+    tiled = [spec.is_tiled(l) for l in range(spec.num_levels)]
+    assert any(tiled) and not all(tiled)
     g = torch.Generator(device=dev).manual_seed(20 + level_dim)
     x01, stds = _merge_case(dev, spec, case, g)
     _check_encode_kernels(dev, spec, x01, stds, g)
 
 
-# Level 0 just under and just over the shared-memory budget at n = 7 (as in
-# tests/test_torch_grid_plan.py).
-BUDGET_EDGES = {"c1_under": (1, 36, 16), "c1_over": (1, 37, 16),
-                "c4_under": (4, 22, 14), "c4_over": (4, 23, 14)}
-
-
-@pytest.mark.parametrize("name", sorted(BUDGET_EDGES))
-def test_hash_encode_kernels_at_the_shared_memory_budget(dev, name):
-    c, base, log2 = BUDGET_EDGES[name]
+@pytest.mark.parametrize("level_major", [False, True])
+@pytest.mark.parametrize("level_dim", [1, 4])
+def test_hash_encode_kernels_in_both_block_orders(dev, level_dim,
+                                                  level_major):
+    """The plan's block order (level-major for tables larger than the L2,
+    as the NeRF grid's), forced both ways on a small grid, with the
+    staging on and off."""
+    import dataclasses
     spec = grid.spec_for(configs.GridConfig(
-        level_dim=c, base_resolution=base, desired_resolution=2 * base,
-        log2_hashmap_size=log2))
-    plan = grid.launch_plan(spec, 7)
-    assert bool(plan.flags[0] & grid.PLAN_SHARED) == name.endswith("under")
+        level_dim=level_dim, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16))
+    g = torch.Generator(device=dev).manual_seed(40)
+    x01, stds = _ray_points(dev, 30, 50, 7, g)
+    table = torch.rand(spec.total_rows, level_dim, device=dev,
+                       generator=g) * 2 - 1
+    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
+                        generator=g)
+    for backward in (False, True):
+        plan = grid.launch_plan(spec, 7, backward)
+        for flags in (plan.flags | grid.PLAN_STAGE,
+                      plan.flags & ~grid.PLAN_STAGE):
+            forced = dataclasses.replace(plan, flags=flags,
+                                         level_major=level_major)
+            if backward:
+                got = grid._bwd_kernel(table, x01, stds, g_out, spec,
+                                       (True, True, True), forced)
+                want = grid.hash_encode_multisample_bwd_plain(
+                    table, x01, stds, g_out, spec)
+                for i, name in enumerate(("table", "x01", "stds")):
+                    _close_to_max(got[i], want[i], name)
+            else:
+                got = grid._encode_kernel(table, x01, stds, spec, forced)
+                want = grid.hash_encode_multisample_plain(
+                    table, x01, stds, spec)[0]
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [113, 114])
+@pytest.mark.parametrize("level_dim", [1, 4])
+def test_hash_encode_kernels_at_the_shared_memory_budget(dev, level_dim, n):
+    """A staged tile of x01 / stds just under the 232,448 bytes of shared
+    memory a block may use (n = 113: 231,424 bytes, above the default
+    48 KB) and just over it (n = 114: read from device memory), in
+    level-major blocks (a table larger than the L2 runs so)."""
+    import dataclasses
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=level_dim, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16))
     g = torch.Generator(device=dev).manual_seed(30)
-    x01, stds = _ray_points(dev, 64, 64, 7, g)
-    _check_encode_kernels(dev, spec, x01, stds, g)
+    x01, stds = _ray_points(dev, 16, 24, n, g)
+    table = torch.rand(spec.total_rows, level_dim, device=dev,
+                       generator=g) * 2 - 1
+    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
+                        generator=g)
+    for backward in (False, True):
+        plan = grid.launch_plan(spec, n, backward)
+        plan = dataclasses.replace(plan, level_major=True, flags=plan.flags
+                                   | (grid.PLAN_STAGE if n == 113 else 0))
+        if backward:
+            got = grid._bwd_kernel(table, x01, stds, g_out, spec,
+                                   (True, True, True), plan)
+            want = grid.hash_encode_multisample_bwd_plain(table, x01, stds,
+                                                          g_out, spec)
+            for i, name in enumerate(("table", "x01", "stds")):
+                _close_to_max(got[i], want[i], name)
+        else:
+            got = grid._encode_kernel(table, x01, stds, spec, plan)
+            want = grid.hash_encode_multisample_plain(table, x01, stds,
+                                                      spec)[0]
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
 def test_hash_encode_bwd_kernel_table_only(dev):

@@ -1,13 +1,14 @@
 """Kernel H1's launch plan (`nerf_lidar_tpu_torch/ops/grid.py:launch_plan`)
 for every hash grid of the port's presets that `spec_for` accepts.
 
-The plan says, per level, whether H1 and its backward run it from a
-shared-memory copy of the level's slice (persistent blocks, a launch of its
-own) or in the one device-memory launch, and with how many threads, blocks
-and bytes of shared memory. The kernels refuse a plan whose shared memory
-does not hold what they keep there (`csrc/kernels.cu:check_plan`); these
-tests hold the plan to the same rules on the CPU. Budget: 232,448 bytes of
-dynamic shared memory per block on the H100.
+The plan says, per level, which of the kernels' paths H1 and its backward
+take (the corner-run merge, warp-aggregated row updates, x01 / stds staged
+through shared memory), and in which order the blocks walk the levels
+(level-major when the table is larger than the L2). The kernels
+refuse a plan whose staged tile does not fit a block's shared memory
+(`csrc/kernels.cu:grid_of`); these tests hold the plan to the same rule on
+the CPU. Budget: 232,448 bytes of dynamic shared memory per block on the
+H100.
 """
 
 import inspect
@@ -45,31 +46,14 @@ def _preset_grids():
 
 
 CASES = _preset_grids()
-# A just-fitting and a just-too-large level 0 for C1 and C4 at n = 7: the
-# slice (tiled rows r^3 rounded up to 8, times 4C bytes) plus the staged
-# tile of 256 samples (16 bytes a multisample) against the budget.
-EDGES = {
-    "c1_under": configs.GridConfig(level_dim=1, base_resolution=36,
-                                   desired_resolution=72,
-                                   log2_hashmap_size=16),
-    "c1_over": configs.GridConfig(level_dim=1,
-                                  base_resolution=37, desired_resolution=74,
-                                  log2_hashmap_size=16),
-    "c4_under": configs.GridConfig(level_dim=4,
-                                   base_resolution=22, desired_resolution=44,
-                                   log2_hashmap_size=14),
-    "c4_over": configs.GridConfig(level_dim=4,
-                                  base_resolution=23, desired_resolution=46,
-                                  log2_hashmap_size=14),
-}
+# Multisamples whose staged tile of 128 samples (16 bytes a multisample)
+# just fits the budget (113: 231,424 bytes) and just does not (114).
+STAGE_EDGE = 113
 
 
-def _slice_bytes(spec, l):
-    return spec.rows_per_level[l] * spec.level_dim * 4
-
-
-def _shared(plan):
-    return (plan.flags & grid.PLAN_SHARED) != 0
+def _staged_bytes(plan, n):
+    return 16 * plan.threads * n if (plan.flags & grid.PLAN_STAGE).any() \
+        else 0
 
 
 def test_presets_have_grids():
@@ -77,104 +61,75 @@ def test_presets_have_grids():
             "nuscenes_single/prop0", "nuscenes_single/prop1"} <= set(CASES)
 
 
-@pytest.mark.parametrize("n_ms", [1, None])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("n_ms", [1, None, STAGE_EDGE + 1])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_every_level_is_covered_once(case, n_ms):
+def test_every_level_is_covered_once(case, n_ms, backward):
     spec, n = CASES[case]
-    plan = grid.launch_plan(spec, n_ms or n)
-    for a in plan.arrays():
-        assert a.dtype == np.int32 and a.shape == (spec.num_levels,)
-    shared = _shared(plan)
-    # A shared-memory level is its own launch (persistent blocks); every
-    # other level is in the one device-memory launch, whose blocks share a
-    # size.
-    assert ((plan.blocks > 0) == shared).all()
-    device = plan.threads[~shared]
-    assert len(set(device.tolist())) <= 1
-    assert shared.sum() + (~shared).sum() == spec.num_levels
+    plan = grid.launch_plan(spec, n_ms or n, backward)
+    assert plan.flags.dtype == np.int32
+    assert plan.flags.shape == (spec.num_levels,)
     assert (plan.flags & grid.PLAN_MERGE).all()
-    assert ((plan.threads % 32 == 0) & (plan.threads >= 32)
-            & (plan.threads <= 1024)).all()
+    assert plan.flags.max() < 2 * grid.PLAN_STAGE  # no unknown bits
+    # One launch of whole warps over every (sample, level).
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
 
 
-@pytest.mark.parametrize("n_ms", [1, None])
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("n_ms", [1, None, STAGE_EDGE, STAGE_EDGE + 1])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_shared_levels_fit_the_budget(case, n_ms):
+def test_staged_tiles_fit_the_budget(case, n_ms, backward):
     spec, n = CASES[case]
     n = n_ms or n
-    plan = grid.launch_plan(spec, n, sm_count=132)
-    for l in np.flatnonzero(_shared(plan)):
-        need = (_slice_bytes(spec, l)
-                + grid._stage_bytes(int(plan.threads[l]), n))
-        assert plan.flags[l] & grid.PLAN_STAGE
-        assert need <= plan.smem[l] <= grid.SHARED_BYTES == 232_448
-        per_sm = plan.blocks[l] // 132
-        assert plan.blocks[l] == 132 * per_sm and 1 <= per_sm <= 4
-        # Resident together: each block also holds 1 KiB of the SM's
-        # 228 KiB.
-        assert per_sm * (int(plan.smem[l]) + 1024) <= 233_472
-    for l in np.flatnonzero(~_shared(plan)):
-        stage = bool(plan.flags[l] & grid.PLAN_STAGE)
-        assert plan.smem[l] == (grid._stage_bytes(int(plan.threads[l]), n)
-                                if stage else 0)
-
-
-@pytest.mark.parametrize("n_ms", [1, None])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_levels_over_the_budget_stay_in_device_memory(case, n_ms):
-    spec, n = CASES[case]
-    n = n_ms or n
-    plan = grid.launch_plan(spec, n)
-    stage = grid._stage_bytes(grid._SHARED_THREADS, n)
-    fits = np.array([_slice_bytes(spec, l) + stage <= grid.SHARED_BYTES
-                     for l in range(spec.num_levels)])
-    np.testing.assert_array_equal(_shared(plan), fits)
-    # Without a table gradient to sum, the backward keeps every level in
-    # device memory.
-    assert not _shared(grid.launch_plan(spec, n, shared=False)).any()
+    plan = grid.launch_plan(spec, n, backward)
+    staged = plan.flags & grid.PLAN_STAGE
+    # Every level stages, or none: the tile is the same for all of them.
+    assert staged.all() or not staged.any()
+    assert _staged_bytes(plan, n) <= grid.SHARED_BYTES == 232_448
+    # Level-major blocks stage their tile; one over the budget is read from
+    # device memory instead.
+    fits = 16 * plan.threads * n <= grid.SHARED_BYTES
+    assert bool(staged.all()) == (plan.level_major and fits)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_aggregated_levels_are_the_tiled_ones(case):
+def test_backward_aggregates_and_large_tables_run_level_major(case):
     spec, n = CASES[case]
-    plan = grid.launch_plan(spec, n)
-    agg = (plan.flags & grid.PLAN_AGGREGATE) != 0
-    np.testing.assert_array_equal(
-        agg, [spec.is_tiled(l) for l in range(spec.num_levels)])
+    bwd = grid.launch_plan(spec, n, backward=True)
+    fwd = grid.launch_plan(spec, n)
+    assert (bwd.flags & grid.PLAN_AGGREGATE).all()
+    assert not (fwd.flags & grid.PLAN_AGGREGATE).any()
+    large = spec.total_rows * spec.level_dim * 4 > grid.L2_BYTES == 50 << 20
+    assert bwd.level_major == fwd.level_major == large
+
+
+def test_stage_edge():
+    spec = grid.spec_for(configs.nuscenes_single().model.nerf_mlp.grid)
+    under = grid.launch_plan(spec, STAGE_EDGE)
+    over = grid.launch_plan(spec, STAGE_EDGE + 1)
+    assert grid.SHARED_BYTES - 2048 < _staged_bytes(under, STAGE_EDGE) \
+        <= grid.SHARED_BYTES
+    assert 16 * over.threads * (STAGE_EDGE + 1) > grid.SHARED_BYTES
+    assert not (over.flags & grid.PLAN_STAGE).any()
 
 
 def test_nuscenes_single_plan():
-    """The reference recipe's grids: NeRF level 0 (78,720 B) and proposal
-    levels 0 and 1 (19,680 and 143,776 B) in shared memory; the rest in
-    device memory, levels 0-2 aggregated."""
-    cfg = configs.nuscenes_single()
-    m = cfg.model
-    want = {"nerf": [0], "prop0": [0, 1], "prop1": [0, 1]}
+    """The reference recipe's grids at n = 7: every level merged, and the
+    backward's updates aggregated; the NeRF grid (14,995,560 rows x C4,
+    240 MB) runs level-major and stages its tiles (14,336 bytes a block),
+    the proposal grids (26 and 43 MB) run a tile's levels side by side."""
+    m = configs.nuscenes_single().model
     for name, grid_cfg in [("nerf", m.nerf_mlp.grid)] + [
             (f"prop{i}", m.prop_mlp_for_level(i).grid) for i in range(2)]:
         spec = grid.spec_for(grid_cfg)
-        plan = grid.launch_plan(spec, m.sample_n, sm_count=132)
-        assert np.flatnonzero(_shared(plan)).tolist() == want[name], name
-        assert np.flatnonzero(plan.flags & grid.PLAN_AGGREGATE).tolist() \
-            == [0, 1, 2]
-        assert (plan.threads[~_shared(plan)] == grid._TILE_THREADS).all()
-    nerf = grid.launch_plan(grid.spec_for(m.nerf_mlp.grid), 7, 132)
-    assert nerf.blocks[0] == 264 and nerf.smem[0] == 78_720 + 28_672
-
-
-@pytest.mark.parametrize("name", sorted(EDGES))
-def test_budget_edges(name):
-    spec = grid.spec_for(EDGES[name])
-    plan = grid.launch_plan(spec, 7)
-    need = _slice_bytes(spec, 0) + grid._stage_bytes(grid._SHARED_THREADS, 7)
-    assert spec.is_tiled(0)
-    if name.endswith("under"):
-        assert _shared(plan)[0] and grid.SHARED_BYTES - 10_000 < need \
-            <= grid.SHARED_BYTES
-    else:
-        assert not _shared(plan)[0] and grid.SHARED_BYTES < need \
-            < grid.SHARED_BYTES + 30_000
-    assert not _shared(plan)[1]  # hashed, 2^14-2^16 rows: too large
+        fwd = grid.launch_plan(spec, m.sample_n)
+        bwd = grid.launch_plan(spec, m.sample_n, backward=True)
+        stage = grid.PLAN_STAGE if name == "nerf" else 0
+        assert (fwd.flags == grid.PLAN_MERGE | stage).all()
+        assert (bwd.flags == grid.PLAN_MERGE | grid.PLAN_AGGREGATE
+                | stage).all()
+        assert _staged_bytes(bwd, m.sample_n) == (14_336 if stage else 0)
+        assert fwd.level_major == bwd.level_major == (name == "nerf")
 
 
 def test_wrapper_refuses_misaligned_rows():
