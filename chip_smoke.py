@@ -309,6 +309,8 @@ def phase_hash_encode(dev, cfg, render_inputs):
         grids[name] = nums
         del table, x01, stds
     return dict(grids["nerf"]["render"], max_abs_err=worst, library_ms=None,
+                uniform_ms=grids["nerf"]["uniform"]["ms"],
+                uniform_bound_ms=grids["nerf"]["uniform"]["bound_ms"],
                 grids=grids)
 
 
@@ -483,8 +485,10 @@ def phase_hash_encode_bwd(dev, cfg, train_inputs):
         grids[name] = nums
         del table, x01, stds, g_out
         torch.cuda.empty_cache()
-    return dict(grids["nerf"]["train"], library_ms=None, grids=grids,
-                prop0_vs_autograd=vs_autograd)
+    return dict(grids["nerf"]["train"], library_ms=None,
+                uniform_ms=grids["nerf"]["uniform"]["ms"],
+                uniform_bound_ms=grids["nerf"]["uniform"]["bound_ms"],
+                grids=grids, prop0_vs_autograd=vs_autograd)
 
 
 def _bwd_vs_autograd(name, spec, args, got):
@@ -1008,35 +1012,46 @@ def main():
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches))
 
-    def entry(name, source, replaces, nums, **extra):
+    def entry(name, source, replaces, inputs, nums, **extra):
+        """`inputs`: what the top-level numbers were measured on."""
         by_path = {p: counts[name] for p, counts in paths if name in counts}
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=sum(by_path.values()),
-                    launches_by_path=by_path, **nums, **extra)
+                    launches_by_path=by_path, inputs=inputs, **nums, **extra)
 
     kernels = [
         entry("composite", KERNEL_SOURCE,
-              "nerf_lidar_tpu/ops/render_pallas.py:109", k1),
-        # The NeRF grid on a render chunk's points; every grid's numbers on
-        # those and on uniform points under "grids".
+              "nerf_lidar_tpu/ops/render_pallas.py:109",
+              "seeded uniform, R=16384 S=32 K=19, opaque", k1),
+        # Every grid's numbers on the path's and on uniform points under
+        # "grids".
         entry("hash_encode_ms", KERNEL_SOURCE,
-              "nerf_lidar_tpu/ops/grid.py:366", h1),
-        # The NeRF grid's d_table on a train step's inputs, vs the
-        # written-out twin; every grid under "grids"; prop0 vs autograd.
+              "nerf_lidar_tpu/ops/grid.py:366",
+              "NeRF grid, the first 16,384-ray chunk of a [5] sweep "
+              "(uniform_*: uniform points of the same shape)", h1),
+        # Against the written-out twin; prop0 also vs autograd.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,
-              "nerf_lidar_tpu/ops/grid.py:366", h1_bwd),
-        # The NeRF grid's hash-decay level sums; K3's own shape beside.
+              "nerf_lidar_tpu/ops/grid.py:366",
+              "NeRF grid, d_table of one warm [8] train step (uniform_*: "
+              "uniform points of the same shape)", h1_bwd),
         entry("scatter_add_rows", KERNEL_SOURCE,
-              "experiments/scatter_variants.py:81", k3_path,
+              "experiments/scatter_variants.py:81",
+              "NeRF grid's hash-decay level sums (train path); K3's own "
+              "shape beside", k3_path,
               k3_shape_rows131072_n4194304_c16=k3_own),
         # K2, on the bench's path as K4's form 1 (which computes the same).
         entry("tile_lane_gather", GATHER_SOURCE,
-              "nerf_lidar_tpu/ops/grid_pallas.py:51", gathers["K2"]),
+              "nerf_lidar_tpu/ops/grid_pallas.py:51",
+              "seeded indices, tbl [8, 128]", gathers["K2"]),
         # K4's forms 2-5 (wrappers take_along_axis and take_rows), summed.
         entry("mosaic_gather_forms", GATHER_SOURCE,
-              "experiments/gather_bench.py:263", gathers["K4"]),
+              "experiments/gather_bench.py:263",
+              "seeded indices at the TPU kernel's four shapes, summed",
+              gathers["K4"]),
         entry("tile_grid_gather", GATHER_SOURCE,
-              "experiments/gather_bench.py:327", gathers["K5"]),
+              "experiments/gather_bench.py:327",
+              "seeded indices, tbl [8, 128], idx [1024, 8, 128]",
+              gathers["K5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,14 +30,15 @@
 //     previous in-range point's, its erf-weighted trilinear weights add into
 //     8 per-corner sums, and each corner row is read once per run;
 //   - a row is one float4 (C4) or float2 (C2) load through __ldg;
-//   - a block takes one level and a tile of consecutive samples, whose
-//     x01 / stds it stages through shared memory in one coalesced copy;
-//     the plan orders the blocks level-major or with the levels of a tile
-//     side by side (which writes a tile's [samples, L * C] features whole).
-//   Which level takes which path is the launch plan of
-//   ops/grid.py:launch_plan, passed in as per-level flags. Measured and
-//   dropped: a shared-memory copy of the coarse levels' slices in
-//   persistent blocks, slower than these reads on the render's and the
+//   - a block takes one level and a tile of kThreads consecutive samples.
+//     The caller picks the block order (ops/grid.py:level_major): a table
+//     larger than the L2 runs level-major, so one level's slice at a time
+//     takes the reads in L2, and its blocks stage their tile's x01 / stds
+//     through shared memory in one coalesced copy (the tile comes from
+//     device memory once per level); a smaller table runs a tile's levels
+//     in neighbouring blocks, which find the tile in L2.
+//   Measured and dropped: a shared-memory copy of the coarse levels' slices
+//   in persistent blocks, slower than these reads on the render's and the
 //   train step's points (PERF.md).
 //
 // K3 scatter_add_rows: replaces the Pallas kernel
@@ -66,15 +67,13 @@
 //   summed over the levels with atomics. Bound by table atomics, and at the
 //   coarse levels by same-row serialisation: training points cluster along
 //   rays, so millions of updates land on a few thousand rows. Design, with
-//   the forward's threads, staging and launch plan:
+//   the forward's threads, block order and staging (level-major, a level's
+//   d_table slice of up to 33.5 MB takes its atomics in L2):
 //   - the corner-run merge: 8 row updates per run of same-cell points
 //     instead of 8 per point (56 -> 8 at the coarse levels for n = 7);
-//   - on the plan's aggregated levels, neighbouring lanes (neighbouring
-//     samples of a ray) whose runs end in the same cell sum their updates
-//     with a segmented shuffle scan, and the segment's last lane adds them;
-//     the other levels add each run through add_row, K3's row atomic;
-//   - blocks walk the levels one after another, so that a level's d_table
-//     slice (up to 33.5 MB) takes its atomics in L2.
+//   - neighbouring lanes (neighbouring samples of a ray) whose runs end in
+//     the same cell sum their updates with a segmented shuffle scan, and
+//     the segment's last lane adds them through add_row, K3's row atomic.
 //   Measured and dropped: summing the coarse levels in shared memory
 //   (persistent blocks, one flush per block), slower than the merged device
 //   atomics on the train step's points (PERF.md). Atomics make every sum
@@ -89,12 +88,11 @@ constexpr int kMaxLevels = 32;
 constexpr float kEps = 1.1920929e-07f;  // float32 eps, as in the reference
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Per-level flags of the launch plan (ops/grid.py:launch_plan).
-constexpr int kMerge = 1;      // corner-run merge of same-cell multisamples
-constexpr int kAggregate = 2;  // backward: warp-aggregated row updates
-constexpr int kStage = 4;      // x01 / stds staged through shared memory
-constexpr int kMaxSharedBytes = 232448;  // dynamic shared memory of a block
-constexpr int kDefaultSharedBytes = 48 * 1024;
+// Samples (threads) of a block of H1 and its backward.
+constexpr int kThreads = 128;
+// Staged x01 / stds of a block's tile: at most the dynamic shared memory a
+// block gets without opting in (16 * kThreads * n bytes; n <= 24).
+constexpr int kStageBytes = 48 * 1024;
 
 struct GridLevels {
   float scale[kMaxLevels];      // exp2(l * log2(per_level_scale)) * H - 1
@@ -103,7 +101,6 @@ struct GridLevels {
   uint32_t rows[kMaxLevels];    // rows of the level's table slice
   uint32_t offset[kMaxLevels];  // first row of the level in the table
   int tiled[kMaxLevels];        // 1: direct index, 0: XOR-prime hash
-  int flags[kMaxLevels];        // kMerge | kAggregate | kStage
 };
 
 __global__ void composite_kernel(
@@ -160,13 +157,11 @@ struct Level {
   float scale, g2;
   uint32_t res, rows;
   bool tiled;
-  int flags;
 };
 
 __device__ __forceinline__ Level level_of(const GridLevels& lv, int l) {
   const float g = lv.grid_size[l];
-  return Level{lv.scale[l], g * g, lv.res[l], lv.rows[l], lv.tiled[l] != 0,
-               lv.flags[l]};
+  return Level{lv.scale[l], g * g, lv.res[l], lv.rows[l], lv.tiled[l] != 0};
 }
 
 // A point's cell at one level and its fractions within it.
@@ -309,12 +304,11 @@ __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
 
 // The encode of one sample at one level, before the division by n:
 // acc[k] = sum over in-range points j of erf_w_j sum_c w_jc row_c[k], each
-// corner row read once per run of same-cell points (kMerge). tbl: the
-// level's slice of the table.
+// corner row read once per run of same-cell points. tbl: the level's slice
+// of the table.
 template <int C>
 __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
                                            const Level& v, float* acc) {
-  const bool merge = (v.flags & kMerge) != 0;
   float W[8];
   int cx = 0, cy = 0, cz = 0;
   bool have = false;
@@ -324,7 +318,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
     const float s = pt.s[j];
     const float wl = erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * v.g2, 1e-10f)));
     const Cell p = cell_of(x, y, z, v.scale);
-    if (have && !(merge && same_cell(p, cx, cy, cz))) {
+    if (have && !same_cell(p, cx, cy, cz)) {
       gather_run<C>(tbl, cx, cy, cz, W, v, acc);
       have = false;
     }
@@ -348,12 +342,12 @@ __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
                                       const float* __restrict__ stds,
                                       float* __restrict__ out, int64_t B,
                                       int n, int L, int64_t tiles,
-                                      int level_major, GridLevels lv) {
+                                      int level_major, int stage,
+                                      GridLevels lv) {
   extern __shared__ __align__(16) float smem[];
   const Work w = work_of(tiles, L, level_major != 0);
   const int cnt = tile_count(B, w.b0);
   const Level v = level_of(lv, w.l);
-  const bool stage = (v.flags & kStage) != 0;
   if (stage) {
     stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
     __syncthreads();
@@ -427,30 +421,25 @@ __global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
 }
 
 // The row updates of a run that ends: corner c of cell (ix, iy, iz) gets
-// W[c] * g, where `act` says this lane has a run. With `agg` all 32 lanes
-// call (warp-uniform): a lane whose run is in the same cell as its left
+// W[c] * g, where `act` says this lane has a run. All 32 lanes call
+// (warp-uniform): a lane whose run is in the same cell as its left
 // neighbour's joins that lane's segment, a segmented scan sums each
 // segment, and its last lane adds the sum.
 template <int C>
-__device__ __forceinline__ void add_runs(bool agg, bool act, int ix, int iy,
-                                         int iz, const float* W,
-                                         const float* g, float* dst,
-                                         const Level& v) {
+__device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
+                                         const float* W, const float* g,
+                                         float* dst, const Level& v) {
   const int lane = threadIdx.x & 31;
-  int start = lane;
-  bool last = act, scan = false;
-  if (agg) {
-    const int px = __shfl_up_sync(kFullMask, ix, 1);
-    const int py = __shfl_up_sync(kFullMask, iy, 1);
-    const int pz = __shfl_up_sync(kFullMask, iz, 1);
-    const bool pact = __shfl_up_sync(kFullMask, (int)act, 1) != 0;
-    const bool head = lane == 0 || !act || !pact || px != ix || py != iy ||
-                      pz != iz;
-    const unsigned heads = __ballot_sync(kFullMask, head);
-    start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
-    last = act && (lane == 31 || ((heads >> (lane + 1)) & 1u));
-    scan = heads != kFullMask;
-  }
+  const int px = __shfl_up_sync(kFullMask, ix, 1);
+  const int py = __shfl_up_sync(kFullMask, iy, 1);
+  const int pz = __shfl_up_sync(kFullMask, iz, 1);
+  const bool pact = __shfl_up_sync(kFullMask, (int)act, 1) != 0;
+  const bool head =
+      lane == 0 || !act || !pact || px != ix || py != iy || pz != iz;
+  const unsigned heads = __ballot_sync(kFullMask, head);
+  const int start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
+  const bool last = act && (lane == 31 || ((heads >> (lane + 1)) & 1u));
+  const bool scan = heads != kFullMask;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     float u[C];
@@ -472,7 +461,7 @@ __device__ __forceinline__ void add_runs(bool agg, bool act, int ix, int iy,
 }
 
 // The backward of one sample at one level. Every lane of the warp calls
-// (`active`: this lane holds a sample), because aggregated levels shuffle.
+// (`active`: this lane holds a sample), because add_runs shuffles.
 // gp: g_out[b, l]; tbl: the level's table slice; dst: its d_table slice,
 // nullptr when d_table is not wanted; dx / ds: this sample's d_x01 /
 // d_stds, nullptr when not wanted.
@@ -482,8 +471,6 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
                                              const float* tbl, float* dst,
                                              float* dx, float* ds, int n,
                                              const Level& v) {
-  const bool merge = (v.flags & kMerge) != 0;
-  const bool agg = (v.flags & kAggregate) != 0;
   const float inv_n = 1.0f / (float)n;
   float g[C] = {};
   if (active) load_row<C>(gp, g);
@@ -505,13 +492,9 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
     const float coef = erff(vs) * inv_n;  // d out[b, l] / d feat of point j
     const Cell p = cell_of(x, y, z, v.scale);
     if (dst != nullptr) {
-      const bool ends = in && have && !(merge && same_cell(p, cx, cy, cz));
-      if (agg) {
-        if (__any_sync(kFullMask, ends))
-          add_runs<C>(true, ends, cx, cy, cz, W, g, dst, v);
-      } else if (ends) {
-        add_runs<C>(false, true, cx, cy, cz, W, g, dst, v);
-      }
+      const bool ends = in && have && !same_cell(p, cx, cy, cz);
+      if (__any_sync(kFullMask, ends))
+        add_runs<C>(ends, cx, cy, cz, W, g, dst, v);
       if (ends) have = false;
       if (in) {
         if (!have) {
@@ -559,14 +542,8 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
       }
     }
   }
-  if (dst != nullptr) {
-    if (agg) {
-      if (__any_sync(kFullMask, have))
-        add_runs<C>(true, have, cx, cy, cz, W, g, dst, v);
-    } else if (have) {
-      add_runs<C>(false, true, cx, cy, cz, W, g, dst, v);
-    }
-  }
+  if (dst != nullptr && __any_sync(kFullMask, have))
+    add_runs<C>(have, cx, cy, cz, W, g, dst, v);
 }
 
 template <int C>
@@ -575,12 +552,11 @@ __global__ void hash_encode_ms_bwd_kernel(
     const float* __restrict__ stds, const float* __restrict__ g_out,
     float* __restrict__ d_table, float* __restrict__ d_x01,
     float* __restrict__ d_stds, int64_t B, int n, int L, int64_t tiles,
-    int level_major, GridLevels lv) {
+    int level_major, int stage, GridLevels lv) {
   extern __shared__ __align__(16) float smem[];
   const Work w = work_of(tiles, L, level_major != 0);
   const int cnt = tile_count(B, w.b0);
   const Level v = level_of(lv, w.l);
-  const bool stage = (v.flags & kStage) != 0;
   if (stage) {
     stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
     __syncthreads();
@@ -600,7 +576,7 @@ __global__ void hash_encode_ms_bwd_kernel(
 void fill_levels(GridLevels* lv, int L, const float* scale,
                  const float* grid_size, const unsigned int* res,
                  const unsigned int* rows, const unsigned int* offset,
-                 const int* tiled, const int* flags) {
+                 const int* tiled) {
   *lv = {};
   for (int l = 0; l < L; ++l) {
     lv->scale[l] = scale[l];
@@ -609,50 +585,37 @@ void fill_levels(GridLevels* lv, int L, const float* scale,
     lv->rows[l] = rows[l];
     lv->offset[l] = offset[l];
     lv->tiled[l] = tiled[l];
-    lv->flags[l] = flags[l];
   }
 }
 
-// The launch of B samples x L levels in blocks of `threads` samples:
-// `tiles` per level, `blocks` in all, `smem` bytes of staged points per
-// block. Refuses blocks that are not whole warps, and staged tiles larger
-// than a block's shared memory.
-cudaError_t grid_of(const GridLevels& lv, int L, int64_t B, int n,
-                    int threads, int64_t* tiles, unsigned* blocks,
-                    int* smem) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0)
-    return cudaErrorInvalidValue;
-  bool stage = false;
-  for (int l = 0; l < L; ++l) stage = stage || (lv.flags[l] & kStage);
-  const long long bytes = stage ? 16LL * threads * n : 0;
-  *tiles = (B + threads - 1) / threads;
-  if (bytes > kMaxSharedBytes || *tiles * L > 0x7fffffff)
-    return cudaErrorInvalidValue;
-  *blocks = (unsigned)(*tiles * L);
-  *smem = (int)bytes;
-  return cudaSuccess;
-}
+// The launch of B samples x L levels in blocks of kThreads samples: `tiles`
+// per level, `blocks` in all, and the shared memory of a block's staged
+// tile (0: not staged). Level-major blocks stage while the tile fits
+// kStageBytes.
+struct Launch {
+  int64_t tiles;
+  unsigned blocks;
+  int smem;
+};
 
-cudaError_t allow_smem(const void* kernel, int bytes) {
-  if (bytes <= kDefaultSharedBytes) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+cudaError_t launch_of(int64_t B, int n, int L, int level_major, Launch* g) {
+  g->tiles = (B + kThreads - 1) / kThreads;
+  if (g->tiles * L > 0x7fffffff) return cudaErrorInvalidValue;
+  g->blocks = (unsigned)(g->tiles * L);
+  const int64_t bytes = 16LL * kThreads * n;
+  g->smem = level_major && bytes <= kStageBytes ? (int)bytes : 0;
+  return cudaSuccess;
 }
 
 template <int C>
 cudaError_t encode(const float* table, const float* x01, const float* stds,
                    float* out, int64_t B, int n, int L, const GridLevels& lv,
-                   int threads, int level_major, cudaStream_t s) {
-  int64_t tiles;
-  unsigned blocks;
-  int smem;
-  cudaError_t err = grid_of(lv, L, B, n, threads, &tiles, &blocks, &smem);
-  if (err == cudaSuccess)
-    err = allow_smem((const void*)hash_encode_ms_kernel<C>, smem);
+                   int level_major, cudaStream_t s) {
+  Launch g;
+  const cudaError_t err = launch_of(B, n, L, level_major, &g);
   if (err != cudaSuccess) return err;
-  hash_encode_ms_kernel<C><<<blocks, threads, smem, s>>>(
-      table, x01, stds, out, B, n, L, tiles, level_major, lv);
+  hash_encode_ms_kernel<C><<<g.blocks, kThreads, g.smem, s>>>(
+      table, x01, stds, out, B, n, L, g.tiles, level_major, g.smem > 0, lv);
   return cudaGetLastError();
 }
 
@@ -660,18 +623,13 @@ template <int C>
 cudaError_t backward(const float* table, const float* x01, const float* stds,
                      const float* g_out, float* d_table, float* d_x01,
                      float* d_stds, int64_t B, int n, int L,
-                     const GridLevels& lv, int threads, int level_major,
-                     cudaStream_t s) {
-  int64_t tiles;
-  unsigned blocks;
-  int smem;
-  cudaError_t err = grid_of(lv, L, B, n, threads, &tiles, &blocks, &smem);
-  if (err == cudaSuccess)
-    err = allow_smem((const void*)hash_encode_ms_bwd_kernel<C>, smem);
+                     const GridLevels& lv, int level_major, cudaStream_t s) {
+  Launch g;
+  const cudaError_t err = launch_of(B, n, L, level_major, &g);
   if (err != cudaSuccess) return err;
-  hash_encode_ms_bwd_kernel<C><<<blocks, threads, smem, s>>>(
-      table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, tiles,
-      level_major, lv);
+  hash_encode_ms_bwd_kernel<C><<<g.blocks, kThreads, g.smem, s>>>(
+      table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, g.tiles,
+      level_major, g.smem > 0, lv);
   return cudaGetLastError();
 }
 
@@ -700,31 +658,27 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
   return cudaGetLastError();
 }
 
-// flags (one per level), threads, level_major: the launch plan.
+// level_major: the block order (ops/grid.py:level_major).
 int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                       float* out, long long B, int n, int L, int C,
                       const float* scale, const float* grid_size,
                       const unsigned int* res, const unsigned int* rows,
                       const unsigned int* offset, const int* tiled,
-                      const int* flags, int threads, int level_major,
-                      int device, void* stream) {
+                      int level_major, int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, flags);
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
-      return encode<1>(table, x01, stds, out, B, n, L, lv, threads,
-                       level_major, s);
+      return encode<1>(table, x01, stds, out, B, n, L, lv, level_major, s);
     case 2:
-      return encode<2>(table, x01, stds, out, B, n, L, lv, threads,
-                       level_major, s);
+      return encode<2>(table, x01, stds, out, B, n, L, lv, level_major, s);
     case 4:
-      return encode<4>(table, x01, stds, out, B, n, L, lv, threads,
-                       level_major, s);
+      return encode<4>(table, x01, stds, out, B, n, L, lv, level_major, s);
     // The ported presets' grids: C = 1 (proposal), 4 (NeRF), 2 (tiny_debug).
     default:
       return cudaErrorInvalidValue;
@@ -732,7 +686,7 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
 }
 
 // d_table, d_x01, d_stds: zero-filled by the caller, each nullptr when not
-// wanted. flags, threads, level_major: the launch plan, as the forward's.
+// wanted. level_major: the block order, as the forward's.
 int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* stds, const float* g_out,
                           float* d_table, float* d_x01, float* d_stds,
@@ -740,25 +694,24 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* grid_size, const unsigned int* res,
                           const unsigned int* rows,
                           const unsigned int* offset, const int* tiled,
-                          const int* flags, int threads, int level_major,
-                          int device, void* stream) {
+                          int level_major, int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, flags);
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
       return backward<1>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, threads, level_major, s);
+                         n, L, lv, level_major, s);
     case 2:
       return backward<2>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, threads, level_major, s);
+                         n, L, lv, level_major, s);
     case 4:
       return backward<4>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, threads, level_major, s);
+                         n, L, lv, level_major, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -2,7 +2,7 @@
 paths give them, on one GPU.
 
     python nerf_lidar_tpu_torch/experiments/hash_encode_bench.py \
-        [--root DIR] [--variants] [--profile] [--steps N]
+        [--root DIR] [--copies] [--profile] [--steps N]
 
 Runs the port's `train` entry on `nuscenes_single` (synthetic scene, full
 width) for `--steps` steps, records the (x01, stds, g_out) that one more
@@ -19,8 +19,10 @@ and power limit of the card.
   example an earlier commit unpacked with `git archive`) to time its
   kernels the same way; they build into DIR. Run this file by its path, not
   with -m, for that.
---variants: also time this checkout's launch plan (`grid.launch_plan`) with
-  each of its parts turned off, on the same inputs.
+--copies: also time each kernel on COPIES fresh copies of its inputs,
+  which land at other device addresses; where the checkout's kernels take a
+  block order (`grid.level_major`), both orders in turns on each copy
+  (picked, other, other, picked).
 --profile: torch.profiler over 2 warm train steps: wall and device busy
   time, idle share, and device time by kernel kind.
 """
@@ -195,39 +197,78 @@ def check_fwd(name, got, want):
     return float(err.max())
 
 
-def measure_bwd(spec, table, x01, stds, g_out, needs, fn, plain=None):
-    """fn's ms on these inputs and its d_table's error against the plain
-    twin (`plain`: its result, computed here when None)."""
-    from nerf_lidar_tpu_torch.ops import grid
-    if plain is None:
-        plain = grid.hash_encode_multisample_bwd_plain(
-            table, x01, stds, g_out, spec, needs)
-    got = fn()
+def check_bwd(got, plain, needs):
+    """The largest error of the wanted gradients relative to the plain
+    twin's largest value; raises above BWD_TOL."""
     err = max(max_rel_err(got[i], plain[i]) for i in range(3) if needs[i])
     if not err <= BWD_TOL:
         raise AssertionError(f"hash_encode_ms_bwd: error {err} of max")
+    return err
+
+
+def measure_bwd(spec, table, x01, stds, g_out, needs, fn):
+    """fn's ms on these inputs, its error against the plain twin, and the
+    twin's result."""
+    from nerf_lidar_tpu_torch.ops import grid
+    plain = grid.hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
+                                                   spec, needs)
+    err = check_bwd(fn(), plain, needs)
     return cuda_ms(fn), err, plain
 
 
-def variants(grid, spec, plan):
-    """{name: plan} of the launch plan with each of its parts changed: the
-    merge and the warp aggregation off, aggregation on the tiled levels
-    only, the staging and the block order the other way; and "none" of
-    them, level-major, as the kernels before the redesign ran."""
-    import dataclasses
-    tiled = np.asarray([spec.is_tiled(l) for l in range(spec.num_levels)])
-    vary = lambda flags, **kw: dataclasses.replace(
-        plan, flags=flags.astype(np.int32), **kw)
-    return {
-        "no_merge": vary(plan.flags & ~grid.PLAN_MERGE),
-        "no_aggregate": vary(plan.flags & ~grid.PLAN_AGGREGATE),
-        "aggregate_tiled_only": vary(np.where(
-            tiled, plan.flags, plan.flags & ~grid.PLAN_AGGREGATE)),
-        "other_staging": vary(plan.flags ^ grid.PLAN_STAGE),
-        "other_order": vary(plan.flags, level_major=not plan.level_major),
-        "none": vary(plan.flags & ~(grid.PLAN_MERGE | grid.PLAN_AGGREGATE
-                                    | grid.PLAN_STAGE), level_major=True),
-    }
+def measure_fwd(root, name, inputs, table, x01, stds, spec, copies):
+    """Emits H1's ms on these inputs, its error against the plain encode
+    and its bound; with `copies`, its times on fresh copies (`on_copies`)."""
+    from nerf_lidar_tpu_torch.ops import grid
+    n_ms = x01.shape[-2]
+    want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
+    fn = lambda *t: grid.hash_encode_multisample(*t, spec)
+    check = lambda got: check_fwd(f"hash_encode_ms {name} {inputs}", got,
+                                  want)
+    err = check(fn(table, x01, stds))
+    n_bytes, flops = fwd_bound(spec, x01, stds)
+    emit(root=root, kernel="hash_encode_ms", grid=name, inputs=inputs,
+         B=stds.numel() // n_ms, n=n_ms,
+         ms=cuda_ms(lambda: fn(table, x01, stds)), max_abs_err=err,
+         bound_ms=bound_ms(n_bytes, flops), bytes=n_bytes, flops=flops)
+    if copies:
+        emit(root=root, kernel="hash_encode_ms", grid=name, inputs=inputs,
+             copies_ms=on_copies(fn, (table, x01, stds), check))
+
+
+COPIES = 3
+
+
+@contextlib.contextmanager
+def other_order(grid):
+    """Within the block, H1 and its backward run in the block order that
+    `grid.level_major` does not pick."""
+    picked = grid.level_major
+    grid.level_major = lambda spec, l2_bytes: not picked(spec, l2_bytes)
+    try:
+        yield
+    finally:
+        grid.level_major = picked
+
+
+def on_copies(fn, tensors, check):
+    """{"picked": [ms, ...], "other": [ms, ...]}: fn(*copies) on each of
+    COPIES fresh copies of `tensors`, in both block orders in turns
+    (picked, other, other, picked), or twice in the one order of kernels
+    that take none; check(result) raises on a wrong result."""
+    from nerf_lidar_tpu_torch.ops import grid
+    turns = (("picked", "other", "other", "picked")
+             if hasattr(grid, "level_major") else ("picked", "picked"))
+    times = {order: [] for order in turns}
+    for _ in range(COPIES):
+        copies = [t.clone() for t in tensors]
+        for order in turns:
+            with (other_order(grid) if order == "other"
+                  else contextlib.nullcontext()):
+                check(fn(*copies))
+                times[order].append(cuda_ms(lambda: fn(*copies)))
+        del copies
+    return times
 
 
 def emit(**rec):
@@ -299,7 +340,7 @@ def main(argv=None):
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     p.add_argument("--steps", type=int, default=5)
-    p.add_argument("--variants", action="store_true")
+    p.add_argument("--copies", action="store_true")
     p.add_argument("--profile", action="store_true")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -358,55 +399,23 @@ def main(argv=None):
                  needs=list(needs),
                  ms=ms, max_rel_err=err, bound_ms=bound_ms(n_bytes, flops),
                  bytes=n_bytes, flops=flops)
-            if args.variants and inputs == "train":
-                plan = grid.launch_plan(spec, n_ms, backward=True)
-                for vname, vplan in variants(grid, spec, plan).items():
-                    vms, verr, _ = measure_bwd(
-                        spec, table, x, s, g_out, needs,
-                        lambda: grid._bwd_kernel(table, x, s, g_out, spec,
-                                                 needs, vplan), plain)
-                    emit(root=root, kernel="hash_encode_ms_bwd", grid=name,
-                         inputs=inputs, variant=vname, ms=vms,
-                         max_rel_err=verr)
+            if args.copies:
+                emit(root=root, kernel="hash_encode_ms_bwd", grid=name,
+                     inputs=inputs, copies_ms=on_copies(
+                         lambda *t: grid.hash_encode_multisample_bwd(
+                             *t, spec, needs), (table, x, s, g_out),
+                         lambda got: check_bwd(got, plain, needs)))
             del plain
         # The train step's forward encodes the same points.
-        want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
-        fn = lambda: grid.hash_encode_multisample(table, x01, stds, spec)
-        err = check_fwd(f"hash_encode_ms {name} train", fn(), want)
-        n_bytes, flops = fwd_bound(spec, x01, stds)
-        emit(root=root, kernel="hash_encode_ms", grid=name, inputs="train",
-             B=stds.numel() // n_ms, n=n_ms, ms=cuda_ms(fn), max_abs_err=err,
-             bound_ms=bound_ms(n_bytes, flops), bytes=n_bytes, flops=flops)
-        del train[name], want
+        measure_fwd(root, name, "train", table, x01, stds, spec, args.copies)
+        del train[name]
         torch.cuda.empty_cache()
 
     for name in GRIDS:
         table, x01, stds, spec = render[name]
-        n_ms = x01.shape[-2]
         for inputs, (x, s) in (("render", (x01, stds)),
                                ("uniform", uniform_like(x01, stds, 1))):
-            want = grid.hash_encode_multisample_plain(table, x, s, spec)[0]
-            fn = lambda: grid.hash_encode_multisample(table, x, s, spec)
-            err = check_fwd(f"hash_encode_ms {name}", fn(), want)
-            n_bytes, flops = fwd_bound(spec, x, s)
-            emit(root=root, kernel="hash_encode_ms", grid=name,
-                 inputs=inputs, B=s.numel() // n_ms, n=n_ms,
-                 ms=cuda_ms(fn),
-                 max_abs_err=err, bound_ms=bound_ms(n_bytes, flops),
-                 bytes=n_bytes, flops=flops)
-            if args.variants and inputs == "render":
-                plan = grid.launch_plan(spec, n_ms)
-                for vname, vplan in variants(grid, spec, plan).items():
-                    if "aggregate" in vname:
-                        continue  # the forward does not aggregate
-                    vfn = lambda: grid._encode_kernel(table, x, s, spec,
-                                                      vplan)
-                    verr = check_fwd(f"hash_encode_ms {name} {vname}",
-                                     vfn(), want)
-                    emit(root=root, kernel="hash_encode_ms", grid=name,
-                         inputs=inputs, variant=vname, ms=cuda_ms(vfn),
-                         max_abs_err=verr)
-            del want
+            measure_fwd(root, name, inputs, table, x, s, spec, args.copies)
         del render[name]
         torch.cuda.empty_cache()
 

@@ -38,14 +38,13 @@ _SIGNATURES = {
     # inten_out, depth_out, acc_out, R, S, K, opaque, bg, device, stream
     "nl_composite": [_P] * 12 + [_LL, _I, _I, _I, _F, _I, _P],
     # table, x01, stds, out, B, n, L, C, scale, grid_size, res, rows,
-    # offset, tiled, flags, threads, level_major, device, stream
-    "nl_hash_encode_ms": [_P] * 4 + [_LL, _I, _I, _I] + [_P] * 7
-                         + [_I, _I, _I, _P],
+    # offset, tiled, level_major, device, stream
+    "nl_hash_encode_ms": [_P] * 4 + [_LL, _I, _I, _I] + [_P] * 6
+                         + [_I, _I, _P],
     # table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, C, scale,
-    # grid_size, res, rows, offset, tiled, flags, threads, level_major,
-    # device, stream
-    "nl_hash_encode_ms_bwd": [_P] * 7 + [_LL, _I, _I, _I] + [_P] * 7
-                             + [_I, _I, _I, _P],
+    # grid_size, res, rows, offset, tiled, level_major, device, stream
+    "nl_hash_encode_ms_bwd": [_P] * 7 + [_LL, _I, _I, _I] + [_P] * 6
+                             + [_I, _I, _P],
     # idx, vals, out, N, C, rows, device, stream
     "nl_scatter_add_rows": [_P] * 3 + [_LL, _I, _LL, _I, _P],
     # tbl, idx, out, A, B, G, I, J, axis, device, stream

@@ -270,53 +270,21 @@ def _kernel_levels(spec: HashGridSpec):
                        np.int32))
 
 
-# Kernel H1's launch plan (csrc/kernels.cu): per level, flags of the paths
-# it takes (the kernel's kMerge, kAggregate, kStage).
-PLAN_MERGE, PLAN_AGGREGATE, PLAN_STAGE = 1, 2, 4
-# The H100's dynamic shared memory per block and L2 cache, in bytes; threads
-# (= samples) of a block.
-SHARED_BYTES = 232_448
-L2_BYTES = 50 * 2**20
-_TILE_THREADS = 128
+def level_major(spec: HashGridSpec, l2_bytes: int) -> bool:
+    """Block order of kernel H1 and its backward on a card with an L2 of
+    `l2_bytes`, as measured on the train step's and a render chunk's points
+    (PERF.md): a table larger than the L2 (the NeRF grid's 240 MB against
+    the H100's 50 MB) runs level-major, so that one level's slice (up to
+    33.5 MB) takes the reads or atomics in L2, and each block stages its
+    tile of x01 / stds through shared memory; a table that fits (the
+    proposal grids' 26 and 43 MB) runs a tile's levels in neighbouring
+    blocks, which find the tile in L2."""
+    return spec.total_rows * spec.level_dim * 4 > l2_bytes
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class LaunchPlan:
-    """`flags`: int32 [L] of PLAN_* per level; `threads`: samples per block;
-    `level_major`: the blocks of one level run before the next level's."""
-    flags: np.ndarray
-    threads: int
-    level_major: bool
-
-
-def _stage_bytes(threads: int, n_ms: int) -> int:
-    """Shared memory of a block's staged x01 [threads, n, 3] and stds."""
-    return 16 * threads * n_ms
-
-
-@functools.lru_cache(maxsize=64)
-def launch_plan(spec: HashGridSpec, n_ms: int,
-                backward: bool = False) -> LaunchPlan:
-    """How kernel H1 (or, with `backward`, its backward) runs each level
-    for n_ms multisamples, in blocks of `_TILE_THREADS` samples, as measured
-    on the train step's and a render chunk's points (PERF.md):
-    - every level merges runs of same-cell multisamples; the backward also
-      aggregates a warp's row updates;
-    - a table larger than the L2 (the NeRF grid's 240 MB) runs level-major,
-      so that one level's slice (up to 33.5 MB) takes the reads or atomics
-      in L2, and each block stages its tile of x01 / stds through shared
-      memory (while the tile fits SHARED_BYTES), since the tile comes from
-      device memory once per level;
-    - a table that fits (the proposal grids' 26 and 43 MB) runs a tile's
-      levels in neighbouring blocks, which find the tile in L2 and read it
-      directly.
-    """
-    level_major = spec.total_rows * spec.level_dim * 4 > L2_BYTES
-    stage = level_major and _stage_bytes(_TILE_THREADS, n_ms) <= SHARED_BYTES
-    flag = (PLAN_MERGE | (PLAN_AGGREGATE if backward else 0)
-            | (PLAN_STAGE if stage else 0))
-    return LaunchPlan(np.full(spec.num_levels, flag, np.int32), _TILE_THREADS,
-                      level_major)
+@functools.cache
+def _l2_bytes(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).L2_cache_size
 
 
 def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
@@ -348,53 +316,23 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
     return _aligned("table", table, spec.level_dim), x, s
 
 
-def _encode_kernel(table, x01, stds, spec: HashGridSpec,
-                   plan: LaunchPlan = None) -> torch.Tensor:
-    """Launch kernel H1 (`hash_encode_ms`): [..., L*C] features. `plan`:
-    `launch_plan`'s, unless a measurement gives another."""
+def _encode_kernel(table, x01, stds, spec: HashGridSpec) -> torch.Tensor:
+    """Launch kernel H1 (`hash_encode_ms`): [..., L*C] features."""
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
-    plan = plan or launch_plan(spec, n_ms)
     out = torch.empty((b, spec.output_dim), dtype=torch.float32,
                       device=x.device)
-    arrays = _kernel_levels(spec) + (plan.flags,)  # alive through the call
+    arrays = _kernel_levels(spec)  # alive through the call
     lib = _build.library()
     rc = lib.nl_hash_encode_ms(
         table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(),
         b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays), plan.threads, plan.level_major,
+        *(a.ctypes.data for a in arrays),
+        level_major(spec, _l2_bytes(x.device.index)),
         x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
     hash_encode_multisample.launches += 1
     return out.reshape(x01.shape[:-2] + (spec.output_dim,))
-
-
-def _bwd_kernel(table, x01, stds, g_out, spec: HashGridSpec, needs,
-                plan: LaunchPlan = None):
-    """Launch the H1 backward kernel (`hash_encode_ms_bwd`); `plan` as in
-    `_encode_kernel`."""
-    table, x, s = _kernel_inputs(table, x01, stds, spec)
-    b, n_ms = s.shape
-    plan = plan or launch_plan(spec, n_ms, backward=True)
-    g = g_out.contiguous()
-    _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
-    g = _aligned("g_out", g.reshape(b, spec.output_dim), spec.level_dim)
-    outs = [torch.zeros_like(t) if need else None
-            for t, need in zip((table, x, s), needs)]
-    ptr = lambda t: None if t is None else t.data_ptr()
-    arrays = _kernel_levels(spec) + (plan.flags,)  # alive through the call
-    lib = _build.library()
-    rc = lib.nl_hash_encode_ms_bwd(
-        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
-        *(ptr(t) for t in outs), b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays), plan.threads, plan.level_major,
-        x.device.index, _build.stream_of(x))
-    _build.check(lib, rc, "hash_encode_ms_bwd")
-    hash_encode_multisample_bwd.launches += 1
-    d_table, d_x, d_s = outs
-    return (d_table,
-            None if d_x is None else d_x.reshape(x01.shape),
-            None if d_s is None else d_s.reshape(stds.shape))
 
 
 def hash_encode_multisample_bwd(table: torch.Tensor, x01: torch.Tensor,
@@ -405,7 +343,28 @@ def hash_encode_multisample_bwd(table: torch.Tensor, x01: torch.Tensor,
     if _on_cpu(table, x01, stds, g_out):
         return hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
                                                  spec, needs)
-    return _bwd_kernel(table, x01, stds, g_out, spec, needs)
+    table, x, s = _kernel_inputs(table, x01, stds, spec)
+    b, n_ms = s.shape
+    g = g_out.contiguous()
+    _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
+    g = _aligned("g_out", g.reshape(b, spec.output_dim), spec.level_dim)
+    outs = [torch.zeros_like(t) if need else None
+            for t, need in zip((table, x, s), needs)]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    arrays = _kernel_levels(spec)  # alive through the call
+    lib = _build.library()
+    rc = lib.nl_hash_encode_ms_bwd(
+        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
+        *(ptr(t) for t in outs), b, n_ms, spec.num_levels, spec.level_dim,
+        *(a.ctypes.data for a in arrays),
+        level_major(spec, _l2_bytes(x.device.index)),
+        x.device.index, _build.stream_of(x))
+    _build.check(lib, rc, "hash_encode_ms_bwd")
+    hash_encode_multisample_bwd.launches += 1
+    d_table, d_x, d_s = outs
+    return (d_table,
+            None if d_x is None else d_x.reshape(x01.shape),
+            None if d_s is None else d_s.reshape(stds.shape))
 
 
 hash_encode_multisample_bwd.launches = 0

@@ -219,73 +219,35 @@ def test_hash_encode_kernels_on_merge_cases(dev, level_dim, case):
 @pytest.mark.parametrize("level_major", [False, True])
 @pytest.mark.parametrize("level_dim", [1, 4])
 def test_hash_encode_kernels_in_both_block_orders(dev, level_dim,
-                                                  level_major):
-    """The plan's block order (level-major for tables larger than the L2,
-    as the NeRF grid's), forced both ways on a small grid, with the
-    staging on and off."""
-    import dataclasses
+                                                  level_major, monkeypatch):
+    """Both block orders (`grid.level_major`: level-major with staged
+    x01 / stds for tables larger than the L2, as the NeRF grid's; a tile's
+    levels side by side, unstaged, for the others), forced on a small
+    grid."""
+    monkeypatch.setattr(grid, "level_major", lambda spec, l2: level_major)
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=128,
         log2_hashmap_size=16))
     g = torch.Generator(device=dev).manual_seed(40)
     x01, stds = _ray_points(dev, 30, 50, 7, g)
-    table = torch.rand(spec.total_rows, level_dim, device=dev,
-                       generator=g) * 2 - 1
-    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
-                        generator=g)
-    for backward in (False, True):
-        plan = grid.launch_plan(spec, 7, backward)
-        for flags in (plan.flags | grid.PLAN_STAGE,
-                      plan.flags & ~grid.PLAN_STAGE):
-            forced = dataclasses.replace(plan, flags=flags,
-                                         level_major=level_major)
-            if backward:
-                got = grid._bwd_kernel(table, x01, stds, g_out, spec,
-                                       (True, True, True), forced)
-                want = grid.hash_encode_multisample_bwd_plain(
-                    table, x01, stds, g_out, spec)
-                for i, name in enumerate(("table", "x01", "stds")):
-                    _close_to_max(got[i], want[i], name)
-            else:
-                got = grid._encode_kernel(table, x01, stds, spec, forced)
-                want = grid.hash_encode_multisample_plain(
-                    table, x01, stds, spec)[0]
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    _check_encode_kernels(dev, spec, x01, stds, g)
 
 
-@pytest.mark.parametrize("n", [113, 114])
+@pytest.mark.parametrize("n", [24, 25])
 @pytest.mark.parametrize("level_dim", [1, 4])
-def test_hash_encode_kernels_at_the_shared_memory_budget(dev, level_dim, n):
-    """A staged tile of x01 / stds just under the 232,448 bytes of shared
-    memory a block may use (n = 113: 231,424 bytes, above the default
-    48 KB) and just over it (n = 114: read from device memory), in
-    level-major blocks (a table larger than the L2 runs so)."""
-    import dataclasses
+def test_hash_encode_kernels_at_the_shared_memory_budget(dev, level_dim, n,
+                                                         monkeypatch):
+    """Level-major blocks stage their tile of x01 / stds (16 bytes a
+    multisample, 128 samples) while it fits the 48 KB a block gets without
+    opting in: n = 24 fills it exactly (49,152 bytes, staged), n = 25 does
+    not (read from device memory)."""
+    monkeypatch.setattr(grid, "level_major", lambda spec, l2: True)
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=128,
         log2_hashmap_size=16))
     g = torch.Generator(device=dev).manual_seed(30)
     x01, stds = _ray_points(dev, 16, 24, n, g)
-    table = torch.rand(spec.total_rows, level_dim, device=dev,
-                       generator=g) * 2 - 1
-    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
-                        generator=g)
-    for backward in (False, True):
-        plan = grid.launch_plan(spec, n, backward)
-        plan = dataclasses.replace(plan, level_major=True, flags=plan.flags
-                                   | (grid.PLAN_STAGE if n == 113 else 0))
-        if backward:
-            got = grid._bwd_kernel(table, x01, stds, g_out, spec,
-                                   (True, True, True), plan)
-            want = grid.hash_encode_multisample_bwd_plain(table, x01, stds,
-                                                          g_out, spec)
-            for i, name in enumerate(("table", "x01", "stds")):
-                _close_to_max(got[i], want[i], name)
-        else:
-            got = grid._encode_kernel(table, x01, stds, spec, plan)
-            want = grid.hash_encode_multisample_plain(table, x01, stds,
-                                                      spec)[0]
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    _check_encode_kernels(dev, spec, x01, stds, g)
 
 
 def test_hash_encode_bwd_kernel_table_only(dev):

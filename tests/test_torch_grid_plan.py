@@ -1,142 +1,59 @@
-"""Kernel H1's launch plan (`nerf_lidar_tpu_torch/ops/grid.py:launch_plan`)
-for every hash grid of the port's presets that `spec_for` accepts.
+"""The block order of kernel H1 and its backward
+(`nerf_lidar_tpu_torch/ops/grid.py:level_major`) for the port's preset grids.
 
-The plan says, per level, which of the kernels' paths H1 and its backward
-take (the corner-run merge, warp-aggregated row updates, x01 / stds staged
-through shared memory), and in which order the blocks walk the levels
-(level-major when the table is larger than the L2). The kernels
-refuse a plan whose staged tile does not fit a block's shared memory
-(`csrc/kernels.cu:grid_of`); these tests hold the plan to the same rule on
-the CPU. Budget: 232,448 bytes of dynamic shared memory per block on the
-H100.
+A hash table larger than the card's L2 runs level-major (and the kernels
+stage each block's x01 / stds through shared memory); a smaller one runs a
+tile's levels in neighbouring blocks. The wrapper reads the L2's size from
+`torch.cuda.get_device_properties`: 50 MiB on the H100.
 """
 
-import inspect
-
-import numpy as np
 import pytest
+import torch
 
 from nerf_lidar_tpu_torch import configs
 from nerf_lidar_tpu_torch.ops import grid
 
-
-def _preset_grids():
-    """{"preset/grid": (spec, multisamples)} of every preset's hash grids."""
-    cases = {}
-    presets = {name: fn for name, fn in vars(configs).items()
-               if inspect.isfunction(fn) and not name.startswith("_")
-               and fn.__module__ == configs.__name__
-               and not inspect.signature(fn).parameters}
-    presets["Config"] = configs.Config
-    for name, fn in sorted(presets.items()):
-        cfg = fn()
-        if not isinstance(cfg, configs.Config):
-            continue
-        m = cfg.model
-        grids = [("nerf", m.nerf_mlp.grid)] + [
-            (f"prop{i}", m.prop_mlp_for_level(i).grid)
-            for i in range(len(m.num_prop_samples))]
-        for grid_name, grid_cfg in grids:
-            try:
-                spec = grid.spec_for(grid_cfg)
-            except NotImplementedError:
-                continue
-            cases[f"{name}/{grid_name}"] = (spec, m.sample_n)
-    return cases
+H100_L2_BYTES = 50 * 2**20
 
 
-CASES = _preset_grids()
-# Multisamples whose staged tile of 128 samples (16 bytes a multisample)
-# just fits the budget (113: 231,424 bytes) and just does not (114).
-STAGE_EDGE = 113
+def _grids(cfg):
+    """{name: HashGridSpec} of a config's NeRF and proposal grids."""
+    m = cfg.model
+    return {"nerf": grid.spec_for(m.nerf_mlp.grid), **{
+        f"prop{i}": grid.spec_for(m.prop_mlp_for_level(i).grid)
+        for i in range(len(m.num_prop_samples))}}
 
 
-def _staged_bytes(plan, n):
-    return 16 * plan.threads * n if (plan.flags & grid.PLAN_STAGE).any() \
-        else 0
+def _table_bytes(spec):
+    return spec.total_rows * spec.level_dim * 4
 
 
-def test_presets_have_grids():
-    assert {"tiny_debug/nerf", "tiny_debug/prop0", "nuscenes_single/nerf",
-            "nuscenes_single/prop0", "nuscenes_single/prop1"} <= set(CASES)
+@pytest.mark.parametrize("name,table_bytes,major", [
+    ("nerf", 239_928_960, True), ("prop0", 26_427_808, False),
+    ("prop1", 43_205_024, False)])
+def test_nuscenes_single_plan(name, table_bytes, major):
+    """The reference recipe's grids on the H100: the NeRF grid (14,995,560
+    rows x C4) runs level-major, the proposal grids side by side."""
+    spec = _grids(configs.nuscenes_single())[name]
+    assert _table_bytes(spec) == table_bytes
+    assert grid.level_major(spec, H100_L2_BYTES) is major
 
 
-@pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("n_ms", [1, None, STAGE_EDGE + 1])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_every_level_is_covered_once(case, n_ms, backward):
-    spec, n = CASES[case]
-    plan = grid.launch_plan(spec, n_ms or n, backward)
-    assert plan.flags.dtype == np.int32
-    assert plan.flags.shape == (spec.num_levels,)
-    assert (plan.flags & grid.PLAN_MERGE).all()
-    assert plan.flags.max() < 2 * grid.PLAN_STAGE  # no unknown bits
-    # One launch of whole warps over every (sample, level).
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
-
-
-@pytest.mark.parametrize("backward", [False, True])
-@pytest.mark.parametrize("n_ms", [1, None, STAGE_EDGE, STAGE_EDGE + 1])
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_staged_tiles_fit_the_budget(case, n_ms, backward):
-    spec, n = CASES[case]
-    n = n_ms or n
-    plan = grid.launch_plan(spec, n, backward)
-    staged = plan.flags & grid.PLAN_STAGE
-    # Every level stages, or none: the tile is the same for all of them.
-    assert staged.all() or not staged.any()
-    assert _staged_bytes(plan, n) <= grid.SHARED_BYTES == 232_448
-    # Level-major blocks stage their tile; one over the budget is read from
-    # device memory instead.
-    fits = 16 * plan.threads * n <= grid.SHARED_BYTES
-    assert bool(staged.all()) == (plan.level_major and fits)
-
-
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_backward_aggregates_and_large_tables_run_level_major(case):
-    spec, n = CASES[case]
-    bwd = grid.launch_plan(spec, n, backward=True)
-    fwd = grid.launch_plan(spec, n)
-    assert (bwd.flags & grid.PLAN_AGGREGATE).all()
-    assert not (fwd.flags & grid.PLAN_AGGREGATE).any()
-    large = spec.total_rows * spec.level_dim * 4 > grid.L2_BYTES == 50 << 20
-    assert bwd.level_major == fwd.level_major == large
-
-
-def test_stage_edge():
-    spec = grid.spec_for(configs.nuscenes_single().model.nerf_mlp.grid)
-    under = grid.launch_plan(spec, STAGE_EDGE)
-    over = grid.launch_plan(spec, STAGE_EDGE + 1)
-    assert grid.SHARED_BYTES - 2048 < _staged_bytes(under, STAGE_EDGE) \
-        <= grid.SHARED_BYTES
-    assert 16 * over.threads * (STAGE_EDGE + 1) > grid.SHARED_BYTES
-    assert not (over.flags & grid.PLAN_STAGE).any()
-
-
-def test_nuscenes_single_plan():
-    """The reference recipe's grids at n = 7: every level merged, and the
-    backward's updates aggregated; the NeRF grid (14,995,560 rows x C4,
-    240 MB) runs level-major and stages its tiles (14,336 bytes a block),
-    the proposal grids (26 and 43 MB) run a tile's levels side by side."""
-    m = configs.nuscenes_single().model
-    for name, grid_cfg in [("nerf", m.nerf_mlp.grid)] + [
-            (f"prop{i}", m.prop_mlp_for_level(i).grid) for i in range(2)]:
-        spec = grid.spec_for(grid_cfg)
-        fwd = grid.launch_plan(spec, m.sample_n)
-        bwd = grid.launch_plan(spec, m.sample_n, backward=True)
-        stage = grid.PLAN_STAGE if name == "nerf" else 0
-        assert (fwd.flags == grid.PLAN_MERGE | stage).all()
-        assert (bwd.flags == grid.PLAN_MERGE | grid.PLAN_AGGREGATE
-                | stage).all()
-        assert _staged_bytes(bwd, m.sample_n) == (14_336 if stage else 0)
-        assert fwd.level_major == bwd.level_major == (name == "nerf")
+@pytest.mark.parametrize("name", ["nerf", "prop0"])
+def test_tiny_debug_plan(name):
+    """tiny_debug's tables (105 KB and 12 KB) run side by side on the H100;
+    the order turns level-major exactly when the table outgrows the L2."""
+    spec = _grids(configs.tiny_debug())[name]
+    size = _table_bytes(spec)
+    assert not grid.level_major(spec, H100_L2_BYTES)
+    assert not grid.level_major(spec, size)
+    assert grid.level_major(spec, size - 1)
 
 
 def test_wrapper_refuses_misaligned_rows():
     """Kernel H1 reads a row of C floats as one vector: the wrapper raises
     before a launch on a table or g_out that does not start on a 4C-byte
     boundary."""
-    import torch
     buf = torch.zeros(9)
     with pytest.raises(ValueError, match="16-byte aligned"):
         grid._aligned("table", buf[1:].view(2, 4), 4)
