@@ -31,8 +31,9 @@ Phases (each raises on failure, so the script exits non-zero):
    bound per grid;
 7. K3 `scatter_add_rows` vs `index_add_` at the shapes the train path gives
    it (the hash-decay level sums of the three grids: every row of a level
-   onto one output row) and at K3's own shapes (rows 4,096 and 2^17, N 2^20
-   and 2^22, C 16);
+   onto one output row; against float64) and at K3's own shapes (rows 4,096
+   and 2^17, N 2^20 and 2^22, C 16); kernel, plain and `index_add_` device
+   times (torch.profiler) beside the bound at every shape;
 8. the port's `train` entry, in-process, in a fresh experiment directory,
    fits `nuscenes_single` on the synthetic scene at full width for 30 steps
    with the kernels on: finite losses, a non-zero gradient on every hash
@@ -48,7 +49,8 @@ Phases (each raises on failure, so the script exits non-zero):
    kernels' own shapes: K2 `tile_lane_gather` [8, 128], K4's other four
    forms (`take_along_axis` on (256, 128), (128, 128) axis 0 and (8, 2^15);
    `take_rows` (512, 128) <- 256) and K5 (`tile_grid_gather`, tbl [8, 128],
-   idx [1024, 8, 128]), each exactly equal to its plain version, NaN
+   idx [1024, 8, 128]), and `take_rows` at the gather bench's row gather
+   (2^19, 16) <- 2^20, each exactly equal to its plain version, NaN
    positions included, on in-range indices and on negative and
    out-of-range ones; kernel, plain and library-call (`take_along_dim` /
    `index_select`) device times from torch.profiler, kernel and library
@@ -58,8 +60,9 @@ Phases (each raises on failure, so the script exits non-zero):
    forms pass, and the launch counts of that run; then the device time of
    one call of its row gather (both layouts) and row scatter-add at the
    hash grid's 2^19 x 16, without the bench's host loop.
-The phases run in the order 1, 2, 3, 5, 4, 7, 8, 6, 9, 10, 11: [4] and [6]
-time the encode on the inputs that [5] and [8] record. Then it fails if any
+The phases run in the order 1, 2, 3, 5, 4, 8, 6, 7, 9, 10, 11: [4] and [6]
+time the encode on the inputs that [5] and [8] record, and the phases that
+time with torch.profiler ([7], [10], [11]) run after the timed entries. Then it fails if any
 module of jax, jaxlib, flax, optax or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
 JSON line (every kernel's launches on each path, times, and its bound: the
@@ -523,14 +526,16 @@ PATH_SCATTER_TOL = 1e-4
 
 def phase_scatter(dev, cfg):
     """K3 vs index_add_, at the train path's shapes (the hash-decay level
-    sums of each grid, table uniform(-1, 1)) and at K3's own. Returns the
-    numbers of its kernels line for the NeRF grid's level sums, and the
-    same at K3's rows 2^17, N 2^22."""
+    sums of each grid, table uniform(-1, 1)) and at K3's own; kernel, plain
+    version and `index_add_` alone, beside the bound, at every shape.
+    Returns the numbers of its kernels line for the NeRF grid's level sums
+    (every grid's under "grids", every own shape's under "own_shapes"), and
+    the same at K3's rows 2^17, N 2^22."""
     import torch
     from nerf_lidar_tpu_torch.ops import grid
 
     g = torch.Generator(device=dev).manual_seed(7)
-    path = None
+    grids = {}
     for name, grid_cfg, _ in main_path_grids(cfg):
         spec = grid.spec_for(grid_cfg)
         table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
@@ -544,29 +549,28 @@ def phase_scatter(dev, cfg):
                            got.double(), want, PATH_SCATTER_TOL)
         plain32 = float((grid.scatter_add_rows_plain(ids, vals, rows)
                          - want).abs().max() / want.abs().max())
-        ms = cuda_ms(lambda: grid.scatter_add_rows(ids, vals, rows))
-        plain_ms = cuda_ms(lambda: grid.scatter_add_rows_plain(ids, vals,
-                                                               rows))
-        line = (f"[7] scatter_add_rows hash decay {name}: N={spec.total_rows}"
-                f" rows onto {rows} C={spec.level_dim}: max abs err "
-                f"{err:.3e} ({rel:.2e} of max; index_add_ in float32 "
-                f"{plain32:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if path is None:
-            ids64 = ids.long()
-            library_ms = cuda_ms(lambda: vals.new_zeros(
-                rows, spec.level_dim).index_add_(0, ids64, vals), iters=5,
-                warmup=1)
-            # Bound: idx and vals read, the sums written; one add a value.
-            lim = bound(nbytes(ids, vals, got), vals.numel())
-            path = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=library_ms, **lim)
-            line += (f", index_add_ alone {library_ms:.4f} ms; bound "
-                     f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
-            del ids64
-        print(line)
-        del table, vals, got, want
+        # Device time (torch.profiler): the proposal grids' kernels take
+        # less time than the wrapper's host side, which CUDA events would
+        # time instead.
+        ms = device_ms(lambda: grid.scatter_add_rows(ids, vals, rows))
+        plain_ms = device_ms(lambda: grid.scatter_add_rows_plain(
+            ids, vals, rows), iters=5)
+        ids64 = ids.long()
+        library_ms = device_ms(lambda: vals.new_zeros(
+            rows, spec.level_dim).index_add_(0, ids64, vals), iters=5)
+        # Bound: idx and vals read, the sums written; one add a value.
+        lim = bound(nbytes(ids, vals, got), vals.numel())
+        grids[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, **lim)
+        print(f"[7] scatter_add_rows hash decay {name}: N={spec.total_rows}"
+              f" rows onto {rows} C={spec.level_dim}: max abs err "
+              f"{err:.3e} ({rel:.2e} of max; index_add_ in float32 "
+              f"{plain32:.2e}); device ms: kernel {ms:.4f}, plain "
+              f"{plain_ms:.4f}, index_add_ alone {library_ms:.4f}; bound "
+              f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+        del table, vals, got, want, ids64
 
-    c, own = 16, None
+    c, own_shapes = 16, {}
     for rows in (4096, 1 << 17):
         for n in (1 << 20, 1 << 22):
             idx = torch.randint(0, rows, (n,), device=dev, generator=g,
@@ -578,15 +582,18 @@ def phase_scatter(dev, cfg):
             got = grid.scatter_add_rows(idx, vals, rows)
             err, rel = rel_err(f"scatter_add_rows rows={rows} N={n}", got,
                                plain(), SCATTER_TOL)
-            ms = cuda_ms(lambda: grid.scatter_add_rows(idx, vals, rows))
-            plain_ms = cuda_ms(plain)
+            ms = device_ms(lambda: grid.scatter_add_rows(idx, vals, rows))
+            plain_ms = device_ms(plain, iters=5)
+            lim = bound(nbytes(idx, vals, got), vals.numel())
             print(f"[7] scatter_add_rows rows={rows} N={n} C={c}: max abs "
-                  f"err {err:.3e} ({rel:.2e} of max); kernel {ms:.4f} ms, "
-                  f"index_add_ {plain_ms:.4f} ms")
-            own = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=plain_ms,
-                       **bound(nbytes(idx, vals, got), vals.numel()))
-    return path, own
+                  f"err {err:.3e} ({rel:.2e} of max); device ms: kernel "
+                  f"{ms:.4f}, index_add_ {plain_ms:.4f}; bound "
+                  f"{lim['bound_ms']:.4f} ms ({lim['bound_by']})")
+            own_shapes[f"rows={rows} N={n} C={c}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=plain_ms, **lim)
+    return (dict(grids["nerf"], grids=grids, own_shapes=own_shapes),
+            own_shapes[f"rows={1 << 17} N={1 << 22} C={c}"])
 
 
 def _table_grads_nonzero(model, what):
@@ -824,6 +831,14 @@ def phase_gathers(dev):
         torch.randn(8, 128, device=dev, generator=g),
         torch.randint(0, 128, (1024, 8, 128), device=dev, generator=g,
                       dtype=torch.int32)))
+    # take_rows above the card's launch floor: the gather bench's row
+    # gather (the finest hash level's 2^19 rows x 16 channels, 2^20
+    # indices).
+    big = "take rows (2^19,16)<-2^20"
+    forms[big] = (tg.take_rows, tg.take_rows_plain, (
+        torch.randn(2**19, 16, device=dev, generator=g),
+        torch.randint(0, 2**19, (2**20,), device=dev, generator=g,
+                      dtype=torch.int32)))
     result = {}
     for name, (fn, plain, args) in forms.items():
         tbl, idx, rest = args[0], args[1], args[2:]
@@ -876,12 +891,13 @@ def phase_gathers(dev):
               f"{nums['bound_ms']:.6f} ({nums['bound_by']})")
         result[name] = nums
     k2 = "take_along_axis (8,128)"
-    k4 = {k: v for k, v in result.items() if k not in (k2, k5)}
+    k4 = {k: v for k, v in result.items() if k not in (k2, k5, big)}
     sums = {key: sum(v[key] for v in k4.values())
             for key in ("max_abs_err", "ms", "plain_ms", "library_ms",
                         "bound_ms")}
     return {"K2": dict(result[k2], shape=k2),
-            "K4": dict(sums, bound_by="bytes", forms=k4),
+            "K4": dict(sums, bound_by="bytes", forms=k4,
+                       take_rows_2e19x16_from_2e20=result[big]),
             "K5": dict(result[k5], shape=k5)}
 
 
@@ -995,10 +1011,10 @@ def main():
     render_launches, render_inputs = timed("[5]", phase_slice, dev)
     h1 = timed("[4]", phase_hash_encode, dev, cfg, render_inputs)
     del render_inputs
-    k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
     train_launches, params, train_inputs = timed("[8]", phase_train, dev)
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
+    k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
     timed("[9]", phase_train_to_render, dev, params)
     gathers = timed("[10]", phase_gathers, dev)
     bench_launches = timed("[11]", phase_gather_bench, dev)
@@ -1034,6 +1050,8 @@ def main():
               "nerf_lidar_tpu/ops/grid.py:366",
               "NeRF grid, d_table of one warm [8] train step (uniform_*: "
               "uniform points of the same shape)", h1_bwd),
+        # Every grid's hash-decay level sums under "grids", every own
+        # shape under "own_shapes".
         entry("scatter_add_rows", KERNEL_SOURCE,
               "experiments/scatter_variants.py:81",
               "NeRF grid's hash-decay level sums (train path); K3's own "
@@ -1043,7 +1061,8 @@ def main():
         entry("tile_lane_gather", GATHER_SOURCE,
               "nerf_lidar_tpu/ops/grid_pallas.py:51",
               "seeded indices, tbl [8, 128]", gathers["K2"]),
-        # K4's forms 2-5 (wrappers take_along_axis and take_rows), summed.
+        # K4's forms 2-5 (wrappers take_along_axis and take_rows), summed;
+        # take_rows at the gather bench's (2^19, 16) <- 2^20 beside.
         entry("mosaic_gather_forms", GATHER_SOURCE,
               "experiments/gather_bench.py:263",
               "seeded indices at the TPU kernel's four shapes, summed",

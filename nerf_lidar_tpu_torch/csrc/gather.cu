@@ -24,14 +24,24 @@
 //
 // take_rows: replaces the row gather jnp.take(tbl, idx, axis=0) of
 //   experiments/gather_bench.py:probe_mosaic_gather (K4, form 3).
-//   out[n, c] = tbl[idx[n], c]. Bound by bytes like the above. Design: one
-//   thread per output element, neighbouring threads on neighbouring
-//   channels of a row, the table read through __ldg.
+//   out[n, c] = tbl[idx[n], c]. Bound by bytes like the above; at the
+//   TPU kernel's own shape, (512, 128) <- 256, by the latency of one index
+//   load and the row load it feeds. Design: a group of lanes per output
+//   row (the least power of two that covers the row, at most a warp,
+//   which then loops over it: 32 lanes a row for C >= 128, 4 for C = 16,
+//   8 rows a warp). The group reads the row's index in one transaction of
+//   its warp and wraps it once, then copies the row as float4s through
+//   __ldg into float4 stores, or fills it with NaN. A row whose width is
+//   not a multiple of 4, or a table or output that does not start on 16
+//   bytes, takes the same loop over single floats. Index math is 32-bit
+//   (the launcher refuses N * C or R * C above 2^31 - 1), so no thread
+//   pays a 64-bit division ahead of its loads.
 //
 // Index rules (JAX's): an index k with -size <= k < 0 wraps once to
 // k + size; any other index outside [0, size) gives NaN.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -86,14 +96,33 @@ __global__ void take_along_axis_kernel(const float* __restrict__ tbl,
   }
 }
 
-__global__ void take_rows_kernel(const float* __restrict__ tbl,
+constexpr int kRowThreads = 128;
+
+__device__ __forceinline__ float nan_of(float) { return quiet_nan(); }
+
+__device__ __forceinline__ float4 nan_of(float4) {
+  const float q = quiet_nan();
+  return make_float4(q, q, q, q);
+}
+
+// Rows of `units` T (float4 or float) each; 1 << log2l lanes per row.
+template <typename T>
+__global__ void take_rows_kernel(const T* __restrict__ tbl,
                                  const int* __restrict__ idx,
-                                 float* __restrict__ out, int R, int C,
-                                 long long total) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const int k = wrap_index(__ldg(idx + o / C), R);
-  out[o] = k >= 0 ? __ldg(tbl + (long long)k * C + o % C) : quiet_nan();
+                                 T* __restrict__ out, int R, int units,
+                                 int log2l, unsigned N) {
+  const unsigned g = blockIdx.x * (unsigned)blockDim.x + threadIdx.x;
+  const unsigned n = g >> log2l;
+  if (n >= N) return;
+  const int lanes = 1 << log2l;
+  const int k = wrap_index(__ldg(idx + n), R);
+  T* dst = out + n * (unsigned)units;
+  if (k < 0) {
+    for (int u = g & (lanes - 1); u < units; u += lanes) dst[u] = nan_of(T());
+    return;
+  }
+  const T* src = tbl + (unsigned)k * (unsigned)units;
+  for (int u = g & (lanes - 1); u < units; u += lanes) dst[u] = __ldg(src + u);
 }
 
 }  // namespace
@@ -127,19 +156,33 @@ int nl_take_along_axis(const float* tbl, const int* idx, float* out, int A,
   return cudaGetLastError();
 }
 
-// tbl [R, C], idx [N], out [N, C].
+// tbl [R, C], idx [N], out [N, C]; N * C and R * C at most 2^31 - 1.
 int nl_take_rows(const float* tbl, const int* idx, float* out, int R, int C,
                  long long N, int device, void* stream) {
-  if (R <= 0 || C <= 0 || N < 0) return cudaErrorInvalidValue;
+  if (R <= 0 || C <= 0 || N < 0 || N * C > INT_MAX ||
+      (long long)R * C > INT_MAX)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const long long total = N * C;
-  if (total == 0) return cudaSuccess;
-  const unsigned int blocks =
-      (unsigned int)((total + kGatherThreads - 1) / kGatherThreads);
-  take_rows_kernel<<<blocks, kGatherThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(tbl, idx, out, R, C,
-                                                          total);
+  if (N == 0) return cudaSuccess;
+  // float4 copies when a row is whole float4s and both tables start on 16
+  // bytes; single floats otherwise.
+  const bool vec =
+      C % 4 == 0 && ((uintptr_t)tbl | (uintptr_t)out) % 16 == 0;
+  const int units = vec ? C / 4 : C;
+  int log2l = 0;
+  while (log2l < 5 && (1 << log2l) < units) ++log2l;
+  const unsigned blocks =
+      (unsigned)(((N << log2l) + kRowThreads - 1) / kRowThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    take_rows_kernel<float4><<<blocks, kRowThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(tbl), idx,
+        reinterpret_cast<float4*>(out), R, units, log2l, (unsigned)N);
+  } else {
+    take_rows_kernel<float><<<blocks, kRowThreads, 0, s>>>(
+        tbl, idx, out, R, units, log2l, (unsigned)N);
+  }
   return cudaGetLastError();
 }
 

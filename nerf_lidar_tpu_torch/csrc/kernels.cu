@@ -46,16 +46,27 @@
 //   vals[i] with idx[i] == r). The TPU kernel built a one-hot [block, rows]
 //   matrix in VMEM and kept the [rows, C] sum there across a sequential
 //   grid; Hopper's blocks run in no order, so the cross-block sum goes into
-//   device memory with atomics. Bound by atomic throughput at the L2, and
-//   by same-address serialisation when many indices share a row (the
-//   hash-decay segment sum puts a whole level of up to 2^21 rows on one
-//   output row). Design: a warp takes 32 * kScatterRun consecutive values
-//   of the flattened [N, C] vals, lane j the values j, j + 32, ..., which
-//   share one channel because C divides 32; a lane sums while the row stays
-//   the same and adds one atomic when it changes, and a warp whose lanes
-//   all end on one row sums each channel across lanes by shuffles and adds
-//   C atomics. Sorted runs (the segment sum) thus cost one atomic per
-//   channel per warp; random rows cost one per value, as a plain scatter.
+//   device memory with atomics. Bound by bytes: idx and vals read once
+//   (0.0895 ms for the NeRF grid's hash-decay level sums, 300 MB), as long
+//   as the atomics stay off the critical path. Same-address atomics
+//   serialise at the L2, and the hash-decay segment sum puts a whole level
+//   of up to 2^21 sorted rows on one output row. Design:
+//   - a grid of a few blocks per SM (as many as fit at once), each walking
+//     one contiguous chunk of the flattened [N, C] vals, so a sorted
+//     segment is split across few blocks;
+//   - 16-byte loads: a float4 of vals is 4 channels of one row for C >= 4
+//     (the C / 4 threads of a row read its index in one transaction of
+//     their warp), or 2 / 4 whole rows for C = 2 / 1, whose indices come as
+//     one int2 / int4; the N * C % 4 values past the last float4 take
+//     scalar atomics;
+//   - a thread sums in registers while its row stays the same, across
+//     tiles, and adds a finished run with one vector atomic (add_row:
+//     float4 / float2 on sm_90, scalar for C = 1);
+//   - at the end of its chunk a block sums the runs still open on the
+//     chunk's last row (warp shuffles, then shared memory) and adds them
+//     once per channel group. A sorted segment thus costs O(blocks)
+//     atomics; random rows cost one vector atomic per 16 bytes.
+//   vals and idx must start on 16 bytes (the wrapper refuses others).
 //   Indices outside [0, rows) are dropped, as the one-hot drops them.
 //
 // H1 backward hash_encode_ms_bwd: the gradient of hash_encode_ms, which JAX
@@ -379,44 +390,130 @@ __device__ __forceinline__ void add_row(float* dst, const float* v) {
   }
 }
 
-constexpr int kScatterRun = 16;  // values per lane in scatter_add_rows
+// K3's block, and the float4s of vals a thread loads before it sums them.
+constexpr int kScatterThreads = 256;
+constexpr int kScatterUnroll = 4;
 
-// C = 1 << log2c divides 32, so value e = base + 32 j + lane has channel
-// lane % C for every j.
-__global__ void scatter_add_rows_kernel(const int32_t* __restrict__ idx,
-                                        const float* __restrict__ vals,
-                                        float* __restrict__ out, int64_t N,
-                                        int log2c, int64_t rows) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
-  const int64_t total = N << log2c;
-  const int64_t base = warp * (32 * kScatterRun);
-  if (base >= total) return;  // the whole warp: shuffles below need all 32
-  const int C = 1 << log2c;
-  const int c = lane & (C - 1);
-  int32_t cur = -1;  // the row being summed; -1 is dropped like any other
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < kScatterRun; ++j) {
-    const int64_t e = base + 32 * j + lane;
-    if (e >= total) break;
-    const int32_t r = idx[e >> log2c];
-    if (r != cur) {
-      if (cur >= 0 && cur < rows)
-        add_row<1>(out + (int64_t)cur * C + c, &acc);
-      cur = r;
-      acc = 0.f;
-    }
-    acc += vals[e];
+// How K3 cuts the flattened [N, C] vals into float4s: for C >= 4 a float4
+// is kW = 4 channels of one row and a row spans kG float4s; for C = 1 and 2
+// it is kP = 4 / C whole rows of kW = C channels.
+template <int C>
+struct ScatterTile {
+  static constexpr int kW = C < 4 ? C : 4;
+  static constexpr int kP = 4 / kW;
+  static constexpr int kG = C < 4 ? 1 : C / 4;
+};
+
+// r[0..kP): the rows of float4 v of vals. For C >= 4 the kG threads of a
+// row read the same index, which their warp fetches once.
+template <int C>
+__device__ __forceinline__ void rows_of(const int32_t* idx, int64_t v,
+                                        int* r) {
+  if constexpr (C == 1) {
+    const int4 t = __ldcs(reinterpret_cast<const int4*>(idx) + v);
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else if constexpr (C == 2) {
+    const int2 t = __ldcs(reinterpret_cast<const int2*>(idx) + v);
+    r[0] = t.x; r[1] = t.y;
+  } else {
+    r[0] = __ldcs(idx + v / ScatterTile<C>::kG);
   }
-  const int32_t r0 = __shfl_sync(0xffffffffu, cur, 0);
-  if (__all_sync(0xffffffffu, cur == r0)) {
-    for (int off = 16; off >= C; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane < C && r0 >= 0 && r0 < rows)
-      add_row<1>(out + (int64_t)r0 * C + lane, &acc);
-  } else if (cur >= 0 && cur < rows) {
-    add_row<1>(out + (int64_t)cur * C + c, &acc);
+}
+
+// Adds a run's sum v[0..kW) to channels [ch, ch + kW) of row r; rows
+// outside [0, rows) are dropped.
+template <int C>
+__device__ __forceinline__ void add_run(float* out, int r, int64_t rows,
+                                        int ch, const float* v) {
+  if (r >= 0 && r < rows)
+    add_row<ScatterTile<C>::kW>(out + (int64_t)r * C + ch, v);
+}
+
+// Block b sums float4s [b * chunk, min((b + 1) * chunk, V)) of vals, thread
+// t the float4s t, t + kScatterThreads, ... of it. chunk is a multiple of
+// kScatterThreads, so for C >= 4 a thread's float4s are all of channel
+// group t % kG. The last block also adds the `tail` values past float4 V.
+template <int C>
+__global__ void __launch_bounds__(kScatterThreads)
+    scatter_add_rows_kernel(const int32_t* __restrict__ idx,
+                            const float* __restrict__ vals,
+                            float* __restrict__ out, int64_t V,
+                            int64_t chunk, int tail, int64_t rows) {
+  using Tile = ScatterTile<C>;
+  constexpr int kW = Tile::kW, kP = Tile::kP, kG = Tile::kG;
+  constexpr int kWarps = kScatterThreads / 32;
+  __shared__ float part[kWarps][kG * kW];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (blockIdx.x == gridDim.x - 1 && t < tail) {
+    const int64_t e = 4 * V + t;
+    const int r = __ldg(idx + e / C);
+    if (r >= 0 && r < rows)
+      atomicAdd(out + (int64_t)r * C + e % C, __ldg(vals + e));
+  }
+  const int64_t v0 = (int64_t)blockIdx.x * chunk;
+  const int64_t v1 = v0 + chunk < V ? v0 + chunk : V;
+  if (v1 <= v0) return;  // the whole block: no float4 in its chunk
+  const float4* vals4 = reinterpret_cast<const float4*>(vals);
+  const int ch = (t % kG) * kW;
+  int cur = -1;  // the row being summed; -1 is dropped like any other
+  float acc[kW] = {};
+  for (int64_t base = v0 + t; base < v1;
+       base += kScatterUnroll * kScatterThreads) {
+    // All loads of the tile first, then the sums and atomics.
+    float4 x[kScatterUnroll];
+    int r[kScatterUnroll][kP];
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const int64_t v = base + u * kScatterThreads;
+      if (v < v1) {
+        x[u] = __ldcs(vals4 + v);
+        rows_of<C>(idx, v, r[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      if (base + u * kScatterThreads >= v1) continue;
+      const float f[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        if (r[u][p] != cur) {
+          add_run<C>(out, cur, rows, ch, acc);
+          cur = r[u][p];
+#pragma unroll
+          for (int k = 0; k < kW; ++k) acc[k] = 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kW; ++k) acc[k] += f[p * kW + k];
+      }
+    }
+  }
+  // The runs still open. Those on the chunk's last row (all of them, on
+  // sorted rows) are summed per channel group: across the lanes of a group
+  // (kG apart) by shuffles, then across warps in shared memory, and added
+  // once. Any other adds its own.
+  const int last = __ldg(idx + (4 * v1 - 1) / C);
+  const bool mine = cur == last;
+  if (!mine) add_run<C>(out, cur, rows, ch, acc);
+  float s[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) s[k] = mine ? acc[k] : 0.f;
+#pragma unroll
+  for (int off = 16; off >= kG; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kW; ++k) s[k] += __shfl_xor_sync(kFullMask, s[k], off);
+  }
+  if (lane < kG) {
+#pragma unroll
+    for (int k = 0; k < kW; ++k) part[warp][lane * kW + k] = s[k];
+  }
+  __syncthreads();
+  if (t < kG) {
+    float sum[kW] = {};
+    for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+      for (int k = 0; k < kW; ++k) sum[k] += part[w][t * kW + k];
+    }
+    add_run<C>(out, last, rows, t * kW, sum);
   }
 }
 
@@ -633,6 +730,30 @@ cudaError_t backward(const float* table, const float* x01, const float* stds,
   return cudaGetLastError();
 }
 
+// K3 on N x C values: one chunk of whole tiles per block, with as many
+// blocks as the card holds at once.
+template <int C>
+cudaError_t scatter(const int32_t* idx, const float* vals, float* out,
+                    int64_t N, int64_t rows, int device, cudaStream_t s) {
+  const int64_t V = N * C / 4;
+  const int tail = (int)(N * C - 4 * V);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, scatter_add_rows_kernel<C>, kScatterThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int64_t most = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t per_block = (V + most - 1) / most;
+  const int64_t tiles = (per_block + kScatterThreads - 1) / kScatterThreads;
+  const int64_t chunk = (tiles > 0 ? tiles : 1) * kScatterThreads;
+  const int64_t blocks = V > 0 ? (V + chunk - 1) / chunk : 1;
+  scatter_add_rows_kernel<C><<<(unsigned)blocks, kScatterThreads, 0, s>>>(
+      idx, vals, out, V, chunk, tail, rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -718,25 +839,28 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
 }
 
 // out: [rows, C], zero-filled (or holding a sum to add to) by the caller.
-// C must be a power of two up to 32.
+// C must be a power of two up to 32; idx and vals start on 16 bytes, out
+// on 4 min(C, 4) bytes.
 int nl_scatter_add_rows(const int* idx, const float* vals, float* out,
                         long long N, int C, long long rows, int device,
                         void* stream) {
-  int log2c = 0;
-  while ((1 << log2c) < C && log2c < 5) ++log2c;
-  if (C <= 0 || (1 << log2c) != C) return cudaErrorInvalidValue;
+  const uintptr_t row_bytes = 4 * (C < 4 ? C : 4);
+  if (N < 0 || C <= 0 || ((uintptr_t)idx | (uintptr_t)vals) % 16 != 0 ||
+      (uintptr_t)out % row_bytes != 0)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const long long total = N * C;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const long long per_block = (long long)threads * kScatterRun;
-  const unsigned int blocks =
-      (unsigned int)((total + per_block - 1) / per_block);
-  scatter_add_rows_kernel<<<blocks, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      idx, vals, out, N, log2c, rows);
-  return cudaGetLastError();
+  if (N == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: return scatter<1>(idx, vals, out, N, rows, device, s);
+    case 2: return scatter<2>(idx, vals, out, N, rows, device, s);
+    case 4: return scatter<4>(idx, vals, out, N, rows, device, s);
+    case 8: return scatter<8>(idx, vals, out, N, rows, device, s);
+    case 16: return scatter<16>(idx, vals, out, N, rows, device, s);
+    case 32: return scatter<32>(idx, vals, out, N, rows, device, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -288,8 +288,8 @@ def _l2_bytes(device_index: int) -> int:
 
 
 def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
-    """Kernel H1 reads rows of C floats as one 4C-byte vector: raise unless
-    t starts on such a boundary."""
+    """Raise unless t starts on a 4c-byte boundary: kernel H1 reads rows of
+    C floats as one 4C-byte vector, K3 reads 16 bytes (c = 4) at a time."""
     if t.data_ptr() % (4 * c):
         raise ValueError(f"{name}: expected a {4 * c}-byte aligned tensor")
     return t
@@ -437,6 +437,8 @@ def _scatter_kernel(idx: torch.Tensor, vals: torch.Tensor,
                                   f"{_SCATTER_WIDTHS}, not {c}")
     _build.require_cuda("idx", idx, (n,), torch.int32)
     _build.require_cuda("vals", vals, (n, c))
+    _aligned("idx", idx, 4)
+    _aligned("vals", vals, 4)
     out = torch.zeros((rows, c), dtype=torch.float32, device=vals.device)
     lib = _build.library()
     rc = lib.nl_scatter_add_rows(idx.data_ptr(), vals.data_ptr(),
@@ -470,7 +472,8 @@ class ScatterAddRows(torch.autograd.Function):
 def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor,
                      rows: int) -> torch.Tensor:
     """Same contract as `scatter_add_rows_plain`, differentiable in vals;
-    CUDA tensors launch kernel K3 (`scatter_add_rows`) or raise."""
+    CUDA tensors launch kernel K3 (`scatter_add_rows`) or raise, also on an
+    idx or vals that does not start on 16 bytes."""
     if idx.dim() != 1 or vals.dim() != 2 or idx.shape[0] != vals.shape[0]:
         raise ValueError(f"expected idx [N] and vals [N, C], got "
                          f"{tuple(idx.shape)} and {tuple(vals.shape)}")

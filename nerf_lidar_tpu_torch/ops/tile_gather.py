@@ -28,6 +28,7 @@ import torch
 from . import _build
 
 TILE = (8, 128)
+_INT32_MAX = 2**31 - 1
 
 
 def _wrap(idx: torch.Tensor, size: int):
@@ -162,8 +163,9 @@ take_along_axis.launches = 0
 
 
 def take_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Same contract as `take_rows_plain` (tbl float32, idx int32); CUDA
-    tensors launch kernel `take_rows`."""
+    """Same contract as `take_rows_plain` (tbl float32, idx int32, N * C
+    and R * C at most 2^31 - 1 on CUDA); CUDA tensors launch kernel
+    `take_rows`."""
     if tbl.device.type == "cpu" and idx.device.type == "cpu":
         return take_rows_plain(tbl, idx)
     _check_rows(tbl, idx)
@@ -172,6 +174,9 @@ def take_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     n = idx.shape[0]
     _build.require_cuda("tbl", tbl, (r, c))
     _build.require_cuda("idx", idx, (n,), torch.int32)
+    if max(n, r) * c > _INT32_MAX:
+        raise ValueError(f"take_rows: N * C and R * C must fit in int32 "
+                         f"(the kernel's index math), got N={n} R={r} C={c}")
     out = torch.empty((n, c), dtype=torch.float32, device=tbl.device)
     lib = _build.library()
     rc = lib.nl_take_rows(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(),

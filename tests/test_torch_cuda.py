@@ -339,28 +339,77 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         grid.scatter_add_rows(idx, vals[:, :3], 8)
 
 
-def test_scatter_add_rows_kernel_sums_sorted_segments(dev):
-    """The hash-decay use: every row of a level onto one output row, in
-    sorted runs far longer than a warp's share."""
-    spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
-    g = torch.Generator(device=dev).manual_seed(4)
-    table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
-                       generator=g) * 2 - 1
-    ids = grid.level_ids(spec, dev)
-    got = grid.scatter_add_rows(ids, table**2, spec.num_levels)
-    want = grid.scatter_add_rows_plain(ids, table**2, spec.num_levels)
+def _sorted_case(dev, case, c, g):
+    """(idx, vals, rows) of sorted-run cases of K3. "levels": the hash-decay
+    use, every row of a level of tiny_debug's NeRF grid onto one output row;
+    "long": 5 rows over 1,000,003 values, runs far longer than a block's
+    chunk; "ones": every row once (runs of length 1); "oob": sorted runs
+    with runs of out-of-range ids (-1, -7, rows + 2) cut into them. N * C
+    is not a multiple of 4 for C = 1, 2 except in "levels"."""
+    if case == "levels":
+        spec = grid.spec_for(configs.tiny_debug().model.nerf_mlp.grid)
+        table = torch.rand(spec.total_rows, c, device=dev, generator=g) * 2 - 1
+        return grid.level_ids(spec, dev), table**2, spec.num_levels
+    n, rows = {"long": (1_000_003, 5), "ones": (100_003, 100_003),
+               "oob": (300_001, 40)}[case]
+    if case == "ones":
+        idx = torch.arange(n, device=dev, dtype=torch.int32)
+    else:
+        idx = torch.randint(0, rows, (n,), device=dev, generator=g,
+                            dtype=torch.int32).sort().values
+    if case == "oob":
+        for start, bad in ((0, -1), (5_000, -7), (77_777, rows + 2),
+                           (150_000, -1), (n - 3, rows + 2)):
+            idx[start:start + 1_000] = bad
+    return idx, torch.randn(n, c, device=dev, generator=g), rows
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("case", ["levels", "long", "ones", "oob"])
+def test_scatter_add_rows_kernel_sums_sorted_segments(dev, case, c):
+    """Sorted runs, which K3 sums per thread, per block and then with one
+    atomic per channel group, against index_add_ in float64; then K3 through
+    its C function into an `out` that already holds that sum."""
+    from nerf_lidar_tpu_torch.ops import _build
+    g = torch.Generator(device=dev).manual_seed(4 + c)
+    idx, vals, rows = _sorted_case(dev, case, c, g)
+    got = grid.scatter_add_rows(idx, vals, rows)
+    want = grid.scatter_add_rows_plain(idx, vals.double(), rows)
     torch.cuda.synchronize()
-    _close_to_max(got, want, "level sums")
+    _close_to_max(got.double(), want, f"{case} sums")
+    twice = got.clone()
+    lib = _build.library()
+    _build.check(lib, lib.nl_scatter_add_rows(
+        idx.data_ptr(), vals.data_ptr(), twice.data_ptr(), idx.shape[0], c,
+        rows, dev.index, _build.stream_of(vals)), "scatter_add_rows")
+    torch.cuda.synchronize()
+    _close_to_max(twice.double(), 2 * want, f"{case} added to a sum")
+
+
+def test_scatter_add_rows_kernel_refuses_misaligned_inputs(dev):
+    """K3 loads 16 bytes at a time: a view that starts 4 bytes into its
+    storage is refused, not read by a slower path."""
+    idx = torch.zeros(65, dtype=torch.int32, device=dev)
+    vals = torch.rand(64 * 4 + 1, device=dev)
+    with pytest.raises(ValueError, match="vals: expected a 16-byte"):
+        grid.scatter_add_rows(idx[:64], vals[1:].view(64, 4), 8)
+    with pytest.raises(ValueError, match="idx: expected a 16-byte"):
+        grid.scatter_add_rows(idx[1:], vals[:-1].view(64, 4), 8)
+    assert grid.scatter_add_rows(idx[:64], vals[:-1].view(64, 4), 8).shape \
+        == (8, 4)
 
 
 def _gather_indices(dev, shape, size, seed):
     """Indices in [-2 size, 2 size) (wrapped, in range and NaN cases) with
-    the int32 extremes, -size, size and -1 in the first cells."""
+    the int32 extremes, -size, size and -1 in the first cells (as many as
+    there are)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     idx = torch.randint(-2 * size, 2 * size, shape, device=dev, generator=g,
                         dtype=torch.int32)
-    idx.view(-1)[:5] = torch.tensor([-2**31, 2**31 - 1, -size, size, -1],
-                                    dtype=torch.int32)
+    edge = torch.tensor([-2**31, 2**31 - 1, -size, size, -1],
+                        dtype=torch.int32)
+    flat = idx.view(-1)
+    flat[:5] = edge[:flat.numel()]
     return idx
 
 
@@ -401,15 +450,40 @@ def test_tile_gather_kernels_match_plain(dev, name, idx_shape):
         assert tile_gather.same_values(got, plain(tbl, idx))
 
 
-@pytest.mark.parametrize("r,c,n", [(512, 128, 256), (7, 1, 1000),
-                                   (100_000, 16, 4096)])
+@pytest.mark.parametrize("r,c,n", [
+    (512, 128, 256), (7, 1, 1000), (100_000, 16, 4096), (2**19, 16, 2**20),
+    (300, 3, 999), (300, 4, 1000), (64, 130, 500), (50, 128, 1), (9, 16, 1),
+    (5, 1, 1)])
 def test_take_rows_kernel_matches_plain(dev, r, c, n):
+    """float4 rows (C % 4 == 0), one lane to a warp per row, and single
+    floats (C = 1, 3, 130), on in-range indices and on the NaN and wrap
+    rule's."""
     tbl = torch.randn(r, c, device=dev)
-    idx = _gather_indices(dev, (n,), r, r)
-    before = tile_gather.take_rows.launches
-    got = tile_gather.take_rows(tbl, idx)
-    assert tile_gather.take_rows.launches == before + 1
-    assert tile_gather.same_values(got, tile_gather.take_rows_plain(tbl, idx))
+    for idx in (torch.randint(0, r, (n,), device=dev, dtype=torch.int32),
+                _gather_indices(dev, (n,), r, r)):
+        before = tile_gather.take_rows.launches
+        got = tile_gather.take_rows(tbl, idx)
+        assert tile_gather.take_rows.launches == before + 1
+        assert tile_gather.same_values(got,
+                                       tile_gather.take_rows_plain(tbl, idx))
+
+
+@pytest.mark.parametrize("c", [3, 16, 128])
+@pytest.mark.parametrize("offset", ["row", "float"])
+def test_take_rows_kernel_on_offset_table_views(dev, c, offset):
+    """Tables that start one row ("row": on 16 bytes only for C % 4 == 0)
+    or one float ("float": never on 16 bytes, row stride aligned for C % 4
+    == 0) into their storage: the kernel copies float4s only where both
+    hold, and equals the plain version either way."""
+    r, n = 200, 333
+    buf = torch.randn((r + 1) * c, device=dev)
+    tbl = (buf[c:] if offset == "row" else buf[1:1 + r * c]).view(r, c)
+    for seed in (0, 1):
+        idx = (_gather_indices(dev, (n,), r, seed) if seed else
+               torch.randint(0, r, (n,), device=dev, dtype=torch.int32))
+        got = tile_gather.take_rows(tbl, idx)
+        assert tile_gather.same_values(got,
+                                       tile_gather.take_rows_plain(tbl, idx))
 
 
 def test_gather_wrappers_reject_what_they_do_not_take(dev):
@@ -419,5 +493,8 @@ def test_gather_wrappers_reject_what_they_do_not_take(dev):
         tile_gather.take_along_axis(tbl, idx.long(), 1)
     with pytest.raises(ValueError, match="float32"):
         tile_gather.take_rows(tbl.double(), idx[0])
+    with pytest.raises(ValueError, match="fit in int32"):
+        tile_gather.take_rows(tbl, torch.zeros(2**24, dtype=torch.int32,
+                                               device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         tile_gather.tile_lane_gather(tbl, idx.cpu())
