@@ -11,13 +11,33 @@
 //   Per ray: delta = dt * |d| * sigma, alpha = 1 - exp(-delta) (alpha = 1 on
 //   the last sample when the background is opaque), T = exp(-sum_{j<i}
 //   delta_j), w = alpha * T, then acc / depth / rgb (+ background) /
-//   semantic / intensity composites. Bound by device-memory reads of the
-//   [R, S, C] features (about 50 MB per 16,384-ray chunk at S = 32, C = 22).
-//   Design: one thread per ray with a sequential loop over the S samples,
-//   which replaces the TPU's triangle-matmul cumsum with a running finite
-//   sum (the opaque +inf never enters it). Features are read in the MLP's
-//   natural [R, S, C] layout; the TPU's channel-major [C, R, S] stack was a
-//   lane-padding workaround and is gone.
+//   semantic / intensity composites. Bound by device-memory bytes: every
+//   input read once and every output written once, 54 MB per 16,384-ray
+//   chunk at S = 32, K = 19 (0.0162 ms at 3.35 TB/s), of which the [R, S, K]
+//   semantic features are 39.8 MB. Design: one warp per ray, several rays
+//   per block, so a render chunk fills the card with warps:
+//   - lane i takes sample i of a 32-sample chunk (S > 32 loops over chunks,
+//     carrying the prefix sum): coalesced loads of density and tdist;
+//   - the exclusive cumsum of sigma * dt * |d| is a warp shuffle scan, which
+//     replaces the TPU's triangle matmul (the opaque +inf never enters it);
+//   - the weights stay in registers: written once, summed into acc / depth
+//     and the rgb / intensity composites per lane, then warp reductions;
+//   - the ray's contiguous [S, K] semantic block is read one row per load
+//     instruction, lane k taking channel k (neighbouring lanes on
+//     neighbouring floats, so a warp load covers the row's bytes, at any K
+//     and any alignment), and multiplied by the sample's weight, broadcast
+//     from its lane by a shuffle. A lane loads its whole column of the
+//     chunk into registers, the first 32 channels' with the chunk's other
+//     loads ahead of the scan, so a warp waits for device memory once per
+//     chunk at K <= 32;
+//   - the channel sums of a ray carry across its chunks in shared memory.
+//   Measured and dropped (PERF.md; NVIDIA H100 80GB HBM3, 700 W): the
+//   column loads after the scan, with the block's lines prefetched into L2
+//   first (0.0415 ms against 0.0237 at a render chunk). 16-byte loads of
+//   the block are not needed: the row loads of a warp already cover whole
+//   sectors, and the kernel runs at 68% of its bound on that card. The
+//   features are read in the MLP's natural [R, S, C] layout; the TPU's
+//   channel-major [C, R, S] stack was a lane-padding workaround and is gone.
 //
 // H1 hash_encode_ms: replaces the XLA gathers of
 //   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample,
@@ -114,6 +134,26 @@ struct GridLevels {
   int tiled[kMaxLevels];        // 1: direct index, 0: XOR-prime hash
 };
 
+// Rays (warps) of a block of K1, as long as their channel sums fit.
+constexpr int kCompositeWarps = 8;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// col[j] = channel k of row j of a chunk's semantic rows p ([n, K]), 0 past
+// them.
+__device__ __forceinline__ void load_column(float (&col)[32], const float* p,
+                                            int K, int k, int n) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    col[j] = (k < K && j < n) ? p[(size_t)j * K + k] : 0.f;
+}
+
+// One warp per ray: blockDim.x / 32 rays a block. Shared memory: K floats a
+// warp, the ray's semantic sums across its 32-sample chunks.
 __global__ void composite_kernel(
     const float* __restrict__ density, const float* __restrict__ tdist,
     const float* __restrict__ dirs, const float* __restrict__ rgb,
@@ -122,45 +162,92 @@ __global__ void composite_kernel(
     float* __restrict__ sem_out, float* __restrict__ inten_out,
     float* __restrict__ depth_out, float* __restrict__ acc_out, int64_t R,
     int S, int K, int opaque, float bg) {
-  const int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  extern __shared__ float s_sem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= R) return;  // the whole warp: r is the same on every lane
+  float* sem_sum = s_sem + (size_t)warp * K;
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
-  const float* d_r = density + r * S;
-  const float* t_r = tdist + r * (S + 1);
-  float* w_r = weights + r * S;
+  const size_t ray = (size_t)r * S;
+  const float* t_r = tdist + (size_t)r * (S + 1);
 
-  float csum = 0.f, acc = 0.f, dsum = 0.f, isum = 0.f;
+  float carry = 0.f, acc = 0.f, dsum = 0.f, isum = 0.f;
   float c0 = 0.f, c1 = 0.f, c2 = 0.f;
-  for (int i = 0; i < S; ++i) {
-    const float t0 = t_r[i], t1 = t_r[i + 1];
-    const float dd = d_r[i] * ((t1 - t0) * dnorm);
-    const float alpha = (opaque && i == S - 1) ? 1.f : 1.f - expf(-dd);
-    const float w = alpha * expf(-csum);
-    csum += dd;
-    w_r[i] = w;
-    acc += w;
-    dsum += w * (0.5f * (t0 + t1));
-    const float* c = rgb + (r * S + i) * 3;
-    c0 += w * c[0];
-    c1 += w * c[1];
-    c2 += w * c[2];
-    if (inten != nullptr) isum += w * inten[r * S + i];
+  for (int base = 0; base < S; base += 32) {
+    const int n = min(32, S - base);
+    const int i = base + lane;
+    const bool live = lane < n;
+    const float* sem_c = sem + (ray + base) * K;
+    // Every load of the chunk ahead of the scan: this lane's sample, and
+    // channel `lane`'s column of the chunk's semantic rows.
+    float col[32];
+    load_column(col, sem_c, K, lane, n);
+    float t0 = 0.f, t1 = 0.f, sigma = 0.f, f0 = 0.f, f1 = 0.f, f2 = 0.f;
+    float fi = 0.f;
+    if (live) {
+      t0 = t_r[i];
+      t1 = t_r[i + 1];
+      sigma = density[ray + i];
+      const float* c = rgb + 3 * (ray + i);
+      f0 = c[0];
+      f1 = c[1];
+      f2 = c[2];
+      if (inten != nullptr) fi = inten[ray + i];
+    }
+    const float dd = live ? sigma * ((t1 - t0) * dnorm) : 0.f;
+    // Inclusive scan of dd over the lanes, then shifted by one lane.
+    float inc = dd;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(kFullMask, inc, o);
+      if (lane >= o) inc += u;
+    }
+    float excl = __shfl_up_sync(kFullMask, inc, 1);
+    if (lane == 0) excl = 0.f;
+    const float csum = carry + excl;
+    carry += __shfl_sync(kFullMask, inc, 31);
+
+    float w = 0.f;
+    if (live) {
+      const float alpha = (opaque && i == S - 1) ? 1.f : 1.f - expf(-dd);
+      w = alpha * expf(-csum);
+      weights[ray + i] = w;
+      acc += w;
+      dsum += w * (0.5f * (t0 + t1));
+      c0 += w * f0;
+      c1 += w * f1;
+      c2 += w * f2;
+      isum += w * fi;
+    }
+    // Semantic rows: lane k takes channel k (k0 + lane for K > 32, whose
+    // columns load after the scan).
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      if (k0 > 0) load_column(col, sem_c, K, k0 + lane, n);
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s += __shfl_sync(kFullMask, w, j) * col[j];
+      float* sum = sem_sum + k0 + lane;
+      if (k0 + lane < K) *sum = base == 0 ? s : *sum + s;
+    }
   }
-  const float bg_w = fmaxf(1.f - acc, 0.f);
-  rgb_out[3 * r] = c0 + bg_w * bg;
-  rgb_out[3 * r + 1] = c1 + bg_w * bg;
-  rgb_out[3 * r + 2] = c2 + bg_w * bg;
-  depth_out[r] = dsum / fmaxf(acc, kEps);
-  acc_out[r] = acc;
-  if (inten_out != nullptr) inten_out[r] = isum;
-  // Semantic channels: a second pass over this ray's weights, which the
-  // loop above just wrote (same thread, so they are visible).
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-    for (int i = 0; i < S; ++i) s += w_r[i] * sem[(r * S + i) * K + k];
-    sem_out[r * K + k] = s;
+  acc = warp_sum(acc);
+  dsum = warp_sum(dsum);
+  c0 = warp_sum(c0);
+  c1 = warp_sum(c1);
+  c2 = warp_sum(c2);
+  if (inten_out != nullptr) isum = warp_sum(isum);
+  if (lane == 0) {
+    const float bg_w = fmaxf(1.f - acc, 0.f);
+    rgb_out[3 * r] = c0 + bg_w * bg;
+    rgb_out[3 * r + 1] = c1 + bg_w * bg;
+    rgb_out[3 * r + 2] = c2 + bg_w * bg;
+    depth_out[r] = dsum / fmaxf(acc, kEps);
+    acc_out[r] = acc;
+    if (inten_out != nullptr) inten_out[r] = isum;
   }
+  // Each lane reads back only the sums it wrote.
+  for (int k = lane; k < K; k += 32) sem_out[(size_t)r * K + k] = sem_sum[k];
 }
 
 // One level's constants, as a thread uses them.
@@ -768,12 +855,28 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
                  float* inten_out, float* depth_out, float* acc_out,
                  long long R, int S, int K, int opaque, float bg, int device,
                  void* stream) {
+  if (R < 0 || S <= 0 || K < 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (R == 0) return cudaSuccess;
-  const int threads = 128;
-  const unsigned int blocks = (unsigned int)((R + threads - 1) / threads);
-  composite_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  // kCompositeWarps rays a block while their K channel sums fit the 48 KiB
+  // a block gets without opting in; fewer for a larger K, and one ray with
+  // up to the card's opt-in limit above that (K <= 58,112 on an H100).
+  constexpr size_t kStatic = 48 * 1024;
+  const size_t per_warp = (size_t)K * sizeof(float);
+  int warps = kCompositeWarps;
+  if (per_warp * warps > kStatic)
+    warps = per_warp > kStatic ? 1 : (int)(kStatic / per_warp);
+  const size_t smem = per_warp * warps;
+  if (smem > kStatic) {
+    err = cudaFuncSetAttribute(composite_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned int blocks = (unsigned int)((R + warps - 1) / warps);
+  composite_kernel<<<blocks, 32 * warps, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
       density, tdist, dirs, rgb, sem, inten, weights, rgb_out, sem_out,
       inten_out, depth_out, acc_out, R, S, K, opaque, bg);
   return cudaGetLastError();

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "nl_take_along_axis": [_P] * 3 + [_I, _I, _LL, _I, _I, _I, _I, _P],
     # tbl, idx, out, R, C, N, device, stream
     "nl_take_rows": [_P] * 3 + [_I, _I, _LL, _I, _P],
+    # device, stream
+    "nl_empty_kernel": [_I, _P],
 }
 
 
@@ -137,3 +139,11 @@ def require_cuda(name: str, t: torch.Tensor, shape,
             s is not None and s != d for s, d in zip(shape, t.shape)):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def launch_empty(device: torch.device) -> None:
+    """One launch of an empty kernel on `device`'s current stream: its
+    device time is the card's launch floor."""
+    lib = library()
+    check(lib, lib.nl_empty_kernel(device.index, torch.cuda.current_stream(
+        device).cuda_stream), "empty_kernel")

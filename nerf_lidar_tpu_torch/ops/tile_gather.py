@@ -111,6 +111,10 @@ def _along_axis_kernel(tbl: torch.Tensor, idx: torch.Tensor,
     i, j = idx.shape[-2:]
     _build.require_cuda("tbl", tbl, (a, b))
     _build.require_cuda("idx", idx, tuple(idx.shape), torch.int32)
+    if max(idx.numel(), a * b) > _INT32_MAX:
+        raise ValueError(f"take_along_axis: the index and the table must "
+                         f"hold at most 2^31 - 1 elements (the kernel's "
+                         f"index math), got {idx.numel()} and {a * b}")
     out = torch.empty(idx.shape, dtype=torch.float32, device=tbl.device)
     lib = _build.library()
     rc = lib.nl_take_along_axis(tbl.data_ptr(), idx.data_ptr(),

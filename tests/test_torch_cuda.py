@@ -33,16 +33,38 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _composite_args(dev, r, s, k, with_int, opaque, seed=0):
+def _composite_args(dev, r, s, k, with_int, opaque, seed=0, trained=False):
+    """Seeded K1 inputs; `trained`: what a trained field hands K1 (log-normal
+    densities up to 1e4, every 8th ray opaque at its first sample, every
+    16th of zero density)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda *shape: torch.rand(*shape, device=dev, generator=g)
+    density = rand(r, s) * 3
+    if trained:
+        density = torch.exp(torch.randn(r, s, device=dev, generator=g) * 3
+                            ).clamp(max=1e4)
+        density[::8, 0] = 1e4
+        density[::16] = 0.0
     return dict(
-        density=rand(r, s) * 3,
+        density=density,
         tdist=torch.sort(rand(r, s + 1) * 5, dim=-1).values,
         dirs=torch.randn(r, 3, device=dev, generator=g),
         rgb=rand(r, s, 3), semantic=rand(r, s, k) if k else None,
         intensity=rand(r, s) if with_int else None,
         opaque_background=opaque, bg_value=0.5)
+
+
+def _check_composite(args):
+    before = render_fused.fused_composite.launches
+    got = render_fused.fused_composite(**args)
+    assert render_fused.fused_composite.launches == before + 1
+    want = render_fused.fused_composite_plain(**args)
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for key, (rtol, atol) in TOL.items():
+        if key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=rtol,
+                                       atol=atol, msg=key)
 
 
 @pytest.mark.parametrize("r,s,k,with_int,opaque", [
@@ -60,6 +82,57 @@ def test_composite_kernel_matches_plain(dev, r, s, k, with_int, opaque):
         if key in want:
             torch.testing.assert_close(got[key], want[key], rtol=rtol,
                                        atol=atol, msg=key)
+
+
+@pytest.mark.parametrize("r", [1, 2432, 16384])
+@pytest.mark.parametrize("k", [0, 1, 19])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 128])
+def test_composite_kernel_at_sample_and_class_counts(dev, s, k, r):
+    """One warp per ray over 32-sample chunks (S = 1, a partial chunk, one
+    whole chunk, a chunk and one sample, 2 and 4 chunks), with no, one and
+    the slice's 19 classes; opaque and intensity alternate."""
+    _check_composite(_composite_args(dev, r, s, k, with_int=s % 2 == 1,
+                                     opaque=s != 33, seed=s + k))
+
+
+@pytest.mark.parametrize("s", [32, 33])
+@pytest.mark.parametrize("opaque", [True, False])
+def test_composite_kernel_on_trained_like_inputs(dev, opaque, s):
+    """Densities in the thousands, rays opaque at their first sample (T
+    underflows to 0), rays of zero density (opaque: all weight on the last
+    sample; not opaque: acc 0, depth 0, rgb = background)."""
+    args = _composite_args(dev, 4096, s, 19, True, opaque, seed=5,
+                           trained=True)
+    _check_composite(args)
+    out = render_fused.fused_composite(**args)
+    zero = slice(None, None, 16)
+    if opaque:
+        assert bool((out["weights"][zero, -1] == 1).all())
+    else:
+        assert float(out["acc"][zero].abs().max()) == 0
+        assert float(out["depth"][zero].abs().max()) == 0
+        assert bool((out["rgb"][zero] == args["bg_value"]).all())
+
+
+@pytest.mark.parametrize("k", [40, 2000, 13000])
+def test_composite_kernel_at_wide_class_counts(dev, k):
+    """More than 32 classes (a lane takes k, k + 32, ...), and channel sums
+    that fit 6 rays in a block's 48 KiB (K = 2,000) or need one ray with
+    more shared memory (K = 13,000)."""
+    _check_composite(_composite_args(dev, 37, 33, k, True, True, seed=k))
+
+
+@pytest.mark.parametrize("key", ["semantic", "rgb", "density"])
+def test_composite_kernel_on_views_off_16_bytes(dev, key):
+    """An input that starts 4 bytes into its storage (a contiguous view of
+    a sliced buffer), with S K = 33 x 19 not a multiple of 4."""
+    args = _composite_args(dev, 300, 33, 19, False, True, seed=3)
+    t = args[key]
+    buf = torch.empty(t.numel() + 1, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    _check_composite(dict(args, **{key: view}))
 
 
 def test_composite_kernel_takes_strided_inputs(dev):
@@ -430,6 +503,63 @@ def test_take_along_axis_kernel_matches_plain(dev, tbl_shape, idx_shape,
     torch.cuda.synchronize()
     assert tile_gather.same_values(got, want)
     assert 0 < float(want.isnan().float().mean()) < 1
+
+
+@pytest.mark.parametrize("tbl_shape,idx_shape,axis", [
+    ((8, 128), (8, 127), 1), ((8, 130), (3, 8, 6), 1), ((7, 5), (9, 5), 0),
+    ((96, 128), (4, 96, 128), 1), ((97, 128), (4, 97, 128), 1),
+    ((97, 128), (33, 128), 0), ((1, 1), (1, 1, 1), 1)])
+def test_take_along_axis_kernel_at_other_widths(dev, tbl_shape, idx_shape,
+                                                axis):
+    """J % 4 != 0 (one output a thread), a table of exactly 48 KiB (staged)
+    and one row above it (read through __ldg), and a single element."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    tbl = torch.randn(*tbl_shape, device=dev, generator=g)
+    for seed in (0, 1):
+        idx = (_gather_indices(dev, idx_shape, tbl_shape[axis], seed)
+               if seed else torch.randint(0, tbl_shape[axis], idx_shape,
+                                          device=dev, dtype=torch.int32))
+        got = tile_gather.take_along_axis(tbl, idx, axis)
+        assert tile_gather.same_values(
+            got, tile_gather.take_along_axis_plain(tbl, idx, axis))
+
+
+@pytest.mark.parametrize("which", ["tbl", "idx", "both"])
+@pytest.mark.parametrize("tbl_shape,axis", [((8, 128), 1), ((128, 128), 0)])
+def test_take_along_axis_kernel_on_views_off_16_bytes(dev, which, tbl_shape,
+                                                      axis):
+    """A table (staged: float copies instead of float4) or an index (int
+    loads instead of int4) that starts 4 bytes into its storage."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    a, b = tbl_shape
+    tbl = torch.randn(a * b + 1, device=dev, generator=g)
+    tbl = tbl[1:].view(a, b) if which != "idx" else tbl[:-1].view(a, b)
+    shape = (3, a, b)
+    idx = _gather_indices(dev, (3 * a * b + 1,), tbl_shape[axis], 2)
+    idx = idx[1:].view(shape) if which != "tbl" else idx[:-1].view(shape)
+    assert (tbl.data_ptr() % 16 != 0) == (which != "idx")
+    assert (idx.data_ptr() % 16 != 0) == (which != "tbl")
+    got = tile_gather.take_along_axis(tbl, idx, axis)
+    assert tile_gather.same_values(
+        got, tile_gather.take_along_axis_plain(tbl, idx, axis))
+
+
+def test_take_along_axis_kernel_refuses_more_than_int32(dev):
+    """The kernel's index math is 32-bit: 2^31 index elements are refused
+    before any launch."""
+    tbl = torch.randn(8, 128, device=dev)
+    idx = torch.zeros(2**21, 8, 128, dtype=torch.int32, device=dev)
+    before = tile_gather.tile_grid_gather.launches
+    with pytest.raises(ValueError, match="2\\^31 - 1"):
+        tile_gather.tile_grid_gather(tbl, idx)
+    assert tile_gather.tile_grid_gather.launches == before
+
+
+def test_empty_kernel_launches(dev):
+    """The launch-floor probe that chip_smoke.py [10] times."""
+    from nerf_lidar_tpu_torch.ops import _build
+    _build.launch_empty(dev)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("name,idx_shape", [
