@@ -72,16 +72,39 @@ Phases (each raises on failure, so the script exits non-zero):
    in-process, at the JAX bench's sizes: every probe line prints, the K4
    forms pass, and the launch counts of that run; then the device time of
    one call of its row gather (both layouts) and row scatter-add at the
-   hash grid's 2^19 x 16, without the bench's host loop.
-The phases run in the order 1, 2, 3, 5, 4, 8, 6, 7, 9, 10, 11: [4] and [6]
-time the encode on the inputs that [5] and [8] record, and what times with
-torch.profiler ([3]'s timing, [7], [9], [10], [11]) runs after the timed
-entries, [3]'s timing after [7]. Then it fails if any
+   hash grid's 2^19 x 16, without the bench's host loop;
+12. dynamic objects: writes a synth_nusc scene (one moving "vehicle.car"
+   and its track) with the port's copy of the writer, runs the port's
+   `train` entry on it, in-process, with `nuscenes_single` at full width
+   and the tracknet live from the first step (`track_start_opt=0`) for
+   OBJ_STEPS steps: finite losses, obj_hit_frac > 0, obj_overflow 0, a
+   non-zero gradient on every hash table, obj_latents and the tracknet's
+   opt_t, the launch counts (and those on the object grid), warm ms/step
+   and peak memory beside [8]'s; then 2 steps kernels on vs off under
+   [8]'s rules (the object table, obj_latents and the tracknet included;
+   without obj_nodecay, so that K3 sums the object table there too); then
+   `render_lidar --mode replay` from the params it wrote, with the car
+   (`--obj_mode replay`) and without it (`removal`), every K1 and H1 call
+   held against its plain version: the files, a ray with a sample in a
+   box, and the rays with no sample in a box at any level equal between
+   the two renders at [5]'s tolerances; warm s/sweep of both; then H1 and
+   H1-bwd (d_table, d_x01; also vs plain autograd) on the object grid at a
+   train step's recorded call (n = 1, stds 0), in both block orders in
+   turns, and K3 at the object table's hash-decay level sums, with device
+   times and bounds; and a torch.profiler breakdown of 2 warm train steps
+   with objects (`hash_encode_bench.profile_train`).
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 6, 7, 9, 10, 11: [4] and
+[6] time the encode on the inputs that [5] and [8] record, and what times
+with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s kernel
+times) runs after the timed entries, [3]'s timing after [7]. Then it fails
+if any
 module of jax, jaxlib, flax, optax or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
-JSON line (every kernel's launches on each path, times, and its bound: the
-larger of its bytes over the card's memory rate and its operations over
-its float32 rate; H1 and its backward per grid too), the nvidia-smi line,
+JSON line (every kernel's launches on each path, the object paths
+`train_objects` and `render_lidar_objects` included, times, and its bound:
+the larger of its bytes over the card's memory rate and its operations
+over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
+and K3 on the object grid under "obj_grid"), the nvidia-smi line,
 then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -119,6 +142,22 @@ LEARN_ARGV = ["train", "--config", "nuscenes_single",
               "--set", "dataset_loader=synthetic", "--set", "print_every=1",
               "--set", "lr_delay_steps=0", "--steps", "100",
               "--device", "cuda", "--exp_name", "chip_smoke_learn"]
+# [12]: the recipe on a synth_nusc scene with one moving car, whose track
+# the tracknet refines from the first step.
+OBJ_EXP = "chip_smoke_objects"
+OBJ_SCENE = os.path.join("exp", OBJ_EXP, "scene")
+OBJ_STEPS = 20
+OBJ_TRAIN_ARGV = ["train", "--config", "nuscenes_single",
+                  "--set", "dataset_loader=nusc", "--data_dir", OBJ_SCENE,
+                  "--set", "track_start_opt=0", "--set", "print_every=1",
+                  "--steps", str(OBJ_STEPS), "--device", "cuda",
+                  "--exp_name", OBJ_EXP]
+OBJ_RENDER_ARGV = ["render_lidar", "--config", "nuscenes_single",
+                   "--set", "dataset_loader=nusc", "--data_dir", OBJ_SCENE,
+                   "--mode", "replay", "--num_sweeps", "1", "--device",
+                   "cuda", "--exp_name", OBJ_EXP]
+# What [5] and [8] measured, printed beside [12]'s.
+STATIC = {}
 
 
 def fail(msg: str):
@@ -465,6 +504,7 @@ def phase_slice(dev):
             times[name].append(sec)
             check_depth(out, f"fresh weights, {name}")
     med = {k: statistics.median(v) for k, v in times.items()}
+    STATIC["s_per_sweep"] = med["kernels"]
     print(f"[5] warm s/sweep (35,200 rays, median of 3, TF32 off): "
           f"kernels {med['kernels']:.4f} (runs {times['kernels']}), "
           f"plain {med['plain']:.4f} (runs {times['plain']})")
@@ -687,8 +727,8 @@ def phase_scatter(dev, cfg):
 
 
 def _table_grads_nonzero(model, what):
-    for name, mlp in [("nerf", model.nerf_mlp)] + [
-            (f"prop{i}", p) for i, p in enumerate(model.prop_mlps)]:
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    for name, mlp in hb.grid_names(model):
         grad = mlp.table.grad
         if grad is None or float(grad.abs().max()) == 0.0:
             fail(f"{what}: the {name} hash table got no gradient")
@@ -721,10 +761,20 @@ TABLE_GRAD_EPS_MULT = 4096
 
 
 def table_params(model):
-    """{parameter name: grid name} of a model's hash tables."""
-    return {"nerf_mlp.table": "nerf", **{
-        f"prop_mlps.{i}.table": f"prop{i}"
-        for i in range(len(model.prop_mlps))}}
+    """{parameter name: grid name} of a model's hash tables (the object
+    grids' too)."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    grids = {id(mlp.table): name for name, mlp in hb.grid_names(model)}
+    return {pname: grids[id(p)] for pname, p in model.named_parameters()
+            if id(p) in grids}
+
+
+def decayed_grids(model, cfg):
+    """[(grid name, MLP)] of the tables the hash-decay term holds: every
+    grid, the object grids only without `obj_nodecay`."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    return [(name, mlp) for name, mlp in hb.grid_names(model)
+            if not (name.startswith("obj") and cfg.obj_nodecay)]
 # The hash-decay term is K3's output on the path. It is held against the
 # same term from per-level slice sums in float64 (K3's level sums are
 # within ~5e-6 of those, [7]); the plain side, index_add_ in float32, is
@@ -743,7 +793,7 @@ def hash_decay_f64(model, cfg):
     """The hash-decay loss term from per-level slice sums in float64."""
     import torch
     total = 0.0
-    for mlp in (model.nerf_mlp, *model.prop_mlps):
+    for _, mlp in decayed_grids(model, cfg):
         spec, table = mlp.spec, mlp.table.detach().double()
         sums = torch.stack([table[o:o + r].square().sum(0) / r for o, r in
                             zip(spec.offsets, spec.rows_per_level)])
@@ -766,21 +816,46 @@ def table_grad_excess(got, want, terms, upstream):
 
 def table_grad_bounds(spec, table, on, off, decay):
     """(terms, upstream) of one hash table's gradient, kernels on vs off,
-    for `table_grad_excess`. on / off: (x01, stds, g_out) that each side's
-    encode saw; decay: the table's gradient from the hash-decay term, which
-    both sides add. Through the written-out backward in float32, which
-    picks the kernel's cells."""
+    for `table_grad_excess`. on / off: the (x01, stds, g_out) of every
+    encode call whose output took a gradient on each side (the object grids
+    are encoded at every level); decay: the table's gradient from the
+    hash-decay term, which both sides add. Through the written-out backward
+    in float32, which picks the kernel's cells."""
     from nerf_lidar_tpu_torch.ops import grid
 
-    def bwd(x01, stds, g_out):
-        return grid.hash_encode_multisample_bwd_plain(
-            table, x01, stds, g_out, spec, needs=(True, False, False))[0]
+    def bwd(calls, absolute=False):
+        return sum(grid.hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out.abs() if absolute else g_out, spec,
+            needs=(True, False, False))[0] for x01, stds, g_out in calls)
 
-    terms = (bwd(on[0], on[1], on[2].abs()) + bwd(off[0], off[1],
-                                                   off[2].abs())
-             + 2 * decay.abs())
-    upstream = (bwd(*on) - bwd(*off)).abs()
+    terms = bwd(on, True) + bwd(off, True) + 2 * decay.abs()
+    upstream = (bwd(on) - bwd(off)).abs()
     return terms, upstream
+
+
+def step_table_bounds(model, cfg, seen_on, seen_off, what):
+    """{table parameter name: (terms, upstream)} of one train step, kernels
+    on (seen_on: `recording_all` of the backward kernel) vs off (seen_off:
+    `recording_plain_encode`), for `_grads_close`."""
+    import torch
+    dev = next(model.parameters()).device
+    decayed = {name for name, _ in decayed_grids(model, cfg)}
+    tables = {}
+    for pname, gname in table_params(model).items():
+        on = seen_on.get(gname, [])
+        off = [rec[:3] for rec in seen_off.get(gname, [])
+               if rec[2] is not None]
+        if not on or not off:
+            fail(f"{what}: the {gname} table's encode got no gradient on "
+                 f"{'the kernels' if not on else 'the plain'} side")
+        table, spec = on[0][0].to(dev), on[0][4]
+        decay = (hash_decay_grad(table, spec, cfg.hash_decay_mults)
+                 if gname in decayed else torch.zeros_like(table))
+        tables[pname] = table_grad_bounds(
+            spec, table, [[t.to(dev) for t in rec[1:4]] for rec in on],
+            [[t.to(dev) for t in rec] for rec in off], decay)
+    return tables
+
 
 
 def hash_decay_grad(table, spec, mult):
@@ -804,9 +879,9 @@ def to_host(t):
 @contextlib.contextmanager
 def recording_plain_encode(model):
     """Within the block, the plain encode records, per hash table of
-    `model`, the first call's [x01, stds, g_out, spec] (g_out from a hook
-    on its features, set once backward reaches them), tensors in host
-    memory."""
+    `model`, every call's [x01, stds, g_out, spec] (g_out from a hook on its
+    features, set once backward reaches them, None where no gradient
+    does), tensors in host memory."""
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
     orig = grid.hash_encode_multisample_plain
@@ -816,8 +891,9 @@ def recording_plain_encode(model):
     def wrapper(table, x01, stds, spec):
         out = orig(table, x01, stds, spec)
         name = names.get(table.data_ptr())
-        if name is not None and name not in calls:
-            rec = calls[name] = [to_host(x01), to_host(stds), None, spec]
+        if name is not None and out[0].requires_grad:
+            rec = [to_host(x01), to_host(stds), None, spec]
+            calls.setdefault(name, []).append(rec)
             out[0].register_hook(lambda g: rec.__setitem__(2, to_host(g)))
         return out
 
@@ -826,6 +902,43 @@ def recording_plain_encode(model):
         yield calls
     finally:
         grid.hash_encode_multisample_plain = orig
+
+
+@contextlib.contextmanager
+def recording_all(module, name, model):
+    """Within the block, module.<name> (the encode's backward wrapper)
+    records every call per hash table of `model`: {grid name: [(table,
+    x01, stds, g_out, spec, needs), ...]}, tensors cloned (`calls_to_host`
+    moves them off the card). The wrapper carries the function's launch
+    count, and gives it back."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    orig = getattr(module, name)
+    names = hb.grid_tables(model)
+    calls = {}
+
+    def wrapper(*args, **kw):
+        grid_name = names.get(args[0].data_ptr())
+        if grid_name is not None:
+            needs = kw.get("needs", args[5] if len(args) > 5
+                           else (True, True, True))
+            calls.setdefault(grid_name, []).append(tuple(
+                a.detach().clone() if hasattr(a, "detach") else a
+                for a in args[:5]) + (needs,))
+        return orig(*args, **kw)
+
+    wrapper.launches = orig.launches
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        orig.launches = wrapper.launches
+        setattr(module, name, orig)
+
+
+def calls_to_host(calls):
+    """`recording_all`'s calls with their tensors in host memory."""
+    return {k: [tuple(to_host(t) for t in rec) for rec in v]
+            for k, v in calls.items()}
 
 
 def _grads_close(model, model_p, what, tables):
@@ -900,6 +1013,7 @@ def phase_train(dev):
     _table_grads_nonzero(run.model, "train entry")
     step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[-20:])
     rays = run.batcher.total_rays
+    STATIC.update(ms_per_step=step_ms, peak_gib=peak / 2**30)
     print(f"[8] train (nuscenes_single, synthetic, {rays} rays/step, "
           f"{TRAIN_STEPS} steps, cold, init included): {entry_s:.2f} s; "
           f"launches {launches}; warm {step_ms:.1f} ms/step (median of the "
@@ -916,7 +1030,9 @@ def phase_train(dev):
     cfg = run.cfg
     model_p = copy.deepcopy(run.model)
     opt_p = train_step.make_optimizer(model_p, cfg)
-    opt_p.load_state_dict(run.optimizer.state_dict())
+    # A deep copy: load_state_dict keeps the very moment tensors it is
+    # given, which both optimizers would then update.
+    opt_p.load_state_dict(copy.deepcopy(run.optimizer.state_dict()))
     batches = [cli.to_device(run.batcher.next(), dev) for _ in range(3)]
     gens = [torch.Generator(device=dev).manual_seed(99) for _ in range(2)]
     decay_ref = hash_decay_f64(run.model, cfg)
@@ -927,7 +1043,7 @@ def phase_train(dev):
         step = TRAIN_STEPS + 1 + i
         # The first step records what each side's encode saw, for the
         # table gradients' bounds.
-        with (hb.recording(grid, "hash_encode_multisample_bwd", run.model)
+        with (recording_all(grid, "hash_encode_multisample_bwd", run.model)
               if i == 0 else contextlib.nullcontext({})) as seen_on:
             t0 = time.perf_counter()
             on = train_step.train_step(run.model, run.optimizer, cfg, batch,
@@ -936,7 +1052,7 @@ def phase_train(dev):
             torch.cuda.synchronize()
         t1 = time.perf_counter()
         # Held in host memory, off the plain step's device memory peak.
-        seen_on = {k: [to_host(t) for t in v] for k, v in seen_on.items()}
+        seen_on = calls_to_host(seen_on)
         with (recording_plain_encode(model_p) if i == 0
               else contextlib.nullcontext({})) as seen_off:
             off = train_step.train_step(model_p, opt_p, cfg, batch, step,
@@ -950,22 +1066,11 @@ def phase_train(dev):
         if abs(a - b) > LOSS_TOL * abs(b):
             fail(f"train step {step}: loss kernels {a} vs plain {b}")
         if i == 0:
-            tables = {}
-            for pname, gname in table_params(run.model).items():
-                # The table as the step's backward saw it.
-                table, x01, stds, g_out, spec, _ = seen_on[gname]
-                if seen_off[gname][2] is None:
-                    fail(f"train step {step}: the plain encode of {gname} "
-                         "got no gradient")
-                table = table.to(dev)
-                tables[pname] = table_grad_bounds(
-                    spec, table, [t.to(dev) for t in (x01, stds, g_out)],
-                    [t.to(dev) for t in seen_off[gname][:3]],
-                    hash_decay_grad(table, spec, cfg.hash_decay_mults))
-            grad_err = _grads_close(run.model, model_p,
-                                    f"train step {step}, kernels on vs off",
-                                    tables)
-            del tables, seen_on, seen_off, table
+            what = f"train step {step}, kernels on vs off"
+            grad_err = _grads_close(run.model, model_p, what,
+                                    step_table_bounds(run.model, cfg, seen_on,
+                                                      seen_off, what))
+            del seen_on, seen_off
             decay = [abs(float(stats["hash_decay"]) - decay_ref) / decay_ref
                      for stats in (on, off)]
             if not decay[0] <= HASH_DECAY_TOL:
@@ -1169,6 +1274,434 @@ def phase_train_to_render(dev, params):
     torch.save(chunk, os.path.join(cli.exp_dir(run.cfg), "k1_chunk.pt"))
     return dict(trained_chunk_ms=ms, trained_chunk_max_err=err,
                 trained_chunk_bound_ms=lim["bound_ms"])
+
+
+@contextlib.contextmanager
+def obj_grid_launches(spec):
+    """Within the block, counts the launches of H1, its backward and K3 on
+    the object grids (hash grid `spec`; K3 at an object table's hash-decay
+    shape): yields {"hash_encode_ms", "hash_encode_ms_bwd",
+    "scatter_add_rows": count}. Installed last, its wrappers take the
+    kernels' counts (as `hb.recording` does) and give them back."""
+    from nerf_lidar_tpu_torch.ops import grid
+    is_obj = dict(
+        hash_encode_multisample=lambda a: a[3] == spec,
+        hash_encode_multisample_bwd=lambda a: a[4] == spec,
+        scatter_add_rows=lambda a: (
+            tuple(a[1].shape) == (spec.total_rows, spec.level_dim)
+            and a[2] == spec.num_levels))
+    names = dict(hash_encode_multisample="hash_encode_ms",
+                 hash_encode_multisample_bwd="hash_encode_ms_bwd",
+                 scatter_add_rows="scatter_add_rows")
+    counts = {v: 0 for v in names.values()}
+    origs = {}
+
+    def counting(name, orig):
+        def wrapper(*a, **kw):
+            before = wrapper.launches
+            out = orig(*a, **kw)
+            if is_obj[name](a):
+                counts[names[name]] += wrapper.launches - before
+            return out
+        wrapper.launches = orig.launches
+        return wrapper
+
+    for name in names:
+        origs[name] = getattr(grid, name)
+        setattr(grid, name, counting(name, origs[name]))
+    try:
+        yield counts
+    finally:
+        for name, orig in origs.items():
+            orig.launches = getattr(grid, name).launches
+            setattr(grid, name, orig)
+
+
+@contextlib.contextmanager
+def box_hits():
+    """Within the block, records which rays have a sample in a box at each
+    composite_objects call ([R] bool per call, host memory)."""
+    from nerf_lidar_tpu_torch.models import objects as objlib
+    orig = objlib.composite_objects
+    calls = []
+
+    def wrapper(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append(out["obj_mask"].flatten(1).any(-1).cpu())
+        return out
+
+    objlib.composite_objects = wrapper
+    try:
+        yield calls
+    finally:
+        objlib.composite_objects = orig
+
+
+def rays_in_a_box(calls, levels, n):
+    """[n] bool: rays with a sample in a box at any level, from `box_hits`'s
+    calls (chunk by chunk, `levels` calls a chunk)."""
+    import torch
+    per_chunk = torch.stack(calls).reshape(-1, levels, calls[0].shape[0])
+    return per_chunk.any(1).reshape(-1)[:n].numpy()
+
+
+def sweep_files(run):
+    """{depth, rgb, semantic} of a render_lidar run's first sweep, read back
+    from its files; depth is the distance from each ray's origin to its
+    point, in the world frame."""
+    import numpy as np
+    pts = np.load(run.paths[0])
+    sem = np.load(run.paths[0].replace("points_", "points_semantic_"))
+    rgb = np.load(run.paths[0].replace("points_", "points_rgb_"))
+    origin = run.frame.scene_to_world_points(run.sweeps[0].origins)
+    n = run.sweeps[0].num_rays
+    if pts.shape != (n, 3) or rgb.shape != (n, 3) or sem.shape[0] != n:
+        fail(f"render_lidar {run.sweep_dir}: shapes {pts.shape} "
+             f"{sem.shape} {rgb.shape} for {n} rays")
+    for name, a in (("points", pts), ("semantic", sem), ("rgb", rgb)):
+        if not np.isfinite(a).all():
+            fail(f"render_lidar {run.sweep_dir}: non-finite {name}")
+    return dict(depth=np.linalg.norm(pts - origin, axis=-1), rgb=rgb,
+                semantic=sem)
+
+
+def phase_objects(dev):
+    """[12] The recipe with dynamic objects: a synth_nusc scene (one moving
+    car and its track), the port's train entry for OBJ_STEPS steps with the
+    tracknet live from the first, 2 steps kernels on vs off, H1 / H1-bwd /
+    K3 on the object grid against their plain versions, and the trained
+    params rendered by render_lidar with the car (--obj_mode replay) and
+    without it (removal). Returns {"train_objects": launches,
+    "render_lidar_objects": launches, "obj_grid": {kernel: numbers}}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.data import synth_nusc
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.lidar.render import render_sweep
+    from nerf_lidar_tpu_torch.ops import grid, render_fused
+    from nerf_lidar_tpu_torch.train import train_step
+
+    fresh_exp_dir(OBJ_TRAIN_ARGV)
+    t0 = time.perf_counter()
+    synth_nusc.write_scene_dir(OBJ_SCENE, sensor_num=1)
+    print(f"[12] synth_nusc scene written in {time.perf_counter() - t0:.1f} "
+          f"s: {OBJ_SCENE}")
+    spec = grid.spec_for(
+        cli.build_config(cli.parse_args(OBJ_TRAIN_ARGV)).model.obj_mlp.grid)
+
+    # The train entry, kernels on.
+    counters = dict(hash_encode_ms=grid.hash_encode_multisample,
+                    hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
+                    scatter_add_rows=grid.scatter_add_rows)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with obj_grid_launches(spec) as obj_launches:
+        run = cli.main(OBJ_TRAIN_ARGV)
+        torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"kernel {name} was not launched on the objects train path")
+    for name in ("hash_encode_ms", "hash_encode_ms_bwd"):
+        if obj_launches[name] == 0:
+            fail(f"kernel {name} was not launched on the object grid")
+    cfg, hist = run.cfg, run.history
+    if run.tracknet is None or cfg.model.num_objects < 1:
+        fail(f"objects train: {cfg.model.num_objects} object slots, "
+             f"tracknet {run.tracknet}")
+    if len(hist) != OBJ_STEPS or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["psnr"]) for h in hist):
+        fail(f"objects train: {len(hist)} steps logged, or a loss is not "
+             "finite")
+    hit = [h["obj_hit_frac"] for h in hist]
+    overflow = [h["obj_overflow"] for h in hist]
+    if not max(hit) > 0 or any(o != 0 for o in overflow):
+        fail(f"objects train: obj_hit_frac {hit}, obj_overflow {overflow}")
+    _table_grads_nonzero(run.model, "objects train entry")
+    for name, p in (("obj_latents", run.model.obj_latents),
+                    ("tracknet opt_t", run.tracknet.opt_t)):
+        if p.grad is None or float(p.grad.abs().max()) == 0.0:
+            fail(f"objects train entry: {name} got no gradient")
+    step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[-10:])
+    rays = run.batcher.total_rays
+    print(f"[12] train with objects (nuscenes_single, synth_nusc, "
+          f"{cfg.model.num_objects} object slot(s), sem ids "
+          f"{cfg.model.obj_sem_ids}, {rays} rays/step, {OBJ_STEPS} steps, "
+          f"cold, init included): {entry_s:.2f} s; launches {launches}, on "
+          f"the object grid {obj_launches}; warm {step_ms:.1f} ms/step "
+          f"(median of the last 10; static [8] "
+          f"{STATIC.get('ms_per_step', float('nan')):.1f}), "
+          f"{rays / step_ms * 1e3:,.0f} rays/s; peak memory "
+          f"{peak / 2**30:.2f} GiB (static [8] "
+          f"{STATIC.get('peak_gib', float('nan')):.2f}); obj_hit_frac "
+          f"{min(hit):.4f} .. {max(hit):.4f}, obj_overflow {max(overflow)}; "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+
+    # Kernels on vs off, 2 steps from the same weights, optimizer state,
+    # batches and random draws, under [8]'s rules. Without obj_nodecay
+    # here (the recipe keeps it on), so that K3 sums the object table's
+    # hash decay inside a step too.
+    cfg = dataclasses.replace(cfg, obj_nodecay=False)
+    model_p = copy.deepcopy(run.model)
+    tracknet_p = copy.deepcopy(run.tracknet)
+    posenet_p = copy.deepcopy(run.posenet)
+    opt_p = train_step.make_optimizer(model_p, cfg, posenet_p, tracknet_p)
+    # A deep copy: load_state_dict keeps the very moment tensors it is
+    # given, which both optimizers would then update.
+    opt_p.load_state_dict(copy.deepcopy(run.optimizer.state_dict()))
+    batches = [cli.to_device(run.batcher.next(), dev) for _ in range(2)]
+    gens = [torch.Generator(device=dev).manual_seed(98) for _ in range(2)]
+    decay_ref = hash_decay_f64(run.model, cfg)
+    refine = dict(tracks=run.tracks, track_mask=run.track_mask)
+    worst_loss, step_obj = 0.0, {}
+    for i, batch in enumerate(batches):
+        step = OBJ_STEPS + i
+        with (recording_all(grid, "hash_encode_multisample_bwd", run.model)
+              if i == 0 else contextlib.nullcontext({})) as seen_on, \
+                obj_grid_launches(spec) as counts:
+            on = train_step.train_step(
+                run.model, run.optimizer, cfg, batch, step,
+                run.batcher.num_patch_rays, gens[0], posenet=run.posenet,
+                tracknet=run.tracknet, **refine)
+            torch.cuda.synchronize()
+        seen_on = calls_to_host(seen_on)
+        step_obj = {k: step_obj.get(k, 0) + v for k, v in counts.items()}
+        with (recording_plain_encode(model_p) if i == 0
+              else contextlib.nullcontext({})) as seen_off:
+            off = train_step.train_step(
+                model_p, opt_p, cfg, batch, step, run.batcher.num_patch_rays,
+                gens[1], use_kernels=False, posenet=posenet_p,
+                tracknet=tracknet_p, **refine)
+            torch.cuda.synchronize()
+        a, b = float(on["loss"]), float(off["loss"])
+        worst_loss = max(worst_loss, abs(a - b) / abs(b))
+        if abs(a - b) > LOSS_TOL * abs(b):
+            fail(f"objects train step {step}: loss kernels {a} vs plain {b}")
+        if i > 0:
+            continue
+        what = f"objects train step {step}, kernels on vs off"
+        grad_err = _grads_close(run.model, model_p, what, step_table_bounds(
+            run.model, cfg, seen_on, seen_off, what))
+        refiner_err = {}
+        for (name, p), q in zip(run.tracknet.named_parameters(),
+                                tracknet_p.parameters()):
+            scale = float(q.grad.abs().max())
+            err = float((p.grad - q.grad).abs().max())
+            if scale == 0 or err > GRAD_TOL * scale:
+                fail(f"{what}: tracknet {name} gradient differs by {err} "
+                     f"against max |grad| {scale} (tolerance {GRAD_TOL})")
+            refiner_err[name] = err / scale
+        decay = abs(float(on["hash_decay"]) - decay_ref) / decay_ref
+        if not decay <= HASH_DECAY_TOL:
+            fail(f"{what}: hash decay (K3, object table included) "
+                 f"{float(on['hash_decay'])} vs {decay_ref} in float64")
+        # The object grid's backward call, for H1 / H1-bwd below.
+        bwd_rec = seen_on[next(k for k in seen_on if k.startswith("obj"))][0]
+        del seen_on, seen_off
+    if step_obj["scatter_add_rows"] == 0:
+        fail("objects train steps without obj_nodecay: K3 was not launched "
+             "on the object table")
+    print(f"[12] 2 steps kernels on vs off (obj_nodecay off): loss rel diff "
+          f"{worst_loss:.2e} (tol {LOSS_TOL}); first step's gradients: MLPs "
+          f"and obj_latents, worst relative to max {grad_err[0]:.2e} "
+          f"({grad_err[1]}; tol {GRAD_TOL}); tracknet {refiner_err}; hash "
+          f"tables, float32 eps of the terms beyond the upstream difference "
+          f"{ {k: round(v, 2) for k, v in grad_err[2].items()} } (tol "
+          f"{TABLE_GRAD_EPS_MULT}); hash decay vs float64 {decay:.2e}; "
+          f"launches on the object grid in the 2 kernel steps {step_obj}")
+    params = run.params
+    del model_p, opt_p, tracknet_p, posenet_p, batches
+    torch.cuda.empty_cache()
+
+    # render_lidar from the trained params, with the car and without.
+    renders = {}
+    for mode in ("replay", "removal"):
+        render_fused.fused_composite.launches = 0
+        grid.hash_encode_multisample.launches = 0
+        with kernels_checked() as rec, box_hits() as hits, \
+                obj_grid_launches(spec) as obj_counts:
+            rr = cli.main([*OBJ_RENDER_ARGV, "--obj_mode", mode,
+                           "--params", params])
+        counts = dict(composite=render_fused.fused_composite.launches,
+                      hash_encode_ms=grid.hash_encode_multisample.launches)
+        for name, count in counts.items():
+            if count == 0:
+                fail(f"render_lidar --obj_mode {mode}: {name} was not "
+                     "launched")
+        renders[mode] = dict(run=rr, files=sweep_files(rr), launches=counts,
+                             obj=obj_counts["hash_encode_ms"], hits=hits,
+                             k1=max(rec["k1"]), h1=max(rec["h1"]),
+                             calls=(len(rec["k1"]), len(rec["h1"])))
+    rep, rem = renders["replay"], renders["removal"]
+    if rep["obj"] == 0 or rem["obj"] != 0 or rem["hits"]:
+        fail(f"render_lidar: object-grid encodes replay {rep['obj']}, "
+             f"removal {rem['obj']}")
+    n = rep["run"].sweeps[0].num_rays
+    levels = rep["run"].cfg.model.num_levels
+    in_box = rays_in_a_box(rep["hits"], levels, n)
+    if not in_box.any():
+        fail("render_lidar --obj_mode replay: no ray has a sample in a box")
+    free = ~in_box
+    errs = compare_sweeps(
+        "objects replay vs removal, rays in no box",
+        {k: v[free] for k, v in rep["files"].items()},
+        {k: v[free] for k, v in rem["files"].items()})[0]
+    moved = {k: float(np.abs(rep["files"][k][in_box]
+                             - rem["files"][k][in_box]).max())
+             for k in ("depth", "rgb", "semantic")}
+    car = rep["files"]["semantic"][in_box].argmax(-1)
+    # Warm s/sweep, with the car and without, kernels on.
+    times = {}
+    for mode, r in renders.items():
+        rr = r["run"]
+        sec = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            render_sweep(rr.renderer, rr.sweeps[0], rr.near, rr.far,
+                         rr.frame, rr.tracks, rr.track_mask)
+            torch.cuda.synchronize()
+            sec.append(time.perf_counter() - t)
+        times[mode] = (statistics.median(sec), sec)
+    print(f"[12] render_lidar --mode replay from {params}: {n} rays; "
+          f"launches replay {rep['launches']} (object grid "
+          f"{rep['obj']}), removal {rem['launches']}; every K1 / H1 call vs "
+          f"its plain version, max abs err replay {rep['k1']:.3e} / "
+          f"{rep['h1']:.3e} ({rep['calls']} calls), removal "
+          f"{rem['k1']:.3e} / {rem['h1']:.3e}; {int(in_box.sum())} rays "
+          f"with a sample in a box (class ids there "
+          f"{np.bincount(car).nonzero()[0].tolist()}), replay vs removal on "
+          f"the {int(free.sum())} others: max abs diff {errs}, on the rays "
+          f"in a box {moved}; warm s/sweep (median of 3) replay "
+          f"{times['replay'][0]:.4f} {times['replay'][1]}, removal "
+          f"{times['removal'][0]:.4f} {times['removal'][1]} (static [5] "
+          f"{STATIC.get('s_per_sweep', float('nan')):.4f})")
+    paths = dict(train_objects=launches, render_lidar_objects=rep["launches"])
+    on_obj_grid = dict(train_objects=obj_launches,
+                       render_lidar_objects=dict(hash_encode_ms=rep["obj"]))
+    del renders, rep, rem
+    # Where a step with objects spends its time (after every timed run:
+    # a profiler session slows later host work).
+    prof = hb.profile_train(run, OBJ_STEPS + 2)
+    print(f"[12] profile of 2 warm train steps with objects: "
+          f"{json.dumps(prof)}")
+    del run
+    torch.cuda.empty_cache()
+
+    # The kernels on the object grid alone (device time, torch.profiler:
+    # after the timed entries).
+    obj_grid = dict(hash_encode_ms=obj_encode(dev, bwd_rec, fwd=True),
+                    hash_encode_ms_bwd=obj_encode(dev, bwd_rec, fwd=False),
+                    scatter_add_rows=obj_scatter(dev, spec))
+    for name, nums in obj_grid.items():
+        nums["launches_by_path"] = {p: c.get(name, 0)
+                                    for p, c in on_obj_grid.items()}
+    return dict(paths=paths, obj_grid=obj_grid)
+
+
+def obj_encode(dev, rec, fwd):
+    """H1 (fwd) or H1-bwd (d_table and d_x01) on the object grid at a train
+    step's recorded backward call `rec` (table, x01, stds, g_out, spec,
+    needs; n = 1, stds 0), against its plain version (the backward also
+    against plain autograd through the plain encode), with the kernel's
+    device ms in both block orders in turns (the one `grid.level_major`
+    picks, the other, the other, the picked), the plain version's and the
+    bound. Returns its kernels-line numbers."""
+    import torch
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    table, x01, stds, g_out = (t.to(dev) for t in rec[:4])
+    spec, needs = rec[4], rec[5]
+    n = stds.shape[-1]
+    b = stds.numel() // n
+    if n != 1 or bool(stds.any()) or not needs[1]:
+        fail(f"object grid's encode: n = {n}, stds max "
+             f"{float(stds.abs().max())}, needs {needs} (expected n = 1, "
+             "stds 0 and d_x01)")
+    if fwd:
+        name = "hash_encode_ms"
+        call = lambda: grid.hash_encode_multisample(table, x01, stds, spec)
+        plain = lambda: grid.hash_encode_multisample_plain(table, x01, stds,
+                                                           spec)[0]
+        err = close(f"{name} object grid", call(), plain(), 1e-5, 1e-6)
+        errs = dict(features=err)
+        lim = bound(*hb.fwd_bound(spec, x01, stds))
+    else:
+        name, asked = "hash_encode_ms_bwd", (True, True, False)
+        call = lambda: grid.hash_encode_multisample_bwd(
+            table, x01, stds, g_out, spec, needs=asked)
+        plain = lambda: grid.hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out, spec, needs=asked)
+        got, twin = call(), plain()
+        leaves = [t.clone().requires_grad_(True) for t in (table, x01)]
+        auto = torch.autograd.grad(grid.hash_encode_multisample_plain(
+            *leaves, stds, spec)[0], leaves, g_out)
+        errs = {}
+        for i, key in enumerate(("d_table", "d_x01")):
+            for what, want in (("twin", twin[i]), ("autograd", auto[i])):
+                errs[f"{key} vs {what}"] = rel_err(
+                    f"{name} object grid {key} vs {what}", got[i], want,
+                    BWD_TOL)
+        err = errs["d_table vs twin"][0]
+        lim = bound(*hb.bwd_bound(spec, x01, stds, g_out))
+    order = {"picked": [], "other": []}
+    for turn in ("picked", "other", "other", "picked"):
+        with (hb.other_order(grid) if turn == "other"
+              else contextlib.nullcontext()):
+            order[turn].append(device_ms(call))
+    plain_ms = device_ms(plain, iters=5)
+    picked = ("level-major" if grid.level_major(spec, grid._l2_bytes(
+        dev.index)) else "side by side")
+    ms = statistics.fmean(order["picked"])
+    print(f"[12] {name} on the object grid ({spec.num_levels} levels x "
+          f"C{spec.level_dim}, {spec.total_rows} rows, one train step's "
+          f"B={b} n=1 stds=0): vs plain {errs}; device ms kernel "
+          f"{order['picked']} ({picked}, picked), {order['other']} (the "
+          f"other order), plain {plain_ms:.4f}; bound {lim['bound_ms']:.5f} "
+          f"ms ({lim['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **lim, block_order=picked,
+                other_order_ms=statistics.fmean(order["other"]),
+                inputs=f"object grid, one train step's B={b} points, n=1")
+
+
+def obj_scatter(dev, spec):
+    """K3 at the object table's hash-decay level sums (table uniform(-1,
+    1)) vs float64, with kernel, plain (index_add_ in float32) and
+    index_add_ device ms beside the bound. Returns its kernels-line
+    numbers."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import grid
+    g = torch.Generator(device=dev).manual_seed(12)
+    table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
+                       generator=g) * 2 - 1
+    ids, vals, rows = grid.level_ids(spec, dev), table**2, spec.num_levels
+    got = grid.scatter_add_rows(ids, vals, rows)
+    want = grid.scatter_add_rows_plain(ids, vals.double(), rows)
+    err, rel = rel_err("scatter_add_rows hash decay object grid",
+                       got.double(), want, PATH_SCATTER_TOL)
+    ms = device_ms(lambda: grid.scatter_add_rows(ids, vals, rows))
+    plain_ms = device_ms(lambda: grid.scatter_add_rows_plain(ids, vals, rows),
+                         iters=5)
+    ids64 = ids.long()
+    library_ms = device_ms(lambda: vals.new_zeros(rows, spec.level_dim)
+                           .index_add_(0, ids64, vals), iters=5)
+    lim = bound(nbytes(ids, vals, got), vals.numel())
+    print(f"[12] scatter_add_rows hash decay on the object grid: "
+          f"N={spec.total_rows} rows onto {rows} C={spec.level_dim}: max abs "
+          f"err {err:.3e} ({rel:.2e} of max, float64); device ms: kernel "
+          f"{ms:.4f}, plain {plain_ms:.4f}, index_add_ alone "
+          f"{library_ms:.4f}; bound {lim['bound_ms']:.4f} ms "
+          f"({lim['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **lim,
+                inputs="object grid's hash-decay level sums")
 
 
 def _bad_indices(idx, size, g):
@@ -1390,6 +1923,7 @@ def main():
     h1 = timed("[4]", phase_hash_encode, dev, cfg, render_inputs)
     del render_inputs
     train_launches, params, train_inputs = timed("[8]", phase_train, dev)
+    objects = timed("[12]", phase_objects, dev)
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
@@ -1403,9 +1937,12 @@ def main():
         fail(f"the port imported JAX or the JAX package: {barred[:10]}")
 
     # Launches per main path: the render entry's run [5], the train entry's
-    # run [8] and the gather bench's run [11]; `launches` is their sum.
+    # run [8], the gather bench's run [11], and with dynamic objects [12]'s
+    # train entry and its replay render; `launches` is their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
-             ("gather_bench", bench_launches))
+             ("gather_bench", bench_launches),
+             *objects["paths"].items())
+    obj_grid = objects["obj_grid"]
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""
@@ -1421,22 +1958,28 @@ def main():
               "seeded uniform, R=16384 S=32 K=19, opaque", k1, **k1_trained),
         # Every grid's numbers on the path's and on uniform points under
         # "grids".
+        # obj_grid: on the object grid's points of one [12] train step
+        # (the JAX `hash_encode`, n = 1 and stds 0), with its launches.
         entry("hash_encode_ms", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/grid.py:366",
               "NeRF grid, the first 16,384-ray chunk of a [5] sweep "
-              "(uniform_*: uniform points of the same shape)", h1),
-        # Against the written-out twin; prop0 also vs autograd.
+              "(uniform_*: uniform points of the same shape)", h1,
+              obj_grid=obj_grid["hash_encode_ms"]),
+        # Against the written-out twin; prop0 also vs autograd; obj_grid
+        # d_table and d_x01 vs both.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/grid.py:366",
               "NeRF grid, d_table of one warm [8] train step (uniform_*: "
-              "uniform points of the same shape)", h1_bwd),
+              "uniform points of the same shape)", h1_bwd,
+              obj_grid=obj_grid["hash_encode_ms_bwd"]),
         # Every grid's hash-decay level sums under "grids", every own
         # shape under "own_shapes".
         entry("scatter_add_rows", KERNEL_SOURCE,
               "experiments/scatter_variants.py:81",
               "NeRF grid's hash-decay level sums (train path); K3's own "
               "shape beside", k3_path,
-              k3_shape_rows131072_n4194304_c16=k3_own),
+              k3_shape_rows131072_n4194304_c16=k3_own,
+              obj_grid=obj_grid["scatter_add_rows"]),
         # K2, on the bench's path as K4's form 1 (which computes the same).
         entry("tile_lane_gather", GATHER_SOURCE,
               "nerf_lidar_tpu/ops/grid_pallas.py:51",

@@ -6,6 +6,13 @@
       --exp_name myscene --mode simu --num_sweeps 10 \
       --params exp/myscene/params_1000.npz
 
+On a scene with dynamic-object tracks (`bboxes.json`; `data/synth_nusc.py`
+writes one) and a config with `instance_obj`, `train` fits the object
+MLPs and latents beside the field (with the tracknet under
+`track_refine`, the posenet under `pose_refine`), and `render_lidar`
+composites the vehicles into the sweeps, edited by `--obj_mode` and
+`--insert_track`.
+
 Config, overrides and scene loading (`build_config`, `apply_overrides`,
 `load_scene_for`, `exp_dir`) are copies of the JAX CLI's helpers over the
 port's own `configs` and `data` modules, so a preset and a `--set` mean the
@@ -32,6 +39,8 @@ from . import configs, convert
 from .data.batching import RayBatcher
 from .lidar import sensor
 from .lidar.render import render_sweeps_to_dir
+from .models import objects as objlib
+from .models import posenet as posenet_lib
 from .models.model import Model
 from .ops import grid
 from .renderer import ChunkRenderer
@@ -43,7 +52,7 @@ CONFIGS = ["nuscenes_single", "nuscenes_multi", "tiny_debug", "default"]
 
 
 # Copied from nerf_lidar_tpu/cli.py (`_coerce` .. `build_config`,
-# `load_scene_for`, `exp_dir`).
+# `_obj_sem_ids`, `load_scene_for`, `exp_dir`, `_pad_obj_latents`).
 def _coerce(cur, val: str):
     if isinstance(cur, bool):
         return val.lower() in ("1", "true", "yes")
@@ -112,6 +121,14 @@ def build_config(args) -> configs.Config:
     return cfg
 
 
+def _obj_sem_ids(classes, n: int):
+    """Per-slot semantic class ids from the scene's track class names
+    (objects.query_class), padded to the model's num_objects with 255
+    (= unlabeled slot)."""
+    ids = [objlib.query_class(c) for c in classes][:n]
+    return tuple(ids + [255] * (n - len(ids)))
+
+
 def load_scene_for(cfg: configs.Config, split: str = "train"):
     """Dataset registry: {synthetic, nusc/waymo}. The llff / blender /
     colmap and tat / dtu loaders are not ported yet."""
@@ -151,10 +168,26 @@ def _device(name: str) -> torch.device:
     return dev
 
 
+def _pad_obj_latents(params, num_objects: int):
+    """Grow the restored obj_latents table to `num_objects` rows (track
+    insertion adds slots the checkpoint never trained). New slots get zero
+    latents, the neutral-appearance convention."""
+    lat = params.get("params", {}).get("obj_latents")
+    if lat is None or lat.shape[0] >= num_objects:
+        return params
+    pad = np.zeros((num_objects - lat.shape[0], lat.shape[1]), lat.dtype)
+    params = dict(params)
+    params["params"] = dict(params["params"])
+    params["params"]["obj_latents"] = np.concatenate([lat, pad], axis=0)
+    return params
+
+
 def build_model(cfg, params_path: Optional[str], allow_fresh: bool,
                 device: torch.device) -> Model:
-    """The scene model with `--params` weights, or a fresh init seeded by
-    `cfg.seed` when `allow_fresh`; refuses an untrained model otherwise."""
+    """The scene model with `--params` weights (a model without objects
+    skips the object leaves; inserted object slots get zero latents), or a
+    fresh init seeded by `cfg.seed` when `allow_fresh`; refuses an
+    untrained model otherwise."""
     if not params_path and not allow_fresh:
         raise SystemExit(
             "no --params given: refusing to render from an untrained init "
@@ -162,8 +195,10 @@ def build_model(cfg, params_path: Optional[str], allow_fresh: bool,
             "debug)")
     model = Model(cfg.model, device=device)
     if params_path:
-        model.load_state_dict(convert.flax_to_state_dict(
-            convert.load_npz_params(params_path), cfg.model))
+        params = convert.load_npz_params(params_path)
+        if model.has_objects:
+            params = _pad_obj_latents(params, cfg.model.num_objects)
+        model.load_state_dict(convert.flax_to_state_dict(params, cfg.model))
     else:
         model.init_weights(torch.Generator().manual_seed(cfg.seed))
     return model.eval()
@@ -199,16 +234,28 @@ def _sweeps(args, scene, out: str):
     return sweeps, l2g[: len(sweeps)]
 
 
-def _static_scene(cfg, split: str, entry: str):
-    """Load the scene; refuse one with dynamic-object tracks (not ported)
-    and turn the config's objects off. Returns (cfg, scene)."""
-    scene = load_scene_for(cfg, split)
-    if getattr(scene, "tracks", None) is not None and cfg.model.instance_obj:
-        raise SystemExit(
-            "this scene has dynamic-object tracks, and dynamic objects are "
-            f"not ported yet: run it with nerf_lidar_tpu.cli {entry}")
-    return dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, instance_obj=False, num_objects=0, obj_sem_ids=())), scene
+def _with_objects(cfg, tracks, classes):
+    """cfg with one object slot per track and the tracks' semantic ids, or
+    with the objects off when there are no tracks (a scene without tracks
+    trains and renders as a static field)."""
+    if tracks is not None and cfg.model.instance_obj:
+        n = int(tracks.shape[0])
+        model = dataclasses.replace(cfg.model, num_objects=n,
+                                    obj_sem_ids=_obj_sem_ids(classes, n))
+    else:
+        model = dataclasses.replace(cfg.model, instance_obj=False)
+    return dataclasses.replace(cfg, model=model)
+
+
+def _track_tensors(cfg, tracks, track_mask, device: torch.device):
+    """(tracks, track_mask) as tensors on `device` when the model has
+    objects, else (None, None)."""
+    if not (cfg.model.instance_obj and cfg.model.num_objects > 0):
+        return None, None
+    mask = None if track_mask is None else torch.as_tensor(
+        np.asarray(track_mask, bool), device=device)
+    return torch.as_tensor(np.asarray(tracks, np.float32),
+                           device=device), mask
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
@@ -225,12 +272,16 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
 
 
 def cmd_train(args) -> types.SimpleNamespace:
-    """Fit the static field of a scene: RayBatcher batches -> `train_step`,
-    printing loss / PSNR / rays per second every `print_every` steps and
-    writing checkpoint_<step>.pt + params_<step>.npz under exp/<name>/
-    every `checkpoint_every` steps and at the end. Resumes from the newest
-    checkpoint there. Returns what was built, the printed stats (`history`)
-    and the last checkpoint's paths."""
+    """Fit a scene: RayBatcher batches -> `train_step`, printing loss /
+    PSNR / rays per second every `print_every` steps and writing
+    checkpoint_<step>.pt + params_<step>.npz under exp/<name>/ every
+    `checkpoint_every` steps and at the end. With tracks and
+    `instance_obj`, one object slot per track (the moving-object mask then
+    stays off, since the objects model those pixels), the tracknet under
+    `track_refine`; the posenet (one row per view, one for the LiDAR)
+    under `pose_refine`. Resumes from the newest checkpoint there. Returns
+    what was built, the printed stats (`history`) and the last
+    checkpoint's paths."""
     cfg = build_config(args)
     cfg.validate()
     device = _device(args.device)
@@ -238,8 +289,13 @@ def cmd_train(args) -> types.SimpleNamespace:
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "config.json"), "w") as f:
         f.write(cfg.to_json())
-    cfg, scene = _static_scene(cfg, "train", "train")
-    train_step.check_ported(cfg, getattr(scene, "tracks", None) is not None)
+    scene = load_scene_for(cfg, "train")
+    cfg = _with_objects(cfg, getattr(scene, "tracks", None),
+                        getattr(scene, "track_classes", []))
+    train_step.check_ported(cfg)
+    tracks, track_mask = _track_tensors(cfg, getattr(scene, "tracks", None),
+                                        getattr(scene, "track_mask", None),
+                                        device)
 
     batcher = RayBatcher(scene.data, cfg.batch_size, cfg.patch_size,
                          lidar_supervision=cfg.lidar_supervision,
@@ -247,11 +303,20 @@ def cmd_train(args) -> types.SimpleNamespace:
                          only_lidar_depth=cfg.only_lidar_supervision,
                          aug_road=cfg.aug_road, aug_delta=cfg.aug_delta,
                          apply_bayer_mask=cfg.apply_bayer_mask,
-                         seed=cfg.seed, mask_moving=True)
+                         seed=cfg.seed, mask_moving=tracks is None)
     model = Model(cfg.model, device=device)
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
-    optimizer = train_step.make_optimizer(model, cfg)
-    init_step = checkpoints.restore_checkpoint(out, model, optimizer)
+    posenet = tracknet = None
+    if cfg.pose_refine:
+        posenet = posenet_lib.LearnPose(
+            num_cams=scene.data.num_views, num_lidars=1, t_ratio=cfg.t_ratio,
+            learn_R=cfg.learn_R, learn_t=cfg.learn_t, device=device)
+    if cfg.track_refine and tracks is not None:
+        tracknet = posenet_lib.TrackOpt(int(tracks.shape[0]),
+                                        int(tracks.shape[1]), device=device)
+    optimizer = train_step.make_optimizer(model, cfg, posenet, tracknet)
+    init_step = checkpoints.restore_checkpoint(out, model, optimizer,
+                                               posenet, tracknet)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)
     max_steps = args.steps or cfg.max_steps
 
@@ -259,8 +324,10 @@ def cmd_train(args) -> types.SimpleNamespace:
     mark, mark_step = time.perf_counter(), init_step
     for step in range(init_step, max_steps):
         batch = to_device(batcher.next(), device)
-        stats = train_step.train_step(model, optimizer, cfg, batch, step,
-                                      batcher.num_patch_rays, generator)
+        stats = train_step.train_step(
+            model, optimizer, cfg, batch, step, batcher.num_patch_rays,
+            generator, posenet=posenet, tracknet=tracknet, tracks=tracks,
+            track_mask=track_mask)
         if (step + 1) % cfg.print_every == 0:
             vals = {k: float(v) for k, v in stats.items()
                     if not k.startswith("_")}  # waits for the step
@@ -274,9 +341,9 @@ def cmd_train(args) -> types.SimpleNamespace:
                   f"rays/s={vals['rays_per_sec']:,.0f}", flush=True)
             mark, mark_step = time.perf_counter(), step + 1
         if (step + 1) % cfg.checkpoint_every == 0 or step + 1 == max_steps:
-            paths = checkpoints.save_checkpoint(out, model, optimizer,
-                                                step + 1,
-                                                keep=cfg.checkpoint_keep)
+            paths = checkpoints.save_checkpoint(
+                out, model, optimizer, step + 1, keep=cfg.checkpoint_keep,
+                posenet=posenet, tracknet=tracknet)
             mark, mark_step = time.perf_counter(), step + 1
     print(f"kernel launches: hash_encode_ms="
           f"{grid.hash_encode_multisample.launches} hash_encode_ms_bwd="
@@ -286,30 +353,50 @@ def cmd_train(args) -> types.SimpleNamespace:
     return types.SimpleNamespace(
         cfg=cfg, model=model, optimizer=optimizer, batcher=batcher,
         generator=generator, history=history, out=out,
-        checkpoint=paths[0], params=paths[1])
+        checkpoint=paths[0], params=paths[1], posenet=posenet,
+        tracknet=tracknet, tracks=tracks, track_mask=track_mask)
 
 
 def cmd_render_lidar(args) -> types.SimpleNamespace:
-    """Render LiDAR sweeps of a static scene and write the
+    """Render LiDAR sweeps of a scene, its vehicles included, and write the
     points / points_semantic / points_rgb trio plus lidar2globals.npy under
-    exp/<name>/lidar_<mode>/. Returns what was built and written."""
+    exp/<name>/lidar_<mode>[_<obj_mode>]/. `--obj_mode` edits the tracks
+    (laneshift, removal, rotate), `--insert_track` adds one; every sweep
+    carries its timestamp, which places the vehicles. Returns what was
+    built and written."""
     cfg = build_config(args)
     device = _device(args.device)
-    cfg, scene = _static_scene(cfg, "lidar", "render_lidar")
+    scene = load_scene_for(cfg, "lidar")
+    tracks = getattr(scene, "tracks", None)
+    track_mask = getattr(scene, "track_mask", None)
+    classes = list(getattr(scene, "track_classes", []))
+    angle, tracks = objlib.simu_info(args.obj_mode, tracks)
+    if tracks is not None and angle:
+        tracks = objlib.manipulate_tracks(tracks, angle)
+    if args.insert_track and tracks is not None:
+        tracks, track_mask, classes = objlib.edit_tracks(
+            tracks, track_mask, classes, np.load(args.insert_track))
+    cfg = _with_objects(cfg, tracks, classes)
     out = exp_dir(cfg)
     sweeps, l2g = _sweeps(args, scene, out)
     model = build_model(cfg, args.params, args.allow_fresh, device)
+    tracks_t, mask_t = _track_tensors(cfg, tracks, track_mask, device)
+    print(f"dynamic objects: {0 if tracks_t is None else len(tracks_t)} "
+          f"(obj_mode={args.obj_mode})")
     renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
-    sweep_dir = os.path.join(out, f"lidar_{args.mode}")
+    name = (f"lidar_{args.mode}" if args.obj_mode == "replay"
+            else f"lidar_{args.mode}_{args.obj_mode}")
+    sweep_dir = os.path.join(out, name)
     data = scene.data
     paths = render_sweeps_to_dir(renderer, sweeps, data.near, data.far,
-                                 scene.frame, sweep_dir)
+                                 scene.frame, sweep_dir, tracks_t, mask_t)
     np.save(os.path.join(sweep_dir, "lidar2globals.npy"), l2g)
     print(f"wrote {len(paths)} sweeps to {sweep_dir}")
     return types.SimpleNamespace(
         cfg=cfg, model=model, renderer=renderer, sweeps=sweeps,
         near=data.near, far=data.far, frame=scene.frame,
-        sweep_dir=sweep_dir, paths=paths)
+        sweep_dir=sweep_dir, paths=paths, tracks=tracks_t,
+        track_mask=mask_t)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -346,6 +433,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "is given (debugging only)")
     sp.add_argument("--mode", default="simu", choices=["replay", "simu"],
                     help="trajectory: replay the real drive or simulate one")
+    sp.add_argument("--obj_mode", default="replay",
+                    choices=["replay", "laneshift", "removal", "rotate"],
+                    help="scene-edit mode applied to the dynamic-object "
+                         "tracks")
+    sp.add_argument("--insert_track", default=None,
+                    help="npy track ([T, 9]) to insert into the scene")
     sp.add_argument("--num_sweeps", type=int, default=10)
     sp.add_argument("--azimuth_steps", type=int, default=1100,
                     help="azimuth samples per beam (32 beams x this = "

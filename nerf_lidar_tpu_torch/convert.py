@@ -7,11 +7,21 @@ Linear `weight [out, in]`, `bias` and `table` are copied as they are, and
 `density_layers_3` becomes `density_layers.3`. Every Flax leaf must be used
 and every torch parameter filled, or it raises.
 
+The object MLPs keep their Flax names (`obj_mlp`, `obj_mlp_cls{k}`), as
+does `obj_latents`. A model built without objects (a scene rendered with
+`--obj_mode removal`) ignores a tree's object leaves, as the JAX
+`restore_model_params` + `Model.apply` do.
+
 `load_npz_params` reads the same tree from a flat `.npz` keyed by
 '/'-joined Flax paths (`params/nerf_mlp/table`, ...), which is what the
 CLI's `--params` takes; `save_npz_params` writes that layout.
 `state_dict_to_flax` is the inverse of `flax_to_state_dict`, so a field
 the port trains loads in both packages.
+
+`refiners_to_flax` / `load_refiners` carry the pose and track refinement
+(`LearnPose` {r, t}, `TrackOpt` {opt_r, opt_t}), and `train_params_to_flax`
+builds the combined {model, posenet?, tracknet?} tree of the JAX
+`create_train_state`.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from .models.model import Model
 _LIST_LAYER = re.compile(r"(density_layers|sem_layers|intensity_layers|"
                          r"view_layers)_(\d+)")
 _PROP_MLP = re.compile(r"prop_mlps_(\d+)")
+_OBJ_MLP = re.compile(r"obj_mlp(_cls\d+)?")
 
 
 def flatten_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -75,10 +86,12 @@ def _torch_name(flax_path: str) -> str:
     """'nerf_mlp/density_layers_0/kernel' -> 'nerf_mlp.density_layers.0.weight'."""
     parts = flax_path.split("/")
     module = parts[0]
+    if parts == ["obj_latents"]:
+        return module
     m = _PROP_MLP.fullmatch(module)
     if m:
         module = f"prop_mlps.{m.group(1)}"
-    elif module != "nerf_mlp":
+    elif module != "nerf_mlp" and not _OBJ_MLP.fullmatch(module):
         raise KeyError(f"Flax module {parts[0]!r} is not ported")
     if parts[1:] == ["table"]:
         return f"{module}.table"
@@ -89,13 +102,22 @@ def _torch_name(flax_path: str) -> str:
     return f"{module}.{layer}.{'weight' if parts[2] == 'kernel' else 'bias'}"
 
 
+def _is_object_leaf(flax_path: str) -> bool:
+    return flax_path == "obj_latents" or bool(
+        _OBJ_MLP.fullmatch(flax_path.split("/")[0]))
+
+
 def flax_to_state_dict(params: dict, model_cfg: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
-    """Flax param tree (numpy leaves) -> state dict of `Model(model_cfg)`."""
+    """Flax param tree (numpy leaves) -> state dict of `Model(model_cfg)`.
+    A model without objects skips the tree's object leaves."""
     tree = params["params"] if "params" in params else params
-    expected = Model(model_cfg, device="meta").state_dict()
+    model = Model(model_cfg, device="meta")
+    expected = model.state_dict()
     out = {}
     for path, value in flatten_params(tree).items():
+        if not model.has_objects and _is_object_leaf(path):
+            continue
         name = _torch_name(path)
         if name not in expected:
             raise KeyError(f"Flax leaf {path!r} -> {name!r} has no torch "
@@ -117,6 +139,8 @@ def _flax_path(torch_name: str) -> str:
     """'nerf_mlp.density_layers.0.weight' -> 'nerf_mlp/density_layers_0/kernel'
     (the inverse of `_torch_name`)."""
     parts = torch_name.split(".")
+    if parts == ["obj_latents"]:
+        return torch_name
     if parts[0] == "prop_mlps":
         module, rest = f"prop_mlps_{parts[1]}", parts[2:]
     else:
@@ -138,3 +162,39 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
         flat[path] = np.ascontiguousarray(v.T if path.endswith("/kernel")
                                           else v)
     return {"params": unflatten_params(flat)}
+
+
+def refiners_to_flax(posenet=None, tracknet=None) -> dict:
+    """{"posenet": {"params": {r, t}}, "tracknet": {"params": {opt_r,
+    opt_t}}} (numpy leaves) of the refiners given."""
+    out = {}
+    for key, module in (("posenet", posenet), ("tracknet", tracknet)):
+        if module is not None:
+            out[key] = {"params": {k: v.detach().cpu().numpy()
+                                   for k, v in module.state_dict().items()}}
+    return out
+
+
+@torch.no_grad()
+def load_refiners(tree: dict, posenet=None, tracknet=None) -> None:
+    """Copy the refiners' Flax params (a `refiners_to_flax` /
+    `create_train_state` tree) into the modules given."""
+    for key, module in (("posenet", posenet), ("tracknet", tracknet)):
+        if module is None:
+            continue
+        leaves = tree[key]["params"]
+        for name, p in module.named_parameters():
+            value = np.asarray(leaves[name], np.float32)
+            if value.shape != tuple(p.shape):
+                raise ValueError(f"{key}/{name}: shape {value.shape} does "
+                                 f"not match {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(value))
+
+
+def train_params_to_flax(model: Model, posenet=None, tracknet=None) -> dict:
+    """The params tree of the JAX `create_train_state`: {"model": ...,
+    "posenet"?, "tracknet"?} with refinement, the model's tree alone
+    without."""
+    tree = state_dict_to_flax(model.state_dict())
+    refiners = refiners_to_flax(posenet, tracknet)
+    return {"model": tree, **refiners} if refiners else tree

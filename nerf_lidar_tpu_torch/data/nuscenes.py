@@ -1,5 +1,6 @@
 # Copy of nerf_lidar_tpu/data/nuscenes.py (see tests/test_torch_host.py).
-"""nuScenes scene-directory loader.
+"""nuScenes scene-directory loader. (The port's copy reads PNG files with
+`data/png.py`, so that it needs no imageio.)
 
 Rewrite of reference internal/datasets.py:1183-1538 (NUSCENES._load_renderings)
 + load_nuscenes.py + the LiDAR loading chain in internal/lidar_utils.py:193-267.
@@ -36,6 +37,7 @@ import numpy as np
 from ..lidar.transforms import SceneFrame, apply_rigid, apply_rotation, \
     inv_rigid
 from . import camera as camlib
+from . import png
 from . import quaternion as quat
 from .batching import SceneData
 
@@ -71,6 +73,10 @@ def load_timestamps(root_dir: str):
 
 
 def _imread(path: str) -> np.ndarray:
+    """PNG files through the port's own decoder (no imageio needed), other
+    formats through imageio."""
+    if path.lower().endswith(".png"):
+        return png.read_png(path)
     import imageio.v2 as imageio
     return np.asarray(imageio.imread(path))
 

@@ -112,11 +112,22 @@ def bwd_bound(spec, x01, stds, g_out):
     return n_bytes, flops
 
 
-def grid_tables(model):
-    """{table data_ptr: grid name} of a model's hash tables."""
+def grid_names(model):
+    """[(grid name, MLP)] of a model's hash grids: "nerf", "prop<i>", and
+    with dynamic objects "obj" (shared) or "obj_cls<k>" (per class)."""
     mlps = [("nerf", model.nerf_mlp)] + [
         (f"prop{i}", p) for i, p in enumerate(model.prop_mlps)]
-    return {mlp.table.data_ptr(): name for name, mlp in mlps}
+    if model.has_objects and model.cfg.obj_class_ids:
+        mlps += [(f"obj_cls{k}", getattr(model, f"obj_mlp_cls{k}"))
+                 for k in sorted(set(model.cfg.obj_class_ids))]
+    elif model.has_objects:
+        mlps.append(("obj", model.obj_mlp))
+    return mlps
+
+
+def grid_tables(model):
+    """{table data_ptr: grid name} of a model's hash tables."""
+    return {mlp.table.data_ptr(): name for name, mlp in grid_names(model)}
 
 
 @contextlib.contextmanager
@@ -154,9 +165,11 @@ def record_train_inputs(run, step):
     dev = next(run.model.parameters()).device
     batch = cli.to_device(run.batcher.next(), dev)
     with recording(grid, "hash_encode_multisample_bwd", run.model) as calls:
-        stats = train_step.train_step(run.model, run.optimizer, run.cfg,
-                                      batch, step, run.batcher.num_patch_rays,
-                                      run.generator)
+        stats = train_step.train_step(
+            run.model, run.optimizer, run.cfg, batch, step,
+            run.batcher.num_patch_rays, run.generator, posenet=run.posenet,
+            tracknet=run.tracknet, tracks=run.tracks,
+            track_mask=run.track_mask)
         float(stats["loss"])
     return calls
 
@@ -276,9 +289,12 @@ def emit(**rec):
 
 
 def profile_train(run, step, steps=2):
-    """torch.profiler over `steps` warm train steps: wall ms/step, device
-    busy ms/step (union of device intervals), idle share, and device ms/step
-    by kernel kind."""
+    """torch.profiler over `steps` warm train steps of the train entry's
+    `run` (its refiners and tracks too): wall ms/step, device busy ms/step
+    (union of device intervals), idle share, device ms/step by kernel kind,
+    the ten kernels that take the most, and the host's waits for the
+    device per step (stream / device synchronisations and blocking
+    copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from nerf_lidar_tpu_torch import cli
@@ -287,10 +303,11 @@ def profile_train(run, step, steps=2):
     batches = [cli.to_device(run.batcher.next(), dev) for _ in range(steps)]
 
     def one(i):
-        stats = train_step.train_step(run.model, run.optimizer, run.cfg,
-                                      batches[i], step + i,
-                                      run.batcher.num_patch_rays,
-                                      run.generator)
+        stats = train_step.train_step(
+            run.model, run.optimizer, run.cfg, batches[i], step + i,
+            run.batcher.num_patch_rays, run.generator, posenet=run.posenet,
+            tracknet=run.tracknet, tracks=run.tracks,
+            track_mask=run.track_mask)
         float(stats["loss"])
 
     torch.cuda.synchronize()
@@ -311,15 +328,19 @@ def profile_train(run, step, steps=2):
              ("elementwise_gather_where", r"elementwise|index|gather|where"
                                           r"|scatter|copy|cat|fill"),
              ("memcpy_memset", r"^Memcpy|^Memset|^memcpy|^memset")]
-    by_kind, spans = {}, []
+    by_kind, by_name, spans, waits = {}, {}, [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if re.fullmatch(r"cuda(Stream|Device)Synchronize|cudaMemcpy",
+                            e.name):
+                waits[e.name] = waits.get(e.name, 0) + 1 / steps
             continue
         us = e.time_range.elapsed_us()
         spans.append((e.time_range.start, e.time_range.end))
         kind = next((k for k, pat in kinds
                      if re.search(pat, e.name, re.IGNORECASE)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3 / steps
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us / 1e3 / steps
     busy, end = 0.0, None
     for s, e in sorted(spans):
         if end is None or s > end:
@@ -332,7 +353,10 @@ def profile_train(run, step, steps=2):
     return dict(wall_ms_per_step=wall, device_busy_ms_per_step=busy,
                 idle_share=1 - busy / wall, kernel_ms_per_step=dict(
                     sorted(by_kind.items(), key=lambda kv: -kv[1])),
-                kernel_ms_sum=sum(by_kind.values()))
+                kernel_ms_sum=sum(by_kind.values()),
+                top_kernels_ms_per_step=dict(sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:10]),
+                host_waits_per_step=waits)
 
 
 def main(argv=None):

@@ -12,6 +12,12 @@ The multisample encode exists twice:
   tensors launch kernel H1 (`csrc/kernels.cu`, `hash_encode_ms`) and in
   backward `hash_encode_ms_bwd`, or raise.
 
+The JAX `hash_encode` (no erf weights, the object MLPs' encode) is the
+multisample encode at n = 1 and stds = 0, whose erf weight
+erf(1 / sqrt(max(0, 1e-10))) = erf(1e5) is exactly 1 in float32; the
+object MLPs call the same wrapper with stds 0 (kernel H1, and in backward
+d_table and d_x01).
+
 `scatter_add_rows` (kernel K3 on CUDA, `index_add` on the CPU) is the row
 scatter-add that K3's Pallas version did with a one-hot matmul; the
 hash-decay loss sums its levels with it.

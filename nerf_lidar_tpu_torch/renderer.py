@@ -2,22 +2,22 @@
 
 Rays are padded to a multiple of the chunk size by repeating the last ray
 (the reference's `_pad_to`), streamed through the model chunk by chunk
-under `torch.no_grad()`, and sliced back to N on the host.
+under `torch.no_grad()`, and sliced back to N on the host. The dynamic
+objects' tracks go with every chunk; the rays' timestamps place them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .models.model import Model
 
-# Ray fields the model reads; others in the ray dict (e.g. timestamp) are
-# for dynamic objects, which this port does not render yet.
+# Ray fields the model reads (timestamp: for the dynamic objects).
 _RAY_KEYS = ("origins", "directions", "viewdirs", "radii", "base_x",
-             "base_y", "near", "far")
+             "base_y", "near", "far", "timestamp")
 
 
 def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
@@ -45,21 +45,26 @@ class ChunkRenderer:
         self.use_kernels = use_kernels
 
     @torch.no_grad()
-    def render(self, rays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """rays: dict of [N, ...] numpy arrays. Returns the final level's
-        renderings as [N, ...] numpy arrays."""
+    def render(self, rays: Dict[str, np.ndarray],
+               tracks: Optional[torch.Tensor] = None,
+               track_mask: Optional[torch.Tensor] = None
+               ) -> Dict[str, np.ndarray]:
+        """rays: dict of [N, ...] numpy arrays; tracks / track_mask: the
+        model's track tensor and slot mask on its device, or None. Returns
+        the final level's renderings as [N, ...] numpy arrays."""
         device = self.model.nerf_mlp.table.device
         n = rays["origins"].shape[0]
         n_pad = (n + self.chunk - 1) // self.chunk * self.chunk
         rays_p = {k: _pad_to(np.asarray(rays[k], np.float32), n_pad)
-                  for k in _RAY_KEYS}
+                  for k in _RAY_KEYS if k in rays}
         outs = []
         for i in range(0, n_pad, self.chunk):
             batch = {k: torch.from_numpy(v[i:i + self.chunk]).to(device)
                      for k, v in rays_p.items()}
             renderings, _ = self.model(batch, train_frac=1.0,
                                        fused_final=self.fused,
-                                       use_kernels=self.use_kernels)
+                                       use_kernels=self.use_kernels,
+                                       tracks=tracks, track_mask=track_mask)
             outs.append({k: v.cpu().numpy()
                          for k, v in renderings[-1].items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0)[:n]

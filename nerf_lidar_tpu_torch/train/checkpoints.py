@@ -2,11 +2,14 @@
 `nerf_lidar_tpu/train/checkpoints.py`).
 
 Each save writes two files into the experiment directory:
-- `checkpoint_<step>.pt`: `torch.save` of {model, optimizer, step}, which
-  `restore_checkpoint` resumes from;
-- `params_<step>.npz`: the model as a Flax param tree in the flat
+- `checkpoint_<step>.pt`: `torch.save` of {model, optimizer, step} and the
+  pose / track refiners' parameters (`posenet`, `tracknet`) when training
+  has them (the optimizer holds their groups), which `restore_checkpoint`
+  resumes from;
+- `params_<step>.npz`: the model alone as a Flax param tree in the flat
   '/'-keyed layout of `convert.load_npz_params`, which the port's
-  `render_lidar --params` and the JAX `Model.apply` both read.
+  `render_lidar --params` and the JAX `Model.apply` both read (as the JAX
+  `restore_model_params` peels the model from a refinement run's tree).
 The newest `keep` saves at or below `step` stay; older ones, and any from a
 newer (rewound) history, are deleted, as the JAX package prunes.
 """
@@ -35,16 +38,25 @@ def params_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"params_{step}.npz")
 
 
+def _refiners(posenet, tracknet):
+    return {k: m for k, m in (("posenet", posenet), ("tracknet", tracknet))
+            if m is not None}
+
+
 def save_checkpoint(directory: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
-                    keep: int = 1) -> Tuple[str, str]:
+                    keep: int = 1, posenet: Optional[torch.nn.Module] = None,
+                    tracknet: Optional[torch.nn.Module] = None
+                    ) -> Tuple[str, str]:
     """Write checkpoint_<step>.pt and params_<step>.npz, then prune.
     Returns both paths."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"checkpoint_{step}.pt")
     tmp = f"{path}.tmp"
     torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(), "step": step}, tmp)
+                "optimizer": optimizer.state_dict(), "step": step,
+                **{k: m.state_dict()
+                   for k, m in _refiners(posenet, tracknet).items()}}, tmp)
     os.replace(tmp, path)
     npz = convert.save_npz_params(
         params_path(directory, step),
@@ -66,14 +78,19 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 
 
 def restore_checkpoint(directory: str, model: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer) -> int:
-    """Load the newest checkpoint into model and optimizer; returns its step,
-    or 0 (and leaves both unchanged) when there is none."""
+                       optimizer: torch.optim.Optimizer,
+                       posenet: Optional[torch.nn.Module] = None,
+                       tracknet: Optional[torch.nn.Module] = None) -> int:
+    """Load the newest checkpoint into model, optimizer and the refiners
+    given; returns its step, or 0 (and leaves all unchanged) when there is
+    none."""
     path = latest_checkpoint(directory)
     if path is None:
         return 0
     device = next(model.parameters()).device
     state = torch.load(path, map_location=device)
     model.load_state_dict(state["model"])
+    for key, module in _refiners(posenet, tracknet).items():
+        module.load_state_dict(state[key])
     optimizer.load_state_dict(state["optimizer"])
     return int(state["step"])

@@ -1,13 +1,16 @@
-"""Loss stack (port of `nerf_lidar_tpu/train/losses.py`, the terms of a
-static scene).
+"""Loss stack (port of `nerf_lidar_tpu/train/losses.py`).
 
 Every loss is a masked mean over static shapes, as in the JAX package, so
 the two compare term by term. Batch masks (from `data/batching.py`):
 rgb_mask, depth_mask, sem_mask, lidar_mask, patch_mask, loss_mask.
+With dynamic objects: the object tables' hash decay (unless
+`obj_nodecay`), the latent regulariser, the symmetry term after
+`sym_start`, and the proposal loss leaves object-covered samples out; the
+budget's `_obj_overflow` / `_obj_hit_frac` ride along as stats.
 
 Terms the port does not compute raise NotImplementedError when their
-multipliers are non-zero: orientation, predicted normals, normal
-supervision and symmetry (symmetry needs dynamic objects).
+multipliers are non-zero: orientation, predicted normals and normal
+supervision.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ def check_ported(config: Config) -> None:
         predicted_normal_loss_mult=config.predicted_normal_loss_mult,
         predicted_normal_coarse_loss_mult=(
             config.predicted_normal_coarse_loss_mult),
-        normal_supervision=config.normal_supervision,
-        **{"model.symmetrize": config.model.symmetrize})
+        normal_supervision=config.normal_supervision)
     for name, value in unported.items():
         if value:
             raise NotImplementedError(f"{name}={value!r}: this loss term is "
@@ -80,9 +82,11 @@ def data_loss(batch, renderings, config: Config):
 
 
 def _schedule(step: int, config: Config, lo: float, hi: float) -> float:
-    """The depth / semantic weight: lo until end_step, hi after (the
-    schedule without pose refinement, which the port's train step
-    refuses)."""
+    """The depth / semantic weight: lo until end_step, hi after; with pose
+    refinement 0 inside (start_step, 0.6 end_step)."""
+    if config.pose_refine and config.start_step < step < int(
+            0.6 * config.end_step):
+        return 0.0
     return hi if step > config.end_step else lo
 
 
@@ -135,7 +139,12 @@ def anti_interlevel_loss(ray_history, config: Config):
         cdf_interp = mathx.sorted_interp_quad(cp, c_, w_, cdf)
         w_s = torch.diff(cdf_interp, dim=-1)
         per = torch.clamp(w_s - wp, min=0) ** 2 / (wp + 1e-5)
-        loss_total = loss_total + per.mean()
+        if "obj_mask" in ray_results:
+            # Object-covered samples take no proposal supervision.
+            loss = _masked_mean(per, ~ray_results["obj_mask"].any(-1))
+        else:
+            loss = per.mean()
+        loss_total = loss_total + loss
     return config.anti_interlevel_loss_mult * loss_total
 
 
@@ -146,14 +155,18 @@ def distortion_loss(ray_history, config: Config):
 
 
 def hash_decay_loss(model, config: Config, use_kernels: bool = True):
-    """Per-level mean of squared hash embeddings, summed over the grids.
+    """Per-level mean of squared hash embeddings, summed over the grids
+    (the object grids too, unless `obj_nodecay`).
 
     The per-level sum is a segment sum over the rows' level ids: kernel K3
     (`grid.scatter_add_rows`) on CUDA tables, `index_add` otherwise."""
     scatter = (gridlib.scatter_add_rows if use_kernels
                else gridlib.scatter_add_rows_plain)
+    mlps = [model.nerf_mlp, *model.prop_mlps]
+    if not config.obj_nodecay:
+        mlps += model.obj_mlps()
     loss = 0.0
-    for mlp in (model.nerf_mlp, *model.prop_mlps):
+    for mlp in mlps:
         spec, table = mlp.spec, mlp.table
         sums = scatter(gridlib.level_ids(spec, table.device), table**2,
                        spec.num_levels)
@@ -161,6 +174,13 @@ def hash_decay_loss(model, config: Config, use_kernels: bool = True):
                               device=table.device)[:, None]
         loss = loss + (sums / counts).mean()
     return config.hash_decay_mults * loss
+
+
+def latent_reg(model, config: Config):
+    """L2 regulariser on the per-object latents (0 without them)."""
+    if model.obj_latents is None:
+        return model.nerf_mlp.table.new_zeros(())
+    return config.latent_reg * (model.obj_latents**2).mean()
 
 
 def edge_aware_smoothness(rgb, disp, mask):
@@ -205,6 +225,9 @@ def compute_losses(model, batch, renderings, ray_history, config: Config,
     check_ported(config)
     losses: Dict[str, torch.Tensor] = {}
     losses["data"], losses["_mses"] = data_loss(batch, renderings, config)
+    for stat in ("obj_overflow", "obj_hit_frac"):
+        if stat in renderings[-1]:
+            losses[f"_{stat}"] = renderings[-1][stat]
     if config.depth_loss and "depth" in batch:
         losses["depth"] = depth_loss(batch, renderings, config, step)
     if config.model.use_semantic and "semantic" in batch:
@@ -218,9 +241,11 @@ def compute_losses(model, batch, renderings, ray_history, config: Config,
     if config.hash_decay_mults > 0:
         losses["hash_decay"] = hash_decay_loss(model, config, use_kernels)
     if config.model.latent_size > 0:
-        # Object latents exist only with dynamic objects, which the port's
-        # Model refuses: the regulariser is 0, as the JAX one is then.
-        losses["latent_reg"] = batch["rgb"].new_zeros(())
+        losses["latent_reg"] = latent_reg(model, config)
+    if config.model.symmetrize and "loss_sym" in renderings[-1]:
+        losses["sym"] = (config.sym_loss * renderings[-1]["loss_sym"]
+                         if step > config.sym_start
+                         else renderings[-1]["loss_sym"].new_zeros(()))
     losses.update(smoothness_losses(batch, renderings, config,
                                     num_patch_rays=num_patch_rays))
     return losses

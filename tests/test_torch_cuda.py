@@ -14,6 +14,8 @@ run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -321,6 +323,42 @@ def test_hash_encode_kernels_at_the_shared_memory_budget(dev, level_dim, n,
     g = torch.Generator(device=dev).manual_seed(30)
     x01, stds = _ray_points(dev, 16, 24, n, g)
     _check_encode_kernels(dev, spec, x01, stds, g)
+
+
+@pytest.mark.parametrize("level_major", [False, True])
+def test_hash_encode_kernels_as_the_object_encode(dev, level_major,
+                                                  monkeypatch):
+    """The object MLPs' encode (the JAX `hash_encode`): n = 1 and stds 0,
+    where H1's erf weight is exactly 1, on the object grid's levels (C2,
+    17 -> 1025) at a small hash size, points clustered in the unit box as
+    the sample budget gives them; H1 vs plain, and H1-bwd's d_table and
+    d_x01 (what track refinement asks) vs the written-out twin and vs
+    plain autograd, in both block orders."""
+    monkeypatch.setattr(grid, "level_major", lambda spec, l2: level_major)
+    spec = grid.spec_for(dataclasses.replace(
+        configs.nuscenes_single().model.obj_mlp.grid, log2_hashmap_size=14))
+    g = torch.Generator(device=dev).manual_seed(50)
+    x01 = (torch.rand(4000, 1, 3, device=dev, generator=g) * 0.3 + 0.35)
+    x01[:1000] = x01[0]  # the budget's padding repeats one sample
+    stds = torch.zeros(4000, 1, device=dev)
+    table = torch.rand(spec.total_rows, 2, device=dev, generator=g) * 2 - 1
+    g_out = torch.randn(4000, spec.output_dim, device=dev, generator=g)
+    got = grid.hash_encode_multisample(table, x01, stds, spec)
+    want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    needs = (True, True, False)
+    got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
+                                           needs)
+    twin = grid.hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
+                                                  spec, needs)
+    leaves = [t.clone().requires_grad_(True) for t in (table, x01)]
+    auto = torch.autograd.grad(grid.hash_encode_multisample_plain(
+        *leaves, stds, spec)[0], leaves, g_out)
+    torch.cuda.synchronize()
+    assert got[2] is None
+    for i, name in enumerate(("table", "x01")):
+        _close_to_max(got[i], twin[i], f"{name} vs twin")
+        _close_to_max(got[i], auto[i], f"{name} vs autograd")
 
 
 def test_hash_encode_bwd_kernel_table_only(dev):

@@ -31,6 +31,8 @@ from nerf_lidar_tpu.lidar import sensor as jsensor
 from nerf_lidar_tpu.lidar import transforms as jtransforms
 from nerf_lidar_tpu_torch import cli, configs
 from nerf_lidar_tpu_torch.data import batching, nuscenes, synthetic
+from nerf_lidar_tpu_torch.data import png
+from nerf_lidar_tpu_torch.data import synth_nusc as port_synth_nusc
 from nerf_lidar_tpu_torch.lidar import sensor, transforms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -206,6 +208,61 @@ def nusc_dir(tmp_path_factory):
     return root
 
 
+def test_synth_nusc_writer_equals_jax(tmp_path):
+    """The port's copy of the synthetic nuScenes writer writes the same
+    files as the original (the scene with one moving "vehicle.car" and its
+    bboxes.json track): byte for byte, PNGs pixel for pixel as imageio
+    reads them (the port encodes them itself)."""
+    import imageio.v2 as imageio
+    kw = dict(num_frames=3, sensor_num=2, height=24, width=40,
+              lidar_points_per_beam=16)
+    got = port_synth_nusc.write_scene_dir(str(tmp_path / "port"), **kw)
+    want = synth_nusc.write_scene_dir(str(tmp_path / "jax"), **kw)
+    files = sorted(os.path.relpath(os.path.join(r, n), want)
+                   for r, _, names in os.walk(want) for n in names)
+    assert files == sorted(os.path.relpath(os.path.join(r, n), got)
+                           for r, _, names in os.walk(got) for n in names)
+    assert "bboxes.json" in files and len(files) > 10
+    for rel in files:
+        a, b = os.path.join(got, rel), os.path.join(want, rel)
+        if rel.endswith(".png"):
+            pa, pb = imageio.imread(a), imageio.imread(b)
+            assert pa.dtype == pb.dtype, rel
+            np.testing.assert_array_equal(pa, pb, err_msg=rel)
+            continue
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), rel
+
+
+@pytest.mark.parametrize("kind", ["grey8", "rgb8", "rgba8", "grey16",
+                                  "grey_alpha8"])
+def test_png_codec_matches_imageio(tmp_path, kind):
+    """data/png.py reads what imageio writes (its adaptive row filters
+    included) and writes what imageio reads, pixel for pixel."""
+    import imageio.v2 as imageio
+    rng = np.random.RandomState(3)
+    shape, dtype = dict(grey8=((17, 23), np.uint8),
+                        rgb8=((17, 23, 3), np.uint8),
+                        rgba8=((17, 23, 4), np.uint8),
+                        grey16=((17, 23), np.uint16),
+                        grey_alpha8=((17, 23, 2), np.uint8))[kind]
+    # Smooth ramps (which the encoder filters) plus noise.
+    ramp = np.add.outer(np.arange(shape[0]), np.arange(shape[1])) * 3
+    img = (ramp.reshape(shape[:2] + (1,) * (len(shape) - 2))
+           + rng.randint(0, 40, shape)).astype(dtype)
+    if dtype == np.uint16:
+        img = img * 251
+    path = str(tmp_path / "a.png")
+    imageio.imwrite(path, img)
+    got = png.read_png(path)
+    assert got.dtype == img.dtype
+    np.testing.assert_array_equal(got, img)
+    if kind != "grey_alpha8":
+        png.write_png(path, img)
+        np.testing.assert_array_equal(imageio.imread(path), img)
+        np.testing.assert_array_equal(png.read_png(path), img)
+
+
 @pytest.mark.parametrize("split", ["train", "lidar"])
 def test_nuscenes_loader_equals_jax(nusc_dir, split):
     """Both loaders read the scene the JAX writer made into equal arrays;
@@ -246,16 +303,33 @@ base = ['--config', 'tiny_debug', '--set', 'dataset_loader=synthetic',
 run = cli.main(['train', *base, '--steps', '2'])
 cli.main(['render_lidar', *base, '--num_sweeps', '1', '--azimuth_steps',
           '8', '--params', run.params])
+from nerf_lidar_tpu_torch.data import synth_nusc
+synth_nusc.write_scene_dir('scene', num_frames=4, sensor_num=1, height=24,
+                           width=40, lidar_points_per_beam=32)
+objs = ['--config', 'tiny_debug', '--data_dir', 'scene', '--device', 'cpu',
+        '--exp_name', 'iso_objects', '--set', 'dataset_loader=nusc',
+        '--set', 'sensor_num=1', '--set', 'model.instance_obj=true',
+        '--set', 'model.latent_size=8', '--set', 'model.obj_mlp.class_num=5',
+        '--set', 'model.obj_mlp.grid.desired_resolution=16',
+        '--set', 'model.obj_mlp.grid.log2_hashmap_size=8',
+        '--set', 'track_refine=true', '--set', 'track_start_opt=0']
+run = cli.main(['train', *objs, '--steps', '2'])
+assert run.tracknet is not None and run.cfg.model.num_objects == 1
+cli.main(['render_lidar', *objs, '--mode', 'replay', '--num_sweeps', '1',
+          '--azimuth_steps', '8', '--params', run.params])
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {barred})
 assert not bad, bad
+# The port needs no imageio: it writes and reads its PNGs itself.
+assert 'imageio' not in sys.modules
 print('MODULES', len(names))
 """
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
     """Every module of the port imported, two tiny_debug train steps and a
-    render on the CPU: no jax, flax, optax or nerf_lidar_tpu module is
-    loaded."""
+    render on the CPU, on the synthetic scene and on a synth_nusc scene with
+    its moving car (objects, tracknet, replay render): no jax, flax, optax
+    or nerf_lidar_tpu module is loaded."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _ISOLATED.format(barred=BARRED)],
@@ -263,6 +337,8 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split("MODULES")[-1]) >= 30
     assert (tmp_path / "exp" / "iso" / "lidar_simu").is_dir()
+    assert (tmp_path / "exp" / "iso_objects" / "lidar_replay" /
+            "points_0000.npy").is_file()
 
 
 _JAX_PACKAGE_IMPORT = re.compile(
@@ -288,7 +364,8 @@ def test_copies_name_their_original():
     for rel in ("configs.py", "lidar/sensor.py", "lidar/transforms.py",
                 "data/camera.py", "data/quaternion.py",
                 "data/road_augment.py", "data/batching.py",
-                "data/synthetic.py", "data/nuscenes.py"):
+                "data/synthetic.py", "data/nuscenes.py",
+                "data/synth_nusc.py"):
         with open(os.path.join(PORT, rel)) as f:
             first = f.readline()
         assert first.startswith(f"# Copy of nerf_lidar_tpu/{rel} "), rel

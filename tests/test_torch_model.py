@@ -200,10 +200,23 @@ def test_cli_import_leaves_jax_out():
 
 
 def test_unported_flags_raise():
+    """What still refuses: a non-constant background and the MLP flags
+    below. Dynamic objects and the object-MLP flags (fixed_semantic,
+    latent_size with split_latent, re_weights=False, warp_fn=None,
+    density_init, obj_mode) now build; a per-class slot list that does not
+    name every object slot is refused."""
     m = tconfigs.tiny_debug().model
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(m, instance_obj=True, num_objects=2),
-              device="meta")
+    objs = Model(dataclasses.replace(m, instance_obj=True, num_objects=2,
+                                     latent_size=8), device="meta")
+    assert objs.has_objects and objs.obj_latents.shape == (2, 8)
+    assert objs.obj_mlp.cfg.fixed_semantic and objs.obj_mlp.cfg.split_latent
+    per_class = Model(dataclasses.replace(m, instance_obj=True, num_objects=2,
+                                          obj_class_ids=(13, 14)),
+                      device="meta")
+    assert [p.cfg.class_type for p in per_class.obj_mlps()] == [13, 14]
+    with pytest.raises(ValueError):
+        Model(dataclasses.replace(m, instance_obj=True, num_objects=2,
+                                  obj_class_ids=(13,)), device="meta")
     with pytest.raises(NotImplementedError):
         Model(dataclasses.replace(m, bg_intensity_range=(0.0, 1.0)),
               device="meta")

@@ -57,7 +57,7 @@ def _reordered(inputs, seed):
 def _excess(got, on, off):
     table = on[0]
     terms, upstream = chip_smoke.table_grad_bounds(
-        SPEC, table, on[1:], off[1:],
+        SPEC, table, [on[1:]], [off[1:]],
         chip_smoke.hash_decay_grad(table, SPEC, DECAY))
     return chip_smoke.table_grad_excess(got, _grad(*off), terms, upstream)
 
