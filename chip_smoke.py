@@ -92,16 +92,33 @@ Phases (each raises on failure, so the script exits non-zero):
    train step's recorded call (n = 1, stds 0), in both block orders in
    turns, and K3 at the object table's hash-decay level sums, with device
    times and bounds; and a torch.profiler breakdown of 2 warm train steps
-   with objects (`hash_encode_bench.profile_train`).
-The phases run in the order 1, 2, 3, 5, 4, 8, 12, 6, 7, 9, 10, 11: [4] and
-[6] time the encode on the inputs that [5] and [8] record, and what times
-with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s kernel
-times) runs after the timed entries, [3]'s timing after [7]. Then it fails
-if any
+   with objects (`hash_encode_bench.profile_train`); these profiled parts
+   run after [13];
+13. ray-drop: writes a synth_nusc scene with dense LiDAR (RD_SWEEPS frames,
+   1,100 returns per beam), trains a field on it for RD_FIELD_STEPS steps
+   and renders RD_SWEEPS replay sweeps (the earlier entries), then, with
+   every kernel count at 0, drives the ray-drop path through the port's
+   CLI on the card: `raydrop_features` ([N, 32, 1024, 6] features),
+   `raydrop_train` (the U-Net at 64-1024 with the VGG19 loss, 32 x 1024,
+   batch 4, RD_EPOCHS epochs: one eval; the training CE must fall), a
+   short `raydrop_train --darknet` (Darknet-53), `raydrop_drop --place_car
+   --features` (velodyne/*.bin and labels/*.label read back against
+   drop_sweep, ground returns below the sensor, the sensor metadata) and
+   `raydrop_val_vis`; no kernel of the table launches there. Then the card
+   against the CPU from the trained weights: eval logits, the keep mask,
+   one train step in float64 (at RD_LOSS_TOL / RD_GRAD_TOL / RD_BN_TOL) and
+   in float32 (its loss; its gradients reported); and the times of a train
+   step (VGG; VGG + Darknet), a predict, and features / drop per sweep.
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 6, 7, 9, 10, 11: [4]
+and [6] time the encode on the inputs that [5] and [8] record, and what
+times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
+kernel times and profile) runs after the timed entries, [3]'s timing after
+[7]. Then it fails if any
 module of jax, jaxlib, flax, optax or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
 JSON line (every kernel's launches on each path, the object paths
-`train_objects` and `render_lidar_objects` included, times, and its bound:
+`train_objects` and `render_lidar_objects` and the ray-drop path `raydrop`
+(none) included, times, and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
 and K3 on the object grid under "obj_grid"), the nvidia-smi line,
@@ -156,6 +173,29 @@ OBJ_RENDER_ARGV = ["render_lidar", "--config", "nuscenes_single",
                    "--set", "dataset_loader=nusc", "--data_dir", OBJ_SCENE,
                    "--mode", "replay", "--num_sweeps", "1", "--device",
                    "cuda", "--exp_name", OBJ_EXP]
+# [13]: the ray-drop stage on a synth_nusc scene with dense LiDAR (1,100
+# returns per beam, as real sweeps are: the 256-point default leaves the
+# ground-truth range image 75% empty), a field trained on it briefly.
+RD_EXP = "chip_smoke_raydrop"
+RD_SCENE = os.path.join("exp", RD_EXP, "scene")
+RD_SWEEPS = 8
+RD_FIELD_STEPS = 60
+RD_EPOCHS = 10
+RD_FIELD_ARGV = ["--config", "nuscenes_single", "--set", "dataset_loader=nusc",
+                 "--data_dir", RD_SCENE, "--set", "track_start_opt=0",
+                 "--set", "lr_delay_steps=0", "--device", "cuda",
+                 "--exp_name", RD_EXP]
+RD_RENDER_ARGS = ["--mode", "replay", "--num_sweeps", str(RD_SWEEPS)]
+RD_DEVICE = ["--device", "cuda"]
+# Card against CPU from one set of weights (TF32 off): the U-Net's eval
+# logits to 1e-4 of their max; one train step's loss rtol 1e-4, gradients
+# 1e-3 of each tensor's max, BatchNorm buffers rtol 1e-5; the keep mask
+# equal wherever the CPU's probability is farther than 1e-4 from 0.5.
+RD_LOGIT_TOL = 1e-4
+RD_LOSS_TOL = 1e-4
+RD_GRAD_TOL = 1e-3
+RD_BN_TOL = 1e-5
+RD_KEEP_MARGIN = 1e-4
 # What [5] and [8] measured, printed beside [12]'s.
 STATIC = {}
 
@@ -1586,23 +1626,327 @@ def phase_objects(dev):
     on_obj_grid = dict(train_objects=obj_launches,
                        render_lidar_objects=dict(hash_encode_ms=rep["obj"]))
     del renders, rep, rem
-    # Where a step with objects spends its time (after every timed run:
-    # a profiler session slows later host work).
-    prof = hb.profile_train(run, OBJ_STEPS + 2)
-    print(f"[12] profile of 2 warm train steps with objects: "
-          f"{json.dumps(prof)}")
-    del run
+
+    def profiled():
+        """What [12] times with torch.profiler, run after every timed phase
+        ([13] included: a profiler session slows later host work): where a
+        step with objects spends its time, and the kernels on the object
+        grid alone (device time). Returns {kernel: numbers}."""
+        nonlocal run
+        prof = hb.profile_train(run, OBJ_STEPS + 2)
+        print(f"[12] profile of 2 warm train steps with objects: "
+              f"{json.dumps(prof)}")
+        del run
+        torch.cuda.empty_cache()
+        obj_grid = dict(
+            hash_encode_ms=obj_encode(dev, bwd_rec, fwd=True),
+            hash_encode_ms_bwd=obj_encode(dev, bwd_rec, fwd=False),
+            scatter_add_rows=obj_scatter(dev, spec))
+        for name, nums in obj_grid.items():
+            nums["launches_by_path"] = {p: c.get(name, 0)
+                                        for p, c in on_obj_grid.items()}
+        return obj_grid
+
+    return dict(paths=paths, profiled=profiled)
+
+
+def _rd_host_step(trainer, state, batch, shift, noise, dtype):
+    """One ray-drop train step of a copy of `state` on the CPU in `dtype`,
+    with the card trainer's loss networks: (stats, the copy's model)."""
+    import torch
+    from nerf_lidar_tpu_torch.raydrop.trainer import RayDropTrainer
+    cpu = RayDropTrainer(trainer.cfg, device="cpu")
+    cpu.vgg_model = copy.deepcopy(trainer.vgg_model).cpu().to(dtype)
+    if trainer.dk_model is not None:
+        cpu.dk_model = copy.deepcopy(trainer.dk_model).cpu().to(dtype)
+    st = cpu.make_state(copy.deepcopy(state.model).cpu().to(dtype))
+    stats = cpu.train_step(st, *(t.cpu().to(dtype) if t.is_floating_point()
+                                 else t.cpu() for t in batch),
+                           shift=shift, noise=noise.cpu().to(dtype))
+    return stats, st.model, cpu
+
+
+def _rd_step_vs_cpu(trainer, state, batch, shift, noise, dtype):
+    """One train step from `state`'s weights on the card and on the CPU in
+    `dtype` (same batch, roll shift and Gumbel noise; fresh Adam each):
+    (loss rel diff, worst gradient error relative to its tensor's max and
+    that tensor, worst BatchNorm buffer error relative to the buffer)."""
+    import torch
+    from nerf_lidar_tpu_torch.raydrop.trainer import RayDropTrainer
+    card = RayDropTrainer(trainer.cfg, device=state.model.outc.weight.device)
+    card.vgg_model = copy.deepcopy(trainer.vgg_model).to(dtype)
+    card.dk_model = (None if trainer.dk_model is None
+                     else copy.deepcopy(trainer.dk_model).to(dtype))
+    st = card.make_state(copy.deepcopy(state.model).to(dtype))
+    on = card.train_step(st, *(t.to(dtype) if t.is_floating_point() else t
+                               for t in batch), shift=shift,
+                         noise=noise.to(dtype))
+    off, model_cpu, _ = _rd_host_step(trainer, state, batch, shift, noise,
+                                      dtype)
+    loss = abs(float(on["loss"]) - float(off["loss"])) / abs(
+        float(off["loss"]))
+    grad, grad_at = 0.0, ""
+    for (name, p), q in zip(st.model.named_parameters(),
+                            model_cpu.parameters()):
+        scale = float(q.grad.abs().max())
+        err = float((p.grad.cpu() - q.grad).abs().max()) / max(scale, 1e-30)
+        if err > grad:
+            grad, grad_at = err, name
+    bn = 0.0
+    for (name, a), b in zip(st.model.named_buffers(), model_cpu.buffers()):
+        if name.endswith("num_batches_tracked"):
+            continue
+        err = (a.cpu() - b).abs() / b.abs().clamp(min=1e-3 * float(
+            b.abs().max()))
+        bn = max(bn, float(err.max()))
+    del st, model_cpu, card
+    return loss, grad, grad_at, bn
+
+
+def phase_raydrop(dev):
+    """[13] The ray-drop stage through the port's CLI: a synth_nusc scene
+    with dense LiDAR, a field trained on it for RD_FIELD_STEPS steps and
+    RD_SWEEPS replay sweeps rendered (the earlier slices' entries), then,
+    with every kernel count at 0, raydrop_features, raydrop_train (VGG, 32 x
+    1024, batch 4, RD_EPOCHS epochs: one eval), a short raydrop_train
+    --darknet, raydrop_drop --place_car --features and raydrop_val_vis;
+    checks their outputs and the card against the CPU from one set of
+    weights; times a train step, a predict, and features / drop per sweep.
+    Returns the kernel counts of the ray-drop path (none launches)."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.data import synth_nusc
+    from nerf_lidar_tpu_torch.lidar import export
+    from nerf_lidar_tpu_torch.ops import grid, render_fused
+    from nerf_lidar_tpu_torch.raydrop import features as feat_lib
+    from nerf_lidar_tpu_torch.raydrop import infer
+
+    shutil.rmtree(os.path.join("exp", RD_EXP), ignore_errors=True)
+    for sub in ("unet", "darknet"):
+        shutil.rmtree(os.path.join("exp", f"{RD_EXP}_{sub}"),
+                      ignore_errors=True)
+    t0 = time.perf_counter()
+    synth_nusc.write_scene_dir(RD_SCENE, num_frames=RD_SWEEPS, sensor_num=1,
+                               lidar_points_per_beam=1100)
+    field = cli.main(["train", *RD_FIELD_ARGV, "--steps",
+                      str(RD_FIELD_STEPS), "--set", "print_every=20"])
+    render = cli.main(["render_lidar", *RD_FIELD_ARGV, *RD_RENDER_ARGS,
+                       "--params", field.params])
+    torch.cuda.synchronize()
+    sim_dir = render.sweep_dir
+    print(f"[13] dense synth_nusc scene ({RD_SWEEPS} frames, 1,100 returns "
+          f"per beam), field trained {RD_FIELD_STEPS} steps (loss "
+          f"{field.history[0]['loss']:.4f} -> "
+          f"{field.history[-1]['loss']:.4f}), {len(render.paths)} replay "
+          f"sweeps of {render.sweeps[0].num_rays} rays: "
+          f"{time.perf_counter() - t0:.1f} s")
+    del field, render
     torch.cuda.empty_cache()
 
-    # The kernels on the object grid alone (device time, torch.profiler:
-    # after the timed entries).
-    obj_grid = dict(hash_encode_ms=obj_encode(dev, bwd_rec, fwd=True),
-                    hash_encode_ms_bwd=obj_encode(dev, bwd_rec, fwd=False),
-                    scatter_add_rows=obj_scatter(dev, spec))
-    for name, nums in obj_grid.items():
-        nums["launches_by_path"] = {p: c.get(name, 0)
-                                    for p, c in on_obj_grid.items()}
-    return dict(paths=paths, obj_grid=obj_grid)
+    counters = dict(composite=render_fused.fused_composite,
+                    hash_encode_ms=grid.hash_encode_multisample,
+                    hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
+                    scatter_add_rows=grid.scatter_add_rows)
+    for fn in counters.values():
+        fn.launches = 0
+    feats_path = os.path.join("exp", RD_EXP, "features.npy")
+    t0 = time.perf_counter()
+    data = cli.main(["raydrop_features", "--pair", f"{RD_SCENE}:{sim_dir}",
+                     "--out", feats_path])
+    feat_s = (time.perf_counter() - t0) / RD_SWEEPS
+    n = data["images"].shape[0]
+    if data["images"].shape != (RD_SWEEPS, 32, 1024, 6) or \
+            data["masks"].shape != (n, 32, 1024) or \
+            not np.isfinite(data["images"]).all():
+        fail(f"raydrop_features: images {data['images'].shape}, masks "
+             f"{data['masks'].shape}")
+    keep_rate = float(data["masks"].mean())
+    if not 0.05 < keep_rate < 1.0:
+        fail(f"raydrop_features: ground-truth keep rate {keep_rate}")
+
+    # Peak memory above what earlier phases still hold.
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    rd = cli.main(["raydrop_train", "--features", feats_path, "--exp_name",
+                   f"{RD_EXP}_unet", "--epochs", str(RD_EPOCHS),
+                   "--batch_size", "4", *RD_DEVICE])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_vgg = torch.cuda.max_memory_allocated(dev) - held
+    hist = rd.history
+    if not all(np.isfinite(h["loss"]) for h in hist) or \
+            not hist[-1]["ce"] < hist[0]["ce"] or "val_ce" not in hist[-1] \
+            or "vgg" not in hist[0]:
+        fail(f"raydrop_train: CE {[round(h['ce'], 4) for h in hist]}, "
+             f"val_ce in the last epoch: {'val_ce' in hist[-1]}")
+    ckpt = os.path.join(rd.out, f"raydrop_{rd.state.step:05d}.pt")
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    dk = cli.main(["raydrop_train", "--features", feats_path, "--exp_name",
+                   f"{RD_EXP}_darknet", "--epochs", "1", "--batch_size", "4",
+                   "--darknet", *RD_DEVICE])
+    torch.cuda.synchronize()
+    peak_dk = torch.cuda.max_memory_allocated(dev) - held
+    if not all(np.isfinite(h["darknet"]) and h["darknet"] > 0
+               for h in dk.history):
+        fail(f"raydrop_train --darknet: {dk.history}")
+
+    kitti = os.path.join("exp", RD_EXP, "kitti")
+    t0 = time.perf_counter()
+    drop = cli.main(["raydrop_drop", "--ckpt", ckpt, "--simulation_path",
+                     sim_dir, "--out", kitti, "--place_car", "--features",
+                     feats_path, *RD_DEVICE])
+    drop_cli_s = (time.perf_counter() - t0) / RD_SWEEPS
+    vis = cli.main(["raydrop_val_vis", "--features", feats_path, "--ckpt",
+                    ckpt, "--out", os.path.join("exp", RD_EXP, "val_vis"),
+                    *RD_DEVICE])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        fail(f"the ray-drop path launched a kernel of the table: {launches}")
+
+    # The export, read back: sweep 0 against drop_sweep on the same input.
+    sweeps, l2g = feat_lib.load_sim_sweep_dir(sim_dir)
+    sweeps = [(feat_lib.world_points_to_sensor(p, l2g[i]), s_, r)
+              for i, (p, s_, r) in enumerate(sweeps)]
+    trainer, state = drop.trainer, drop.state
+    ref = infer.drop_sweep(trainer, state, *sweeps[0], car_median_rule=True)
+    b = export.read_bin(os.path.join(kitti, "velodyne", "000000.bin"))
+    lab = export.read_label(os.path.join(kitti, "labels", "000000.label"))
+    if not len(b) == len(lab) == len(ref["points"]) > 0 or \
+            not np.array_equal(b[:, :3], ref["points"]) or \
+            not np.array_equal(lab, ref["labels"].astype(np.uint32)):
+        fail(f"raydrop_drop: velodyne/000000.bin {b.shape}, labels "
+             f"{lab.shape}, drop_sweep {ref['points'].shape}")
+    if not b[:, 2].min() < -0.5:
+        fail(f"raydrop_drop: lowest exported point at z = {b[:, 2].min()} "
+             "in the sensor frame (ground returns lie below the sensor)")
+    l2e = np.load(os.path.join(kitti, "lidar2egos.npy"))
+    e2g = np.load(os.path.join(kitti, "ego2globals.npy"))
+    if l2e.shape != (n, 4, 4) or e2g.shape != (n, 4, 4) or \
+            drop.summary["sweeps"] != n:
+        fail(f"raydrop_drop: sensor metadata {l2e.shape} {e2g.shape}")
+    if not vis["frames"] or not os.path.exists(os.path.join(
+            "exp", RD_EXP, "val_vis", f"pred_{vis['frames'][0]:04d}.obj")):
+        fail(f"raydrop_val_vis: frames {vis['frames']}")
+    print(f"[13] ray-drop path (features -> train -> drop -> export) "
+          f"launches of the table's kernels: {launches}")
+    print(f"[13] raydrop_features: {tuple(data['images'].shape)} images, "
+          f"ground-truth keep rate {keep_rate:.4f}; raydrop_train (VGG, "
+          f"batch 4, {len(hist)} epochs, {rd.state.step} steps): "
+          f"{train_s:.1f} s, CE {hist[0]['ce']:.4f} -> {hist[-1]['ce']:.4f}, "
+          f"val_ce {hist[-1]['val_ce']:.4f}; --darknet {dk.state.step} "
+          f"steps, darknet term {dk.history[0]['darknet']:.4f} -> "
+          f"{dk.history[-1]['darknet']:.4f}; raydrop_drop: "
+          f"{drop.summary['points_per_sweep']:.0f} points/sweep, iou "
+          f"{drop.summary['iou']:.4f}, precision "
+          f"{drop.summary['precision']:.4f}, recall "
+          f"{drop.summary['recall']:.4f}; sweep 0 read back: {len(b)} "
+          f"points, lowest z {b[:, 2].min():.2f} m; val_vis frames "
+          f"{vis['frames']} acc {vis['acc_mean']:.4f}")
+
+    # The card against the CPU, from the trained weights.
+    frame = data["images"][:1]
+    logits = {}
+    with torch.no_grad():
+        state.model.eval()
+        from nerf_lidar_tpu_torch.raydrop.trainer import to_nchw
+        logits["card"] = state.model(to_nchw(frame, dev)).cpu()
+        cpu_model = copy.deepcopy(state.model).cpu().eval()
+        logits["cpu"] = cpu_model(to_nchw(frame, "cpu"))
+    logit_err = rel_err("[13] U-Net eval logits, card vs CPU",
+                        logits["card"], logits["cpu"], RD_LOGIT_TOL)[1]
+    from nerf_lidar_tpu_torch.raydrop.trainer import RayDropTrainer
+    cpu_trainer = RayDropTrainer(trainer.cfg, device="cpu")
+    cpu_state = cpu_trainer.make_state(cpu_model)
+    card_out = infer.drop_sweep(trainer, state, *sweeps[0])
+    cpu_out = infer.drop_sweep(cpu_trainer, cpu_state, *sweeps[0])
+    safe = np.abs(cpu_out["keep_prob"] - 0.5) > RD_KEEP_MARGIN
+    prob_err = float(np.abs(card_out["keep_prob"]
+                            - cpu_out["keep_prob"]).max())
+    if not np.array_equal(card_out["keep_mask"][safe],
+                          cpu_out["keep_mask"][safe]):
+        fail("[13] keep mask, card vs CPU, differs where the CPU's "
+             "probability is farther than 1e-4 from 0.5")
+    vgg_trainer = rd.trainer
+    g = torch.Generator().manual_seed(13)
+    idx = np.arange(4) % n
+    batch = vgg_trainer.batch(data["images"], data["masks"],
+                               data["ranges"], idx)
+    shift = int(torch.randint(0, 1024, (), generator=g))
+    noise = -torch.empty(4, 2, 32, 1024).exponential_(generator=g).log()
+    step_err = {}
+    for dtype, rows in ((torch.float64, 2), (torch.float32, 4)):
+        sub = tuple(t[:rows] for t in batch)
+        step_err[dtype] = _rd_step_vs_cpu(vgg_trainer, rd.state, sub, shift,
+                                          noise[:rows].to(dev), dtype)
+    loss64, grad64, at64, bn64 = step_err[torch.float64]
+    if not (loss64 <= RD_LOSS_TOL and grad64 <= RD_GRAD_TOL
+            and bn64 <= RD_BN_TOL):
+        fail(f"[13] train step in float64, card vs CPU: loss {loss64}, "
+             f"gradients {grad64} ({at64}), BatchNorm buffers {bn64}")
+    loss32, grad32, at32, bn32 = step_err[torch.float32]
+    if not loss32 <= RD_LOSS_TOL:
+        fail(f"[13] train step in float32, card vs CPU: loss {loss32}")
+    print(f"[13] card vs CPU (TF32 off): eval logits on one frame "
+          f"{logit_err:.2e} of max (tol {RD_LOGIT_TOL}); keep probability "
+          f"max abs diff {prob_err:.2e}, keep mask equal on the "
+          f"{int(safe.sum())} of {safe.size} pixels farther than "
+          f"{RD_KEEP_MARGIN} from 0.5; one train step (VGG on, same batch, "
+          f"roll shift {shift}, Gumbel noise) in float64, batch 2: loss "
+          f"{loss64:.2e} (tol {RD_LOSS_TOL}), gradients {grad64:.2e} of max "
+          f"({at64}; tol {RD_GRAD_TOL}), BatchNorm buffers {bn64:.2e} (tol "
+          f"{RD_BN_TOL}); in float32, batch 4: loss {loss32:.2e}, gradients "
+          f"{grad32:.2e} of max ({at32}), BatchNorm buffers {bn32:.2e}")
+
+    # Times on the card: a train step (VGG; VGG + Darknet), a predict.
+    def step_ms(tr, st):
+        b4 = tr.batch(data["images"], data["masks"], data["ranges"], idx)
+        gen = torch.Generator().manual_seed(1)
+        ng = torch.Generator(device=dev).manual_seed(2)
+        sec = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.train_step(st, *b4, generator=gen, noise_generator=ng)
+            torch.cuda.synchronize()
+            if i >= 3:
+                sec.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(sec), min(sec)
+
+    vgg_ms = step_ms(vgg_trainer, rd.state)
+    dk_ms = step_ms(dk.trainer, dk.state)
+    pred = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.predict_prob(state, frame)
+        torch.cuda.synchronize()
+        if i >= 3:
+            pred.append(1e3 * (time.perf_counter() - t))
+    drop_s = []
+    for sw in sweeps:
+        t = time.perf_counter()
+        infer.drop_sweep(trainer, state, *sw, car_median_rule=True)
+        drop_s.append(time.perf_counter() - t)
+    print(f"[13] times on the card: raydrop_train step (batch 4, 32 x 1024) "
+          f"with VGG {vgg_ms[0]:.1f} ms (median of 10; min {vgg_ms[1]:.1f}), "
+          f"with VGG + Darknet {dk_ms[0]:.1f} ms (min {dk_ms[1]:.1f}); "
+          f"predict_prob on one sweep {statistics.median(pred):.2f} ms "
+          f"(median of 10, host copies included); raydrop_features "
+          f"{feat_s:.3f} s/sweep (host); drop_sweep "
+          f"{statistics.median(drop_s):.3f} s/sweep (median of "
+          f"{len(drop_s)}; host projection, depth filter and predict), "
+          f"raydrop_drop entry {drop_cli_s:.3f} s/sweep (export and the "
+          f"--features evaluation included); peak memory training (above what "
+          f"earlier phases hold) with VGG "
+          f"{peak_vgg / 2**30:.2f} GiB, with VGG + Darknet "
+          f"{peak_dk / 2**30:.2f} GiB")
+    del rd, dk, drop, trainer, state, vgg_trainer, cpu_model, cpu_state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def obj_encode(dev, rec, fwd):
@@ -1924,6 +2268,8 @@ def main():
     del render_inputs
     train_launches, params, train_inputs = timed("[8]", phase_train, dev)
     objects = timed("[12]", phase_objects, dev)
+    raydrop_launches = timed("[13]", phase_raydrop, dev)
+    obj_grid = timed("[12] profiled", objects.pop("profiled"))
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
@@ -1937,12 +2283,12 @@ def main():
         fail(f"the port imported JAX or the JAX package: {barred[:10]}")
 
     # Launches per main path: the render entry's run [5], the train entry's
-    # run [8], the gather bench's run [11], and with dynamic objects [12]'s
-    # train entry and its replay render; `launches` is their sum.
+    # run [8], the gather bench's run [11], with dynamic objects [12]'s
+    # train entry and its replay render, and [13]'s ray-drop path (features
+    # to export, which launches none); `launches` is their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
-             *objects["paths"].items())
-    obj_grid = objects["obj_grid"]
+             *objects["paths"].items(), ("raydrop", raydrop_launches))
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""

@@ -6,6 +6,20 @@
       --exp_name myscene --mode simu --num_sweeps 10 \
       --params exp/myscene/params_1000.npz
 
+The ray-drop stage turns rendered sweeps into labelled SemanticKITTI
+clouds:
+
+  python -m nerf_lidar_tpu_torch.cli raydrop_features \
+      --pair scene_dir:exp/myscene/lidar_replay --out exp/feats.npy
+  python -m nerf_lidar_tpu_torch.cli raydrop_train --features exp/feats.npy \
+      --exp_name rd --epochs 100
+  python -m nerf_lidar_tpu_torch.cli raydrop_drop \
+      --ckpt exp/rd/raydrop_00100.pt \
+      --simulation_path exp/myscene/lidar_replay --out exp/kitti --place_car
+
+(`raydrop_val_vis`, `points_vis`, `convert_vgg` and `convert_rangenet` as
+in the JAX CLI; `convert_*` load the weights into the port's modules.)
+
 On a scene with dynamic-object tracks (`bboxes.json`; `data/synth_nusc.py`
 writes one) and a config with `instance_obj`, `train` fits the object
 MLPs and latents beside the field (with the tracknet under
@@ -399,6 +413,229 @@ def cmd_render_lidar(args) -> types.SimpleNamespace:
         track_mask=mask_t)
 
 
+def _load_features(path: str) -> Dict[str, np.ndarray]:
+    if not path.endswith(".npy"):
+        raise SystemExit("--features must point to a .npy dict of "
+                         "images/masks/ranges (see build_training_set)")
+    return np.load(path, allow_pickle=True).item()
+
+
+def cmd_raydrop_features(args):
+    """Scene-scanning feature assembly: pair each scene dir's real .bin
+    sweeps with its rendered replay sweeps, build the 6-channel feature
+    stacks + GT masks/ranges, persist one .npy dict that raydrop_train
+    consumes. Repeatable --pair scene_dir:sim_dir spans multiple scenes.
+    Host numpy only. Returns the dict written."""
+    from .raydrop import features as feat_lib
+
+    for p in args.pair or []:
+        if ":" not in p:
+            raise SystemExit(f"--pair must be scene_dir:sim_sweep_dir "
+                             f"(got {p!r})")
+    pairs = [p.split(":", 1) for p in args.pair or []]
+    if args.data_dir and args.sim_dir:
+        pairs.append([args.data_dir, args.sim_dir])
+    if not pairs:
+        raise SystemExit("need --pair scene_dir:sim_dir (repeatable) or "
+                         "--data_dir + --sim_dir")
+    sets = []
+    for scene_dir, sim_dir in pairs:
+        s = feat_lib.assemble_training_set(scene_dir, sim_dir,
+                                           h=args.height, w=args.width)
+        print(f"{scene_dir} + {sim_dir}: {s['images'].shape[0]} sweeps")
+        sets.append(s)
+    data = feat_lib.concat_training_sets(sets)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    np.save(args.out, data, allow_pickle=True)
+    print(f"wrote {data['images'].shape[0]} feature frames "
+          f"{data['images'].shape[1:]} to {args.out}")
+    return data
+
+
+def cmd_raydrop_train(args) -> types.SimpleNamespace:
+    """Train the ray-drop U-Net on a features .npy; checkpoints and
+    metrics.json under exp/<exp_name>/. Returns the trainer, its final
+    state and the per-epoch history."""
+    from .raydrop.trainer import RayDropConfig, RayDropTrainer
+
+    data = _load_features(args.features)
+    cfg = RayDropConfig(epochs=args.epochs, vgg=not args.no_vgg,
+                        vgg_npz=args.vgg_npz, darknet=args.darknet,
+                        darknet_npz=args.darknet_npz,
+                        batch_size=args.batch_size)
+    trainer = RayDropTrainer(cfg, device=_device(args.device))
+    out = os.path.join("exp", args.exp_name or "raydrop")
+    state = trainer.fit(data, save_dir=out)
+    print(f"raydrop checkpoints in {out}")
+    return types.SimpleNamespace(trainer=trainer, state=state,
+                                 history=trainer.history, out=out)
+
+
+def cmd_raydrop_drop(args) -> types.SimpleNamespace:
+    """Drop rays of rendered sweeps with a trained U-Net and export
+    SemanticKITTI velodyne/*.bin + labels/*.label, summary.json and the
+    sensor metadata (lidar2egos / ego2globals)."""
+    from .lidar import export as export_lib
+    from .raydrop import features as feat_lib
+    from .raydrop import infer as infer_lib
+    from .raydrop.trainer import RayDropConfig, RayDropTrainer
+
+    trainer = RayDropTrainer(RayDropConfig(vgg=False),
+                             device=_device(args.device))
+    state = trainer.restore(args.ckpt)
+    sweeps, l2g = feat_lib.load_sim_sweep_dir(args.simulation_path)
+    if l2g is not None:
+        # Rendered points are world-frame; the range projection needs the
+        # sensor frame (nerf2world.nerf_to_lidar).
+        sweeps = [(feat_lib.world_points_to_sensor(p, l2g[i]), s, r)
+                  for i, (p, s, r) in enumerate(sweeps)]
+    n = infer_lib.drop_and_export(trainer, state, sweeps, args.out,
+                                  h=args.height, w=args.width,
+                                  car_median_rule=args.place_car)
+    # Export summary: points/sweep + (with --features) drop-mask quality
+    # vs the real sensor's GT pattern.
+    summary = {"sweeps": n}
+    pts = [len(export_lib.read_bin(os.path.join(
+        args.out, "velodyne", f"{i:06d}.bin"))) for i in range(n)]
+    summary["points_per_sweep"] = float(np.mean(pts)) if pts else 0.0
+    if args.features:
+        data = _load_features(args.features)
+        summary.update(trainer.evaluate(
+            state, data["images"], data["masks"], data["ranges"]))
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print("summary: " + json.dumps(summary))
+    if l2g is not None:
+        # Sensor metadata for SemanticKITTI consumers: the ego is folded
+        # into the sensor frame, so lidar2ego = I and ego2global =
+        # lidar2global.
+        export_lib.write_sensor_metadata(
+            args.out, np.tile(np.eye(4), (len(sweeps), 1, 1)),
+            l2g[: len(sweeps)])
+    print(f"exported {n} sweeps to {args.out}")
+    return types.SimpleNamespace(trainer=trainer, state=state, sweeps=n,
+                                 summary=summary)
+
+
+def cmd_raydrop_val_vis(args):
+    """Validation-split drop-mask .obj dumps + accuracy (see
+    raydrop/val_vis.py). Returns the metrics."""
+    from .raydrop import val_vis
+    from .raydrop.trainer import RayDropConfig, RayDropTrainer
+
+    data = _load_features(args.features)
+    trainer = RayDropTrainer(RayDropConfig(vgg=False,
+                                           val_fraction=args.val_fraction),
+                             device=_device(args.device))
+    state = trainer.restore(args.ckpt)
+    metrics = val_vis.dump_val_masks(trainer, state, data, args.out,
+                                     threshold=args.threshold,
+                                     seed=args.seed,
+                                     max_frames=args.max_frames)
+    print("val_vis: " + " ".join(
+        f"{k}={v:.4f}" for k, v in metrics.items()
+        if isinstance(v, float)))
+    print(f"wrote raw/gt/pred/real .obj per val frame to {args.out}")
+    return metrics
+
+
+def cmd_points_vis(args):
+    """Point-cloud inspection dumps: read .bin/.npy clouds (+ optional
+    .label), filter by class / sky / z-floor, write .obj files named per
+    variant for side-by-side comparison. Host numpy only."""
+    from .lidar import export as export_lib
+
+    classes = ([int(c) for c in args.classes.split(",")]
+               if args.classes else None)
+    os.makedirs(args.out, exist_ok=True)
+    written = []
+    for spec in args.points:
+        name, _, path = spec.rpartition("=")
+        if not name:
+            name = os.path.splitext(os.path.basename(path))[0]
+        labels = None
+        lab_path = args.labels
+        if lab_path is None and path.endswith(".bin"):
+            cand = path.replace("velodyne", "labels")[:-3] + "label"
+            lab_path = cand if os.path.exists(cand) and cand != path \
+                else None
+        if lab_path:
+            labels = export_lib.read_label(lab_path)
+        pts = export_lib.load_points_any(
+            path, dims=args.dims,
+            n_points=0 if labels is None else len(labels))
+        if labels is not None:
+            labels = labels[: len(pts)]
+        keep = np.ones(len(pts), bool)
+        if labels is not None:
+            if classes:  # e.g. 13,14,15 = vehicles
+                keep &= np.isin(labels, classes)
+            if args.drop_sky:
+                keep &= labels != 10
+        if args.z_min is not None:
+            keep &= pts[:, 2] > args.z_min
+        if labels is not None and args.per_class:
+            # One .obj per class id, label appended.
+            for c in np.unique(labels[keep]):
+                sel = keep & (labels == c)
+                out = os.path.join(args.out, f"{name}_class{int(c)}.obj")
+                export_lib.write_obj(
+                    out, np.concatenate(
+                        [pts[sel], labels[sel, None].astype(np.float32)],
+                        axis=1))
+                written.append((out, int(sel.sum())))
+        else:
+            out = os.path.join(args.out, f"{name}.obj")
+            export_lib.write_obj(out, pts[keep])
+            written.append((out, int(keep.sum())))
+    for out, n in written:
+        print(f"{out}: {n} points")
+    return written
+
+
+def _torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint's state dict as numpy arrays (`module.` prefixes
+    dropped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {(k[len("module."):] if k.startswith("module.") else k):
+            v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def cmd_convert_rangenet(args):
+    """A rangenet darknet-53 `backbone` torch checkpoint -> the .npz that
+    `raydrop_train --darknet_npz` (and the JAX package) takes, loaded back
+    into the port's Darknet-53 as a structural check."""
+    from .raydrop import darknet as dk_lib
+
+    arrays = {k: v for k, v in _torch_checkpoint(args.backbone).items()
+              if not k.endswith("num_batches_tracked")}
+    np.savez(args.out, **arrays)
+    model = dk_lib.load_rangenet(args.out)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"wrote {args.out}: {len(arrays)} tensors, {n:,} params loaded "
+          "into the port's Darknet-53 OK")
+    return 0
+
+
+def cmd_convert_vgg(args):
+    """A torchvision VGG19 checkpoint (.pth state_dict) -> the
+    features.N.weight .npz that `raydrop_train --vgg_npz` (and the JAX
+    package) takes, loaded back into the port's VGG19 trunk as a
+    structural check."""
+    from .raydrop import vgg as vgg_lib
+
+    arrays = {k: v for k, v in _torch_checkpoint(args.ckpt).items()
+              if k.startswith("features.")}  # the loss uses the conv trunk
+    np.savez(args.out, **arrays)
+    model = vgg_lib.load_vgg19(args.out)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"wrote {args.out}: {len(arrays)} tensors, {n:,} params loaded "
+          "into the port's VGG19 trunk OK")
+    return 0
+
+
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser("nerf_lidar_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -447,6 +684,98 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     sp.add_argument("--start", type=float, nargs=3)
     sp.add_argument("--end", type=float, nargs=3)
     sp.set_defaults(fn=cmd_render_lidar)
+
+    def device(sp):
+        sp.add_argument("--device", default="cuda",
+                        help="torch device; cuda with no GPU is an error")
+
+    sp = sub.add_parser("points_vis")
+    sp.add_argument("--points", action="append", required=True,
+                    help="[name=]path to .bin/.npy cloud, repeatable "
+                         "(multi-variant comparison dumps)")
+    sp.add_argument("--labels", default=None,
+                    help=".label file (auto-derived from velodyne/ paths)")
+    sp.add_argument("--out", default="points_vis")
+    sp.add_argument("--classes", default=None,
+                    help="keep only these class ids, e.g. 13,14,15")
+    sp.add_argument("--per_class", action="store_true",
+                    help="one .obj per class id with the label appended")
+    sp.add_argument("--drop_sky", action="store_true",
+                    help="drop class 10 (sky) points")
+    sp.add_argument("--z_min", type=float, default=None,
+                    help="drop points at or below this height, e.g. -1.75")
+    sp.add_argument("--dims", type=int, default=0,
+                    help="force .bin row width (default: infer 5/4/3)")
+    sp.set_defaults(fn=cmd_points_vis)
+
+    sp = sub.add_parser("raydrop_val_vis")
+    sp.add_argument("--features", required=True,
+                    help="the .npy the trainer consumed")
+    sp.add_argument("--ckpt", required=True,
+                    help="raydrop_#####.pt (or its Flax-layout .npz)")
+    sp.add_argument("--out", default="mask_vis")
+    sp.add_argument("--threshold", type=float, default=0.5)
+    sp.add_argument("--seed", type=int, default=0,
+                    help="the fit seed (reproduces its val split)")
+    sp.add_argument("--val_fraction", type=float, default=0.2)
+    sp.add_argument("--max_frames", type=int, default=0)
+    device(sp)
+    sp.set_defaults(fn=cmd_raydrop_val_vis)
+
+    sp = sub.add_parser("convert_rangenet")
+    sp.add_argument("--backbone", required=True,
+                    help="rangenet.lib 'backbone' torch checkpoint file")
+    sp.add_argument("--out", required=True, help="output .npz path")
+    sp.set_defaults(fn=cmd_convert_rangenet)
+
+    sp = sub.add_parser("convert_vgg")
+    sp.add_argument("--ckpt", required=True,
+                    help="torchvision VGG19 .pth state_dict")
+    sp.add_argument("--out", required=True, help="output .npz path")
+    sp.set_defaults(fn=cmd_convert_vgg)
+
+    sp = sub.add_parser("raydrop_train")
+    sp.add_argument("--features", required=True)
+    sp.add_argument("--exp_name", default="raydrop")
+    sp.add_argument("--epochs", type=int, default=100)
+    sp.add_argument("--batch_size", type=int, default=4)
+    sp.add_argument("--no_vgg", action="store_true")
+    sp.add_argument("--vgg_npz", default=None,
+                    help="VGG19 weights: torchvision .pth or .npz, or the "
+                         "Flax-layout .npz of pretrain.save_vgg_npz")
+    sp.add_argument("--darknet", action="store_true",
+                    help="add the rangenet darknet-53 feature loss")
+    sp.add_argument("--darknet_npz", default=None,
+                    help="rangenet backbone weights (.pth or .npz)")
+    device(sp)
+    sp.set_defaults(fn=cmd_raydrop_train)
+
+    sp = sub.add_parser("raydrop_features")
+    sp.add_argument("--pair", action="append", default=[],
+                    help="scene_dir:rendered_sweep_dir, repeatable")
+    sp.add_argument("--data_dir", default=None)
+    sp.add_argument("--sim_dir", default=None,
+                    help="rendered sweep dir (e.g. exp/x/lidar_replay)")
+    sp.add_argument("--out", required=True, help="output features .npy")
+    sp.add_argument("--height", type=int, default=32)
+    sp.add_argument("--width", type=int, default=1024)
+    sp.set_defaults(fn=cmd_raydrop_features)
+
+    sp = sub.add_parser("raydrop_drop")
+    sp.add_argument("--ckpt", required=True,
+                    help="raydrop_#####.pt (or its Flax-layout .npz)")
+    sp.add_argument("--simulation_path", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--height", type=int, default=32)
+    sp.add_argument("--width", type=int, default=1024)
+    sp.add_argument("--place_car", action="store_true",
+                    help="per-image median car-probability keep rule")
+    sp.add_argument("--features", default=None,
+                    help="feature .npy with GT masks/ranges: also writes "
+                         "drop-mask IoU/precision/recall + range MAE into "
+                         "<out>/summary.json")
+    device(sp)
+    sp.set_defaults(fn=cmd_raydrop_drop)
     return p.parse_args(argv)
 
 

@@ -22,6 +22,14 @@ the port trains loads in both packages.
 (`LearnPose` {r, t}, `TrackOpt` {opt_r, opt_t}), and `train_params_to_flax`
 builds the combined {model, posenet?, tracknet?} tree of the JAX
 `create_train_state`.
+
+The ray-drop networks (`raydrop/`): `unet_to_flax` / `unet_from_flax`
+carry the U-Net's `params` and `batch_stats` (Conv kernels [kh, kw, in,
+out] <-> weights [out, in, kh, kw]; a Flax `ConvTranspose` kernel is
+torch's `conv_transpose2d` weight [in, out, kh, kw] flipped in both spatial
+axes; BatchNorm scale / bias / mean / var <-> weight / bias / running_mean
+/ running_var), `vgg_to_flax` / `vgg_from_flax` the VGG19 trunk and
+`darknet_to_flax` / `darknet_from_flax` Darknet-53.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ import torch
 
 from .configs import ModelConfig
 from .models.model import Model
+from .raydrop import darknet as dk_lib
+from .raydrop import vgg as vgg_lib
 
 _LIST_LAYER = re.compile(r"(density_layers|sem_layers|intensity_layers|"
                          r"view_layers)_(\d+)")
@@ -198,3 +208,140 @@ def train_params_to_flax(model: Model, posenet=None, tracknet=None) -> dict:
     tree = state_dict_to_flax(model.state_dict())
     refiners = refiners_to_flax(posenet, tracknet)
     return {"model": tree, **refiners} if refiners else tree
+
+
+# ------------------------------------------------------------- ray-drop
+def _double_conv(tname: str, fpath: str):
+    return [(f"{tname}.conv1", f"{fpath}/Conv_0"),
+            (f"{tname}.bn1", f"{fpath}/BatchNorm_0"),
+            (f"{tname}.conv2", f"{fpath}/Conv_1"),
+            (f"{tname}.bn2", f"{fpath}/BatchNorm_1")]
+
+
+def _unet_pairs(model):
+    """(torch module name, Flax module path) of every leaf module of a
+    `raydrop.unet.UNet`, in the Flax `UNet`'s automatic names."""
+    pairs = _double_conv("inc", "DoubleConv_0")
+    for k in range(4):
+        pairs += _double_conv(f"down{k + 1}.conv", f"Down_{k}/DoubleConv_0")
+        if model.bilinear:
+            pairs += _double_conv(f"up{k + 1}.up", f"Up_{k}/DoubleConv_0")
+            pairs += _double_conv(f"up{k + 1}.conv", f"Up_{k}/DoubleConv_1")
+        else:
+            pairs.append((f"up{k + 1}.up", f"Up_{k}/ConvTranspose_0"))
+            pairs += _double_conv(f"up{k + 1}.conv", f"Up_{k}/DoubleConv_0")
+    pairs.append(("outc", "Conv_0"))
+    if model.regression:
+        pairs.append(("regc", "Conv_1"))
+    return pairs
+
+
+def _vgg_pairs():
+    return [(f"convs.{n}", n) for n in vgg_lib.conv_names()]
+
+
+def _darknet_pairs():
+    pairs = [("conv1", "conv1"), ("bn1", "bn1")]
+    for si, blocks in enumerate(dk_lib._BLOCKS_53):
+        t = f"enc{si + 1}"
+        pairs += [(f"{t}.conv", f"enc{si}_down"), (f"{t}.bn", f"enc{si}_bn")]
+        for bi in range(blocks):
+            pairs += _double_conv(f"{t}.residual_{bi}", f"enc{si}_res{bi}")
+    return pairs
+
+
+def _leaves(module: torch.nn.Module):
+    """(collection, Flax leaf, torch attribute, to Flax, from Flax) of one
+    conv or BatchNorm module."""
+    if isinstance(module, torch.nn.ConvTranspose2d):
+        k = ("params", "kernel", "weight",
+             lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1],
+             lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1))
+    elif isinstance(module, torch.nn.Conv2d):
+        k = ("params", "kernel", "weight", lambda w: w.transpose(2, 3, 1, 0),
+             lambda k: k.transpose(3, 2, 0, 1))
+    elif isinstance(module, torch.nn.BatchNorm2d):
+        same = lambda v: v  # noqa: E731
+        return [("params", "scale", "weight", same, same),
+                ("params", "bias", "bias", same, same),
+                ("batch_stats", "mean", "running_mean", same, same),
+                ("batch_stats", "var", "running_var", same, same)]
+    else:
+        raise TypeError(f"no Flax layout for {type(module).__name__}")
+    out = [k]
+    if module.bias is not None:
+        out.append(("params", "bias", "bias", lambda v: v, lambda v: v))
+    return out
+
+
+def _to_flax(model: torch.nn.Module, pairs) -> dict:
+    flat = {}
+    for tname, fpath in pairs:
+        module = model.get_submodule(tname)
+        for coll, fleaf, attr, to_f, _ in _leaves(module):
+            v = getattr(module, attr).detach().cpu().numpy()
+            flat[f"{coll}/{fpath}/{fleaf}"] = np.ascontiguousarray(to_f(v))
+    return unflatten_params(flat)
+
+
+def _from_flax(tree: dict, model: torch.nn.Module, pairs
+               ) -> Dict[str, torch.Tensor]:
+    """Every Flax leaf must be used and every torch tensor of the state
+    dict (but `num_batches_tracked`) filled, or it raises."""
+    flat = flatten_params(tree)
+    expected = model.state_dict()
+    out, used = {}, set()
+    for tname, fpath in pairs:
+        for coll, fleaf, attr, _, from_f in _leaves(
+                model.get_submodule(tname)):
+            key = f"{coll}/{fpath}/{fleaf}"
+            name = f"{tname}.{attr}"
+            value = np.array(from_f(np.asarray(flat[key], np.float32)),
+                             np.float32, order="C")
+            if tuple(value.shape) != tuple(expected[name].shape):
+                raise ValueError(f"{key}: shape {value.shape} does not "
+                                 f"match {name} "
+                                 f"{tuple(expected[name].shape)}")
+            out[name] = torch.from_numpy(value)
+            used.add(key)
+    unused = sorted(set(flat) - used)
+    missing = sorted(k for k in set(expected) - set(out)
+                     if not k.endswith("num_batches_tracked"))
+    if unused or missing:
+        raise KeyError(f"Flax leaves not used: {unused[:5]}; torch tensors "
+                       f"not filled: {missing[:5]}")
+    for k in expected:
+        if k.endswith("num_batches_tracked"):
+            out[k] = expected[k]
+    return out
+
+
+def unet_to_flax(model) -> dict:
+    """`raydrop.unet.UNet` -> {'params': ..., 'batch_stats': ...} of the
+    Flax `UNet` (numpy leaves)."""
+    return _to_flax(model, _unet_pairs(model))
+
+
+def unet_from_flax(tree: dict, model) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} of the Flax `UNet` -> the state dict of
+    `model` (a `raydrop.unet.UNet` of the same shape)."""
+    return _from_flax(tree, model, _unet_pairs(model))
+
+
+def vgg_to_flax(model) -> dict:
+    """`raydrop.vgg.Vgg19Features` -> {'params': {s0_c0: ...}}."""
+    return _to_flax(model, _vgg_pairs())
+
+
+def vgg_from_flax(tree: dict, model) -> Dict[str, torch.Tensor]:
+    return _from_flax(tree, model, _vgg_pairs())
+
+
+def darknet_to_flax(model) -> dict:
+    """`raydrop.darknet.DarknetBackbone` -> {'params', 'batch_stats'} of
+    the Flax `DarknetBackbone`."""
+    return _to_flax(model, _darknet_pairs())
+
+
+def darknet_from_flax(tree: dict, model) -> Dict[str, torch.Tensor]:
+    return _from_flax(tree, model, _darknet_pairs())

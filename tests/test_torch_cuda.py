@@ -666,3 +666,68 @@ def test_gather_wrappers_reject_what_they_do_not_take(dev):
                                                device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         tile_gather.tile_lane_gather(tbl, idx.cpu())
+
+
+# ------------------------------------------------------------- ray-drop
+def _raydrop_setup(dev, dtype, n=2, h=32, w=128):
+    """A trainer on the card and one on the CPU with the same U-Net and VGG
+    weights (seeded), and a seeded batch in `dtype`."""
+    import numpy as np
+    from nerf_lidar_tpu_torch.raydrop.trainer import (RayDropConfig,
+                                                      RayDropTrainer)
+    cfg = RayDropConfig(vgg=True)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        tr = RayDropTrainer(cfg, seed=0, device=where)
+        tr.vgg_model.to(dtype)
+        st = tr.init_state(seed=3)
+        st = tr.make_state(st.model.to(dtype))
+        out[where.type] = (tr, st)
+    rng = np.random.RandomState(0)
+    images = rng.rand(n, h, w, 6).astype(np.float32)
+    images[..., 0] *= rng.rand(n, h, w) > 0.3
+    masks = (images[..., 0] > 0).astype(np.int64)
+    return out, images, masks, images[..., 0] * 0.9
+
+
+def test_raydrop_train_step_matches_cpu(dev):
+    """One U-Net train step (CE + VGG with the Gumbel-hard mask, roll shift
+    and noise given) on the card against the CPU, in float64, where no
+    ReLU mask flips on rounding: loss rtol 1e-9, gradients and BatchNorm
+    buffers 1e-9 of each tensor's max, the stepped weights 1e-9."""
+    dtype = torch.float64
+    pair, images, masks, ranges = _raydrop_setup(dev, dtype)
+    noise = -torch.empty(2, 2, 32, 128, dtype=dtype).exponential_(
+        generator=torch.Generator().manual_seed(1)).log()
+    got = {}
+    for where, (tr, st) in pair.items():
+        d = torch.device(where if where == "cpu" else dev)
+        batch = (torch.from_numpy(images).to(d, dtype).permute(0, 3, 1, 2),
+                 torch.from_numpy(masks).to(d),
+                 torch.from_numpy(ranges).to(d, dtype))
+        st.model.train()
+        stats = tr.train_step(st, *batch, shift=17, noise=noise.to(d))
+        got[where] = (float(stats["loss"]), st.model)
+    (loss_c, card), (loss_h, host) = got["cuda"], got["cpu"]
+    assert abs(loss_c - loss_h) <= 1e-9 * abs(loss_h)
+    for (name, p), q in zip(card.named_parameters(), host.parameters()):
+        for a, b in ((p.grad, q.grad), (p.detach(), q.detach())):
+            scale = float(b.abs().max())
+            assert float((a.cpu() - b).abs().max()) <= 1e-9 * scale, name
+    for (name, a), b in zip(card.named_buffers(), host.buffers()):
+        scale = max(float(b.abs().max()), 1e-30)
+        assert float((a.cpu() - b).abs().max()) <= 1e-9 * scale, name
+
+
+def test_raydrop_predict_prob_matches_cpu(dev):
+    """predict_prob (eval mode, float32, TF32 off) on the card against the
+    CPU on the same weights: 1e-5 absolute."""
+    import numpy as np
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pair, images, _, _ = _raydrop_setup(dev, torch.float32)
+    (tc, sc), (th, sh) = pair["cuda"], pair["cpu"]
+    got = tc.predict_prob(sc, images)
+    want = th.predict_prob(sh, images)
+    assert got.shape == want.shape == images.shape[:3]
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -5,6 +5,10 @@ The port keeps its own `configs`, `lidar/{sensor,transforms}`, `data/*`
 and the config/scene helpers of `cli.py`; each copy must give exactly what
 the original gives on the same inputs (numpy in, numpy out), except where
 the JAX loader decodes LiDAR natively (`LIDAR_ULP`).
+The ray-drop host code (`lidar/{range_image,export}`, `raydrop/features`)
+is held to the JAX package's numpy branch, which the port always takes:
+the JAX package switches to its native library where it loads, and the
+tests turn that off (`no_native`).
 The isolation tests show that importing and running the port loads no
 module of jax, flax, optax or `nerf_lidar_tpu`.
 """
@@ -27,13 +31,18 @@ from nerf_lidar_tpu.data import batching as jbatching
 from nerf_lidar_tpu.data import nuscenes as jnuscenes
 from nerf_lidar_tpu.data import synth_nusc
 from nerf_lidar_tpu.data import synthetic as jsynthetic
+from nerf_lidar_tpu import native as jnative
+from nerf_lidar_tpu.lidar import export as jexport
+from nerf_lidar_tpu.lidar import range_image as jri
 from nerf_lidar_tpu.lidar import sensor as jsensor
 from nerf_lidar_tpu.lidar import transforms as jtransforms
+from nerf_lidar_tpu.raydrop import features as jfeatures
 from nerf_lidar_tpu_torch import cli, configs
 from nerf_lidar_tpu_torch.data import batching, nuscenes, synthetic
 from nerf_lidar_tpu_torch.data import png
 from nerf_lidar_tpu_torch.data import synth_nusc as port_synth_nusc
-from nerf_lidar_tpu_torch.lidar import sensor, transforms
+from nerf_lidar_tpu_torch.lidar import export, range_image, sensor, transforms
+from nerf_lidar_tpu_torch.raydrop import features
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "nerf_lidar_tpu_torch")
@@ -290,6 +299,167 @@ def test_cli_nusc_scene_equals_jax(nusc_dir):
                 jcli.load_scene_for(jcfg, "lidar"), "scene", LIDAR_ULP)
 
 
+# ---------------------------------------------- ray-drop host code
+@pytest.fixture
+def no_native(monkeypatch):
+    """The JAX package's numpy branches (its native library off)."""
+    monkeypatch.setattr(jnative, "available", lambda: False)
+
+
+def _sweep(seed, w=1100, near=2.0, far=80.0):
+    """A sensor-frame sweep on the 32 nuScenes beams: points, labels, rgb."""
+    rng = np.random.RandomState(seed)
+    d = jsensor.beam_directions(azimuths=jsensor.azimuth_angles(w))
+    pts = np.stack([d[:, 1], -d[:, 0], d[:, 2]], -1) * rng.uniform(
+        near, far, (len(d), 1))
+    sem = rng.randint(0, 19, len(d))
+    probs = rng.rand(len(d), 19).astype(np.float32)
+    return (pts.astype(np.float32), sem, probs,
+            rng.rand(len(d), 3).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,w", [(32, 1024), (16, 64)])
+def test_range_image_equals_jax(h, w):
+    """project_points equals the JAX numpy branch exactly (float32 and
+    integer labels, with and without semantic / rgb), and so do
+    unproject_grid, normalize / denormalize_range and local_variance."""
+    pts, sem, _, rgb = _sweep(0)
+    for args in ((pts, sem.astype(np.float32), rgb), (pts, sem, None),
+                 (pts, None, None)):
+        got = range_image.project_points(*args, h=h, w=w)
+        want = jri.project_points(*args, h=h, w=w, use_native=False)
+        assert_same(got, want, "project_points")
+    r = got.range
+    assert_same(range_image.unproject_grid(r), jri.unproject_grid(r))
+    norm = range_image.normalize_range(r)
+    assert_same(norm, jri.normalize_range(r))
+    assert_same(range_image.denormalize_range(norm),
+                jri.denormalize_range(norm))
+    for size in (1, 2):
+        assert_same(range_image.local_variance(norm, size),
+                    jri.local_variance(norm, size))
+
+
+def test_range_image_native_branch_differs_on_few_pixels():
+    """Where the JAX package loads its native library, its projection puts
+    a few points in the neighbouring column (float rounding at a bin edge)
+    and so lets another point win a few pixels; the port is the numpy
+    branch. Measured on 4 seeded full sweeps (35,200 points, 32 x 1024):
+    32 points in another column, 19-25 of 32,768 pixels hold another
+    point, the return masks equal."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library does not load here")
+    for seed in range(4):
+        pts, sem, _, rgb = _sweep(seed)
+        sem = sem.astype(np.float32)
+        got = range_image.project_points(pts, sem, rgb)
+        nat = jri.project_points(pts, sem, rgb, use_native=True)
+        np.testing.assert_array_equal(got.mask, nat.mask)
+        assert (got.proj_x != nat.proj_x).sum() <= 64
+        assert (got.idx != nat.idx).sum() <= 50  # 0.15% of the pixels
+
+
+def test_project_range_image_torch_equals_jax():
+    """The scatter-min range image equals JAX's segment_min version."""
+    import torch
+    pts, *_ = _sweep(1, w=300)
+    got, bins = range_image.project_range_image_torch(torch.from_numpy(pts))
+    want, jbins = jri.project_range_image_jax(pts)
+    np.testing.assert_array_equal(bins.numpy(), np.asarray(jbins))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.isinf(got.numpy()).any() and np.isfinite(got.numpy()).any()
+
+
+def test_export_writes_the_same_files(tmp_path):
+    """write_bin_label / write_sensor_metadata / write_obj write the bytes
+    the JAX package writes; the readers give what it reads."""
+    pts, sem, _, _ = _sweep(2, w=40)
+    inten = np.random.RandomState(0).rand(len(pts)).astype(np.float32)
+    l2e, e2g = np.tile(np.eye(4), (3, 1, 1)), np.random.RandomState(1).rand(
+        3, 4, 4)
+    for mod, root in ((export, tmp_path / "port"), (jexport,
+                                                    tmp_path / "jax")):
+        mod.write_bin_label(str(root), 0, pts, sem, inten)
+        mod.write_bin_label(str(root), 1, pts[:5], None, None)
+        mod.write_sensor_metadata(str(root), l2e, e2g)
+        mod.write_obj(str(root / "a.obj"), np.c_[pts[:7], sem[:7]])
+    files = sorted(str(p.relative_to(tmp_path / "jax"))
+                   for p in (tmp_path / "jax").rglob("*") if p.is_file())
+    assert len(files) == 6
+    for rel in files:
+        assert ((tmp_path / "port" / rel).read_bytes()
+                == (tmp_path / "jax" / rel).read_bytes()), rel
+    b = str(tmp_path / "port" / "velodyne" / "000000.bin")
+    lab = str(tmp_path / "port" / "labels" / "000000.label")
+    assert_same(export.read_bin(b), jexport.read_bin(b))
+    assert_same(export.read_label(lab), jexport.read_label(lab))
+    np.save(tmp_path / "p.npy", pts.T)
+    for path, kw in ((b, {}), (b, dict(n_points=len(pts))), (b, dict(dims=4)),
+                     (str(tmp_path / "p.npy"), {})):
+        assert_same(export.load_points_any(path, **kw),
+                    jexport.load_points_any(path, **kw))
+
+
+def test_features_equal_jax(no_native):
+    """depth_filter_mask (with and without semantics), real and simulated
+    sweep features (labels and probabilities, filter on / off) and
+    world_points_to_sensor equal the JAX numpy branch exactly."""
+    pts, sem, probs, rgb = _sweep(3, near=2.0, far=9.0)
+    for kw in (dict(), dict(semantic=sem.astype(np.float32)),
+               dict(threshold=2, radius=0.5, width=5)):
+        assert_same(features.depth_filter_mask(pts, **kw),
+                    jfeatures.depth_filter_mask(pts, **kw))
+    assert_same(features.real_sweep_features(pts),
+                jfeatures.real_sweep_features(pts))
+    for s, kw in ((sem, {}), (probs, dict(semantic_align=False)),
+                  (sem, dict(apply_depth_filter=False, h=16, w=64))):
+        assert_same(features.simulated_sweep_features(pts, s, rgb, **kw),
+                    jfeatures.simulated_sweep_features(pts, s, rgb, **kw))
+    l2g = np.eye(4)
+    l2g[:3, :3] = [[0.8, -0.6, 0], [0.6, 0.8, 0], [0, 0, 1]]
+    l2g[:3, 3] = [3.0, -1.0, 1.8]
+    assert_same(features.world_points_to_sensor(pts, l2g),
+                jfeatures.world_points_to_sensor(pts, l2g))
+
+
+def _write_sim_dir(root, l2g, n_points, seed=0):
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(len(l2g)):
+        pts = rng.randn(n_points, 3).astype(np.float32) * 8
+        np.save(os.path.join(root, f"points_{i:04d}.npy"),
+                pts + l2g[i][:3, 3].astype(np.float32))
+        np.save(os.path.join(root, f"points_semantic_{i:04d}.npy"),
+                rng.rand(n_points, 5).astype(np.float32))
+        np.save(os.path.join(root, f"points_rgb_{i:04d}.npy"),
+                rng.rand(n_points, 3).astype(np.float32))
+    np.save(os.path.join(root, "lidar2globals.npy"), l2g)
+
+
+def test_training_set_assembly_equals_jax(nusc_dir, tmp_path, no_native):
+    """load_sim_sweep_dir, assemble_training_set (the scene's real .bin
+    sweeps, sim sweeps brought into the sensor frame),
+    build_training_set and concat_training_sets equal the JAX ones; both
+    refuse a directory with stale sweeps past its lidar2globals."""
+    l2g = np.load(os.path.join(nusc_dir, "lidar_points", "lidar2global.npy"))
+    sim = str(tmp_path / "sim")
+    _write_sim_dir(sim, l2g, 32 * 20)
+    assert_same(features.load_sim_sweep_dir(sim),
+                jfeatures.load_sim_sweep_dir(sim))
+    kw = dict(h=16, w=64)
+    got = features.assemble_training_set(nusc_dir, sim, **kw)
+    want = jfeatures.assemble_training_set(nusc_dir, sim, **kw)
+    assert_same(got, want, "training set", LIDAR_ULP)
+    assert got["images"].shape == (len(l2g), 16, 64, 6)
+    assert_same(features.concat_training_sets([got, got]),
+                jfeatures.concat_training_sets([want, want]), "concat",
+                LIDAR_ULP)
+    np.save(os.path.join(sim, "lidar2globals.npy"), l2g[:2])
+    for mod in (features, jfeatures):
+        with pytest.raises(ValueError, match="stale"):
+            mod.load_sim_sweep_dir(sim)
+
+
 # ----------------------------------------------------------- isolation
 _ISOLATED = """
 import importlib, os, pkgutil, sys
@@ -315,12 +485,37 @@ objs = ['--config', 'tiny_debug', '--data_dir', 'scene', '--device', 'cpu',
         '--set', 'track_refine=true', '--set', 'track_start_opt=0']
 run = cli.main(['train', *objs, '--steps', '2'])
 assert run.tracknet is not None and run.cfg.model.num_objects == 1
-cli.main(['render_lidar', *objs, '--mode', 'replay', '--num_sweeps', '1',
+cli.main(['render_lidar', *objs, '--mode', 'replay', '--num_sweeps', '2',
           '--azimuth_steps', '8', '--params', run.params])
+sim = 'exp/iso_objects/lidar_replay'
+cli.main(['raydrop_features', '--pair', 'scene:' + sim, '--out', 'f.npy',
+          '--width', '64'])
+import torch
+from nerf_lidar_tpu_torch.raydrop import darknet, vgg
+torch.save({{'features.%d.%s' % (i, k): v for n, i in zip(
+    vgg.conv_names(), vgg.TORCHVISION_CONV_IDX) for k, v in
+    vgg.init_vgg().convs[n].state_dict().items()}}, 'vgg.pth')
+torch.save(darknet.init_darknet().state_dict(), 'rangenet.pth')
+cli.main(['convert_vgg', '--ckpt', 'vgg.pth', '--out', 'vgg.npz'])
+cli.main(['convert_rangenet', '--backbone', 'rangenet.pth', '--out', 'dk.npz'])
+rd = cli.main(['raydrop_train', '--features', 'f.npy', '--exp_name', 'rd',
+               '--epochs', '0', '--batch_size', '1', '--vgg_npz', 'vgg.npz',
+               '--darknet', '--darknet_npz', 'dk.npz', '--device', 'cpu'])
+assert set(rd.history[0]) >= {{'ce', 'vgg', 'darknet', 'loss'}}
+ckpt = 'exp/rd/raydrop_00001.pt'
+cli.main(['raydrop_drop', '--ckpt', ckpt, '--simulation_path', sim, '--out',
+          'kitti', '--width', '64', '--place_car', '--features', 'f.npy',
+          '--device', 'cpu'])
+cli.main(['raydrop_val_vis', '--features', 'f.npy', '--ckpt', ckpt, '--out',
+          'vis', '--device', 'cpu'])
+cli.main(['points_vis', '--points', 'kitti/velodyne/000000.bin', '--out',
+          'pv'])
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {barred})
 assert not bad, bad
-# The port needs no imageio: it writes and reads its PNGs itself.
-assert 'imageio' not in sys.modules
+# The port needs no imageio, PIL or torchvision: it writes and reads its
+# PNGs itself and writes VGG19 out by hand.
+for name in ('imageio', 'PIL', 'torchvision'):
+    assert name not in sys.modules, name
 print('MODULES', len(names))
 """
 
@@ -328,9 +523,13 @@ print('MODULES', len(names))
 def test_port_runs_without_the_jax_package(tmp_path):
     """Every module of the port imported, two tiny_debug train steps and a
     render on the CPU, on the synthetic scene and on a synth_nusc scene with
-    its moving car (objects, tracknet, replay render): no jax, flax, optax
-    or nerf_lidar_tpu module is loaded."""
-    env = dict(os.environ, PYTHONPATH=REPO)
+    its moving car (objects, tracknet, replay render), then the ray-drop
+    CLIs on that render (features, the VGG / Darknet converters, training
+    with both losses, drop and export, val_vis, points_vis): no jax, flax,
+    optax or nerf_lidar_tpu module is loaded, nor imageio, PIL or
+    torchvision."""
+    # Two intra-op threads: the tier runs other test files beside this one.
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-c", _ISOLATED.format(barred=BARRED)],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
@@ -339,6 +538,8 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert (tmp_path / "exp" / "iso" / "lidar_simu").is_dir()
     assert (tmp_path / "exp" / "iso_objects" / "lidar_replay" /
             "points_0000.npy").is_file()
+    assert (tmp_path / "kitti" / "labels" / "000001.label").is_file()
+    assert (tmp_path / "vis" / "val_vis.json").is_file()
 
 
 _JAX_PACKAGE_IMPORT = re.compile(
@@ -365,7 +566,8 @@ def test_copies_name_their_original():
                 "data/camera.py", "data/quaternion.py",
                 "data/road_augment.py", "data/batching.py",
                 "data/synthetic.py", "data/nuscenes.py",
-                "data/synth_nusc.py"):
+                "data/synth_nusc.py", "lidar/range_image.py",
+                "lidar/export.py", "raydrop/features.py"):
         with open(os.path.join(PORT, rel)) as f:
             first = f.readline()
         assert first.startswith(f"# Copy of nerf_lidar_tpu/{rel} "), rel
