@@ -108,17 +108,31 @@ Phases (each raises on failure, so the script exits non-zero):
    against the CPU from the trained weights: eval logits, the keep mask,
    one train step in float64 (at RD_LOSS_TOL / RD_GRAD_TOL / RD_BN_TOL) and
    in float32 (its loss; its gradients reported); and the times of a train
-   step (VGG; VGG + Darknet), a predict, and features / drop per sweep.
-The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 6, 7, 9, 10, 11: [4]
+   step (VGG; VGG + Darknet), a predict, and features / drop per sweep;
+14. evaluation, on [13]'s scene and field: the port's `eval` (every test
+   view; K1 and H1), `lidar_eval --max_rays 0` (every replayed return,
+   seeded per-point labels for the mIoU path; K1 and H1) and `render
+   --path test --num_frames 1` (compute_extras: H1, no K1), each with the
+   kernel counts at 0 just before it; their files and finite metrics; eval's
+   first view with every K1 and H1 call held against its plain version,
+   and kernels on vs off at [5]'s tolerances on all but
+   TRAINED_SWEEP_SHARE of the values; the field's weights written as a JAX
+   checkpoint_<step>.ckpt (Flax msgpack, `flax_msgpack`) and evaluated
+   through the port's decoder: metrics and images equal to the .npz's;
+   PSNR / SSIM card vs CPU (rtol 1e-5) and Chamfer vs a float64 k-d tree
+   (rtol 1e-5) on lidar_eval's clouds and on seeded clouds of 35,200 and
+   10^6 points; eval s/view, lidar_eval s, Chamfer ms, peak GiB.
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 6, 7, 9, 10, 11: [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
 [7]. Then it fails if any
-module of jax, jaxlib, flax, optax or the JAX package
+module of jax, jaxlib, flax, optax, msgpack or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
 JSON line (every kernel's launches on each path, the object paths
-`train_objects` and `render_lidar_objects` and the ray-drop path `raydrop`
-(none) included, times, and its bound:
+`train_objects` and `render_lidar_objects`, the ray-drop path `raydrop`
+(none) and the eval entries `eval`, `lidar_eval`, `render` included, times,
+and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
 and K3 on the object grid under "obj_grid"), the nvidia-smi line,
@@ -143,7 +157,8 @@ GATHER_SOURCE = "nerf_lidar_tpu_torch/csrc/gather.cu"
 # outside the tensor cores 67 TFLOP/s (per millisecond below).
 HBM_BYTES_PER_MS = 3.35e9
 FP32_FLOP_PER_MS = 67e9
-MODULES_BARRED = ("jax", "jaxlib", "flax", "optax", "nerf_lidar_tpu")
+MODULES_BARRED = ("jax", "jaxlib", "flax", "optax", "msgpack",
+                  "nerf_lidar_tpu")
 # The main paths: the port's `render_lidar` and `train` entries, as a user
 # would call them.
 SLICE_ARGV = ["render_lidar", "--config", "nuscenes_single",
@@ -565,13 +580,14 @@ def phase_slice(dev):
     return launches, render_inputs
 
 
-def compare_sweeps(what, a, b, share=0.0):
+def compare_sweeps(what, a, b, share=0.0, cap=100.0):
     """A sweep rendered kernels on (a) vs off (b): depth rtol 1e-3, rgb and
     semantic atol 1e-4 (the kernels change summation order only, and the
     resampling chain amplifies that), on all but `share` of each output's
-    values, and none beyond 100 times the tolerance. Returns ({key: max abs
-    diff}, {key: values outside the tolerance}, [rays] mask of the rays with
-    a value outside, {key: std across rays of a})."""
+    values, and none beyond `cap` times the tolerance (None: no cap).
+    Returns ({key: max abs diff}, {key: values outside the tolerance},
+    [rays] mask of the rays with a value outside, {key: std across rays of
+    a})."""
     import torch
     errs, outside, rays, spread = {}, {}, None, {}
     for key, rtol, atol in (("depth", 1e-3, 0.0), ("rgb", 0.0, 1e-4),
@@ -582,10 +598,12 @@ def compare_sweeps(what, a, b, share=0.0):
         out = err > tol
         n_out = int(out.sum())
         if not bool(torch.isfinite(got).all()) or n_out > share * \
-                err.numel() or bool((err > 100 * tol).any()):
+                err.numel() or (cap is not None
+                                and bool((err > cap * tol).any())):
             fail(f"{what} {key}: {n_out} of {err.numel()} values outside "
                  f"rtol {rtol} / atol {atol} (allowed: {share} of them, "
-                 f"none beyond 100 times; max abs err {float(err.max())})")
+                 f"none beyond {cap} times; max abs err "
+                 f"{float(err.max())})")
         out = out.reshape(out.shape[0], -1).any(-1)
         rays = out if rays is None else rays | out
         errs[key], outside[key] = float(err.max()), n_out
@@ -1949,6 +1967,337 @@ def phase_raydrop(dev):
     return launches
 
 
+def flax_msgpack(tree) -> bytes:
+    """The bytes `flax.serialization.msgpack_serialize` writes for a tree of
+    dicts (str keys), lists, strings, ints and numpy arrays (msgpack ext 1:
+    the nested (shape, dtype name, C-order bytes)), so that [14] can write
+    a JAX-package checkpoint without flax or msgpack."""
+    import struct
+    import numpy as np
+
+    def head(n, fix, fix_max, wide):
+        if n <= fix_max:
+            return bytes([fix | n])
+        for code, fmt, top in wide:
+            if n < top:
+                return bytes([code]) + struct.pack(fmt, n)
+        raise ValueError(f"msgpack: length {n}")
+
+    def obj(x):
+        if isinstance(x, dict):
+            return head(len(x), 0x80, 15, ((0xDE, ">H", 1 << 16),
+                                           (0xDF, ">I", 1 << 32))) + b"".join(
+                obj(str(k)) + obj(v) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return head(len(x), 0x90, 15, ((0xDC, ">H", 1 << 16),
+                                           (0xDD, ">I", 1 << 32))) + b"".join(
+                obj(v) for v in x)
+        if isinstance(x, str):
+            b = x.encode()
+            return head(len(b), 0xA0, 31, ((0xD9, ">B", 1 << 8),
+                                           (0xDA, ">H", 1 << 16),
+                                           (0xDB, ">I", 1 << 32))) + b
+        if isinstance(x, int):
+            if 0 <= x <= 0x7F:
+                return bytes([x])
+            return b"\xd3" + struct.pack(">q", x)
+        if isinstance(x, np.ndarray):
+            data = np.ascontiguousarray(x).tobytes()
+            payload = b"\x93" + obj(list(x.shape)) + obj(x.dtype.name) + \
+                b"\xc6" + struct.pack(">I", len(data)) + data
+            return b"\xc9" + struct.pack(">I", len(payload)) + b"\x01" + \
+                payload
+        raise TypeError(f"flax_msgpack: {type(x).__name__}")
+
+    return obj(tree)
+
+
+EVAL_CKPT_EXP = "chip_smoke_eval_ckpt"
+# [14]'s Chamfer sizes: one sweep's rays, and a cloud of 10^6 points (what
+# `lidar_eval --max_rays 0` scores on a scene of ~30 sweeps).
+CHAMFER_SIZES = (35200, 10 ** 6)
+METRIC_TOL = 1e-5
+
+
+def chamfer_f64(a, b):
+    """Chamfer of two float32 clouds in float64 on the host: exact nearest
+    neighbours by a k-d tree."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    d_ab = float(cKDTree(b).query(a)[0].mean())
+    d_ba = float(cKDTree(a).query(b)[0].mean())
+    return {"chamfer": 0.5 * (d_ab + d_ba), "chamfer_a_to_b": d_ab,
+            "chamfer_b_to_a": d_ba}
+
+
+def phase_eval(dev):
+    """[14] Evaluation, on [13]'s dense synth_nusc scene and its 60-step
+    field (params_60.npz), at full width: the port's `eval` (every test
+    view), `lidar_eval --max_rays 0` (every replayed return; seeded
+    per-point labels written beside the sweeps, so the mIoU path runs) and
+    `render --path test --num_frames 1` (compute_extras: H1 only), each with
+    the kernel counts at 0 just before it and read just after; the files
+    and finite metrics of each. Then eval's first view again with every K1
+    and H1 call held against its plain version, and kernels off
+    (`use_kernels=False`) at [5]'s tolerances on all but
+    TRAINED_SWEEP_SHARE of the values, and the plain chain on the kernel
+    render's final intervals at [5]'s tolerances on all of them; the same weights written as a JAX
+    checkpoint_60.ckpt (`flax_msgpack`) evaluated through the port's
+    decoder, equal to the .npz's metrics; PSNR / SSIM on the card vs the
+    CPU and the Chamfer distances vs a float64 k-d tree; times (eval s per
+    view, lidar_eval s, Chamfer ms at CHAMFER_SIZES, peak GiB). Returns
+    the kernel counts per entry."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli, convert
+    from nerf_lidar_tpu_torch.ops import grid, render_fused, stepfun
+    from nerf_lidar_tpu_torch.renderer import ChunkRenderer, render_view
+    from nerf_lidar_tpu_torch.utils import image, pc_metrics
+
+    counters = dict(composite=render_fused.fused_composite,
+                    hash_encode_ms=grid.hash_encode_multisample,
+                    hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
+                    scatter_add_rows=grid.scatter_add_rows)
+    rng = np.random.RandomState(14)
+    for path in sorted(os.listdir(os.path.join(RD_SCENE, "lidar_points"))):
+        if path.endswith(".bin"):
+            n = os.path.getsize(os.path.join(RD_SCENE, "lidar_points",
+                                             path)) // 20
+            rng.randint(0, 19, n).astype(np.uint32).tofile(os.path.join(
+                RD_SCENE, "lidar_points", path[:-4] + ".label"))
+    shutil.rmtree(os.path.join("exp", EVAL_CKPT_EXP), ignore_errors=True)
+    out = os.path.join("exp", RD_EXP)
+    launches, seconds = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+
+    def entry(name, argv):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        return run
+
+    ev = entry("eval", ["eval", *RD_FIELD_ARGV])
+    le = entry("lidar_eval", ["lidar_eval", *RD_FIELD_ARGV, "--max_rays",
+                              "0"])
+    rd = entry("render", ["render", *RD_FIELD_ARGV, "--path", "test",
+                          "--num_frames", "1"])
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30
+    for name in ("eval", "lidar_eval"):
+        if not (launches[name]["composite"] and
+                launches[name]["hash_encode_ms"]):
+            fail(f"[14] {name} did not launch K1 and H1: {launches[name]}")
+    if launches["render"]["composite"] or \
+            not launches["render"]["hash_encode_ms"]:
+        fail(f"[14] render (compute_extras: H1, no K1): {launches['render']}")
+    n_views = ev.data.num_views
+    step = ev.steps[-1]
+    want = [os.path.join(out, "eval", f) for f in (
+        "metrics.json", f"metrics_{step}.json", f"render_times_{step}.txt",
+        *(f"rgb_{i:03d}.npy" for i in range(n_views)))]
+    want += [os.path.join(out, "lidar_eval", f) for f in (
+        "metrics.json", "iou.txt", "pred_depth.npy", "gt_depth.npy",
+        "pred_semantic.npy")]
+    want += [os.path.join(rd.render_dir, f"{p}_000.png")
+             for p in ("color", "depth", "acc", "semantic")]
+    missing = [f for f in want if not os.path.exists(f)]
+    frame = rd.frames[0]
+    values = [*ev.metrics.values(), *(v for v in le.metrics.values())]
+    if missing or not all(np.isfinite(v) for v in values) or \
+            not {"distance_median", "acc"} <= set(frame) or \
+            not all(np.isfinite(v).all() for v in frame.values()):
+        fail(f"[14] entries: missing {missing}, eval {ev.metrics}, "
+             f"lidar_eval {le.metrics}, render keys {sorted(frame)}")
+    print(f"[14] eval ({n_views} test views of {ev.data.height} x "
+          f"{ev.data.width}, step {step}): {ev.metrics}; launches "
+          f"{launches['eval']}")
+    print(f"[14] lidar_eval (--max_rays 0): {le.metrics['num_rays']} rays, "
+          f"depth MAE {le.metrics['depth_mae']:.4f} / median "
+          f"{le.metrics['depth_median']:.4f} / RMSE "
+          f"{le.metrics['depth_rmse']:.4f}, Chamfer "
+          f"{le.metrics['chamfer']:.4f}, mIoU (seeded labels) "
+          f"{le.metrics['miou']:.4f}; launches {launches['lidar_eval']}")
+    print(f"[14] render --path test: panels in {rd.render_dir}, distance "
+          f"median {float(np.median(frame['distance_median'])):.3f}; "
+          f"launches {launches['render']}")
+
+    # Eval's first view: every K1 and H1 call against its plain version,
+    # then kernels on vs off. H1's rounding in the proposal levels shifts
+    # the final intervals the resampling draws, and a shifted interval can
+    # move a ray's values past [5]'s tolerances. Those values (at most
+    # TRAINED_SWEEP_SHARE) are bounded by a third render instead: the plain
+    # chain given the kernel render's final intervals must reproduce the
+    # kernel render at [5]'s tolerances on every value, so what differs
+    # comes from the intervals and not from a kernel. The rays outside are
+    # logged with their 3 x 3 neighbourhood's depth span (an occlusion edge
+    # spans metres).
+    rays = cli._view_rays(ev.data, 0)
+    plain = ChunkRenderer(ev.model, ev.cfg, ev.cfg.render_chunk_size,
+                          use_kernels=False)
+    sample = stepfun.sample_intervals
+    levels = ev.cfg.model.num_levels
+    final_sdist, calls = [], [0]
+
+    def sample_recorded(*a, **kw):
+        sdist = sample(*a, **kw)
+        calls[0] += 1
+        if calls[0] % levels == 0:
+            final_sdist.append(sdist.detach().clone())
+        return sdist
+
+    def sample_replayed(*a, **kw):
+        sdist = sample(*a, **kw)
+        calls[0] += 1
+        if calls[0] % levels:
+            return sdist
+        given = final_sdist[calls[0] // levels - 1]
+        if given.shape != sdist.shape:
+            fail(f"[14] replayed intervals {tuple(given.shape)} for a "
+                 f"level of {tuple(sdist.shape)}")
+        return given
+
+    with kernels_checked() as rec:
+        stepfun.sample_intervals = sample_recorded
+        try:
+            a = render_view(ev.renderer, rays, ev.tracks, ev.track_mask)
+        finally:
+            stepfun.sample_intervals = sample
+        b = render_view(plain, rays, ev.tracks, ev.track_mask)
+    calls[0] = 0
+    stepfun.sample_intervals = sample_replayed
+    try:
+        c = render_view(plain, rays, ev.tracks, ev.track_mask)
+    finally:
+        stepfun.sample_intervals = sample
+    if calls[0] != levels * len(final_sdist):
+        fail(f"[14] the replay drew {calls[0]} levels, the kernel render "
+             f"{levels * len(final_sdist)}")
+    flat = lambda img: {k: v.reshape((-1,) + v.shape[2:])  # noqa: E731
+                        for k, v in img.items()}
+    errs, outside, off_rays, _ = compare_sweeps(
+        "[14] eval view 0, kernels on vs off", flat(a), flat(b),
+        share=TRAINED_SWEEP_SHARE, cap=None)
+    replay_errs = compare_sweeps(
+        "[14] eval view 0, kernels on vs the plain chain on their final "
+        "intervals", flat(a), flat(c))[0]
+    n = off_rays.shape[0]
+    moved = (torch.cat(rec["tdist_kernels"])[:n]
+             - torch.cat(rec["tdist_plain"])[:n]).abs().amax(-1).cpu()
+    h, w = ev.data.height, ev.data.width
+    depth = torch.from_numpy(b["depth"].reshape(1, h, w))
+    span = (torch.nn.functional.max_pool2d(depth, 3, 1, 1)
+            + torch.nn.functional.max_pool2d(-depth, 3, 1, 1))[0]
+    off = torch.nonzero(off_rays).flatten()
+    diff = (torch.from_numpy(a["depth"].reshape(h, w))
+            - depth[0]).abs().flatten()
+    worst = off[diff[off].argsort(descending=True)][:8].tolist()
+    print(f"[14] eval view 0: every call vs its plain version, max abs err "
+          f"K1 {max(rec['k1']):.3e} ({len(rec['k1'])} calls), H1 "
+          f"{max(rec['h1']):.3e} ({len(rec['h1'])} calls); kernels on vs "
+          f"off, max abs diff {errs}, values outside [5]'s tolerances "
+          f"{outside} (allowed {TRAINED_SWEEP_SHARE} of each) on "
+          f"{off.numel()} rays; kernels on vs the plain chain on their "
+          f"final intervals, max abs diff {replay_errs}")
+    print(f"[14] eval view 0, rays outside: median 3 x 3 depth span "
+          f"{float(span.flatten()[off].median()) if off.numel() else 0:.3f}"
+          f" m (all rays {float(span.median()):.3f} m); largest depth "
+          f"differences (row, col, depth on / off, span, intervals moved): "
+          + "; ".join(f"({r // w}, {r % w}, {float(a['depth'].flat[r]):.3f}"
+                      f" / {float(depth.flatten()[r]):.3f}, "
+                      f"{float(span.flatten()[r]):.3f}, "
+                      f"{float(moved[r]):.2e})" for r in worst))
+
+    # The same weights as a JAX train state's msgpack checkpoint.
+    params = convert.load_npz_params(os.path.join(out, f"params_{step}.npz"))
+    state = torch.load(os.path.join(out, f"checkpoint_{step}.pt"),
+                       map_location="cpu", weights_only=True)
+    train_state = {"step": np.asarray(step, np.int32), "params": {
+        "model": params, "tracknet": {"params": {
+            k: v.numpy() for k, v in state["tracknet"].items()}}}}
+    os.makedirs(os.path.join("exp", EVAL_CKPT_EXP))
+    with open(os.path.join("exp", EVAL_CKPT_EXP,
+                           f"checkpoint_{step}.ckpt"), "wb") as f:
+        f.write(flax_msgpack(train_state))
+    ev_ckpt = cli.main(["eval", *RD_FIELD_ARGV, "--exp_name", EVAL_CKPT_EXP])
+    same = {k: (ev_ckpt.metrics[k], ev.metrics[k]) for k in ev.metrics
+            if k != "median_render_time_s"
+            and ev_ckpt.metrics[k] != ev.metrics[k]}
+    for i in range(n_views):
+        name = f"rgb_{i:03d}.npy"
+        if not np.array_equal(
+                np.load(os.path.join("exp", EVAL_CKPT_EXP, "eval", name)),
+                np.load(os.path.join(out, "eval", name))):
+            same[name] = "differs"
+    if same or ev_ckpt.steps != [step]:
+        fail(f"[14] eval of checkpoint_{step}.ckpt vs params_{step}.npz: "
+             f"{same}, steps {ev_ckpt.steps}")
+    print(f"[14] eval of the same weights as a JAX checkpoint_{step}.ckpt "
+          f"(model + tracknet, msgpack): metrics and images equal to the "
+          f".npz run's")
+
+    # Card vs CPU: PSNR / SSIM over the same arrays; Chamfer vs float64.
+    rgb = np.load(os.path.join(out, "eval", "rgb_000.npy"))
+    gt = np.asarray(ev.data.images[0], np.float32)
+    card = {f.__name__: float(f(torch.from_numpy(rgb).to(dev),
+                                torch.from_numpy(gt).to(dev)))
+            for f in (image.psnr, image.ssim)}
+    cpu = {f.__name__: float(f(rgb, gt)) for f in (image.psnr, image.ssim)}
+    for k in card:
+        if abs(card[k] - cpu[k]) > METRIC_TOL * abs(cpu[k]):
+            fail(f"[14] {k} card {card[k]} vs CPU {cpu[k]}")
+    ref = chamfer_f64(le.pred_pts, le.gt_pts)
+    chamfer_err = {k: abs(le.metrics[k] - ref[k]) / ref[k] for k in ref}
+    if max(chamfer_err.values()) > METRIC_TOL:
+        fail(f"[14] lidar_eval Chamfer {le.metrics['chamfer']} vs float64 "
+             f"{ref['chamfer']}: {chamfer_err}")
+    timings = {}
+    for n in CHAMFER_SIZES:
+        g = torch.Generator(device=dev).manual_seed(n)
+        pa = torch.rand(n, 3, generator=g, device=dev) * 100 - 50
+        pb = pa[torch.randperm(n, generator=g, device=dev)] + 0.05 * \
+            torch.randn(n, 3, generator=g, device=dev)
+        pc_metrics.chamfer_distance(pa[:1000], pb[:1000])  # warm
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = pc_metrics.chamfer_distance(pa, pb)
+        ms = 1e3 * (time.perf_counter() - t)
+        extra = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        ref = chamfer_f64(pa.cpu().numpy(), pb.cpu().numpy())
+        err = abs(got["chamfer"] - ref["chamfer"]) / ref["chamfer"]
+        if err > METRIC_TOL:
+            fail(f"[14] Chamfer {n} x {n}: {got} vs float64 {ref}")
+        timings[n] = (ms, extra, err, pc_metrics.block_rows(n))
+        del pa, pb
+    print(f"[14] card vs CPU: PSNR {card['psnr']:.6f} / {cpu['psnr']:.6f}, "
+          f"SSIM {card['ssim']:.6f} / {cpu['ssim']:.6f} (rtol "
+          f"{METRIC_TOL}); lidar_eval Chamfer vs float64 k-d tree, relative "
+          f"err {max(chamfer_err.values()):.2e}; seeded Chamfer "
+          + "; ".join(f"{n} x {n}: rel err {e:.2e}" for n, (_, _, e, _)
+                      in timings.items()))
+    render_times = [float(x) for x in open(os.path.join(
+        out, "eval", f"render_times_{step}.txt")).read().split()]
+    print(f"[14] times on the card: eval {statistics.median(render_times):.3f}"
+          f" s/view ({ev.data.height * ev.data.width} rays; entry "
+          f"{seconds['eval']:.1f} s with scene load and metrics); lidar_eval "
+          f"{seconds['lidar_eval']:.2f} s for {le.metrics['num_rays']} rays; "
+          f"render entry {seconds['render']:.1f} s; Chamfer "
+          + "; ".join(f"{n} x {n} {ms:.1f} ms (block {blk} rows, "
+                      f"{extra:.2f} GiB above its inputs)"
+                      for n, (ms, extra, _, blk) in timings.items())
+          + f"; peak memory of the three entries {peak:.2f} GiB")
+    del ev, le, rd, ev_ckpt, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 def obj_encode(dev, rec, fwd):
     """H1 (fwd) or H1-bwd (d_table and d_x01) on the object grid at a train
     step's recorded backward call `rec` (table, x01, stds, g_out, spec,
@@ -2269,6 +2618,7 @@ def main():
     train_launches, params, train_inputs = timed("[8]", phase_train, dev)
     objects = timed("[12]", phase_objects, dev)
     raydrop_launches = timed("[13]", phase_raydrop, dev)
+    eval_launches = timed("[14]", phase_eval, dev)
     obj_grid = timed("[12] profiled", objects.pop("profiled"))
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
@@ -2284,11 +2634,13 @@ def main():
 
     # Launches per main path: the render entry's run [5], the train entry's
     # run [8], the gather bench's run [11], with dynamic objects [12]'s
-    # train entry and its replay render, and [13]'s ray-drop path (features
-    # to export, which launches none); `launches` is their sum.
+    # train entry and its replay render, [13]'s ray-drop path (features
+    # to export, which launches none), and [14]'s eval, lidar_eval and
+    # render entries; `launches` is their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
-             *objects["paths"].items(), ("raydrop", raydrop_launches))
+             *objects["paths"].items(), ("raydrop", raydrop_launches),
+             *eval_launches.items())
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""

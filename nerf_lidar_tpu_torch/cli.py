@@ -20,6 +20,20 @@ clouds:
 (`raydrop_val_vis`, `points_vis`, `convert_vgg` and `convert_rangenet` as
 in the JAX CLI; `convert_*` load the weights into the port's modules.)
 
+Evaluation of a field (`params_<step>.npz`, or the JAX package's
+`checkpoint_<step>.ckpt`, given by `--params` or the newest in
+exp/<name>/):
+
+  python -m nerf_lidar_tpu_torch.cli eval --config nuscenes_single \
+      --set dataset_loader=nusc --data_dir scene --exp_name myscene
+  python -m nerf_lidar_tpu_torch.cli lidar_eval ... --max_rays 0
+  python -m nerf_lidar_tpu_torch.cli render ... --path test --num_frames 1
+
+`eval` scores the test views (PSNR, SSIM, colour-corrected PSNR; `--follow`
+polls for new checkpoints), `lidar_eval` replays the scene's real LiDAR
+returns (depth errors, Chamfer, mIoU), `render` writes colour / depth /
+acc / semantic panels of test or ellipse-path views.
+
 On a scene with dynamic-object tracks (`bboxes.json`; `data/synth_nusc.py`
 writes one) and a config with `instance_obj`, `train` fits the object
 MLPs and latents beside the field (with the tracknet under
@@ -32,8 +46,12 @@ Config, overrides and scene loading (`build_config`, `apply_overrides`,
 port's own `configs` and `data` modules, so a preset and a `--set` mean the
 same thing in both packages (`tests/test_torch_host.py`). `train` writes
 the weights as a Flax param tree in a flat .npz (see `convert.py`), which
-`render_lidar --params` and the JAX package both read; `render_lidar` can
-also start from a seeded fresh init for debugging (`--allow_fresh`).
+`render_lidar --params` and the JAX package both read; the entries that
+render can also start from a seeded fresh init for debugging
+(`--allow_fresh`). `train` logs to exp/<name>/metrics.jsonl, renders a test
+view every `train_render_every` steps (train_renders/rgb_<step>.png and
+`test_psnr`), and `--trace_dir` writes a torch.profiler Chrome trace of
+steps [trace_start, trace_stop].
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ import numpy as np
 import torch
 
 from . import configs, convert
+from .data import png
 from .data.batching import RayBatcher
 from .lidar import sensor
 from .lidar.render import render_sweeps_to_dir
@@ -57,8 +76,10 @@ from .models import objects as objlib
 from .models import posenet as posenet_lib
 from .models.model import Model
 from .ops import grid
-from .renderer import ChunkRenderer
+from .renderer import ChunkRenderer, render_view
 from .train import checkpoints, train_step
+from .utils import image as image_lib
+from .utils.logging import MetricsLogger, Timer
 
 # The presets whose every flag is ported (the `_fast`, `_mxu` and `_speed`
 # presets set `ms_coarse_res_cutoff`, which is not).
@@ -196,23 +217,39 @@ def _pad_obj_latents(params, num_objects: int):
     return params
 
 
-def build_model(cfg, params_path: Optional[str], allow_fresh: bool,
-                device: torch.device) -> Model:
-    """The scene model with `--params` weights (a model without objects
-    skips the object leaves; inserted object slots get zero latents), or a
-    fresh init seeded by `cfg.seed` when `allow_fresh`; refuses an
-    untrained model otherwise."""
-    if not params_path and not allow_fresh:
+def _restore_model_params(cfg, params_path: Optional[str] = None,
+                          allow_fresh: bool = False):
+    """(Flax param tree, step) of `--params` (a params_<step>.npz or a JAX
+    checkpoint_<step>.ckpt), or without it of the newest weights in
+    exp/<name>/ (`checkpoints.restore_model_params`). With nothing to
+    restore: (None, 0) under `allow_fresh`, else a refusal, so no entry
+    ships output of an untrained init by accident."""
+    params, step = checkpoints.restore_model_params(
+        params_path or exp_dir(cfg))
+    if params_path and params is None:
+        raise SystemExit(f"--params {params_path}: no such file")
+    if params is None and not allow_fresh:
         raise SystemExit(
-            "no --params given: refusing to render from an untrained init "
-            "(pass --params <npz> with trained weights, or --allow_fresh to "
-            "debug)")
+            f"no checkpoint in {exp_dir(cfg)} and no --params: refusing to "
+            "render from an untrained init (pass --params <npz or ckpt> "
+            "with trained weights, or --allow_fresh to debug)")
+    return params, step
+
+
+def load_params(model: Model, cfg, params) -> None:
+    """A Flax param tree's weights into the model (a model without objects
+    skips the object leaves; inserted object slots get zero latents)."""
+    if model.has_objects:
+        params = _pad_obj_latents(params, cfg.model.num_objects)
+    model.load_state_dict(convert.flax_to_state_dict(params, cfg.model))
+
+
+def build_model(cfg, params, device: torch.device) -> Model:
+    """The scene model with a Flax param tree's weights (`load_params`), or,
+    for params None, a fresh init seeded by `cfg.seed`."""
     model = Model(cfg.model, device=device)
-    if params_path:
-        params = convert.load_npz_params(params_path)
-        if model.has_objects:
-            params = _pad_obj_latents(params, cfg.model.num_objects)
-        model.load_state_dict(convert.flax_to_state_dict(params, cfg.model))
+    if params is not None:
+        load_params(model, cfg, params)
     else:
         model.init_weights(torch.Generator().manual_seed(cfg.seed))
     return model.eval()
@@ -285,17 +322,74 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
     return out
 
 
+def train_test_view(scene) -> int:
+    """The view the in-train render shows: the first view of the scene's
+    test split, mapped through the loader's "loaded" ids to its index in
+    the loaded data, else the last loaded view (the JAX `cmd_train`'s
+    choice; with `use_all_for_training` that view is trained on too, so
+    its PSNR is a train-view upper bound)."""
+    data = scene.data
+    splits = getattr(scene, "splits", None) or {}
+    test_split = splits.get("test")
+    test_view = data.num_views - 1
+    if test_split is not None and len(test_split):
+        g = int(test_split[0])
+        loaded = splits.get("loaded")
+        if loaded is None:
+            test_view = g
+        else:
+            hit = np.nonzero(np.asarray(loaded) == g)[0]
+            if len(hit):
+                test_view = int(hit[0])
+    return test_view
+
+
+class _TestRender:
+    """The in-train test-view render: every `train_render_every` steps one
+    view through the plain compositor (the JAX `fused=False`: training
+    never dies on an inference kernel), its PNG under train_renders/ and
+    its PSNR logged as `test_psnr`."""
+
+    def __init__(self, model, cfg, scene, out, logger, tracks, track_mask):
+        self.renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size,
+                                      fused=False)
+        self.view = train_test_view(scene)
+        self.rays = _view_rays(scene.data, self.view)
+        self.gt = scene.data.images[self.view]
+        self.out, self.logger = out, logger
+        self.tracks, self.track_mask = tracks, track_mask
+
+    def __call__(self, step: int) -> float:
+        img = render_view(self.renderer, self.rays, self.tracks,
+                          self.track_mask)
+        device = self.renderer.model.nerf_mlp.table.device
+        psnr = float(image_lib.psnr(torch.from_numpy(img["rgb"]).to(device),
+                                    torch.from_numpy(self.gt).to(device)))
+        d = os.path.join(self.out, "train_renders")
+        os.makedirs(d, exist_ok=True)
+        png.write_png(os.path.join(d, f"rgb_{step:06d}.png"),
+                      (np.clip(img["rgb"], 0, 1) * 255).astype(np.uint8))
+        self.logger.log(step, test_psnr=psnr)
+        print(f"step {step}: test view {self.view} psnr={psnr:.2f}")
+        return psnr
+
+
 def cmd_train(args) -> types.SimpleNamespace:
     """Fit a scene: RayBatcher batches -> `train_step`, printing loss /
-    PSNR / rays per second every `print_every` steps and writing
-    checkpoint_<step>.pt + params_<step>.npz under exp/<name>/ every
-    `checkpoint_every` steps and at the end. With tracks and
-    `instance_obj`, one object slot per track (the moving-object mask then
-    stays off, since the objects model those pixels), the tracknet under
-    `track_refine`; the posenet (one row per view, one for the LiDAR)
-    under `pose_refine`. Resumes from the newest checkpoint there. Returns
-    what was built, the printed stats (`history`) and the last
-    checkpoint's paths."""
+    PSNR / rays per second every `print_every` steps (and logging them to
+    exp/<name>/metrics.jsonl) and writing checkpoint_<step>.pt +
+    params_<step>.npz there every `checkpoint_every` steps and at the end.
+    With tracks and `instance_obj`, one object slot per track (the
+    moving-object mask then stays off, since the objects model those
+    pixels), the tracknet under `track_refine`; the posenet (one row per
+    view, one for the LiDAR) under `pose_refine`. Every
+    `train_render_every` steps a test view is rendered (`_TestRender`);
+    `--trace_dir` writes a torch.profiler Chrome trace of steps
+    [trace_start, trace_stop], counted from the first step of this run.
+    Resumes from the newest
+    checkpoint there. Returns what was built, the printed stats (`history`),
+    the in-train renders' PSNRs (`test_psnr`) and the last checkpoint's
+    paths."""
     cfg = build_config(args)
     cfg.validate()
     device = _device(args.device)
@@ -333,32 +427,62 @@ def cmd_train(args) -> types.SimpleNamespace:
                                                posenet, tracknet)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)
     max_steps = args.steps or cfg.max_steps
+    logger = MetricsLogger(out, tensorboard=args.tensorboard)
+    test_render = None
+    if cfg.train_render_every > 0 and scene.data.num_views > 1:
+        test_render = _TestRender(model, cfg, scene, out, logger, tracks,
+                                  track_mask)
+    trace = None
 
-    history, paths = [], (None, None)
-    mark, mark_step = time.perf_counter(), init_step
+    history, test_psnr, paths = [], [], (None, None)
+    timer = Timer()
     for step in range(init_step, max_steps):
+        if args.trace_dir and step == init_step + args.trace_start:
+            trace = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                *([torch.profiler.ProfilerActivity.CUDA]
+                  if device.type == "cuda" else [])])
+            trace.start()
         batch = to_device(batcher.next(), device)
         stats = train_step.train_step(
             model, optimizer, cfg, batch, step, batcher.num_patch_rays,
             generator, posenet=posenet, tracknet=tracknet, tracks=tracks,
             track_mask=track_mask)
+        timer.tick(batcher.total_rays)
+        if trace is not None and step == init_step + args.trace_stop:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            trace.stop()
+            os.makedirs(args.trace_dir, exist_ok=True)
+            path = os.path.join(args.trace_dir, f"trace_{step + 1}.json")
+            trace.export_chrome_trace(path)
+            trace = None
+            print(f"profiler trace written to {path}")
+        if test_render is not None and \
+                (step + 1) % cfg.train_render_every == 0:
+            t_render = time.perf_counter()
+            test_psnr.append(test_render(step + 1))
+            render_s = time.perf_counter() - t_render
+            logger.log(step + 1, render_s=round(render_s, 2))
+            timer.t0 += render_s  # kept out of the steps' time
         if (step + 1) % cfg.print_every == 0:
             vals = {k: float(v) for k, v in stats.items()
                     if not k.startswith("_")}  # waits for the step
-            now = time.perf_counter()
-            seconds = (now - mark) / (step + 1 - mark_step)
-            vals.update(step=step + 1, step_s=seconds,
-                        rays_per_sec=batcher.total_rays / seconds)
-            history.append(vals)
+            rays_per_sec = timer.mark()[1]
+            vals.update(step_s=batcher.total_rays / rays_per_sec,
+                        rays_per_sec=rays_per_sec)
+            logger.log(step + 1, **vals)
+            history.append(dict(vals, step=step + 1))
             print(f"step {step + 1}: loss={vals['loss']:.4f} "
                   f"psnr={vals['psnr']:.2f} "
                   f"rays/s={vals['rays_per_sec']:,.0f}", flush=True)
-            mark, mark_step = time.perf_counter(), step + 1
         if (step + 1) % cfg.checkpoint_every == 0 or step + 1 == max_steps:
             paths = checkpoints.save_checkpoint(
                 out, model, optimizer, step + 1, keep=cfg.checkpoint_keep,
                 posenet=posenet, tracknet=tracknet)
-            mark, mark_step = time.perf_counter(), step + 1
+            timer.mark()  # the save stays out of the next window
+    if trace is not None:
+        trace.stop()
     print(f"kernel launches: hash_encode_ms="
           f"{grid.hash_encode_multisample.launches} hash_encode_ms_bwd="
           f"{grid.hash_encode_multisample_bwd.launches} scatter_add_rows="
@@ -366,9 +490,10 @@ def cmd_train(args) -> types.SimpleNamespace:
     print(f"done: {out}")
     return types.SimpleNamespace(
         cfg=cfg, model=model, optimizer=optimizer, batcher=batcher,
-        generator=generator, history=history, out=out,
+        generator=generator, history=history, test_psnr=test_psnr, out=out,
         checkpoint=paths[0], params=paths[1], posenet=posenet,
-        tracknet=tracknet, tracks=tracks, track_mask=track_mask)
+        tracknet=tracknet, tracks=tracks, track_mask=track_mask,
+        test_view=None if test_render is None else test_render.view)
 
 
 def cmd_render_lidar(args) -> types.SimpleNamespace:
@@ -393,8 +518,10 @@ def cmd_render_lidar(args) -> types.SimpleNamespace:
     cfg = _with_objects(cfg, tracks, classes)
     out = exp_dir(cfg)
     sweeps, l2g = _sweeps(args, scene, out)
-    model = build_model(cfg, args.params, args.allow_fresh, device)
+    params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
+    model = build_model(cfg, params, device)
     tracks_t, mask_t = _track_tensors(cfg, tracks, track_mask, device)
+    print(f"restored step {step}")
     print(f"dynamic objects: {0 if tracks_t is None else len(tracks_t)} "
           f"(obj_mode={args.obj_mode})")
     renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
@@ -411,6 +538,279 @@ def cmd_render_lidar(args) -> types.SimpleNamespace:
         near=data.near, far=data.far, frame=scene.frame,
         sweep_dir=sweep_dir, paths=paths, tracks=tracks_t,
         track_mask=mask_t)
+
+
+def follow_checkpoints(out: str, eval_fn, poll_every: float = 10.0,
+                       timeout: float = 1800.0, stop_step: int = 0):
+    """The JAX CLI's daemon loop (reference eval.py:67-71), over both
+    checkpoint layouts: poll `out` for new weights
+    (the port's params_<step>.npz or the JAX checkpoint_<step>.ckpt), call
+    eval_fn(step) once per new one, stop after the stop_step checkpoint or
+    `timeout` idle seconds (0: never)."""
+    last_step = -1
+    idle = 0.0
+    while True:
+        latest, step = checkpoints.newest_params(out)
+        if latest and step > last_step:
+            print(f"eval --follow: new checkpoint at step {step}")
+            done = eval_fn(step)
+            # eval_fn may restore a newer checkpoint than detected; trust
+            # the step it reports so that one is not evaluated twice.
+            last_step = max(step, done if done is not None else step)
+            step = last_step
+            idle = 0.0
+            if stop_step and step >= stop_step:
+                print("eval --follow: final checkpoint evaluated")
+                return
+        else:
+            time.sleep(poll_every)
+            idle += poll_every
+            if timeout and idle >= timeout:
+                print("eval --follow: no new checkpoint; giving up")
+                return
+
+
+def _view_rays(data, i: int, pose: Optional[np.ndarray] = None):
+    """Full [H, W] ray grid of view i (or of `pose` with view i's
+    intrinsics and timestamp), shared by eval, render and the in-train
+    test render: the JAX CLI's `_view_rays`, and the per-frame rays of its
+    `cmd_render` (`tests/test_torch_host.py`)."""
+    from .data import camera as camlib
+    pixtocam = (data.pixtocam if data.pixtocam.ndim == 2
+                else data.pixtocam[min(i, len(data.pixtocam) - 1)])
+    x, y = np.meshgrid(np.arange(data.width), np.arange(data.height))
+    rays = camlib.pixels_to_rays(
+        x, y, pixtocam, data.camtoworlds[i] if pose is None else pose,
+        distortion_params=data.distortion_params, camtype=data.camtype,
+        pixtocam_ndc=data.pixtocam_ndc)
+    rays["near"] = np.full((data.height, data.width, 1), data.near,
+                           np.float32)
+    rays["far"] = np.full((data.height, data.width, 1), data.far,
+                          np.float32)
+    if data.timestamps is not None:
+        rays["timestamp"] = np.full(
+            (data.height, data.width),
+            data.timestamps[min(i, data.num_views - 1)], np.float32)
+    return rays
+
+
+def _scene_model(cfg, split: str, device: torch.device):
+    """(cfg with one object slot per track, scene, tracks, track mask) of
+    the image and LiDAR eval entries: dynamic scenes are scored with the
+    full model, vehicles included, as the reference's eval builds it."""
+    scene = load_scene_for(cfg, split)
+    cfg = _with_objects(cfg, getattr(scene, "tracks", None),
+                        getattr(scene, "track_classes", []))
+    tracks, mask = _track_tensors(cfg, getattr(scene, "tracks", None),
+                                  getattr(scene, "track_mask", None), device)
+    return cfg, scene, tracks, mask
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def cmd_eval(args) -> types.SimpleNamespace:
+    """Render every test view (or the first `--max_views`) through the
+    chunked renderer (K1 on the final level, H1 on every level) and score
+    PSNR / SSIM on the device and the colour-corrected PSNR / SSIM (the
+    warp solved on the host in float64); writes eval/rgb_###.npy,
+    metrics.json, metrics_<step>.json and render_times_<step>.txt under
+    exp/<name>/. `--follow` evaluates each new checkpoint as it appears.
+    Returns what was built and the last mean metrics."""
+    if args.follow and (args.params or args.allow_fresh):
+        raise SystemExit("eval --follow evaluates the checkpoints of "
+                         "exp/<name>/ as they appear: drop --params and "
+                         "--allow_fresh")
+    cfg = build_config(args)
+    device = _device(args.device)
+    out = exp_dir(cfg)
+    cfg, scene, tracks, track_mask = _scene_model(cfg, "test", device)
+    data = scene.data
+    params, step = (None, 0) if args.follow else _restore_model_params(
+        cfg, args.params, args.allow_fresh)
+    model = build_model(cfg, params, device)
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
+    harness = image_lib.MetricHarness()
+    n_views = min(data.num_views, args.max_views or data.num_views)
+    eval_dir = os.path.join(out, "eval")
+    os.makedirs(eval_dir, exist_ok=True)
+    run = types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
+                                data=data, tracks=tracks,
+                                track_mask=track_mask, metrics=None,
+                                steps=[])
+
+    def eval_checkpoint(step, params):
+        if params is not None:
+            load_params(model, cfg, params)
+        metrics, render_times = [], []
+        for i in range(n_views):
+            rays = _view_rays(data, i)
+            t0 = time.perf_counter()
+            img = render_view(renderer, rays, tracks, track_mask)
+            render_times.append(time.perf_counter() - t0)
+            gt = torch.from_numpy(np.asarray(data.images[i], np.float32)
+                                  ).to(device)
+            m = harness(torch.from_numpy(img["rgb"]).to(device), gt)
+            cc = image_lib.color_correct(img["rgb"], data.images[i])
+            m.update(harness(torch.from_numpy(cc).to(device), gt, "_cc"))
+            metrics.append(m)
+            print(f"view {i}: " + " ".join(f"{k}={v:.3f}"
+                                           for k, v in m.items())
+                  + f" ({render_times[-1]:.2f}s)")
+            np.save(os.path.join(eval_dir, f"rgb_{i:03d}.npy"), img["rgb"])
+        avg = {k: float(np.mean([m[k] for m in metrics]))
+               for k in metrics[0]}
+        avg["median_render_time_s"] = float(np.median(render_times))
+        avg["step"] = step
+        print(f"step {step} mean:", avg)
+        _write_json(os.path.join(eval_dir, "metrics.json"), avg)
+        _write_json(os.path.join(eval_dir, f"metrics_{step}.json"), avg)
+        with open(os.path.join(eval_dir, f"render_times_{step}.txt"),
+                  "w") as f:
+            f.write("\n".join(f"{t:.4f}" for t in render_times))
+        run.metrics = avg
+        run.steps.append(step)
+
+    if not args.follow:
+        print(f"restored step {step}")
+        eval_checkpoint(step, None)
+        return run
+
+    def eval_latest(_detected_step):
+        # Re-restore and label with the RESTORED step: the trainer may have
+        # saved a newer checkpoint and pruned the detected one meanwhile;
+        # if it pruned them all, skip this poll rather than score the init.
+        params, step = checkpoints.restore_model_params(out)
+        if params is None:
+            return None
+        eval_checkpoint(step, params)
+        return step
+
+    follow_checkpoints(out, eval_latest, poll_every=args.poll_every,
+                       timeout=args.follow_timeout,
+                       stop_step=args.steps or cfg.max_steps)
+    return run
+
+
+def cmd_lidar_eval(args) -> types.SimpleNamespace:
+    """Replay the scene's real LiDAR returns (every one, or `--max_rays`
+    drawn by `RandomState(0)`, the JAX entry's subset) through the field
+    and score depth MAE / median / RMSE, the Chamfer distance of the hit
+    points (on the device), and per-class IoU / mIoU where the returns
+    carry labels; writes lidar_eval/metrics.json, iou.txt,
+    pred_depth.npy, gt_depth.npy and pred_semantic.npy under
+    exp/<name>/. Returns what was built and the metrics."""
+    from .data.batching import cast_lidar_rays
+    from .utils import pc_metrics
+
+    cfg = build_config(args)
+    device = _device(args.device)
+    out = exp_dir(cfg)
+    cfg, scene, tracks, track_mask = _scene_model(cfg, "lidar", device)
+    data = scene.data
+    if data.lidar_origins is None:
+        raise SystemExit("scene has no LiDAR returns to replay")
+    params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
+    print(f"restored step {step}")
+    model = build_model(cfg, params, device)
+
+    o, d, gt_depth = (data.lidar_origins, data.lidar_dirs, data.lidar_depth)
+    ts = data.lidar_timestamps
+    labels = scene.lidar.get("labels") if getattr(scene, "lidar", None) \
+        else None  # aligned 1:1 with the rays
+    if args.max_rays and o.shape[0] > args.max_rays:
+        sel = np.random.RandomState(0).choice(o.shape[0], args.max_rays,
+                                              replace=False)
+        o, d, gt_depth = o[sel], d[sel], gt_depth[sel]
+        ts = ts[sel] if ts is not None else None
+        labels = labels[sel] if labels is not None else None
+    rays = cast_lidar_rays(o, d, data.near, data.far)
+    if ts is not None:
+        rays["timestamp"] = ts.astype(np.float32)
+
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
+    outr = renderer.render(rays, tracks, track_mask)
+    depth = outr["depth"].reshape(-1)
+    err = np.abs(depth - gt_depth)
+    pred_pts = o + depth[:, None] * rays["viewdirs"]
+    gt_pts = o + gt_depth[:, None] * rays["viewdirs"]
+    metrics = {
+        "step": int(step),
+        "num_rays": int(o.shape[0]),
+        "depth_mae": float(err.mean()),
+        "depth_median": float(np.median(err)),
+        "depth_rmse": float(np.sqrt((err**2).mean())),
+    }
+    metrics.update(pc_metrics.chamfer_distance(pred_pts, gt_pts,
+                                               device=device))
+
+    ed = os.path.join(out, "lidar_eval")
+    os.makedirs(ed, exist_ok=True)
+    if "semantic" in outr and labels is not None:
+        pred_sem = np.argmax(outr["semantic"], axis=-1)
+        ious = pc_metrics.eval_miou(
+            pred_sem, labels, num_classes=outr["semantic"].shape[-1])
+        metrics.update(ious)
+        with open(os.path.join(ed, "iou.txt"), "w") as f:
+            for k, v in ious.items():
+                f.write(f"{k} {v}\n")
+    if "semantic" in outr:
+        np.save(os.path.join(ed, "pred_semantic.npy"),
+                np.argmax(outr["semantic"], axis=-1))
+    np.save(os.path.join(ed, "pred_depth.npy"), depth)
+    np.save(os.path.join(ed, "gt_depth.npy"), gt_depth)
+    _write_json(os.path.join(ed, "metrics.json"), metrics)
+    print("lidar_eval:", json.dumps(metrics))
+    return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
+                                 rays=rays, tracks=tracks,
+                                 track_mask=track_mask, metrics=metrics,
+                                 pred_pts=pred_pts, gt_pts=gt_pts)
+
+
+def cmd_render(args) -> types.SimpleNamespace:
+    """Test-view (`--path test`) or ellipse-path frames with colour /
+    depth / acc / semantic panels (`compute_extras`, so the final level
+    composites without K1, as in JAX) under exp/<name>/render_<path>/.
+    `--video` is refused: the mp4 needs imageio with ffmpeg, which the port
+    does without. Returns what was built and the frames' paths."""
+    from .data import camera as camlib
+    from .utils import vis as vis_lib
+
+    if args.video:
+        raise SystemExit(
+            "--video needs imageio with an ffmpeg backend, which the port "
+            "does not use (the GPU machine has neither): render the frames "
+            "without --video and join <exp>/render_<path>/color_*.png with "
+            "ffmpeg")
+    cfg = build_config(args)
+    device = _device(args.device)
+    out = exp_dir(cfg)
+    cfg, scene, tracks, track_mask = _scene_model(cfg, "test", device)
+    data = scene.data
+    params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
+    print(f"restored step {step}")
+    model = build_model(cfg, params, device)
+    if args.path == "ellipse":
+        poses = camlib.generate_ellipse_path(data.camtoworlds,
+                                             n_frames=args.num_frames)
+    else:
+        poses = data.camtoworlds[: args.num_frames or None]
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size,
+                             compute_extras=True)
+    render_dir = os.path.join(out, f"render_{args.path}")
+    frames = []
+    for i, pose in enumerate(poses):
+        img = render_view(renderer, _view_rays(data, i, pose), tracks,
+                          track_mask)
+        vis_lib.save_panels(vis_lib.visualize_suite(
+            img, near=data.near, far=data.far), render_dir, i)
+        frames.append(img)
+        print(f"rendered frame {i}")
+    print(f"frames in {render_dir}")
+    return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
+                                 render_dir=render_dir, frames=frames)
 
 
 def _load_features(path: str) -> Dict[str, np.ndarray]:
@@ -653,21 +1053,63 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         sp.add_argument("--device", default="cuda",
                         help="torch device; cuda with no GPU is an error")
 
+    def weights(sp):
+        sp.add_argument("--params", default=None,
+                        help="weights: a params_<step>.npz (Flax param tree, "
+                             "flat '/'-keyed) or a JAX checkpoint_<step>.ckpt;"
+                             " default: the newest of either in exp/<name>/")
+        sp.add_argument("--allow_fresh", action="store_true",
+                        help="render from a seeded fresh init when there are "
+                             "no weights (debugging only)")
+
     sp = sub.add_parser("train")
     common(sp)
     sp.add_argument("--steps", type=int, default=None,
                     help="stop after this many steps (default: the "
                          "config's max_steps, which also sets the "
                          "schedules)")
+    sp.add_argument("--tensorboard", action="store_true",
+                    help="also mirror scalar metrics to <exp>/tb "
+                         "(tensorboardX, when installed)")
+    sp.add_argument("--trace_dir", default=None,
+                    help="write a torch.profiler Chrome trace of steps "
+                         "[trace_start, trace_stop] to this dir")
+    sp.add_argument("--trace_start", type=int, default=10)
+    sp.add_argument("--trace_stop", type=int, default=15)
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval")
+    common(sp)
+    weights(sp)
+    sp.add_argument("--max_views", type=int, default=0)
+    sp.add_argument("--follow", action="store_true",
+                    help="poll for new checkpoints and evaluate each")
+    sp.add_argument("--poll_every", type=float, default=10.0)
+    sp.add_argument("--follow_timeout", type=float, default=1800.0,
+                    help="stop after this many idle seconds (0 = never)")
+    sp.add_argument("--steps", type=int, default=0,
+                    help="stop --follow once this step is evaluated")
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("lidar_eval")
+    common(sp)
+    weights(sp)
+    sp.add_argument("--max_rays", type=int, default=0,
+                    help="subsample the replayed returns (0 = all)")
+    sp.set_defaults(fn=cmd_lidar_eval)
+
+    sp = sub.add_parser("render")
+    common(sp)
+    weights(sp)
+    sp.add_argument("--path", default="test", choices=["test", "ellipse"])
+    sp.add_argument("--num_frames", type=int, default=0)
+    sp.add_argument("--video", action="store_true",
+                    help="refused: needs imageio / ffmpeg")
+    sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("render_lidar")
     common(sp)
-    sp.add_argument("--params", default=None,
-                    help="Flax param tree as a flat '/'-keyed .npz")
-    sp.add_argument("--allow_fresh", action="store_true",
-                    help="render from a seeded fresh init when no --params "
-                         "is given (debugging only)")
+    weights(sp)
     sp.add_argument("--mode", default="simu", choices=["replay", "simu"],
                     help="trajectory: replay the real drive or simulate one")
     sp.add_argument("--obj_mode", default="replay",
@@ -712,7 +1154,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     sp.add_argument("--features", required=True,
                     help="the .npy the trainer consumed")
     sp.add_argument("--ckpt", required=True,
-                    help="raydrop_#####.pt (or its Flax-layout .npz)")
+                    help="raydrop_#####.pt, its Flax-layout .npz, or the "
+                         "JAX package's raydrop_#####.ckpt")
     sp.add_argument("--out", default="mask_vis")
     sp.add_argument("--threshold", type=float, default=0.5)
     sp.add_argument("--seed", type=int, default=0,
@@ -763,7 +1206,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
     sp = sub.add_parser("raydrop_drop")
     sp.add_argument("--ckpt", required=True,
-                    help="raydrop_#####.pt (or its Flax-layout .npz)")
+                    help="raydrop_#####.pt, its Flax-layout .npz, or the "
+                         "JAX package's raydrop_#####.ckpt")
     sp.add_argument("--simulation_path", required=True)
     sp.add_argument("--out", required=True)
     sp.add_argument("--height", type=int, default=32)

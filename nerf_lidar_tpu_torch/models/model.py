@@ -146,7 +146,7 @@ class Model(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], train_frac: float = 1.0,
                 fused_final: bool = False, use_kernels: bool = True,
-                train: bool = False,
+                train: bool = False, compute_extras: bool = False,
                 generator: Optional[torch.Generator] = None,
                 tracks: Optional[torch.Tensor] = None,
                 track_mask: Optional[torch.Tensor] = None
@@ -162,7 +162,11 @@ class Model(nn.Module):
           slots; without tracks (or timestamps) no object is composited.
         fused_final: composite the final level with `fused_composite`
           (never when `train`: K1 has no backward, and the reference trains
-          through the plain chain).
+          through the plain chain; nor with `compute_extras`, whose
+          statistics K1 does not compute).
+        compute_extras: every level's rendering also holds acc,
+          distance_mean and the distance percentiles
+          (`render.volumetric_rendering`).
         use_kernels: False sends the hash encode and the fused composite to
           their plain torch versions on every device (for comparisons).
         generator: the randomness of training (sample jitter, spiral phase,
@@ -245,7 +249,8 @@ class Model(nn.Module):
                 else None
             intensity = (ray_results["intensity"]
                          if (is_final and c.use_intensity) else None)
-            if fused_final and is_final and not train:
+            if fused_final and is_final and not train and \
+                    not compute_extras:
                 composite = (render_fused.fused_composite if use_kernels
                              else render_fused.fused_composite_plain)
                 rendering = composite(
@@ -261,7 +266,8 @@ class Model(nn.Module):
                     opaque_background=c.opaque_background)
                 rendering = render.volumetric_rendering(
                     ray_results["rgb"], weights, tdist, bg, semantic=sem,
-                    intensity=intensity, sem_detach=c.sem_detach)
+                    intensity=intensity, sem_detach=c.sem_detach,
+                    t_far=batch["far"], compute_extras=compute_extras)
 
             history = dict(sdist=sdist, weights=weights, tdist=tdist)
             if use_obj:

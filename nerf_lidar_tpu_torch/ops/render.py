@@ -1,6 +1,6 @@
-"""Volume rendering: multisample ray casting and alpha compositing (port of
-`nerf_lidar_tpu/ops/render.py`, without the distance statistics of
-`compute_extras`)."""
+"""Volume rendering: multisample ray casting and alpha compositing, with the
+distance statistics of `compute_extras` (port of
+`nerf_lidar_tpu/ops/render.py`)."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from . import stepfun
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -71,14 +73,18 @@ def compute_alpha_weights(density, tdist, dirs, opaque_background=False):
 def volumetric_rendering(rgbs, weights, tdist, bg_rgbs: float,
                          semantic: Optional[torch.Tensor] = None,
                          intensity: Optional[torch.Tensor] = None,
-                         sem_detach: bool = True
+                         sem_detach: bool = True,
+                         t_far: Optional[torch.Tensor] = None,
+                         compute_extras: bool = False
                          ) -> Dict[str, torch.Tensor]:
-    """Composite per-sample quantities along rays (no `compute_extras`).
+    """Composite per-sample quantities along rays.
 
     rgbs: [..., S, 3]; weights: [..., S]; tdist: [..., S+1];
     semantic: [..., S, K], composited with detached weights when
     `sem_detach`; intensity: [..., S] or [..., S, 1], always composited
-    with detached weights.
+    with detached weights. With `compute_extras` also acc, distance_mean
+    and the 5th / 50th / 95th distance percentiles over the weights with
+    the background's share placed at t_far [..., 1].
     """
     rendering = {}
     acc = weights.sum(dim=-1)
@@ -96,4 +102,19 @@ def volumetric_rendering(rgbs, weights, tdist, bg_rgbs: float,
         if intensity.ndim == weights.ndim + 1:
             intensity = intensity[..., 0]
         rendering["intensity"] = (weights.detach() * intensity).sum(dim=-1)
+
+    if compute_extras:
+        rendering["acc"] = acc
+        expectation = (weights * torch.log(t_mids)).sum(dim=-1) \
+            / torch.clamp(acc, min=_EPS)
+        mean = torch.nan_to_num(torch.exp(expectation), nan=math.inf)
+        rendering["distance_mean"] = torch.minimum(
+            torch.maximum(mean, tdist[..., 0]), tdist[..., -1])
+        t_aug = torch.cat([tdist, t_far], dim=-1)
+        weights_aug = torch.cat([weights, bg_w], dim=-1)
+        ps = [5, 50, 95]
+        percentiles = stepfun.weighted_percentile(t_aug, weights_aug, ps)
+        for i, p in enumerate(ps):
+            name = "median" if p == 50 else f"percentile_{p}"
+            rendering[f"distance_{name}"] = percentiles[..., i]
     return rendering

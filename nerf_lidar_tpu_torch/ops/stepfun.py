@@ -132,6 +132,14 @@ def lossfun_distortion(t, w):
     return loss_inter + loss_intra
 
 
+def weighted_percentile(t, w, ps):
+    """Percentiles of a step function; w must sum to 1. ps: list of floats
+    in [0, 100]. Returns [..., len(ps)]."""
+    cw = integrate_weights(w)
+    ps_t = torch.tensor(ps, dtype=t.dtype, device=t.device) / 100
+    return mathx.sorted_interp(ps_t.expand(t.shape[:-1] + (len(ps),)), cw, t)
+
+
 def blur_stepfun(x, y, r: float):
     """Convolve a step function (x, y) with a box filter of radius r.
 

@@ -15,7 +15,8 @@ caller, so a step can be replayed on another device or against JAX.
 
 Checkpoints: `raydrop_#####.pt` (weights, BatchNorm buffers, Adam state,
 step) and beside it `raydrop_#####.npz`, the U-Net's Flax `params` and
-`batch_stats` as a flat '/'-keyed tree that the JAX `UNet` can apply.
+`batch_stats` as a flat '/'-keyed tree that the JAX `UNet` can apply;
+`restore` also reads the JAX package's msgpack `raydrop_#####.ckpt`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import convert
+from ..utils import msgpack
 from . import darknet as dk_lib
 from . import vgg as vgg_lib
 from .unet import UNet, init_flax_default_
@@ -351,13 +353,11 @@ class RayDropTrainer:
         return path
 
     def restore(self, path: str) -> RayDropState:
-        """A state from a `.pt` checkpoint (weights, buffers, Adam, step)
-        or a Flax-layout `.npz` (weights and buffers; fresh Adam). The JAX
-        package's msgpack `.ckpt` is not read."""
-        if path.endswith(".ckpt"):
-            raise SystemExit(
-                f"{path}: a JAX msgpack checkpoint; pass the port's "
-                "raydrop_#####.pt or a Flax-layout .npz")
+        """A state from a `.pt` checkpoint (weights, buffers, Adam, step),
+        a Flax-layout `.npz` (weights and buffers; fresh Adam), or the JAX
+        package's msgpack `raydrop_#####.ckpt` (`to_bytes` of its
+        `RayDropState`: weights, buffers and step; fresh Adam, since
+        optax's state is not carried across)."""
         model = UNet(n_channels=self.cfg.n_channels,
                      n_classes=self.cfg.n_classes,
                      regression=self.cfg.regression)
@@ -365,6 +365,12 @@ class RayDropTrainer:
             model.load_state_dict(convert.unet_from_flax(
                 convert.load_npz_params(path), model))
             return self.make_state(model.to(self.device))
+        if path.endswith(".ckpt"):
+            raw = msgpack.read_file(path)
+            model.load_state_dict(convert.unet_from_flax(
+                {"params": raw["params"],
+                 "batch_stats": raw["batch_stats"]}, model))
+            return self.make_state(model.to(self.device), int(raw["step"]))
         ck = torch.load(path, map_location="cpu", weights_only=True)
         model.load_state_dict(ck["model"])
         state = self.make_state(model.to(self.device), int(ck["step"]))

@@ -1,4 +1,5 @@
-"""Chunked full-sweep rendering (port of `nerf_lidar_tpu/renderer.py`).
+"""Chunked full-sweep and full-view rendering (port of
+`nerf_lidar_tpu/renderer.py`).
 
 Rays are padded to a multiple of the chunk size by repeating the last ray
 (the reference's `_pad_to`), streamed through the model chunk by chunk
@@ -30,18 +31,25 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
 class ChunkRenderer:
     """Chunked renderer over ray dicts, on the model's device.
 
-    The final level composites with `fused_composite` (kernel K1 on CUDA)
-    unless the config's `render_fused` is False; unset means fused, the
-    reference's choice on its accelerator.
+    fused: composite the final level with `fused_composite` (kernel K1 on
+      CUDA); None takes the config's `render_fused`, unset meaning fused,
+      the reference's choice on its accelerator. Always off with
+      `compute_extras`, whose distance statistics K1 does not compute.
+    compute_extras: the renderings also hold acc, distance_mean and the
+      distance percentiles (the image entries' panels).
     use_kernels: False renders with the plain torch versions of every
       kernel (for comparisons); the default takes the kernels on CUDA.
     """
 
     def __init__(self, model: Model, config, chunk_size: int = 16384,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, compute_extras: bool = False,
+                 fused: Optional[bool] = None):
         self.model = model
         self.chunk = chunk_size
-        self.fused = config.render_fused is not False
+        if fused is None:
+            fused = config.render_fused is not False
+        self.fused = bool(fused) and not compute_extras
+        self.compute_extras = compute_extras
         self.use_kernels = use_kernels
 
     @torch.no_grad()
@@ -64,8 +72,21 @@ class ChunkRenderer:
             renderings, _ = self.model(batch, train_frac=1.0,
                                        fused_final=self.fused,
                                        use_kernels=self.use_kernels,
+                                       compute_extras=self.compute_extras,
                                        tracks=tracks, track_mask=track_mask)
             outs.append({k: v.cpu().numpy()
                          for k, v in renderings[-1].items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0)[:n]
                 for k in outs[0]}
+
+
+def render_view(renderer: ChunkRenderer, rays_hw: Dict[str, np.ndarray],
+                tracks: Optional[torch.Tensor] = None,
+                track_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, np.ndarray]:
+    """Render a full [H, W] ray grid; returns [H, W, ...] images."""
+    h, w = rays_hw["origins"].shape[:2]
+    flat = {k: np.asarray(v).reshape((h * w,) + np.asarray(v).shape[2:])
+            for k, v in rays_hw.items()}
+    out = renderer.render(flat, tracks, track_mask)
+    return {k: v.reshape((h, w) + v.shape[1:]) for k, v in out.items()}

@@ -12,26 +12,56 @@ Each save writes two files into the experiment directory:
   `restore_model_params` peels the model from a refinement run's tree).
 The newest `keep` saves at or below `step` stay; older ones, and any from a
 newer (rewound) history, are deleted, as the JAX package prunes.
+
+The JAX package's own checkpoints (`checkpoint_<step>.ckpt`, Flax msgpack of
+its train state) are read too: `list_checkpoints`, `latest_checkpoint` and
+`checkpoint_step` find them as the JAX functions do (natural sort), and
+`restore_model_params` takes the model's Flax param tree from the newest
+of either layout, decoded by the port's own `utils/msgpack.py`.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
 from .. import convert
+from ..utils import msgpack
 
-_CKPT = re.compile(r"checkpoint_(\d+)\.pt$")
+
+def _natural_key(s: str):
+    return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
+
+
+def list_checkpoints(directory: str, prefix: str = "checkpoint_",
+                     suffix: str = ".ckpt") -> List[str]:
+    """Names of `<prefix>*<suffix>` files in `directory`, natural-sorted
+    (the JAX `list_checkpoints`, which knows only `.ckpt`)."""
+    if not os.path.isdir(directory):
+        return []
+    names = [f for f in os.listdir(directory)
+             if f.startswith(prefix) and f.endswith(suffix)]
+    return sorted(names, key=_natural_key)
+
+
+def latest_checkpoint(directory: str, prefix: str = "checkpoint_",
+                      suffix: str = ".ckpt") -> Optional[str]:
+    names = list_checkpoints(directory, prefix, suffix)
+    return os.path.join(directory, names[-1]) if names else None
+
+
+def checkpoint_step(path: str) -> int:
+    """The step in a `..._<step>.{ckpt,pt,npz}` name, or -1."""
+    m = re.search(r"(\d+)\.(ckpt|pt|npz)$", path)
+    return int(m.group(1)) if m else -1
 
 
 def _steps(directory: str) -> List[int]:
-    if not os.path.isdir(directory):
-        return []
-    return sorted(int(m.group(1)) for m in map(_CKPT.match,
-                                               os.listdir(directory)) if m)
+    return sorted(checkpoint_step(n)
+                  for n in list_checkpoints(directory, suffix=".pt"))
 
 
 def params_path(directory: str, step: int) -> str:
@@ -71,12 +101,6 @@ def save_checkpoint(directory: str, model: torch.nn.Module,
     return path, npz
 
 
-def latest_checkpoint(directory: str) -> Optional[str]:
-    steps = _steps(directory)
-    return (os.path.join(directory, f"checkpoint_{steps[-1]}.pt")
-            if steps else None)
-
-
 def restore_checkpoint(directory: str, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer,
                        posenet: Optional[torch.nn.Module] = None,
@@ -84,7 +108,7 @@ def restore_checkpoint(directory: str, model: torch.nn.Module,
     """Load the newest checkpoint into model, optimizer and the refiners
     given; returns its step, or 0 (and leaves all unchanged) when there is
     none."""
-    path = latest_checkpoint(directory)
+    path = latest_checkpoint(directory, suffix=".pt")
     if path is None:
         return 0
     device = next(model.parameters()).device
@@ -94,3 +118,49 @@ def restore_checkpoint(directory: str, model: torch.nn.Module,
         module.load_state_dict(state[key])
     optimizer.load_state_dict(state["optimizer"])
     return int(state["step"])
+
+
+def newest_params(directory: str) -> Tuple[Optional[str], int]:
+    """(path, step) of the newest model weights in `directory`: the port's
+    `params_<step>.npz` or the JAX package's `checkpoint_<step>.ckpt`,
+    whichever has the higher step; on a tie the port's own file. (None, 0)
+    when there is neither."""
+    found = [(checkpoint_step(n), 1, n)
+             for n in list_checkpoints(directory, "params_", ".npz")]
+    found += [(checkpoint_step(n), 0, n) for n in list_checkpoints(directory)]
+    if not found:
+        return None, 0
+    step, _, name = max(found)
+    return os.path.join(directory, name), step
+
+
+def read_params(path: str) -> dict:
+    """The model's Flax param tree from one file: the port's flat `.npz`,
+    or a JAX msgpack `.ckpt` of a train state, whose `params` holds the
+    model's variables directly (a plain run) or under "model" beside
+    "posenet" / "tracknet" (a refinement run), as the JAX
+    `restore_model_params` peels them."""
+    if path.endswith(".npz"):
+        return convert.load_npz_params(path)
+    if not path.endswith(".ckpt"):
+        raise ValueError(f"{path}: weights are a params_<step>.npz or a "
+                         "JAX checkpoint_<step>.ckpt")
+    params = msgpack.read_file(path)["params"]
+    if isinstance(params, dict) and "model" in params:
+        params = params["model"]
+    return params
+
+
+def restore_model_params(directory_or_path: str
+                         ) -> Tuple[Optional[Any], int]:
+    """The model's Flax param tree and its step (the JAX
+    `restore_model_params`), from a file (`.npz` or `.ckpt`) or from the
+    newest weights in a directory (`newest_params`: the higher step of the
+    port's `params_<step>.npz` and the JAX `checkpoint_<step>.ckpt`, the
+    port's file on a tie). (None, 0) when there is nothing to restore."""
+    path = directory_or_path
+    if os.path.isdir(path):
+        path = newest_params(path)[0]
+    if path is None or not os.path.exists(path):
+        return None, 0
+    return read_params(path), checkpoint_step(path)

@@ -299,6 +299,65 @@ def test_cli_nusc_scene_equals_jax(nusc_dir):
                 jcli.load_scene_for(jcfg, "lidar"), "scene", LIDAR_ULP)
 
 
+# ------------------------------------------------- eval host code
+@pytest.mark.parametrize("loader", ["synthetic", "nusc"])
+def test_view_rays_equal_jax(nusc_dir, loader):
+    """cli._view_rays (eval's, render's and the in-train render's ray grid)
+    of every view of a scene, exactly as the JAX CLI builds it."""
+    kw = dict(dataset_loader=loader, sensor_num=2,
+              data_dir=nusc_dir if loader == "nusc" else None)
+    data = cli.load_scene_for(dataclasses.replace(configs.tiny_debug(), **kw),
+                              "test").data
+    for i in range(data.num_views):
+        assert_same(cli._view_rays(data, i), jcli._view_rays(data, i),
+                    f"view {i}")
+
+
+def test_pc_metrics_color_correct_and_vis_equal_jax():
+    """The numpy copies: confusion matrix / IoU / mIoU, color_correct, the
+    colour maps and the depth / semantic / normal panels."""
+    from nerf_lidar_tpu.utils import image as jimage
+    from nerf_lidar_tpu.utils import pc_metrics as jpc
+    from nerf_lidar_tpu.utils import vis as jvis
+    from nerf_lidar_tpu_torch.utils import image, pc_metrics, vis
+    rng = np.random.RandomState(11)
+    pred, gt = rng.randint(0, 19, 5000), rng.randint(0, 20, 5000)
+    gt[gt == 19] = 255
+    cm = pc_metrics.confusion_matrix(pred, gt, 19)
+    assert_same(cm, jpc.confusion_matrix(pred, gt, 19))
+    assert_same(pc_metrics.iou_from_confusion(cm),
+                jpc.iou_from_confusion(cm))
+    assert_same(pc_metrics.eval_miou(pred, gt), jpc.eval_miou(pred, gt))
+    img = rng.rand(20, 30, 3).astype(np.float32)
+    ref = np.clip(img ** 1.3 + 0.02, 0, 1).astype(np.float32)
+    assert_same(image.color_correct(img, ref),
+                jimage.color_correct(img, ref))
+    assert_same(vis.def_color_map(), jvis.def_color_map())
+    depth = rng.uniform(0.5, 60, (20, 30)).astype(np.float32)
+    assert_same(vis.visualize_depth(depth, 0.2, 80.0),
+                jvis.visualize_depth(depth, 0.2, 80.0))
+    probs = rng.rand(20, 30, 19)
+    assert_same(vis.visualize_semantic(probs), jvis.visualize_semantic(probs))
+    normals = rng.uniform(-1, 1, (20, 30, 3))
+    acc = rng.rand(20, 30)
+    assert_same(vis.visualize_normals(normals, acc),
+                jvis.visualize_normals(normals, acc))
+
+
+def test_follow_checkpoints_calls_as_jax(tmp_path):
+    """The daemon copy calls eval_fn at the same steps as the JAX one on
+    the same directory of JAX checkpoints (present at its start)."""
+    for step in (3, 10, 7):
+        (tmp_path / f"checkpoint_{step}.ckpt").write_bytes(b"x")
+    calls = {}
+    for name, fn in (("port", cli.follow_checkpoints),
+                     ("jax", jcli.follow_checkpoints)):
+        seen = calls[name] = []
+        fn(str(tmp_path), seen.append, poll_every=0.01, timeout=0.05,
+           stop_step=0)
+    assert calls["port"] == calls["jax"] == [10]
+
+
 # ---------------------------------------------- ray-drop host code
 @pytest.fixture
 def no_native(monkeypatch):
@@ -510,11 +569,20 @@ cli.main(['raydrop_val_vis', '--features', 'f.npy', '--ckpt', ckpt, '--out',
           'vis', '--device', 'cpu'])
 cli.main(['points_vis', '--points', 'kitti/velodyne/000000.bin', '--out',
           'pv'])
+# Evaluation: the newest weights of exp/<name>/ (the port's .npz; a JAX
+# train state's .ckpt, written by the test, through the port's decoder).
+ev = cli.main(['eval', *base, '--max_views', '1'])
+assert ev.steps == [2], ev.steps
+cli.main(['render', *base, '--num_frames', '1'])
+cli.main(['lidar_eval', *objs, '--max_rays', '64'])
+ev = cli.main(['eval', *base, '--exp_name', 'iso_jax', '--max_views', '1'])
+assert ev.steps == [5], ev.steps
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {barred})
 assert not bad, bad
-# The port needs no imageio, PIL or torchvision: it writes and reads its
-# PNGs itself and writes VGG19 out by hand.
-for name in ('imageio', 'PIL', 'torchvision'):
+# The port needs no imageio, PIL, torchvision, matplotlib or msgpack: it
+# writes and reads its PNGs itself, writes VGG19 out by hand, carries its
+# colour map and decodes Flax checkpoints itself.
+for name in ('imageio', 'PIL', 'torchvision', 'matplotlib', 'msgpack'):
     assert name not in sys.modules, name
 print('MODULES', len(names))
 """
@@ -525,9 +593,23 @@ def test_port_runs_without_the_jax_package(tmp_path):
     render on the CPU, on the synthetic scene and on a synth_nusc scene with
     its moving car (objects, tracknet, replay render), then the ray-drop
     CLIs on that render (features, the VGG / Darknet converters, training
-    with both losses, drop and export, val_vis, points_vis): no jax, flax,
-    optax or nerf_lidar_tpu module is loaded, nor imageio, PIL or
-    torchvision."""
+    with both losses, drop and export, val_vis, points_vis), then eval,
+    render and lidar_eval, and eval of a JAX train state's msgpack
+    checkpoint: no jax, flax, optax or nerf_lidar_tpu module is loaded, nor
+    imageio, PIL, torchvision, matplotlib or msgpack."""
+    from nerf_lidar_tpu.models.model import Model as JaxModel
+    from nerf_lidar_tpu.train import checkpoints as jcheckpoints
+    from nerf_lidar_tpu.train import train_step as jtrain_step
+    import jax
+    import jax.numpy as jnp
+    jcfg = jconfigs.tiny_debug()
+    probe = {k: jnp.asarray(v) for k, v in jcli._probe_batch(
+        types.SimpleNamespace(near=0.2, far=8.0)).items()}
+    params = jax.jit(JaxModel(jcfg.model).init)(jax.random.PRNGKey(0),
+                                                None, probe)
+    jcheckpoints.save_checkpoint(
+        str(tmp_path / "exp" / "iso_jax"),
+        jtrain_step.create_train_state(jcfg, params)[0], 5)
     # Two intra-op threads: the tier runs other test files beside this one.
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run(
@@ -543,13 +625,14 @@ def test_port_runs_without_the_jax_package(tmp_path):
 
 
 _JAX_PACKAGE_IMPORT = re.compile(
-    r"^\s*(from|import)\s+(nerf_lidar_tpu|jax|jaxlib|flax|optax)(\.|\s|$)",
-    re.MULTILINE)
+    r"^\s*(from|import)\s+(nerf_lidar_tpu|jax|jaxlib|flax|optax|msgpack)"
+    r"(\.|\s|$)", re.MULTILINE)
 
 
 def test_port_sources_name_no_jax_package_import():
     """A static scan of the port's sources and chip_smoke.py for imports of
-    nerf_lidar_tpu (not nerf_lidar_tpu_torch), jax, flax or optax."""
+    nerf_lidar_tpu (not nerf_lidar_tpu_torch), jax, flax, optax or msgpack
+    (the port decodes Flax checkpoints itself)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -276,8 +276,9 @@ def test_predict_and_evaluate_match_jax():
 def test_checkpoints_round_trip_and_load_into_flax(tmp_path):
     """save writes raydrop_#####.pt (restored with its Adam state and step)
     and a Flax-layout .npz that the JAX UNet applies to the same keep
-    probabilities (1e-5)."""
-    _, _, pt, ps = _pair(False, seed=5)
+    probabilities (1e-5); the JAX trainer's msgpack .ckpt of those weights
+    restores to the same probabilities (1e-6) and step."""
+    jt, js, pt, ps = _pair(False, seed=5)
     data = _data(2, seed=5)
     pt.train_step(ps, *_tensors(data, slice(None)), shift=3)
     path = pt.save(str(tmp_path), ps, 7)
@@ -300,8 +301,15 @@ def test_checkpoints_round_trip_and_load_into_flax(tmp_path):
     np.testing.assert_allclose(
         pt.predict_prob(pt.restore(str(tmp_path / "raydrop_00007.npz")),
                         data["images"]), want, atol=1e-6)
-    with pytest.raises(SystemExit, match="msgpack"):
-        pt.restore(str(tmp_path / "raydrop_00007.ckpt"))
+    # The same weights in the JAX package's msgpack layout (its trainer's
+    # `save`), read by the port's own decoder.
+    jpath = jt.save(str(tmp_path / "jax"), js.replace(
+        params=tree["params"], batch_stats=tree["batch_stats"]), 7)
+    assert os.path.basename(jpath) == "raydrop_00007.ckpt"
+    back = pt.restore(jpath)
+    assert back.step == int(js.step)
+    np.testing.assert_allclose(pt.predict_prob(back, data["images"]), want,
+                               atol=1e-6)
 
 
 def test_fit_split_metrics_and_learning(tmp_path, monkeypatch):
