@@ -122,7 +122,27 @@ Phases (each raises on failure, so the script exits non-zero):
    PSNR / SSIM card vs CPU (rtol 1e-5) and Chamfer vs a float64 k-d tree
    (rtol 1e-5) on lidar_eval's clouds and on seeded clouds of 35,200 and
    10^6 points; eval s/view, lidar_eval s, Chamfer ms, peak GiB.
-The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 6, 7, 9, 10, 11: [4]
+15. the field presets: `nuscenes_single_fast` and `nuscenes_single_speed`
+   train PRESET_STEPS steps each through the `train` entry at full width
+   on the synthetic scene (finite losses, a gradient on every table,
+   launches, warm ms/step, rays/s, peak memory), then 3 steps kernels on
+   vs off under [8]'s rules (`_speed`'s bfloat16 MLP gradients at
+   GRAD_TOL_BF16); `_speed` trains PRESET_LEARN_STEPS steps at the full
+   learning rate, where the data loss must fall; `render_lidar` renders
+   PRESET_SWEEPS sweeps from each trained field and from a seeded
+   `nuscenes_single_mxu` (warm s/sweep), and its first sweep again with
+   every K1 / H1 call held against its plain version, per mode
+   combination (tetrahedral, mean-point levels, C16 rows), and against
+   the sweep kernels off (the share outside [5]'s tolerances reported);
+   `spectral_obj_variant(nuscenes_single_speed())` trains SPEC_OBJ_STEPS
+   steps through `--config_json` on [12]'s scene with the tracknet live
+   (H1-bwd's tetrahedral d_x01 on the object grid against its twin) and
+   renders a replay sweep; then H1 / H1-bwd per grid on each path's own
+   inputs (kernel, plain and bound), the speed field's Fourier band, and
+   (with the profiler phases) a torch.profiler breakdown of one warm
+   `_fast` and `_speed` step.
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 12-profiled,
+15-profiled, 6, 7, 9, 10, 11: [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -131,11 +151,15 @@ module of jax, jaxlib, flax, optax, msgpack or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
 JSON line (every kernel's launches on each path, the object paths
 `train_objects` and `render_lidar_objects`, the ray-drop path `raydrop`
-(none) and the eval entries `eval`, `lidar_eval`, `render` included, times,
+(none), the eval entries `eval`, `lidar_eval`, `render` and [15]'s
+`train_fast`, `render_lidar_fast`, `train_speed`, `render_lidar_speed`,
+`render_lidar_mxu`, `train_spectral_obj`, `render_lidar_spectral_obj`
+included, times,
 and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
-and K3 on the object grid under "obj_grid"), the nvidia-smi line,
+and K3 on the object grid under "obj_grid", H1 and H1-bwd per [15] path
+and grid under "preset_modes"), the nvidia-smi line,
 then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -799,6 +823,7 @@ def _table_grads_nonzero(model, what):
 # over 3 steps).
 GRAD_TOL = 1e-3
 LOSS_TOL = 1e-4
+ON_OFF_STEPS = 3
 # A hash table's gradient is a sum of terms, each row's in an order that
 # atomics change from run to run, and a row whose terms cancel can end far
 # below its terms (prop0's table once differed by 3.6e-11 against a 2.2e-8
@@ -874,17 +899,20 @@ def table_grad_excess(got, want, terms, upstream):
 
 def table_grad_bounds(spec, table, on, off, decay):
     """(terms, upstream) of one hash table's gradient, kernels on vs off,
-    for `table_grad_excess`. on / off: the (x01, stds, g_out) of every
-    encode call whose output took a gradient on each side (the object grids
-    are encoded at every level); decay: the table's gradient from the
-    hash-decay term, which both sides add. Through the written-out backward
-    in float32, which picks the kernel's cells."""
+    for `table_grad_excess`. on / off: the (x01, stds, g_out[,
+    coarse_res_cutoff]) of every encode call whose output took a gradient
+    on each side (the object grids are encoded at every level); decay: the
+    table's gradient from the hash-decay term, which both sides add.
+    Through the written-out backward in float32, which picks the kernel's
+    cells."""
     from nerf_lidar_tpu_torch.ops import grid
 
     def bwd(calls, absolute=False):
         return sum(grid.hash_encode_multisample_bwd_plain(
             table, x01, stds, g_out.abs() if absolute else g_out, spec,
-            needs=(True, False, False))[0] for x01, stds, g_out in calls)
+            needs=(True, False, False),
+            coarse_res_cutoff=rest[0] if rest else 0)[0]
+            for x01, stds, g_out, *rest in calls)
 
     terms = bwd(on, True) + bwd(off, True) + 2 * decay.abs()
     upstream = (bwd(on) - bwd(off)).abs()
@@ -901,8 +929,7 @@ def step_table_bounds(model, cfg, seen_on, seen_off, what):
     tables = {}
     for pname, gname in table_params(model).items():
         on = seen_on.get(gname, [])
-        off = [rec[:3] for rec in seen_off.get(gname, [])
-               if rec[2] is not None]
+        off = [rec for rec in seen_off.get(gname, []) if rec[2] is not None]
         if not on or not off:
             fail(f"{what}: the {gname} table's encode got no gradient on "
                  f"{'the kernels' if not on else 'the plain'} side")
@@ -910,8 +937,9 @@ def step_table_bounds(model, cfg, seen_on, seen_off, what):
         decay = (hash_decay_grad(table, spec, cfg.hash_decay_mults)
                  if gname in decayed else torch.zeros_like(table))
         tables[pname] = table_grad_bounds(
-            spec, table, [[t.to(dev) for t in rec[1:4]] for rec in on],
-            [[t.to(dev) for t in rec] for rec in off], decay)
+            spec, table,
+            [[t.to(dev) for t in rec[1:4]] + [rec[6]] for rec in on],
+            [[t.to(dev) for t in rec[:3]] + [rec[4]] for rec in off], decay)
     return tables
 
 
@@ -937,20 +965,21 @@ def to_host(t):
 @contextlib.contextmanager
 def recording_plain_encode(model):
     """Within the block, the plain encode records, per hash table of
-    `model`, every call's [x01, stds, g_out, spec] (g_out from a hook on its
-    features, set once backward reaches them, None where no gradient
-    does), tensors in host memory."""
+    `model`, every call's [x01, stds, g_out, spec, coarse_res_cutoff] (g_out
+    from a hook on its features, set once backward reaches them, None where
+    no gradient does), tensors in host memory."""
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
     orig = grid.hash_encode_multisample_plain
     names = hb.grid_tables(model)
     calls = {}
 
-    def wrapper(table, x01, stds, spec):
-        out = orig(table, x01, stds, spec)
+    def wrapper(table, x01, stds, spec, coarse_res_cutoff=0):
+        out = orig(table, x01, stds, spec, coarse_res_cutoff)
         name = names.get(table.data_ptr())
         if name is not None and out[0].requires_grad:
-            rec = [to_host(x01), to_host(stds), None, spec]
+            rec = [to_host(x01), to_host(stds), None, spec,
+                   coarse_res_cutoff]
             calls.setdefault(name, []).append(rec)
             out[0].register_hook(lambda g: rec.__setitem__(2, to_host(g)))
         return out
@@ -966,9 +995,9 @@ def recording_plain_encode(model):
 def recording_all(module, name, model):
     """Within the block, module.<name> (the encode's backward wrapper)
     records every call per hash table of `model`: {grid name: [(table,
-    x01, stds, g_out, spec, needs), ...]}, tensors cloned (`calls_to_host`
-    moves them off the card). The wrapper carries the function's launch
-    count, and gives it back."""
+    x01, stds, g_out, spec, needs, coarse_res_cutoff), ...]}, tensors
+    cloned (`calls_to_host` moves them off the card). The wrapper carries
+    the function's launch count, and gives it back."""
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     orig = getattr(module, name)
     names = hb.grid_tables(model)
@@ -979,9 +1008,11 @@ def recording_all(module, name, model):
         if grid_name is not None:
             needs = kw.get("needs", args[5] if len(args) > 5
                            else (True, True, True))
+            cutoff = kw.get("coarse_res_cutoff",
+                            args[6] if len(args) > 6 else 0)
             calls.setdefault(grid_name, []).append(tuple(
                 a.detach().clone() if hasattr(a, "detach") else a
-                for a in args[:5]) + (needs,))
+                for a in args[:5]) + (needs, cutoff))
         return orig(*args, **kw)
 
     wrapper.launches = orig.launches
@@ -999,14 +1030,16 @@ def calls_to_host(calls):
             for k, v in calls.items()}
 
 
-def _grads_close(model, model_p, what, tables):
+def _grads_close(model, model_p, what, tables, grad_tol=None):
     """Kernels on (model) vs off (model_p) after one step. MLP parameters:
-    max |grad - grad_p| / max |grad_p|, failing above GRAD_TOL; hash tables
+    max |grad - grad_p| / max |grad_p|, failing above `grad_tol` (default
+    GRAD_TOL); hash tables
     (`tables`: {parameter name: (terms, upstream)}): `table_grad_excess`,
     failing above TABLE_GRAD_EPS_MULT. Fails on a non-finite gradient, or
     where one side has none. Returns (worst MLP ratio, its parameter,
     {grid: table excess in eps})."""
     import torch
+    grad_tol = GRAD_TOL if grad_tol is None else grad_tol
     worst, where, excess = 0.0, None, {}
     for (name, p), q in zip(model.named_parameters(), model_p.parameters()):
         if (p.grad is None) != (q.grad is None):
@@ -1023,14 +1056,99 @@ def _grads_close(model, model_p, what, tables):
             continue
         scale = float(q.grad.abs().max())
         err = float((p.grad - q.grad).abs().max())
-        if not bool(torch.isfinite(p.grad).all()) or err > GRAD_TOL * scale:
+        if not bool(torch.isfinite(p.grad).all()) or err > grad_tol * scale:
             fail(f"{what}: {name} gradient differs by {err} against max "
-                 f"|grad| {scale} (tolerance {GRAD_TOL} of it)")
+                 f"|grad| {scale} (tolerance {grad_tol} of it)")
         if scale > 0 and err / scale > worst:
             worst, where = err / scale, name
     if set(excess) != set(table_params(model).values()):
         fail(f"{what}: hash tables checked {sorted(excess)}")
     return worst, where, excess
+
+
+def train_on_vs_off(dev, run, first_step, what, grad_tol=GRAD_TOL):
+    """ON_OFF_STEPS train steps of the train entry's `run` kernels on, and
+    of a copy of its model and optimizer state kernels off, from the same
+    weights, batches and random draws: each step's loss (LOSS_TOL), the
+    first step's gradients (`_grads_close`: MLP parameters to `grad_tol` of
+    their largest value, hash tables by `table_grad_excess`) and its
+    hash-decay term (K3 on the path) against float64 slice sums. Returns a
+    printable summary line."""
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.ops import grid
+    from nerf_lidar_tpu_torch.train import train_step
+    cfg = run.cfg
+    model_p = copy.deepcopy(run.model)
+    opt_p = train_step.make_optimizer(model_p, cfg)
+    # A deep copy: load_state_dict keeps the very moment tensors it is
+    # given, which both optimizers would then update.
+    opt_p.load_state_dict(copy.deepcopy(run.optimizer.state_dict()))
+    batches = [cli.to_device(run.batcher.next(), dev)
+               for _ in range(ON_OFF_STEPS)]
+    gens = [torch.Generator(device=dev).manual_seed(99) for _ in range(2)]
+    decay_ref = hash_decay_f64(run.model, cfg)
+    worst_loss = 0.0
+    step_s = dict(on=[], off=[])
+    rays = run.batcher.total_rays
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i, batch in enumerate(batches):
+        step = first_step + i
+        # The first step records what each side's encode saw, for the
+        # table gradients' bounds.
+        with (recording_all(grid, "hash_encode_multisample_bwd", run.model)
+              if i == 0 else contextlib.nullcontext({})) as seen_on:
+            t0 = time.perf_counter()
+            on = train_step.train_step(run.model, run.optimizer, cfg, batch,
+                                       step, run.batcher.num_patch_rays,
+                                       gens[0])
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        # Held in host memory, off the plain step's device memory peak.
+        seen_on = calls_to_host(seen_on)
+        with (recording_plain_encode(model_p) if i == 0
+              else contextlib.nullcontext({})) as seen_off:
+            off = train_step.train_step(model_p, opt_p, cfg, batch, step,
+                                        run.batcher.num_patch_rays, gens[1],
+                                        use_kernels=False)
+            torch.cuda.synchronize()
+        step_s["on"].append(t1 - t0)
+        step_s["off"].append(time.perf_counter() - t1)
+        a, b = float(on["loss"]), float(off["loss"])
+        worst_loss = max(worst_loss, abs(a - b) / abs(b))
+        if abs(a - b) > LOSS_TOL * abs(b):
+            fail(f"{what} {step}: loss kernels {a} vs plain {b}")
+        if i == 0:
+            label = f"{what} {step}, kernels on vs off"
+            grad_err = _grads_close(
+                run.model, model_p, label,
+                step_table_bounds(run.model, cfg, seen_on, seen_off, label),
+                grad_tol)
+            del seen_on, seen_off
+            decay = [abs(float(stats["hash_decay"]) - decay_ref) / decay_ref
+                     for stats in (on, off)]
+            if not decay[0] <= HASH_DECAY_TOL:
+                fail(f"{what} {step}: hash decay (K3 on the path) "
+                     f"{float(on['hash_decay'])} vs {decay_ref} in float64")
+    _table_grads_nonzero(model_p, f"{what}: kernels-off steps")
+    med = {k: 1e3 * statistics.median(v) for k, v in step_s.items()}
+    summary = (
+        f"loss rel diff {worst_loss:.2e} (tol {LOSS_TOL}); first step's "
+        f"gradients: MLPs, worst relative to max {grad_err[0]:.2e} "
+        f"({grad_err[1]}; tol {grad_tol}); hash tables, float32 eps of the "
+        f"terms beyond the upstream difference "
+        f"{ {k: round(v, 2) for k, v in grad_err[2].items()} } (tol "
+        f"{TABLE_GRAD_EPS_MULT}); hash decay vs float64 slice sums, "
+        f"relative: K3 {decay[0]:.2e} (tol {HASH_DECAY_TOL}), index_add_ "
+        f"{decay[1]:.2e}; ms/step (median of {ON_OFF_STEPS}, host clock, "
+        f"synchronised) kernels {med['on']:.1f} "
+        f"({rays / med['on'] * 1e3:,.0f} rays/s), plain {med['off']:.1f} "
+        f"({rays / med['off'] * 1e3:,.0f} rays/s); peak memory of the two "
+        f"models and the plain steps "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del model_p, opt_p, batches
+    torch.cuda.empty_cache()
+    return summary
 
 
 def phase_train(dev):
@@ -1044,7 +1162,6 @@ def phase_train(dev):
     from nerf_lidar_tpu_torch import cli
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
-    from nerf_lidar_tpu_torch.train import train_step
 
     fresh_exp_dir(TRAIN_ARGV)
     fresh_exp_dir(LEARN_ARGV)
@@ -1085,72 +1202,9 @@ def phase_train(dev):
 
     # Kernels on vs off: the same weights, optimizer state, batches and
     # random draws (tolerances above).
-    cfg = run.cfg
-    model_p = copy.deepcopy(run.model)
-    opt_p = train_step.make_optimizer(model_p, cfg)
-    # A deep copy: load_state_dict keeps the very moment tensors it is
-    # given, which both optimizers would then update.
-    opt_p.load_state_dict(copy.deepcopy(run.optimizer.state_dict()))
-    batches = [cli.to_device(run.batcher.next(), dev) for _ in range(3)]
-    gens = [torch.Generator(device=dev).manual_seed(99) for _ in range(2)]
-    decay_ref = hash_decay_f64(run.model, cfg)
-    worst_loss = 0.0
-    step_s = dict(on=[], off=[])
-    torch.cuda.reset_peak_memory_stats(dev)
-    for i, batch in enumerate(batches):
-        step = TRAIN_STEPS + 1 + i
-        # The first step records what each side's encode saw, for the
-        # table gradients' bounds.
-        with (recording_all(grid, "hash_encode_multisample_bwd", run.model)
-              if i == 0 else contextlib.nullcontext({})) as seen_on:
-            t0 = time.perf_counter()
-            on = train_step.train_step(run.model, run.optimizer, cfg, batch,
-                                       step, run.batcher.num_patch_rays,
-                                       gens[0])
-            torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        # Held in host memory, off the plain step's device memory peak.
-        seen_on = calls_to_host(seen_on)
-        with (recording_plain_encode(model_p) if i == 0
-              else contextlib.nullcontext({})) as seen_off:
-            off = train_step.train_step(model_p, opt_p, cfg, batch, step,
-                                        run.batcher.num_patch_rays, gens[1],
-                                        use_kernels=False)
-            torch.cuda.synchronize()
-        step_s["on"].append(t1 - t0)
-        step_s["off"].append(time.perf_counter() - t1)
-        a, b = float(on["loss"]), float(off["loss"])
-        worst_loss = max(worst_loss, abs(a - b) / abs(b))
-        if abs(a - b) > LOSS_TOL * abs(b):
-            fail(f"train step {step}: loss kernels {a} vs plain {b}")
-        if i == 0:
-            what = f"train step {step}, kernels on vs off"
-            grad_err = _grads_close(run.model, model_p, what,
-                                    step_table_bounds(run.model, cfg, seen_on,
-                                                      seen_off, what))
-            del seen_on, seen_off
-            decay = [abs(float(stats["hash_decay"]) - decay_ref) / decay_ref
-                     for stats in (on, off)]
-            if not decay[0] <= HASH_DECAY_TOL:
-                fail(f"train step {step}: hash decay (K3 on the path) "
-                     f"{float(on['hash_decay'])} vs {decay_ref} in float64")
-    _table_grads_nonzero(model_p, "kernels-off steps")
-    med = {k: 1e3 * statistics.median(v) for k, v in step_s.items()}
-    print(f"[8] 3 steps kernels on vs off: loss rel diff {worst_loss:.2e} "
-          f"(tol {LOSS_TOL}); first step's gradients: MLPs, worst relative "
-          f"to max {grad_err[0]:.2e} ({grad_err[1]}; tol {GRAD_TOL}); hash "
-          f"tables, float32 eps of the terms beyond the upstream difference "
-          f"{ {k: round(v, 2) for k, v in grad_err[2].items()} } (tol "
-          f"{TABLE_GRAD_EPS_MULT}); hash decay vs "
-          f"float64 slice sums, relative: K3 {decay[0]:.2e} (tol "
-          f"{HASH_DECAY_TOL}), index_add_ {decay[1]:.2e}; ms/step (median "
-          f"of 3, host clock, synchronised) kernels {med['on']:.1f} "
-          f"({rays / med['on'] * 1e3:,.0f} rays/s), plain {med['off']:.1f} "
-          f"({rays / med['off'] * 1e3:,.0f} rays/s); peak memory of the "
-          f"two models and the plain steps "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-
-    del run, model_p, opt_p, batches
+    on_off = train_on_vs_off(dev, run, TRAIN_STEPS + 1, "train step")
+    print(f"[8] {ON_OFF_STEPS} steps kernels on vs off: {on_off}")
+    del run
     torch.cuda.empty_cache()
 
     learn = cli.main(LEARN_ARGV)
@@ -1189,8 +1243,9 @@ def kernels_checked():
     version on its own inputs, at [3]'s and [4]'s tolerances, and the plain
     compositor records the sample intervals it gets. Yields {"k1_args": the
     first K1 call's arguments by name (tensors cloned), "k1" / "h1": each
-    call's max abs error, "tdist_kernels" / "tdist_plain": each call's
-    intervals}. The wrappers carry the kernels' launch counts and give them
+    call's max abs error, "h1_modes": the largest H1 error per mode
+    combination (`encode_mode`), "tdist_kernels" / "tdist_plain": each
+    call's intervals}. The wrappers carry the kernels' launch counts and give them
     back."""
     import inspect
     import torch
@@ -1200,7 +1255,8 @@ def kernels_checked():
     h1, h1_plain = grid.hash_encode_multisample, \
         grid.hash_encode_multisample_plain
     sig = inspect.signature(k1)
-    rec = dict(k1_args={}, k1=[], h1=[], tdist_kernels=[], tdist_plain=[])
+    rec = dict(k1_args={}, k1=[], h1=[], h1_modes={}, tdist_kernels=[],
+               tdist_plain=[])
 
     def k1_checked(*a, **kw):
         args = sig.bind(*a, **kw)
@@ -1221,11 +1277,14 @@ def kernels_checked():
         rec["tdist_plain"].append(args["tdist"].detach().clone())
         return k1_plain(*a, **kw)
 
-    def h1_checked(table, x01, stds, spec):
-        got = h1(table, x01, stds, spec)
-        rec["h1"].append(close(f"trained sweep H1 call {len(rec['h1'])}",
-                               got, h1_plain(table, x01, stds, spec)[0],
-                               1e-5, 1e-6))
+    def h1_checked(table, x01, stds, spec, coarse_res_cutoff=0):
+        got = h1(table, x01, stds, spec, coarse_res_cutoff)
+        err = close(f"trained sweep H1 call {len(rec['h1'])}", got,
+                    h1_plain(table, x01, stds, spec, coarse_res_cutoff)[0],
+                    1e-5, 1e-6)
+        rec["h1"].append(err)
+        mode = encode_mode(spec, coarse_res_cutoff)
+        rec["h1_modes"][mode] = max(rec["h1_modes"].get(mode, 0.0), err)
         return got
 
     k1_checked.launches, h1_checked.launches = k1.launches, h1.launches
@@ -2298,6 +2357,464 @@ def phase_eval(dev):
     return launches
 
 
+# [15]: the field presets on the card (`_fast`, `_speed`, `_mxu`), through
+# the same entries a user calls: `nuscenes_single_fast` and
+# `nuscenes_single_speed` train PRESET_STEPS steps on the synthetic scene
+# (`_speed` also PRESET_LEARN_STEPS at the full learning rate), each trained
+# field and a seeded `nuscenes_single_mxu` render PRESET_SWEEPS sweeps, and
+# `spectral_obj_variant(nuscenes_single_speed())` (--config_json) trains
+# SPEC_OBJ_STEPS steps on [12]'s scene and renders one replay sweep.
+PRESET_STEPS = 30
+PRESET_LEARN_STEPS = 60
+PRESET_SWEEPS = 2
+PRESET_CONFIGS = {"fast": ["--config", "nuscenes_single_fast"],
+                  "speed": ["--config", "nuscenes_single_speed"],
+                  "mxu": ["--config", "nuscenes_single_mxu"]}
+PRESET_ARGS = ["--set", "dataset_loader=synthetic", "--device", "cuda"]
+SPEC_OBJ_EXP = "chip_smoke_spectral_obj"
+SPEC_OBJ_STEPS = 5
+SPEC_OBJ_ARGS = ["--set", "dataset_loader=nusc", "--data_dir", OBJ_SCENE,
+                 "--set", "track_start_opt=0", "--device", "cuda",
+                 "--exp_name", SPEC_OBJ_EXP]
+# Kernels on vs off with bfloat16 MLPs (`_speed`): the MLP gradients to
+# 1e-2 of their largest value, 2.5 bfloat16 ulps (2^-8 each). The encode's
+# float32 rounding (~1e-7 relative, [4]) moves a feature across a bfloat16
+# rounding boundary on a few in 10^4 inputs, which then differs by one
+# bfloat16 ulp, and so do the activations and the backward's products
+# downstream of it; a gradient entry sums such terms (measured 1.33e-3 of
+# max, the NeRF semantic head's first layer; NVIDIA H100 80GB HBM3,
+# 700 W). The float32 presets keep GRAD_TOL; the tables keep
+# `table_grad_excess` (its upstream term takes each side's g_out).
+GRAD_TOL_BF16 = 1e-2
+
+
+def encode_mode(spec, cutoff):
+    """A grid's mode combination as [15] names it: interpolation, channels,
+    and per level kind (the mean point or every point; tiled or hashed),
+    e.g. "tetra C16: mean-tiled x2, point-hashed x2"."""
+    kinds = []
+    for l, r in enumerate(spec.resolutions):
+        kinds.append(("mean" if r <= cutoff else "point") + "-"
+                     + ("tiled" if spec.is_tiled(l) else "hashed"))
+    parts = []
+    for k in dict.fromkeys(kinds):
+        parts.append(f"{k} x{kinds.count(k)}")
+    return f"{spec.interp} C{spec.level_dim}: {', '.join(parts)}"
+
+
+def preset_argv(key, cmd, exp, *extra):
+    return [cmd, *PRESET_CONFIGS[key], *PRESET_ARGS, "--exp_name", exp,
+            *extra]
+
+
+@contextlib.contextmanager
+def counted_launches():
+    """Within the block, every kernel of the render and train paths counts
+    from 0; yields {kernel: launches}, filled when the block ends."""
+    from nerf_lidar_tpu_torch.ops import grid, render_fused
+    fns = dict(composite=render_fused.fused_composite,
+               hash_encode_ms=grid.hash_encode_multisample,
+               hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
+               scatter_add_rows=grid.scatter_add_rows)
+    for fn in fns.values():
+        fn.launches = 0
+    out = {}
+    try:
+        yield out
+    finally:
+        out.update({k: fn.launches for k, fn in fns.items()})
+
+
+def need_launches(what, launches, names, absent=()):
+    for name in names:
+        if launches.get(name, 0) == 0:
+            fail(f"{what}: kernel {name} was not launched")
+    for name in absent:
+        if launches.get(name, 0):
+            fail(f"{what}: kernel {name} was launched {launches[name]} times "
+                 "(the preset composites with the plain version)")
+
+
+def preset_train(dev, key):
+    """[15] The train entry on a preset at full width for PRESET_STEPS
+    steps (finite losses, a gradient on every table, launches, warm
+    ms/step, rays/s, peak GiB), one more step's encode-backward inputs per
+    grid, then 3 steps kernels on vs off under [8]'s rules. Returns
+    ({"launches", "params": the params file it wrote, "inputs": the encode
+    backward's inputs per grid}, the entry's run)."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    argv = preset_argv(key, "train", f"chip_smoke_{key}", "--set",
+                       "print_every=1", "--steps", str(PRESET_STEPS))
+    fresh_exp_dir(argv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with counted_launches() as launches:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    need_launches(f"train_{key}", launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd", "scatter_add_rows"))
+    hist = run.history
+    if len(hist) != PRESET_STEPS or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["psnr"]) for h in hist):
+        fail(f"train_{key}: {len(hist)} steps logged, or a loss is not "
+             "finite")
+    _table_grads_nonzero(run.model, f"train_{key}")
+    step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[-20:])
+    rays = run.batcher.total_rays
+    modes = {name: encode_mode(mlp.spec, mlp.cfg.ms_coarse_res_cutoff)
+             for name, mlp in hb.grid_names(run.model)}
+    print(f"[15] train {PRESET_CONFIGS[key][-1]} (synthetic, {rays} "
+          f"rays/step, {PRESET_STEPS} steps, cold, init included): "
+          f"{entry_s:.2f} s; grids {modes}; MLPs "
+          f"{run.cfg.model.nerf_mlp.compute_dtype}; launches {launches}; "
+          f"warm {step_ms:.1f} ms/step (median of the last 20), "
+          f"{rays / step_ms * 1e3:,.0f} rays/s; peak memory {peak:.2f} GiB; "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    inputs = hb.record_train_inputs(run, PRESET_STEPS)
+    bf16 = run.cfg.model.nerf_mlp.compute_dtype == "bfloat16"
+    on_off = train_on_vs_off(dev, run, PRESET_STEPS + 1,
+                             f"train_{key} step",
+                             GRAD_TOL_BF16 if bf16 else GRAD_TOL)
+    print(f"[15] train_{key}, {ON_OFF_STEPS} steps kernels on vs off"
+          f"{' (bfloat16 MLPs)' if bf16 else ''}: {on_off}")
+    return dict(launches=launches, params=run.params, inputs=inputs), run
+
+
+def preset_learn(dev):
+    """[15] `_speed` for PRESET_LEARN_STEPS steps at the full learning rate
+    (no warm-up): the data loss must fall."""
+    import numpy as np
+    from nerf_lidar_tpu_torch import cli
+    argv = preset_argv("speed", "train", "chip_smoke_speed_learn", "--set",
+                       "print_every=1", "--set", "lr_delay_steps=0",
+                       "--steps", str(PRESET_LEARN_STEPS))
+    fresh_exp_dir(argv)
+    learn = cli.main(argv)
+    data = [h["data"] for h in learn.history]
+    first, last = float(np.mean(data[:5])), float(np.mean(data[-5:]))
+    if not (len(data) == PRESET_LEARN_STEPS and last < first):
+        fail(f"[15] speed learning check: data loss {first} (first 5) -> "
+             f"{last} (last 5) over {len(data)} steps")
+    print(f"[15] speed learning check ({PRESET_LEARN_STEPS} steps, no "
+          f"warm-up): data loss {first:.4f} (mean of first 5) -> "
+          f"{last:.4f} (mean of last 5); psnr "
+          f"{learn.history[0]['psnr']:.2f} -> "
+          f"{learn.history[-1]['psnr']:.2f}")
+
+
+def check_sweep_files(what, run, classes):
+    import numpy as np
+    n_rays = 32 * 1100
+    for path in run.paths:
+        pts = np.load(path)
+        if pts.shape != (n_rays, 3) or not np.isfinite(pts).all():
+            fail(f"{what}: {path} has shape {pts.shape} or is not finite")
+    sem = np.load(run.paths[0].replace("points_", "points_semantic_"))
+    if sem.shape != (n_rays, classes) or np.abs(sem.sum(-1) - 1).max() > 1e-3:
+        fail(f"{what}: semantic {sem.shape}, rows not summing to 1")
+
+
+def preset_render(dev, key, params):
+    """[15] render_lidar on a preset: PRESET_SWEEPS sweeps from `params`
+    (or seeded fresh weights), the launches of that run; warm s/sweep
+    (median of 3); the first sweep again with every K1 and H1 call held
+    against its plain version (per mode combination), against the sweep
+    kernels off. Returns {"launches", "inputs": the encode's inputs of one
+    chunk per grid}."""
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.lidar.render import render_sweep
+    from nerf_lidar_tpu_torch.renderer import ChunkRenderer
+    argv = preset_argv(key, "render_lidar", f"chip_smoke_{key}", "--mode",
+                       "simu", "--num_sweeps", str(PRESET_SWEEPS),
+                       *(["--params", params] if params else
+                         ["--allow_fresh"]))
+    t0 = time.perf_counter()
+    with counted_launches() as launches:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    fused = run.cfg.render_fused is not False
+    need_launches(f"render_lidar_{key}", launches,
+                  ("hash_encode_ms",) + (("composite",) if fused else ()),
+                  () if fused else ("composite",))
+    check_sweep_files(f"render_lidar_{key}", run,
+                      run.cfg.model.nerf_mlp.class_num)
+    sweep = run.sweeps[0]
+    chunk = run.cfg.render_chunk_size
+    kern = ChunkRenderer(run.model, run.cfg, chunk)
+    plain = ChunkRenderer(run.model, run.cfg, chunk, use_kernels=False)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        render_sweep(kern, sweep, run.near, run.far, run.frame)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    with kernels_checked() as rec:
+        a = render_sweep(kern, sweep, run.near, run.far, run.frame)
+        b = render_sweep(plain, sweep, run.near, run.far, run.frame)
+    errs, outside, rays, _ = compare_sweeps(f"[15] {key} sweep", a, b,
+                                            share=TRAINED_SWEEP_SHARE)
+    n_values = {k: int(a[k].size) for k in outside}
+    inputs = hb.record_render_inputs(kern, sweep, run.near, run.far,
+                                     run.frame)
+    s_per_sweep = statistics.median(times)
+    print(f"[15] render_lidar {PRESET_CONFIGS[key][-1]} "
+          f"({'--params ' + params if params else 'seeded fresh weights'}, "
+          f"{PRESET_SWEEPS} sweeps, chunk {chunk}, "
+          f"{'K1' if fused else 'plain compositor'}; cold, init included "
+          f"{entry_s:.2f} s): launches {launches}; warm s/sweep "
+          f"{s_per_sweep:.4f} (median of 3: {times}); every call vs its "
+          f"plain version, max abs err K1 "
+          f"{max(rec['k1']) if rec['k1'] else None} ({len(rec['k1'])} calls),"
+          f" H1 {max(rec['h1']):.3e} ({len(rec['h1'])} calls), per mode "
+          f"{ {m: f'{e:.2e}' for m, e in rec['h1_modes'].items()} }; "
+          f"kernels on vs off, max abs diff {errs}, values outside [5]'s "
+          f"tolerances {outside} of {n_values} on {int(rays.sum())} rays")
+    return dict(launches=launches, inputs=inputs)
+
+
+def preset_objects(dev):
+    """[15] spectral_obj_variant(nuscenes_single_speed()) through
+    --config_json on [12]'s scene: SPEC_OBJ_STEPS train steps with the
+    tracknet live, H1-bwd's tetrahedral d_x01 (and d_table) on the object
+    grid against the written-out twin at [6]'s tolerance, and one replay
+    sweep. Returns {"train" / "render": launches, "inputs": the encode
+    backward's inputs per grid of a train step}."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli, configs
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    cfg_path = os.path.join("exp", f"{SPEC_OBJ_EXP}.json")
+    os.makedirs("exp", exist_ok=True)
+    with open(cfg_path, "w") as f:
+        f.write(configs.spectral_obj_variant(
+            configs.nuscenes_single_speed()).to_json())
+    argv = ["train", "--config_json", cfg_path, *SPEC_OBJ_ARGS,
+            "--set", "print_every=1", "--steps", str(SPEC_OBJ_STEPS)]
+    fresh_exp_dir(argv)
+    spec = grid.spec_for(cli.build_config(cli.parse_args(argv))
+                         .model.obj_mlp.grid)
+    with counted_launches() as launches, \
+            obj_grid_launches(spec) as obj_launches:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    need_launches("train_spectral_obj", launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd", "scatter_add_rows"))
+    need_launches("train_spectral_obj, object grid", obj_launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd"))
+    hist = run.history
+    hit = [h["obj_hit_frac"] for h in hist]
+    if run.tracknet is None or len(hist) != SPEC_OBJ_STEPS or not all(
+            np.isfinite(h["loss"]) for h in hist) or not max(hit) > 0:
+        fail(f"train_spectral_obj: tracknet {run.tracknet}, {len(hist)} "
+             f"steps, obj_hit_frac {hit}")
+    _table_grads_nonzero(run.model, "train_spectral_obj")
+    if float(run.tracknet.opt_t.grad.abs().max()) == 0.0:
+        fail("train_spectral_obj: the tracknet's opt_t got no gradient")
+    step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[-3:])
+    inputs = hb.record_train_inputs(run, SPEC_OBJ_STEPS)
+    table, x01, stds, g_out, ospec, needs, cutoff = inputs["obj"]
+    if not needs[1] or ospec.interp != "tetra":
+        fail(f"train_spectral_obj: the object encode's backward got needs "
+             f"{needs}, interp {ospec.interp} (expected d_x01, tetra)")
+    asked = (True, True, False)
+    got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, ospec,
+                                           asked, cutoff)
+    twin = grid.hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
+                                                  ospec, asked, cutoff)
+    errs = {key: rel_err(f"[15] spectral object grid {key} vs twin",
+                         got[i], twin[i], BWD_TOL)
+            for i, key in enumerate(("d_table", "d_x01"))}
+    render_argv = ["render_lidar", "--config_json", cfg_path,
+                   *SPEC_OBJ_ARGS, "--mode", "replay", "--num_sweeps", "1",
+                   "--params", run.params]
+    with counted_launches() as render_launches:
+        rendered = cli.main(render_argv)
+        torch.cuda.synchronize()
+    need_launches("render_lidar_spectral_obj", render_launches,
+                  ("hash_encode_ms",), ("composite",))
+    pts = np.load(rendered.paths[0])
+    if not np.isfinite(pts).all():
+        fail("render_lidar_spectral_obj: non-finite points")
+    print(f"[15] spectral objects ({encode_mode(ospec, cutoff)}, "
+          f"{ospec.total_rows} rows; Fourier "
+          f"{tuple(run.model.obj_mlp.fourier_freqs.shape)}): train "
+          f"{SPEC_OBJ_STEPS} steps, launches {launches}, on the object grid "
+          f"{obj_launches}; warm {step_ms:.1f} ms/step; obj_hit_frac "
+          f"{max(hit):.4f}; H1-bwd on a recorded step (B="
+          f"{stds.numel() // stds.shape[-1]}, n={stds.shape[-1]}) vs twin "
+          f"(max abs err, "
+          f"relative to max) {errs}; replay sweep {pts.shape[0]} rays, "
+          f"launches {render_launches}")
+    return dict(train=launches, render=render_launches, inputs=inputs)
+
+
+def time_preset_encodes(dev, path, inputs, fwd):
+    """H1 (fwd: render chunk inputs {grid: (table, x01, stds, spec,
+    cutoff)}) or H1-bwd (train step inputs {grid: (table, x01, stds,
+    g_out, spec, needs, cutoff)}) per grid of a [15] path on its own
+    inputs: the kernel's device ms (torch.profiler, as [12] times the
+    object grid) and its ms per call under CUDA events (back to back, so
+    the host's launch gaps count where they outlast the kernel), the plain
+    version's ms (CUDA events), the bound, the error. Returns {"<path>
+    <grid>": numbers}."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    out = {}
+    for name, rec in inputs.items():
+        if fwd:
+            table, x01, stds, spec, cutoff = rec
+            call = lambda: grid.hash_encode_multisample(table, x01, stds,
+                                                        spec, cutoff)
+            plain = lambda: grid.hash_encode_multisample_plain(
+                table, x01, stds, spec, cutoff)[0]
+            err = close(f"[15] {path} {name} H1", call(), plain(), 1e-5,
+                        1e-6)
+            lim = bound(*hb.fwd_bound(spec, x01, stds, cutoff))
+        else:
+            table, x01, stds, g_out, spec, needs, cutoff = rec
+            call = lambda: grid.hash_encode_multisample_bwd(
+                table, x01, stds, g_out, spec, needs, cutoff)
+            plain = lambda: grid.hash_encode_multisample_bwd_plain(
+                table, x01, stds, g_out, spec, needs, cutoff)
+            got, want = call(), plain()
+            err = max(rel_err(f"[15] {path} {name} H1-bwd {key}", got[i],
+                              want[i], BWD_TOL)[0]
+                      for i, key in enumerate(GRADS) if needs[i])
+            lim = bound(*hb.bwd_bound(spec, x01, stds, g_out, cutoff))
+        ms = device_ms(call, iters=10)
+        events_ms = cuda_ms(call, iters=5, warmup=1)
+        plain_ms = cuda_ms_once(plain)[0]
+        n = stds.shape[-1]
+        out[f"{path} {name}"] = dict(
+            mode=encode_mode(spec, cutoff), B=stds.numel() // n, n=n,
+            ms=ms, events_ms=events_ms, plain_ms=plain_ms, max_abs_err=err,
+            **lim)
+        print(f"[15] {'H1' if fwd else 'H1-bwd'} {path} {name} "
+              f"({encode_mode(spec, cutoff)}; B={stds.numel() // n} n={n}): "
+              f"kernel {ms:.4f} ms on the device ({events_ms:.4f} ms per "
+              f"call, CUDA events), plain {plain_ms:.2f} ms, bound "
+              f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}); max err "
+              f"{err:.2e}")
+    return out
+
+
+def obj_bwd_split(rec):
+    """Where H1-bwd's time goes on the spectral object grid, on a train
+    step's recorded call `rec`: device ms (torch.profiler) of d_table with
+    d_x01 (as the step asks), of each alone, and of the first on the valid
+    slots only (the object budget's padding slots, which all repeat one
+    point, dropped), beside the first's ms per call under CUDA events."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    table, x01, stds, g_out, spec, _, cutoff = rec
+    n = stds.shape[-1]
+    b = stds.numel() // n
+    x, s, g = x01.reshape(b, n, 3), stds.reshape(b, n), g_out.reshape(b, -1)
+    # The padding slots are the tail that repeats the last slot's point.
+    repeats = (x.reshape(b, -1) == x.reshape(b, -1)[-1]).all(-1)
+    pad = int(repeats.flip(0).int().cumprod(0).sum())
+    k = b - pad
+    cases = {"d_table + d_x01": ((True, True, False), b),
+             "d_table": ((True, False, False), b),
+             "d_x01": ((False, True, False), b),
+             "d_table + d_x01, valid slots": ((True, True, False), k)}
+    ms = {name: device_ms(lambda: grid.hash_encode_multisample_bwd(
+              table, x[:m], s[:m], g[:m], spec, asked, cutoff), iters=20)
+          for name, (asked, m) in cases.items()}
+    events = cuda_ms(lambda: grid.hash_encode_multisample_bwd(
+        table, x, s, g, spec, (True, True, False), cutoff))
+    pad_in = hb.points_in_range(x[k:]) if pad else 0
+    pad_g = float(g[k:].abs().max()) if pad else 0.0
+    print(f"[15] H1-bwd on the spectral object grid, split (B={b}: {k} "
+          f"valid slots, {pad} padding slots repeating one point, {pad_in} "
+          f"of them in range, max |g_out| on them {pad_g:.3g}): device ms "
+          f"{ {key: round(v, 5) for key, v in ms.items()} }; "
+          f"d_table + d_x01 per call under CUDA events {events:.4f} ms")
+
+
+def phase_presets(dev):
+    """[15] The presets on the card: training (`_fast`, `_speed`, with
+    kernels on vs off and `_speed`'s learning check), render_lidar
+    (`_fast`, `_speed`, seeded `_mxu`), the spectral object variant, then
+    H1 / H1-bwd per grid on every path's own inputs. Returns {"paths":
+    {path: launches}, "h1" / "h1_bwd": {"<path> <grid>": numbers},
+    "profiled": a callable that profiles two warm `_fast` and `_speed`
+    steps (run with the other profiler phases)}."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import fourier
+    paths, trains, renders, runs = {}, {}, {}, {}
+    for key in ("fast", "speed"):
+        trains[key], runs[key] = preset_train(dev, key)
+        paths[f"train_{key}"] = trains[key]["launches"]
+    preset_learn(dev)
+    for key, params in (("fast", trains["fast"]["params"]),
+                        ("speed", trains["speed"]["params"]),
+                        ("mxu", None)):
+        renders[key] = preset_render(dev, key, params)
+        paths[f"render_lidar_{key}"] = renders[key]["launches"]
+    objects = preset_objects(dev)
+    paths["train_spectral_obj"] = objects["train"]
+    paths["render_lidar_spectral_obj"] = objects["render"]
+
+    speed_nerf_points = trains["speed"]["inputs"]["nerf"][1:3]
+    h1, h1_bwd = {}, {}
+    for key in ("fast", "speed", "mxu"):
+        h1.update(time_preset_encodes(dev, f"render_lidar_{key}",
+                                      renders[key].pop("inputs"), True))
+    for key in ("fast", "speed"):
+        h1_bwd.update(time_preset_encodes(dev, f"train_{key}",
+                                          trains[key].pop("inputs"), False))
+    obj_rec = objects.pop("inputs")["obj"]
+    h1_bwd.update(time_preset_encodes(dev, "train_spectral_obj",
+                                      {"obj": obj_rec}, False))
+    obj_bwd_split(obj_rec)
+    del obj_rec
+
+    # The speed field's Fourier band on its train step's NeRF points:
+    # forward and backward of the pooled IPE features (the [N, 3] @ [3, F]
+    # product, sin, cos, exp), the share a fused kernel could take.
+    nerf = runs["speed"].model.nerf_mlp
+    xs, ss = (t.clone().requires_grad_(True)
+              for t in speed_nerf_points)
+    g = torch.randn_like(fourier.fourier_encode_pooled(
+        xs.detach(), ss.detach(), nerf.fourier_freqs))
+
+    def band():
+        out = fourier.fourier_encode_pooled(xs, ss, nerf.fourier_freqs)
+        torch.autograd.grad(out, (xs, ss), g)
+
+    band_ms = cuda_ms(band, iters=5, warmup=1)
+    n = ss.shape[-1]
+    print(f"[15] speed NeRF Fourier band (pooled IPE, forward + backward, "
+          f"B={ss.numel() // n} n={n} F={nerf.fourier_freqs.shape[1]}): "
+          f"{band_ms:.3f} ms per train step")
+    del xs, ss, g
+
+    def profiled():
+        from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+        out = {}
+        for key, run in runs.items():
+            prof = hb.profile_train(run, PRESET_STEPS + 10)
+            out[key] = prof
+            print(f"[15] profile of 2 warm {key} steps: "
+                  f"{json.dumps(prof)}")
+        runs.clear()
+        torch.cuda.empty_cache()
+        return out
+
+    return dict(paths=paths, h1=h1, h1_bwd=h1_bwd, profiled=profiled)
+
+
 def obj_encode(dev, rec, fwd):
     """H1 (fwd) or H1-bwd (d_table and d_x01) on the object grid at a train
     step's recorded backward call `rec` (table, x01, stds, g_out, spec,
@@ -2619,7 +3136,9 @@ def main():
     objects = timed("[12]", phase_objects, dev)
     raydrop_launches = timed("[13]", phase_raydrop, dev)
     eval_launches = timed("[14]", phase_eval, dev)
+    presets = timed("[15]", phase_presets, dev)
     obj_grid = timed("[12] profiled", objects.pop("profiled"))
+    timed("[15] profiled", presets.pop("profiled"))
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
@@ -2640,7 +3159,7 @@ def main():
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
              *objects["paths"].items(), ("raydrop", raydrop_launches),
-             *eval_launches.items())
+             *eval_launches.items(), *presets["paths"].items())
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""
@@ -2658,18 +3177,22 @@ def main():
         # "grids".
         # obj_grid: on the object grid's points of one [12] train step
         # (the JAX `hash_encode`, n = 1 and stds 0), with its launches.
+        # preset_modes: [15]'s paths, each grid's mode combination on its
+        # own render chunk (tetrahedral, mean-point levels, C16 rows).
         entry("hash_encode_ms", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/grid.py:366",
               "NeRF grid, the first 16,384-ray chunk of a [5] sweep "
               "(uniform_*: uniform points of the same shape)", h1,
-              obj_grid=obj_grid["hash_encode_ms"]),
+              obj_grid=obj_grid["hash_encode_ms"],
+              preset_modes=presets["h1"]),
         # Against the written-out twin; prop0 also vs autograd; obj_grid
         # d_table and d_x01 vs both.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/grid.py:366",
               "NeRF grid, d_table of one warm [8] train step (uniform_*: "
               "uniform points of the same shape)", h1_bwd,
-              obj_grid=obj_grid["hash_encode_ms_bwd"]),
+              obj_grid=obj_grid["hash_encode_ms_bwd"],
+              preset_modes=presets["h1_bwd"]),
         # Every grid's hash-decay level sums under "grids", every own
         # shape under "own_shapes".
         entry("scatter_add_rows", KERNEL_SOURCE,

@@ -81,9 +81,10 @@ from .train import checkpoints, train_step
 from .utils import image as image_lib
 from .utils.logging import MetricsLogger, Timer
 
-# The presets whose every flag is ported (the `_fast`, `_mxu` and `_speed`
-# presets set `ms_coarse_res_cutoff`, which is not).
-CONFIGS = ["nuscenes_single", "nuscenes_multi", "tiny_debug", "default"]
+CONFIGS = ["nuscenes_single", "nuscenes_single_fast", "nuscenes_multi",
+           "nuscenes_multi_fast", "nuscenes_single_mxu",
+           "nuscenes_multi_mxu", "nuscenes_single_speed",
+           "nuscenes_multi_speed", "tiny_debug", "default"]
 
 
 # Copied from nerf_lidar_tpu/cli.py (`_coerce` .. `build_config`,

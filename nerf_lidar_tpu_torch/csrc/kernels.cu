@@ -40,16 +40,26 @@
 //   channel-major [C, R, S] stack was a lane-padding workaround and is gone.
 //
 // H1 hash_encode_ms: replaces the XLA gathers of
-//   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample,
-//   linear interpolation, no coarse cutoff). Bound by table reads: 8 corners
-//   x n multisamples x L levels per sample, at random rows of tables up to
-//   240 MB (larger than the 50 MB L2). Design, one thread per (sample,
-//   level):
+//   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample):
+//   trilinear (8 corners) or tetrahedral (the 4 vertices of the point's
+//   Kuhn simplex) interpolation, C = 1, 2, 4 or 16 channels, and levels at
+//   or below the coarse cutoff that encode each sample's mean point once
+//   with the mean erf weight (the presets'). Bound by table reads: up to 8
+//   corners x n multisamples x L levels per sample, at random rows of
+//   tables up to 240 MB (larger than the 50 MB L2). Design, one thread per
+//   (sample, level):
 //   - corner-run merge: at the coarse levels the n multisamples of a sample
 //     mostly share one cell, so while a point's integer cell equals the
 //     previous in-range point's, its erf-weighted trilinear weights add into
 //     8 per-corner sums, and each corner row is read once per run;
-//   - a row is one float4 (C4) or float2 (C2) load through __ldg;
+//   - a row is one float4 (C4), float2 (C2) or four float4 (C16) loads
+//     through __ldg; with tetra the run's weights W[8] stay per cube corner
+//     (a corner is vertex popcount(c) of a simplex or no vertex), and only
+//     the corners some point of the run weights are read;
+//   - a mean-point level is one run of one point; cells, fractions, ranks
+//     and means are rounded as the plain version rounds them (one FMA for
+//     x * scale + 0.5, a mean as a sum times float(1 / n)), so both pick
+//     the same corners;
 //   - a block takes one level and a tile of kThreads consecutive samples.
 //     The caller picks the block order (ops/grid.py:level_major): a table
 //     larger than the L2 runs level-major, so one level's slice at a time
@@ -91,11 +101,15 @@
 //
 // H1 backward hash_encode_ms_bwd: the gradient of hash_encode_ms, which JAX
 //   gets by autodiff through the gathers of _ms_encode_impl
-//   (diff_inputs=True). d_table: every in-range corner adds
-//   w_corner * erf_w / n * g_out[b, l] to its row. d_x01 / d_stds (only
-//   when asked for): the derivative of the trilinear weights times scale_l,
-//   and of the erf weight, each against <g_out, corner row>, per point,
-//   summed over the levels with atomics. Bound by table atomics, and at the
+//   (diff_inputs=True) or from _ms_encode_nodiff_bwd (diff_inputs=False:
+//   d_table alone). d_table: every in-range corner adds
+//   w_corner * erf_w / n * g_out[b, l] to its row (a mean-point level:
+//   w_corner * w_mean * g_out[b, l] at the mean point). d_x01 / d_stds
+//   (only when asked for): the derivative of the trilinear or simplex
+//   weights (the sorted fractions' gradients with JAX's rule at ties)
+//   times scale_l, and of the erf weight, each against <g_out, corner
+//   row>, per point (a mean-point level: 1 / n of the mean's to each
+//   point), summed over the levels with atomics. Bound by table atomics, and at the
 //   coarse levels by same-row serialisation: training points cluster along
 //   rays, so millions of updates land on a few thousand rows. Design, with
 //   the forward's threads, block order and staging (level-major, a level's
@@ -132,6 +146,7 @@ struct GridLevels {
   uint32_t rows[kMaxLevels];    // rows of the level's table slice
   uint32_t offset[kMaxLevels];  // first row of the level in the table
   int tiled[kMaxLevels];        // 1: direct index, 0: XOR-prime hash
+  int mean[kMaxLevels];         // 1: encode the multisample mean point
 };
 
 // Rays (warps) of a block of K1, as long as their channel sums fit.
@@ -254,12 +269,13 @@ __global__ void composite_kernel(
 struct Level {
   float scale, g2;
   uint32_t res, rows;
-  bool tiled;
+  bool tiled, mean;
 };
 
 __device__ __forceinline__ Level level_of(const GridLevels& lv, int l) {
   const float g = lv.grid_size[l];
-  return Level{lv.scale[l], g * g, lv.res[l], lv.rows[l], lv.tiled[l] != 0};
+  return Level{lv.scale[l], g * g,          lv.res[l],
+               lv.rows[l],  lv.tiled[l] != 0, lv.mean[l] != 0};
 }
 
 // A point's cell at one level and its fractions within it.
@@ -274,11 +290,13 @@ __device__ __forceinline__ bool in_unit_cube(float x, float y, float z) {
 
 __device__ __forceinline__ Cell cell_of(float x, float y, float z,
                                         float scale) {
-  // pos = x * scale + 0.5, rounded after each operation (never an FMA),
-  // so floor() picks the same cell as the reference.
-  const float px = __fadd_rn(__fmul_rn(x, scale), 0.5f);
-  const float py = __fadd_rn(__fmul_rn(y, scale), 0.5f);
-  const float pz = __fadd_rn(__fmul_rn(z, scale), 0.5f);
+  // pos = x * scale + 0.5 with one rounding (a fused multiply-add), as the
+  // plain version (ops/grid.py:grid_pos) and XLA's CPU code take it, so
+  // floor() picks the same cell and the fractions (and the tetrahedral
+  // ranks) agree to the bit.
+  const float px = __fmaf_rn(x, scale, 0.5f);
+  const float py = __fmaf_rn(y, scale, 0.5f);
+  const float pz = __fmaf_rn(z, scale, 0.5f);
   const float gx = floorf(px), gy = floorf(py), gz = floorf(pz);
   return Cell{(int)gx, (int)gy, (int)gz, px - gx, py - gy, pz - gz};
 }
@@ -292,6 +310,75 @@ __device__ __forceinline__ bool same_cell(const Cell& p, int ix, int iy,
 __device__ __forceinline__ float corner_weight(const Cell& p, int c) {
   return ((c & 1) ? p.rx : 1.f - p.rx) * ((c & 2) ? p.ry : 1.f - p.ry) *
          ((c & 4) ? p.rz : 1.f - p.rz);
+}
+
+// The Kuhn simplex of the cell that holds a point (tetrahedral
+// interpolation, the JAX `_corner_list`): each axis' rank (0 = largest
+// fraction, ties broken by axis order as the JAX code does) and the vertex
+// weights 1 - s1, s1 - s2, s2 - s3, s3 of the sorted fractions, s2 summed
+// in the JAX order.
+struct Simplex {
+  int r[3];
+  float w[4];
+};
+
+__device__ __forceinline__ Simplex simplex_of(const Cell& p) {
+  const float fx = p.rx, fy = p.ry, fz = p.rz;
+  Simplex t;
+  t.r[0] = (fy > fx) + (fz > fx);
+  t.r[1] = (fx >= fy) + (fz > fy);
+  t.r[2] = (fx >= fz) + (fy >= fz);
+  const float s1 = fmaxf(fmaxf(fx, fy), fz);
+  const float s3 = fminf(fminf(fx, fy), fz);
+  const float s2 =
+      __fsub_rn(__fsub_rn(__fadd_rn(__fadd_rn(fx, fy), fz), s1), s3);
+  t.w[0] = 1.f - s1;
+  t.w[1] = s1 - s2;
+  t.w[2] = s2 - s3;
+  t.w[3] = s3;
+  return t;
+}
+
+// Vertex k of the simplex: the corner that steps along the axes ranked
+// below k.
+__device__ __forceinline__ int vertex_corner(const Simplex& t, int k) {
+  return (t.r[0] < k) | ((t.r[1] < k) << 1) | ((t.r[2] < k) << 2);
+}
+
+// W[c] += a * (weight of corner c) for one point: the 8 trilinear weights,
+// or the 4 simplex weights (corner c is vertex popcount(c) or none). c is
+// a constant in each unrolled step, so W stays in registers.
+template <bool kTetra>
+__device__ __forceinline__ void add_weights(const Cell& p, float a,
+                                            float* W) {
+  if constexpr (kTetra) {
+    const Simplex t = simplex_of(p);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int k = (c & 1) + ((c >> 1) & 1) + ((c >> 2) & 1);
+      if (vertex_corner(t, k) == c) W[c] += a * t.w[k];
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) W[c] += a * corner_weight(p, c);
+  }
+}
+
+// d s / d (fx, fy, fz) for s = op(op(fx, fy), fz), op = max (kMax) or
+// min, by the rule of JAX's (and torch's) max / min gradient: an input
+// equal to the result takes 1, or 0.5 when the other input equals it too.
+__device__ __forceinline__ float tie_share(float a, float b, float m) {
+  return a == m ? (b == m ? 0.5f : 1.f) : 0.f;
+}
+
+template <bool kMax>
+__device__ __forceinline__ void sorted_grad(const Cell& p, float* d) {
+  const float m = kMax ? fmaxf(p.rx, p.ry) : fminf(p.rx, p.ry);
+  const float s = kMax ? fmaxf(m, p.rz) : fminf(m, p.rz);
+  const float dm = tie_share(m, p.rz, s);
+  d[0] = tie_share(p.rx, p.ry, m) * dm;
+  d[1] = tie_share(p.ry, p.rx, m) * dm;
+  d[2] = tie_share(p.rz, m, s);
 }
 
 // Row of corner c of cell (ix, iy, iz) within the level's slice: uint32
@@ -318,6 +405,9 @@ __device__ __forceinline__ void load_row(const float* p, float* v) {
   } else if constexpr (C == 2) {
     const float2 t = __ldg(reinterpret_cast<const float2*>(p));
     v[0] = t.x; v[1] = t.y;
+  } else if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) load_row<4>(p + 4 * q, v + 4 * q);
   } else {
 #pragma unroll
     for (int k = 0; k < C; ++k) v[k] = __ldg(p + k);
@@ -330,6 +420,9 @@ __device__ __forceinline__ void store_row(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else if constexpr (C == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) store_row<4>(p + 4 * q, v + 4 * q);
   } else {
 #pragma unroll
     for (int k = 0; k < C; ++k) p[k] = v[k];
@@ -386,13 +479,16 @@ __device__ __forceinline__ Points points_of(const float* x01,
   return Points{x01 + (b0 + t) * n * 3, stds + (b0 + t) * n};
 }
 
-// Adds sum_c W[c] * row_c of cell (ix, iy, iz) into acc.
-template <int C>
+// Adds sum_c W[c] * row_c of cell (ix, iy, iz) into acc. With tetra only
+// the corners of some point's simplex carry a weight: the others are not
+// read.
+template <int C, bool kTetra>
 __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
                                            int iz, const float* W,
                                            const Level& v, float* acc) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
+    if (kTetra && W[c] == 0.f) continue;
     float row[C];
     load_row<C>(tbl + (int64_t)corner_row(ix, iy, iz, c, v) * C, row);
 #pragma unroll
@@ -400,11 +496,16 @@ __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
   }
 }
 
+// The erf downweighting of a point with std s at one level.
+__device__ __forceinline__ float erf_weight(float s, const Level& v) {
+  return erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * v.g2, 1e-10f)));
+}
+
 // The encode of one sample at one level, before the division by n:
 // acc[k] = sum over in-range points j of erf_w_j sum_c w_jc row_c[k], each
 // corner row read once per run of same-cell points. tbl: the level's slice
 // of the table.
-template <int C>
+template <int C, bool kTetra>
 __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
                                            const Level& v, float* acc) {
   float W[8];
@@ -413,11 +514,10 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
   for (int j = 0; j < n; ++j) {
     const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
     if (!in_unit_cube(x, y, z)) continue;  // encodes to 0, breaks no run
-    const float s = pt.s[j];
-    const float wl = erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * v.g2, 1e-10f)));
+    const float wl = erf_weight(pt.s[j], v);
     const Cell p = cell_of(x, y, z, v.scale);
     if (have && !same_cell(p, cx, cy, cz)) {
-      gather_run<C>(tbl, cx, cy, cz, W, v, acc);
+      gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
       have = false;
     }
     if (!have) {
@@ -428,13 +528,47 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
 #pragma unroll
       for (int c = 0; c < 8; ++c) W[c] = 0.f;
     }
-#pragma unroll
-    for (int c = 0; c < 8; ++c) W[c] += wl * corner_weight(p, c);
+    add_weights<kTetra>(p, wl, W);
   }
-  if (have) gather_run<C>(tbl, cx, cy, cz, W, v, acc);
+  if (have) gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
 }
 
-template <int C>
+// A sample's mean point (its n points, out-of-range ones included, summed
+// in order and times float(1 / n), as the plain version takes it) and its
+// mean erf weight at one level.
+struct MeanPoint {
+  float x, y, z, w;
+};
+
+__device__ __forceinline__ MeanPoint mean_of(Points pt, int n,
+                                             const Level& v) {
+  float x = 0.f, y = 0.f, z = 0.f, w = 0.f;
+  for (int j = 0; j < n; ++j) {
+    x = __fadd_rn(x, pt.x[3 * j]);
+    y = __fadd_rn(y, pt.x[3 * j + 1]);
+    z = __fadd_rn(z, pt.x[3 * j + 2]);
+    w = __fadd_rn(w, erf_weight(pt.s[j], v));
+  }
+  const float r = __fdiv_rn(1.0f, (float)n);
+  return MeanPoint{__fmul_rn(x, r), __fmul_rn(y, r), __fmul_rn(z, r),
+                   __fmul_rn(w, r)};
+}
+
+// A mean-point level (resolution at or below the coarse cutoff): the mean
+// point encoded once with the mean erf weight; 0 when it is out of range.
+template <int C, bool kTetra>
+__device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
+                                            int n, const Level& v,
+                                            float* acc) {
+  const MeanPoint m = mean_of(pt, n, v);
+  if (!in_unit_cube(m.x, m.y, m.z)) return;
+  const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+  float W[8] = {};
+  add_weights<kTetra>(p, m.w, W);
+  gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc);
+}
+
+template <int C, bool kTetra>
 __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
                                       const float* __restrict__ x01,
                                       const float* __restrict__ stds,
@@ -452,12 +586,16 @@ __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
   }
   if ((int)threadIdx.x >= cnt) return;
   float acc[C] = {};
-  encode_one<C>(table + (int64_t)lv.offset[w.l] * C,
-                points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr), n,
-                v, acc);
-  const int64_t b = w.b0 + threadIdx.x;
+  const float* tbl = table + (int64_t)lv.offset[w.l] * C;
+  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+  if (v.mean) {
+    encode_mean<C, kTetra>(tbl, pt, n, v, acc);
+  } else {
+    encode_one<C, kTetra>(tbl, pt, n, v, acc);
 #pragma unroll
-  for (int k = 0; k < C; ++k) acc[k] = acc[k] / (float)n;
+    for (int k = 0; k < C; ++k) acc[k] = acc[k] / (float)n;
+  }
+  const int64_t b = w.b0 + threadIdx.x;
   store_row<C>(out + (b * L + w.l) * C, acc);
 }
 
@@ -469,6 +607,9 @@ __device__ __forceinline__ void add_row(float* dst, const float* v) {
   if constexpr (C == 4) {
     atomicAdd(reinterpret_cast<float4*>(dst),
               make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (C % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) add_row<4>(dst + 4 * q, v + 4 * q);
   } else if constexpr (C == 2) {
     atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
   } else {
@@ -608,8 +749,9 @@ __global__ void __launch_bounds__(kScatterThreads)
 // W[c] * g, where `act` says this lane has a run. All 32 lanes call
 // (warp-uniform): a lane whose run is in the same cell as its left
 // neighbour's joins that lane's segment, a segmented scan sums each
-// segment, and its last lane adds the sum.
-template <int C>
+// segment, and its last lane adds the sum. With tetra a corner that no
+// lane's run weights is skipped, and a segment whose sum is 0 adds nothing.
+template <int C, bool kTetra>
 __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
                                          const float* W, const float* g,
                                          float* dst, const Level& v) {
@@ -626,6 +768,7 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
   const bool scan = heads != kFullMask;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
+    if (kTetra && !__any_sync(kFullMask, act && W[c] != 0.f)) continue;
     float u[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) u[k] = W[c] * g[k];
@@ -639,25 +782,92 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
         }
       }
     }
-    if (last)
-      add_row<C>(dst + (int64_t)corner_row(ix, iy, iz, c, v) * C, u);
+    bool add = last;
+    if (kTetra && add) {
+      add = false;
+#pragma unroll
+      for (int k = 0; k < C; ++k) add |= u[k] != 0.f;
+    }
+    if (add) add_row<C>(dst + (int64_t)corner_row(ix, iy, iz, c, v) * C, u);
   }
+}
+
+// <g, feature> (fdot) and <g, d feature / d frac> (df[3]) of a point in
+// cell p, from the rows of its interpolation corners: the derivative of
+// the trilinear weights, or of the simplex weights (the sorted fractions'
+// gradients with JAX's rule at ties, as the plain version takes them).
+template <int C, bool kTetra>
+__device__ __forceinline__ void point_grads(const float* tbl, const Cell& p,
+                                            const float* g, const Level& v,
+                                            float& fdot, float* df) {
+  fdot = 0.f;
+  df[0] = df[1] = df[2] = 0.f;
+  if constexpr (kTetra) {
+    const Simplex t = simplex_of(p);
+    float d1[3], d3[3];
+    sorted_grad<true>(p, d1);
+    sorted_grad<false>(p, d3);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float row[C];
+      load_row<C>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz,
+                                            vertex_corner(t, k), v) * C,
+                  row);
+      float dot = 0.f;
+#pragma unroll
+      for (int q = 0; q < C; ++q) dot += g[q] * row[q];
+      fdot += t.w[k] * dot;
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float d2 = 1.f - d1[d] - d3[d];
+        const float dw = k == 0   ? -d1[d]
+                         : k == 1 ? d1[d] - d2
+                         : k == 2 ? d2 - d3[d]
+                                  : d3[d];
+        df[d] += dw * dot;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float wx = (c & 1) ? p.rx : 1.f - p.rx;
+      const float wy = (c & 2) ? p.ry : 1.f - p.ry;
+      const float wz = (c & 4) ? p.rz : 1.f - p.rz;
+      float row[C];
+      load_row<C>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz, c, v) * C, row);
+      float dot = 0.f;
+#pragma unroll
+      for (int q = 0; q < C; ++q) dot += g[q] * row[q];
+      fdot += (wx * wy * wz) * dot;
+      df[0] += ((c & 1) ? 1.f : -1.f) * wy * wz * dot;
+      df[1] += wx * ((c & 2) ? 1.f : -1.f) * wz * dot;
+      df[2] += wx * wy * ((c & 4) ? 1.f : -1.f) * dot;
+    }
+  }
+}
+
+// d erf_weight / ds at std s (0 where the weight's argument is clamped).
+__device__ __forceinline__ float erf_weight_grad(float s, const Level& v) {
+  const float u = 8.0f * (s * s) * v.g2;
+  if (!(u > 1e-10f)) return 0.f;
+  // v = u^-1/2, u = 8 s^2 g^2.
+  const float vs = 1.0f / sqrtf(u);
+  return 1.1283791671f * expf(-vs * vs) * (-0.5f * vs / u) *
+         (16.0f * s * v.g2);
 }
 
 // The backward of one sample at one level. Every lane of the warp calls
 // (`active`: this lane holds a sample), because add_runs shuffles.
-// gp: g_out[b, l]; tbl: the level's table slice; dst: its d_table slice,
+// g: g_out[b, l]; tbl: the level's table slice; dst: its d_table slice,
 // nullptr when d_table is not wanted; dx / ds: this sample's d_x01 /
 // d_stds, nullptr when not wanted.
-template <int C>
+template <int C, bool kTetra>
 __device__ __forceinline__ void backward_one(bool active, Points pt,
-                                             const float* gp,
+                                             const float* g,
                                              const float* tbl, float* dst,
                                              float* dx, float* ds, int n,
                                              const Level& v) {
   const float inv_n = 1.0f / (float)n;
-  float g[C] = {};
-  if (active) load_row<C>(gp, g);
   float W[8] = {};
   int cx = 0, cy = 0, cz = 0;
   bool have = false;
@@ -671,14 +881,12 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
     }
     // Out-of-range points are encoded to 0 by a select: no gradient.
     const bool in = active && in_unit_cube(x, y, z);
-    const float u = 8.0f * (s * s) * v.g2;
-    const float vs = 1.0f / sqrtf(fmaxf(u, 1e-10f));
-    const float coef = erff(vs) * inv_n;  // d out[b, l] / d feat of point j
+    const float coef = erf_weight(s, v) * inv_n;  // d out / d feat of j
     const Cell p = cell_of(x, y, z, v.scale);
     if (dst != nullptr) {
       const bool ends = in && have && !same_cell(p, cx, cy, cz);
       if (__any_sync(kFullMask, ends))
-        add_runs<C>(ends, cx, cy, cz, W, g, dst, v);
+        add_runs<C, kTetra>(ends, cx, cy, cz, W, g, dst, v);
       if (ends) have = false;
       if (in) {
         if (!have) {
@@ -689,48 +897,61 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
 #pragma unroll
           for (int c = 0; c < 8; ++c) W[c] = 0.f;
         }
-#pragma unroll
-        for (int c = 0; c < 8; ++c) W[c] += coef * corner_weight(p, c);
+        add_weights<kTetra>(p, coef, W);
       }
     }
     if ((dx != nullptr || ds != nullptr) && in) {
-      float fdot = 0.f, dfx = 0.f, dfy = 0.f, dfz = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float wx = (c & 1) ? p.rx : 1.f - p.rx;
-        const float wy = (c & 2) ? p.ry : 1.f - p.ry;
-        const float wz = (c & 4) ? p.rz : 1.f - p.rz;
-        float row[C];
-        load_row<C>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz, c, v) * C,
-                    row);
-        float dot = 0.f;
-#pragma unroll
-        for (int k = 0; k < C; ++k) dot += g[k] * row[k];
-        fdot += (wx * wy * wz) * dot;
-        dfx += ((c & 1) ? 1.f : -1.f) * wy * wz * dot;
-        dfy += wx * ((c & 2) ? 1.f : -1.f) * wz * dot;
-        dfz += wx * wy * ((c & 4) ? 1.f : -1.f) * dot;
-      }
+      float fdot, df[3];
+      point_grads<C, kTetra>(tbl, p, g, v, fdot, df);
       if (dx != nullptr) {
         const float k = coef * v.scale;  // d frac / d x = scale (floor: 0)
-        atomicAdd(dx + 3 * j, k * dfx);
-        atomicAdd(dx + 3 * j + 1, k * dfy);
-        atomicAdd(dx + 3 * j + 2, k * dfz);
+        atomicAdd(dx + 3 * j, k * df[0]);
+        atomicAdd(dx + 3 * j + 1, k * df[1]);
+        atomicAdd(dx + 3 * j + 2, k * df[2]);
       }
-      if (ds != nullptr && u > 1e-10f) {
-        // d erf(v) / ds with v = u^-1/2, u = 8 s^2 g^2 (0 where u is
-        // clamped).
-        const float dwl = 1.1283791671f * expf(-vs * vs) * (-0.5f * vs / u) *
-                          (16.0f * s * v.g2);
-        atomicAdd(ds + j, inv_n * dwl * fdot);
-      }
+      if (ds != nullptr) atomicAdd(ds + j, inv_n * erf_weight_grad(s, v) * fdot);
     }
   }
   if (dst != nullptr && __any_sync(kFullMask, have))
-    add_runs<C>(have, cx, cy, cz, W, g, dst, v);
+    add_runs<C, kTetra>(have, cx, cy, cz, W, g, dst, v);
 }
 
-template <int C>
+// The backward of a mean-point level: the mean point's corners get
+// w_mean * weight * g (one run; neighbouring lanes in the same cell are
+// merged by add_runs), and each of the n points 1/n of the mean's position
+// and weight gradients. Warp-uniform, as backward_one.
+template <int C, bool kTetra>
+__device__ __forceinline__ void backward_mean(bool active, Points pt,
+                                              const float* g,
+                                              const float* tbl, float* dst,
+                                              float* dx, float* ds, int n,
+                                              const Level& v) {
+  MeanPoint m{0.f, 0.f, 0.f, 0.f};
+  if (active) m = mean_of(pt, n, v);
+  const bool in = active && in_unit_cube(m.x, m.y, m.z);
+  const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+  if (dst != nullptr && __any_sync(kFullMask, in)) {
+    float W[8] = {};
+    if (in) add_weights<kTetra>(p, m.w, W);
+    add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, dst, v);
+  }
+  if ((dx == nullptr && ds == nullptr) || !in) return;
+  const float fn = (float)n;
+  float fdot, df[3];
+  point_grads<C, kTetra>(tbl, p, g, v, fdot, df);
+  const float k = m.w / fn * v.scale;
+  const float fd = fdot / fn;
+  for (int j = 0; j < n; ++j) {
+    if (dx != nullptr) {
+      atomicAdd(dx + 3 * j, k * df[0]);
+      atomicAdd(dx + 3 * j + 1, k * df[1]);
+      atomicAdd(dx + 3 * j + 2, k * df[2]);
+    }
+    if (ds != nullptr) atomicAdd(ds + j, erf_weight_grad(pt.s[j], v) * fd);
+  }
+}
+
+template <int C, bool kTetra>
 __global__ void hash_encode_ms_bwd_kernel(
     const float* __restrict__ table, const float* __restrict__ x01,
     const float* __restrict__ stds, const float* __restrict__ g_out,
@@ -746,21 +967,25 @@ __global__ void hash_encode_ms_bwd_kernel(
     __syncthreads();
   }
   // No early return: the lanes past B join the warp's shuffles.
+  const bool active = (int)threadIdx.x < cnt;
   const int64_t b = w.b0 + threadIdx.x;
   const int64_t off = (int64_t)lv.offset[w.l] * C;
-  backward_one<C>(
-      (int)threadIdx.x < cnt,
-      points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr),
-      g_out + (b * L + w.l) * C, table + off,
-      d_table != nullptr ? d_table + off : nullptr,
-      d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr,
-      d_stds != nullptr ? d_stds + b * n : nullptr, n, v);
+  float g[C] = {};
+  if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
+  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+  float* dst = d_table != nullptr ? d_table + off : nullptr;
+  float* dx = d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr;
+  float* ds = d_stds != nullptr ? d_stds + b * n : nullptr;
+  if (v.mean)
+    backward_mean<C, kTetra>(active, pt, g, table + off, dst, dx, ds, n, v);
+  else
+    backward_one<C, kTetra>(active, pt, g, table + off, dst, dx, ds, n, v);
 }
 
 void fill_levels(GridLevels* lv, int L, const float* scale,
                  const float* grid_size, const unsigned int* res,
                  const unsigned int* rows, const unsigned int* offset,
-                 const int* tiled) {
+                 const int* tiled, const int* mean) {
   *lv = {};
   for (int l = 0; l < L; ++l) {
     lv->scale[l] = scale[l];
@@ -769,6 +994,7 @@ void fill_levels(GridLevels* lv, int L, const float* scale,
     lv->rows[l] = rows[l];
     lv->offset[l] = offset[l];
     lv->tiled[l] = tiled[l];
+    lv->mean[l] = mean[l];
   }
 }
 
@@ -794,12 +1020,16 @@ cudaError_t launch_of(int64_t B, int n, int L, int level_major, Launch* g) {
 template <int C>
 cudaError_t encode(const float* table, const float* x01, const float* stds,
                    float* out, int64_t B, int n, int L, const GridLevels& lv,
-                   int level_major, cudaStream_t s) {
+                   int tetra, int level_major, cudaStream_t s) {
   Launch g;
   const cudaError_t err = launch_of(B, n, L, level_major, &g);
   if (err != cudaSuccess) return err;
-  hash_encode_ms_kernel<C><<<g.blocks, kThreads, g.smem, s>>>(
-      table, x01, stds, out, B, n, L, g.tiles, level_major, g.smem > 0, lv);
+  if (tetra)
+    hash_encode_ms_kernel<C, true><<<g.blocks, kThreads, g.smem, s>>>(
+        table, x01, stds, out, B, n, L, g.tiles, level_major, g.smem > 0, lv);
+  else
+    hash_encode_ms_kernel<C, false><<<g.blocks, kThreads, g.smem, s>>>(
+        table, x01, stds, out, B, n, L, g.tiles, level_major, g.smem > 0, lv);
   return cudaGetLastError();
 }
 
@@ -807,13 +1037,19 @@ template <int C>
 cudaError_t backward(const float* table, const float* x01, const float* stds,
                      const float* g_out, float* d_table, float* d_x01,
                      float* d_stds, int64_t B, int n, int L,
-                     const GridLevels& lv, int level_major, cudaStream_t s) {
+                     const GridLevels& lv, int tetra, int level_major,
+                     cudaStream_t s) {
   Launch g;
   const cudaError_t err = launch_of(B, n, L, level_major, &g);
   if (err != cudaSuccess) return err;
-  hash_encode_ms_bwd_kernel<C><<<g.blocks, kThreads, g.smem, s>>>(
-      table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, g.tiles,
-      level_major, g.smem > 0, lv);
+  if (tetra)
+    hash_encode_ms_bwd_kernel<C, true><<<g.blocks, kThreads, g.smem, s>>>(
+        table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, g.tiles,
+        level_major, g.smem > 0, lv);
+  else
+    hash_encode_ms_bwd_kernel<C, false><<<g.blocks, kThreads, g.smem, s>>>(
+        table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, g.tiles,
+        level_major, g.smem > 0, lv);
   return cudaGetLastError();
 }
 
@@ -882,35 +1118,45 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
   return cudaGetLastError();
 }
 
+// mean: per level, 1 where it encodes the multisample mean point (the
+// coarse cutoff); tetra: tetrahedral interpolation (else trilinear);
 // level_major: the block order (ops/grid.py:level_major).
 int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                       float* out, long long B, int n, int L, int C,
                       const float* scale, const float* grid_size,
                       const unsigned int* res, const unsigned int* rows,
                       const unsigned int* offset, const int* tiled,
-                      int level_major, int device, void* stream) {
+                      const int* mean, int tetra, int level_major, int device,
+                      void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, mean);
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // The presets' grids: C = 1 and 4 (proposal), 4 and 16 (NeRF), 2
+  // (objects, tiny_debug).
   switch (C) {
     case 1:
-      return encode<1>(table, x01, stds, out, B, n, L, lv, level_major, s);
+      return encode<1>(table, x01, stds, out, B, n, L, lv, tetra,
+                       level_major, s);
     case 2:
-      return encode<2>(table, x01, stds, out, B, n, L, lv, level_major, s);
+      return encode<2>(table, x01, stds, out, B, n, L, lv, tetra,
+                       level_major, s);
     case 4:
-      return encode<4>(table, x01, stds, out, B, n, L, lv, level_major, s);
-    // The ported presets' grids: C = 1 (proposal), 4 (NeRF), 2 (tiny_debug).
+      return encode<4>(table, x01, stds, out, B, n, L, lv, tetra,
+                       level_major, s);
+    case 16:
+      return encode<16>(table, x01, stds, out, B, n, L, lv, tetra,
+                        level_major, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // d_table, d_x01, d_stds: zero-filled by the caller, each nullptr when not
-// wanted. level_major: the block order, as the forward's.
+// wanted. mean, tetra, level_major: as the forward's.
 int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* stds, const float* g_out,
                           float* d_table, float* d_x01, float* d_stds,
@@ -918,24 +1164,28 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                           const float* grid_size, const unsigned int* res,
                           const unsigned int* rows,
                           const unsigned int* offset, const int* tiled,
-                          int level_major, int device, void* stream) {
+                          const int* mean, int tetra, int level_major,
+                          int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled);
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, mean);
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
       return backward<1>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, level_major, s);
+                         n, L, lv, tetra, level_major, s);
     case 2:
       return backward<2>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, level_major, s);
+                         n, L, lv, tetra, level_major, s);
     case 4:
       return backward<4>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, level_major, s);
+                         n, L, lv, tetra, level_major, s);
+    case 16:
+      return backward<16>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
+                          n, L, lv, tetra, level_major, s);
     default:
       return cudaErrorInvalidValue;
   }

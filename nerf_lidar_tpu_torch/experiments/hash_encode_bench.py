@@ -78,38 +78,60 @@ def points_in_range(x01):
     return int((~((x01 < 0) | (x01 > 1)).any(-1)).sum())
 
 
-def rows_read(spec, x01):
-    """Distinct table rows the encode of x01 reads."""
+def level_points(spec, x01, cutoff=0):
+    """Per level, the in-range points the encode of x01 interpolates at:
+    every in-range multisample point, or at a mean-point level (resolution
+    <= cutoff) each sample's in-range mean point."""
     from nerf_lidar_tpu_torch.ops import grid
     x = x01.reshape(-1, 3)
     x = x[~((x < 0) | (x > 1)).any(-1)]
-    read = torch.zeros(spec.total_rows, dtype=torch.bool, device=x.device)
-    for l in range(spec.num_levels):
-        ig = torch.floor(x * spec.scales[l] + 0.5).long()
-        for c in range(8):
-            read[spec.offsets[l] + grid._corner_index(
-                spec, l, ig[:, 0] + (c & 1), ig[:, 1] + (c >> 1 & 1),
-                ig[:, 2] + (c >> 2 & 1))] = True
+    mean = None
+    out = []
+    for at_mean in grid.mean_levels(spec, cutoff):
+        if at_mean and mean is None:
+            m, oob = grid._in_range(grid._seq_mean(
+                x01.reshape(-1, x01.shape[-2], 3)))
+            mean = m[~oob]
+        out.append(mean if at_mean else x)
+    return out
+
+
+def _corners_per_point(spec):
+    return 4 if spec.interp == "tetra" else 8
+
+
+def rows_read(spec, x01, cutoff=0):
+    """Distinct table rows the encode of x01 reads (4 simplex vertices or 8
+    cube corners per point and level)."""
+    from nerf_lidar_tpu_torch.ops import grid
+    read = torch.zeros(spec.total_rows, dtype=torch.bool, device=x01.device)
+    for l, pts in enumerate(level_points(spec, x01, cutoff)):
+        for idx, _, _ in grid._corners(spec, l, pts):
+            read[spec.offsets[l] + idx] = True
     return int(read.sum())
 
 
-def fwd_bound(spec, x01, stds):
+def _interp_flops(spec, x01, cutoff):
+    """A multiply-add per corner channel at every interpolated point."""
+    return sum(2 * pts.shape[0] * _corners_per_point(spec) * spec.level_dim
+               for pts in level_points(spec, x01, cutoff))
+
+
+def fwd_bound(spec, x01, stds, cutoff=0):
     """Bytes and operations of the encode: the points, the features and the
     distinct rows read; a multiply-add per corner channel."""
     out = stds.numel() // stds.shape[-1] * spec.output_dim * 4
     n_bytes = (nbytes(x01, stds) + out
-               + rows_read(spec, x01) * spec.level_dim * 4)
-    flops = 2 * points_in_range(x01) * spec.num_levels * 8 * spec.level_dim
-    return n_bytes, flops
+               + rows_read(spec, x01, cutoff) * spec.level_dim * 4)
+    return n_bytes, _interp_flops(spec, x01, cutoff)
 
 
-def bwd_bound(spec, x01, stds, g_out):
+def bwd_bound(spec, x01, stds, g_out, cutoff=0):
     """Bytes and operations of the backward: the points and g_out read, the
     whole d_table written; a multiply and an add per corner channel."""
     n_bytes = (nbytes(x01, stds, g_out)
                + spec.total_rows * spec.level_dim * 4)
-    flops = 2 * points_in_range(x01) * spec.num_levels * 8 * spec.level_dim
-    return n_bytes, flops
+    return n_bytes, _interp_flops(spec, x01, cutoff)
 
 
 def grid_names(model):
@@ -323,6 +345,7 @@ def profile_train(run, step, steps=2):
              ("scatter_add_rows", r"scatter_add_rows"),
              ("gemm", r"gemm|cutlass|sm90_xmma|matmul|dot_kernel"),
              ("sort", r"sort|radix"),
+             ("sin_cos", r"\bsin|\bcos|sincos"),
              ("optimizer", r"adam|multi_tensor|foreach"),
              ("reduce", r"reduce|norm_kernel"),
              ("elementwise_gather_where", r"elementwise|index|gather|where"
@@ -410,7 +433,8 @@ def main(argv=None):
         emit(root=root, what="train_step_profile", **profile)
 
     for name in GRIDS:
-        table, x01, stds, g_out, spec, needs = train[name]
+        # nuscenes_single's grids: no coarse cutoff.
+        table, x01, stds, g_out, spec, needs = train[name][:6]
         n_ms = x01.shape[-2]
         for inputs, (x, s) in (("train", (x01, stds)),
                                ("uniform", uniform_like(x01, stds, 6))):
@@ -436,7 +460,7 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     for name in GRIDS:
-        table, x01, stds, spec = render[name]
+        table, x01, stds, spec = render[name][:4]
         for inputs, (x, s) in (("render", (x01, stds)),
                                ("uniform", uniform_like(x01, stds, 1))):
             measure_fwd(root, name, inputs, table, x, s, spec, args.copies)

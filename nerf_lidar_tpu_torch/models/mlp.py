@@ -3,14 +3,24 @@ the NeRF, proposal and object MLPs.
 
 Per call: contract the multisample Gaussians (not for object MLPs, whose
 points are already in their unit box) -> hash-grid encode with erf
-downweighting, or without it (`re_weights=False`: object MLPs, stds taken
-as 0, where H1's weight is exactly 1) (kernel H1 on CUDA, its backward
-kernel in training) -> density trunk (+ the object latent's first half
-with `split_latent`; + density noise in training) -> softplus; for the
-NeRF level also the semantic head (v3 separate layers, v4 in-density
-channels, or a fixed one-hot class for object MLPs), the intensity head
-and the view-dependent RGB branch (posenc viewdirs, the latent's second
-half, the skip concat, sigmoid, padding).
+downweighting (levels at or below `ms_coarse_res_cutoff` at the
+multisample mean), or without it (`re_weights=False`: object MLPs, stds
+taken as 0, where H1's weight is exactly 1) (kernel H1 on CUDA, its
+backward kernel in training) -> with the spectral encoder
+(`encoder='dense_fourier'`) the Fourier features of `ops/fourier.py`
+appended -> density trunk (+ the object latent's first half with
+`split_latent`; + density noise in training) -> softplus; for the NeRF
+level also the semantic head (v3 separate layers, v4 in-density channels,
+or a fixed one-hot class for object MLPs), the intensity head and the
+view-dependent RGB branch (posenc viewdirs, the latent's second half, the
+skip concat, sigmoid, padding).
+
+`compute_dtype='bfloat16'` is the JAX mixed-precision policy: parameters
+stay float32 and every Dense casts its input, weight and bias to bfloat16
+per call (flax `Dense(dtype=bfloat16)`), so the trunk, the heads' hidden
+layers and the RGB branch run in bfloat16; the encode, the raw density
+and its softplus, every head's output (softmax, sigmoid, intensity) and
+the compositing stay float32.
 
 Parameter names follow the Flax module (`table`, `density_layers_{i}` ->
 `density_layers.{i}`, ...), so `convert.flax_to_state_dict` is a rename and
@@ -29,6 +39,7 @@ from torch import nn
 
 from ..configs import MLPConfig
 from ..ops import coord
+from ..ops import fourier as fourierlib
 from ..ops import grid as gridlib
 
 # MLPConfig flags this port does not implement, each with its ported value.
@@ -37,8 +48,8 @@ _PORTED_VALUES = dict(
     enable_pred_normals=False, enable_pred_roughness=False,
     use_n_dot_v=False, use_diffuse_color=False, use_specular_tint=False,
     disable_density_normals=True, num_glo_features=0,
-    scale_featurization=False, ms_coarse_res_cutoff=0,
-    compute_dtype="float32")
+    scale_featurization=False)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_ported(cfg: MLPConfig) -> None:
@@ -48,22 +59,33 @@ def check_ported(cfg: MLPConfig) -> None:
             raise NotImplementedError(
                 f"MLPConfig.{name}={getattr(cfg, name)!r} is not ported "
                 f"(only {ported!r})")
-    g = cfg.grid
-    if g.encoder != "hash" or g.interp != "linear" or not g.diff_inputs:
+    if cfg.compute_dtype not in _DTYPES:
         raise NotImplementedError(
-            f"grid encoder={g.encoder!r} interp={g.interp!r} "
-            f"diff_inputs={g.diff_inputs} is not ported (only 'hash', "
-            "'linear', diff_inputs=True)")
+            f"compute_dtype={cfg.compute_dtype!r} is not ported")
     if cfg.warp_fn not in (None, "contract"):
         raise NotImplementedError(f"warp_fn={cfg.warp_fn!r} is not ported")
 
 
 class Dense(nn.Linear):
     """nn.Linear whose parameters start uninitialised: `init_weights` or a
-    converted state dict fills them, never the global RNG."""
+    converted state dict fills them, never the global RNG. With a
+    `dtype` other than float32 it computes as flax `Dense(dtype=...)`:
+    input, weight and bias cast to it per call, the product rounded to it
+    before the bias is added (the parameters stay float32)."""
+
+    def __init__(self, *args, dtype=torch.float32, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
 
     def reset_parameters(self) -> None:
         pass
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        return (torch.matmul(x.to(dt), self.weight.to(dt).t())
+                + self.bias.to(dt))
 
 
 def _fill_(param: torch.Tensor, sample) -> None:
@@ -117,6 +139,18 @@ class ZipMLP(nn.Module):
         self.table = nn.Parameter(torch.empty(
             (self.spec.total_rows, self.spec.level_dim), dtype=torch.float32,
             device=device))
+        dt = _DTYPES[cfg.compute_dtype]
+        feat_w = self.spec.output_dim
+        self.register_buffer("fourier_freqs", None, persistent=False)
+        if cfg.grid.encoder == "dense_fourier":
+            # The JAX MLP draws the matrix at every init from PRNGKey(7) and
+            # never stores it: a buffer outside the state dict.
+            self.fourier_freqs = torch.from_numpy(
+                fourierlib.make_frequency_matrix(
+                    7, cfg.grid.fourier_freqs,
+                    float(self.spec.desired_resolution),
+                    float(cfg.grid.desired_resolution))).to(device)
+            feat_w += 2 * cfg.grid.fourier_freqs
 
         dens_lat, view_lat = (_width(sl, latent_width)
                               for sl in latent_split(cfg, latent_width))
@@ -127,9 +161,10 @@ class ZipMLP(nn.Module):
             trunk = (128, 128, 128)
         else:
             trunk = (64,)
-        dims = (self.spec.output_dim + dens_lat, *trunk, width_out)
+        dims = (feat_w + dens_lat, *trunk, width_out)
         self.density_layers = nn.ModuleList(
-            Dense(a, b, device=device) for a, b in zip(dims[:-1], dims[1:]))
+            Dense(a, b, device=device, dtype=dt)
+            for a, b in zip(dims[:-1], dims[1:]))
         if cfg.disable_rgb:
             return
 
@@ -137,19 +172,22 @@ class ZipMLP(nn.Module):
         if cfg.use_semantic and not cfg.no_sem_layer \
                 and not cfg.fixed_semantic:
             self.sem_layers = nn.ModuleList(
-                [Dense(w, 64, device=device),
-                 Dense(64, cfg.class_num, device=device)])
+                [Dense(w, 64, device=device, dtype=dt),
+                 Dense(64, cfg.class_num, device=device, dtype=dt)])
         if cfg.use_intensity:
             self.intensity_layers = nn.ModuleList(
-                [Dense(w, 64, device=device), Dense(64, 1, device=device)])
+                [Dense(w, 64, device=device, dtype=dt),
+                 Dense(64, 1, device=device, dtype=dt)])
         in_w = w + (3 + 6 * cfg.deg_view if use_viewdirs else 0) + view_lat
         h_w, view = in_w, []
         for i in range(cfg.net_depth_viewdirs):
-            view.append(Dense(h_w, cfg.net_width_viewdirs, device=device))
+            view.append(Dense(h_w, cfg.net_width_viewdirs, device=device,
+                              dtype=dt))
             h_w = cfg.net_width_viewdirs + (in_w if i == cfg.skip_layer_dir
                                             else 0)
         self.view_layers = nn.ModuleList(view)
-        self.rgb_layer = Dense(h_w, cfg.num_rgb_channels, device=device)
+        self.rgb_layer = Dense(h_w, cfg.num_rgb_channels, device=device,
+                               dtype=dt)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -170,23 +208,34 @@ class ZipMLP(nn.Module):
             self.density_layers[-1].bias.fill_(0.1)
 
     def _encode(self, means, stds, use_kernels: bool) -> torch.Tensor:
-        """Contract + hash-encode + erf-downweight the multisample cloud.
-        means: [..., n, 3] world coords; stds: [..., n]. Returns [..., F]."""
-        if self.cfg.warp_fn is not None:
-            means, stds = coord.track_linearize(self.cfg.warp_fn, means, stds)
+        """Contract + hash-encode + erf-downweight the multisample cloud
+        (+ the Fourier features of a spectral grid). means: [..., n, 3]
+        world coords; stds: [..., n]. Returns [..., F]."""
+        c = self.cfg
+        if c.warp_fn is not None:
+            means, stds = coord.track_linearize(c.warp_fn, means, stds)
             bound = 2.0  # contraction lands in [-2, 2]
             means = means / bound
             stds = stds / bound
         x01 = (means + 1.0) / 2.0
-        if not self.cfg.re_weights:
-            # No erf downweighting: at stds = 0 the weight is exactly 1, so
-            # the encode is the mean of the n points' plain encodings.
-            stds = torch.zeros_like(stds)
+        cutoff, enc_stds = c.ms_coarse_res_cutoff, stds
+        if not c.re_weights:
+            # No erf downweighting (the JAX `hash_encode`, which has no
+            # coarse cutoff): at stds = 0 the weight is exactly 1, so the
+            # encode is the mean of the n points' plain encodings.
+            cutoff, enc_stds = 0, torch.zeros_like(stds)
         if use_kernels:
-            return gridlib.hash_encode_multisample(self.table, x01, stds,
-                                                   self.spec)
-        return gridlib.hash_encode_multisample_plain(self.table, x01, stds,
-                                                     self.spec)[0]
+            feats = gridlib.hash_encode_multisample(self.table, x01, enc_stds,
+                                                    self.spec, cutoff)
+        else:
+            feats = gridlib.hash_encode_multisample_plain(
+                self.table, x01, enc_stds, self.spec, cutoff)[0]
+        if self.fourier_freqs is not None:
+            enc = (fourierlib.fourier_encode_pooled if c.grid.fourier_pooled
+                   else fourierlib.fourier_encode)
+            feats = torch.cat([feats, enc(x01, stds, self.fourier_freqs)],
+                              dim=-1)
+        return feats
 
     def forward(self, means: torch.Tensor, stds: torch.Tensor,
                 viewdirs: Optional[torch.Tensor] = None,
@@ -208,7 +257,7 @@ class ZipMLP(nn.Module):
             x = layer(x)
             if i != len(self.density_layers) - 1:
                 x = F.relu(x)
-        raw_density = x[..., 0]
+        raw_density = x[..., 0].float()
         if generator is not None and c.density_noise > 0:
             raw_density = raw_density + c.density_noise * torch.randn(
                 raw_density.shape, generator=generator,
@@ -222,7 +271,8 @@ class ZipMLP(nn.Module):
         if c.use_semantic and c.fixed_semantic:
             # A constant class, which takes no gradient (none for 255; an
             # id past the head is dropped, as JAX's scatter drops it).
-            sem = x.new_zeros(x.shape[:-1] + (c.class_num,))
+            sem = x.new_zeros(x.shape[:-1] + (c.class_num,),
+                              dtype=torch.float32)
             if 0 <= c.class_type < c.class_num:
                 sem[..., c.class_type] = 1.0
             out["semantic"] = sem
@@ -231,10 +281,10 @@ class ZipMLP(nn.Module):
                 sem = x[..., 1:1 + c.class_num]  # v4: in-density channels
             else:
                 sem = self.sem_layers[1](F.relu(self.sem_layers[0](x)))
-            out["semantic"] = torch.softmax(sem, dim=-1)
+            out["semantic"] = torch.softmax(sem.float(), dim=-1)
         if c.use_intensity:
             out["intensity"] = self.intensity_layers[1](
-                F.relu(self.intensity_layers[0](x)))
+                F.relu(self.intensity_layers[0](x))).float()
 
         bottleneck = x
         if generator is not None and c.bottleneck_noise > 0:
@@ -260,7 +310,7 @@ class ZipMLP(nn.Module):
             h = F.relu(layer(h))
             if i == c.skip_layer_dir:
                 h = torch.cat([h, inputs], dim=-1)
-        rgb = torch.sigmoid(c.rgb_premultiplier * self.rgb_layer(h)
+        rgb = torch.sigmoid(c.rgb_premultiplier * self.rgb_layer(h).float()
                             + c.rgb_bias)
         out["rgb"] = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
         return out

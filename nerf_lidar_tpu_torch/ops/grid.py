@@ -5,7 +5,8 @@ imports jax); `tests/test_torch_grid.py` holds the two equal.
 
 The multisample encode exists twice:
 - `hash_encode_multisample_plain`: straightforward torch, the twin of the
-  JAX `_ms_encode_impl` (linear interpolation, no coarse cutoff), and
+  JAX `_ms_encode_impl` (trilinear or tetrahedral interpolation, levels at
+  or below a coarse cutoff encoding the multisample mean), and
   `hash_encode_multisample_bwd_plain`, its gradients written out;
 - `hash_encode_multisample`: the wrapper the model calls, a
   `torch.autograd.Function`. CPU tensors take the plain versions; CUDA
@@ -36,9 +37,9 @@ from . import _build
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
-# Channel widths kernel H1 is instantiated for: those of the ported presets'
-# grids (proposal 1, NeRF 4, tiny_debug's NeRF 2).
-_KERNEL_LEVEL_DIMS = (1, 2, 4)
+# Channel widths kernel H1 is instantiated for: those of the presets' grids
+# (proposal 1 and 4, NeRF 4 and 16, object and tiny_debug's NeRF 2).
+_KERNEL_LEVEL_DIMS = (1, 2, 4, 16)
 # Channel widths kernel K3 takes: the powers of two that divide a warp.
 _SCATTER_WIDTHS = (1, 2, 4, 8, 16, 32)
 # The 8 unit-cube corner offsets, corner c = (c & 1, c >> 1 & 1, c >> 2 & 1).
@@ -114,23 +115,40 @@ class HashGridSpec:
 
 
 def spec_for(grid_cfg) -> HashGridSpec:
-    """The table spec for a `configs.GridConfig` ('hash' encoder only)."""
-    if grid_cfg.encoder != "hash":
+    """The table spec for a `configs.GridConfig`, as the JAX `spec_for`.
+
+    encoder='dense_fourier' keeps only the dense tiled band: levels up to
+    fourier_dense_res, with the hashmap sized to hold the finest corner
+    lattice (the high-resolution band is `ops/fourier.py`'s features)."""
+    if grid_cfg.encoder not in ("hash", "dense_fourier"):
         raise NotImplementedError(
-            f"encoder={grid_cfg.encoder!r} is not ported (only 'hash')")
+            f"encoder={grid_cfg.encoder!r} is not ported")
+    num_levels = grid_cfg.num_levels
+    desired = grid_cfg.desired_resolution
+    log2 = grid_cfg.log2_hashmap_size
+    if grid_cfg.encoder == "dense_fourier":
+        desired = min(grid_cfg.fourier_dense_res, desired)
+        num_levels = int(np.log(desired / grid_cfg.base_resolution)
+                         / np.log(grid_cfg.level_interval)) + 1
+        log2 = max(log2, int(np.ceil(np.log2((desired + 2) ** 3))))
     return HashGridSpec(
-        num_levels=grid_cfg.num_levels, level_dim=grid_cfg.level_dim,
+        num_levels=num_levels, level_dim=grid_cfg.level_dim,
         base_resolution=grid_cfg.base_resolution,
-        desired_resolution=grid_cfg.desired_resolution,
-        log2_hashmap_size=grid_cfg.log2_hashmap_size,
+        desired_resolution=desired, log2_hashmap_size=log2,
         interp=grid_cfg.interp, diff_inputs=grid_cfg.diff_inputs)
 
 
 def _check_ported(spec: HashGridSpec) -> None:
-    if spec.interp != "linear":
+    if spec.interp not in ("linear", "tetra"):
         raise NotImplementedError(f"interp={spec.interp!r} is not ported")
     if spec.input_dim != 3:
         raise NotImplementedError(f"input_dim={spec.input_dim} is not ported")
+
+
+def mean_levels(spec: HashGridSpec, coarse_res_cutoff: int):
+    """Per level: True where the level encodes only the multisample mean
+    point (resolution <= coarse_res_cutoff; the JAX coarse cutoff)."""
+    return [r <= coarse_res_cutoff for r in spec.resolutions]
 
 
 def _corner_index(spec: HashGridSpec, level: int, cx, cy, cz):
@@ -146,48 +164,143 @@ def _corner_index(spec: HashGridSpec, level: int, cx, cy, cz):
     return idx % spec.rows_per_level[level]
 
 
+def grid_pos(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """pos = x * scale + 0.5 with one rounding (a fused multiply-add), as
+    XLA's CPU code and kernel H1 (`cell_of`) compute it: the float32
+    product is exact in float64 and so is the sum, so rounding that once
+    gives the fused result. At the finest levels one float32 ulp of pos is
+    ~1e-3 of a cell, so a second rounding would move the weights."""
+    s = float(np.float32(scale))
+    return (x.to(torch.float64) * s + 0.5).to(x.dtype)
+
+
+def _balanced_grad(op, fx, fy, fz):
+    """[N, 3] gradient of op(op(fx, fy), fz) for op = maximum / minimum,
+    with JAX's (and torch's) rule at ties: an input equal to the result
+    takes 1, or 0.5 when the other input equals it too."""
+    def share(a, b, m):
+        return torch.where(a == m, torch.where(b == m, 0.5, 1.0), 0.0)
+    m = op(fx, fy)
+    s = op(m, fz)
+    dm = share(m, fz, s)
+    return torch.stack([share(fx, fy, m) * dm, share(fy, fx, m) * dm,
+                        share(fz, m, s)], dim=-1)
+
+
+def _corners(spec: HashGridSpec, level: int, x: torch.Tensor,
+             grads: bool = False):
+    """The interpolation corners of `level` at points x [N, 3] (in range):
+    a list of (row within the level [N], weight [N], d weight / d frac
+    [N, 3] or None unless `grads`), as the JAX `_corner_list`: the 8 cube
+    corners (linear) or the 4 vertices of the Kuhn simplex that holds the
+    point (tetra; ranks with the JAX tie-break, weights 1-s1, s1-s2,
+    s2-s3, s3 of the sorted fractions)."""
+    pos = grid_pos(x, spec.scales[level])
+    pos_grid = torch.floor(pos)
+    frac = pos - pos_grid
+    ig = pos_grid.to(torch.int64)
+    out = []
+    if spec.interp == "tetra":
+        fx, fy, fz = frac.unbind(-1)
+        ranks = torch.stack([
+            (fy > fx).long() + (fz > fx).long(),
+            (fx >= fy).long() + (fz > fy).long(),
+            (fx >= fz).long() + (fy >= fz).long()], dim=-1)
+        s1 = torch.maximum(torch.maximum(fx, fy), fz)
+        s3 = torch.minimum(torch.minimum(fx, fy), fz)
+        s2 = fx + fy + fz - s1 - s3
+        weights = [1.0 - s1, s1 - s2, s2 - s3, s3]
+        dws = [None] * 4
+        if grads:
+            d1 = _balanced_grad(torch.maximum, fx, fy, fz)
+            d3 = _balanced_grad(torch.minimum, fx, fy, fz)
+            d2 = 1.0 - d1 - d3
+            dws = [-d1, d1 - d2, d2 - d3, d3]
+        for k in range(4):
+            c = ig + (ranks < k).long()
+            idx = _corner_index(spec, level, c[:, 0], c[:, 1], c[:, 2])
+            out.append((idx, weights[k], dws[k]))
+        return out
+    for corner in _CORNERS3:
+        f = [frac[:, d] if corner[d] else 1.0 - frac[:, d] for d in range(3)]
+        dw = None
+        if grads:
+            dw = torch.stack([(1.0 if corner[d] else -1.0)
+                              * f[(d + 1) % 3] * f[(d + 2) % 3]
+                              for d in range(3)], dim=-1)
+        idx = _corner_index(spec, level, ig[:, 0] + corner[0],
+                            ig[:, 1] + corner[1], ig[:, 2] + corner[2])
+        out.append((idx, f[0] * f[1] * f[2], dw))
+    return out
+
+
+def _in_range(x: torch.Tensor):
+    """(x with out-of-range points moved to the origin, their mask [N]).
+    Out-of-range points encode to 0 after the gather; indexing them at the
+    origin keeps every corner coordinate small and non-negative."""
+    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
+    return torch.where(oob[:, None], torch.zeros_like(x), x), oob
+
+
+def _seq_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over axis 1 of [B, n, ...]: summed in point order and times
+    float32(1 / n), as XLA's CPU code and kernel H1 take it, so that all
+    three pick the same cell for a mean on a cell face."""
+    acc = x[:, 0]
+    for j in range(1, x.shape[1]):
+        acc = acc + x[:, j]
+    return acc * float(np.float32(1.0) / np.float32(x.shape[1]))
+
+
+def _erf_weight(s: torch.Tensor, grid_size: float):
+    """(erf weight, u = 8 s^2 g^2, v = u^-1/2 clamped): the ZipNeRF
+    downweighting of a level at per-point stds s."""
+    u = 8.0 * s**2 * float(grid_size * grid_size)
+    v = 1.0 / torch.sqrt(torch.clamp(u, min=1e-10))
+    return torch.erf(v), u, v
+
+
 def hash_encode_multisample_plain(table: torch.Tensor, x01: torch.Tensor,
-                                  stds: torch.Tensor, spec: HashGridSpec):
+                                  stds: torch.Tensor, spec: HashGridSpec,
+                                  coarse_res_cutoff: int = 0):
     """Encode n multisample points and reduce with erf downweighting.
 
     table: [total_rows, C]; x01: [..., n, 3] (points outside [0, 1] encode
-    to 0); stds: [..., n]. Returns ([..., L*C] features, [..., n, L] erf
-    weights), as the JAX `hash_encode_multisample`.
+    to 0); stds: [..., n]. Levels at or below `coarse_res_cutoff` encode the
+    mean of the n points (out-of-range ones included; the level is 0 when
+    the mean is out of range) once, weighted by the mean erf weight.
+    Returns ([..., L*C] features, [..., n, L] erf weights), as the JAX
+    `hash_encode_multisample`. With `spec.diff_inputs` False no gradient
+    reaches x01 or stds (the JAX custom VJP's zeros).
     """
     _check_ported(spec)
+    if not spec.diff_inputs:
+        x01, stds = x01.detach(), stds.detach()
     batch_shape = x01.shape[:-2]
     n_ms = x01.shape[-2]
     c = spec.level_dim
-    x = x01.reshape(-1, 3)
-    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
-    # Out-of-range points are zeroed after the gather; indexing them at the
-    # origin keeps every corner coordinate small and non-negative.
-    x = torch.where(oob[:, None], torch.zeros_like(x), x)
+    x, oob = _in_range(x01.reshape(-1, 3))
     s = stds.reshape(-1)
     grid_sizes = spec.grid_sizes()
+    mean = None
 
     outs, weights = [], []
-    for l in range(spec.num_levels):
+    for l, at_mean in enumerate(mean_levels(spec, coarse_res_cutoff)):
         tbl = table[spec.offsets[l]:spec.offsets[l + 1]]
-        pos = x * spec.scales[l] + 0.5
-        pos_grid = torch.floor(pos)
-        frac = pos - pos_grid
-        ig = pos_grid.to(torch.int64)
+        w_l = _erf_weight(s, grid_sizes[l])[0]
+        weights.append(w_l)
+        if at_mean and mean is None:
+            mean = _in_range(_seq_mean(x01.reshape(-1, n_ms, 3)))
+        pts, pts_oob = mean if at_mean else (x, oob)
         acc = None
-        for cx, cy, cz in _CORNERS3:
-            w = ((frac[:, 0] if cx else 1.0 - frac[:, 0])
-                 * (frac[:, 1] if cy else 1.0 - frac[:, 1])
-                 * (frac[:, 2] if cz else 1.0 - frac[:, 2]))
-            idx = _corner_index(spec, l, ig[:, 0] + cx, ig[:, 1] + cy,
-                                ig[:, 2] + cz)
+        for idx, w, _ in _corners(spec, l, pts):
             term = w[:, None] * tbl[idx]
             acc = term if acc is None else acc + term
-        acc = torch.where(oob[:, None], torch.zeros_like(acc), acc)
-        g2 = float(grid_sizes[l] * grid_sizes[l])
-        w_l = torch.erf(1.0 / torch.sqrt(torch.clamp(8.0 * s**2 * g2,
-                                                     min=1e-10)))
-        weights.append(w_l)
-        outs.append((acc * w_l[:, None]).reshape(-1, n_ms, c).mean(dim=1))
+        acc = torch.where(pts_oob[:, None], torch.zeros_like(acc), acc)
+        if at_mean:
+            outs.append(acc * _seq_mean(w_l.reshape(-1, n_ms))[:, None])
+        else:
+            outs.append((acc * w_l[:, None]).reshape(-1, n_ms, c).mean(dim=1))
     out = torch.cat(outs, dim=-1).reshape(batch_shape + (spec.output_dim,))
     w = torch.stack(weights, dim=-1).reshape(
         batch_shape + (n_ms, spec.num_levels))
@@ -197,63 +310,71 @@ def hash_encode_multisample_plain(table: torch.Tensor, x01: torch.Tensor,
 def hash_encode_multisample_bwd_plain(table: torch.Tensor, x01: torch.Tensor,
                                       stds: torch.Tensor, g_out: torch.Tensor,
                                       spec: HashGridSpec,
-                                      needs=(True, True, True)):
+                                      needs=(True, True, True),
+                                      coarse_res_cutoff: int = 0):
     """Gradients of `hash_encode_multisample_plain`'s features, written out
     (the plain twin of kernel H1's backward).
 
     g_out: [..., L*C], the gradient of the features. Returns (d_table,
     d_x01, d_stds), each None where `needs` (table, x01, stds) is False.
-    Out-of-range points get zero gradient, as the JAX `where` gives them.
+    Out-of-range points get zero gradient, as the JAX `where` gives them;
+    a mean-point level scatters into d_table at the mean point with the
+    mean erf weight, and passes 1/n of the mean's gradient to each point.
+    (The JAX custom VJP of `diff_inputs=False` is d_table alone: the caller
+    asks for no more.)
     """
     _check_ported(spec)
     n_ms = x01.shape[-2]
     c = spec.level_dim
-    x = x01.reshape(-1, 3)
-    oob = ((x < 0.0) | (x > 1.0)).any(dim=-1)
-    x = torch.where(oob[:, None], torch.zeros_like(x), x)
+    x, oob = _in_range(x01.reshape(-1, 3))
     s = stds.reshape(-1)
     g = g_out.reshape(-1, spec.output_dim)
     keep = (~oob).to(x.dtype) / n_ms
     d_table = torch.zeros_like(table) if needs[0] else None
     d_x = torch.zeros_like(x) if needs[1] else None
     d_s = torch.zeros_like(s) if needs[2] else None
+    pos_grads = d_x is not None or d_s is not None
     grid_sizes = spec.grid_sizes()
+    mean = None
 
-    for l in range(spec.num_levels):
-        gl = g[:, l * c:(l + 1) * c].repeat_interleave(n_ms, dim=0)
-        pos = x * spec.scales[l] + 0.5
-        pos_grid = torch.floor(pos)
-        frac = pos - pos_grid
-        ig = pos_grid.to(torch.int64)
-        u = 8.0 * s**2 * float(grid_sizes[l] * grid_sizes[l])
-        v = 1.0 / torch.sqrt(torch.clamp(u, min=1e-10))
-        coef = keep * torch.erf(v)
-        fdot = torch.zeros_like(s)
-        dfrac = torch.zeros_like(x)
-        for corner in _CORNERS3:
-            f = [frac[:, d] if corner[d] else 1.0 - frac[:, d]
-                 for d in range(3)]
-            w = f[0] * f[1] * f[2]
-            idx = spec.offsets[l] + _corner_index(
-                spec, l, ig[:, 0] + corner[0], ig[:, 1] + corner[1],
-                ig[:, 2] + corner[2])
+    for l, at_mean in enumerate(mean_levels(spec, coarse_res_cutoff)):
+        gl = g[:, l * c:(l + 1) * c]
+        erf_w, u, v = _erf_weight(s, grid_sizes[l])
+        if at_mean:
+            if mean is None:
+                mean = _in_range(_seq_mean(x01.reshape(-1, n_ms, 3)))
+            pts, keep_m = mean[0], (~mean[1]).to(x.dtype)
+            coef = keep_m * _seq_mean(erf_w.reshape(-1, n_ms))
+        else:
+            pts, coef = x, keep * erf_w
+            gl = gl.repeat_interleave(n_ms, dim=0)
+        fdot = torch.zeros_like(coef)
+        dfrac = torch.zeros_like(pts)
+        for idx, w, dw in _corners(spec, l, pts, grads=pos_grads):
+            idx = spec.offsets[l] + idx
             if d_table is not None:
                 d_table.index_add_(0, idx, (coef * w)[:, None] * gl)
-            if d_x is not None or d_s is not None:
+            if pos_grads:
                 dot = (table[idx] * gl).sum(dim=-1)
                 fdot = fdot + w * dot
-                for d in range(3):
-                    sign = 1.0 if corner[d] else -1.0
-                    others = f[(d + 1) % 3] * f[(d + 2) % 3]
-                    dfrac[:, d] += sign * others * dot
-        if d_x is not None:
-            d_x += (coef * spec.scales[l])[:, None] * dfrac
+                dfrac = dfrac + dw * dot[:, None]
+        if at_mean:
+            # x_mean = sum_j x_j / n and w_mean = sum_j w_j / n.
+            coef = coef / n_ms
+            fdot = (keep_m * fdot / n_ms).repeat_interleave(n_ms)
+            if d_x is not None:
+                d_x += ((coef * spec.scales[l])[:, None]
+                        * dfrac).repeat_interleave(n_ms, dim=0)
+        else:
+            fdot = keep * fdot
+            if d_x is not None:
+                d_x += (coef * spec.scales[l])[:, None] * dfrac
         if d_s is not None:
             # d erf(v)/ds with v = u^-1/2, u = 8 s^2 g^2; 0 where u is
             # clamped.
             dwl = (2.0 / np.sqrt(np.pi)) * torch.exp(-v * v) * (
                 -0.5 * v / u) * (16.0 * s * float(grid_sizes[l]) ** 2)
-            d_s += keep * torch.where(u > 1e-10, dwl, 0.0) * fdot
+            d_s += torch.where(u > 1e-10, dwl, 0.0) * fdot
     return (d_table,
             None if d_x is None else d_x.reshape(x01.shape),
             None if d_s is None else d_s.reshape(stds.shape))
@@ -265,7 +386,7 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _kernel_levels(spec: HashGridSpec):
+def _kernel_levels(spec: HashGridSpec, coarse_res_cutoff: int):
     """Per-level constants of kernel H1, as the C arrays it reads."""
     return (np.asarray(spec.scales, np.float32),
             spec.grid_sizes(),
@@ -273,7 +394,8 @@ def _kernel_levels(spec: HashGridSpec):
             np.asarray(spec.rows_per_level, np.uint32),
             np.asarray(spec.offsets[:-1], np.uint32),
             np.asarray([spec.is_tiled(l) for l in range(spec.num_levels)],
-                       np.int32))
+                       np.int32),
+            np.asarray(mean_levels(spec, coarse_res_cutoff), np.int32))
 
 
 def level_major(spec: HashGridSpec, l2_bytes: int) -> bool:
@@ -295,7 +417,8 @@ def _l2_bytes(device_index: int) -> int:
 
 def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
     """Raise unless t starts on a 4c-byte boundary: kernel H1 reads rows of
-    C floats as one 4C-byte vector, K3 reads 16 bytes (c = 4) at a time."""
+    C floats as 4C-byte vectors of up to 16 bytes (c = min(C, 4)), K3 reads
+    16 bytes (c = 4) at a time."""
     if t.data_ptr() % (4 * c):
         raise ValueError(f"{name}: expected a {4 * c}-byte aligned tensor")
     return t
@@ -319,21 +442,22 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
     _build.require_cuda("table", table, (spec.total_rows, spec.level_dim))
     _build.require_cuda("x01", x, (b, n_ms, 3))
     _build.require_cuda("stds", s, (b, n_ms))
-    return _aligned("table", table, spec.level_dim), x, s
+    return _aligned("table", table, min(spec.level_dim, 4)), x, s
 
 
-def _encode_kernel(table, x01, stds, spec: HashGridSpec) -> torch.Tensor:
+def _encode_kernel(table, x01, stds, spec: HashGridSpec,
+                   coarse_res_cutoff: int = 0) -> torch.Tensor:
     """Launch kernel H1 (`hash_encode_ms`): [..., L*C] features."""
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
     out = torch.empty((b, spec.output_dim), dtype=torch.float32,
                       device=x.device)
-    arrays = _kernel_levels(spec)  # alive through the call
+    arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
     lib = _build.library()
     rc = lib.nl_hash_encode_ms(
         table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(),
         b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays),
+        *(a.ctypes.data for a in arrays), spec.interp == "tetra",
         level_major(spec, _l2_bytes(x.device.index)),
         x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
@@ -343,26 +467,29 @@ def _encode_kernel(table, x01, stds, spec: HashGridSpec) -> torch.Tensor:
 
 def hash_encode_multisample_bwd(table: torch.Tensor, x01: torch.Tensor,
                                 stds: torch.Tensor, g_out: torch.Tensor,
-                                spec: HashGridSpec, needs=(True, True, True)):
+                                spec: HashGridSpec, needs=(True, True, True),
+                                coarse_res_cutoff: int = 0):
     """Same contract as `hash_encode_multisample_bwd_plain`; CUDA tensors
     launch the H1 backward kernel (`hash_encode_ms_bwd`) or raise."""
     if _on_cpu(table, x01, stds, g_out):
         return hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
-                                                 spec, needs)
+                                                 spec, needs,
+                                                 coarse_res_cutoff)
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
     g = g_out.contiguous()
     _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
-    g = _aligned("g_out", g.reshape(b, spec.output_dim), spec.level_dim)
+    g = _aligned("g_out", g.reshape(b, spec.output_dim),
+                 min(spec.level_dim, 4))
     outs = [torch.zeros_like(t) if need else None
             for t, need in zip((table, x, s), needs)]
     ptr = lambda t: None if t is None else t.data_ptr()
-    arrays = _kernel_levels(spec)  # alive through the call
+    arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
     lib = _build.library()
     rc = lib.nl_hash_encode_ms_bwd(
         table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
         *(ptr(t) for t in outs), b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays),
+        *(a.ctypes.data for a in arrays), spec.interp == "tetra",
         level_major(spec, _l2_bytes(x.device.index)),
         x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms_bwd")
@@ -378,35 +505,44 @@ hash_encode_multisample_bwd.launches = 0
 
 class HashEncodeMS(torch.autograd.Function):
     """The multisample encode with its written-out backward: kernel H1 and
-    its backward on CUDA tensors, the plain twins on CPU tensors."""
+    its backward on CUDA tensors, the plain twins on CPU tensors. With
+    `spec.diff_inputs` False x01 and stds get no gradient (zero), whatever
+    autograd asks: the JAX `_ms_encode_nodiff_bwd`."""
 
     @staticmethod
-    def forward(ctx, table, x01, stds, spec: HashGridSpec):
+    def forward(ctx, table, x01, stds, spec: HashGridSpec,
+                coarse_res_cutoff: int):
         ctx.spec = spec
+        ctx.cutoff = coarse_res_cutoff
         ctx.save_for_backward(table, x01, stds)
         if _on_cpu(table, x01, stds):
-            return hash_encode_multisample_plain(table, x01, stds, spec)[0]
-        return _encode_kernel(table, x01, stds, spec)
+            return hash_encode_multisample_plain(
+                table, x01, stds, spec, coarse_res_cutoff)[0]
+        return _encode_kernel(table, x01, stds, spec, coarse_res_cutoff)
 
     @staticmethod
     def backward(ctx, g_out):
         table, x01, stds = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if not ctx.spec.diff_inputs:
+            needs = (needs[0], False, False)
         grads = hash_encode_multisample_bwd(
-            table, x01, stds, g_out, ctx.spec, ctx.needs_input_grad[:3])
-        return (*grads, None)
+            table, x01, stds, g_out, ctx.spec, needs, ctx.cutoff)
+        return (*grads, None, None)
 
 
 def hash_encode_multisample(table: torch.Tensor, x01: torch.Tensor,
-                            stds: torch.Tensor,
-                            spec: HashGridSpec) -> torch.Tensor:
+                            stds: torch.Tensor, spec: HashGridSpec,
+                            coarse_res_cutoff: int = 0) -> torch.Tensor:
     """[..., L*C] multisample features (no erf weights), differentiable in
-    table, x01 and stds.
+    table, and in x01 and stds unless `spec.diff_inputs` is False; levels
+    at or below `coarse_res_cutoff` encode the multisample mean.
 
     CPU tensors take `hash_encode_multisample_plain` and its written-out
     backward; CUDA tensors launch kernel H1 (`hash_encode_ms`) and, in
     backward, `hash_encode_ms_bwd`; a build or launch failure raises.
     """
-    return HashEncodeMS.apply(table, x01, stds, spec)
+    return HashEncodeMS.apply(table, x01, stds, spec, coarse_res_cutoff)
 
 
 hash_encode_multisample.launches = 0

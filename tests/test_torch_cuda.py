@@ -8,7 +8,9 @@ without it:
 
 Tolerances: as tests/test_torch_render_fused.py for K1; features rtol 1e-5
 / atol 1e-6 for H1 (the kernels change only the order of float sums, also
-where they merge the corner weights of same-cell multisamples); the
+where they merge the corner weights of same-cell multisamples; cells,
+fractions, tetrahedral ranks and mean points are computed with the plain
+version's roundings, so both pick the same corners); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
@@ -251,7 +253,7 @@ def _merge_case(dev, spec, case, g):
     return rand(b, n, 3) * 1.2 - 0.1, stds  # n1: uniform, one point each
 
 
-def _check_encode_kernels(dev, spec, x01, stds, g):
+def _check_encode_kernels(dev, spec, x01, stds, g, cutoff=0):
     """H1 vs plain (rtol 1e-5 / atol 1e-6) and its backward vs the
     written-out twin, d_table alone and all three gradients."""
     table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
@@ -259,16 +261,17 @@ def _check_encode_kernels(dev, spec, x01, stds, g):
     g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
                         generator=g)
     before = grid.hash_encode_multisample.launches
-    got = grid.hash_encode_multisample(table, x01, stds, spec)
+    got = grid.hash_encode_multisample(table, x01, stds, spec, cutoff)
     assert grid.hash_encode_multisample.launches == before + 1
-    want = grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
+    want = grid.hash_encode_multisample_plain(table, x01, stds, spec,
+                                              cutoff)[0]
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     for needs in ((True, False, False), (True, True, True)):
         got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
-                                               needs)
-        want = grid.hash_encode_multisample_bwd_plain(table, x01, stds,
-                                                      g_out, spec, needs)
+                                               needs, cutoff)
+        want = grid.hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out, spec, needs, cutoff)
         torch.cuda.synchronize()
         for i, name in enumerate(("table", "x01", "stds")):
             if needs[i]:
@@ -289,6 +292,81 @@ def test_hash_encode_kernels_on_merge_cases(dev, level_dim, case):
     g = torch.Generator(device=dev).manual_seed(20 + level_dim)
     x01, stds = _merge_case(dev, spec, case, g)
     _check_encode_kernels(dev, spec, x01, stds, g)
+
+
+def _mode_points(dev, spec, case, g):
+    """Points of the new modes' cases: "ties" (x == y, and x == y == z on
+    a third of the samples: tied fractional parts at every level, where
+    the tetrahedral ranks break by axis order), "faces" (of _merge_case),
+    "rays" (of _merge_case), "oob_mean" (clusters straddling x = 1, whose
+    mean is out of range on some samples while points are in)."""
+    if case in ("faces", "rays"):
+        return _merge_case(dev, spec, case, g)
+    b, n = 3000, 7
+    rand = lambda *shape: torch.rand(*shape, device=dev, generator=g)
+    stds = rand(b, n) * 0.05 + 1e-4
+    if case == "ties":
+        x01 = rand(b, n, 3) * 1.1 - 0.05
+        x01[:, :, 1] = x01[:, :, 0]
+        x01[::3, :, 2] = x01[::3, :, 0]
+        return x01, stds
+    x01 = rand(b, 1, 3) * 0.9 + 0.05 + (rand(b, n, 3) - 0.5) * 4e-3
+    x01[::2, :, 0] = 1.0 + (rand(b // 2, n) - 0.5) * 4e-3
+    return x01, stds
+
+
+@pytest.mark.parametrize("case", ["ties", "faces", "rays", "oob_mean"])
+@pytest.mark.parametrize("cutoff", [0, 40])
+@pytest.mark.parametrize("interp", ["linear", "tetra"])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 16])
+def test_hash_encode_kernels_in_the_preset_modes(dev, level_dim, interp,
+                                                 cutoff, case):
+    """The presets' modes of H1 and its backward: tetrahedral
+    interpolation, mean-point levels (cutoff 40: levels 5, 9, 17 and 33 at
+    the mean; d_x01 / d_stds through the mean too) and C16 rows, on tiled
+    and hashed levels, against the plain versions."""
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=level_dim, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16, interp=interp))
+    assert any(grid.mean_levels(spec, cutoff)) == (cutoff > 0)
+    g = torch.Generator(device=dev).manual_seed(60 + level_dim)
+    x01, stds = _mode_points(dev, spec, case, g)
+    _check_encode_kernels(dev, spec, x01, stds, g, cutoff)
+
+
+@pytest.mark.parametrize("level_major", [False, True])
+@pytest.mark.parametrize("preset", ["fast", "mxu"])
+def test_hash_encode_kernels_on_the_preset_grids(dev, preset, level_major,
+                                                 monkeypatch):
+    """The fast NeRF grid (4 x C16, tetra, 8193 hashed at 2^17 rows, two
+    mean-point levels) and the spectral band (17, 49 tiled C16, both at the
+    mean), scatter-only (d_table), on ray points, in both block orders."""
+    monkeypatch.setattr(grid, "level_major", lambda spec, l2: level_major)
+    cfg = (configs.nuscenes_single_fast() if preset == "fast"
+           else configs.nuscenes_single_mxu())
+    mcfg = cfg.model.nerf_mlp
+    spec = grid.spec_for(mcfg.grid)
+    g = torch.Generator(device=dev).manual_seed(70)
+    x01, stds = _ray_points(dev, 64, 32, 7, g)
+    table = torch.rand(spec.total_rows, 16, device=dev, generator=g) * 0.2
+    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
+                        generator=g)
+    cutoff = mcfg.ms_coarse_res_cutoff
+    got = grid.hash_encode_multisample(table, x01, stds, spec, cutoff)
+    want = grid.hash_encode_multisample_plain(table, x01, stds, spec,
+                                              cutoff)[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    leaf = table.clone().requires_grad_(True)
+    before = grid.hash_encode_multisample_bwd.launches
+    grid.hash_encode_multisample(leaf, x01.requires_grad_(True), stds, spec,
+                                 cutoff).backward(g_out)
+    assert grid.hash_encode_multisample_bwd.launches == before + 1
+    assert x01.grad is None  # diff_inputs=False: no position gradient
+    twin = grid.hash_encode_multisample_bwd_plain(
+        table, x01.detach(), stds, g_out, spec, (True, False, False),
+        cutoff)[0]
+    torch.cuda.synchronize()
+    _close_to_max(leaf.grad, twin, "d_table")
 
 
 @pytest.mark.parametrize("level_major", [False, True])
@@ -409,6 +487,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         grid.hash_encode_multisample(table.double(), x01, stds, spec)
     with pytest.raises(ValueError, match="shape"):
         grid.hash_encode_multisample(table[:-8], x01, stds, spec)
+    # C8 is no preset's width: the kernel takes 1, 2, 4 and 16.
     wide = grid.spec_for(configs.GridConfig(level_dim=8, base_resolution=4,
                                             desired_resolution=96,
                                             log2_hashmap_size=9))

@@ -1,6 +1,9 @@
 """The port's hash-grid spec and plain multisample encode against the JAX
 `ops/grid.py` (the CUDA kernel H1 is held against the plain encode on the
-card by chip_smoke.py).
+card by chip_smoke.py and tests/test_torch_cuda.py): the presets' grids
+(the spectral encoder's dense band too), trilinear and tetrahedral
+interpolation, mean-point coarse levels, C in {1, 2, 4, 16}, on points
+with ties of their fractional parts and on cell faces.
 
 Tolerance: features rtol 1e-5 / atol 1e-6; erf weights rtol 1e-6.
 """
@@ -22,13 +25,24 @@ def _grid_cfgs(cfgs=configs):
     """The grids of the presets, from the JAX `configs` or the port's."""
     tiny = cfgs.tiny_debug().model
     full = cfgs.nuscenes_single().model
-    return {
+    out = {
         "tiny_nerf": tiny.nerf_mlp.grid,
         "tiny_prop0": tiny.prop_mlp_for_level(0).grid,
         "nusc_nerf": full.nerf_mlp.grid,
         "nusc_prop0": full.prop_mlp_for_level(0).grid,
         "nusc_prop1": full.prop_mlp_for_level(1).grid,
     }
+    speed = cfgs.nuscenes_single_speed()
+    for name, cfg in (("fast", cfgs.nuscenes_single_fast()),
+                      ("mxu", cfgs.nuscenes_single_mxu()),
+                      ("speed", speed),
+                      ("specobj", cfgs.spectral_obj_variant(speed))):
+        m = cfg.model
+        out[f"{name}_nerf"] = m.nerf_mlp.grid
+        out[f"{name}_obj"] = m.obj_mlp.grid
+        for i in range(len(m.num_prop_samples)):
+            out[f"{name}_prop{i}"] = m.prop_mlp_for_level(i).grid
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(_grid_cfgs()))
@@ -85,11 +99,89 @@ def test_plain_encode_matches_jax(level_dim):
 
 
 def test_unported_grid_flags_raise():
+    """What still refuses: an encoder other than 'hash' / 'dense_fourier',
+    an interpolation other than 'linear' / 'tetra', input_dim != 3. The
+    spectral encoder's dense band and tetrahedral interpolation, refused
+    before, now build and encode."""
     g = tconfigs.tiny_debug().model.nerf_mlp.grid
     with pytest.raises(NotImplementedError):
-        grid.spec_for(dataclasses.replace(g, encoder="dense_fourier"))
-    spec = grid.spec_for(dataclasses.replace(g, interp="tetra"))
+        grid.spec_for(dataclasses.replace(g, encoder="fourier_only"))
+    spec = grid.spec_for(dataclasses.replace(g, interp="cubic"))
     with pytest.raises(NotImplementedError):
         grid.hash_encode_multisample_plain(
             torch.zeros(spec.total_rows, spec.level_dim),
             torch.zeros(2, 3, 3), torch.zeros(2, 3), spec)
+    with pytest.raises(NotImplementedError):
+        grid.hash_encode_multisample_plain(
+            torch.zeros(8, 2), torch.zeros(2, 3, 2), torch.zeros(2, 3),
+            dataclasses.replace(grid.spec_for(g), input_dim=2))
+    for kw in (dict(encoder="dense_fourier"), dict(interp="tetra")):
+        spec = grid.spec_for(dataclasses.replace(g, **kw))
+        want = jgrid.spec_for(dataclasses.replace(
+            configs.tiny_debug().model.nerf_mlp.grid, **kw))
+        assert spec.offsets == want.offsets and spec.interp == want.interp
+        feats, _ = grid.hash_encode_multisample_plain(
+            torch.ones(spec.total_rows, spec.level_dim),
+            torch.full((2, 3, 3), 0.5), torch.zeros(2, 3), spec)
+        torch.testing.assert_close(feats, torch.ones_like(feats))
+
+
+def mode_inputs(spec, seed, b=40, n=5):
+    """Seeded (table uniform(-1, 1), x01 [b, n, 3], stds [b, n]) whose
+    points stress the new modes: uniform points with out-of-range ones;
+    x == y (a tie of two fractional parts at every level, where the
+    tetrahedral ranks break by axis order); x == y == z; points on the
+    cell faces of level 1 (pos integral, a fraction 0); multisamples
+    within 1e-3 of one point (one cell at the coarse levels, a mean point
+    near them); a sample whose mean is out of range though some points are
+    in."""
+    rng = np.random.RandomState(seed)
+    table = rng.uniform(-1, 1, (spec.total_rows, spec.level_dim)).astype(
+        np.float32)
+    x01 = rng.uniform(-0.1, 1.1, (b, n, 3)).astype(np.float32)
+    q = b // 8
+    x01[q:2 * q, :, 1] = x01[q:2 * q, :, 0]
+    x01[2 * q:3 * q, :, 1:] = x01[2 * q:3 * q, :, :1]
+    k = rng.randint(1, int(spec.scales[1]), (q, n, 3))
+    x01[3 * q:4 * q] = ((k - 0.5) / np.float32(spec.scales[1])).astype(
+        np.float32)
+    x01[4 * q:6 * q] = (rng.uniform(0.05, 0.95, (2 * q, 1, 3))
+                        + rng.uniform(-5e-4, 5e-4, (2 * q, n, 3)))
+    x01[6 * q, :, 0] = [1.05, 1.05, 1.05, 0.9, 0.9][:n]
+    stds = rng.uniform(1e-4, 0.05, (b, n)).astype(np.float32)
+    return table, np.clip(x01, -0.2, 1.2).astype(np.float32), stds
+
+
+# A small hashmap hashes the fine levels while the coarse ones stay tiled;
+# cutoff 20 puts levels 5 and 9 (and 17 at C = 16's spec) at the mean.
+MODES = [(interp, cutoff, c) for interp in ("linear", "tetra")
+         for cutoff in (0, 20) for c in (1, 2, 4, 16)]
+
+
+def mode_specs(interp, c, diff_inputs=True):
+    """(the port's spec, the JAX spec) of the modes' grid."""
+    kw = dict(level_dim=c, base_resolution=4, desired_resolution=96,
+              log2_hashmap_size=9, interp=interp, diff_inputs=diff_inputs)
+    return (grid.spec_for(tconfigs.GridConfig(**kw)),
+            jgrid.spec_for(configs.GridConfig(**kw)))
+
+
+@pytest.mark.parametrize("interp,cutoff,c", MODES)
+def test_plain_encode_modes_match_jax(interp, cutoff, c):
+    spec, spec_j = mode_specs(interp, c)
+    mean = grid.mean_levels(spec, cutoff)
+    assert any(mean) == (cutoff > 0) and not all(mean)
+    table, x01, stds = mode_inputs(spec, seed=c)
+    feats, w = grid.hash_encode_multisample_plain(
+        torch.from_numpy(table), torch.from_numpy(x01),
+        torch.from_numpy(stds), spec, cutoff)
+    jfeats, jw = jgrid.hash_encode_multisample(
+        jnp.asarray(table), jnp.asarray(x01), jnp.asarray(stds), spec_j,
+        coarse_res_cutoff=cutoff)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(jfeats), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=1e-6)
+    wrapped = grid.hash_encode_multisample(
+        torch.from_numpy(table), torch.from_numpy(x01),
+        torch.from_numpy(stds), spec, cutoff)
+    np.testing.assert_array_equal(wrapped.numpy(), feats.numpy())

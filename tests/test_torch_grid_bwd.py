@@ -5,6 +5,10 @@
   `hash_encode_multisample_bwd_plain` (the twin of kernel H1's backward),
   against `jax.vjp` of `nerf_lidar_tpu.ops.grid.hash_encode_multisample`,
   over tiled and hashed levels with points out of range.
+- the same, written-out and through the wrapper, in every mode of
+  tests/test_torch_grid.py (trilinear / tetrahedral, mean-point levels,
+  C in {1, 2, 4, 16}, diff_inputs on and off: the JAX
+  `_ms_encode_nodiff_bwd`, d_table with zero position gradients);
 - `scatter_add_rows_plain` against K3 itself: the Pallas kernel of
   `experiments/scatter_variants.py`, run in interpret mode off the TPU.
 
@@ -29,6 +33,7 @@ from nerf_lidar_tpu_torch.ops import grid
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from experiments import scatter_variants  # noqa: E402
+from test_torch_grid import MODES, mode_inputs, mode_specs  # noqa: E402
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -82,6 +87,59 @@ def test_encode_grads_match_jax_vjp(level_dim, how):
         assert np.abs(b).max() > 0, name
         np.testing.assert_allclose(a.numpy(), b, rtol=RTOL, atol=ATOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("diff_inputs", [True, False])
+@pytest.mark.parametrize("interp,cutoff,c", MODES)
+def test_encode_mode_grads_match_jax(interp, cutoff, c, diff_inputs):
+    """The written-out backward and the wrapper's autograd against
+    `jax.vjp` in every mode, on test_torch_grid.py's points (ties, faces,
+    clusters, out-of-range means). With diff_inputs False the JAX encode
+    is `_ms_encode_nodiff` (its custom VJP: d_table alone, zero position
+    and std gradients), and the wrapper passes no gradient to x01 / stds."""
+    spec, spec_j = mode_specs(interp, c, diff_inputs)
+    table, x01, stds = mode_inputs(spec, seed=10 + c)
+    g_out = np.random.RandomState(c).randn(
+        x01.shape[0], spec.output_dim).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda t, x, s: jgrid.hash_encode_multisample(
+            t, x, s, spec_j, coarse_res_cutoff=cutoff)[0],
+        jnp.asarray(table), jnp.asarray(x01), jnp.asarray(stds))
+    want = [np.asarray(a) for a in vjp(jnp.asarray(g_out))]
+    if not diff_inputs:
+        assert not np.abs(want[1]).any() and not np.abs(want[2]).any()
+    needs = (True, diff_inputs, diff_inputs)
+    written = grid.hash_encode_multisample_bwd_plain(
+        *(torch.from_numpy(a) for a in (table, x01, stds, g_out)), spec,
+        needs, cutoff)
+    t, x, s = (torch.from_numpy(a).requires_grad_(True)
+               for a in (table, x01, stds))
+    grid.hash_encode_multisample(t, x, s, spec, cutoff).backward(
+        torch.from_numpy(g_out))
+    for i, name in enumerate(("table", "x01", "stds")):
+        if not needs[i]:
+            assert written[i] is None, name
+            assert (t, x, s)[i].grad is None, name
+            continue
+        assert np.abs(want[i]).max() > 0, name
+        for how, got in (("bwd_plain", written[i]), ("wrapper",
+                                                     (t, x, s)[i].grad)):
+            np.testing.assert_allclose(got.numpy(), want[i], rtol=RTOL,
+                                       atol=ATOL * np.abs(want[i]).max(),
+                                       err_msg=f"{name} {how}")
+
+
+def test_nodiff_plain_encode_stops_position_gradients():
+    """The plain encode itself (the model's `use_kernels=False` path)
+    gives x01 and stds no gradient when diff_inputs is False, as the JAX
+    custom VJP gives zeros."""
+    spec, _ = mode_specs("tetra", 4, diff_inputs=False)
+    table, x01, stds = mode_inputs(spec, seed=3)
+    t, x, s = (torch.from_numpy(a).requires_grad_(True)
+               for a in (table, x01, stds))
+    grid.hash_encode_multisample_plain(t, x, s, spec, 20)[0].sum().backward()
+    assert x.grad is None and s.grad is None
+    assert float(t.grad.abs().sum()) > 0
 
 
 def test_wrapper_output_has_grad_fn():

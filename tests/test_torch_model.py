@@ -203,8 +203,10 @@ def test_unported_flags_raise():
     """What still refuses: a non-constant background and the MLP flags
     below. Dynamic objects and the object-MLP flags (fixed_semantic,
     latent_size with split_latent, re_weights=False, warp_fn=None,
-    density_init, obj_mode) now build; a per-class slot list that does not
-    name every object slot is refused."""
+    density_init, obj_mode) build; a per-class slot list that does not
+    name every object slot is refused. The field presets' flags, refused
+    before (ms_coarse_res_cutoff, diff_inputs=False, interp='tetra', the
+    spectral encoder, compute_dtype='bfloat16'), now build."""
     m = tconfigs.tiny_debug().model
     objs = Model(dataclasses.replace(m, instance_obj=True, num_objects=2,
                                      latent_size=8), device="meta")
@@ -222,12 +224,18 @@ def test_unported_flags_raise():
               device="meta")
     for flag in (dict(use_directional_enc=True),
                  dict(scale_featurization=True),
-                 dict(ms_coarse_res_cutoff=64),
                  dict(disable_density_normals=False),
-                 dict(grid=dataclasses.replace(m.nerf_mlp.grid,
-                                               diff_inputs=False))):
+                 dict(compute_dtype="float16")):
         with pytest.raises(NotImplementedError):
             ZipMLP(dataclasses.replace(m.nerf_mlp, **flag), device="meta")
+    g = m.nerf_mlp.grid
+    for flag in (dict(ms_coarse_res_cutoff=64),
+                 dict(grid=dataclasses.replace(g, diff_inputs=False)),
+                 dict(grid=dataclasses.replace(g, interp="tetra")),
+                 dict(grid=dataclasses.replace(g, encoder="dense_fourier")),
+                 dict(compute_dtype="bfloat16")):
+        mlp = ZipMLP(dataclasses.replace(m.nerf_mlp, **flag), device="meta")
+        assert mlp.table.shape[1] == g.level_dim
 
 
 @pytest.mark.parametrize("name", cli.CONFIGS)
