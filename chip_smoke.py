@@ -117,11 +117,12 @@ Phases (each raises on failure, so the script exits non-zero):
    first view with every K1 and H1 call held against its plain version,
    and kernels on vs off at [5]'s tolerances on all but
    TRAINED_SWEEP_SHARE of the values; the field's weights written as a JAX
-   checkpoint_<step>.ckpt (Flax msgpack, `flax_msgpack`) and evaluated
-   through the port's decoder: metrics and images equal to the .npz's;
-   PSNR / SSIM card vs CPU (rtol 1e-5) and Chamfer vs a float64 k-d tree
-   (rtol 1e-5) on lidar_eval's clouds and on seeded clouds of 35,200 and
-   10^6 points; eval s/view, lidar_eval s, Chamfer ms, peak GiB.
+   checkpoint_<step>.ckpt (Flax msgpack, the port's `utils/msgpack.py`
+   writer) and evaluated through the port's decoder: metrics and images
+   equal to the .npz's; PSNR / SSIM card vs CPU (rtol 1e-5) and Chamfer vs
+   a float64 k-d tree (rtol 1e-5) on lidar_eval's clouds and on seeded
+   clouds of 35,200 and 10^6 points; eval s/view, lidar_eval s, Chamfer
+   ms, peak GiB.
 15. the field presets: `nuscenes_single_fast` and `nuscenes_single_speed`
    train PRESET_STEPS steps each through the `train` entry at full width
    on the synthetic scene (finite losses, a gradient on every table,
@@ -141,8 +142,25 @@ Phases (each raises on failure, so the script exits non-zero):
    inputs (kernel, plain and bound), the speed field's Fourier band, and
    (with the profiler phases) a torch.profiler breakdown of one warm
    `_fast` and `_speed` step.
-The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 12-profiled,
-15-profiled, 6, 7, 9, 10, 11: [4]
+16. mesh extraction and the object-scene entries: `extract --resolution
+   256 --clean --decimate 100000` of [8]'s learning-check weights with
+   every H1 call held against its plain version (launches counted from 0
+   just before it, read just after; no K1, no backward); the lattice
+   kernels on vs off (rtol 1e-5 / atol 1e-6); a second mesh at a level
+   taken from the lattice's densities (its 99.9th percentile), which must
+   be non-empty, its vertex colours kernels on vs off (atol 1e-4), the
+   seconds of the lattice, marching, welding, cleaning, decimation and
+   colours, and the peak device and host memory; on [12]'s scene and
+   weights `render_video --mode laneshift --num_frames 1`, once more with
+   `--hq`, and `render_instance`, each with every H1 call held against
+   its plain version, the laneshift frame kernels on vs off as [14] holds
+   eval's view, the orbit views at [5]'s tolerances, s per frame / view;
+   then `train --obj_ckpt` from a file of [12]'s object MLP, whose
+   subtree must equal the file's at step 0 (H1, H1-bwd, K3 launched); and
+   (with the profiler phases) H1's device time and bound on the lattice's
+   first 65,536-point chunk.
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16,
+12-profiled, 15-profiled, 16-profiled, 6, 7, 9, 10, 11: [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -151,15 +169,17 @@ module of jax, jaxlib, flax, optax, msgpack or the JAX package
 (`nerf_lidar_tpu`, `nerf_lidar_tpu.*`) was imported. Prints the kernels'
 JSON line (every kernel's launches on each path, the object paths
 `train_objects` and `render_lidar_objects`, the ray-drop path `raydrop`
-(none), the eval entries `eval`, `lidar_eval`, `render` and [15]'s
+(none), the eval entries `eval`, `lidar_eval`, `render`, [15]'s
 `train_fast`, `render_lidar_fast`, `train_speed`, `render_lidar_speed`,
-`render_lidar_mxu`, `train_spectral_obj`, `render_lidar_spectral_obj`
-included, times,
+`render_lidar_mxu`, `train_spectral_obj`, `render_lidar_spectral_obj` and
+[16]'s `extract`, `render_video`, `render_video_hq`, `render_instance`,
+`train_obj_ckpt` included, times,
 and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
 and K3 on the object grid under "obj_grid", H1 and H1-bwd per [15] path
-and grid under "preset_modes"), the nvidia-smi line,
+and grid under "preset_modes", H1 on [16]'s lattice chunk under
+"lattice_chunk"), the nvidia-smi line,
 then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -2026,51 +2046,6 @@ def phase_raydrop(dev):
     return launches
 
 
-def flax_msgpack(tree) -> bytes:
-    """The bytes `flax.serialization.msgpack_serialize` writes for a tree of
-    dicts (str keys), lists, strings, ints and numpy arrays (msgpack ext 1:
-    the nested (shape, dtype name, C-order bytes)), so that [14] can write
-    a JAX-package checkpoint without flax or msgpack."""
-    import struct
-    import numpy as np
-
-    def head(n, fix, fix_max, wide):
-        if n <= fix_max:
-            return bytes([fix | n])
-        for code, fmt, top in wide:
-            if n < top:
-                return bytes([code]) + struct.pack(fmt, n)
-        raise ValueError(f"msgpack: length {n}")
-
-    def obj(x):
-        if isinstance(x, dict):
-            return head(len(x), 0x80, 15, ((0xDE, ">H", 1 << 16),
-                                           (0xDF, ">I", 1 << 32))) + b"".join(
-                obj(str(k)) + obj(v) for k, v in x.items())
-        if isinstance(x, (list, tuple)):
-            return head(len(x), 0x90, 15, ((0xDC, ">H", 1 << 16),
-                                           (0xDD, ">I", 1 << 32))) + b"".join(
-                obj(v) for v in x)
-        if isinstance(x, str):
-            b = x.encode()
-            return head(len(b), 0xA0, 31, ((0xD9, ">B", 1 << 8),
-                                           (0xDA, ">H", 1 << 16),
-                                           (0xDB, ">I", 1 << 32))) + b
-        if isinstance(x, int):
-            if 0 <= x <= 0x7F:
-                return bytes([x])
-            return b"\xd3" + struct.pack(">q", x)
-        if isinstance(x, np.ndarray):
-            data = np.ascontiguousarray(x).tobytes()
-            payload = b"\x93" + obj(list(x.shape)) + obj(x.dtype.name) + \
-                b"\xc6" + struct.pack(">I", len(data)) + data
-            return b"\xc9" + struct.pack(">I", len(payload)) + b"\x01" + \
-                payload
-        raise TypeError(f"flax_msgpack: {type(x).__name__}")
-
-    return obj(tree)
-
-
 EVAL_CKPT_EXP = "chip_smoke_eval_ckpt"
 # [14]'s Chamfer sizes: one sweep's rays, and a cloud of 10^6 points (what
 # `lidar_eval --max_rays 0` scores on a scene of ~30 sweeps).
@@ -2090,6 +2065,71 @@ def chamfer_f64(a, b):
             "chamfer_b_to_a": d_ba}
 
 
+def view_on_vs_off(what, renderer, plain, rays, tracks, track_mask,
+                   levels):
+    """A [H, W] view kernels on (`renderer`, every K1 and H1 call held
+    against its plain version) vs off (`plain`). H1's rounding in the
+    proposal levels shifts the final intervals the resampling draws, and a
+    shifted interval can move a ray's values past [5]'s tolerances. Those
+    values (at most TRAINED_SWEEP_SHARE) are bounded by a third render
+    instead: the plain chain given the kernel render's final intervals must
+    reproduce the kernel render at [5]'s tolerances on every value, so what
+    differs comes from the intervals and not from a kernel. Returns {"a",
+    "b": the two views, "rec": `kernels_checked`'s record, "errs",
+    "outside", "off_rays": `compare_sweeps`' of a vs b, "replay_errs":
+    its max abs diffs of a vs the replay}."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import stepfun
+    from nerf_lidar_tpu_torch.renderer import render_view
+    sample = stepfun.sample_intervals
+    final_sdist, calls = [], [0]
+
+    def sample_recorded(*a, **kw):
+        sdist = sample(*a, **kw)
+        calls[0] += 1
+        if calls[0] % levels == 0:
+            final_sdist.append(sdist.detach().clone())
+        return sdist
+
+    def sample_replayed(*a, **kw):
+        sdist = sample(*a, **kw)
+        calls[0] += 1
+        if calls[0] % levels:
+            return sdist
+        given = final_sdist[calls[0] // levels - 1]
+        if given.shape != sdist.shape:
+            fail(f"{what}: replayed intervals {tuple(given.shape)} for a "
+                 f"level of {tuple(sdist.shape)}")
+        return given
+
+    with kernels_checked() as rec:
+        stepfun.sample_intervals = sample_recorded
+        try:
+            a = render_view(renderer, rays, tracks, track_mask)
+        finally:
+            stepfun.sample_intervals = sample
+        b = render_view(plain, rays, tracks, track_mask)
+    calls[0] = 0
+    stepfun.sample_intervals = sample_replayed
+    try:
+        c = render_view(plain, rays, tracks, track_mask)
+    finally:
+        stepfun.sample_intervals = sample
+    if calls[0] != levels * len(final_sdist):
+        fail(f"{what}: the replay drew {calls[0]} levels, the kernel render "
+             f"{levels * len(final_sdist)}")
+    flat = lambda img: {k: v.reshape((-1,) + v.shape[2:])  # noqa: E731
+                        for k, v in img.items()}
+    errs, outside, off_rays, _ = compare_sweeps(
+        f"{what}, kernels on vs off", flat(a), flat(b),
+        share=TRAINED_SWEEP_SHARE, cap=None)
+    replay_errs = compare_sweeps(
+        f"{what}, kernels on vs the plain chain on their final "
+        "intervals", flat(a), flat(c))[0]
+    return dict(a=a, b=b, rec=rec, errs=errs, outside=outside,
+                off_rays=off_rays, replay_errs=replay_errs)
+
+
 def phase_eval(dev):
     """[14] Evaluation, on [13]'s dense synth_nusc scene and its 60-step
     field (params_60.npz), at full width: the port's `eval` (every test
@@ -2101,18 +2141,19 @@ def phase_eval(dev):
     and H1 call held against its plain version, and kernels off
     (`use_kernels=False`) at [5]'s tolerances on all but
     TRAINED_SWEEP_SHARE of the values, and the plain chain on the kernel
-    render's final intervals at [5]'s tolerances on all of them; the same weights written as a JAX
-    checkpoint_60.ckpt (`flax_msgpack`) evaluated through the port's
-    decoder, equal to the .npz's metrics; PSNR / SSIM on the card vs the
+    render's final intervals at [5]'s tolerances on all of them; the same
+    weights written as a JAX checkpoint_60.ckpt (the port's
+    `msgpack.msgpack_serialize`) evaluated through the port's decoder,
+    equal to the .npz's metrics; PSNR / SSIM on the card vs the
     CPU and the Chamfer distances vs a float64 k-d tree; times (eval s per
     view, lidar_eval s, Chamfer ms at CHAMFER_SIZES, peak GiB). Returns
     the kernel counts per entry."""
     import numpy as np
     import torch
     from nerf_lidar_tpu_torch import cli, convert
-    from nerf_lidar_tpu_torch.ops import grid, render_fused, stepfun
-    from nerf_lidar_tpu_torch.renderer import ChunkRenderer, render_view
-    from nerf_lidar_tpu_torch.utils import image, pc_metrics
+    from nerf_lidar_tpu_torch.ops import grid, render_fused
+    from nerf_lidar_tpu_torch.renderer import ChunkRenderer
+    from nerf_lidar_tpu_torch.utils import image, msgpack, pc_metrics
 
     counters = dict(composite=render_fused.fused_composite,
                     hash_encode_ms=grid.hash_encode_multisample,
@@ -2186,65 +2227,17 @@ def phase_eval(dev):
           f"median {float(np.median(frame['distance_median'])):.3f}; "
           f"launches {launches['render']}")
 
-    # Eval's first view: every K1 and H1 call against its plain version,
-    # then kernels on vs off. H1's rounding in the proposal levels shifts
-    # the final intervals the resampling draws, and a shifted interval can
-    # move a ray's values past [5]'s tolerances. Those values (at most
-    # TRAINED_SWEEP_SHARE) are bounded by a third render instead: the plain
-    # chain given the kernel render's final intervals must reproduce the
-    # kernel render at [5]'s tolerances on every value, so what differs
-    # comes from the intervals and not from a kernel. The rays outside are
-    # logged with their 3 x 3 neighbourhood's depth span (an occlusion edge
-    # spans metres).
+    # Eval's first view kernels on vs off (`view_on_vs_off`); the rays
+    # outside are logged with their 3 x 3 neighbourhood's depth span (an
+    # occlusion edge spans metres).
     rays = cli._view_rays(ev.data, 0)
     plain = ChunkRenderer(ev.model, ev.cfg, ev.cfg.render_chunk_size,
                           use_kernels=False)
-    sample = stepfun.sample_intervals
-    levels = ev.cfg.model.num_levels
-    final_sdist, calls = [], [0]
-
-    def sample_recorded(*a, **kw):
-        sdist = sample(*a, **kw)
-        calls[0] += 1
-        if calls[0] % levels == 0:
-            final_sdist.append(sdist.detach().clone())
-        return sdist
-
-    def sample_replayed(*a, **kw):
-        sdist = sample(*a, **kw)
-        calls[0] += 1
-        if calls[0] % levels:
-            return sdist
-        given = final_sdist[calls[0] // levels - 1]
-        if given.shape != sdist.shape:
-            fail(f"[14] replayed intervals {tuple(given.shape)} for a "
-                 f"level of {tuple(sdist.shape)}")
-        return given
-
-    with kernels_checked() as rec:
-        stepfun.sample_intervals = sample_recorded
-        try:
-            a = render_view(ev.renderer, rays, ev.tracks, ev.track_mask)
-        finally:
-            stepfun.sample_intervals = sample
-        b = render_view(plain, rays, ev.tracks, ev.track_mask)
-    calls[0] = 0
-    stepfun.sample_intervals = sample_replayed
-    try:
-        c = render_view(plain, rays, ev.tracks, ev.track_mask)
-    finally:
-        stepfun.sample_intervals = sample
-    if calls[0] != levels * len(final_sdist):
-        fail(f"[14] the replay drew {calls[0]} levels, the kernel render "
-             f"{levels * len(final_sdist)}")
-    flat = lambda img: {k: v.reshape((-1,) + v.shape[2:])  # noqa: E731
-                        for k, v in img.items()}
-    errs, outside, off_rays, _ = compare_sweeps(
-        "[14] eval view 0, kernels on vs off", flat(a), flat(b),
-        share=TRAINED_SWEEP_SHARE, cap=None)
-    replay_errs = compare_sweeps(
-        "[14] eval view 0, kernels on vs the plain chain on their final "
-        "intervals", flat(a), flat(c))[0]
+    on_off = view_on_vs_off("[14] eval view 0", ev.renderer, plain, rays,
+                            ev.tracks, ev.track_mask,
+                            ev.cfg.model.num_levels)
+    a, b, rec, errs, outside, off_rays, replay_errs = (on_off[k] for k in (
+        "a", "b", "rec", "errs", "outside", "off_rays", "replay_errs"))
     n = off_rays.shape[0]
     moved = (torch.cat(rec["tdist_kernels"])[:n]
              - torch.cat(rec["tdist_plain"])[:n]).abs().amax(-1).cpu()
@@ -2282,7 +2275,7 @@ def phase_eval(dev):
     os.makedirs(os.path.join("exp", EVAL_CKPT_EXP))
     with open(os.path.join("exp", EVAL_CKPT_EXP,
                            f"checkpoint_{step}.ckpt"), "wb") as f:
-        f.write(flax_msgpack(train_state))
+        f.write(msgpack.msgpack_serialize(train_state))
     ev_ckpt = cli.main(["eval", *RD_FIELD_ARGV, "--exp_name", EVAL_CKPT_EXP])
     same = {k: (ev_ckpt.metrics[k], ev.metrics[k]) for k in ev.metrics
             if k != "median_render_time_s"
@@ -2926,6 +2919,334 @@ def _bad_indices(idx, size, g):
     return bad
 
 
+# [16]: mesh extraction of [8]'s learning-check field, and the object-scene
+# entries on [12]'s scene and field.
+MESH_EXP = "chip_smoke_mesh"
+MESH_RES = 256
+MESH_DECIMATE = 100000
+# The stated level of the second mesh: this percentile of the lattice's
+# densities (a 100-step field may have none above the default 20).
+MESH_PERCENTILE = 99.9
+MESH_ARGV = ["extract", "--config", "nuscenes_single",
+             "--set", "dataset_loader=synthetic",
+             "--resolution", str(MESH_RES), "--clean",
+             "--decimate", str(MESH_DECIMATE), "--device", "cuda",
+             "--exp_name", MESH_EXP]
+# The lattice kernels on vs off at H1's [4] tolerances; the vertex colours
+# (8 samples through the NeRF MLP and the plain compositor) at atol 1e-4.
+LATTICE_TOL = (1e-5, 1e-6)
+COLOR_TOL = 1e-4
+OBJ_ENTRY_ARGS = ["--config", "nuscenes_single", "--set",
+                  "dataset_loader=nusc", "--data_dir", OBJ_SCENE,
+                  "--device", "cuda", "--exp_name", OBJ_EXP]
+OBJ_CKPT_EXP = "chip_smoke_obj_ckpt"
+
+
+@contextlib.contextmanager
+def stage_seconds(stages):
+    """Within the block, each (module, function name, label) of `stages`
+    adds its synchronised wall seconds to {label: s}, which it yields."""
+    import torch
+    times, saved = {}, []
+    for mod, name, label in stages:
+        fn = getattr(mod, name)
+
+        def timed(*a, _fn=fn, _label=label, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[_label] = times.get(_label, 0.0) + time.perf_counter() - t
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield times
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def host_peak():
+    """Within the block, a thread reads the process's resident memory every
+    5 ms; yields {"gib": the largest reading, "base_gib": the first}, set
+    when the block ends (the kernel's own peak, VmHWM, cannot be reset in
+    every sandbox)."""
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page / 2 ** 30
+
+    out, done = dict(base_gib=rss(), gib=rss()), threading.Event()
+
+    def poll():
+        while not done.wait(0.005):
+            out["gib"] = max(out["gib"], rss())
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        thread.join()
+        out["gib"] = max(out["gib"], rss())
+
+
+def mesh_stages():
+    from nerf_lidar_tpu_torch import extract
+    from nerf_lidar_tpu_torch.utils import marching
+    return [(extract, "density_on_lattice", "lattice"),
+            (marching, "marching_tetrahedra", "marching"),
+            (marching, "weld_vertices", "weld"),
+            (marching, "clean_mesh", "clean"),
+            (marching, "decimate_mesh", "decimate"),
+            (extract, "rgb_by_projection", "colour")]
+
+
+def phase_extract(dev, params):
+    """[16] The extract entry at --resolution MESH_RES on the weights [8]'s
+    learning check wrote, at the default level (20) with --clean and
+    --decimate MESH_DECIMATE, every H1 call held against its plain version;
+    the lattice kernels off; a second mesh at the lattice's MESH_PERCENTILE
+    percentile (stage seconds, peak device and host memory), whose lattice
+    equals the kernels-off one at LATTICE_TOL and whose vertex colours
+    equal the kernels-off colours of the same vertices at COLOR_TOL.
+    Returns {"launches", "profiled": H1 on the lattice's first chunk by
+    device time (run with the other profiler phases)}."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli, extract
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+
+    fresh_exp_dir(MESH_ARGV)
+    argv = [*MESH_ARGV, "--params", params]
+    with counted_launches() as launches, kernels_checked() as rec, \
+            stage_seconds(mesh_stages()) as cli_s:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    need_launches("[16] extract", launches, ["hash_encode_ms"],
+                  absent=["composite", "hash_encode_ms_bwd",
+                          "scatter_add_rows"])
+    if len(rec["h1"]) != launches["hash_encode_ms"]:
+        fail(f"[16] extract: {len(rec['h1'])} H1 calls checked of "
+             f"{launches['hash_encode_ms']}")
+    print(f"[16] extract --resolution {MESH_RES} --threshold 20 --clean "
+          f"--decimate {MESH_DECIMATE} ({params}): {len(run.verts)} "
+          f"vertices, {len(run.faces)} faces; launches {launches}; every H1 "
+          f"call vs its plain version, max abs err {max(rec['h1']):.3e} "
+          f"({len(rec['h1'])} calls); stage s (the lattice and colours with "
+          f"each H1 call checked) {json.dumps(cli_s)}")
+
+    model = run.model
+    # Kernels off in chunks of 2^20 points: the plain encode is many small
+    # launches, so 256 chunks of 2^16 would take seconds of host time.
+    t = time.perf_counter()
+    grid_off = extract.density_on_lattice(model, MESH_RES, chunk=2 ** 20,
+                                          use_kernels=False)[0]
+    off_s = time.perf_counter() - t
+    level = float(np.percentile(grid_off, MESH_PERCENTILE))
+    lattice = {}
+    orig = extract.density_on_lattice
+
+    def kept(*a, **kw):
+        out = orig(*a, **kw)
+        lattice["grid"] = out[0]
+        return out
+
+    extract.density_on_lattice = kept
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    try:
+        with hb.recording(grid, "hash_encode_multisample", model) as first, \
+                stage_seconds(mesh_stages()) as secs, host_peak() as host:
+            verts, faces, colors = extract.extract_mesh(
+                model, MESH_RES, level, clean=True,
+                decimate_target=MESH_DECIMATE,
+                out_path=os.path.join(cli.exp_dir(run.cfg),
+                                      "mesh_level.ply"))
+    finally:
+        extract.density_on_lattice = orig
+    device_gib = (torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30
+    if len(faces) == 0 or colors is None or len(faces) > MESH_DECIMATE:
+        fail(f"[16] mesh at level {level}: {len(verts)} vertices, "
+             f"{len(faces)} faces")
+    err = close("[16] lattice kernels on vs off",
+                torch.from_numpy(lattice["grid"]),
+                torch.from_numpy(grid_off), *LATTICE_TOL)
+    colors_off = extract.rgb_by_projection(model, verts, faces,
+                                           use_kernels=False)
+    c_err = close("[16] vertex colours kernels on vs off",
+                  torch.from_numpy(colors), torch.from_numpy(colors_off),
+                  0.0, COLOR_TOL)
+    print(f"[16] mesh at the lattice's {MESH_PERCENTILE} percentile "
+          f"(level {level:.4g}; lattice max {float(grid_off.max()):.4g}, "
+          f"median {float(np.median(grid_off)):.4g}; above 20: "
+          f"{int((grid_off > 20).sum())} points): {len(verts)} vertices, "
+          f"{len(faces)} faces; lattice kernels on vs off max abs err "
+          f"{err:.3e}, colours {c_err:.3e}; stage s {json.dumps(secs)}, "
+          f"lattice kernels off {off_s:.2f} s; peak memory device "
+          f"{device_gib:.2f} GiB above the {held / 2 ** 30:.2f} held, host "
+          f"{host['gib']:.2f} GiB resident "
+          f"({host['gib'] - host['base_gib']:.2f} above the "
+          f"{host['base_gib']:.2f} before it)")
+    chunk = first["nerf"]
+    del run, model, grid_off, lattice
+    torch.cuda.empty_cache()
+
+    def profiled():
+        table, x01, stds, spec = chunk[:4]
+        args = chunk
+        ms = device_ms(lambda: grid.hash_encode_multisample(*args))
+        # The plain encode by CUDA events, as [4] times it: its hundreds of
+        # launches a call make torch.profiler's event lists take tens of
+        # seconds.
+        plain_ms = cuda_ms(lambda: grid.hash_encode_multisample_plain(
+            *args), iters=5, warmup=1)
+        lim = bound(*hb.fwd_bound(spec, x01, stds))
+        err = close("[16] H1 on a lattice chunk",
+                    grid.hash_encode_multisample(*args),
+                    grid.hash_encode_multisample_plain(*args)[0], 1e-5, 1e-6)
+        print(f"[16] H1 on the lattice's first chunk (NeRF grid, B="
+              f"{stds.shape[0]} n={stds.shape[-1]}, stds 0): device ms "
+              f"kernel {ms:.5f}, plain {plain_ms:.4f} (CUDA events); bound "
+              f"{lim['bound_ms']:.5f} ms ({lim['bound_by']}); max abs err "
+              f"{err:.3e}")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **lim)
+
+    return dict(launches=launches, profiled=profiled)
+
+
+def phase_object_entries(dev):
+    """[16] On [12]'s scene and weights: `render_video --mode laneshift
+    --num_frames 1`, once more with --hq, and `render_instance`, each with
+    every H1 call held against its plain version and its launches counted;
+    the laneshift frame kernels on vs off as [14] holds eval's view (all
+    but TRAINED_SWEEP_SHARE of the values at [5]'s tolerances, the plain
+    chain on the kernel render's final intervals at [5]'s on every value),
+    the orbit views at [5]'s; s per frame and per view. Then `train
+    --obj_ckpt` from a file of [12]'s object MLP (`save_obj_mlp_params`):
+    the subtree equal to the file at step 0. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli, convert
+    from nerf_lidar_tpu_torch.models import objects as objlib
+    from nerf_lidar_tpu_torch.renderer import ChunkRenderer, render_view
+    from nerf_lidar_tpu_torch.train import checkpoints, train_step
+
+    params = os.path.join("exp", OBJ_EXP, f"params_{OBJ_STEPS}.npz")
+    weights = ["--params", params]
+    paths = {}
+    for name, extra in (("render_video", []), ("render_video_hq", ["--hq"])):
+        argv = ["render_video", *OBJ_ENTRY_ARGS, *weights, "--mode",
+                "laneshift", "--num_frames", "1", *extra]
+        with counted_launches() as launches, kernels_checked() as rec:
+            run = cli.main(argv)
+            torch.cuda.synchronize()
+        need_launches(f"[16] {name}", launches, ["hash_encode_ms"],
+                      absent=["composite"])
+        paths[name] = launches
+        rays = cli._view_rays(run.data, 0)
+        frame_s = statistics.median(cuda_ms_once(lambda: render_view(
+            run.renderer, rays, run.tracks, run.track_mask))[0] / 1e3
+            for _ in range(3 if name == "render_video" else 1))
+        print(f"[16] {name} --mode laneshift ({run.cfg.model.num_objects} "
+              f"object(s), samples {run.cfg.model.num_prop_samples} + "
+              f"{run.cfg.model.num_nerf_samples}): launches {launches}; "
+              "every "
+              f"H1 call vs its plain version, max abs err "
+              f"{max(rec['h1']):.3e} ({len(rec['h1'])} calls); "
+              f"{frame_s:.3f} s per frame ({rays['near'].size} rays, warm"
+              f"{', median of 3' if name == 'render_video' else ''})")
+        if name == "render_video":
+            plain = ChunkRenderer(run.model, run.cfg,
+                                  run.cfg.render_chunk_size,
+                                  use_kernels=False, compute_extras=True)
+            out = view_on_vs_off("[16] render_video frame 0", run.renderer,
+                                 plain, rays, run.tracks, run.track_mask,
+                                 run.cfg.model.num_levels)
+            print(f"[16] render_video frame 0 kernels on vs off: max abs "
+                  f"diff {out['errs']}, values outside [5]'s tolerances "
+                  f"{out['outside']} (allowed {TRAINED_SWEEP_SHARE} of "
+                  f"each); kernels on vs the plain chain on their final "
+                  f"intervals {out['replay_errs']}")
+        del run
+        torch.cuda.empty_cache()
+
+    argv = ["render_instance", *OBJ_ENTRY_ARGS, *weights]
+    with counted_launches() as launches, kernels_checked() as rec:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    need_launches("[16] render_instance", launches, ["hash_encode_ms"],
+                  absent=["composite"])
+    paths["render_instance"] = launches
+    n_views = len(run.frames)
+    view_s, off = cuda_ms_once(lambda: objlib.render_instance(
+        run.model, 0, num_views=n_views, use_kernels=False))
+    on_s = cuda_ms_once(lambda: objlib.render_instance(
+        run.model, 0, num_views=n_views))[0]
+    err = close("[16] render_instance kernels on vs off",
+                torch.from_numpy(run.frames), torch.from_numpy(off),
+                0.0, 1e-4)
+    if float(np.ptp(run.frames)) == 0.0:
+        fail("[16] render_instance: every pixel of every view is equal")
+    print(f"[16] render_instance ({n_views} views of "
+          f"{run.frames.shape[1]} x {run.frames.shape[2]}): launches "
+          f"{launches}; every H1 call vs its plain version, max abs err "
+          f"{max(rec['h1']):.3e} ({len(rec['h1'])} calls); kernels on vs "
+          f"off max abs diff {err:.3e}; {on_s / 1e3 / n_views:.4f} s per "
+          f"view (plain {view_s / 1e3 / n_views:.4f})")
+
+    # An object MLP of [12]'s field into a fresh run of the same recipe.
+    name = next(n for n in convert.flax_module_names(run.model)
+                if n.startswith("obj_mlp"))
+    path = checkpoints.save_obj_mlp_params(
+        run.model, name, os.path.join("exp", OBJ_EXP, f"{name}.ckpt"))
+    want = {k: v.detach().clone() for k, v in run.model.state_dict().items()
+            if convert.flax_module_of(k) == name}
+    del run
+    argv = [*OBJ_TRAIN_ARGV, "--exp_name", OBJ_CKPT_EXP, "--steps", "1",
+            "--obj_ckpt", f"{name}={path}"]
+    fresh_exp_dir(argv)
+    seen = {}
+    orig = train_step.train_step
+
+    def first(model, *a, **kw):
+        if not seen:
+            seen.update({k: v.detach().clone()
+                         for k, v in model.state_dict().items()
+                         if convert.flax_module_of(k) == name})
+        return orig(model, *a, **kw)
+
+    train_step.train_step = first
+    try:
+        with counted_launches() as launches:
+            run = cli.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        train_step.train_step = orig
+    need_launches("[16] train --obj_ckpt", launches,
+                  ["hash_encode_ms", "hash_encode_ms_bwd",
+                   "scatter_add_rows"])
+    paths["train_obj_ckpt"] = launches
+    if run.init_step != 0 or set(seen) != set(want) or not all(
+            torch.equal(seen[k], want[k]) for k in want):
+        fail(f"[16] train --obj_ckpt {name}={path}: the subtree at step 0 "
+             "differs from the file's")
+    print(f"[16] train --obj_ckpt {name}={path}: {len(want)} tensors equal "
+          f"to the file's at step 0; 1 step, loss "
+          f"{run.history[-1]['loss'] if run.history else float('nan'):.4f};"
+          f" launches {launches}")
+    del run
+    torch.cuda.empty_cache()
+    return paths
+
+
 def phase_gathers(dev):
     """K2, K4's five forms and K5 vs their plain versions, exactly, at the
     TPU kernels' shapes, on in-range and on negative / out-of-range
@@ -3137,8 +3458,11 @@ def main():
     raydrop_launches = timed("[13]", phase_raydrop, dev)
     eval_launches = timed("[14]", phase_eval, dev)
     presets = timed("[15]", phase_presets, dev)
+    mesh = timed("[16] extract", phase_extract, dev, params)
+    obj_entries = timed("[16] object entries", phase_object_entries, dev)
     obj_grid = timed("[12] profiled", objects.pop("profiled"))
     timed("[15] profiled", presets.pop("profiled"))
+    lattice_chunk = timed("[16] profiled", mesh.pop("profiled"))
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
@@ -3154,12 +3478,15 @@ def main():
     # Launches per main path: the render entry's run [5], the train entry's
     # run [8], the gather bench's run [11], with dynamic objects [12]'s
     # train entry and its replay render, [13]'s ray-drop path (features
-    # to export, which launches none), and [14]'s eval, lidar_eval and
-    # render entries; `launches` is their sum.
+    # to export, which launches none), [14]'s eval, lidar_eval and render
+    # entries, [15]'s preset paths and [16]'s extract, render_video (and
+    # --hq), render_instance and train --obj_ckpt; `launches` is their
+    # sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
              *objects["paths"].items(), ("raydrop", raydrop_launches),
-             *eval_launches.items(), *presets["paths"].items())
+             *eval_launches.items(), *presets["paths"].items(),
+             ("extract", mesh["launches"]), *obj_entries.items())
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""
@@ -3184,7 +3511,7 @@ def main():
               "NeRF grid, the first 16,384-ray chunk of a [5] sweep "
               "(uniform_*: uniform points of the same shape)", h1,
               obj_grid=obj_grid["hash_encode_ms"],
-              preset_modes=presets["h1"]),
+              preset_modes=presets["h1"], lattice_chunk=lattice_chunk),
         # Against the written-out twin; prop0 also vs autograd; obj_grid
         # d_table and d_x01 vs both.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,

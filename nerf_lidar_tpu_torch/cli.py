@@ -39,7 +39,16 @@ writes one) and a config with `instance_obj`, `train` fits the object
 MLPs and latents beside the field (with the tracknet under
 `track_refine`, the posenet under `pose_refine`), and `render_lidar`
 composites the vehicles into the sweeps, edited by `--obj_mode` and
-`--insert_track`.
+`--insert_track`. `render_video --mode laneshift` renders the edited scene's
+training views as panels, `render_instance --track_id 0` orbits one
+object's field, and `train --obj_ckpt obj_mlp=car.ckpt` starts from an
+object MLP saved by `train/checkpoints.save_obj_mlp_params` (or by the JAX
+package). `extract --resolution 256 --clean --decimate 100000` writes the
+static field's mesh to exp/<name>/mesh.ply.
+
+`train` resumes from the newest train state in exp/<name>/: the port's
+checkpoint_<step>.pt or the JAX package's checkpoint_<step>.ckpt (its
+params and Adam moments), the port's on a tie.
 
 Config, overrides and scene loading (`build_config`, `apply_overrides`,
 `load_scene_for`, `exp_dir`) are copies of the JAX CLI's helpers over the
@@ -387,8 +396,12 @@ def cmd_train(args) -> types.SimpleNamespace:
     `train_render_every` steps a test view is rendered (`_TestRender`);
     `--trace_dir` writes a torch.profiler Chrome trace of steps
     [trace_start, trace_stop], counted from the first step of this run.
-    Resumes from the newest
-    checkpoint there. Returns what was built, the printed stats (`history`),
+    `--obj_ckpt name=path` loads an object MLP's subtree before training.
+    Resumes from the newest train state there, the port's
+    checkpoint_<step>.pt or the JAX package's checkpoint_<step>.ckpt
+    (`checkpoints.restore_checkpoint`; a .ckpt that does not match the
+    config ends the run with its name and step). Returns what was built,
+    the step it started at (`init_step`), the printed stats (`history`),
     the in-train renders' PSNRs (`test_psnr`) and the last checkpoint's
     paths."""
     cfg = build_config(args)
@@ -423,9 +436,20 @@ def cmd_train(args) -> types.SimpleNamespace:
     if cfg.track_refine and tracks is not None:
         tracknet = posenet_lib.TrackOpt(int(tracks.shape[0]),
                                         int(tracks.shape[1]), device=device)
+    # Transplant pre-trained object MLPs (--obj_ckpt obj_mlp_cls2=car.ckpt,
+    # repeatable); a checkpoint of this experiment overrides them.
+    for spec in args.obj_ckpt:
+        name, _, path = spec.partition("=")
+        checkpoints.restore_obj_mlp_params(model, name, path)
+        print(f"restored obj MLP '{name}' from {path}")
     optimizer = train_step.make_optimizer(model, cfg, posenet, tracknet)
-    init_step = checkpoints.restore_checkpoint(out, model, optimizer,
-                                               posenet, tracknet)
+    try:
+        init_step = checkpoints.restore_checkpoint(out, model, optimizer,
+                                                   posenet, tracknet)
+    except ValueError as e:
+        raise SystemExit(f"train: cannot resume: {e}") from e
+    if init_step:
+        print(f"resumed from step {init_step}")
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)
     max_steps = args.steps or cfg.max_steps
     logger = MetricsLogger(out, tensorboard=args.tensorboard)
@@ -491,7 +515,8 @@ def cmd_train(args) -> types.SimpleNamespace:
     print(f"done: {out}")
     return types.SimpleNamespace(
         cfg=cfg, model=model, optimizer=optimizer, batcher=batcher,
-        generator=generator, history=history, test_psnr=test_psnr, out=out,
+        generator=generator, init_step=init_step, history=history,
+        test_psnr=test_psnr, out=out,
         checkpoint=paths[0], params=paths[1], posenet=posenet,
         tracknet=tracknet, tracks=tracks, track_mask=track_mask,
         test_view=None if test_render is None else test_render.view)
@@ -770,6 +795,15 @@ def cmd_lidar_eval(args) -> types.SimpleNamespace:
                                  pred_pts=pred_pts, gt_pts=gt_pts)
 
 
+def _refuse_video(args, frames_dir: str) -> None:
+    if args.video:
+        raise SystemExit(
+            "--video needs imageio with an ffmpeg backend, which the port "
+            "does not use (the GPU machine has neither): render the frames "
+            f"without --video and join <exp>/{frames_dir}/color_*.png with "
+            "ffmpeg")
+
+
 def cmd_render(args) -> types.SimpleNamespace:
     """Test-view (`--path test`) or ellipse-path frames with colour /
     depth / acc / semantic panels (`compute_extras`, so the final level
@@ -779,12 +813,7 @@ def cmd_render(args) -> types.SimpleNamespace:
     from .data import camera as camlib
     from .utils import vis as vis_lib
 
-    if args.video:
-        raise SystemExit(
-            "--video needs imageio with an ffmpeg backend, which the port "
-            "does not use (the GPU machine has neither): render the frames "
-            "without --video and join <exp>/render_<path>/color_*.png with "
-            "ffmpeg")
+    _refuse_video(args, "render_<path>")
     cfg = build_config(args)
     device = _device(args.device)
     out = exp_dir(cfg)
@@ -812,6 +841,114 @@ def cmd_render(args) -> types.SimpleNamespace:
     print(f"frames in {render_dir}")
     return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
                                  render_dir=render_dir, frames=frames)
+
+
+def cmd_render_video(args) -> types.SimpleNamespace:
+    """Scene-edit frames: the `--mode` edit (laneshift, removal, rotate) of
+    the tracks, `--insert_track`, then the first `--num_frames` training
+    views rendered with colour / depth / acc / semantic panels
+    (compute_extras: the final level composites without K1, as in JAX)
+    under exp/<name>/video_<mode>/. `--hq` renders 256 + 64 proposal and
+    64 NeRF samples. `--video` is refused as `render --video` is. Returns
+    what was built and the frames."""
+    from .utils import vis as vis_lib
+
+    _refuse_video(args, "video_<mode>")
+    cfg = build_config(args)
+    device = _device(args.device)
+    out = exp_dir(cfg)
+    scene = load_scene_for(cfg, "train")
+    data = scene.data
+    tracks = getattr(scene, "tracks", None)
+    track_mask = getattr(scene, "track_mask", None)
+    classes = list(getattr(scene, "track_classes", []))
+    angle, tracks = objlib.simu_info(args.mode, tracks)
+    if tracks is not None and angle:
+        tracks = objlib.manipulate_tracks(tracks, angle)
+    if args.insert_track and tracks is not None:
+        tracks, track_mask, classes = objlib.edit_tracks(
+            tracks, track_mask, classes, np.load(args.insert_track))
+    cfg = _with_objects(cfg, tracks, classes)
+    if args.hq:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, num_prop_samples=(256, 64), num_nerf_samples=64))
+    params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
+    print(f"restored step {step}")
+    model = build_model(cfg, params, device)
+    tracks_t, mask_t = _track_tensors(cfg, tracks, track_mask, device)
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size,
+                             compute_extras=True)
+    render_dir = os.path.join(out, f"video_{args.mode}")
+    frames = []
+    for i in range(min(args.num_frames, data.num_views)):
+        img = render_view(renderer, _view_rays(data, i), tracks_t, mask_t)
+        vis_lib.save_panels(vis_lib.visualize_suite(
+            img, near=data.near, far=data.far), render_dir, i)
+        frames.append(img)
+        print(f"rendered frame {i}")
+    print(f"frames in {render_dir}")
+    return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
+                                 data=data, render_dir=render_dir,
+                                 frames=frames, tracks=tracks_t,
+                                 track_mask=mask_t)
+
+
+def cmd_render_instance(args) -> types.SimpleNamespace:
+    """Orbit-render one dynamic object's field alone
+    (`models/objects.render_instance`: `--num_views` views of `--size`^2
+    around its box) into exp/<name>/instance_<track_id>/view_<i>.png.
+    Returns what was built and the frames."""
+    cfg = build_config(args)
+    device = _device(args.device)
+    scene = load_scene_for(cfg, "train")
+    tracks = getattr(scene, "tracks", None)
+    if tracks is None:
+        raise SystemExit("scene has no tracks; render_instance needs "
+                         "instance_obj data")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, instance_obj=True, num_objects=int(tracks.shape[0])))
+    params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
+    print(f"restored step {step}")
+    model = build_model(cfg, params, device)
+    frames = objlib.render_instance(model, args.track_id, height=args.size,
+                                    width=args.size,
+                                    num_views=args.num_views)
+    out = os.path.join(exp_dir(cfg), f"instance_{args.track_id}")
+    os.makedirs(out, exist_ok=True)
+    for i, frame in enumerate(frames):
+        png.write_png(os.path.join(out, f"view_{i:03d}.png"),
+                      (np.clip(frame, 0, 1) * 255).astype(np.uint8))
+    print(f"{len(frames)} views in {out}")
+    return types.SimpleNamespace(cfg=cfg, model=model, frames=frames,
+                                 out=out)
+
+
+def cmd_extract(args) -> types.SimpleNamespace:
+    """Mesh extraction (`extract.extract_mesh`) of the static field:
+    density on a `--resolution`^3 lattice of contracted space, the
+    `--threshold` isosurface, `--clean`, `--decimate N` faces, vertex
+    colours unless `--no_color`; writes exp/<name>/mesh.ply. Returns what
+    was built and the mesh."""
+    from .extract import extract_mesh
+
+    cfg = build_config(args)
+    device = _device(args.device)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, instance_obj=False))
+    params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
+    print(f"restored step {step}")
+    model = build_model(cfg, params, device)
+    out = exp_dir(cfg)
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "mesh.ply")
+    verts, faces, colors = extract_mesh(
+        model, resolution=args.resolution,
+        isosurface_threshold=args.threshold, out_path=path,
+        vertex_color=not args.no_color, clean=args.clean,
+        decimate_target=args.decimate)
+    print(f"mesh: {len(verts)} verts, {len(faces)} faces -> {path}")
+    return types.SimpleNamespace(cfg=cfg, model=model, verts=verts,
+                                 faces=faces, colors=colors, path=path)
 
 
 def _load_features(path: str) -> Dict[str, np.ndarray]:
@@ -1077,6 +1214,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "[trace_start, trace_stop] to this dir")
     sp.add_argument("--trace_start", type=int, default=10)
     sp.add_argument("--trace_stop", type=int, default=15)
+    sp.add_argument("--obj_ckpt", action="append", default=[],
+                    help="transplant a pre-trained obj MLP subtree: "
+                         "name=path (e.g. obj_mlp_cls2=car.ckpt)")
     sp.set_defaults(fn=cmd_train)
 
     sp = sub.add_parser("eval")
@@ -1107,6 +1247,42 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     sp.add_argument("--video", action="store_true",
                     help="refused: needs imageio / ffmpeg")
     sp.set_defaults(fn=cmd_render)
+
+    sp = sub.add_parser("render_video")
+    common(sp)
+    weights(sp)
+    sp.add_argument("--mode", default="replay",
+                    choices=["replay", "laneshift", "removal", "rotate"])
+    sp.add_argument("--num_frames", type=int, default=10)
+    sp.add_argument("--insert_track", default=None,
+                    help="npy track ([T, 9]) to insert into the scene")
+    sp.add_argument("--hq", action="store_true",
+                    help="256 + 64 proposal and 64 NeRF samples")
+    sp.add_argument("--video", action="store_true",
+                    help="refused: needs imageio / ffmpeg")
+    sp.set_defaults(fn=cmd_render_video)
+
+    sp = sub.add_parser("render_instance")
+    common(sp)
+    weights(sp)
+    sp.add_argument("--track_id", type=int, default=0)
+    sp.add_argument("--size", type=int, default=128)
+    sp.add_argument("--num_views", type=int, default=8)
+    sp.set_defaults(fn=cmd_render_instance)
+
+    sp = sub.add_parser("extract")
+    common(sp)
+    weights(sp)
+    sp.add_argument("--resolution", type=int, default=256)
+    sp.add_argument("--threshold", type=float, default=20.0)
+    sp.add_argument("--no_color", action="store_true")
+    sp.add_argument("--clean", action="store_true",
+                    help="post-process: merge close verts, drop "
+                         "duplicate/null faces + small components")
+    sp.add_argument("--decimate", type=int, default=0,
+                    help="decimate to <= N faces (quadric edge collapse up "
+                         "to 100,000 faces, vertex clustering above)")
+    sp.set_defaults(fn=cmd_extract)
 
     sp = sub.add_parser("render_lidar")
     common(sp)

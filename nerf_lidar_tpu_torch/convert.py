@@ -117,6 +117,23 @@ def _is_object_leaf(flax_path: str) -> bool:
         _OBJ_MLP.fullmatch(flax_path.split("/")[0]))
 
 
+def _leaf(path: str, value, expected: Dict[str, torch.Tensor]):
+    """(torch name, float32 tensor) of one Flax leaf of the scene model: a
+    Dense kernel transposed; KeyError if no tensor of `expected` takes it,
+    ValueError if the shapes differ."""
+    name = _torch_name(path)
+    if name not in expected:
+        raise KeyError(f"Flax leaf {path!r} -> {name!r} has no torch "
+                       "parameter")
+    value = np.array(value, np.float32)
+    if path.endswith("/kernel"):
+        value = value.T
+    if tuple(value.shape) != tuple(expected[name].shape):
+        raise ValueError(f"{path}: shape {value.shape} does not match "
+                         f"{name} {tuple(expected[name].shape)}")
+    return name, torch.from_numpy(np.ascontiguousarray(value))
+
+
 def flax_to_state_dict(params: dict, model_cfg: ModelConfig
                        ) -> Dict[str, torch.Tensor]:
     """Flax param tree (numpy leaves) -> state dict of `Model(model_cfg)`.
@@ -124,28 +141,16 @@ def flax_to_state_dict(params: dict, model_cfg: ModelConfig
     tree = params["params"] if "params" in params else params
     model = Model(model_cfg, device="meta")
     expected = model.state_dict()
-    out = {}
-    for path, value in flatten_params(tree).items():
-        if not model.has_objects and _is_object_leaf(path):
-            continue
-        name = _torch_name(path)
-        if name not in expected:
-            raise KeyError(f"Flax leaf {path!r} -> {name!r} has no torch "
-                           "parameter")
-        value = np.array(value, np.float32)
-        if path.endswith("/kernel"):
-            value = value.T
-        if tuple(value.shape) != tuple(expected[name].shape):
-            raise ValueError(f"{path}: shape {value.shape} does not match "
-                             f"{name} {tuple(expected[name].shape)}")
-        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    out = dict(_leaf(path, value, expected)
+               for path, value in flatten_params(tree).items()
+               if model.has_objects or not _is_object_leaf(path))
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"torch parameters with no Flax leaf: {missing}")
     return out
 
 
-def _flax_path(torch_name: str) -> str:
+def flax_path(torch_name: str) -> str:
     """'nerf_mlp.density_layers.0.weight' -> 'nerf_mlp/density_layers_0/kernel'
     (the inverse of `_torch_name`)."""
     parts = torch_name.split(".")
@@ -168,10 +173,38 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor]) -> dict:
     flat = {}
     for name, value in state_dict.items():
         v = value.detach().cpu().numpy()
-        path = _flax_path(name)
+        path = flax_path(name)
         flat[path] = np.ascontiguousarray(v.T if path.endswith("/kernel")
                                           else v)
     return {"params": unflatten_params(flat)}
+
+
+def flax_module_of(torch_name: str) -> str:
+    """The top-level Flax name of a parameter ('prop_mlps.0.table' ->
+    'prop_mlps_0')."""
+    return flax_path(torch_name).split("/")[0]
+
+
+def flax_module_names(model: Model) -> list:
+    """The top-level Flax names of the model's parameters (`nerf_mlp`,
+    `prop_mlps_0`, `obj_mlp_cls2`, `obj_latents`, ...), sorted."""
+    return sorted({flax_module_of(k) for k in model.state_dict()})
+
+
+@torch.no_grad()
+def load_flax_subtree(model: Model, name: str, subtree: dict) -> None:
+    """Copy the Flax subtree of one top-level module (`name`, e.g.
+    `obj_mlp_cls2`) into the model's parameters: every leaf used, every
+    parameter of that module filled, the shapes equal, or it raises."""
+    params = {k: p for k, p in model.named_parameters()
+              if flax_module_of(k) == name}
+    got = dict(_leaf(path, value, params)
+               for path, value in flatten_params({name: subtree}).items())
+    if set(got) != set(params):
+        raise KeyError(f"parameters of {name} with no Flax leaf: "
+                       f"{sorted(set(params) - set(got))}")
+    for tname, value in got.items():
+        params[tname].copy_(value)
 
 
 def refiners_to_flax(posenet=None, tracknet=None) -> dict:

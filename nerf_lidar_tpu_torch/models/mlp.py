@@ -237,6 +237,30 @@ class ZipMLP(nn.Module):
                               dim=-1)
         return feats
 
+    def predict_density(self, means: torch.Tensor, stds: torch.Tensor,
+                        latent: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None,
+                        use_kernels: bool = True):
+        """The density trunk: encode (+ the latent's density slice) ->
+        density layers. Returns (raw density [..., S] in float32, before
+        the bias and softplus, with density noise when `generator` is
+        given; the trunk's output x [..., W], the bottleneck)."""
+        c = self.cfg
+        x = self._encode(means, stds, use_kernels)
+        if latent is not None:
+            dens_lat = latent_split(c, self.latent_width)[0]
+            x = torch.cat([x, latent[..., dens_lat]], dim=-1)
+        for i, layer in enumerate(self.density_layers):
+            x = layer(x)
+            if i != len(self.density_layers) - 1:
+                x = F.relu(x)
+        raw_density = x[..., 0].float()
+        if generator is not None and c.density_noise > 0:
+            raw_density = raw_density + c.density_noise * torch.randn(
+                raw_density.shape, generator=generator,
+                device=raw_density.device)
+        return raw_density, x
+
     def forward(self, means: torch.Tensor, stds: torch.Tensor,
                 viewdirs: Optional[torch.Tensor] = None,
                 latent: Optional[torch.Tensor] = None,
@@ -249,19 +273,9 @@ class ZipMLP(nn.Module):
         or None for none. Returns dict(density [..., S], rgb [..., S, 3],
         semantic [..., S, K] or None, intensity [..., S, 1] or None)."""
         c = self.cfg
-        x = self._encode(means, stds, use_kernels)
-        dens_lat, view_lat = latent_split(c, self.latent_width)
-        if latent is not None:
-            x = torch.cat([x, latent[..., dens_lat]], dim=-1)
-        for i, layer in enumerate(self.density_layers):
-            x = layer(x)
-            if i != len(self.density_layers) - 1:
-                x = F.relu(x)
-        raw_density = x[..., 0].float()
-        if generator is not None and c.density_noise > 0:
-            raw_density = raw_density + c.density_noise * torch.randn(
-                raw_density.shape, generator=generator,
-                device=raw_density.device)
+        raw_density, x = self.predict_density(means, stds, latent,
+                                              generator, use_kernels)
+        view_lat = latent_split(c, self.latent_width)[1]
         density = F.softplus(raw_density + c.density_bias)
         out = dict(density=density, rgb=None, semantic=None, intensity=None)
         if c.disable_rgb:

@@ -11,6 +11,38 @@ import torch
 _EPS = float(np.finfo(np.float32).eps)
 
 
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis [..., 1], added left to right
+    with one rounding each, as the JAX package's eager call computes it on
+    the CPU (`Tensor.sum` adds in another order: a mesh vertex then moves
+    by an ulp)."""
+    out = x[..., :1] ** 2
+    for i in range(1, x.shape[-1]):
+        out = out + x[..., i:i + 1] ** 2
+    return out
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (in float64, rounded once), as
+    XLA computes it: torch's vectorised float32 sqrt on the CPU is an ulp
+    off on ~0.6% of values."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def contract(x: torch.Tensor) -> torch.Tensor:
+    """mip-NeRF 360 contraction (Eq. 10 of arxiv.org/abs/2111.12077)."""
+    x_mag_sq = torch.clamp(_sum_sq(x), min=_EPS)
+    x_mag = _sqrt(x_mag_sq)
+    return torch.where(x_mag_sq <= 1, x, ((2 * x_mag - 1) / x_mag_sq) * x)
+
+
+def inv_contract(z: torch.Tensor) -> torch.Tensor:
+    """Inverse of `contract`."""
+    z_mag_sq = torch.clamp(_sum_sq(z), min=_EPS)
+    return torch.where(z_mag_sq <= 1, z,
+                       z / (2 * _sqrt(z_mag_sq) - z_mag_sq))
+
+
 def contract_mean_std(x: torch.Tensor, std: torch.Tensor):
     """Contract isotropic Gaussians (mean [..., 3], scalar std [...]).
 

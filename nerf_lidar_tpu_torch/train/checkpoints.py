@@ -18,14 +18,25 @@ its train state) are read too: `list_checkpoints`, `latest_checkpoint` and
 `checkpoint_step` find them as the JAX functions do (natural sort), and
 `restore_model_params` takes the model's Flax param tree from the newest
 of either layout, decoded by the port's own `utils/msgpack.py`.
+`restore_checkpoint` resumes training from the newer of the port's newest
+`.pt` and the JAX package's newest `.ckpt` (the port's on a tie): from a
+`.ckpt`, the model's and the refiners' params and each optax Adam group's
+`mu` / `nu` / `count`, as torch Adam's `exp_avg` / `exp_avg_sq` / `step`
+(both apply the same bias correction and add eps after the square root,
+so the next update is the same).
+
+`save_obj_mlp_params` / `restore_obj_mlp_params` carry one object MLP's
+subtree (e.g. `obj_mlp_cls2`) between scenes in the JAX package's file
+format (Flax `to_bytes` of the subtree).
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import convert
@@ -101,16 +112,140 @@ def save_checkpoint(directory: str, model: torch.nn.Module,
     return path, npz
 
 
+def newest_checkpoint(directory: str) -> Tuple[Optional[str], int]:
+    """(path, step) of the newest train state in `directory`: the port's
+    `checkpoint_<step>.pt` or the JAX package's `checkpoint_<step>.ckpt`,
+    whichever has the higher step; on a tie the port's own file. (None, 0)
+    when there is neither."""
+    found = [(checkpoint_step(n), 1, n)
+             for n in list_checkpoints(directory, suffix=".pt")]
+    found += [(checkpoint_step(n), 0, n) for n in list_checkpoints(directory)]
+    if not found:
+        return None, 0
+    step, _, name = max(found)
+    return os.path.join(directory, name), step
+
+
+def _adam_state(tree) -> dict:
+    """The one optax `scale_by_adam` state ({count, mu, nu}) inside an
+    optax state tree (a chain of clips, Adam and its schedule)."""
+    found = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            if {"count", "mu", "nu"} <= set(t):
+                found.append(t)
+                return
+            for v in t.values():
+                walk(v)
+
+    walk(tree)
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} Adam states where one was expected")
+    return found[0]
+
+
+def _jax_groups(params, opt_state) -> dict:
+    """{group: (params, Adam state)} of a JAX train state: one group
+    ("model") with the model's variables as params, or with refinement the
+    `optax.multi_transform` groups, each Adam's moments peeled to its own
+    group (the other groups' leaves are masked out)."""
+    if not (isinstance(params, dict) and "model" in params):
+        return {"model": (params, _adam_state(opt_state))}
+    inner = opt_state["inner_states"]
+    if set(inner) != set(params):
+        raise ValueError(f"optimizer groups {sorted(inner)} do not match "
+                         f"the params' {sorted(params)}")
+    out = {}
+    for g in params:
+        adam = _adam_state(inner[g])
+        out[g] = (params[g], dict(count=adam["count"], mu=adam["mu"][g],
+                                  nu=adam["nu"][g]))
+    return out
+
+
+def _module_leaves(tree: dict, module: torch.nn.Module, model_cfg=None
+                   ) -> Dict[str, torch.Tensor]:
+    """{parameter name: tensor} of `module` from its Flax tree: the scene
+    model's variables through `convert` (every leaf used, every parameter
+    filled, the shapes equal), or a refiner's {"params": {name: ...}}."""
+    if model_cfg is not None:
+        have = set(convert.flatten_params(tree.get("params", tree)))
+        want = {convert.flax_path(k) for k in module.state_dict()}
+        if have != want:
+            raise ValueError(
+                f"model leaves differ: only in the checkpoint "
+                f"{sorted(have - want)[:5]}, only in the config "
+                f"{sorted(want - have)[:5]}")
+        return convert.flax_to_state_dict(tree, model_cfg)
+    leaves = tree["params"]
+    names = dict(module.named_parameters())
+    if set(leaves) != set(names):
+        raise ValueError(f"leaves {sorted(leaves)} do not match "
+                         f"{sorted(names)}")
+    out = {}
+    for name, p in names.items():
+        value = np.asarray(leaves[name], np.float32)
+        if value.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {value.shape} does not match "
+                             f"{tuple(p.shape)}")
+        out[name] = torch.from_numpy(value.copy())
+    return out
+
+
+def _restore_jax_state(path: str, model, optimizer, posenet, tracknet
+                       ) -> None:
+    """A JAX train state into the model, the refiners and torch Adam: each
+    group's params, and its Adam `mu`, `nu`, `count` as `exp_avg`,
+    `exp_avg_sq`, `step`."""
+    raw = msgpack.read_file(path)
+    groups = _jax_groups(raw["params"], raw["opt_state"])
+    modules = dict(model=model, posenet=posenet, tracknet=tracknet)
+    names = [g.get("name", "model") for g in optimizer.param_groups]
+    if sorted(names) != sorted(groups):
+        raise ValueError(f"the checkpoint trains the groups "
+                         f"{sorted(groups)}, this config {sorted(names)}")
+    state = optimizer.state_dict()
+    moments = {}
+    # Each group holds its module's parameters in `named_parameters` order
+    # (`train_step.make_optimizer`).
+    for group, pg in zip(names, state["param_groups"]):
+        module = modules[group]
+        cfg = model.cfg if group == "model" else None
+        tree, adam = groups[group]
+        params = _module_leaves(tree, module, cfg)
+        mu = _module_leaves(adam["mu"], module, cfg)
+        nu = _module_leaves(adam["nu"], module, cfg)
+        count = float(np.asarray(adam["count"]))
+        with torch.no_grad():
+            for idx, (name, p) in zip(pg["params"],
+                                      module.named_parameters()):
+                p.copy_(params[name])
+                moments[idx] = dict(step=torch.tensor(count),
+                                    exp_avg=mu[name], exp_avg_sq=nu[name])
+    state["state"] = moments
+    optimizer.load_state_dict(state)
+
+
 def restore_checkpoint(directory: str, model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer,
                        posenet: Optional[torch.nn.Module] = None,
                        tracknet: Optional[torch.nn.Module] = None) -> int:
-    """Load the newest checkpoint into model, optimizer and the refiners
-    given; returns its step, or 0 (and leaves all unchanged) when there is
-    none."""
-    path = latest_checkpoint(directory, suffix=".pt")
+    """Load the newest train state of `directory` (`newest_checkpoint`: the
+    port's `.pt` or the JAX package's `.ckpt`) into model, optimizer and
+    the refiners given; returns its step, or 0 (and leaves all unchanged)
+    when there is none. A `.ckpt` whose tree does not match (other groups,
+    leaves or shapes) raises ValueError naming the file and its step."""
+    path, step = newest_checkpoint(directory)
     if path is None:
         return 0
+    if path.endswith(".ckpt"):
+        try:
+            _restore_jax_state(path, model, optimizer, posenet, tracknet)
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"{path} (step {step}) does not match this "
+                             f"config: {e}") from e
+        return step
     device = next(model.parameters()).device
     state = torch.load(path, map_location=device)
     model.load_state_dict(state["model"])
@@ -164,3 +299,29 @@ def restore_model_params(directory_or_path: str
     if path is None or not os.path.exists(path):
         return None, 0
     return read_params(path), checkpoint_step(path)
+
+
+def save_obj_mlp_params(model: torch.nn.Module, name: str, path: str) -> str:
+    """One object MLP's subtree of the model's Flax tree (e.g.
+    'obj_mlp_cls2') into a file, in the bytes the JAX
+    `save_obj_mlp_params` writes (Flax `to_bytes`), so that a per-class
+    object field trained in one scene can be transplanted into another
+    (`train --obj_ckpt`) by either package. KeyError if the model has no
+    such subtree."""
+    sub = {k: v for k, v in model.state_dict().items()
+           if convert.flax_module_of(k) == name}
+    return msgpack.write_file(path,
+                              convert.state_dict_to_flax(sub)["params"][name])
+
+
+def restore_obj_mlp_params(model: torch.nn.Module, name: str,
+                           path: str) -> None:
+    """Load subtree `name` of the model from `path` (the inverse of
+    `save_obj_mlp_params`, or the JAX package's file): KeyError, as in JAX,
+    if the model has no such subtree; the structure and shapes must
+    match."""
+    names = convert.flax_module_names(model)
+    if name not in names:
+        raise KeyError(f"model has no obj MLP subtree '{name}'; have "
+                       f"{names}")
+    convert.load_flax_subtree(model, name, msgpack.read_file(path))

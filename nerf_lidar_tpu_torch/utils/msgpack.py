@@ -1,6 +1,7 @@
-"""A reader of Flax's msgpack checkpoints, without `msgpack` or `flax`
-(counterpart of `flax.serialization.msgpack_restore`, which
-`nerf_lidar_tpu/train/checkpoints.py:restore_model_params` calls).
+"""A reader and a writer of Flax's msgpack checkpoints, without `msgpack`
+or `flax` (counterparts of `flax.serialization.msgpack_restore`, which
+`nerf_lidar_tpu/train/checkpoints.py:restore_model_params` calls, and of
+`msgpack_serialize`, which `to_bytes` calls).
 
 The JAX package writes its train states (`checkpoint_<step>.ckpt`) and
 ray-drop states (`raydrop_#####.ckpt`) with `flax.serialization.to_bytes`:
@@ -24,10 +25,17 @@ hash table included); the views are read-only, and whoever turns one into
 a tensor copies it once. A `bfloat16` leaf (numpy has no such type without
 `ml_dtypes`) is read as uint16 and returned as a `torch.bfloat16` tensor
 with the same bits.
+
+`msgpack_serialize` writes the bytes Flax's `msgpack_serialize` writes for
+a tree of dicts (str keys), lists and tuples, str, bytes, bool, None, ints,
+floats, numpy arrays and numpy scalars: msgpack's shortest form of each
+value, arrays over MAX_CHUNK_SIZE chunked as Flax chunks them (where Flax
+does: at the top, or as a dict's value).
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from typing import Any, Tuple
 
@@ -178,3 +186,132 @@ def read_file(path: str) -> Any:
     """`msgpack_restore` of a file's bytes."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# ------------------------------------------------------------- writer
+MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE, in bytes
+
+
+def _head(n: int, fix: int, fix_max: int, wide) -> bytes:
+    """A length header: the fix form up to `fix_max`, else the first of
+    `wide` ((type byte, struct format, exclusive top), ...) that holds n."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in wide:
+        if n < top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} is too large")
+
+
+_W8, _W16, _W32 = 1 << 8, 1 << 16, 1 << 32
+
+
+def _pack_int(x: int) -> bytes:
+    if 0 <= x <= 0x7F or -32 <= x < 0:
+        return struct.pack(">b" if x < 0 else ">B", x)
+    for lo, hi, code, fmt in ((0, _W8, 0xCC, ">B"), (0, _W16, 0xCD, ">H"),
+                              (0, _W32, 0xCE, ">I"), (0, 1 << 64, 0xCF, ">Q"),
+                              (-(1 << 7), 0, 0xD0, ">b"),
+                              (-(1 << 15), 0, 0xD1, ">h"),
+                              (-(1 << 31), 0, 0xD2, ">i"),
+                              (-(1 << 63), 0, 0xD3, ">q")):
+        if lo <= x < hi:
+            return bytes([code]) + struct.pack(fmt, x)
+    raise ValueError(f"msgpack: integer {x} does not fit 64 bits")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(data))
+    head = (bytes([fixed]) if fixed is not None else _head(
+        len(data), None, 0, ((0xC7, ">B", _W8), (0xC8, ">H", _W16),
+                             (0xC9, ">I", _W32))))
+    return head + struct.pack(">b", code) + data
+
+
+def _ndarray_bytes(a: np.ndarray) -> bytes:
+    """Flax's `_ndarray_to_bytes`: msgpack (shape, dtype name, C-order
+    bytes)."""
+    if a.dtype.hasobject or a.dtype.isalignedstruct:
+        raise ValueError("msgpack: object and structured dtypes are not "
+                         "serialised")
+    return _pack((tuple(a.shape), a.dtype.name, a.tobytes("C")))
+
+
+def _pack(x) -> bytes:
+    if x is None:
+        return b"\xc0"
+    if x is True or x is False:
+        return b"\xc3" if x else b"\xc2"
+    if isinstance(x, dict):
+        return _head(len(x), 0x80, 15, ((0xDE, ">H", _W16),
+                                        (0xDF, ">I", _W32))) + b"".join(
+            _pack(k) + _pack(v) for k, v in x.items())
+    if isinstance(x, (list, tuple)):
+        return _head(len(x), 0x90, 15, ((0xDC, ">H", _W16),
+                                        (0xDD, ">I", _W32))) + b"".join(
+            _pack(v) for v in x)
+    if isinstance(x, str):
+        b = x.encode("utf-8")
+        return _head(len(b), 0xA0, 31, ((0xD9, ">B", _W8),
+                                        (0xDA, ">H", _W16),
+                                        (0xDB, ">I", _W32))) + b
+    if isinstance(x, (bytes, bytearray, memoryview)):
+        b = bytes(x)
+        return _head(len(b), None, 0, ((0xC4, ">B", _W8),
+                                       (0xC5, ">H", _W16),
+                                       (0xC6, ">I", _W32))) + b
+    if isinstance(x, np.ndarray):
+        return _pack_ext(1, _ndarray_bytes(x))
+    if isinstance(x, np.generic):
+        return _pack_ext(3, _ndarray_bytes(np.asarray(x)))
+    if isinstance(x, int):
+        return _pack_int(x)
+    if isinstance(x, float):
+        return b"\xcb" + struct.pack(">d", x)
+    if isinstance(x, complex):
+        return _pack_ext(2, _pack((x.real, x.imag)))
+    raise TypeError(f"msgpack: cannot serialise {type(x).__name__}")
+
+
+def _chunk(a: np.ndarray) -> dict:
+    """Flax's `_chunk`: a flat array cut into MAX_CHUNK_SIZE pieces."""
+    size = max(1, int(MAX_CHUNK_SIZE / a.dtype.itemsize))
+    flat = a.reshape(-1)
+    return {_CHUNKED: True,
+            "shape": {str(i): n for i, n in enumerate(a.shape)},
+            "chunks": {str(i): flat[j:j + size] for i, j in
+                       enumerate(range(0, flat.size, size))}}
+
+
+def _chunk_leaves(d):
+    """Flax's `_chunk_array_leaves_in_place`, on a copy of the dicts."""
+    big = lambda v: isinstance(v, np.ndarray) and \
+        v.size * v.dtype.itemsize > MAX_CHUNK_SIZE  # noqa: E731
+    if isinstance(d, dict):
+        return {k: _chunk(v) if big(v) else _chunk_leaves(v)
+                if isinstance(v, dict) else v for k, v in d.items()}
+    return _chunk(d) if big(d) else d
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The bytes `flax.serialization.msgpack_serialize` writes for `tree`
+    (torch tensors are written as the numpy arrays of their values). Each
+    dict's keys are sorted, as `jax.tree_util` sorts them on the way to
+    Flax's writer (`jax.device_get`, `msgpack_serialize`)."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in sorted(x.items())}
+        return x
+    return _pack(_chunk_leaves(host(tree)))
+
+
+def write_file(path: str, tree) -> str:
+    """`msgpack_serialize` of `tree` into a file (written under a temporary
+    name, then renamed)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(tree))
+    os.replace(tmp, path)
+    return path

@@ -237,13 +237,10 @@ def test_newest_weights_across_both_layouts(tmp_path, tiny_params):
 
 
 def test_smoke_encoder_writes_flax_layout():
-    """chip_smoke.flax_msgpack (which writes [14]'s JAX checkpoint on the
-    card's machine, where flax is absent) gives bytes that Flax decodes to
-    the same tree, and that the port decodes as Flax does."""
-    import sys
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    import chip_smoke
+    """The port's msgpack writer (`msgpack.msgpack_serialize`, which writes
+    chip_smoke.py [14]'s JAX checkpoint on the card's machine, where flax
+    is absent) gives the bytes Flax's `msgpack_serialize` gives for the
+    same tree, which the port decodes as Flax does."""
     rng = np.random.RandomState(6)
     tree = {"step": np.asarray(60, np.int32), "params": {
         "model": {"params": {f"layer_{i}": {
@@ -252,8 +249,50 @@ def test_smoke_encoder_writes_flax_layout():
         "tracknet": {"params": {"opt_t": rng.randn(1, 8, 3)}}},
         "name": "n" * 40, "count": 300, "neg": -5, "list": [1, 2, "x"],
         "idx": np.arange(70000, dtype=np.int64)}
-    data = chip_smoke.flax_msgpack(tree)
+    data = msgpack.msgpack_serialize(tree)
+    assert data == flax.serialization.msgpack_serialize(tree)
     want = flax.serialization.msgpack_restore(data)
-    assert_bits_equal(want, flax.serialization.msgpack_restore(
-        flax.serialization.msgpack_serialize(tree)))
     assert_bits_equal(msgpack.msgpack_restore(data), want)
+
+
+@pytest.mark.parametrize("chunk", [None, 64])
+def test_writer_bytes_equal_flax(monkeypatch, chunk):
+    """Every kind of value Flax writes, in every length class of msgpack
+    (fix, 8, 16 and 32 bits: strings, bytes, lists, maps, ints, ext
+    payloads), numpy scalars (ext 3), complex (ext 2), and with a small
+    MAX_CHUNK_SIZE (in this process only) the chunked arrays, at the top
+    and nested: the bytes of Flax's `msgpack_serialize`."""
+    if chunk:
+        monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", chunk)
+        monkeypatch.setattr(msgpack, "MAX_CHUNK_SIZE", chunk)
+    rng = np.random.RandomState(7)
+    tree = {
+        "f32": np.float32(1.5), "f64": np.float64(-2.25),
+        "i64": np.int64(-(2 ** 40)), "u8": np.uint8(200), "b": np.bool_(1),
+        "c": complex(1.5, -2.0), "nan": np.array([np.nan, -np.inf]),
+        "ints": [0, 127, 128, -1, -32, -33, -128, -129, 255, 256, 65535,
+                 65536, -32768, -32769, 2 ** 31, -(2 ** 31), 2 ** 32,
+                 2 ** 63 - 1, -(2 ** 63), 2 ** 64 - 1],
+        "none": None, "yes": True, "no": False, "f": 0.1,
+        "strs": ["", "x" * 31, "y" * 32, "z" * 255, "w" * 256, "v" * 65536],
+        "raw": [b"", b"\x00" * 255, b"\x01" * 256, b"\x02" * 65536],
+        "lists": [[1] * 15, [2] * 16, [3] * 65536],
+        "maps": {f"k{i}": i for i in range(16)}, "empty": {},
+        "ext": [np.zeros(n, np.uint8) for n in (0, 1, 2, 3, 8, 16, 17, 300,
+                                                70000)],
+        "table": rng.randn(37, 4).astype(np.float32),
+        "deep": {"idx": np.arange(50, dtype=np.int32),
+                 "small": np.ones(3, np.float32)},
+        "shapes": {"0": np.zeros((0, 3), np.float32),
+                   "1": np.arange(24, dtype=np.int16).reshape(2, 3, 4)},
+    }
+    data = msgpack.msgpack_serialize(tree)
+    assert data == flax.serialization.msgpack_serialize(tree)
+    assert (b"__msgpack_chunked_array__" in data) == bool(chunk)
+    assert_bits_equal(msgpack.msgpack_restore(data),
+                      flax.serialization.msgpack_restore(data))
+    top = rng.randn(40).astype(np.float32)
+    assert msgpack.msgpack_serialize(top) == \
+        flax.serialization.msgpack_serialize(top)
+    with pytest.raises(TypeError, match="cannot serialise"):
+        msgpack.msgpack_serialize({"x": object()})

@@ -519,6 +519,62 @@ def test_training_set_assembly_equals_jax(nusc_dir, tmp_path, no_native):
             mod.load_sim_sweep_dir(sim)
 
 
+# ------------------------------------------------------------ marching
+def _blob_lattice(r, seed):
+    """Twelve Gaussian bumps plus noise on an [r, r, r] lattice over
+    [-1, 1]^3: a surface at 0.5 with many small floating pieces."""
+    rng = np.random.RandomState(seed)
+    g = np.stack(np.meshgrid(*[np.linspace(-1, 1, r)] * 3, indexing="ij"),
+                 -1)
+    c = rng.uniform(-0.8, 0.8, (12, 3))
+    w = rng.uniform(0.1, 0.3, 12)
+    return (np.exp(-((g[..., None, :] - c) ** 2).sum(-1) / (2 * w ** 2))
+            .sum(-1) + 0.05 * rng.randn(r, r, r)).astype(np.float32)
+
+
+@pytest.mark.parametrize("r", [20, 68])
+def test_marching_equals_jax(monkeypatch, tmp_path, r):
+    """The port's copy of utils/marching.py against the JAX package's
+    Python path (its native library off: the port loads none, so a JAX
+    install that has it decimates above 100,000 faces by native QEM where
+    the port clusters): marching tetrahedra, welding, cleaning, quadric
+    and cluster decimation (at r = 68 the welded mesh has over 100,000
+    faces, so "qem" clusters) and the PLY writer, exactly equal. Both keep
+    the zero-area flip guard (a JAX fault, ADVICE.md)."""
+    from nerf_lidar_tpu.utils import marching as jmarching
+    from nerf_lidar_tpu_torch.utils import marching
+    monkeypatch.setattr(jnative, "mesh_available", lambda: False)
+    vals = _blob_lattice(r, 0)
+    kw = dict(origin=(-1.0,) * 3, spacing=(2.0 / (r - 1),) * 3)
+    got = marching.marching_tetrahedra(vals, 0.5, **kw)
+    want = jmarching.marching_tetrahedra(vals, 0.5, **kw)
+    assert_same(got, want, "marching_tetrahedra")
+    verts, faces = jmarching.weld_vertices(*want)
+    assert_same(marching.weld_vertices(*want), (verts, faces), "weld")
+    if r > 20:
+        assert len(faces) > 100_000
+        assert_same(marching.decimate_mesh(verts, faces, 20_000),
+                    jmarching.decimate_mesh(verts, faces, 20_000), "qem")
+        return
+    clean = jmarching.clean_mesh(verts, faces)
+    assert_same(marching.clean_mesh(verts, faces), clean, "clean")
+    assert_same(marching.clean_mesh(verts, faces, v_pct=0.0, min_f=0,
+                                    min_d=0.0),
+                jmarching.clean_mesh(verts, faces, v_pct=0.0, min_f=0,
+                                     min_d=0.0), "clean, no merge")
+    for method, target in (("qem", len(clean[1]) - 200),
+                           ("cluster", len(clean[1]) // 3)):
+        got = marching.decimate_mesh(*clean, target, method=method)
+        assert_same(got, jmarching.decimate_mesh(*clean, target,
+                                                 method=method), method)
+        assert 0 < len(got[1]) <= target
+    for colors in (None, np.random.RandomState(1).rand(len(clean[0]), 3)):
+        marching.write_ply(str(tmp_path / "p.ply"), *clean, colors)
+        jmarching.write_ply(str(tmp_path / "j.ply"), *clean, colors)
+        assert (tmp_path / "p.ply").read_bytes() == \
+            (tmp_path / "j.ply").read_bytes()
+
+
 # ----------------------------------------------------------- isolation
 _ISOLATED = """
 import importlib, os, pkgutil, sys
@@ -532,6 +588,8 @@ base = ['--config', 'tiny_debug', '--set', 'dataset_loader=synthetic',
 run = cli.main(['train', *base, '--steps', '2'])
 cli.main(['render_lidar', *base, '--num_sweeps', '1', '--azimuth_steps',
           '8', '--params', run.params])
+cli.main(['extract', *base, '--resolution', '12', '--clean', '--params',
+          run.params])
 from nerf_lidar_tpu_torch.data import synth_nusc
 synth_nusc.write_scene_dir('scene', num_frames=4, sensor_num=1, height=24,
                            width=40, lidar_points_per_beam=32)
@@ -546,6 +604,14 @@ run = cli.main(['train', *objs, '--steps', '2'])
 assert run.tracknet is not None and run.cfg.model.num_objects == 1
 cli.main(['render_lidar', *objs, '--mode', 'replay', '--num_sweeps', '2',
           '--azimuth_steps', '8', '--params', run.params])
+cli.main(['render_video', *objs, '--mode', 'laneshift', '--num_frames', '1',
+          '--params', run.params])
+cli.main(['render_instance', *objs, '--size', '8', '--num_views', '2',
+          '--params', run.params])
+from nerf_lidar_tpu_torch.train import checkpoints
+checkpoints.save_obj_mlp_params(run.model, 'obj_mlp', 'car.ckpt')
+cli.main(['train', *objs, '--exp_name', 'iso_obj_ckpt', '--steps', '1',
+          '--obj_ckpt', 'obj_mlp=car.ckpt'])
 sim = 'exp/iso_objects/lidar_replay'
 cli.main(['raydrop_features', '--pair', 'scene:' + sim, '--out', 'f.npy',
           '--width', '64'])
@@ -577,6 +643,9 @@ cli.main(['render', *base, '--num_frames', '1'])
 cli.main(['lidar_eval', *objs, '--max_rays', '64'])
 ev = cli.main(['eval', *base, '--exp_name', 'iso_jax', '--max_views', '1'])
 assert ev.steps == [5], ev.steps
+# Training resumes from that JAX train state.
+run = cli.main(['train', *base, '--exp_name', 'iso_jax', '--steps', '6'])
+assert run.init_step == 5, run.init_step
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {barred})
 assert not bad, bad
 # The port needs no imageio, PIL, torchvision, matplotlib or msgpack: it
@@ -589,14 +658,16 @@ print('MODULES', len(names))
 
 
 def test_port_runs_without_the_jax_package(tmp_path):
-    """Every module of the port imported, two tiny_debug train steps and a
-    render on the CPU, on the synthetic scene and on a synth_nusc scene with
-    its moving car (objects, tracknet, replay render), then the ray-drop
-    CLIs on that render (features, the VGG / Darknet converters, training
-    with both losses, drop and export, val_vis, points_vis), then eval,
-    render and lidar_eval, and eval of a JAX train state's msgpack
-    checkpoint: no jax, flax, optax or nerf_lidar_tpu module is loaded, nor
-    imageio, PIL, torchvision, matplotlib or msgpack."""
+    """Every module of the port imported, two tiny_debug train steps, a
+    render and a mesh extraction on the CPU, on the synthetic scene and on
+    a synth_nusc scene with its moving car (objects, tracknet, replay
+    render, render_video, render_instance, an object MLP written and
+    transplanted by train --obj_ckpt), then the ray-drop CLIs on that
+    render (features, the VGG / Darknet converters, training with both
+    losses, drop and export, val_vis, points_vis), then eval, render and
+    lidar_eval, and eval of a JAX train state's msgpack checkpoint, from
+    which train then resumes: no jax, flax, optax or nerf_lidar_tpu module
+    is loaded, nor imageio, PIL, torchvision, matplotlib or msgpack."""
     from nerf_lidar_tpu.models.model import Model as JaxModel
     from nerf_lidar_tpu.train import checkpoints as jcheckpoints
     from nerf_lidar_tpu.train import train_step as jtrain_step
@@ -650,7 +721,8 @@ def test_copies_name_their_original():
                 "data/road_augment.py", "data/batching.py",
                 "data/synthetic.py", "data/nuscenes.py",
                 "data/synth_nusc.py", "lidar/range_image.py",
-                "lidar/export.py", "raydrop/features.py"):
+                "lidar/export.py", "raydrop/features.py",
+                "utils/marching.py"):
         with open(os.path.join(PORT, rel)) as f:
             first = f.readline()
         assert first.startswith(f"# Copy of nerf_lidar_tpu/{rel} "), rel

@@ -187,6 +187,90 @@ def test_two_train_steps_with_track_and_pose_refinement_match_jax(shared):
     assert min(moved.values()) > 1e-6, moved
 
 
+def test_resume_from_a_jax_refinement_checkpoint(shared, tmp_path):
+    """A JAX train state with pose and track refinement after one step
+    (checkpoint_1.ckpt: the {model, posenet, tracknet} params and an optax
+    multi_transform of three Adam groups) restores into a port model,
+    posenet and tracknet whose every parameter was zeroed: step 1, the
+    params and each group's Adam moments bit for bit, step = the group's
+    count; the next step equals JAX's second step at the tolerances of
+    the two-step test above."""
+    from nerf_lidar_tpu.train import checkpoints as jcheckpoints
+    from nerf_lidar_tpu_torch.train import checkpoints
+    jcfg, cfg, params, _ = shared
+    kw = dict(pose_refine=True, start_step=0, end_step=10, track_start_opt=0,
+              lr_delay_steps=0, max_steps=20, grad_max_norm=0.05)
+    jcfg, cfg = (dataclasses.replace(c, **kw) for c in (jcfg, cfg))
+    tracks, mask = _tracks()
+    jb = {k: jnp.asarray(v) for k, v in _batch(labels=True).items()}
+    zeros = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    state, tx = jtrain.create_train_state(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, params),
+        {"params": dict(r=zeros(4, 3), t=zeros(4, 3))},
+        {"params": dict(opt_r=zeros(2, 4, 1), opt_t=zeros(2, 4, 3))})
+    step_fn = jtrain.make_train_step(
+        JaxModel(jcfg.model), tx, jcfg, donate=False,
+        posenet_model=jpn.LearnPose(num_cams=3, num_lidars=1),
+        tracknet_model=jpn.TrackOpt(num_objects=2, num_timestamps=4))
+    run = lambda st: step_fn(st, jb, None, jnp.asarray(tracks),  # noqa
+                             jnp.asarray(mask))
+    state1 = run(state)[0]
+    jcheckpoints.save_checkpoint(str(tmp_path), state1, 1)
+    state2, jstats = run(state1)
+
+    model = _port_model(cfg, params)
+    pnet, tnet = pn.LearnPose(3, 1), pn.TrackOpt(2, 4)
+    opt = train_step.make_optimizer(model, cfg, pnet, tnet)
+    with torch.no_grad():
+        for m in (model, pnet, tnet):
+            for p in m.parameters():
+                p.zero_()
+    assert checkpoints.restore_checkpoint(str(tmp_path), model, opt, pnet,
+                                          tnet) == 1
+    flat = lambda tree: convert.flatten_params(  # noqa: E731
+        jax.tree_util.tree_map(np.asarray, tree))
+    got = convert.flatten_params(convert.train_params_to_flax(
+        model, pnet, tnet))
+    want = flat(state1.params)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    import optax
+    state = opt.state_dict()["state"]
+    index = {id(p): i for i, p in enumerate(
+        p for g in opt.param_groups for p in g["params"])}
+    for group, module in zip(("model", "posenet", "tracknet"),
+                             (model, pnet, tnet)):
+        adam = next(s for s in jax.tree_util.tree_leaves(
+            state1.opt_state.inner_states[group], is_leaf=lambda x:
+            isinstance(x, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState))
+        named = dict(module.named_parameters())
+        assert {float(state[index[id(p)]]["step"]) for p in
+                named.values()} == {float(adam.count)} == {1.0}
+        for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+            moments = {n: state[index[id(p)]][key] for n, p in named.items()}
+            got = (convert.flatten_params(convert.state_dict_to_flax(moments))
+                   if group == "model" else
+                   {f"params/{n}": v.numpy() for n, v in moments.items()})
+            want = flat(tree[group])
+            assert set(got) == set(want)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k],
+                                              err_msg=f"{group} {key} {k}")
+    stats = train_step.train_step(
+        model, opt, cfg, {k: _t(v) for k, v in _batch(labels=True).items()},
+        1, posenet=pnet, tracknet=tnet, tracks=_t(tracks),
+        track_mask=_t(mask))
+    np.testing.assert_allclose(float(stats["loss"]), float(jstats["loss"]),
+                               rtol=1e-4)
+    got = convert.flatten_params(convert.train_params_to_flax(
+        model, pnet, tnet))
+    for k, v in flat(state2.params).items():
+        atol = 1e-5 if k.startswith("model") else 1e-7
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=atol, err_msg=k)
+
+
 # -------------------------------------------------------------- entries
 def test_train_then_render_objects_on_synth_nusc(tmp_path, monkeypatch):
     """The port's train entry on a small synth_nusc scene with its moving

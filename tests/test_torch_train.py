@@ -17,6 +17,7 @@ atol 1e-5 (both steps move parameters by at most about the learning
 rate, 3.1e-3 at the second step).
 """
 
+import copy
 import dataclasses
 import json
 import os
@@ -299,3 +300,127 @@ def test_train_then_render_in_both_packages(tmp_path, monkeypatch):
                                        err_msg=name)
         else:
             np.testing.assert_allclose(got, want, atol=1e-5, err_msg=name)
+
+
+# -------------------------------------------------------------- resume
+def _train_argv(exp, *extra):
+    """The port's train entry at the test's config."""
+    return ["train", "--config", "tiny_debug", "--set", "batch_size=256",
+            "--set", "lidar_supervision=true",
+            "--set", "dataset_loader=synthetic", "--device", "cpu",
+            "--exp_name", exp, *extra]
+
+
+def _adam_state(opt_state):
+    """The optax ScaleByAdamState inside a JAX optimizer state."""
+    import optax
+    return next(s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState))
+
+
+def _flax_moments(model, opt_state, key):
+    """{Flax path: torch Adam's `key` ("exp_avg", ...) of that parameter}."""
+    names = [n for n, _ in model.named_parameters()]
+    return convert.flatten_params(convert.state_dict_to_flax(
+        {n: opt_state["state"][i][key] for i, n in enumerate(names)}))
+
+
+def test_train_resumes_from_a_jax_checkpoint(setup, tmp_path, monkeypatch):
+    """In a directory that holds only the JAX package's checkpoint_1.ckpt
+    (one JAX step), the port's `train --steps 2` starts at step 1 with
+    JAX's params and Adam moments (bit for bit; step = optax's count),
+    and its step on the JAX second step's batch (no randomness) equals
+    JAX's second step at test_two_steps_match_jax_train_step's
+    tolerance."""
+    from nerf_lidar_tpu.train import checkpoints as jcheckpoints
+    cfg, batches, jb, params, jmodel, _, jcfg = setup
+    state, tx = jtrain.create_train_state(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, params))
+    step_fn = jtrain.make_train_step(jmodel, tx, jcfg, donate=False,
+                                     num_patch_rays=64)
+    state1, _ = step_fn(state, jb[0], None)
+    monkeypatch.chdir(tmp_path)
+    jcheckpoints.save_checkpoint(os.path.join("exp", "r"), state1, 1)
+    state2, jstats = step_fn(state1, jb[1], None)
+    seen = []
+    orig = train_step.train_step
+
+    def on_jax_batch(model, optimizer, cfg, batch, step, num_patch_rays,
+                     generator, **kw):
+        # Copies: the state dicts hold the very tensors the step updates.
+        seen.append(dict(step=step,
+                         opt=copy.deepcopy(optimizer.state_dict()),
+                         params=convert.flatten_params(
+                             convert.state_dict_to_flax(
+                                 copy.deepcopy(model.state_dict())))))
+        seen[-1]["moments"] = {k: _flax_moments(model, seen[-1]["opt"], k)
+                               for k in ("exp_avg", "exp_avg_sq")}
+        seen[-1]["count"] = {float(s["step"])
+                             for s in seen[-1]["opt"]["state"].values()}
+        out = orig(model, optimizer, cfg, _tensors(batches[1]), step,
+                   num_patch_rays, None, **kw)
+        seen[-1]["loss"] = float(out["loss"])
+        return out
+
+    monkeypatch.setattr(train_step, "train_step", on_jax_batch)
+    run = cli.main(_train_argv("r", "--steps", "2"))
+    assert run.init_step == 1 and [s["step"] for s in seen] == [1]
+    flat = lambda tree: convert.flatten_params(  # noqa: E731
+        jax.tree_util.tree_map(np.asarray, tree))
+    want = flat(state1.params)
+    assert set(seen[0]["params"]) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(seen[0]["params"][k], want[k],
+                                      err_msg=k)
+    adam = _adam_state(state1.opt_state)
+    assert seen[0]["count"] == {float(adam.count)} == {1.0}
+    for key, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        want = flat(tree)
+        assert set(seen[0]["moments"][key]) == set(want)
+        assert max(float(np.abs(v).max()) for v in want.values()) > 0
+        for k in want:
+            np.testing.assert_array_equal(seen[0]["moments"][key][k],
+                                          want[k], err_msg=f"{key} {k}")
+    np.testing.assert_allclose(seen[0]["loss"], float(jstats["loss"]),
+                               rtol=1e-4)
+    got = convert.flatten_params(convert.load_npz_params(run.params))
+    for k, v in flat(state2.params).items():
+        np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-5, err_msg=k)
+    assert sorted(os.listdir(os.path.join("exp", "r"))) == [
+        "checkpoint_1.ckpt", "checkpoint_2.pt", "config.json",
+        "params_2.npz"]
+
+
+@pytest.mark.parametrize("override", ["pose_refine=true",
+                                      "model.nerf_mlp.grid.log2_hashmap_size=11",
+                                      "model.nerf_mlp.bottleneck_width=8"])
+def test_train_refuses_a_jax_checkpoint_of_another_config(
+        setup, tmp_path, monkeypatch, override):
+    """A JAX checkpoint whose tree does not match the config (another
+    optimizer group, table size or layer width) ends `train` with a
+    message naming the file and its step, before any step."""
+    from nerf_lidar_tpu.train import checkpoints as jcheckpoints
+    _, _, _, params, _, _, jcfg = setup
+    monkeypatch.chdir(tmp_path)
+    jcheckpoints.save_checkpoint(
+        os.path.join("exp", "bad"),
+        jtrain.create_train_state(jcfg, params)[0], 4)
+    monkeypatch.setattr(train_step, "train_step", None)
+    with pytest.raises(SystemExit, match=r"cannot resume: exp/bad/"
+                       r"checkpoint_4\.ckpt \(step 4\) does not match"):
+        cli.main(_train_argv("bad", "--set", override, "--steps", "5"))
+
+
+def test_newest_checkpoint_takes_the_higher_step_and_the_port_on_a_tie(
+        tmp_path):
+    from nerf_lidar_tpu_torch.train import checkpoints
+    assert checkpoints.newest_checkpoint(str(tmp_path)) == (None, 0)
+    for name in ("checkpoint_3.pt", "checkpoint_3.ckpt", "params_3.npz",
+                 "checkpoint_12.ckpt", "checkpoint_9.pt"):
+        (tmp_path / name).write_bytes(b"")
+    assert checkpoints.newest_checkpoint(str(tmp_path)) == (
+        str(tmp_path / "checkpoint_12.ckpt"), 12)
+    (tmp_path / "checkpoint_12.pt").write_bytes(b"")
+    assert checkpoints.newest_checkpoint(str(tmp_path)) == (
+        str(tmp_path / "checkpoint_12.pt"), 12)
