@@ -48,7 +48,17 @@ Phases (each raises on failure, so the script exits non-zero):
    float32 eps times the magnitudes of its summed terms beyond what the two
    sides' encode inputs carry, `table_grad_excess`; the hash-decay term);
    then 100 steps at the full learning rate (no warm-up), where the data
-   loss must fall;
+   loss must fall. The entry feeds its steps through the prefetcher (the
+   JAX package's worker stream) and saves asynchronously: its
+   checkpoint_30.pt, reloaded, equals the state at step 30 tensor for
+   tensor; its first 5 losses equal 5 steps fed inline (a fresh init, the
+   same batches and generator) at LOSS_TOL; `AsyncCheckpointer.save`'s
+   hold on the loop, its writer's time and a synchronous `save_checkpoint`
+   of the same state, and the state's bytes. With the profiler phases,
+   `train --trace_dir` over 5 warm steps (no per-step print): wall and
+   device-busy ms/step and the idle share from the trace, beside the
+   earlier profile of the step fed inline (`hash_encode_bench.py
+   --profile`), and each place a warm step still waits for the device;
 9. train -> render: `render_lidar --params` renders one full sweep from the
    params_100.npz that [8]'s learning check wrote, through K1 and H1; then
    that sweep kernels on, every K1 and H1 call held against its plain
@@ -159,8 +169,27 @@ Phases (each raises on failure, so the script exits non-zero):
    subtree must equal the file's at step 0 (H1, H1-bwd, K3 launched); and
    (with the profiler phases) H1's device time and bound on the lattice's
    first 65,536-point chunk.
-The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16,
-12-profiled, 15-profiled, 16-profiled, 6, 7, 9, 10, 11: [4]
+17. data parallel at full width: two ranks on the one card, each a
+   process of this script (`--dp_rank R --dp_world 2 --dp_port P`) that
+   joins a gloo group over CUDA tensors (NCCL refuses two ranks on one
+   device), run the port's `train` entry for 3 steps of `nuscenes_single`
+   on the synthetic scene (20,480 rays a step, 10,240 a rank) and then a
+   `render_lidar` sweep of the weights it wrote, with the kernel counts at
+   0 before each; every rank's parameters equal; against one rank in this
+   process from the same argv (the same init, batches and generator): the
+   loss terms at LOSS_TOL, every parameter within twice the learning
+   rates' sum (an entry whose gradient is within rounding of 0 may move
+   either way), its last step's gradient to GRAD_TOL of its largest value,
+   and the sweep at [5]'s tolerances; then the ranks train 2 steps on
+   [12]'s scene with its car (the object sample budget counted over both
+   ranks, the tracknet live), every logged term and stat at LOSS_TOL of
+   one rank's; then an NCCL group of world 1 on the card runs
+   `parallel/mesh.py`'s all_reduce, autograd all_gather, broadcast,
+   barrier and bucketed gradient sum; the launches of H1, H1-bwd, K3
+   (train, and with objects) and H1, K1 (sweep) on each rank, and the
+   seconds.
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17,
+12-profiled, 15-profiled, 16-profiled, 8-profiled, 6, 7, 9, 10, 11: [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -173,7 +202,8 @@ JSON line (every kernel's launches on each path, the object paths
 `train_fast`, `render_lidar_fast`, `train_speed`, `render_lidar_speed`,
 `render_lidar_mxu`, `train_spectral_obj`, `render_lidar_spectral_obj` and
 [16]'s `extract`, `render_video`, `render_video_hq`, `render_instance`,
-`train_obj_ckpt` included, times,
+`train_obj_ckpt` and [17]'s `train_dp_rank<r>`, `render_lidar_dp_rank<r>`
+and `train_objects_dp_rank<r>` included, times,
 and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
@@ -1206,6 +1236,7 @@ def phase_train(dev):
             np.isfinite(h["loss"]) and np.isfinite(h["psnr"]) for h in hist):
         fail(f"train: {len(hist)} steps logged, or a loss is not finite")
     _table_grads_nonzero(run.model, "train entry")
+    host_side = train_host_side(dev, run)
     step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[-20:])
     rays = run.batcher.total_rays
     STATIC.update(ms_per_step=step_ms, peak_gib=peak / 2**30)
@@ -1215,6 +1246,7 @@ def phase_train(dev):
           f"last 20), {rays / step_ms * 1e3:,.0f} rays/s; peak memory "
           f"{peak / 2**30:.2f} GiB; loss {hist[0]['loss']:.4f} -> "
           f"{hist[-1]['loss']:.4f}")
+    print(f"[8] prefetcher and asynchronous saves: {host_side}")
 
     # The points, stds and feature gradients the H1 backward gets in one
     # warm step, for [6].
@@ -1241,6 +1273,434 @@ def phase_train(dev):
     del learn
     torch.cuda.empty_cache()
     return launches, params, train_inputs
+
+
+INLINE_STEPS = 5
+
+
+def _state_tensors(state):
+    """{(name, ...): tensor} of a train state as checkpoint_<step>.pt holds
+    it: the model's state dict and the optimizer's moments and steps."""
+    out = {("model", k): v for k, v in state["model"].items()}
+    for idx, moments in state["optimizer"]["state"].items():
+        out.update({("optimizer", idx, k): v for k, v in moments.items()})
+    return out
+
+
+def train_host_side(dev, run):
+    """[8] The train entry's host side, on its `run` (the state at its last
+    step, saved asynchronously): its checkpoint_<step>.pt reloaded equals
+    that state, tensor for tensor; its first INLINE_STEPS losses against
+    the same steps fed inline (a fresh init, the JAX worker stream from
+    `cli.step_batchers`, `to_device`, the same generator) at LOSS_TOL; the
+    time `AsyncCheckpointer.save` holds the loop, the writer's time, and a
+    synchronous `save_checkpoint` of the same state, with its bytes.
+    Returns a printable summary."""
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.models.model import Model
+    from nerf_lidar_tpu_torch.train import checkpoints, train_step
+    saved = torch.load(run.checkpoint, map_location=dev, weights_only=False)
+    state = _state_tensors(dict(model=run.model.state_dict(),
+                                optimizer=run.optimizer.state_dict()))
+    got = _state_tensors(saved)
+    if set(got) != set(state):
+        fail(f"[8] {run.checkpoint}: other tensors than the state's")
+    for name, want in state.items():
+        if not torch.equal(got[name].to(want.device), want):
+            fail(f"[8] {run.checkpoint}: {name} differs from the state at "
+                 f"step {saved['step']}")
+    del saved, got
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+
+    cfg = run.cfg
+    scene = cli.load_scene_for(cfg, "train")
+    model = Model(cfg.model, device=dev)
+    model.init_weights(torch.Generator().manual_seed(cfg.seed))
+    opt = train_step.make_optimizer(model, cfg)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 17)
+    workers = cli.step_batchers(cfg, scene, True)
+    worst = 0.0
+    for k in range(INLINE_STEPS):
+        stats = train_step.train_step(
+            model, opt, cfg, cli.to_device(workers[k % 2].next(), dev), k,
+            run.batcher.num_patch_rays, gen)
+        got, want = float(stats["loss"]), run.history[k]["loss"]
+        worst = max(worst, abs(got - want) / abs(want))
+        if abs(got - want) > LOSS_TOL * abs(want):
+            fail(f"[8] step {k}: the entry's loss {want} vs {got} inline")
+    del model, opt
+
+    out = os.path.join(run.out, "saves")
+    ck = checkpoints.AsyncCheckpointer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(out, run.model, run.optimizer, TRAIN_STEPS + 1)
+    t1 = time.perf_counter()
+    ck.wait()
+    t2 = time.perf_counter()
+    checkpoints.save_checkpoint(out, run.model, run.optimizer,
+                                TRAIN_STEPS + 2)
+    t3 = time.perf_counter()
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return (f"checkpoint_{TRAIN_STEPS}.pt equal to the state at its step "
+            f"({len(state)} tensors, {nbytes / 2**30:.3f} GiB); first "
+            f"{INLINE_STEPS} losses vs inline steps: rel diff {worst:.2e} "
+            f"(tol {LOSS_TOL}); AsyncCheckpointer.save holds the loop "
+            f"{(t1 - t0) * 1e3:.2f} ms (host clock; its writer then "
+            f"{(t2 - t1):.2f} s), synchronous save_checkpoint "
+            f"{(t3 - t2):.2f} s")
+
+
+# [8] profiled: the train entry with --trace_dir over TRACE_STEPS warm steps
+# (no per-step print, so nothing but the step itself waits for the device),
+# beside the earlier profile of the step fed inline (`hash_encode_bench.py
+# --profile` on an NVIDIA H100 80GB HBM3 at 700 W, before the prefetcher).
+TRACE_STEPS = 5
+TRACE_ARGV = ["train", "--config", "nuscenes_single",
+              "--set", "dataset_loader=synthetic", "--set", "print_every=100",
+              "--steps", "16", "--trace_start", "10", "--trace_stop",
+              str(10 + TRACE_STEPS - 1), "--trace_dir",
+              os.path.join("exp", "chip_smoke_trace", "trace"),
+              "--device", "cuda", "--exp_name", "chip_smoke_trace"]
+INLINE_WALL_MS, INLINE_BUSY_MS = 118.9, 101.8
+
+
+def trace_wall_busy(path, steps):
+    """(wall ms/step, device busy ms/step, idle share) of a Chrome trace
+    of `steps` steps: its span from the first to the last event, and the
+    union of its device intervals (kernels, copies, sets)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, last = 0.0, None
+    for a, b in spans:
+        if last is None or a > last:
+            busy += b - a
+            last = b
+        elif b > last:
+            busy += b - last
+            last = b
+    wall = (end - start) / 1e3 / steps
+    return wall, busy / 1e3 / steps, 1 - busy / 1e3 / steps / wall
+
+
+def phase_train_trace(dev):
+    """[8] profiled: `train --trace_dir` over TRACE_STEPS warm steps with
+    the prefetcher (wall, busy, idle share from the trace), then where a
+    warm step still waits for the device (`host_wait_sites`)."""
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    fresh_exp_dir(TRACE_ARGV)
+    run = cli.main(TRACE_ARGV)
+    trace_dir = TRACE_ARGV[TRACE_ARGV.index("--trace_dir") + 1]
+    names = os.listdir(trace_dir)
+    if len(names) != 1:
+        fail(f"[8] profiled: {names} in {trace_dir}")
+    wall, busy, idle = trace_wall_busy(os.path.join(trace_dir, names[0]),
+                                       TRACE_STEPS)
+    sites = hb.host_wait_sites(run, 16)
+    print(f"[8] profiled: train --trace_dir over {TRACE_STEPS} warm steps "
+          f"with the prefetcher: wall {wall:.1f} ms/step, device busy "
+          f"{busy:.1f} ms/step, idle share {idle:.1%} (the step fed inline, "
+          f"earlier: wall {INLINE_WALL_MS}, busy {INLINE_BUSY_MS}); host "
+          f"waits for the device per warm step, by call site: {sites}")
+    del run
+    return dict(wall_ms=wall, busy_ms=busy, idle=idle, waits=sites)
+
+
+# [17]: data parallel at full width, two ranks on the one card over gloo
+# (NCCL refuses two ranks on one device), each a process of its own that
+# runs the train entry for DP_STEPS steps and then a sweep; one rank in
+# this process from the same argv as the reference.
+DP_EXP = "chip_smoke_dp"
+DP_STEPS = 3
+DP_WORLD = 2
+DP_TIMEOUT_S = 600
+ADAM_STEP_BOUND = 1.01
+DP_TRAIN_ARGV = ["train", "--config", "nuscenes_single",
+                 "--set", "dataset_loader=synthetic", "--set",
+                 "print_every=1", "--steps", str(DP_STEPS), "--device",
+                 "cuda:0", "--exp_name", DP_EXP]
+# With [12]'s scene and its car: the object budget counted over both ranks.
+DP_OBJ_STEPS = 2
+DP_OBJ_ARGV = ["train", "--config", "nuscenes_single",
+               "--set", "dataset_loader=nusc", "--data_dir", OBJ_SCENE,
+               "--set", "track_start_opt=0", "--set", "print_every=1",
+               "--steps", str(DP_OBJ_STEPS), "--device", "cuda:0",
+               "--exp_name", f"{DP_EXP}_objects"]
+DP_RENDER_ARGV = ["render_lidar", "--config", "nuscenes_single",
+                  "--set", "dataset_loader=synthetic", "--mode", "simu",
+                  "--num_sweeps", "1", "--device", "cuda:0",
+                  "--params", os.path.join("exp", DP_EXP,
+                                           f"params_{DP_STEPS}.npz")]
+
+
+def _dp_state(run):
+    """{name: (parameter, its last step's summed gradient)} on the host."""
+    return {k: (p.detach().cpu(), None if p.grad is None
+                else p.grad.detach().cpu())
+            for k, p in run.model.named_parameters()}
+
+
+def dp_rank(rank, world, port):
+    """One rank of [17] (`chip_smoke.py --dp_rank R --dp_world W
+    --dp_port P`): joins a gloo group over CUDA tensors, runs the train
+    entry and the sweep with the kernel counts at 0 before each, checks
+    that every rank holds the same parameters, and writes its results
+    (rank 0 also its parameters and gradients) under exp/DP_EXP/."""
+    import torch
+    import torch.distributed as dist
+    os.chdir(HERE)
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.ops import _build
+    _build.library()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        t0 = time.perf_counter()
+        with counted_launches() as train_launches:
+            run = cli.main(DP_TRAIN_ARGV)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        unequal = []
+        for name, p in run.model.named_parameters():
+            total = p.detach().clone()
+            dist.all_reduce(total)
+            if not torch.equal(total, world * p.detach()):
+                unequal.append(name)
+        with counted_launches() as render_launches:
+            render = cli.main(DP_RENDER_ARGV + ["--exp_name",
+                                                f"{DP_EXP}_sweep"])
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with counted_launches() as obj_launches:
+            obj = cli.main(DP_OBJ_ARGV)
+            torch.cuda.synchronize()
+        out = dict(history=run.history, train_launches=train_launches,
+                   render_launches=render_launches, unequal=unequal,
+                   train_s=t1 - t0, render_s=t2 - t1,
+                   mesh=None if run.mesh is None else run.mesh.world,
+                   sweep=render.paths[0], obj_history=obj.history,
+                   obj_launches=obj_launches)
+        if rank == 0:
+            out["state"] = _dp_state(run)
+        torch.save(out, os.path.join("exp", DP_EXP, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_world1(dev):
+    """An NCCL group of world 1 on the card: `parallel/mesh.py`'s
+    all_reduce, autograd all_gather, broadcast, barrier and flat-bucket
+    gradient sum. Returns a printable summary."""
+    import torch
+    import torch.distributed as dist
+    from nerf_lidar_tpu_torch import parallel
+    from nerf_lidar_tpu_torch.parallel import mesh as meshlib
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = parallel.data_mesh(0, 1)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(4096, 5, device=dev, generator=g, requires_grad=True)
+        y = mesh.all_gather_rows(x)
+        w = torch.randn(y.shape, device=dev, generator=g)
+        (y * w).sum().backward()
+        t = torch.arange(7.0, device=dev)
+        mesh.all_reduce(t)
+        mesh.broadcast(t)
+        parallel.barrier()
+        big = torch.nn.Parameter(torch.zeros(meshlib.BUCKET_BYTES // 4 + 1,
+                                             device=dev))
+        small = [torch.nn.Parameter(torch.zeros(3, device=dev))
+                 for _ in range(3)]
+        big.grad = torch.ones_like(big)
+        small[0].grad = torch.full_like(small[0], 2.0)
+        mesh.all_reduce_grads([big, *small])
+        torch.cuda.synchronize()
+        ok = (torch.equal(y, x) and torch.equal(x.grad, w)
+              and torch.equal(t, torch.arange(7.0, device=dev))
+              and bool((big.grad == 1).all())
+              and bool((small[0].grad == 2).all())
+              and all(p.grad is not None and not bool(p.grad.any())
+                      for p in small[1:]))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if not ok:
+        fail("[17] NCCL world 1: a collective of parallel/mesh.py changed "
+             "its input")
+    return (f"{backend} world 1: all_gather_rows + backward, all_reduce, "
+            f"broadcast, barrier, all_reduce_grads (a {big.numel()}-float "
+            "gradient alone, three in a bucket, two of them None) exact")
+
+
+def _rounded(errs):
+    return {k: float(f"{v:.2e}") for k, v in errs.items()}
+
+
+def phase_data_parallel(dev):
+    """[17] Two ranks of the train entry on one card over gloo, DP_STEPS
+    steps of nuscenes_single at full width (20,480 rays a step, 10,240 a
+    rank), against one rank in this process from the same argv (the same
+    init, batches and generator): every logged loss term at LOSS_TOL,
+    every parameter within what Adam can move an entry of a near-zero
+    gradient the other way (twice the learning rates' sum), its last
+    step's gradient to GRAD_TOL of its largest value, every rank's
+    parameters equal; then one sweep over both ranks against the one-rank
+    sweep of the same weights at [5]'s tolerances; then DP_OBJ_STEPS steps
+    with [12]'s car against one rank (every logged term and stat at
+    LOSS_TOL); then NCCL at world 1. Returns (launches per path and rank,
+    a summary)."""
+    import types
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.train import train_step
+    fresh_exp_dir(DP_TRAIN_ARGV)
+    for name in ("sweep", "one", "objects", "objects_one"):
+        shutil.rmtree(os.path.join("exp", f"{DP_EXP}_{name}"),
+                      ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp_rank", str(r),
+         "--dp_world", str(DP_WORLD), "--dp_port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"[17] rank {r} exited {p.returncode}:\n{log[-6000:]}")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join("exp", DP_EXP, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    for r, res in enumerate(ranks):
+        if res["mesh"] != DP_WORLD or res["unequal"]:
+            fail(f"[17] rank {r}: mesh {res['mesh']}, parameters unlike "
+                 f"the other rank's: {res['unequal'][:5]}")
+        need_launches(f"[17] train, rank {r}", res["train_launches"],
+                      ["hash_encode_ms", "hash_encode_ms_bwd",
+                       "scatter_add_rows"])
+        need_launches(f"[17] render_lidar, rank {r}",
+                      res["render_launches"],
+                      ["hash_encode_ms", "composite"])
+
+    def stats_close(what, got, want, steps):
+        """Every logged loss term and stat of each step at LOSS_TOL
+        (relative); returns the worst per key."""
+        if len(got) != steps or len(want) != steps:
+            fail(f"[17] {what}: not every step was logged")
+        worst = {}
+        for step, (a, b) in enumerate(zip(got, want)):
+            for k, w in b.items():
+                if k in ("step", "step_s", "rays_per_sec"):
+                    continue
+                err = abs(a[k] - w) / max(abs(w), 1e-12)
+                worst[k] = max(worst.get(k, 0.0), err)
+                if err > LOSS_TOL:
+                    fail(f"[17] {what}, step {step + 1} {k}: two ranks "
+                         f"{a[k]} vs one {w}")
+        return worst
+
+    one_argv = DP_TRAIN_ARGV[:-1] + [f"{DP_EXP}_one"]
+    one = cli.main(one_argv)
+    worst = stats_close("train", ranks[0]["history"], one.history, DP_STEPS)
+    # A parameter may differ by what Adam moves it in the steps: a
+    # gradient entry within rounding of 0 takes either sign, and Adam moves
+    # the entry by up to lr either way (|m_hat| <= sqrt(v_hat) to 1% in
+    # these first steps); beyond that only the update's rounding.
+    lr = train_step.lr_schedule(one.cfg)
+    adam_tol = 2 * ADAM_STEP_BOUND * sum(lr(k) for k in range(DP_STEPS))
+    p_err = g_err = 0.0
+    params = dict(one.model.named_parameters())
+    for name, (p, g) in ranks[0]["state"].items():
+        q = params[name].detach().cpu()
+        err = float((p - q).abs().max())
+        tol = adam_tol + 1e-6 * float(q.abs().max())
+        if not err <= tol:
+            fail(f"[17] parameter {name}: two ranks vs one differ by {err} "
+                 f"(tolerance {tol}: two Adam steps' worth, {adam_tol})")
+        p_err = max(p_err, err / tol)
+        want = params[name].grad.detach().cpu()
+        if not bool(want.any()):
+            if bool(g.any()):
+                fail(f"[17] gradient of {name}: zero on one rank only")
+            continue
+        g_err = max(g_err, rel_err(f"[17] gradient of {name}", g, want,
+                                   GRAD_TOL)[1])
+    del params
+    del one
+    torch.cuda.empty_cache()
+    sweep_one = cli.main(DP_RENDER_ARGV + ["--exp_name", f"{DP_EXP}_one"])
+    two = types.SimpleNamespace(
+        paths=[ranks[0]["sweep"]], frame=sweep_one.frame,
+        sweeps=sweep_one.sweeps, sweep_dir=os.path.dirname(ranks[0]["sweep"]))
+    errs = compare_sweeps("[17] two-rank sweep vs one-rank sweep",
+                          sweep_files(two), sweep_files(sweep_one))[0]
+    del sweep_one
+    torch.cuda.empty_cache()
+    obj_one = cli.main(DP_OBJ_ARGV[:-1] + [f"{DP_EXP}_objects_one"])
+    obj_worst = stats_close("train with objects", ranks[0]["obj_history"],
+                            obj_one.history, DP_OBJ_STEPS)
+    if not obj_one.history[0]["obj_hit_frac"] > 0:
+        fail("[17] train with objects: no sample in a box")
+    del obj_one
+    torch.cuda.empty_cache()
+    nccl = nccl_world1(dev)
+    launches = {}
+    for r, res in enumerate(ranks):
+        need_launches(f"[17] train with objects, rank {r}",
+                      res["obj_launches"], ["hash_encode_ms",
+                                            "hash_encode_ms_bwd",
+                                            "scatter_add_rows"])
+        launches[f"train_dp_rank{r}"] = res["train_launches"]
+        launches[f"render_lidar_dp_rank{r}"] = res["render_launches"]
+        launches[f"train_objects_dp_rank{r}"] = res["obj_launches"]
+    summary = (
+        f"two ranks (gloo on cuda:0) vs one, {DP_STEPS} steps of "
+        f"nuscenes_single at full width: loss terms worst rel diff "
+        f"{_rounded(worst)} (tol "
+        f"{LOSS_TOL}); parameters at {p_err:.2f} of their tolerance (twice "
+        f"the learning rates' sum, {adam_tol:.3e}, plus 1e-6 of the "
+        f"largest value), last gradients {g_err:.2e} of their largest "
+        f"value (tol {GRAD_TOL}); every "
+        f"rank's parameters equal; the sweep over both ranks vs one rank's: "
+        f"max abs diff {errs}; with [12]'s car ({DP_OBJ_STEPS} steps, the "
+        f"object budget over both ranks, tracknet live) vs one rank, worst "
+        f"rel diff {_rounded(obj_worst)}; {nccl}; launches per rank "
+        f"{launches}; "
+        f"rank seconds: train {[round(r['train_s'], 1) for r in ranks]}, "
+        f"sweep {[round(r['render_s'], 2) for r in ranks]}; ranks' "
+        f"processes {ranks_s:.1f} s (gloo moves every gradient through "
+        f"host memory: a correctness run, not a speed)")
+    return launches, summary
 
 
 # The trained sweep, kernels on vs off: the share of each output's values
@@ -3408,6 +3868,11 @@ def phase_gather_bench(dev):
 
 
 def main():
+    if "--dp_rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        dp_rank(int(args["--dp_rank"]), int(args["--dp_world"]),
+                int(args["--dp_port"]))
+        return
     try:
         import torch
     except ImportError as e:
@@ -3460,9 +3925,12 @@ def main():
     presets = timed("[15]", phase_presets, dev)
     mesh = timed("[16] extract", phase_extract, dev, params)
     obj_entries = timed("[16] object entries", phase_object_entries, dev)
+    dp_launches, dp_summary = timed("[17]", phase_data_parallel, dev)
+    print(f"[17] {dp_summary}")
     obj_grid = timed("[12] profiled", objects.pop("profiled"))
     timed("[15] profiled", presets.pop("profiled"))
     lattice_chunk = timed("[16] profiled", mesh.pop("profiled"))
+    timed("[8] profiled", phase_train_trace, dev)
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
@@ -3479,14 +3947,15 @@ def main():
     # run [8], the gather bench's run [11], with dynamic objects [12]'s
     # train entry and its replay render, [13]'s ray-drop path (features
     # to export, which launches none), [14]'s eval, lidar_eval and render
-    # entries, [15]'s preset paths and [16]'s extract, render_video (and
-    # --hq), render_instance and train --obj_ckpt; `launches` is their
-    # sum.
+    # entries, [15]'s preset paths, [16]'s extract, render_video (and
+    # --hq), render_instance and train --obj_ckpt, and [17]'s train and
+    # sweep on each rank; `launches` is their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
              *objects["paths"].items(), ("raydrop", raydrop_launches),
              *eval_launches.items(), *presets["paths"].items(),
-             ("extract", mesh["launches"]), *obj_entries.items())
+             ("extract", mesh["launches"]), *obj_entries.items(),
+             *dp_launches.items())
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""

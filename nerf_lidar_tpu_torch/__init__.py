@@ -12,7 +12,9 @@ keeps its own copies of the host-side numpy code it needs (`configs.py`,
 equal to the originals by `tests/test_torch_host.py`.
 
 Ported so far: the LiDAR sweep render path, the train step (both with
-dynamic objects), the ray-drop stage (`raydrop/`: range-image features,
+dynamic objects) and its host side (`train/prefetch.py`, asynchronous
+checkpoints), data parallelism over `torch.distributed` (`parallel/`), the
+ray-drop stage (`raydrop/`: range-image features,
 the U-Net with its VGG19 / Darknet-53 losses, drop and SemanticKITTI
 export), and the hash-table gather microbenchmark
 (`experiments/gather_bench.py`). Their kernels are hand-written CUDA for

@@ -50,6 +50,18 @@ static field's mesh to exp/<name>/mesh.ply.
 checkpoint_<step>.pt or the JAX package's checkpoint_<step>.ckpt (its
 params and Adam moments), the port's on a tie.
 
+Data parallel over several GPUs, one process each (`parallel/`): launch
+the entries with torchrun, e.g.
+
+  python -m torch.distributed.run --nproc_per_node 4 \
+      -m nerf_lidar_tpu_torch.cli train --config nuscenes_single ...
+
+and across hosts with `train --multihost` (each host's batches seeded
+`seed + GROUP_RANK`). Each rank trains on its rows of the global batch and
+the ranks take the one-process step; `render_lidar`, `eval`, `lidar_eval`,
+`render` and `render_video` split every chunk over the ranks. Rank 0
+alone writes files and prints.
+
 Config, overrides and scene loading (`build_config`, `apply_overrides`,
 `load_scene_for`, `exp_dir`) are copies of the JAX CLI's helpers over the
 port's own `configs` and `data` modules, so a preset and a `--set` mean the
@@ -76,7 +88,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import configs, convert
+from . import configs, convert, parallel
 from .data import png
 from .data.batching import RayBatcher
 from .lidar import sensor
@@ -87,6 +99,7 @@ from .models.model import Model
 from .ops import grid
 from .renderer import ChunkRenderer, render_view
 from .train import checkpoints, train_step
+from .train.prefetch import BatchPrefetcher
 from .utils import image as image_lib
 from .utils.logging import MetricsLogger, Timer
 
@@ -206,11 +219,26 @@ def exp_dir(cfg: configs.Config) -> str:
 
 
 def _device(name: str) -> torch.device:
+    """`--device`: "cuda" is this process's card, cuda:LOCAL_RANK under
+    torchrun and cuda:0 otherwise; an explicit cuda:<i> is kept."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu for a CPU run)")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     return dev
+
+
+def _data_mesh(device: torch.device, multihost: bool = False,
+               shape=(-1,), axes=("data",)):
+    """The entries' `maybe_data_mesh`, after joining a torchrun process
+    group (`parallel.init_distributed`); prints the world once."""
+    parallel.init_distributed(multihost, device)
+    mesh = parallel.maybe_data_mesh(shape, axes)
+    if mesh is not None:
+        parallel.main_print(f"data-parallel over {mesh.world} devices")
+    return mesh
 
 
 def _pad_obj_latents(params, num_objects: int):
@@ -287,8 +315,9 @@ def _sweeps(args, scene, out: str):
             start, end, np.eye(4), frame, num_sweeps=args.num_sweeps,
             complicated=args.complicated, timestamps=sweep_ts,
             points_per_beam=args.azimuth_steps)
-        os.makedirs(out, exist_ok=True)
-        np.save(os.path.join(out, "ego_trace.npy"), trace)
+        if parallel.is_main():
+            os.makedirs(out, exist_ok=True)
+            np.save(os.path.join(out, "ego_trace.npy"), trace)
         l2g = np.tile(np.eye(4, dtype=np.float64), (len(sweeps), 1, 1))
         l2g[:, :3, 3] = trace[: len(sweeps)]
     sweeps = sweeps[: args.num_sweeps]
@@ -360,9 +389,10 @@ class _TestRender:
     never dies on an inference kernel), its PNG under train_renders/ and
     its PSNR logged as `test_psnr`."""
 
-    def __init__(self, model, cfg, scene, out, logger, tracks, track_mask):
+    def __init__(self, model, cfg, scene, out, logger, tracks, track_mask,
+                 mesh=None):
         self.renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size,
-                                      fused=False)
+                                      fused=False, mesh=mesh)
         self.view = train_test_view(scene)
         self.rays = _view_rays(scene.data, self.view)
         self.gt = scene.data.images[self.view]
@@ -375,20 +405,58 @@ class _TestRender:
         device = self.renderer.model.nerf_mlp.table.device
         psnr = float(image_lib.psnr(torch.from_numpy(img["rgb"]).to(device),
                                     torch.from_numpy(self.gt).to(device)))
-        d = os.path.join(self.out, "train_renders")
-        os.makedirs(d, exist_ok=True)
-        png.write_png(os.path.join(d, f"rgb_{step:06d}.png"),
-                      (np.clip(img["rgb"], 0, 1) * 255).astype(np.uint8))
+        if parallel.is_main():
+            d = os.path.join(self.out, "train_renders")
+            os.makedirs(d, exist_ok=True)
+            png.write_png(os.path.join(d, f"rgb_{step:06d}.png"),
+                          (np.clip(img["rgb"], 0, 1) * 255).astype(np.uint8))
         self.logger.log(step, test_psnr=psnr)
-        print(f"step {step}: test view {self.view} psnr={psnr:.2f}")
+        parallel.main_print(f"step {step}: test view {self.view} "
+                            f"psnr={psnr:.2f}")
         return psnr
+
+
+def _ray_batcher(cfg, scene, seed: int, mask_moving: bool) -> RayBatcher:
+    return RayBatcher(scene.data, cfg.batch_size, cfg.patch_size,
+                      lidar_supervision=cfg.lidar_supervision,
+                      lidar_batch_ratio=cfg.lidar_batch_ratio,
+                      only_lidar_depth=cfg.only_lidar_supervision,
+                      aug_road=cfg.aug_road, aug_delta=cfg.aug_delta,
+                      apply_bayer_mask=cfg.apply_bayer_mask, seed=seed,
+                      mask_moving=mask_moving)
+
+
+def step_batchers(cfg, scene, mask_moving: bool):
+    """The batchers the train steps draw from, as the JAX loop's: worker w
+    (of 2) seeded `cfg.seed + 1000 + w`, step k taking worker k % 2's next
+    batch. (The JAX loop queues the workers' batches in whatever order its
+    threads finish; strict alternation is the order it gives when they
+    finish in turn, and the one a test can pin. Both packages restart the
+    workers from their seeds on resume.)"""
+    return [_ray_batcher(cfg, scene, cfg.seed + 1000 + w, mask_moving)
+            for w in range(2)]
+
+
+def _broadcast_state(mesh, *modules) -> None:
+    """Every rank takes rank 0's weights (a --multihost host's init is
+    seeded by its own seed; a rank may resume from a file the others do
+    not see)."""
+    with torch.no_grad():
+        for module in modules:
+            if module is not None:
+                for t in module.state_dict().values():
+                    mesh.broadcast(t)
 
 
 def cmd_train(args) -> types.SimpleNamespace:
     """Fit a scene: RayBatcher batches -> `train_step`, printing loss /
     PSNR / rays per second every `print_every` steps (and logging them to
     exp/<name>/metrics.jsonl) and writing checkpoint_<step>.pt +
-    params_<step>.npz there every `checkpoint_every` steps and at the end.
+    params_<step>.npz there every `checkpoint_every` steps and at the end,
+    on a background thread (`checkpoints.AsyncCheckpointer`). The steps'
+    batches come from two worker batchers in turn (`step_batchers`),
+    built and staged on the device by `BatchPrefetcher`; the `cfg.seed`
+    batcher gives the batch's layout (`num_patch_rays`, `total_rays`).
     With tracks and `instance_obj`, one object slot per track (the
     moving-object mask then stays off, since the objects model those
     pixels), the tracknet under `track_refine`; the posenet (one row per
@@ -400,17 +468,30 @@ def cmd_train(args) -> types.SimpleNamespace:
     Resumes from the newest train state there, the port's
     checkpoint_<step>.pt or the JAX package's checkpoint_<step>.ckpt
     (`checkpoints.restore_checkpoint`; a .ckpt that does not match the
-    config ends the run with its name and step). Returns what was built,
-    the step it started at (`init_step`), the printed stats (`history`),
-    the in-train renders' PSNRs (`test_psnr`) and the last checkpoint's
-    paths."""
+    config ends the run with its name and step). Under a data mesh
+    (torchrun, or a process group the caller initialised) every rank
+    trains on its rows of each batch and takes the one-process step;
+    `--multihost` seeds each host's batches and randomness by `seed +
+    GROUP_RANK`; rank 0 alone writes and prints. A prefetcher worker's or
+    the checkpoint writer's error ends the run with that error. Returns
+    what was built, the step it started at (`init_step`), the printed
+    stats (`history`), the in-train renders' PSNRs (`test_psnr`) and the
+    last checkpoint's paths (None on a rank that writes none)."""
     cfg = build_config(args)
     cfg.validate()
     device = _device(args.device)
+    mesh = _data_mesh(device, args.multihost, cfg.mesh_shape, cfg.mesh_axes)
+    if args.multihost:
+        # Decorrelate the hosts' sampling, as the reference's seed + rank
+        # (train.py:61) and the JAX CLI's seed + process_index.
+        cfg = dataclasses.replace(cfg, seed=cfg.seed + parallel.host_index())
+    writer = parallel.is_main()
+    say = parallel.main_print
     out = exp_dir(cfg)
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if writer:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     scene = load_scene_for(cfg, "train")
     cfg = _with_objects(cfg, getattr(scene, "tracks", None),
                         getattr(scene, "track_classes", []))
@@ -419,13 +500,7 @@ def cmd_train(args) -> types.SimpleNamespace:
                                         getattr(scene, "track_mask", None),
                                         device)
 
-    batcher = RayBatcher(scene.data, cfg.batch_size, cfg.patch_size,
-                         lidar_supervision=cfg.lidar_supervision,
-                         lidar_batch_ratio=cfg.lidar_batch_ratio,
-                         only_lidar_depth=cfg.only_lidar_supervision,
-                         aug_road=cfg.aug_road, aug_delta=cfg.aug_delta,
-                         apply_bayer_mask=cfg.apply_bayer_mask,
-                         seed=cfg.seed, mask_moving=tracks is None)
+    batcher = _ray_batcher(cfg, scene, cfg.seed, tracks is None)
     model = Model(cfg.model, device=device)
     model.init_weights(torch.Generator().manual_seed(cfg.seed))
     posenet = tracknet = None
@@ -441,7 +516,7 @@ def cmd_train(args) -> types.SimpleNamespace:
     for spec in args.obj_ckpt:
         name, _, path = spec.partition("=")
         checkpoints.restore_obj_mlp_params(model, name, path)
-        print(f"restored obj MLP '{name}' from {path}")
+        say(f"restored obj MLP '{name}' from {path}")
     optimizer = train_step.make_optimizer(model, cfg, posenet, tracknet)
     try:
         init_step = checkpoints.restore_checkpoint(out, model, optimizer,
@@ -449,74 +524,94 @@ def cmd_train(args) -> types.SimpleNamespace:
     except ValueError as e:
         raise SystemExit(f"train: cannot resume: {e}") from e
     if init_step:
-        print(f"resumed from step {init_step}")
+        say(f"resumed from step {init_step}")
+    if mesh is not None:
+        _broadcast_state(mesh, model, posenet, tracknet)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)
     max_steps = args.steps or cfg.max_steps
     logger = MetricsLogger(out, tensorboard=args.tensorboard)
     test_render = None
     if cfg.train_render_every > 0 and scene.data.num_views > 1:
         test_render = _TestRender(model, cfg, scene, out, logger, tracks,
-                                  track_mask)
+                                  track_mask, mesh)
     trace = None
 
+    # Each rank builds its host's whole batch and stages its own rows (the
+    # host work is repeated on every rank of a host; a scatter from one
+    # process would save it).
+    workers = step_batchers(cfg, scene, tracks is None)
+    prefetcher = BatchPrefetcher(
+        lambda w: workers[w].next(), depth=3, num_workers=len(workers),
+        device=device,
+        rows=None if mesh is None else mesh.rows(batcher.total_rays))
+    checkpointer = checkpoints.AsyncCheckpointer()
     history, test_psnr, paths = [], [], (None, None)
     timer = Timer()
-    for step in range(init_step, max_steps):
-        if args.trace_dir and step == init_step + args.trace_start:
-            trace = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                *([torch.profiler.ProfilerActivity.CUDA]
-                  if device.type == "cuda" else [])])
-            trace.start()
-        batch = to_device(batcher.next(), device)
-        stats = train_step.train_step(
-            model, optimizer, cfg, batch, step, batcher.num_patch_rays,
-            generator, posenet=posenet, tracknet=tracknet, tracks=tracks,
-            track_mask=track_mask)
-        timer.tick(batcher.total_rays)
-        if trace is not None and step == init_step + args.trace_stop:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+    try:
+        for step in range(init_step, max_steps):
+            if writer and args.trace_dir and \
+                    step == init_step + args.trace_start:
+                trace = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    *([torch.profiler.ProfilerActivity.CUDA]
+                      if device.type == "cuda" else [])])
+                trace.start()
+            batch = prefetcher.next()
+            stats = train_step.train_step(
+                model, optimizer, cfg, batch, step, batcher.num_patch_rays,
+                generator, posenet=posenet, tracknet=tracknet, tracks=tracks,
+                track_mask=track_mask, mesh=mesh)
+            timer.tick(batcher.total_rays)
+            if trace is not None and step == init_step + args.trace_stop:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                trace.stop()
+                os.makedirs(args.trace_dir, exist_ok=True)
+                path = os.path.join(args.trace_dir, f"trace_{step + 1}.json")
+                trace.export_chrome_trace(path)
+                trace = None
+                print(f"profiler trace written to {path}")
+            if test_render is not None and \
+                    (step + 1) % cfg.train_render_every == 0:
+                t_render = time.perf_counter()
+                test_psnr.append(test_render(step + 1))
+                render_s = time.perf_counter() - t_render
+                logger.log(step + 1, render_s=round(render_s, 2))
+                timer.t0 += render_s  # kept out of the steps' time
+            if (step + 1) % cfg.print_every == 0:
+                keys = [k for k in stats if not k.startswith("_")]
+                # One copy to the host, which waits for the step.
+                vals = dict(zip(keys, torch.stack(
+                    [stats[k].float() for k in keys]).tolist()))
+                rays_per_sec = timer.mark()[1]
+                vals.update(step_s=batcher.total_rays / rays_per_sec,
+                            rays_per_sec=rays_per_sec)
+                logger.log(step + 1, **vals)
+                history.append(dict(vals, step=step + 1))
+                say(f"step {step + 1}: loss={vals['loss']:.4f} "
+                    f"psnr={vals['psnr']:.2f} "
+                    f"rays/s={vals['rays_per_sec']:,.0f}", flush=True)
+            if writer and ((step + 1) % cfg.checkpoint_every == 0
+                           or step + 1 == max_steps):
+                checkpointer.save(out, model, optimizer, step + 1,
+                                  keep=cfg.checkpoint_keep, posenet=posenet,
+                                  tracknet=tracknet)
+        paths = checkpointer.wait()
+    finally:
+        prefetcher.close()
+        if trace is not None:
             trace.stop()
-            os.makedirs(args.trace_dir, exist_ok=True)
-            path = os.path.join(args.trace_dir, f"trace_{step + 1}.json")
-            trace.export_chrome_trace(path)
-            trace = None
-            print(f"profiler trace written to {path}")
-        if test_render is not None and \
-                (step + 1) % cfg.train_render_every == 0:
-            t_render = time.perf_counter()
-            test_psnr.append(test_render(step + 1))
-            render_s = time.perf_counter() - t_render
-            logger.log(step + 1, render_s=round(render_s, 2))
-            timer.t0 += render_s  # kept out of the steps' time
-        if (step + 1) % cfg.print_every == 0:
-            vals = {k: float(v) for k, v in stats.items()
-                    if not k.startswith("_")}  # waits for the step
-            rays_per_sec = timer.mark()[1]
-            vals.update(step_s=batcher.total_rays / rays_per_sec,
-                        rays_per_sec=rays_per_sec)
-            logger.log(step + 1, **vals)
-            history.append(dict(vals, step=step + 1))
-            print(f"step {step + 1}: loss={vals['loss']:.4f} "
-                  f"psnr={vals['psnr']:.2f} "
-                  f"rays/s={vals['rays_per_sec']:,.0f}", flush=True)
-        if (step + 1) % cfg.checkpoint_every == 0 or step + 1 == max_steps:
-            paths = checkpoints.save_checkpoint(
-                out, model, optimizer, step + 1, keep=cfg.checkpoint_keep,
-                posenet=posenet, tracknet=tracknet)
-            timer.mark()  # the save stays out of the next window
-    if trace is not None:
-        trace.stop()
-    print(f"kernel launches: hash_encode_ms="
-          f"{grid.hash_encode_multisample.launches} hash_encode_ms_bwd="
-          f"{grid.hash_encode_multisample_bwd.launches} scatter_add_rows="
-          f"{grid.scatter_add_rows.launches}")
-    print(f"done: {out}")
+    # The other ranks may read what rank 0 wrote once this returns.
+    parallel.barrier()
+    say(f"kernel launches: hash_encode_ms="
+        f"{grid.hash_encode_multisample.launches} hash_encode_ms_bwd="
+        f"{grid.hash_encode_multisample_bwd.launches} scatter_add_rows="
+        f"{grid.scatter_add_rows.launches}")
+    say(f"done: {out}")
     return types.SimpleNamespace(
         cfg=cfg, model=model, optimizer=optimizer, batcher=batcher,
         generator=generator, init_step=init_step, history=history,
-        test_psnr=test_psnr, out=out,
+        test_psnr=test_psnr, out=out, mesh=mesh,
         checkpoint=paths[0], params=paths[1], posenet=posenet,
         tracknet=tracknet, tracks=tracks, track_mask=track_mask,
         test_view=None if test_render is None else test_render.view)
@@ -531,6 +626,7 @@ def cmd_render_lidar(args) -> types.SimpleNamespace:
     built and written."""
     cfg = build_config(args)
     device = _device(args.device)
+    mesh = _data_mesh(device)
     scene = load_scene_for(cfg, "lidar")
     tracks = getattr(scene, "tracks", None)
     track_mask = getattr(scene, "track_mask", None)
@@ -547,18 +643,20 @@ def cmd_render_lidar(args) -> types.SimpleNamespace:
     params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
     model = build_model(cfg, params, device)
     tracks_t, mask_t = _track_tensors(cfg, tracks, track_mask, device)
-    print(f"restored step {step}")
-    print(f"dynamic objects: {0 if tracks_t is None else len(tracks_t)} "
-          f"(obj_mode={args.obj_mode})")
-    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
+    parallel.main_print(f"restored step {step}")
+    parallel.main_print(f"dynamic objects: "
+                        f"{0 if tracks_t is None else len(tracks_t)} "
+                        f"(obj_mode={args.obj_mode})")
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size, mesh=mesh)
     name = (f"lidar_{args.mode}" if args.obj_mode == "replay"
             else f"lidar_{args.mode}_{args.obj_mode}")
     sweep_dir = os.path.join(out, name)
     data = scene.data
     paths = render_sweeps_to_dir(renderer, sweeps, data.near, data.far,
                                  scene.frame, sweep_dir, tracks_t, mask_t)
-    np.save(os.path.join(sweep_dir, "lidar2globals.npy"), l2g)
-    print(f"wrote {len(paths)} sweeps to {sweep_dir}")
+    if parallel.is_main():
+        np.save(os.path.join(sweep_dir, "lidar2globals.npy"), l2g)
+    parallel.main_print(f"wrote {len(paths)} sweeps to {sweep_dir}")
     return types.SimpleNamespace(
         cfg=cfg, model=model, renderer=renderer, sweeps=sweeps,
         near=data.near, far=data.far, frame=scene.frame,
@@ -651,17 +749,23 @@ def cmd_eval(args) -> types.SimpleNamespace:
                          "--allow_fresh")
     cfg = build_config(args)
     device = _device(args.device)
+    mesh = _data_mesh(device)
+    if args.follow and mesh is not None:
+        raise SystemExit("eval --follow polls on one GPU: launch it without "
+                         "torchrun")
+    writer = parallel.is_main()
     out = exp_dir(cfg)
     cfg, scene, tracks, track_mask = _scene_model(cfg, "test", device)
     data = scene.data
     params, step = (None, 0) if args.follow else _restore_model_params(
         cfg, args.params, args.allow_fresh)
     model = build_model(cfg, params, device)
-    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size, mesh=mesh)
     harness = image_lib.MetricHarness()
     n_views = min(data.num_views, args.max_views or data.num_views)
     eval_dir = os.path.join(out, "eval")
-    os.makedirs(eval_dir, exist_ok=True)
+    if writer:
+        os.makedirs(eval_dir, exist_ok=True)
     run = types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
                                 data=data, tracks=tracks,
                                 track_mask=track_mask, metrics=None,
@@ -682,25 +786,29 @@ def cmd_eval(args) -> types.SimpleNamespace:
             cc = image_lib.color_correct(img["rgb"], data.images[i])
             m.update(harness(torch.from_numpy(cc).to(device), gt, "_cc"))
             metrics.append(m)
-            print(f"view {i}: " + " ".join(f"{k}={v:.3f}"
-                                           for k, v in m.items())
-                  + f" ({render_times[-1]:.2f}s)")
-            np.save(os.path.join(eval_dir, f"rgb_{i:03d}.npy"), img["rgb"])
+            parallel.main_print(
+                f"view {i}: " + " ".join(f"{k}={v:.3f}"
+                                         for k, v in m.items())
+                + f" ({render_times[-1]:.2f}s)")
+            if writer:
+                np.save(os.path.join(eval_dir, f"rgb_{i:03d}.npy"),
+                        img["rgb"])
         avg = {k: float(np.mean([m[k] for m in metrics]))
                for k in metrics[0]}
         avg["median_render_time_s"] = float(np.median(render_times))
         avg["step"] = step
-        print(f"step {step} mean:", avg)
-        _write_json(os.path.join(eval_dir, "metrics.json"), avg)
-        _write_json(os.path.join(eval_dir, f"metrics_{step}.json"), avg)
-        with open(os.path.join(eval_dir, f"render_times_{step}.txt"),
-                  "w") as f:
-            f.write("\n".join(f"{t:.4f}" for t in render_times))
+        parallel.main_print(f"step {step} mean:", avg)
+        if writer:
+            _write_json(os.path.join(eval_dir, "metrics.json"), avg)
+            _write_json(os.path.join(eval_dir, f"metrics_{step}.json"), avg)
+            with open(os.path.join(eval_dir, f"render_times_{step}.txt"),
+                      "w") as f:
+                f.write("\n".join(f"{t:.4f}" for t in render_times))
         run.metrics = avg
         run.steps.append(step)
 
     if not args.follow:
-        print(f"restored step {step}")
+        parallel.main_print(f"restored step {step}")
         eval_checkpoint(step, None)
         return run
 
@@ -733,13 +841,14 @@ def cmd_lidar_eval(args) -> types.SimpleNamespace:
 
     cfg = build_config(args)
     device = _device(args.device)
+    mesh = _data_mesh(device)
     out = exp_dir(cfg)
     cfg, scene, tracks, track_mask = _scene_model(cfg, "lidar", device)
     data = scene.data
     if data.lidar_origins is None:
         raise SystemExit("scene has no LiDAR returns to replay")
     params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
-    print(f"restored step {step}")
+    parallel.main_print(f"restored step {step}")
     model = build_model(cfg, params, device)
 
     o, d, gt_depth = (data.lidar_origins, data.lidar_dirs, data.lidar_depth)
@@ -756,7 +865,7 @@ def cmd_lidar_eval(args) -> types.SimpleNamespace:
     if ts is not None:
         rays["timestamp"] = ts.astype(np.float32)
 
-    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size)
+    renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size, mesh=mesh)
     outr = renderer.render(rays, tracks, track_mask)
     depth = outr["depth"].reshape(-1)
     err = np.abs(depth - gt_depth)
@@ -772,23 +881,26 @@ def cmd_lidar_eval(args) -> types.SimpleNamespace:
     metrics.update(pc_metrics.chamfer_distance(pred_pts, gt_pts,
                                                device=device))
 
-    ed = os.path.join(out, "lidar_eval")
-    os.makedirs(ed, exist_ok=True)
+    ious = None
     if "semantic" in outr and labels is not None:
         pred_sem = np.argmax(outr["semantic"], axis=-1)
         ious = pc_metrics.eval_miou(
             pred_sem, labels, num_classes=outr["semantic"].shape[-1])
         metrics.update(ious)
-        with open(os.path.join(ed, "iou.txt"), "w") as f:
-            for k, v in ious.items():
-                f.write(f"{k} {v}\n")
-    if "semantic" in outr:
-        np.save(os.path.join(ed, "pred_semantic.npy"),
-                np.argmax(outr["semantic"], axis=-1))
-    np.save(os.path.join(ed, "pred_depth.npy"), depth)
-    np.save(os.path.join(ed, "gt_depth.npy"), gt_depth)
-    _write_json(os.path.join(ed, "metrics.json"), metrics)
-    print("lidar_eval:", json.dumps(metrics))
+    if parallel.is_main():
+        ed = os.path.join(out, "lidar_eval")
+        os.makedirs(ed, exist_ok=True)
+        if ious is not None:
+            with open(os.path.join(ed, "iou.txt"), "w") as f:
+                for k, v in ious.items():
+                    f.write(f"{k} {v}\n")
+        if "semantic" in outr:
+            np.save(os.path.join(ed, "pred_semantic.npy"),
+                    np.argmax(outr["semantic"], axis=-1))
+        np.save(os.path.join(ed, "pred_depth.npy"), depth)
+        np.save(os.path.join(ed, "gt_depth.npy"), gt_depth)
+        _write_json(os.path.join(ed, "metrics.json"), metrics)
+    parallel.main_print("lidar_eval:", json.dumps(metrics))
     return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
                                  rays=rays, tracks=tracks,
                                  track_mask=track_mask, metrics=metrics,
@@ -816,11 +928,12 @@ def cmd_render(args) -> types.SimpleNamespace:
     _refuse_video(args, "render_<path>")
     cfg = build_config(args)
     device = _device(args.device)
+    mesh = _data_mesh(device)
     out = exp_dir(cfg)
     cfg, scene, tracks, track_mask = _scene_model(cfg, "test", device)
     data = scene.data
     params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
-    print(f"restored step {step}")
+    parallel.main_print(f"restored step {step}")
     model = build_model(cfg, params, device)
     if args.path == "ellipse":
         poses = camlib.generate_ellipse_path(data.camtoworlds,
@@ -828,17 +941,18 @@ def cmd_render(args) -> types.SimpleNamespace:
     else:
         poses = data.camtoworlds[: args.num_frames or None]
     renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size,
-                             compute_extras=True)
+                             compute_extras=True, mesh=mesh)
     render_dir = os.path.join(out, f"render_{args.path}")
     frames = []
     for i, pose in enumerate(poses):
         img = render_view(renderer, _view_rays(data, i, pose), tracks,
                           track_mask)
-        vis_lib.save_panels(vis_lib.visualize_suite(
-            img, near=data.near, far=data.far), render_dir, i)
+        if parallel.is_main():
+            vis_lib.save_panels(vis_lib.visualize_suite(
+                img, near=data.near, far=data.far), render_dir, i)
         frames.append(img)
-        print(f"rendered frame {i}")
-    print(f"frames in {render_dir}")
+        parallel.main_print(f"rendered frame {i}")
+    parallel.main_print(f"frames in {render_dir}")
     return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
                                  render_dir=render_dir, frames=frames)
 
@@ -856,6 +970,7 @@ def cmd_render_video(args) -> types.SimpleNamespace:
     _refuse_video(args, "video_<mode>")
     cfg = build_config(args)
     device = _device(args.device)
+    mesh = _data_mesh(device)
     out = exp_dir(cfg)
     scene = load_scene_for(cfg, "train")
     data = scene.data
@@ -873,20 +988,21 @@ def cmd_render_video(args) -> types.SimpleNamespace:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, num_prop_samples=(256, 64), num_nerf_samples=64))
     params, step = _restore_model_params(cfg, args.params, args.allow_fresh)
-    print(f"restored step {step}")
+    parallel.main_print(f"restored step {step}")
     model = build_model(cfg, params, device)
     tracks_t, mask_t = _track_tensors(cfg, tracks, track_mask, device)
     renderer = ChunkRenderer(model, cfg, cfg.render_chunk_size,
-                             compute_extras=True)
+                             compute_extras=True, mesh=mesh)
     render_dir = os.path.join(out, f"video_{args.mode}")
     frames = []
     for i in range(min(args.num_frames, data.num_views)):
         img = render_view(renderer, _view_rays(data, i), tracks_t, mask_t)
-        vis_lib.save_panels(vis_lib.visualize_suite(
-            img, near=data.near, far=data.far), render_dir, i)
+        if parallel.is_main():
+            vis_lib.save_panels(vis_lib.visualize_suite(
+                img, near=data.near, far=data.far), render_dir, i)
         frames.append(img)
-        print(f"rendered frame {i}")
-    print(f"frames in {render_dir}")
+        parallel.main_print(f"rendered frame {i}")
+    parallel.main_print(f"frames in {render_dir}")
     return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
                                  data=data, render_dir=render_dir,
                                  frames=frames, tracks=tracks_t,
@@ -1202,6 +1318,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
     sp = sub.add_parser("train")
     common(sp)
+    sp.add_argument("--multihost", action="store_true",
+                    help="a torchrun launch over several hosts: each "
+                         "host's batches seeded seed + GROUP_RANK")
     sp.add_argument("--steps", type=int, default=None,
                     help="stop after this many steps (default: the "
                          "config's max_steps, which also sets the "

@@ -382,6 +382,64 @@ def profile_train(run, step, steps=2):
                 host_waits_per_step=waits)
 
 
+_WAITS = r"cuda(Stream|Device)Synchronize|cudaMemcpy"
+
+
+def wait_sites(events, steps: int):
+    """{site: count per step} of the host's waits among profiler `events`
+    (the runtime calls that `_WAITS` names): each wait is placed by
+    time in the innermost op of its thread that encloses it, and named by
+    that op and the innermost frame of the port on the stack of it or of
+    an op around it."""
+    from torch.autograd import DeviceType
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and not re.fullmatch(_WAITS, e.name)]
+    sites = {}
+    for w in events:
+        if w.device_type == DeviceType.CUDA or not re.fullmatch(_WAITS,
+                                                                w.name):
+            continue
+        # Innermost first, the wait's own thread before the others (the
+        # Python tracer's events may carry another thread id).
+        around = sorted(
+            (e for e in ops if e.time_range.start <= w.time_range.start
+             and e.time_range.end >= w.time_range.end),
+            key=lambda e: (e.thread == w.thread, e.time_range.start),
+            reverse=True)
+        frame = next((f for e in around for f in [e.name, *(e.stack or [])]
+                      if "nerf_lidar_tpu_torch/" in f
+                      and "experiments" not in f), "outside the port")
+        op = next((e.name for e in around if e.name.startswith("aten::")),
+                  "no op")
+        site = f"{w.name} in {op} at {frame}"
+        sites[site] = sites.get(site, 0) + 1 / steps
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def host_wait_sites(run, step, steps=2):
+    """Where warm train steps of the train entry's `run` make the host wait
+    for the device: torch.profiler with Python stacks over `steps` steps
+    (their batches staged before, no synchronisation after), the waits
+    named by `wait_sites`."""
+    from torch.profiler import ProfilerActivity, profile
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.train import train_step
+    dev = next(run.model.parameters()).device
+    batches = [cli.to_device(run.batcher.next(), dev) for _ in range(steps)]
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=activities, with_stack=True) as prof:
+        for i in range(steps):
+            train_step.train_step(
+                run.model, run.optimizer, run.cfg, batches[i], step + i,
+                run.batcher.num_patch_rays, run.generator,
+                posenet=run.posenet, tracknet=run.tracknet,
+                tracks=run.tracks, track_mask=run.track_mask)
+    torch.cuda.synchronize()
+    return wait_sites(prof.events(), steps)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("hash_encode_bench")
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(

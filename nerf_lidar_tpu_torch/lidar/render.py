@@ -43,18 +43,24 @@ def render_sweeps_to_dir(renderer: ChunkRenderer, sweeps: List[Sweep],
                          out_dir: str, tracks=None,
                          track_mask=None) -> List[str]:
     """Render sweeps and write the points / points_semantic / points_rgb
-    trio per sweep. Returns the written point-file paths."""
-    os.makedirs(out_dir, exist_ok=True)
+    trio per sweep. Returns the point-file paths. With the renderer's data
+    mesh every rank renders its rows and rank 0 alone writes."""
+    mesh = renderer.mesh
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     paths = []
     for idx, sweep in enumerate(sweeps):
         out = render_sweep(renderer, sweep, near, far, frame, tracks,
                            track_mask)
         p = os.path.join(out_dir, f"points_{idx:04d}.npy")
+        paths.append(p)
+        if not writer:
+            continue
         np.save(p, out["points"])
         if "semantic" in out:
             np.save(os.path.join(out_dir, f"points_semantic_{idx:04d}.npy"),
                     out["semantic"])
         np.save(os.path.join(out_dir, f"points_rgb_{idx:04d}.npy"),
                 out["rgb"])
-        paths.append(p)
     return paths

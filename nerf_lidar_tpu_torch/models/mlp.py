@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import MLPConfig
-from ..ops import coord
+from ..ops import coord, mathx
 from ..ops import fourier as fourierlib
 from ..ops import grid as gridlib
 
@@ -256,8 +256,8 @@ class ZipMLP(nn.Module):
                 x = F.relu(x)
         raw_density = x[..., 0].float()
         if generator is not None and c.density_noise > 0:
-            raw_density = raw_density + c.density_noise * torch.randn(
-                raw_density.shape, generator=generator,
+            raw_density = raw_density + c.density_noise * mathx.random_rows(
+                torch.randn, raw_density.shape, generator,
                 device=raw_density.device)
         return raw_density, x
 
@@ -302,8 +302,8 @@ class ZipMLP(nn.Module):
 
         bottleneck = x
         if generator is not None and c.bottleneck_noise > 0:
-            bottleneck = bottleneck + c.bottleneck_noise * torch.randn(
-                bottleneck.shape, generator=generator, device=x.device)
+            bottleneck = bottleneck + c.bottleneck_noise * mathx.random_rows(
+                torch.randn, bottleneck.shape, generator, device=x.device)
 
         def per_sample(v):
             """A per-ray [..., D] or per-sample [..., S, D] field as

@@ -118,11 +118,12 @@ class Model(nn.Module):
 
     def _composite_objects(self, ray_results, tdist, batch, obj_pose,
                            track_mask, is_prop: bool, train: bool,
-                           use_kernels: bool):
+                           use_kernels: bool, mesh=None):
         """The level's predictions with the objects composited in. The
         sample budget applies in training only: a render chunk is
         contiguous rays, one near object can cover more than any fixed
-        share of it, and the overflow would fall back to the field."""
+        share of it, and the overflow would fall back to the field. Under
+        a data mesh the budget is the global batch's."""
         c = self.cfg
         t_mids = 0.5 * (tdist[..., :-1] + tdist[..., 1:])
         pts_w = (t_mids[..., None] * batch["directions"][..., None, :]
@@ -134,7 +135,8 @@ class Model(nn.Module):
                           class_slots(c.obj_class_ids).items())]
         budget = None
         if c.obj_sample_frac > 0 and train:
-            rs = int(np.prod(pts_w.shape[:-1]))
+            rs = int(np.prod(pts_w.shape[:-1])) * (
+                1 if mesh is None else mesh.data_size)
             budget = min(rs, int(-(-rs * c.obj_sample_frac // 128)) * 128)
         return objlib.composite_objects(
             None if groups else self.obj_mlp, self.obj_latents, pts_w,
@@ -142,14 +144,14 @@ class Model(nn.Module):
             is_prop=is_prop, sym=c.symmetrize and train and not is_prop,
             class_groups=groups,
             obj_sem_ids=getattr(self, "obj_sem_ids", None),
-            sample_budget=budget, use_kernels=use_kernels)
+            sample_budget=budget, use_kernels=use_kernels, mesh=mesh)
 
     def forward(self, batch: Dict[str, torch.Tensor], train_frac: float = 1.0,
                 fused_final: bool = False, use_kernels: bool = True,
                 train: bool = False, compute_extras: bool = False,
                 generator: Optional[torch.Generator] = None,
                 tracks: Optional[torch.Tensor] = None,
-                track_mask: Optional[torch.Tensor] = None
+                track_mask: Optional[torch.Tensor] = None, mesh=None
                 ) -> Tuple[List[Dict[str, torch.Tensor]],
                            List[Dict[str, torch.Tensor]]]:
         """Render a batch of rays.
@@ -170,7 +172,13 @@ class Model(nn.Module):
         use_kernels: False sends the hash encode and the fused composite to
           their plain torch versions on every device (for comparisons).
         generator: the randomness of training (sample jitter, spiral phase,
-          MLP noise), on the batch's device; None is the JAX `key=None`.
+          MLP noise), on the batch's device, or a `mathx.ShardedGenerator`
+          (one data shard's rows of the global batch's draws); None is the
+          JAX `key=None`.
+        mesh: a `parallel.DataMesh` when the batch is a data-parallel
+          rank's rows of the global batch (training): the objects' sample
+          budget, its stats and the symmetry term are then the global
+          batch's (`models/objects.py`).
         Returns (renderings, ray_history): one dict per level each; the
         history holds the level's sdist, weights and tdist (and obj_mask)
         for the losses. With objects each rendering has "obj_mask" [R, S]
@@ -242,7 +250,7 @@ class Model(nn.Module):
             if use_obj:
                 ray_results = self._composite_objects(
                     ray_results, tdist, batch, obj_pose, track_mask,
-                    is_prop, train, use_kernels)
+                    is_prop, train, use_kernels, mesh)
 
             is_final = not is_prop
             sem = ray_results["semantic"] if (is_final and c.use_semantic) \

@@ -230,26 +230,37 @@ def _eval_obj_mlp_grouped(class_groups, obj_latents, pts_o, dirs_o,
             for k, vs in parts.items()}
 
 
-def _compact_flags(flag_flat: torch.Tensor, budget: int):
+def _compact_flags(flag_flat: torch.Tensor, budget: int, offset=0,
+                   slots: Optional[int] = None):
     """Static-shape stream compaction of a bool mask [N]. Returns
-    (sample_ids [K] — the indices of the first K set flags, valid [K] bool,
-    pos [N] — each element's rank among the set flags). A cumsum ranks the
-    flags and one scatter writes their indices into K + 1 slots (slot K
-    takes the unset and overflowing ones); no host sync."""
+    (sample_ids [slots] — the indices of the set flags whose rank is below
+    `budget`, valid [slots] bool, pos [N] — each element's rank among the
+    set flags). A cumsum ranks the flags and one scatter writes their
+    indices into slots + 1 places (the last takes the unset and
+    overflowing ones); no host sync. offset: the set flags before this
+    mask (a data-parallel rank's shard of the global batch: its ranks
+    count from the earlier shards' flags); slots: the buffer's size, by
+    default `budget`, at least the flags this mask can keep."""
+    slots = budget if slots is None else slots
     n = flag_flat.shape[0]
-    pos = torch.cumsum(flag_flat.long(), dim=0) - 1
-    target = torch.where(flag_flat & (pos < budget), pos,
-                         torch.full_like(pos, budget))
-    buf = torch.zeros(budget + 1, dtype=torch.long, device=flag_flat.device)
+    pos = torch.cumsum(flag_flat.long(), dim=0) - 1 + offset
+    target = torch.where(flag_flat & (pos < budget), pos - offset,
+                         torch.full_like(pos, slots))
+    buf = torch.zeros(slots + 1, dtype=torch.long, device=flag_flat.device)
     buf.scatter_(0, target, torch.arange(n, device=flag_flat.device))
-    valid = torch.arange(budget, device=flag_flat.device) < torch.clamp(
-        pos[-1] + 1, max=budget)
-    return buf[:budget], valid, pos
+    valid = torch.arange(slots, device=flag_flat.device) < torch.clamp(
+        torch.clamp(pos[-1] + 1, max=budget) - offset, min=0)
+    return buf[:slots], valid, pos
 
 
-def _sym_loss(outs, outs_sym, m):
-    """Mean |stop_grad(raw) - mirrored| over density and rgb where m."""
-    denom = torch.clamp(m.sum(), min=1.0)
+def _sym_loss(outs, outs_sym, m, mesh=None):
+    """Mean |stop_grad(raw) - mirrored| over density and rgb where m; under
+    a data mesh, this rank's share of the global batch's mean (its sum over
+    the count summed over the ranks)."""
+    denom = m.sum()
+    if mesh is not None:
+        denom = mesh.all_reduce(denom.detach().clone())
+    denom = torch.clamp(denom, min=1.0)
     loss = 0.0
     for k in ("density", "rgb"):
         diff = (outs[k].detach() - outs_sym[k]).abs()
@@ -280,7 +291,8 @@ def composite_objects(obj_mlp, obj_latents: Optional[torch.Tensor],
                       ray_results: Dict[str, torch.Tensor], is_prop: bool,
                       sym: bool = False, class_groups=None,
                       obj_sem_ids=None, sample_budget: Optional[int] = None,
-                      use_kernels: bool = True) -> Dict[str, torch.Tensor]:
+                      use_kernels: bool = True,
+                      mesh=None) -> Dict[str, torch.Tensor]:
     """Overwrite the field's predictions inside object boxes with the
     object MLP's.
 
@@ -294,6 +306,10 @@ def composite_objects(obj_mlp, obj_latents: Optional[torch.Tensor],
     sample_budget: the static cap K on the object MLP's samples (training),
     or None for the dense evaluation. Adds "obj_mask" [R, S, N_obj] (and,
     with a budget, "obj_overflow" and "obj_hit_frac").
+    mesh: a `parallel.DataMesh` when pts_w is a data-parallel rank's rows
+    of the global batch: the budget then caps the global batch's samples
+    in order (the first K over all shards), the stats are the global
+    batch's, and "loss_sym" is this rank's share.
     """
     if sample_budget is not None:
         # The dense test only picks the samples; without gradient, so that
@@ -315,7 +331,7 @@ def composite_objects(obj_mlp, obj_latents: Optional[torch.Tensor],
         return _composite_objects_compact(
             obj_mlp, obj_latents, pts_w, viewdirs, obj_pose, ray_results,
             is_prop, sym, class_groups, obj_sem_ids, int(sample_budget),
-            inter, winner_slot, any_inter, use_kernels)
+            inter, winner_slot, any_inter, use_kernels, mesh)
 
     winner_only = class_groups is None
     if winner_only:
@@ -349,7 +365,7 @@ def composite_objects(obj_mlp, obj_latents: Optional[torch.Tensor],
         # Winner-only evaluation constrains the winning (sample, object)
         # pairs, the dense one every intersecting pair.
         m = (any_inter[..., None] if winner_only else inter).float()
-        results["loss_sym"] = _sym_loss(outs, outs_sym, m)
+        results["loss_sym"] = _sym_loss(outs, outs_sym, m, mesh)
 
     # Winner-only outputs have N = 1: slot 0 is the winner.
     winner = torch.zeros_like(winner_slot) if winner_only else winner_slot
@@ -371,7 +387,8 @@ def composite_objects(obj_mlp, obj_latents: Optional[torch.Tensor],
 def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
                                obj_pose, ray_results, is_prop, sym,
                                class_groups, obj_sem_ids, budget, inter,
-                               winner_slot, any_inter, use_kernels):
+                               winner_slot, any_inter, use_kernels,
+                               mesh=None):
     """Budgeted compositing: the object MLP runs on K compacted samples, K =
     max(8, min(budget, R S)). The box transform is recomputed at the K
     winner points, with gradient, so the track refinement's gradient runs
@@ -384,9 +401,22 @@ def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
     one object, R S samples onto K slots)."""
     R, S = any_inter.shape
     rs = R * S
-    budget = max(8, min(int(budget), rs))
-
-    sid, valid_k, pos = _compact_flags(any_inter.reshape(rs), budget)
+    flags = any_inter.reshape(rs)
+    if mesh is None:
+        total = rs
+        budget = max(8, min(int(budget), total))
+        sid, valid_k, pos = _compact_flags(flags, budget)
+        n_hit = pos[-1] + 1
+    else:
+        # The global batch's first K samples in a box: this shard's ranks
+        # count from the earlier shards' hits (one all_gather of counts).
+        total = rs * mesh.data_size
+        budget = max(8, min(int(budget), total))
+        counts = mesh.all_gather_rows(flags.sum().reshape(1))
+        sid, valid_k, pos = _compact_flags(
+            flags, budget, counts[:mesh.data_index].sum(),
+            max(8, min(budget, rs)))
+        n_hit = counts.sum()
     r_idx = torch.div(sid, S, rounding_mode="floor")
     w_slot = winner_slot.reshape(rs)[sid]  # [K] winning slot
     n_obj = obj_pose.shape[1]
@@ -435,16 +465,15 @@ def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
         mirror = pts_e.new_tensor(_MIRROR)
         outs_sym = eval_all(pts_e.detach() * mirror, dirs_e.detach() * mirror)
         results["loss_sym"] = _sym_loss(outs, outs_sym,
-                                        valid_k[None, :, None].float())
+                                        valid_k[None, :, None].float(), mesh)
 
     # Slot k's evaluation goes to sample sid[k] for the valid slots (the
     # first K samples in a box); the padding slots to a dump row past the
     # R S samples. Samples past the budget keep the field prediction.
     ok = any_inter & (pos.reshape(R, S) < budget)
     dest = torch.where(valid_k, sid, rs)
-    n_hit = pos[-1] + 1
     results["obj_overflow"] = torch.clamp(n_hit - budget, min=0)
-    results["obj_hit_frac"] = n_hit.float() / rs
+    results["obj_hit_frac"] = n_hit.float() / total
     for key in ("density", "rgb", "semantic", "intensity"):
         base, ov = results.get(key), outs.get(key)
         if base is None or ov is None:

@@ -559,6 +559,16 @@ def level_ids(spec: HashGridSpec, device=None) -> torch.Tensor:
         output_size=spec.total_rows)
 
 
+@functools.lru_cache(maxsize=8)
+def level_rows(spec: HashGridSpec, device=None) -> torch.Tensor:
+    """[num_levels, 1] float32 row count of every level (the hash-decay
+    loss's denominators), made on the device once per (spec, device): a
+    tensor built from the tuple at every step copies from the host and
+    waits for the device. Shared: do not modify it."""
+    return torch.tensor(spec.rows_per_level, dtype=torch.float32,
+                        device=device)[:, None]
+
+
 def scatter_add_rows_plain(idx: torch.Tensor, vals: torch.Tensor,
                            rows: int) -> torch.Tensor:
     """out[r] = sum of vals[i] over idx[i] == r: idx [N] int32, vals [N, C]

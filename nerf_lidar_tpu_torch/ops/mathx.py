@@ -7,11 +7,37 @@ both ends behave exactly as in the JAX version.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 _TINY = 1e-20
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedGenerator:
+    """The randomness of one data shard of a global batch: each draw is
+    made at the global batch's shape (`shards` times the rows asked for)
+    from `generator`, and this shard's rows [index n, (index + 1) n) of it
+    are kept. Ranks whose generators share a state thus draw, row for row,
+    what one process draws for the whole batch."""
+
+    generator: torch.Generator
+    index: int
+    shards: int
+
+
+def random_rows(draw, shape, generator, **kwargs) -> torch.Tensor:
+    """`draw(shape, generator=..., **kwargs)` (`torch.rand`, `torch.randn`)
+    of a [n, ...] shape whose first axis runs over the batch's rays; a
+    `ShardedGenerator` draws the global batch's rows and keeps its own."""
+    if isinstance(generator, ShardedGenerator):
+        n = shape[0]
+        full = draw((n * generator.shards,) + tuple(shape[1:]),
+                    generator=generator.generator, **kwargs)
+        return full[generator.index * n:(generator.index + 1) * n]
+    return draw(shape, generator=generator, **kwargs)
 
 
 def safe_div(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import stepfun
+from . import mathx, stepfun
 
 _EPS = float(np.finfo(np.float32).eps)
 
@@ -21,8 +21,9 @@ def cast_rays(tdist, origins, directions, base_x, base_y, radii,
     """Turn distance intervals into n spiral multisample points per frustum.
 
     tdist: [..., S+1]; origins/directions/base_x/base_y: [..., 3];
-    radii: [..., 1]; generator (on tdist's device): a random spiral phase
-    per point, or None for none. Returns (means [..., S, n, 3], stds
+    radii: [..., 1]; generator (on tdist's device, or a
+    `mathx.ShardedGenerator`): a random spiral phase per point, or None for
+    none. Returns (means [..., S, n, 3], stds
     [..., S, n]).
     """
     t0 = tdist[..., :-1]
@@ -32,8 +33,9 @@ def cast_rays(tdist, origins, directions, base_x, base_y, radii,
     t = t0[..., None] + (t1[..., None] - t0[..., None]) * (j + 0.5) / n
     deg = (2 * math.pi * m * j / n).expand(t.shape)
     if generator is not None:
-        deg = deg + torch.rand(t.shape, generator=generator, dtype=t.dtype,
-                               device=t.device) * (2 * math.pi)
+        deg = deg + mathx.random_rows(torch.rand, t.shape, generator,
+                                      dtype=t.dtype,
+                                      device=t.device) * (2 * math.pi)
     r = radii[..., None]
     means = torch.stack([
         r * t * torch.cos(deg) / 2,

@@ -8,6 +8,7 @@ clamps match it exactly.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -21,12 +22,20 @@ _EPS = float(np.finfo(np.float32).eps)
 
 def _linspace(start: float, stop: float, num: int, like: torch.Tensor):
     """float32 linspace rounded as `jnp.linspace` rounds it:
-    start * (1 - i/div) + stop * i/div, with the last entry = stop."""
+    start * (1 - i/div) + stop * i/div, with the last entry = stop. On
+    like's device and dtype, made once per value (shared: do not modify
+    it); a copy from the host at every call waits for the device."""
+    return _linspace_on(float(start), float(stop), num, like.device,
+                        like.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _linspace_on(start: float, stop: float, num: int, device, dtype):
     start32, stop32 = np.float32(start), np.float32(stop)
     step = np.arange(num - 1, dtype=np.float32) / np.float32(num - 1)
     out = np.concatenate([start32 * (np.float32(1) - step) + stop32 * step,
                           [stop32]]).astype(np.float32)
-    return torch.from_numpy(out).to(device=like.device, dtype=like.dtype)
+    return torch.from_numpy(out).to(device=device, dtype=dtype)
 
 
 def weight_to_pdf(t, w):
@@ -85,9 +94,9 @@ def sample(t, w_logits, num_samples: int, deterministic_center: bool = False,
     """Piecewise-constant PDF sampling from a step function.
 
     t: [..., M+1] sorted bin endpoints; w_logits: [..., M] bin weight logits.
-    generator: None samples a fixed linspace; a generator (on t's device)
-      jitters a strided linspace, by one offset per ray with
-      `single_jitter`, so samples stay sorted.
+    generator: None samples a fixed linspace; a generator (on t's device,
+      or a `mathx.ShardedGenerator`) jitters a strided linspace, by one
+      offset per ray with `single_jitter`, so samples stay sorted.
     Returns [..., num_samples].
     """
     if generator is None:
@@ -101,8 +110,9 @@ def sample(t, w_logits, num_samples: int, deterministic_center: bool = False,
         u_max = _EPS + (1 - _EPS) / num_samples
         max_jitter = (1 - u_max) / (num_samples - 1) - _EPS
         d = 1 if single_jitter else num_samples
-        jitter = torch.rand(t.shape[:-1] + (d,), generator=generator,
-                            dtype=t.dtype, device=t.device)
+        jitter = mathx.random_rows(torch.rand, t.shape[:-1] + (d,),
+                                   generator, dtype=t.dtype,
+                                   device=t.device)
         u = _linspace(0, 1 - u_max, num_samples, t) + jitter * max_jitter
     return invert_cdf(u, t, w_logits)
 
@@ -136,8 +146,15 @@ def weighted_percentile(t, w, ps):
     """Percentiles of a step function; w must sum to 1. ps: list of floats
     in [0, 100]. Returns [..., len(ps)]."""
     cw = integrate_weights(w)
-    ps_t = torch.tensor(ps, dtype=t.dtype, device=t.device) / 100
+    ps_t = _fractions_on(tuple(ps), t.device, t.dtype)
     return mathx.sorted_interp(ps_t.expand(t.shape[:-1] + (len(ps),)), cw, t)
+
+
+@functools.lru_cache(maxsize=16)
+def _fractions_on(ps, device, dtype):
+    """ps / 100 on the device, made once (shared: do not modify it): a
+    copy from the host at every chunk would wait for the device."""
+    return torch.tensor(ps, dtype=dtype, device=device) / 100
 
 
 def blur_stepfun(x, y, r: float):

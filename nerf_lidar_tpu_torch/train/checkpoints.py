@@ -12,6 +12,8 @@ Each save writes two files into the experiment directory:
   `restore_model_params` peels the model from a refinement run's tree).
 The newest `keep` saves at or below `step` stay; older ones, and any from a
 newer (rewound) history, are deleted, as the JAX package prunes.
+`AsyncCheckpointer` writes the same two files on a background thread from a
+device-side snapshot, so that training goes on while they are written.
 
 The JAX package's own checkpoints (`checkpoint_<step>.ckpt`, Flax msgpack of
 its train state) are read too: `list_checkpoints`, `latest_checkpoint` and
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,6 +87,14 @@ def _refiners(posenet, tracknet):
             if m is not None}
 
 
+def _train_state(model, optimizer, step: int, posenet, tracknet) -> dict:
+    """What checkpoint_<step>.pt holds (live tensors)."""
+    return {"model": model.state_dict(),
+            "optimizer": optimizer.state_dict(), "step": step,
+            **{k: m.state_dict()
+               for k, m in _refiners(posenet, tracknet).items()}}
+
+
 def save_checkpoint(directory: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
                     keep: int = 1, posenet: Optional[torch.nn.Module] = None,
@@ -91,17 +102,23 @@ def save_checkpoint(directory: str, model: torch.nn.Module,
                     ) -> Tuple[str, str]:
     """Write checkpoint_<step>.pt and params_<step>.npz, then prune.
     Returns both paths."""
+    return _write(directory, _train_state(model, optimizer, step, posenet,
+                                          tracknet), step, keep)
+
+
+def _write(directory: str, state: dict, step: int, keep: int
+           ) -> Tuple[str, str]:
+    """`state` (`_train_state`) into checkpoint_<step>.pt through a
+    temporary file and an atomic rename, its model into
+    params_<step>.npz; then prune to the newest `keep` saves."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"checkpoint_{step}.pt")
     tmp = f"{path}.tmp"
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(), "step": step,
-                **{k: m.state_dict()
-                   for k, m in _refiners(posenet, tracknet).items()}}, tmp)
+    torch.save(state, tmp)
     os.replace(tmp, path)
     npz = convert.save_npz_params(
         params_path(directory, step),
-        convert.state_dict_to_flax(model.state_dict()))
+        convert.state_dict_to_flax(state["model"]))
     steps = _steps(directory)
     alive = [s for s in steps if s <= step][-keep:]
     for s in steps:
@@ -110,6 +127,85 @@ def save_checkpoint(directory: str, model: torch.nn.Module,
             if os.path.exists(params_path(directory, s)):
                 os.remove(params_path(directory, s))
     return path, npz
+
+
+def _map_tensors(tree, fn):
+    """`tree` (dicts, lists, tuples of tensors and plain values) with fn
+    applied to every tensor; a state dict's `_metadata` is kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        out = type(tree)((k, _map_tensors(v, fn)) for k, v in tree.items())
+        if hasattr(tree, "_metadata"):
+            out._metadata = tree._metadata
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+class AsyncCheckpointer:
+    """Non-blocking checkpoint writer (the JAX `AsyncCheckpointer`).
+
+    `save` snapshots the train state with device-side clones enqueued on
+    the current stream, the one the next `optimizer.step()` runs on, so
+    the in-place update cannot reach the snapshot; then a background
+    thread waits for the clones (an event), copies them to pinned host
+    memory on its own stream (never the default stream, in front of the
+    training kernels) and writes the files as `save_checkpoint` does. One
+    save is in flight at a time: `save` and `wait` join the previous one
+    first, which bounds the extra device memory to one copy of the state
+    and keeps the pruning in order. `wait` raises the writer's error."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._stream = None
+        self.paths: Tuple[Optional[str], Optional[str]] = (None, None)
+
+    def save(self, directory: str, model: torch.nn.Module,
+             optimizer: torch.optim.Optimizer, step: int, keep: int = 1,
+             posenet: Optional[torch.nn.Module] = None,
+             tracknet: Optional[torch.nn.Module] = None) -> None:
+        self.wait()
+        snapshot = _map_tensors(
+            _train_state(model, optimizer, step, posenet, tracknet),
+            lambda t: t.detach().clone())
+        device = next(model.parameters()).device
+        event = None
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device)
+
+        def write():
+            try:
+                state = snapshot
+                if event is not None:
+                    with torch.cuda.stream(self._stream):
+                        self._stream.wait_event(event)
+                        state = _map_tensors(snapshot, lambda t: t.to(
+                            "cpu", non_blocking=True))
+                    self._stream.synchronize()
+                self.paths = _write(directory, state, step, keep)
+            except BaseException as e:  # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True,
+                                        name=f"ckpt-{step}")
+        self._thread.start()
+
+    def wait(self) -> Tuple[Optional[str], Optional[str]]:
+        """Join the save in flight, if any; raise its error here. Returns
+        the paths of the last save written."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+        return self.paths
 
 
 def newest_checkpoint(directory: str) -> Tuple[Optional[str], int]:

@@ -11,6 +11,22 @@ budget's `_obj_overflow` / `_obj_hit_frac` ride along as stats.
 Terms the port does not compute raise NotImplementedError when their
 multipliers are non-zero: orientation, predicted normals and normal
 supervision.
+
+Under a data mesh (`parallel.DataMesh`, `mesh=`) each rank holds its rows
+of the global batch, and every term is this rank's share of the global
+term: the shares summed over the ranks give the one-process value, and so
+do the gradients summed over the ranks (`train_step`). A masked mean
+divides the rank's sum by the global count (`_count`), a plain mean and a
+parameter-only term divide by the world size (`_share`); the terms that
+read the batch as a whole, the depth error's 0.9 quantile and the 32 x 32
+smoothness patches (the first `num_patch_rays` rays, which a shard boundary
+may cut), run on the global batch's rows (`_global_rows`, one all_gather
+with autograd) on every rank, each rank taking 1 / world of them. Ranks
+that replicate a data shard (a multi-axis mesh) count it as often in the
+counts and in the world size, so the shares still sum to the one-process
+value. The objects' symmetry term comes as a share from the model
+(`models/objects.py`), and their overflow and hit-share stats, global on
+every rank, are shared like a parameter-only term.
 """
 
 from __future__ import annotations
@@ -42,9 +58,50 @@ def check_ported(config: Config) -> None:
             f"data_loss_type={config.data_loss_type!r} is not ported")
 
 
-def _masked_mean(x, mask):
+def _count(total, mesh=None):
+    """clamp(total, 1) of a count over the batch, summed over the ranks
+    under a mesh: the denominator of a masked mean's share."""
+    if mesh is not None:
+        total = mesh.all_reduce(total.detach().clone())
+    return torch.clamp(total, min=1.0)
+
+
+def _share(term, mesh=None):
+    """This rank's share of a term that every rank computes in full (a
+    parameter-only term, a term of the global rows), or of a mean over the
+    rank's equal-size shard."""
+    return term if mesh is None else term / mesh.world
+
+
+def _masked_mean(x, mask, mesh=None):
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (x * mask).sum() / _count(mask.sum(), mesh)
+
+
+def _global_rows(batch, renderings, config: Config, mesh=None):
+    """The per-ray values that the batch-wide terms read (final depth and
+    semantic, the batch's depth, depth_mask, rgb and loss_mask), over the
+    global batch: under a mesh gathered from every shard in one
+    all_gather with autograd, else the rank's own."""
+    cols = dict(depth=renderings[-1]["depth"], target=batch.get("depth"),
+                depth_mask=batch.get("depth_mask"), rgb=batch["rgb"],
+                loss_mask=batch.get("loss_mask"))
+    if config.model.use_semantic:
+        cols["semantic"] = renderings[-1]["semantic"]
+    cols = {k: v for k, v in cols.items() if v is not None}
+    if mesh is None:
+        return cols
+    n = renderings[-1]["depth"].shape[0]
+    flat = {k: v.reshape(n, -1) for k, v in cols.items()}
+    packed = mesh.all_gather_rows(torch.cat(
+        [v.to(torch.float32) for v in flat.values()], dim=1))
+    out, i = {}, 0
+    for k, v in flat.items():
+        part = packed[:, i:i + v.shape[1]]
+        i += v.shape[1]
+        part = part.reshape((-1,) + cols[k].shape[1:])
+        out[k] = part > 0.5 if cols[k].dtype == torch.bool else part
+    return out
 
 
 def masked_quantile(x, mask, q: float):
@@ -55,17 +112,19 @@ def masked_quantile(x, mask, q: float):
     n_valid = mask.sum().to(torch.float32)
     idx = torch.clamp((q * (n_valid - 1)).to(torch.int64), 0,
                       svals.shape[0] - 1)
-    return svals[idx]
+    # A gather, not svals[idx]: indexing by a 0-dim tensor reads it on the
+    # host, which waits for the device.
+    return svals.gather(0, idx.reshape(1))[0]
 
 
-def data_loss(batch, renderings, config: Config):
+def data_loss(batch, renderings, config: Config, mesh=None):
     """Charbonnier or MSE photometric loss over every level; returns (loss,
     [levels] MSEs for the PSNR stat)."""
     lossmult = batch["rgb_mask"][..., None].to(torch.float32).expand(
         batch["rgb"][..., :3].shape)
     if "lossmult" in batch:
         lossmult = lossmult * batch["lossmult"]
-    denom = torch.clamp(lossmult.sum(), min=1.0)
+    denom = _count(lossmult.sum(), mesh)
     losses: List[torch.Tensor] = []
     mses: List[torch.Tensor] = []
     for rendering in renderings:
@@ -90,37 +149,43 @@ def _schedule(step: int, config: Config, lo: float, hi: float) -> float:
     return hi if step > config.end_step else lo
 
 
-def depth_loss(batch, renderings, config: Config, step: int):
-    """log-L1 depth loss on rays below the 0.9 quantile of the error."""
+def depth_loss(batch, renderings, config: Config, step: int, rows=None,
+               mesh=None):
+    """log-L1 depth loss on rays below the 0.9 quantile of the error (over
+    `rows`, the global batch's, by default the batch's own)."""
     mask = batch["depth_mask"]
     abs_dist = torch.abs(renderings[-1]["depth"] - batch["depth"])
-    thresh = masked_quantile(abs_dist.detach(), mask, 0.9)
+    rows = rows or _global_rows(batch, renderings, config)
+    thresh = masked_quantile(
+        torch.abs(rows["depth"] - rows["target"]).detach(),
+        rows["depth_mask"], 0.9)
     gated = mask & (abs_dist < thresh)
-    loss = _masked_mean(torch.log(abs_dist + 1.0), gated)
+    loss = _masked_mean(torch.log(abs_dist + 1.0), gated, mesh)
     return config.depth_loss_mult * _schedule(step, config, 0.1, 0.4) * loss
 
 
-def semantic_loss(batch, renderings, config: Config, step: int):
+def semantic_loss(batch, renderings, config: Config, step: int,
+                  mesh=None):
     """NLL over composited class probabilities."""
     sem = renderings[-1]["semantic"]
     labels = torch.clamp(batch["semantic"].long(), 0, sem.shape[-1] - 1)
     logp = torch.log(torch.gather(sem, -1, labels[..., None])[..., 0]
                      + 1e-6)
-    loss = -_masked_mean(logp, batch["sem_mask"])
+    loss = -_masked_mean(logp, batch["sem_mask"], mesh)
     m = config.semantic_loss_mult
     return _schedule(step, config, 0.2 * m, 0.8 * m) * loss
 
 
-def intensity_loss(batch, renderings, config: Config):
+def intensity_loss(batch, renderings, config: Config, mesh=None):
     """MSE on LiDAR-return intensity."""
     pred = renderings[-1]["intensity"].reshape(-1)
     target = batch["intensity"].reshape(-1)
     mask = batch["lidar_mask"].reshape(-1)
     return 0.1 * config.intensity_loss_mult * _masked_mean(
-        (pred - target) ** 2, mask)
+        (pred - target) ** 2, mask, mesh)
 
 
-def anti_interlevel_loss(ray_history, config: Config):
+def anti_interlevel_loss(ray_history, config: Config, mesh=None):
     """ZipNeRF anti-aliased interlevel loss."""
     last = ray_history[-1]
     c = last["sdist"].detach()
@@ -141,17 +206,18 @@ def anti_interlevel_loss(ray_history, config: Config):
         per = torch.clamp(w_s - wp, min=0) ** 2 / (wp + 1e-5)
         if "obj_mask" in ray_results:
             # Object-covered samples take no proposal supervision.
-            loss = _masked_mean(per, ~ray_results["obj_mask"].any(-1))
+            loss = _masked_mean(per, ~ray_results["obj_mask"].any(-1),
+                                mesh)
         else:
-            loss = per.mean()
+            loss = _share(per.mean(), mesh)
         loss_total = loss_total + loss
     return config.anti_interlevel_loss_mult * loss_total
 
 
-def distortion_loss(ray_history, config: Config):
+def distortion_loss(ray_history, config: Config, mesh=None):
     last = ray_history[-1]
-    return config.distortion_loss_mult * stepfun.lossfun_distortion(
-        last["sdist"], last["weights"]).mean()
+    return config.distortion_loss_mult * _share(stepfun.lossfun_distortion(
+        last["sdist"], last["weights"]).mean(), mesh)
 
 
 def hash_decay_loss(model, config: Config, use_kernels: bool = True):
@@ -170,9 +236,7 @@ def hash_decay_loss(model, config: Config, use_kernels: bool = True):
         spec, table = mlp.spec, mlp.table
         sums = scatter(gridlib.level_ids(spec, table.device), table**2,
                        spec.num_levels)
-        counts = torch.tensor(spec.rows_per_level, dtype=torch.float32,
-                              device=table.device)[:, None]
-        loss = loss + (sums / counts).mean()
+        loss = loss + (sums / gridlib.level_rows(spec, table.device)).mean()
     return config.hash_decay_mults * loss
 
 
@@ -200,54 +264,74 @@ def edge_aware_smoothness(rgb, disp, mask):
 
 
 def smoothness_losses(batch, renderings, config: Config,
-                      num_patch_rays: int = 0):
+                      num_patch_rays: int = 0, rows=None, mesh=None):
     """Depth / semantic smoothness on the patch rays: the first
-    num_patch_rays rays of the batch are [P, ps, ps] row-major patches."""
+    num_patch_rays rays of the batch (of `rows`, the global batch's, by
+    default the batch's own) are [P, ps, ps] row-major patches."""
     ps = config.patch_size
     if ps <= 1 or num_patch_rays <= 0 or "loss_mask" not in batch:
         return {}
+    rows = rows or _global_rows(batch, renderings, config)
     shape = (num_patch_rays // (ps * ps), ps, ps)
     n = shape[0] * ps * ps
-    mask = batch["loss_mask"][:n].reshape(shape).to(torch.float32)
-    rgb = batch["rgb"][:n].reshape(shape + (-1,))
-    dep = renderings[-1]["depth"][:n].reshape(shape)
-    out = {"d_smo": 0.01 * edge_aware_smoothness(rgb, dep, mask)}
+    mask = rows["loss_mask"][:n].reshape(shape).to(torch.float32)
+    rgb = rows["rgb"][:n].reshape(shape + (-1,))
+    dep = rows["depth"][:n].reshape(shape)
+    out = {"d_smo": 0.01 * _share(edge_aware_smoothness(rgb, dep, mask),
+                                  mesh)}
     if config.model.use_semantic:
-        sem = renderings[-1]["semantic"][:n].reshape(shape + (-1,))
-        out["s_smo"] = 0.01 * edge_aware_smoothness(rgb, sem, mask)
+        sem = rows["semantic"][:n].reshape(shape + (-1,))
+        out["s_smo"] = 0.01 * _share(edge_aware_smoothness(rgb, sem, mask),
+                                     mesh)
     return out
 
 
 def compute_losses(model, batch, renderings, ray_history, config: Config,
                    step: int, num_patch_rays: int = 0,
-                   use_kernels: bool = True) -> Dict[str, torch.Tensor]:
-    """The loss dict; keys starting with '_' are stats, not losses."""
+                   use_kernels: bool = True, mesh=None
+                   ) -> Dict[str, torch.Tensor]:
+    """The loss dict; keys starting with '_' are stats, not losses. Under a
+    data mesh, every entry is this rank's share (module docstring)."""
     check_ported(config)
     losses: Dict[str, torch.Tensor] = {}
-    losses["data"], losses["_mses"] = data_loss(batch, renderings, config)
+    rows = None
+    if mesh is not None and (
+            (config.depth_loss and "depth" in batch) or (
+                config.patch_size > 1 and num_patch_rays > 0
+                and "loss_mask" in batch)):
+        rows = _global_rows(batch, renderings, config, mesh)
+    losses["data"], losses["_mses"] = data_loss(batch, renderings, config,
+                                                mesh)
     for stat in ("obj_overflow", "obj_hit_frac"):
         if stat in renderings[-1]:
-            losses[f"_{stat}"] = renderings[-1][stat]
+            # Global on every rank (models/objects.py): a share of it.
+            v = renderings[-1][stat]
+            losses[f"_{stat}"] = v if mesh is None else _share(v.float(),
+                                                               mesh)
     if config.depth_loss and "depth" in batch:
-        losses["depth"] = depth_loss(batch, renderings, config, step)
+        losses["depth"] = depth_loss(batch, renderings, config, step, rows,
+                                     mesh)
     if config.model.use_semantic and "semantic" in batch:
-        losses["sem"] = semantic_loss(batch, renderings, config, step)
+        losses["sem"] = semantic_loss(batch, renderings, config, step, mesh)
     if config.model.use_intensity and "intensity" in batch:
-        losses["int"] = intensity_loss(batch, renderings, config)
+        losses["int"] = intensity_loss(batch, renderings, config, mesh)
     if config.anti_interlevel_loss_mult > 0:
-        losses["interlevel"] = anti_interlevel_loss(ray_history, config)
+        losses["interlevel"] = anti_interlevel_loss(ray_history, config,
+                                                    mesh)
     if config.distortion_loss_mult > 0:
-        losses["distortion"] = distortion_loss(ray_history, config)
+        losses["distortion"] = distortion_loss(ray_history, config, mesh)
     if config.hash_decay_mults > 0:
-        losses["hash_decay"] = hash_decay_loss(model, config, use_kernels)
+        losses["hash_decay"] = _share(
+            hash_decay_loss(model, config, use_kernels), mesh)
     if config.model.latent_size > 0:
-        losses["latent_reg"] = latent_reg(model, config)
+        losses["latent_reg"] = _share(latent_reg(model, config), mesh)
     if config.model.symmetrize and "loss_sym" in renderings[-1]:
         losses["sym"] = (config.sym_loss * renderings[-1]["loss_sym"]
                          if step > config.sym_start
                          else renderings[-1]["loss_sym"].new_zeros(()))
     losses.update(smoothness_losses(batch, renderings, config,
-                                    num_patch_rays=num_patch_rays))
+                                    num_patch_rays=num_patch_rays, rows=rows,
+                                    mesh=mesh))
     return losses
 
 

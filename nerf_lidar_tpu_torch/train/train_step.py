@@ -10,6 +10,19 @@ outside their step windows. Every gradient is NaN-scrubbed; then each
 group is clipped by its own global norm and by value, as each group's
 optax chain clips. The pose deltas move the batch (by `cam_idx`) and the
 track deltas the tracks before the forward; both start at zero.
+
+Data parallel (`mesh=`): each rank runs the step on its rows of the global
+batch and takes its share of every loss term (`train/losses.py`); the
+gradients of every group are summed over the ranks before the NaN scrub
+and the clips (which read the global norm), so every rank applies the same
+update, the one a single process takes on the whole batch. The gradients
+are summed explicitly, in flat buckets (`DataMesh.all_reduce_grads`), not
+through DDP: the loss shares already sum to the global loss (DDP would
+average), the step spans three modules in one optimizer, and a parameter
+whose rows take no gradient on one rank (object MLPs, posenet rows) simply
+reduces zeros, where DDP needs `find_unused_parameters` and a walk of the
+graph every step. With dynamic objects, the object sample budget counts
+over the global batch (`models/objects.py`).
 """
 
 from __future__ import annotations
@@ -22,6 +35,19 @@ from ..configs import Config
 from ..models import posenet as posenet_lib
 from ..ops import mathx
 from . import losses as losses_lib
+
+
+def _global_stats(stats: Dict[str, torch.Tensor], mesh
+                  ) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of every stat summed over the ranks (one
+    all_reduce): the global batch's loss terms, loss and MSEs."""
+    flat = torch.cat([v.reshape(-1).to(torch.float32) for v in stats.values()])
+    mesh.all_reduce(flat)
+    out, i = {}, 0
+    for k, v in stats.items():
+        out[k] = flat[i:i + v.numel()].reshape(v.shape).to(v.dtype)
+        i += v.numel()
+    return out
 
 
 def lr_schedule(config: Config):
@@ -117,8 +143,8 @@ def train_step(model, optimizer: torch.optim.Optimizer, config: Config,
                posenet: Optional[torch.nn.Module] = None,
                tracknet: Optional[torch.nn.Module] = None,
                tracks: Optional[torch.Tensor] = None,
-               track_mask: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
+               track_mask: Optional[torch.Tensor] = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """Update `model` (and the refiners given) in place on one batch.
 
     step: the number of updates made so far (the JAX `state.step`).
@@ -127,11 +153,18 @@ def train_step(model, optimizer: torch.optim.Optimizer, config: Config,
     use_kernels: False runs the plain torch versions of every kernel.
     posenet: a `LearnPose` (with `pose_refine`); tracknet: a `TrackOpt`
       (with `track_refine`) over `tracks` [N_obj, T, 9] / `track_mask`.
+    mesh: a `parallel.DataMesh`: `batch` is this rank's rows of the global
+      batch (`DataMesh.rows`); the randomness is drawn at the global
+      batch's shape from `generator` (`mathx.ShardedGenerator`), whose
+      state every rank shares; the stats are the global batch's.
     Returns the stats (detached scalar tensors): every loss term, `loss`,
     `psnr`, `_mses`, and with a sample budget `obj_overflow` and
     `obj_hit_frac`.
     """
     train_frac = min(max((step - 1) / (config.max_steps - 1), 0.0), 1.0)
+    if mesh is not None and generator is not None:
+        generator = mathx.ShardedGenerator(generator, mesh.data_index,
+                                           mesh.data_size)
     schedules = _schedules(config)
     for group in optimizer.param_groups:
         group["lr"] = schedules[group.get("name", "model")](step)
@@ -144,18 +177,23 @@ def train_step(model, optimizer: torch.optim.Optimizer, config: Config,
     renderings, ray_history = model(batch, train_frac=train_frac,
                                     use_kernels=use_kernels, train=True,
                                     generator=generator, tracks=tracks,
-                                    track_mask=track_mask)
+                                    track_mask=track_mask, mesh=mesh)
     losses = losses_lib.compute_losses(
         model, batch, renderings, ray_history, config, step,
-        num_patch_rays=num_patch_rays, use_kernels=use_kernels)
+        num_patch_rays=num_patch_rays, use_kernels=use_kernels, mesh=mesh)
     loss = losses_lib.total_loss(losses)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        mesh.all_reduce_grads([p for group in optimizer.param_groups
+                               for p in group["params"]])
     _clip_and_scrub(optimizer.param_groups, config)
     optimizer.step()
 
     stats = {k: v.detach() for k, v in losses.items()}
     stats["loss"] = loss.detach()
+    if mesh is not None:
+        stats = _global_stats(stats, mesh)
     stats["psnr"] = -10.0 * torch.log10(torch.clamp(stats["_mses"][-1],
                                                     min=1e-10))
     for stat in ("obj_overflow", "obj_hit_frac"):

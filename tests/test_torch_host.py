@@ -646,6 +646,17 @@ assert ev.steps == [5], ev.steps
 # Training resumes from that JAX train state.
 run = cli.main(['train', *base, '--exp_name', 'iso_jax', '--steps', '6'])
 assert run.init_step == 5, run.init_step
+# Two ranks over gloo, each in its own process: two train steps and a
+# sweep, with the prefetcher and the asynchronous saves; each rank reports
+# the JAX-side modules it loaded.
+sys.path.insert(0, os.path.join(os.environ['PYTHONPATH'], 'tests'))
+import _torch_dp_worker
+ranks = _torch_dp_worker.launch([dict(fn='cli_runs', argvs=[
+    ['train', *base, '--exp_name', 'iso_dp', '--steps', '2'],
+    ['render_lidar', *base, '--exp_name', 'iso_dp', '--num_sweeps', '1',
+     '--azimuth_steps', '8']])], 2, os.getcwd(), 120)
+assert [r['modules'] for r in ranks] == [[], []], ranks
+assert os.path.exists('exp/iso_dp/lidar_simu/points_0000.npy')
 bad = sorted(m for m in sys.modules if m.split('.')[0] in {barred})
 assert not bad, bad
 # The port needs no imageio, PIL, torchvision, matplotlib or msgpack: it
@@ -666,8 +677,10 @@ def test_port_runs_without_the_jax_package(tmp_path):
     render (features, the VGG / Darknet converters, training with both
     losses, drop and export, val_vis, points_vis), then eval, render and
     lidar_eval, and eval of a JAX train state's msgpack checkpoint, from
-    which train then resumes: no jax, flax, optax or nerf_lidar_tpu module
-    is loaded, nor imageio, PIL, torchvision, matplotlib or msgpack."""
+    which train then resumes, then two train steps and a sweep on two
+    ranks (gloo; `parallel/`, `train/prefetch.py`): no jax, flax, optax or
+    nerf_lidar_tpu module is loaded, in this process or in the ranks', nor
+    imageio, PIL, torchvision, matplotlib or msgpack."""
     from nerf_lidar_tpu.models.model import Model as JaxModel
     from nerf_lidar_tpu.train import checkpoints as jcheckpoints
     from nerf_lidar_tpu.train import train_step as jtrain_step
