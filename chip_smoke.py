@@ -188,8 +188,25 @@ Phases (each raises on failure, so the script exits non-zero):
    barrier and bucketed gradient sum; the launches of H1, H1-bwd, K3
    (train, and with objects) and H1, K1 (sweep) on each rank, and the
    seconds.
-The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17,
-12-profiled, 15-profiled, 16-profiled, 8-profiled, 6, 7, 9, 10, 11: [4]
+18. the rest of the field and the other loaders: writes a 16-view 504 x
+   378 COLMAP capture of the synthetic scene (PNG, binary sparse/0) and
+   the same as RawNeRF mosaics with EXIF sidecars; `train --config default
+   --set dataset_loader=llff` with the Ref-NeRF heads, the IDE of the
+   reflection direction, n . v, finite-difference density normals, GLO and
+   a background range (REF_SETS) at 16,384 rays a step for REF_STEPS
+   steps (launches per step, ms/step, peak memory, a gradient on every
+   table, the GLO vectors, the normal and roughness heads), 3 steps
+   kernels on vs off under [8]'s rules, a REF_LEARN_STEPS-step learning
+   check; `eval` on the llffhold split (s per view; its first view with
+   every K1 and H1 call held against its plain version, kernels on vs off
+   as [14]) and `render --path test`; the RawNeRF train (its loss terms, a
+   gradient on the exposure offsets) and eval (every chunk carries the
+   exposure keys); `validate_scene` on [13]'s scene (no ERROR); with the
+   profiler phases, H1 / H1-bwd per grid, K1 and K3 on this path's own
+   inputs.
+The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17, 18,
+12-profiled, 15-profiled, 16-profiled, 18-profiled, 8-profiled, 6, 7, 9,
+10, 11: [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -202,14 +219,17 @@ JSON line (every kernel's launches on each path, the object paths
 `train_fast`, `render_lidar_fast`, `train_speed`, `render_lidar_speed`,
 `render_lidar_mxu`, `train_spectral_obj`, `render_lidar_spectral_obj` and
 [16]'s `extract`, `render_video`, `render_video_hq`, `render_instance`,
-`train_obj_ckpt` and [17]'s `train_dp_rank<r>`, `render_lidar_dp_rank<r>`
-and `train_objects_dp_rank<r>` included, times,
+`train_obj_ckpt`, [17]'s `train_dp_rank<r>`, `render_lidar_dp_rank<r>`
+and `train_objects_dp_rank<r>` and [18]'s `train_refnerf`,
+`eval_refnerf`, `render_refnerf`, `train_rawnerf`, `eval_rawnerf`
+included, times,
 and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
 and K3 on the object grid under "obj_grid", H1 and H1-bwd per [15] path
 and grid under "preset_modes", H1 on [16]'s lattice chunk under
-"lattice_chunk"), the nvidia-smi line,
+"lattice_chunk", [18]'s numbers of each kernel on its path under
+"refnerf"), the nvidia-smi line,
 then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -666,6 +686,8 @@ def compare_sweeps(what, a, b, share=0.0, cap=100.0):
     errs, outside, rays, spread = {}, {}, None, {}
     for key, rtol, atol in (("depth", 1e-3, 0.0), ("rgb", 0.0, 1e-4),
                             ("semantic", 0.0, 1e-4)):
+        if key not in b:  # a field without a semantic head
+            continue
         got, want = torch.from_numpy(a[key]), torch.from_numpy(b[key])
         err = (got - want).abs()
         tol = atol + rtol * want.abs()
@@ -3111,15 +3133,16 @@ def preset_objects(dev):
     return dict(train=launches, render=render_launches, inputs=inputs)
 
 
-def time_preset_encodes(dev, path, inputs, fwd):
+def time_preset_encodes(dev, path, inputs, fwd, tag="[15]"):
     """H1 (fwd: render chunk inputs {grid: (table, x01, stds, spec,
     cutoff)}) or H1-bwd (train step inputs {grid: (table, x01, stds,
     g_out, spec, needs, cutoff)}) per grid of a [15] path on its own
     inputs: the kernel's device ms (torch.profiler, as [12] times the
     object grid) and its ms per call under CUDA events (back to back, so
     the host's launch gaps count where they outlast the kernel), the plain
-    version's ms (CUDA events), the bound, the error. Returns {"<path>
-    <grid>": numbers}."""
+    version's ms (CUDA events), the bound, the error, printed under `tag`
+    ([18] times its path the same way). Returns {"<path> <grid>":
+    numbers}."""
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
     out = {}
@@ -3130,7 +3153,7 @@ def time_preset_encodes(dev, path, inputs, fwd):
                                                         spec, cutoff)
             plain = lambda: grid.hash_encode_multisample_plain(
                 table, x01, stds, spec, cutoff)[0]
-            err = close(f"[15] {path} {name} H1", call(), plain(), 1e-5,
+            err = close(f"{tag} {path} {name} H1", call(), plain(), 1e-5,
                         1e-6)
             lim = bound(*hb.fwd_bound(spec, x01, stds, cutoff))
         else:
@@ -3140,7 +3163,7 @@ def time_preset_encodes(dev, path, inputs, fwd):
             plain = lambda: grid.hash_encode_multisample_bwd_plain(
                 table, x01, stds, g_out, spec, needs, cutoff)
             got, want = call(), plain()
-            err = max(rel_err(f"[15] {path} {name} H1-bwd {key}", got[i],
+            err = max(rel_err(f"{tag} {path} {name} H1-bwd {key}", got[i],
                               want[i], BWD_TOL)[0]
                       for i, key in enumerate(GRADS) if needs[i])
             lim = bound(*hb.bwd_bound(spec, x01, stds, g_out, cutoff))
@@ -3152,7 +3175,7 @@ def time_preset_encodes(dev, path, inputs, fwd):
             mode=encode_mode(spec, cutoff), B=stds.numel() // n, n=n,
             ms=ms, events_ms=events_ms, plain_ms=plain_ms, max_abs_err=err,
             **lim)
-        print(f"[15] {'H1' if fwd else 'H1-bwd'} {path} {name} "
+        print(f"{tag} {'H1' if fwd else 'H1-bwd'} {path} {name} "
               f"({encode_mode(spec, cutoff)}; B={stds.numel() // n} n={n}): "
               f"kernel {ms:.4f} ms on the device ({events_ms:.4f} ms per "
               f"call, CUDA events), plain {plain_ms:.2f} ms, bound "
@@ -3707,6 +3730,338 @@ def phase_object_entries(dev):
     return paths
 
 
+# [18]: the rest of the field (Ref-NeRF heads, IDE, reflections, n . v,
+# finite-difference density normals, GLO, a random background) on an LLFF
+# capture through the COLMAP / llff loader, at the full width of
+# `configs.Config()` ("default"), with the settings of multinerf's
+# configs/blender_refnerf.gin for the normal losses; then a RawNeRF capture
+# (mosaics, exposures, learned exposure scaling, the Bayer mask and the
+# rawnerf data loss); then validate_scene. A capture carries no labels, so
+# the semantic head is off (multinerf's Ref-NeRF has none): without labels
+# it trains only through the semantic smoothness term, whose |difference|
+# terms of a near-uniform softmax take either sign on a rounding, so that
+# its gradients (~1e-9) differ in sign, kernels on vs off, beyond [8]'s
+# 1e-3 of their largest value (5.7% measured, NVIDIA H100 80GB HBM3,
+# 700.00 W).
+REF_EXP = "chip_smoke_refnerf"
+# Outside every experiment directory the phase trains in (a train entry
+# starts from an empty one).
+REF_DATA = os.path.join("exp", "chip_smoke_captures")
+REF_CAPTURE = os.path.join(REF_DATA, "llff")
+REF_RAW_CAPTURE = os.path.join(REF_DATA, "raw")
+# An LLFF frame at factor 8 (4032 x 3024 / 8), 16 views around the scene.
+REF_VIEWS = 16
+REF_HW = (378, 504)
+REF_STEPS = 30
+REF_LEARN_STEPS = 60
+REF_RAW_STEPS = 10
+REF_SETS = [
+    "dataset_loader=llff", "llffhold=8",
+    "model.nerf_mlp.use_directional_enc=true",
+    "model.nerf_mlp.use_reflections=true", "model.nerf_mlp.deg_view=5",
+    "model.nerf_mlp.enable_pred_normals=true",
+    "model.nerf_mlp.enable_pred_roughness=true",
+    "model.nerf_mlp.use_diffuse_color=true",
+    "model.nerf_mlp.use_specular_tint=true",
+    "model.nerf_mlp.use_n_dot_v=true", "model.nerf_mlp.bottleneck_width=128",
+    "model.nerf_mlp.net_depth_viewdirs=8",
+    "model.nerf_mlp.disable_density_normals=false",
+    "orientation_loss_mult=0.1", "orientation_coarse_loss_mult=0.01",
+    "predicted_normal_loss_mult=3e-4",
+    "predicted_normal_coarse_loss_mult=3e-5",
+    "model.num_glo_features=64", "model.nerf_mlp.num_glo_features=64",
+    "model.bg_intensity_range=(0,1)", "model.use_semantic=false",
+    "model.nerf_mlp.use_semantic=false"]
+REF_ARGS = ["--config", "default", "--data_dir", REF_CAPTURE,
+            "--device", "cuda", *(a for kv in REF_SETS for a in ("--set", kv))]
+REF_RAW_SETS = ["dataset_loader=llff", "llffhold=8", "rawnerf_mode=true",
+                "data_loss_type=rawnerf",
+                "model.learned_exposure_scaling=true",
+                "apply_bayer_mask=true"]
+REF_RAW_ARGS = ["--config", "default", "--data_dir", REF_RAW_CAPTURE,
+                "--device", "cuda",
+                *(a for kv in REF_RAW_SETS for a in ("--set", kv)),
+                "--exp_name", REF_EXP + "_raw"]
+# The parameters the train must give a gradient, beyond the hash tables.
+REF_GRADS = ("glo_vecs.weight", "nerf_mlp.normal_layer.weight",
+             "nerf_mlp.roughness_layer.weight",
+             "nerf_mlp.glo_layers.0.weight")
+
+
+def _nonzero_grads(model, names, what):
+    params = dict(model.named_parameters())
+    for name in names:
+        g = params[name].grad
+        if g is None or not float(g.abs().max()) > 0:
+            fail(f"{what}: {name} got no gradient")
+
+
+def _train_entry(dev, argv, what, steps):
+    """The train entry on `argv` from a fresh experiment directory, with
+    the kernel counts at 0 just before it: (run, launches, s, peak GiB),
+    failing on a loss that is not finite or a step not logged."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    fresh_exp_dir(argv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with counted_launches() as launches:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    hist = run.history
+    if len(hist) != steps or not all(
+            np.isfinite(h["loss"]) and np.isfinite(h["psnr"]) for h in hist):
+        fail(f"{what}: {len(hist)} of {steps} steps logged, or a loss is "
+             "not finite")
+    return run, launches, seconds, \
+        torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def phase_refnerf(dev):
+    """[18] The Ref-NeRF / GLO field on an LLFF capture and RawNeRF: writes
+    the captures (`data/synth_llff.py`: REF_VIEWS views of REF_HW, PNG and
+    a binary COLMAP sparse/0; the same scene as RGGB mosaics with EXIF
+    sidecars), then `train --config default --set dataset_loader=llff`
+    with REF_SETS for REF_STEPS steps at 16,384 rays a step (launches per
+    step, warm ms/step, peak GiB, a gradient on every table and on
+    REF_GRADS), 3 steps kernels on vs off under [8]'s rules, a
+    REF_LEARN_STEPS-step learning check at lr 1e-2; `eval` on the llffhold
+    split (s per view; the first view with every K1 and H1 call held
+    against its plain version, kernels on vs off as [14]) and `render
+    --path test --num_frames 1`; the RawNeRF train (REF_RAW_STEPS steps:
+    its loss terms, a gradient on the exposure offsets) and eval (the
+    exposure keys reach the model); `validate_scene` on [13]'s scene (no
+    ERROR). Returns {"paths": {path: launches}, "profiled": a callable
+    that times H1 / H1-bwd per grid, K1 and K3 on this path's own
+    inputs}."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.data import synth_llff
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.models import model as model_lib
+    from nerf_lidar_tpu_torch.ops import grid
+    from nerf_lidar_tpu_torch.renderer import ChunkRenderer
+
+    shutil.rmtree(REF_DATA, ignore_errors=True)
+    t0 = time.perf_counter()
+    h, w = REF_HW
+    synth_llff.write_capture(REF_CAPTURE, num_views=REF_VIEWS, height=h,
+                             width=w)
+    synth_llff.write_capture(REF_RAW_CAPTURE, num_views=REF_VIEWS, height=h,
+                             width=w, raw=True)
+    print(f"[18] captures ({REF_VIEWS} views of {w} x {h}, PNG + COLMAP "
+          f"sparse/0; RawNeRF mosaics + EXIF): "
+          f"{time.perf_counter() - t0:.1f} s")
+    paths = {}
+
+    # Train.
+    train_argv = ["train", *REF_ARGS, "--set", "print_every=1", "--steps",
+                  str(REF_STEPS), "--exp_name", REF_EXP]
+    run, launches, entry_s, peak = _train_entry(dev, train_argv,
+                                                "[18] train", REF_STEPS)
+    need_launches("[18] train", launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd",
+                   "scatter_add_rows"), ("composite",))
+    paths["train_refnerf"] = launches
+    _table_grads_nonzero(run.model, "[18] train")
+    _nonzero_grads(run.model, REF_GRADS, "[18] train")
+    hist = run.history
+    step_ms = 1e3 * statistics.median(x["step_s"] for x in hist[-20:])
+    rays = run.batcher.total_rays
+    per_step = {k: v / REF_STEPS for k, v in launches.items()}
+    terms = {k: round(v, 6) for k, v in hist[-1].items()
+             if k in ("data", "orientation", "predicted_normals",
+                      "interlevel", "distortion", "hash_decay")}
+    print(f"[18] train (config default + Ref-NeRF / GLO / background, "
+          f"llff capture, {rays} rays/step, {REF_STEPS} steps, cold, init "
+          f"included): {entry_s:.2f} s; launches {launches} ({per_step} a "
+          f"step); warm {step_ms:.1f} ms/step (median of the last 20), "
+          f"{rays / step_ms * 1e3:,.0f} rays/s; peak memory {peak:.2f} GiB; "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; last "
+          f"step's terms {terms}; a gradient on every table and on "
+          f"{list(REF_GRADS)}")
+    train_inputs = hb.record_train_inputs(run, REF_STEPS)
+    on_off = train_on_vs_off(dev, run, REF_STEPS + 1, "[18] train step")
+    print(f"[18] {ON_OFF_STEPS} steps kernels on vs off: {on_off}")
+    del run
+    torch.cuda.empty_cache()
+
+    learn_argv = ["train", *REF_ARGS, "--set", "print_every=1", "--set",
+                  "lr_delay_steps=0", "--steps", str(REF_LEARN_STEPS),
+                  "--exp_name", REF_EXP + "_learn"]
+    learn = _train_entry(dev, learn_argv, "[18] learning check",
+                         REF_LEARN_STEPS)[0]
+    data = [x["data"] for x in learn.history]
+    first, last = float(np.mean(data[:5])), float(np.mean(data[-5:]))
+    if not last < first:
+        fail(f"[18] learning check: data loss {first} (first 5) -> {last} "
+             "(last 5)")
+    print(f"[18] learning check ({REF_LEARN_STEPS} steps at lr 1e-2, no "
+          f"warm-up): data loss {first:.5f} (mean of first 5) -> "
+          f"{last:.5f} (mean of last 5); psnr "
+          f"{learn.history[0]['psnr']:.2f} -> "
+          f"{learn.history[-1]['psnr']:.2f}")
+    del learn
+    torch.cuda.empty_cache()
+
+    # Eval and render of the 30-step field.
+    ev_argv = ["eval", *REF_ARGS, "--exp_name", REF_EXP]
+    with counted_launches() as ev_launches:
+        ev = cli.main(ev_argv)
+        torch.cuda.synchronize()
+    need_launches("[18] eval", ev_launches, ("composite", "hash_encode_ms"),
+                  ("hash_encode_ms_bwd",))
+    paths["eval_refnerf"] = ev_launches
+    if not all(np.isfinite(v) for v in ev.metrics.values()):
+        fail(f"[18] eval: metrics {ev.metrics}")
+    n_views = ev.data.num_views
+    print(f"[18] eval ({n_views} llffhold views of {ev.data.width} x "
+          f"{ev.data.height}, step {ev.steps[-1]}): {ev.metrics} "
+          f"({ev.metrics['median_render_time_s']:.3f} s/view, median); "
+          f"launches {ev_launches}")
+    view = cli._view_rays(ev.data, 0)
+    plain = ChunkRenderer(ev.model, ev.cfg, ev.cfg.render_chunk_size,
+                          use_kernels=False)
+    on_off = view_on_vs_off("[18] eval view 0", ev.renderer, plain, view,
+                            None, None, ev.cfg.model.num_levels)
+    rec = on_off["rec"]
+    print(f"[18] eval view 0: every call vs its plain version, max abs err "
+          f"K1 {max(rec['k1']):.3e} ({len(rec['k1'])} calls), H1 "
+          f"{max(rec['h1']):.3e} ({len(rec['h1'])} calls; 7 a chunk on the "
+          f"NeRF grid: the point and its six normal offsets); kernels on "
+          f"vs off, max abs diff {on_off['errs']}, values outside [5]'s "
+          f"tolerances {on_off['outside']} (allowed {TRAINED_SWEEP_SHARE} "
+          f"of each); kernels on vs the plain chain on their final "
+          f"intervals, max abs diff {on_off['replay_errs']}")
+    k1_args = rec["k1_args"]
+    chunk = {k: np.asarray(v).reshape((-1,) + np.asarray(v).shape[2:])[
+        :ev.cfg.render_chunk_size] for k, v in view.items()}
+    with hb.recording(grid, "hash_encode_multisample", ev.model) as h1_in:
+        ev.renderer.render(chunk)
+        torch.cuda.synchronize()
+    del on_off, plain
+    render_argv = ["render", *REF_ARGS, "--exp_name", REF_EXP, "--path",
+                   "test", "--num_frames", "1"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with counted_launches() as rd_launches:
+        rd = cli.main(render_argv)
+        torch.cuda.synchronize()
+    rd_s = time.perf_counter() - t
+    need_launches("[18] render", rd_launches, ("hash_encode_ms",),
+                  ("composite",))
+    paths["render_refnerf"] = rd_launches
+    frame = rd.frames[0]
+    if not {"normals", "normals_pred", "acc"} <= set(frame) or not all(
+            np.isfinite(v).all() for v in frame.values()):
+        fail(f"[18] render: keys {sorted(frame)}, or a value not finite")
+    print(f"[18] render --path test (compute_extras: the plain compositor, "
+          f"normals composited): 1 frame in {rd_s:.2f} s with the entry's "
+          f"start-up; launches {rd_launches}")
+    del ev, rd
+    torch.cuda.empty_cache()
+
+    # RawNeRF.
+    raw, raw_launches, raw_s, raw_peak = _train_entry(
+        dev, ["train", *REF_RAW_ARGS, "--set", "print_every=1", "--steps",
+              str(REF_RAW_STEPS)], "[18] rawnerf train", REF_RAW_STEPS)
+    need_launches("[18] rawnerf train", raw_launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd",
+                   "scatter_add_rows"))
+    paths["train_rawnerf"] = raw_launches
+    _nonzero_grads(raw.model, ("exposure_scaling_offsets.weight",),
+                   "[18] rawnerf train")
+    offsets = raw.model.exposure_scaling_offsets.weight.detach()
+    print(f"[18] rawnerf train ({REF_RAW_STEPS} steps, exposures "
+          f"{sorted(set(raw.batcher.scene.exposure_values.tolist()))}): "
+          f"{raw_s:.2f} s, peak {raw_peak:.2f} GiB; loss terms "
+          f"{ {k: round(v, 6) for k, v in raw.history[-1].items()} }; "
+          f"learned exposure offsets of index 1 "
+          f"{offsets[1].tolist()}; launches {raw_launches}")
+    del raw
+    seen = []
+    forward = model_lib.Model.forward
+
+    def keys_seen(self, batch, *a, **kw):
+        seen.append(set(batch))
+        return forward(self, batch, *a, **kw)
+
+    model_lib.Model.forward = keys_seen
+    try:
+        with counted_launches() as raw_ev_launches:
+            rev = cli.main(["eval", *REF_RAW_ARGS])
+            torch.cuda.synchronize()
+    finally:
+        model_lib.Model.forward = forward
+    paths["eval_rawnerf"] = raw_ev_launches
+    if not seen or not all({"exposure_values", "exposure_idx"} <= k
+                           for k in seen) or not all(
+            np.isfinite(v) for v in rev.metrics.values()):
+        fail(f"[18] rawnerf eval: batch keys {seen[:1]}, metrics "
+             f"{rev.metrics}")
+    print(f"[18] rawnerf eval: {rev.metrics}; every one of {len(seen)} "
+          f"chunks carried exposure_values and exposure_idx; launches "
+          f"{raw_ev_launches}")
+    del rev
+    torch.cuda.empty_cache()
+
+    report = cli.main(["validate_scene", RD_SCENE, "--sensor_num", "1"])
+    if report.code != 0 or not report.report.ok:
+        fail(f"[18] validate_scene {RD_SCENE}: "
+             f"{[str(i) for i in report.report.issues]}")
+    print(f"[18] validate_scene {RD_SCENE}: OK, "
+          f"{len(report.report.issues)} warnings")
+
+    def profiled():
+        """H1 per grid on eval's first chunk, H1-bwd per grid on one train
+        step, K1 on eval's first chunk, K3 at the NeRF table's hash-decay
+        level sums: kernel device ms, plain ms, bound, error."""
+        from nerf_lidar_tpu_torch.ops import render_fused
+        out = dict(h1=time_preset_encodes(dev, "eval_refnerf", h1_in, True,
+                                          "[18]"),
+                   h1_bwd=time_preset_encodes(dev, "train_refnerf",
+                                              train_inputs, False, "[18]"))
+        err = check_composite("[18] eval chunk", k1_args)
+        ms = device_ms(lambda: render_fused.fused_composite(**k1_args))
+        plain_ms = cuda_ms(lambda: render_fused.fused_composite_plain(
+            **k1_args), iters=5, warmup=1)
+        out["k1"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                         **composite_bound(k1_args))
+        table, spec = train_inputs["nerf"][0], train_inputs["nerf"][4]
+        ids = grid.level_ids(spec, table.device)
+        vals = table.detach() ** 2
+        got = grid.scatter_add_rows(ids, vals, spec.num_levels)
+        want = torch.stack([vals[o:o + r].double().sum(0) for o, r in zip(
+            spec.offsets, spec.rows_per_level)])
+        k3_err = float((got.double() - want).abs().max()
+                       / want.abs().max())
+        if not k3_err <= PATH_SCATTER_TOL:
+            fail(f"[18] K3 on the NeRF table's level sums: {k3_err} of max "
+                 "against float64")
+        out["k3"] = dict(
+            ms=device_ms(lambda: grid.scatter_add_rows(ids, vals,
+                                                       spec.num_levels)),
+            plain_ms=cuda_ms(lambda: grid.scatter_add_rows_plain(
+                ids, vals, spec.num_levels), iters=5, warmup=1),
+            max_rel_err=k3_err,
+            **bound(nbytes(ids, vals) + spec.num_levels * spec.level_dim * 4,
+                    vals.numel()))
+        print(f"[18] K1 on eval's first chunk (R, S = "
+              f"{tuple(k1_args['density'].shape)}): device {ms:.5f} ms, "
+              f"plain {plain_ms:.4f} ms, bound "
+              f"{out['k1']['bound_ms']:.5f} ms; max abs err {err:.3e}. K3 "
+              f"at the NeRF table's level sums: device "
+              f"{out['k3']['ms']:.4f} ms, plain {out['k3']['plain_ms']:.3f}"
+              f" ms, bound {out['k3']['bound_ms']:.4f} ms; {k3_err:.2e} of "
+              f"max against float64")
+        return out
+
+    return dict(paths=paths, profiled=profiled)
+
+
 def phase_gathers(dev):
     """K2, K4's five forms and K5 vs their plain versions, exactly, at the
     TPU kernels' shapes, on in-range and on negative / out-of-range
@@ -3927,9 +4282,11 @@ def main():
     obj_entries = timed("[16] object entries", phase_object_entries, dev)
     dp_launches, dp_summary = timed("[17]", phase_data_parallel, dev)
     print(f"[17] {dp_summary}")
+    refnerf = timed("[18]", phase_refnerf, dev)
     obj_grid = timed("[12] profiled", objects.pop("profiled"))
     timed("[15] profiled", presets.pop("profiled"))
     lattice_chunk = timed("[16] profiled", mesh.pop("profiled"))
+    ref_kernels = timed("[18] profiled", refnerf.pop("profiled"))
     timed("[8] profiled", phase_train_trace, dev)
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
     del train_inputs
@@ -3948,14 +4305,15 @@ def main():
     # train entry and its replay render, [13]'s ray-drop path (features
     # to export, which launches none), [14]'s eval, lidar_eval and render
     # entries, [15]'s preset paths, [16]'s extract, render_video (and
-    # --hq), render_instance and train --obj_ckpt, and [17]'s train and
-    # sweep on each rank; `launches` is their sum.
+    # --hq), render_instance and train --obj_ckpt, [17]'s train and
+    # sweep on each rank, and [18]'s Ref-NeRF train, eval and render and
+    # RawNeRF train and eval; `launches` is their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
              *objects["paths"].items(), ("raydrop", raydrop_launches),
              *eval_launches.items(), *presets["paths"].items(),
              ("extract", mesh["launches"]), *obj_entries.items(),
-             *dp_launches.items())
+             *dp_launches.items(), *refnerf["paths"].items())
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""
@@ -3968,7 +4326,8 @@ def main():
         # trained_chunk_*: on the inputs of [9]'s first render chunk.
         entry("composite", KERNEL_SOURCE,
               "nerf_lidar_tpu/ops/render_pallas.py:109",
-              "seeded uniform, R=16384 S=32 K=19, opaque", k1, **k1_trained),
+              "seeded uniform, R=16384 S=32 K=19, opaque", k1, **k1_trained,
+              refnerf=ref_kernels["k1"]),
         # Every grid's numbers on the path's and on uniform points under
         # "grids".
         # obj_grid: on the object grid's points of one [12] train step
@@ -3980,7 +4339,8 @@ def main():
               "NeRF grid, the first 16,384-ray chunk of a [5] sweep "
               "(uniform_*: uniform points of the same shape)", h1,
               obj_grid=obj_grid["hash_encode_ms"],
-              preset_modes=presets["h1"], lattice_chunk=lattice_chunk),
+              preset_modes=presets["h1"], lattice_chunk=lattice_chunk,
+              refnerf=ref_kernels["h1"]),
         # Against the written-out twin; prop0 also vs autograd; obj_grid
         # d_table and d_x01 vs both.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,
@@ -3988,7 +4348,7 @@ def main():
               "NeRF grid, d_table of one warm [8] train step (uniform_*: "
               "uniform points of the same shape)", h1_bwd,
               obj_grid=obj_grid["hash_encode_ms_bwd"],
-              preset_modes=presets["h1_bwd"]),
+              preset_modes=presets["h1_bwd"], refnerf=ref_kernels["h1_bwd"]),
         # Every grid's hash-decay level sums under "grids", every own
         # shape under "own_shapes".
         entry("scatter_add_rows", KERNEL_SOURCE,
@@ -3996,7 +4356,8 @@ def main():
               "NeRF grid's hash-decay level sums (train path); K3's own "
               "shape beside", k3_path,
               k3_shape_rows131072_n4194304_c16=k3_own,
-              obj_grid=obj_grid["scatter_add_rows"]),
+              obj_grid=obj_grid["scatter_add_rows"],
+              refnerf=ref_kernels["k3"]),
         # K2, on the bench's path as K4's form 1 (which computes the same).
         entry("tile_lane_gather", GATHER_SOURCE,
               "nerf_lidar_tpu/ops/grid_pallas.py:51",

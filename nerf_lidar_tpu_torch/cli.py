@@ -188,13 +188,31 @@ def _obj_sem_ids(classes, n: int):
 
 
 def load_scene_for(cfg: configs.Config, split: str = "train"):
-    """Dataset registry: {synthetic, nusc/waymo}. The llff / blender /
-    colmap and tat / dtu loaders are not ported yet."""
-    if cfg.dataset_loader in ("llff", "blender", "colmap", "tat_nerfpp",
-                              "tat_fvs", "dtu"):
-        raise SystemExit(
-            f"dataset_loader={cfg.dataset_loader!r} is not ported yet: use "
-            "nerf_lidar_tpu.cli")
+    """Dataset registry: {synthetic, nusc/waymo, llff/blender/colmap,
+    tat_nerfpp/tat_fvs/dtu}. The llff loader shards the train images over
+    the hosts (`parallel.host_index` / `host_count`, the JAX process index
+    and count: every rank of a host loads the host's share)."""
+    if cfg.dataset_loader in ("llff", "blender", "colmap"):
+        from .data import llff
+        return llff.load_scene(
+            cfg.data_dir, split=split, factor=max(cfg.factor, 1),
+            llffhold=cfg.llffhold, forward_facing=cfg.forward_facing,
+            rawnerf_mode=cfg.rawnerf_mode,
+            exposure_percentile=cfg.exposure_percentile,
+            process_index=parallel.host_index(),
+            process_count=parallel.host_count())
+    if cfg.dataset_loader in ("tat_nerfpp", "tat_fvs", "dtu"):
+        from .data import tat_dtu
+        if cfg.dataset_loader == "tat_nerfpp":
+            return tat_dtu.load_tat_nerfpp(cfg.data_dir, split=split)
+        if cfg.dataset_loader == "tat_fvs":
+            return tat_dtu.load_tat_fvs(cfg.data_dir, split=split,
+                                        factor=max(cfg.factor, 0),
+                                        llffhold=cfg.llffhold)
+        return tat_dtu.load_dtu(cfg.data_dir, split=split,
+                                factor=max(cfg.factor, 1),
+                                dtu_light_cond=cfg.dtu_light_cond,
+                                dtuhold=cfg.dtuhold)
     if cfg.dataset_loader == "synthetic" or cfg.data_dir is None:
         from .data import synthetic
         from .lidar.transforms import SceneFrame
@@ -665,32 +683,41 @@ def cmd_render_lidar(args) -> types.SimpleNamespace:
 
 
 def follow_checkpoints(out: str, eval_fn, poll_every: float = 10.0,
-                       timeout: float = 1800.0, stop_step: int = 0):
+                       timeout: float = 1800.0, stop_step: int = 0,
+                       share=None):
     """The JAX CLI's daemon loop (reference eval.py:67-71), over both
     checkpoint layouts: poll `out` for new weights
     (the port's params_<step>.npz or the JAX checkpoint_<step>.ckpt), call
     eval_fn(step) once per new one, stop after the stop_step checkpoint or
-    `timeout` idle seconds (0: never)."""
+    `timeout` idle seconds (0: never). Under a data mesh, `share(int) ->
+    int` gives every rank rank 0's value: rank 0 polls, every rank takes
+    its step and what eval_fn returned there, so all ranks evaluate the
+    same checkpoints together."""
+    share = share or (lambda v: v)
+    say = parallel.main_print
     last_step = -1
     idle = 0.0
     while True:
-        latest, step = checkpoints.newest_params(out)
-        if latest and step > last_step:
-            print(f"eval --follow: new checkpoint at step {step}")
+        latest, step = checkpoints.newest_params(out) if \
+            parallel.is_main() else (None, -1)
+        step = share(step if latest and step > last_step else -1)
+        if step >= 0:
+            say(f"eval --follow: new checkpoint at step {step}")
             done = eval_fn(step)
+            done = share(-1 if done is None else done)
             # eval_fn may restore a newer checkpoint than detected; trust
             # the step it reports so that one is not evaluated twice.
-            last_step = max(step, done if done is not None else step)
+            last_step = max(step, done if done >= 0 else step)
             step = last_step
             idle = 0.0
             if stop_step and step >= stop_step:
-                print("eval --follow: final checkpoint evaluated")
+                say("eval --follow: final checkpoint evaluated")
                 return
         else:
             time.sleep(poll_every)
             idle += poll_every
             if timeout and idle >= timeout:
-                print("eval --follow: no new checkpoint; giving up")
+                say("eval --follow: no new checkpoint; giving up")
                 return
 
 
@@ -711,10 +738,19 @@ def _view_rays(data, i: int, pose: Optional[np.ndarray] = None):
                            np.float32)
     rays["far"] = np.full((data.height, data.width, 1), data.far,
                           np.float32)
+    view = min(i, data.num_views - 1)
     if data.timestamps is not None:
         rays["timestamp"] = np.full(
-            (data.height, data.width),
-            data.timestamps[min(i, data.num_views - 1)], np.float32)
+            (data.height, data.width), data.timestamps[view], np.float32)
+    if data.exposure_values is not None:
+        # RawNeRF: the view's exposure, as its train rays carry it.
+        rays["exposure_values"] = np.full(
+            (data.height, data.width, 3),
+            np.float32(data.exposure_values[view]), np.float32)
+        ei = (int(data.exposure_idx[view])
+              if data.exposure_idx is not None else 0)
+        rays["exposure_idx"] = np.full((data.height, data.width, 1), ei,
+                                       np.int32)
     return rays
 
 
@@ -741,8 +777,9 @@ def cmd_eval(args) -> types.SimpleNamespace:
     PSNR / SSIM on the device and the colour-corrected PSNR / SSIM (the
     warp solved on the host in float64); writes eval/rgb_###.npy,
     metrics.json, metrics_<step>.json and render_times_<step>.txt under
-    exp/<name>/. `--follow` evaluates each new checkpoint as it appears.
-    Returns what was built and the last mean metrics."""
+    exp/<name>/. `--follow` evaluates each new checkpoint as it appears;
+    under a data mesh rank 0 polls and every rank renders its rows of each
+    view. Returns what was built and the last mean metrics."""
     if args.follow and (args.params or args.allow_fresh):
         raise SystemExit("eval --follow evaluates the checkpoints of "
                          "exp/<name>/ as they appear: drop --params and "
@@ -750,9 +787,6 @@ def cmd_eval(args) -> types.SimpleNamespace:
     cfg = build_config(args)
     device = _device(args.device)
     mesh = _data_mesh(device)
-    if args.follow and mesh is not None:
-        raise SystemExit("eval --follow polls on one GPU: launch it without "
-                         "torchrun")
     writer = parallel.is_main()
     out = exp_dir(cfg)
     cfg, scene, tracks, track_mask = _scene_model(cfg, "test", device)
@@ -812,19 +846,33 @@ def cmd_eval(args) -> types.SimpleNamespace:
         eval_checkpoint(step, None)
         return run
 
+    def share(v: int) -> int:
+        """Rank 0's value on every rank (itself without a mesh)."""
+        if mesh is None:
+            return v
+        return int(mesh.broadcast(torch.tensor([v], device=device))[0])
+
     def eval_latest(_detected_step):
         # Re-restore and label with the RESTORED step: the trainer may have
         # saved a newer checkpoint and pruned the detected one meanwhile;
         # if it pruned them all, skip this poll rather than score the init.
-        params, step = checkpoints.restore_model_params(out)
-        if params is None:
+        # Under a mesh rank 0 reads the file and the other ranks take its
+        # weights.
+        params, step = (checkpoints.restore_model_params(out) if writer
+                        else (None, 0))
+        step = share(-1 if writer and params is None else step)
+        if step < 0:
             return None
-        eval_checkpoint(step, params)
+        if params is not None:
+            load_params(model, cfg, params)
+        if mesh is not None:
+            _broadcast_state(mesh, model)
+        eval_checkpoint(step, None)
         return step
 
     follow_checkpoints(out, eval_latest, poll_every=args.poll_every,
                        timeout=args.follow_timeout,
-                       stop_step=args.steps or cfg.max_steps)
+                       stop_step=args.steps or cfg.max_steps, share=share)
     return run
 
 
@@ -907,25 +955,61 @@ def cmd_lidar_eval(args) -> types.SimpleNamespace:
                                  pred_pts=pred_pts, gt_pts=gt_pts)
 
 
-def _refuse_video(args, frames_dir: str) -> None:
-    if args.video:
+def _video_module(args, frames_dir: str):
+    """imageio for `--video` (imported only then: the port reads and writes
+    its PNGs itself), or None without `--video`; a machine without imageio
+    stops here, before rendering, with a message that names it."""
+    if not args.video:
+        return None
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
         raise SystemExit(
-            "--video needs imageio with an ffmpeg backend, which the port "
-            "does not use (the GPU machine has neither): render the frames "
-            f"without --video and join <exp>/{frames_dir}/color_*.png with "
-            "ffmpeg")
+            "--video needs imageio (with an ffmpeg backend for mp4, else a "
+            "GIF), which is not installed: render the frames without "
+            f"--video and join <exp>/{frames_dir}/color_*.png with "
+            "ffmpeg") from e
+    return imageio
+
+
+def _assemble_video(imageio, render_dir: str, prefix: str,
+                    fps: int = 30) -> Optional[str]:
+    """The frame PNGs <prefix>_*.png of `render_dir` -> <prefix>.mp4
+    through imageio / ffmpeg, or <prefix>.gif where that has no ffmpeg
+    backend (the JAX CLI's `_assemble_video`). Returns the path written,
+    None without frames."""
+    import glob as globlib
+    frames = sorted(globlib.glob(os.path.join(render_dir,
+                                              f"{prefix}_*.png")))
+    if not frames:
+        return None
+    path = os.path.join(render_dir, f"{prefix}.mp4")
+    try:
+        with imageio.get_writer(path, fps=fps) as w:
+            for f in frames:
+                w.append_data(png.read_png(f))
+        print(f"wrote {path}")
+    except Exception:  # noqa: BLE001 -- no ffmpeg backend: a GIF instead
+        if os.path.exists(path):
+            os.remove(path)
+        path = os.path.join(render_dir, f"{prefix}.gif")
+        imageio.mimsave(path, [png.read_png(f) for f in frames],
+                        duration=1.0 / fps)
+        print(f"wrote {path} (no ffmpeg; GIF fallback)")
+    return path
 
 
 def cmd_render(args) -> types.SimpleNamespace:
     """Test-view (`--path test`) or ellipse-path frames with colour /
     depth / acc / semantic panels (`compute_extras`, so the final level
-    composites without K1, as in JAX) under exp/<name>/render_<path>/.
-    `--video` is refused: the mp4 needs imageio with ffmpeg, which the port
-    does without. Returns what was built and the frames' paths."""
+    composites without K1, as in JAX) under exp/<name>/render_<path>/;
+    `--video` joins the colour frames into color.mp4 (or color.gif without
+    ffmpeg), which needs imageio. Returns what was built, the frames and
+    the video's path."""
     from .data import camera as camlib
     from .utils import vis as vis_lib
 
-    _refuse_video(args, "render_<path>")
+    imageio = _video_module(args, "render_<path>")
     cfg = build_config(args)
     device = _device(args.device)
     mesh = _data_mesh(device)
@@ -952,9 +1036,13 @@ def cmd_render(args) -> types.SimpleNamespace:
                 img, near=data.near, far=data.far), render_dir, i)
         frames.append(img)
         parallel.main_print(f"rendered frame {i}")
+    video = None
+    if imageio is not None and parallel.is_main():
+        video = _assemble_video(imageio, render_dir, "color", args.fps)
     parallel.main_print(f"frames in {render_dir}")
     return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
-                                 render_dir=render_dir, frames=frames)
+                                 render_dir=render_dir, frames=frames,
+                                 video=video)
 
 
 def cmd_render_video(args) -> types.SimpleNamespace:
@@ -963,11 +1051,11 @@ def cmd_render_video(args) -> types.SimpleNamespace:
     views rendered with colour / depth / acc / semantic panels
     (compute_extras: the final level composites without K1, as in JAX)
     under exp/<name>/video_<mode>/. `--hq` renders 256 + 64 proposal and
-    64 NeRF samples. `--video` is refused as `render --video` is. Returns
-    what was built and the frames."""
+    64 NeRF samples. `--video` as `render --video`. Returns what was
+    built, the frames and the video's path."""
     from .utils import vis as vis_lib
 
-    _refuse_video(args, "video_<mode>")
+    imageio = _video_module(args, "video_<mode>")
     cfg = build_config(args)
     device = _device(args.device)
     mesh = _data_mesh(device)
@@ -1002,11 +1090,14 @@ def cmd_render_video(args) -> types.SimpleNamespace:
                 img, near=data.near, far=data.far), render_dir, i)
         frames.append(img)
         parallel.main_print(f"rendered frame {i}")
+    video = None
+    if imageio is not None and parallel.is_main():
+        video = _assemble_video(imageio, render_dir, "color", args.fps)
     parallel.main_print(f"frames in {render_dir}")
     return types.SimpleNamespace(cfg=cfg, model=model, renderer=renderer,
                                  data=data, render_dir=render_dir,
                                  frames=frames, tracks=tracks_t,
-                                 track_mask=mask_t)
+                                 track_mask=mask_t, video=video)
 
 
 def cmd_render_instance(args) -> types.SimpleNamespace:
@@ -1257,6 +1348,24 @@ def _torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
             v.detach().cpu().numpy() for k, v in sd.items()}
 
 
+def cmd_validate_scene(args) -> types.SimpleNamespace:
+    """Check a nuScenes-layout scene directory against every convention
+    the loader assumes (`data/validate.py`); prints the report as the JAX
+    CLI does. Returns the report and the exit code (0 without an ERROR,
+    else 1)."""
+    from .data import validate as vlib
+    rep = vlib.validate_scene(args.scene_dir, sensor_num=args.sensor_num,
+                              factor=args.factor)
+    for line in rep.info:
+        print(f"  {line}")
+    for issue in rep.issues:
+        print(str(issue))
+    n_err = sum(i.level == "ERROR" for i in rep.issues)
+    n_warn = len(rep.issues) - n_err
+    print(f"{'OK' if rep.ok else 'FAIL'}: {n_err} errors, {n_warn} warnings")
+    return types.SimpleNamespace(report=rep, code=0 if rep.ok else 1)
+
+
 def cmd_convert_rangenet(args):
     """A rangenet darknet-53 `backbone` torch checkpoint -> the .npz that
     `raydrop_train --darknet_npz` (and the JAX package) takes, loaded back
@@ -1364,7 +1473,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     sp.add_argument("--path", default="test", choices=["test", "ellipse"])
     sp.add_argument("--num_frames", type=int, default=0)
     sp.add_argument("--video", action="store_true",
-                    help="refused: needs imageio / ffmpeg")
+                    help="also join the colour frames into color.mp4 "
+                         "(color.gif without ffmpeg); needs imageio")
+    sp.add_argument("--fps", type=int, default=30)
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("render_video")
@@ -1378,7 +1489,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     sp.add_argument("--hq", action="store_true",
                     help="256 + 64 proposal and 64 NeRF samples")
     sp.add_argument("--video", action="store_true",
-                    help="refused: needs imageio / ffmpeg")
+                    help="also join the colour frames into color.mp4 "
+                         "(color.gif without ffmpeg); needs imageio")
+    sp.add_argument("--fps", type=int, default=30)
     sp.set_defaults(fn=cmd_render_video)
 
     sp = sub.add_parser("render_instance")
@@ -1461,6 +1574,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     device(sp)
     sp.set_defaults(fn=cmd_raydrop_val_vis)
 
+    sp = sub.add_parser("validate_scene")
+    sp.add_argument("scene_dir")
+    sp.add_argument("--sensor_num", type=int, default=6)
+    sp.add_argument("--factor", type=int, default=1)
+    sp.set_defaults(fn=cmd_validate_scene)
+
     sp = sub.add_parser("convert_rangenet")
     sp.add_argument("--backbone", required=True,
                     help="rangenet.lib 'backbone' torch checkpoint file")
@@ -1525,4 +1644,6 @@ def main(argv: Optional[List[str]] = None):
 
 
 if __name__ == "__main__":
-    main()
+    # validate_scene's code: 1 on an ERROR, so `validate_scene DIR &&
+    # train ...` stops at a broken scene.
+    raise SystemExit(getattr(main(), "code", 0))

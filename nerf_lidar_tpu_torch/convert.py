@@ -4,8 +4,11 @@
 ..., ...}}` tree that the JAX `Model.init` returns (leaves as numpy arrays)
 onto the port `Model`'s state dict: a Dense `kernel [in, out]` becomes a
 Linear `weight [out, in]`, `bias` and `table` are copied as they are, and
-`density_layers_3` becomes `density_layers.3`. Every Flax leaf must be used
-and every torch parameter filled, or it raises.
+`density_layers_3` becomes `density_layers.3`; the GLO vectors and the
+exposure offsets (Flax `nn.Embed`, `glo_vecs/embedding`,
+`exposure_scaling_offsets/embedding`) become `glo_vecs.weight` /
+`exposure_scaling_offsets.weight`. Every Flax leaf must be used and every
+torch parameter filled, or it raises.
 
 The object MLPs keep their Flax names (`obj_mlp`, `obj_mlp_cls{k}`), as
 does `obj_latents`. A model built without objects (a scene rendered with
@@ -47,7 +50,10 @@ from .raydrop import darknet as dk_lib
 from .raydrop import vgg as vgg_lib
 
 _LIST_LAYER = re.compile(r"(density_layers|sem_layers|intensity_layers|"
-                         r"view_layers)_(\d+)")
+                         r"view_layers|glo_layers)_(\d+)")
+# Flax `nn.Embed` modules of the scene model: `<name>/embedding` <->
+# `<name>.weight` (the same [num, features] layout).
+_EMBEDS = ("glo_vecs", "exposure_scaling_offsets")
 _PROP_MLP = re.compile(r"prop_mlps_(\d+)")
 _OBJ_MLP = re.compile(r"obj_mlp(_cls\d+)?")
 
@@ -98,6 +104,8 @@ def _torch_name(flax_path: str) -> str:
     module = parts[0]
     if parts == ["obj_latents"]:
         return module
+    if module in _EMBEDS and parts[1:] == ["embedding"]:
+        return f"{module}.weight"
     m = _PROP_MLP.fullmatch(module)
     if m:
         module = f"prop_mlps.{m.group(1)}"
@@ -156,6 +164,8 @@ def flax_path(torch_name: str) -> str:
     parts = torch_name.split(".")
     if parts == ["obj_latents"]:
         return torch_name
+    if parts[0] in _EMBEDS:
+        return f"{parts[0]}/embedding"
     if parts[0] == "prop_mlps":
         module, rest = f"prop_mlps_{parts[1]}", parts[2:]
     else:

@@ -74,11 +74,8 @@ def load_timestamps(root_dir: str):
 
 def _imread(path: str) -> np.ndarray:
     """PNG files through the port's own decoder (no imageio needed), other
-    formats through imageio."""
-    if path.lower().endswith(".png"):
-        return png.read_png(path)
-    import imageio.v2 as imageio
-    return np.asarray(imageio.imread(path))
+    formats through imageio (`png.imread`)."""
+    return png.imread(path)
 
 
 def load_moving_masks(root_dir: str, indices, segmentation: np.ndarray,

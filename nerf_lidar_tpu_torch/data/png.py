@@ -4,11 +4,13 @@ scene loader and synthetic-scene writer need neither imageio nor Pillow.
 `read_png` decodes non-interlaced 8- and 16-bit grey, grey + alpha, RGB
 and RGBA images (every row filter); `write_png` encodes uint8 [H, W],
 [H, W, 3] or [H, W, 4] and uint16 [H, W] arrays, each row unfiltered. Both
-keep the pixel values exactly.
+keep the pixel values exactly. `imread` reads PNG through them and other
+formats through imageio.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -106,3 +108,19 @@ def read_png(path: str) -> np.ndarray:
         pixels = pixels.view(">u2").astype(np.uint16)
     pixels = pixels.reshape(h, w, channels)
     return pixels[..., 0] if channels == 1 else pixels
+
+
+def imread(path: str) -> np.ndarray:
+    """An image file as an array: PNG through `read_png`, any other format
+    through imageio, which the port otherwise does without (a machine
+    without it stops here with a message that names it)."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    try:
+        import imageio.v2 as imageio
+    except ImportError as e:
+        raise ImportError(
+            f"{path}: reading a {os.path.splitext(path)[1]} image needs "
+            "imageio, which is not installed; convert the capture to PNG "
+            "(the port reads PNG itself)") from e
+    return np.asarray(imageio.imread(path))

@@ -8,12 +8,20 @@ multisample mean), or without it (`re_weights=False`: object MLPs, stds
 taken as 0, where H1's weight is exactly 1) (kernel H1 on CUDA, its
 backward kernel in training) -> with the spectral encoder
 (`encoder='dense_fourier'`) the Fourier features of `ops/fourier.py`
-appended -> density trunk (+ the object latent's first half with
-`split_latent`; + density noise in training) -> softplus; for the NeRF
-level also the semantic head (v3 separate layers, v4 in-density channels,
-or a fixed one-hot class for object MLPs), the intensity head and the
-view-dependent RGB branch (posenc viewdirs, the latent's second half, the
-skip concat, sigmoid, padding).
+appended -> with `scale_featurization` the mean erf weight of each level
+scaled by the level's root-mean-square embedding (detached; the level sums
+through K3, as the hash decay) -> density trunk (+ the object latent's
+first half with `split_latent`; + density noise in training) -> softplus;
+with density normals (`disable_density_normals=False`) the density
+trunk again at the six points +-`normal_eps` along each axis (six more H1
+calls), central differences, normalised; the predicted-normal head. For
+the NeRF level also the semantic head (v3 separate layers, v4
+in-density channels, or a fixed one-hot class for object MLPs), the
+intensity head and the view-dependent RGB branch: the GLO scale and shift
+of the bottleneck, the direction encoding (posenc, or the IDE of
+`ops/ref_utils.py` with the predicted roughness) of the view or
+reflection direction, n . v, the latent's second half, the skip concat,
+sigmoid, the diffuse-plus-specular tone map, padding.
 
 `compute_dtype='bfloat16'` is the JAX mixed-precision policy: parameters
 stay float32 and every Dense casts its input, weight and bias to bfloat16
@@ -23,9 +31,12 @@ and its softplus, every head's output (softmax, sigmoid, intensity) and
 the compositing stay float32.
 
 Parameter names follow the Flax module (`table`, `density_layers_{i}` ->
-`density_layers.{i}`, ...), so `convert.flax_to_state_dict` is a rename and
-a transpose. Config flags this port does not implement raise
-NotImplementedError instead of computing something else.
+`density_layers.{i}`, `normal_layer`, `glo_layers_{i}`, ...), so
+`convert.flax_to_state_dict` is a rename and a transpose. A layer exists
+where the Flax module creates its parameters, i.e. where it is called: the
+GLO layers only on the MLP given GLO vectors (`glo_width`). Config flags
+this port does not implement raise NotImplementedError instead of
+computing something else.
 """
 
 from __future__ import annotations
@@ -38,27 +49,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import MLPConfig
-from ..ops import coord, mathx
+from ..ops import coord, mathx, ref_utils
 from ..ops import fourier as fourierlib
 from ..ops import grid as gridlib
+from ..utils.image import linear_to_srgb
 
-# MLPConfig flags this port does not implement, each with its ported value.
-_PORTED_VALUES = dict(
-    use_directional_enc=False, use_reflections=False,
-    enable_pred_normals=False, enable_pred_roughness=False,
-    use_n_dot_v=False, use_diffuse_color=False, use_specular_tint=False,
-    disable_density_normals=True, num_glo_features=0,
-    scale_featurization=False)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_ported(cfg: MLPConfig) -> None:
     """Raise NotImplementedError on any flag this port does not implement."""
-    for name, ported in _PORTED_VALUES.items():
-        if getattr(cfg, name) != ported:
-            raise NotImplementedError(
-                f"MLPConfig.{name}={getattr(cfg, name)!r} is not ported "
-                f"(only {ported!r})")
     if cfg.compute_dtype not in _DTYPES:
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} is not ported")
@@ -125,12 +125,27 @@ def _width(sl: slice, n: int) -> int:
     return len(range(n)[sl])
 
 
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True),
+                           min=eps)
+
+
+def _per_sample(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-ray [..., D] or per-sample [..., S, D] field as [..., S, D]
+    (the sample axis of `like` [..., S, W])."""
+    if v.dim() != like.dim():
+        v = v[..., None, :]
+    return v.expand(like.shape[:-1] + v.shape[-1:])
+
+
 class ZipMLP(nn.Module):
     """latent_width: the width of the per-sample latent the caller passes
-    (the model's object latents), 0 for none."""
+    (the model's object latents), 0 for none; glo_width: the width of the
+    GLO vectors the caller passes (the model's `num_glo_features` for the
+    NeRF MLP), 0 for none."""
 
     def __init__(self, cfg: MLPConfig, use_viewdirs: bool = True,
-                 device=None, latent_width: int = 0):
+                 device=None, latent_width: int = 0, glo_width: int = 0):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
@@ -151,6 +166,8 @@ class ZipMLP(nn.Module):
                     float(self.spec.desired_resolution),
                     float(cfg.grid.desired_resolution))).to(device)
             feat_w += 2 * cfg.grid.fourier_freqs
+        if cfg.scale_featurization:
+            feat_w += self.spec.num_levels
 
         dens_lat, view_lat = (_width(sl, latent_width)
                               for sl in latent_split(cfg, latent_width))
@@ -165,10 +182,27 @@ class ZipMLP(nn.Module):
         self.density_layers = nn.ModuleList(
             Dense(a, b, device=device, dtype=dt)
             for a, b in zip(dims[:-1], dims[1:]))
+        if cfg.enable_pred_normals:
+            self.normal_layer = Dense(width_out, 3, device=device, dtype=dt)
+        self.ide = (ref_utils.generate_ide_fn(cfg.deg_view, device)
+                    if cfg.use_directional_enc else None)
         if cfg.disable_rgb:
             return
 
         w = cfg.bottleneck_width
+        if glo_width > 0 and cfg.num_glo_features > 0:
+            glo_dims = (glo_width,
+                        *[cfg.net_width_glo] * (cfg.net_depth_glo - 1),
+                        2 * w)
+            self.glo_layers = nn.ModuleList(
+                Dense(a, b, device=device, dtype=dt)
+                for a, b in zip(glo_dims[:-1], glo_dims[1:]))
+        for flag, name, out_w in (
+                (cfg.use_diffuse_color, "diffuse_layer", cfg.num_rgb_channels),
+                (cfg.use_specular_tint, "specular_layer", 3),
+                (cfg.enable_pred_roughness, "roughness_layer", 1)):
+            if flag:
+                setattr(self, name, Dense(w, out_w, device=device, dtype=dt))
         if cfg.use_semantic and not cfg.no_sem_layer \
                 and not cfg.fixed_semantic:
             self.sem_layers = nn.ModuleList(
@@ -178,7 +212,11 @@ class ZipMLP(nn.Module):
             self.intensity_layers = nn.ModuleList(
                 [Dense(w, 64, device=device, dtype=dt),
                  Dense(64, 1, device=device, dtype=dt)])
-        in_w = w + (3 + 6 * cfg.deg_view if use_viewdirs else 0) + view_lat
+        dir_w = 0
+        if use_viewdirs:
+            dir_w = (ref_utils.ide_width(cfg.deg_view) if self.ide is not None
+                     else 3 + 6 * cfg.deg_view) + int(cfg.use_n_dot_v)
+        in_w = w + dir_w + view_lat
         h_w, view = in_w, []
         for i in range(cfg.net_depth_viewdirs):
             view.append(Dense(h_w, cfg.net_width_viewdirs, device=device,
@@ -207,10 +245,24 @@ class ZipMLP(nn.Module):
         if self.cfg.density_init:
             self.density_layers[-1].bias.fill_(0.1)
 
+    def _level_rms(self, use_kernels: bool) -> torch.Tensor:
+        """[L] root of 1e-8 + each level's mean squared embedding, detached:
+        the level sums of table**2 over the rows' level ids (kernel K3 on
+        CUDA tables, as the hash decay)."""
+        spec, table = self.spec, self.table
+        scatter = (gridlib.scatter_add_rows if use_kernels
+                   else gridlib.scatter_add_rows_plain)
+        with torch.no_grad():
+            sums = scatter(gridlib.level_ids(spec, table.device), table**2,
+                           spec.num_levels).sum(-1)
+            mean = sums / gridlib.level_rows(spec, table.device)[:, 0]
+        return torch.sqrt(1e-8 + mean)
+
     def _encode(self, means, stds, use_kernels: bool) -> torch.Tensor:
         """Contract + hash-encode + erf-downweight the multisample cloud
-        (+ the Fourier features of a spectral grid). means: [..., n, 3]
-        world coords; stds: [..., n]. Returns [..., F]."""
+        (+ the Fourier features of a spectral grid, + the scale
+        featurization). means: [..., n, 3] world coords; stds: [..., n].
+        Returns [..., F]."""
         c = self.cfg
         if c.warp_fn is not None:
             means, stds = coord.track_linearize(c.warp_fn, means, stds)
@@ -235,6 +287,12 @@ class ZipMLP(nn.Module):
                    else fourierlib.fourier_encode)
             feats = torch.cat([feats, enc(x01, stds, self.fourier_freqs)],
                               dim=-1)
+        if c.scale_featurization:
+            weights = (gridlib.erf_weights(stds, self.spec) if c.re_weights
+                       else stds.new_ones(stds.shape
+                                          + (self.spec.num_levels,)))
+            feats = torch.cat([feats, (2 * weights.mean(dim=-2) - 1)
+                               * self._level_rms(use_kernels)], dim=-1)
         return feats
 
     def predict_density(self, means: torch.Tensor, stds: torch.Tensor,
@@ -261,23 +319,63 @@ class ZipMLP(nn.Module):
                 device=raw_density.device)
         return raw_density, x
 
+    def finite_difference_normals(self, means: torch.Tensor,
+                                  stds: torch.Tensor,
+                                  use_kernels: bool = True) -> torch.Tensor:
+        """Density normals by central differences of the raw density over
+        the multisample means, one trunk call per offset +-normal_eps along
+        each axis (as the JAX MLP makes them), normalised, NaN -> 0."""
+        eps = self.cfg.normal_eps
+        grads = []
+        for d in range(3):
+            offs = means.new_zeros(3)
+            offs[d] = eps
+            pos = self.predict_density(torch.clamp(means + offs, -1e6, 1e6),
+                                       stds, use_kernels=use_kernels)[0]
+            neg = self.predict_density(torch.clamp(means - offs, -1e6, 1e6),
+                                       stds, use_kernels=use_kernels)[0]
+            grads.append(0.5 * (pos - neg) / eps)
+        return torch.nan_to_num(_l2_normalize(-torch.stack(grads, dim=-1)))
+
+    def _dir_enc(self, dirs: torch.Tensor,
+                 roughness: Optional[torch.Tensor]) -> torch.Tensor:
+        """The IDE (roughness as kappa^-1, 0 without it) or posenc."""
+        if self.ide is not None:
+            if roughness is None:
+                roughness = torch.zeros_like(dirs[..., :1])
+            return self.ide(dirs, roughness)
+        return coord.pos_enc(dirs, min_deg=0, max_deg=self.cfg.deg_view,
+                             append_identity=True)
+
     def forward(self, means: torch.Tensor, stds: torch.Tensor,
                 viewdirs: Optional[torch.Tensor] = None,
                 latent: Optional[torch.Tensor] = None,
                 use_kernels: bool = True,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                glo_vec: Optional[torch.Tensor] = None
                 ) -> Dict[str, Optional[torch.Tensor]]:
         """means: [..., S, n, 3], stds: [..., S, n]; viewdirs: [..., 3] per
         ray or [..., S, 3] per sample; latent: [..., S, latent_width] or
-        None; generator: draws the density and bottleneck noise (training),
-        or None for none. Returns dict(density [..., S], rgb [..., S, 3],
-        semantic [..., S, K] or None, intensity [..., S, 1] or None)."""
+        None; glo_vec: [..., glo_width] per ray or None; generator: draws
+        the density and bottleneck noise (training), or None for none.
+        Returns dict(density [..., S], rgb [..., S, 3], semantic
+        [..., S, K] or None, intensity [..., S, 1] or None), and where the
+        config makes them normals (density normals) / grad_pred and
+        normals_pred (the predicted-normal head) [..., S, 3], roughness
+        [..., S, 1]."""
         c = self.cfg
         raw_density, x = self.predict_density(means, stds, latent,
                                               generator, use_kernels)
         view_lat = latent_split(c, self.latent_width)[1]
         density = F.softplus(raw_density + c.density_bias)
         out = dict(density=density, rgb=None, semantic=None, intensity=None)
+        normals = None
+        if not c.disable_density_normals:
+            normals = out["normals"] = self.finite_difference_normals(
+                means, stds, use_kernels)
+        if c.enable_pred_normals:
+            grad_pred = out["grad_pred"] = self.normal_layer(x).float()
+            normals = out["normals_pred"] = -_l2_normalize(grad_pred)
         if c.disable_rgb:
             out["rgb"] = density.new_zeros(density.shape + (3,))
             return out
@@ -304,21 +402,42 @@ class ZipMLP(nn.Module):
         if generator is not None and c.bottleneck_noise > 0:
             bottleneck = bottleneck + c.bottleneck_noise * mathx.random_rows(
                 torch.randn, bottleneck.shape, generator, device=x.device)
+        if glo_vec is not None and hasattr(self, "glo_layers"):
+            g = glo_vec
+            for i, layer in enumerate(self.glo_layers):
+                g = layer(g)
+                if i != len(self.glo_layers) - 1:
+                    g = F.relu(g)
+            scale, shift = torch.chunk(_per_sample(g, bottleneck), 2, dim=-1)
+            bottleneck = bottleneck * torch.exp(scale) + shift
 
-        def per_sample(v):
-            """A per-ray [..., D] or per-sample [..., S, D] field as
-            [..., S, D]."""
-            if v.dim() != x.dim():
-                v = v[..., None, :]
-            return v.expand(x.shape[:-1] + v.shape[-1:])
+        roughness = tint = raw_rgb_diffuse = None
+        if c.use_diffuse_color:
+            raw_rgb_diffuse = self.diffuse_layer(x)
+        if c.use_specular_tint:
+            tint = torch.sigmoid(self.specular_layer(x))
+        if c.enable_pred_roughness:
+            roughness = out["roughness"] = F.softplus(
+                self.roughness_layer(x) + c.roughness_bias)
 
         parts = [bottleneck]
         if viewdirs is not None:
-            parts.append(per_sample(coord.pos_enc(
-                viewdirs, min_deg=0, max_deg=c.deg_view,
-                append_identity=True)))
+            if c.use_reflections:
+                # Reflect the direction towards the camera about the
+                # per-sample normals.
+                parts.append(self._dir_enc(ref_utils.reflect(
+                    -_per_sample(viewdirs, x), normals), roughness))
+            else:
+                per_sample_rough = roughness is not None and \
+                    self.ide is not None
+                parts.append(_per_sample(self._dir_enc(
+                    viewdirs[..., None, :] if per_sample_rough else viewdirs,
+                    roughness), x))
+            if c.use_n_dot_v:
+                parts.append(torch.sum(normals * _per_sample(viewdirs, x),
+                                       dim=-1, keepdim=True))
         if latent is not None and c.split_latent:
-            parts.append(per_sample(latent[..., view_lat]))
+            parts.append(_per_sample(latent[..., view_lat], x))
         h = inputs = torch.cat(parts, dim=-1)
         for i, layer in enumerate(self.view_layers):
             h = F.relu(layer(h))
@@ -326,5 +445,12 @@ class ZipMLP(nn.Module):
                 h = torch.cat([h, inputs], dim=-1)
         rgb = torch.sigmoid(c.rgb_premultiplier * self.rgb_layer(h).float()
                             + c.rgb_bias)
+        if c.use_diffuse_color:
+            # Diffuse plus specular, tone mapped.
+            diffuse_linear = torch.sigmoid(raw_rgb_diffuse - math.log(3.0))
+            specular_linear = tint * rgb if c.use_specular_tint \
+                else 0.5 * rgb
+            rgb = torch.clamp(linear_to_srgb(specular_linear
+                                             + diffuse_linear), 0.0, 1.0)
         out["rgb"] = rgb * (1 + 2 * c.rgb_padding) - c.rgb_padding
         return out

@@ -1,15 +1,18 @@
 """Scene model: hierarchical proposal sampling + ZipNeRF field, with
-dynamic objects (port of `nerf_lidar_tpu/models/model.py:Model.__call__`;
-no GLO, no exposure, constant background).
+dynamic objects (port of `nerf_lidar_tpu/models/model.py:Model.__call__`).
 
 The level loop is the reference's: ray warps, per-level dilation, anneal,
-resampling (jittered in training), `cast_rays`, the level's MLP, the
-dynamic objects composited into the level's predictions
-(`models/objects.py`: per-ray poses from the tracks at the ray's
-timestamp; a static sample budget in training only), compositing. With
-`fused_final` the final level of an inference call composites through
-`ops/render_fused.fused_composite` (kernel K1 on CUDA tensors), objects
-included.
+resampling (jittered in training), `cast_rays`, the level's MLP (the NeRF
+MLP with the ray's GLO vector), the dynamic objects composited into the
+level's predictions (`models/objects.py`: per-ray poses from the tracks at
+the ray's timestamp; a static sample budget in training only), the RawNeRF
+exposure scaling, the background (constant, or uniform in
+`bg_intensity_range` per ray and channel in training and its midpoint
+without a generator), compositing (the normals too). With `fused_final`
+the final level of an inference call with a constant background
+composites through `ops/render_fused.fused_composite` (kernel K1 on CUDA
+tensors), objects included; K1 composites no normals, as the JAX fused
+kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from torch import nn
 
 from ..configs import ModelConfig
-from ..ops import coord, render, render_fused, stepfun
+from ..ops import coord, mathx, render, render_fused, stepfun
 from . import objects as objlib
 from .mlp import ZipMLP
 
@@ -33,14 +36,13 @@ def _bias(x, s):
     return (s * x) / ((s - 1) * x + 1)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError on any scene-level feature not ported."""
-    if cfg.num_glo_features > 0:
-        raise NotImplementedError("GLO embeddings are not ported")
-    if cfg.learned_exposure_scaling:
-        raise NotImplementedError("learned exposure scaling is not ported")
-    if cfg.bg_intensity_range[0] != cfg.bg_intensity_range[1]:
-        raise NotImplementedError("a non-constant background is not ported")
+class Embed(nn.Embedding):
+    """nn.Embedding whose table starts uninitialised, as `Dense`: the
+    model's `init_weights` or a converted state dict fills it (Flax
+    `nn.Embed`, parameter `embedding` -> `weight`)."""
+
+    def reset_parameters(self) -> None:
+        pass
 
 
 def class_slots(obj_class_ids) -> Dict[int, List[int]]:
@@ -52,19 +54,28 @@ def class_slots(obj_class_ids) -> Dict[int, List[int]]:
 
 
 class Model(nn.Module):
-    """With `instance_obj` and `num_objects` > 0 the model holds the object
-    MLP (`obj_mlp`), or one per object class (`obj_mlp_cls{k}`, with the
-    class id as its fixed semantic class), and with `latent_size` > 0 one
-    latent per object slot (`obj_latents`): the Flax parameter names."""
+    """With `num_glo_features` > 0 the model holds one GLO vector per
+    camera (`glo_vecs`), with `learned_exposure_scaling` an RGB scaling
+    offset per exposure (`exposure_scaling_offsets`); with `instance_obj`
+    and `num_objects` > 0 the object MLP (`obj_mlp`), or one per object
+    class (`obj_mlp_cls{k}`, with the class id as its fixed semantic
+    class), and with `latent_size` > 0 one latent per object slot
+    (`obj_latents`): the Flax parameter names."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
-        self.nerf_mlp = ZipMLP(cfg.nerf_mlp, cfg.use_viewdirs, device=device)
+        self.nerf_mlp = ZipMLP(cfg.nerf_mlp, cfg.use_viewdirs, device=device,
+                               glo_width=cfg.num_glo_features)
         self.prop_mlps = nn.ModuleList(
             ZipMLP(cfg.prop_mlp_for_level(i), cfg.use_viewdirs, device=device)
             for i in range(len(cfg.num_prop_samples)))
+        if cfg.num_glo_features > 0:
+            self.glo_vecs = Embed(cfg.num_glo_embeddings,
+                                  cfg.num_glo_features, device=device)
+        if cfg.learned_exposure_scaling:
+            self.exposure_scaling_offsets = Embed(cfg.num_glo_embeddings, 3,
+                                                  device=device)
         self.register_parameter("obj_latents", None)
         if not self.has_objects:
             return
@@ -106,15 +117,37 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded fresh init of every MLP (see `ZipMLP.init_weights`) and
-        of the object latents (normal, std 1, as Flax draws them)."""
+        """Seeded fresh init of every MLP (see `ZipMLP.init_weights`), of
+        the GLO vectors (normal, std 1 / sqrt(features): Flax's embedding
+        init), the exposure offsets (zeros) and the object latents
+        (normal, std 1, as Flax draws them)."""
         self.nerf_mlp.init_weights(generator)
         for mlp in (*self.prop_mlps, *self.obj_mlps()):
             mlp.init_weights(generator)
+        if self.cfg.num_glo_features > 0:
+            cpu = torch.empty(self.glo_vecs.weight.shape)
+            cpu.normal_(0.0, self.cfg.num_glo_features ** -0.5,
+                        generator=generator)
+            self.glo_vecs.weight.copy_(cpu)
+        if self.cfg.learned_exposure_scaling:
+            self.exposure_scaling_offsets.weight.zero_()
         if self.obj_latents is not None:
             cpu = torch.empty(self.obj_latents.shape)
             cpu.normal_(0.0, 1.0, generator=generator)
             self.obj_latents.copy_(cpu)
+
+    def _exposed(self, rgb: torch.Tensor, batch) -> torch.Tensor:
+        """Per-sample colours [R, S, 3] at the rays' exposure (RawNeRF):
+        times exposure_values, and with learned exposure scaling times 1 +
+        the offset of exposure_idx, for indices > 0 (index 0 is the
+        anchor)."""
+        rgb = rgb * batch["exposure_values"][..., None, :]
+        if self.cfg.learned_exposure_scaling and "exposure_idx" in batch:
+            idx = batch["exposure_idx"][..., 0].long()
+            scaling = 1.0 + (idx > 0).to(rgb.dtype)[..., None] * \
+                self.exposure_scaling_offsets(idx)
+            rgb = rgb * scaling[..., None, :]
+        return rgb
 
     def _composite_objects(self, ray_results, tdist, batch, obj_pose,
                            track_mask, is_prop: bool, train: bool,
@@ -151,14 +184,20 @@ class Model(nn.Module):
                 train: bool = False, compute_extras: bool = False,
                 generator: Optional[torch.Generator] = None,
                 tracks: Optional[torch.Tensor] = None,
-                track_mask: Optional[torch.Tensor] = None, mesh=None
+                track_mask: Optional[torch.Tensor] = None, mesh=None,
+                zero_glo: bool = True
                 ) -> Tuple[List[Dict[str, torch.Tensor]],
                            List[Dict[str, torch.Tensor]]]:
         """Render a batch of rays.
 
         batch: dict of [R, ...] tensors: origins, directions, viewdirs,
           radii [R,1], base_x, base_y, near [R,1], far [R,1]; timestamp
-          [R] for dynamic objects.
+          [R] for dynamic objects; cam_idx [R,1] (int) for the GLO vectors
+          (read unless `zero_glo`, which gives every ray the zero vector,
+          as the JAX inference calls do); exposure_values [R,3] (and
+          exposure_idx [R,1], int, with learned exposure scaling): every
+          level's colours scaled by the view's exposure, and by 1 + the
+          learned offset of its exposure index where that index is > 0.
         tracks: [num_objects, T, 9] padded track tensor (see
           `models/objects.py`) and track_mask [num_objects] its valid
           slots; without tracks (or timestamps) no object is composited.
@@ -172,21 +211,29 @@ class Model(nn.Module):
         use_kernels: False sends the hash encode and the fused composite to
           their plain torch versions on every device (for comparisons).
         generator: the randomness of training (sample jitter, spiral phase,
-          MLP noise), on the batch's device, or a `mathx.ShardedGenerator`
-          (one data shard's rows of the global batch's draws); None is the
-          JAX `key=None`.
+          MLP noise, a random background), on the batch's device, or a
+          `mathx.ShardedGenerator` (one data shard's rows of the global
+          batch's draws); None is the JAX `key=None`.
         mesh: a `parallel.DataMesh` when the batch is a data-parallel
           rank's rows of the global batch (training): the objects' sample
           budget, its stats and the symmetry term are then the global
           batch's (`models/objects.py`).
         Returns (renderings, ray_history): one dict per level each; the
-        history holds the level's sdist, weights and tdist (and obj_mask)
-        for the losses. With objects each rendering has "obj_mask" [R, S]
+        history holds the level's sdist, weights and tdist (and obj_mask,
+        normals, normals_pred) for the losses; a level whose MLP makes
+        normals composites them into its rendering. With objects each
+        rendering has "obj_mask" [R, S]
         (samples in a box), the final one "loss_sym" when symmetrised, and
         in training the final one also "obj_overflow" (summed over levels)
         and "obj_hit_frac" (the largest over levels).
         """
         c = self.cfg
+        glo_vec = None
+        if c.num_glo_features > 0:
+            glo_vec = (self.glo_vecs(batch["cam_idx"][..., 0].long())
+                       if not zero_glo else batch["origins"].new_zeros(
+                           batch["origins"].shape[:-1]
+                           + (c.num_glo_features,)))
         _, s_to_t = coord.construct_ray_warps(
             c.raydist_fn, batch["near"], batch["far"], c.power_lambda)
         if c.near_anneal_rate is None:
@@ -199,7 +246,7 @@ class Model(nn.Module):
                            torch.full_like(batch["far"], init_s_far)], dim=-1)
         weights = torch.ones_like(batch["near"])
         prod_num_samples = 1
-        bg = float(c.bg_intensity_range[0])
+        lo, hi = (float(v) for v in c.bg_intensity_range)
         use_obj = (self.has_objects and tracks is not None
                    and "timestamp" in batch)
         obj_pose = (objlib.get_pose(batch["timestamp"], tracks) if use_obj
@@ -246,19 +293,32 @@ class Model(nn.Module):
             ray_results = mlp(
                 means, stds,
                 viewdirs=batch["viewdirs"] if c.use_viewdirs else None,
-                use_kernels=use_kernels, generator=generator)
+                use_kernels=use_kernels, generator=generator,
+                glo_vec=None if is_prop else glo_vec)
             if use_obj:
                 ray_results = self._composite_objects(
                     ray_results, tdist, batch, obj_pose, track_mask,
                     is_prop, train, use_kernels, mesh)
+            if "exposure_values" in batch:
+                ray_results["rgb"] = self._exposed(ray_results["rgb"], batch)
 
+            if lo == hi:
+                bg = lo
+            elif generator is None:
+                bg = (lo + hi) / 2
+            else:
+                bg = lo + (hi - lo) * mathx.random_rows(
+                    torch.rand, batch["near"].shape[:-1] + (3,), generator,
+                    device=batch["near"].device)
             is_final = not is_prop
             sem = ray_results["semantic"] if (is_final and c.use_semantic) \
                 else None
             intensity = (ray_results["intensity"]
                          if (is_final and c.use_intensity) else None)
+            normals = {k: ray_results[k] for k in ("normals", "normals_pred")
+                       if k in ray_results}
             if fused_final and is_final and not train and \
-                    not compute_extras:
+                    not compute_extras and isinstance(bg, float):
                 composite = (render_fused.fused_composite if use_kernels
                              else render_fused.fused_composite_plain)
                 rendering = composite(
@@ -275,9 +335,11 @@ class Model(nn.Module):
                 rendering = render.volumetric_rendering(
                     ray_results["rgb"], weights, tdist, bg, semantic=sem,
                     intensity=intensity, sem_detach=c.sem_detach,
-                    t_far=batch["far"], compute_extras=compute_extras)
+                    t_far=batch["far"], compute_extras=compute_extras,
+                    extras=normals)
 
-            history = dict(sdist=sdist, weights=weights, tdist=tdist)
+            history = dict(sdist=sdist, weights=weights, tdist=tdist,
+                           **normals)
             if use_obj:
                 rendering["obj_mask"] = ray_results["obj_mask"].any(-1)
                 history["obj_mask"] = ray_results["obj_mask"]

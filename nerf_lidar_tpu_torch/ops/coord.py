@@ -8,6 +8,8 @@ import math
 import numpy as np
 import torch
 
+from . import mathx
+
 _EPS = float(np.finfo(np.float32).eps)
 
 
@@ -109,6 +111,24 @@ def construct_ray_warps(fn, t_near, t_far, lam=None):
     t_to_s = lambda t: (fn_fwd(t) - s_near) / (s_far - s_near)
     s_to_t = lambda s: fn_inv(s * s_far + (1 - s) * s_near)
     return t_to_s, s_to_t
+
+
+def expected_sin(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """E[sin(x)] for x ~ N(mean, var)."""
+    return torch.exp(-0.5 * var) * mathx.safe_sin(mean)
+
+
+def integrated_pos_enc(mean: torch.Tensor, var: torch.Tensor, min_deg: int,
+                       max_deg: int) -> torch.Tensor:
+    """mip-NeRF integrated positional encoding."""
+    scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=mean.dtype,
+                                 device=mean.device)
+    shape = mean.shape[:-1] + (-1,)
+    scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
+    scaled_var = (var[..., None, :] * scales[:, None] ** 2).reshape(shape)
+    return expected_sin(
+        torch.cat([scaled_mean, scaled_mean + 0.5 * math.pi], dim=-1),
+        torch.cat([scaled_var] * 2, dim=-1))
 
 
 def pos_enc(x: torch.Tensor, min_deg: int, max_deg: int,

@@ -260,6 +260,16 @@ def _erf_weight(s: torch.Tensor, grid_size: float):
     return torch.erf(v), u, v
 
 
+def erf_weights(stds: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """[..., n, L] erf weights of every point and level at stds [..., n]
+    (the second output of the JAX `hash_encode_multisample`; no gradient
+    to stds when `spec.diff_inputs` is False, as its custom VJP)."""
+    if not spec.diff_inputs:
+        stds = stds.detach()
+    return torch.stack([_erf_weight(stds, g)[0] for g in spec.grid_sizes()],
+                       dim=-1)
+
+
 def hash_encode_multisample_plain(table: torch.Tensor, x01: torch.Tensor,
                                   stds: torch.Tensor, spec: HashGridSpec,
                                   coarse_res_cutoff: int = 0):

@@ -1,8 +1,11 @@
 """Math helpers (port of `nerf_lidar_tpu/ops/mathx.py`).
 
-`sorted_interp` keeps the dense masked-extrema form of the reference: every
-query is compared with every knot ([..., M, N] grid), so ties and the clamp at
-both ends behave exactly as in the JAX version.
+`safe_sin` / `safe_cos` wrap large arguments into [0, 100 pi);
+`safe_exp` clamps at 88 and keeps the gradient exp(clamped x) beyond it
+(the JAX custom JVP). `sorted_interp` keeps the dense masked-extrema form
+of the reference: every query is compared with every knot ([..., M, N]
+grid), so ties and the clamp at both ends behave exactly as in the JAX
+version.
 """
 
 from __future__ import annotations
@@ -50,6 +53,41 @@ def safe_div(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 def safe_sqrt(x: torch.Tensor, eps: float = _TINY) -> torch.Tensor:
     """sqrt clamped away from 0."""
     return torch.sqrt(torch.clamp(x, min=eps))
+
+
+def safe_trig_helper(x: torch.Tensor, fn, t: float = 100.0 * math.pi):
+    return fn(torch.where(torch.abs(x) < t, x, torch.remainder(x, t)))
+
+
+def safe_cos(x: torch.Tensor) -> torch.Tensor:
+    return safe_trig_helper(x, torch.cos)
+
+
+def safe_sin(x: torch.Tensor) -> torch.Tensor:
+    return safe_trig_helper(x, torch.sin)
+
+
+class _SafeExp(torch.autograd.Function):
+    """exp(min(x, 88)) with the gradient exp(min(x, 88)) everywhere (the
+    JAX custom JVP `y * x_dot`; autograd through the clamp would give 0
+    above 88)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(torch.clamp(x, max=88.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
+def safe_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp(min(x, 88)) whose gradient stays exp(clamped x) for large
+    inputs."""
+    return _SafeExp.apply(x)
 
 
 def _find_interval(mask: torch.Tensor, y: torch.Tensor):

@@ -72,19 +72,22 @@ def compute_alpha_weights(density, tdist, dirs, opaque_background=False):
     return weights, alpha, trans
 
 
-def volumetric_rendering(rgbs, weights, tdist, bg_rgbs: float,
+def volumetric_rendering(rgbs, weights, tdist, bg_rgbs,
                          semantic: Optional[torch.Tensor] = None,
                          intensity: Optional[torch.Tensor] = None,
                          sem_detach: bool = True,
                          t_far: Optional[torch.Tensor] = None,
-                         compute_extras: bool = False
+                         compute_extras: bool = False,
+                         extras: Optional[Dict[str, torch.Tensor]] = None
                          ) -> Dict[str, torch.Tensor]:
     """Composite per-sample quantities along rays.
 
-    rgbs: [..., S, 3]; weights: [..., S]; tdist: [..., S+1];
-    semantic: [..., S, K], composited with detached weights when
-    `sem_detach`; intensity: [..., S] or [..., S, 1], always composited
-    with detached weights. With `compute_extras` also acc, distance_mean
+    rgbs: [..., S, 3]; weights: [..., S]; tdist: [..., S+1]; bg_rgbs: a
+    float or [..., 3] per ray; semantic: [..., S, K], composited with
+    detached weights when `sem_detach`; intensity: [..., S] or [..., S, 1],
+    always composited with detached weights; extras: per-sample
+    [..., S, D] values (the normals), composited with the weights whenever
+    given. With `compute_extras` also acc, distance_mean
     and the 5th / 50th / 95th distance percentiles over the weights with
     the background's share placed at t_far [..., 1].
     """
@@ -104,6 +107,8 @@ def volumetric_rendering(rgbs, weights, tdist, bg_rgbs: float,
         if intensity.ndim == weights.ndim + 1:
             intensity = intensity[..., 0]
         rendering["intensity"] = (weights.detach() * intensity).sum(dim=-1)
+    for k, v in (extras or {}).items():
+        rendering[k] = (weights[..., None] * v).sum(dim=-2)
 
     if compute_extras:
         rendering["acc"] = acc

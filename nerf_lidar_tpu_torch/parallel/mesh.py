@@ -63,6 +63,15 @@ def host_index() -> int:
     return _env_int("GROUP_RANK", 0)
 
 
+def host_count() -> int:
+    """The hosts of the launch (WORLD_SIZE / LOCAL_WORLD_SIZE, 1 without
+    torchrun), the JAX `jax.process_count()` of `--multihost`: one process
+    a host there, so a loader that shards by host gives every rank of a
+    host the host's share."""
+    world = _env_int("WORLD_SIZE", 1)
+    return max(world // _env_int("LOCAL_WORLD_SIZE", world), 1)
+
+
 def is_main() -> bool:
     """True on rank 0, or without a process group: the one process that
     writes files and prints."""

@@ -25,9 +25,12 @@ import torch
 
 from .models.model import Model
 
-# Ray fields the model reads (timestamp: for the dynamic objects).
+# Ray fields the model reads (timestamp: for the dynamic objects;
+# exposure_values / exposure_idx: RawNeRF views; cam_idx: GLO). Float fields
+# go as float32, the integer ones keep their dtype.
 _RAY_KEYS = ("origins", "directions", "viewdirs", "radii", "base_x",
-             "base_y", "near", "far", "timestamp")
+             "base_y", "near", "far", "timestamp", "exposure_values",
+             "exposure_idx", "cam_idx")
 # Chunks dispatched ahead of the fetch: bounds the chunk outputs resident
 # on the device to WINDOW + 1.
 WINDOW = 8
@@ -92,8 +95,10 @@ class ChunkRenderer:
         rays_d = {}
         for k in _RAY_KEYS:
             if k in rays:
-                t = torch.from_numpy(_pad_to(np.asarray(rays[k], np.float32),
-                                             n_pad))
+                arr = np.asarray(rays[k])
+                if arr.dtype.kind == "f":
+                    arr = arr.astype(np.float32)
+                t = torch.from_numpy(_pad_to(arr, n_pad))
                 rays_d[k] = (t.pin_memory().to(device, non_blocking=True)
                              if cuda else t)
         host: Dict[str, torch.Tensor] = {}

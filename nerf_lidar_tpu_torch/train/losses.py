@@ -7,10 +7,10 @@ With dynamic objects: the object tables' hash decay (unless
 `obj_nodecay`), the latent regulariser, the symmetry term after
 `sym_start`, and the proposal loss leaves object-covered samples out; the
 budget's `_obj_overflow` / `_obj_hit_frac` ride along as stats.
-
-Terms the port does not compute raise NotImplementedError when their
-multipliers are non-zero: orientation, predicted normals and normal
-supervision.
+Ref-NeRF's orientation and predicted-normal terms read every level's
+normals from the ray history; normal supervision reads the final level's
+composited normals; `data_loss_type='rawnerf'` clips the render at 1 and
+weights the residual by the gradient of a log tone curve.
 
 Under a data mesh (`parallel.DataMesh`, `mesh=`) each rank holds its rows
 of the global batch, and every term is this rank's share of the global
@@ -37,25 +37,13 @@ import torch
 
 from ..configs import Config
 from ..ops import grid as gridlib
-from ..ops import mathx, stepfun
+from ..ops import mathx, ref_utils, stepfun
 
 
 def check_ported(config: Config) -> None:
-    """Raise NotImplementedError on a loss term this port does not compute."""
-    unported = dict(
-        orientation_loss_mult=config.orientation_loss_mult,
-        orientation_coarse_loss_mult=config.orientation_coarse_loss_mult,
-        predicted_normal_loss_mult=config.predicted_normal_loss_mult,
-        predicted_normal_coarse_loss_mult=(
-            config.predicted_normal_coarse_loss_mult),
-        normal_supervision=config.normal_supervision)
-    for name, value in unported.items():
-        if value:
-            raise NotImplementedError(f"{name}={value!r}: this loss term is "
-                                      "not ported")
-    if config.data_loss_type not in ("charb", "mse"):
-        raise NotImplementedError(
-            f"data_loss_type={config.data_loss_type!r} is not ported")
+    """Raise NotImplementedError on a data loss neither package has."""
+    if config.data_loss_type not in ("charb", "mse", "rawnerf"):
+        raise NotImplementedError(config.data_loss_type)
 
 
 def _count(total, mesh=None):
@@ -118,8 +106,8 @@ def masked_quantile(x, mask, q: float):
 
 
 def data_loss(batch, renderings, config: Config, mesh=None):
-    """Charbonnier or MSE photometric loss over every level; returns (loss,
-    [levels] MSEs for the PSNR stat)."""
+    """Charbonnier, MSE or RawNeRF photometric loss over every level;
+    returns (loss, [levels] MSEs for the PSNR stat)."""
     lossmult = batch["rgb_mask"][..., None].to(torch.float32).expand(
         batch["rgb"][..., :3].shape)
     if "lossmult" in batch:
@@ -132,8 +120,15 @@ def data_loss(batch, renderings, config: Config, mesh=None):
         mses.append((lossmult * resid_sq).sum() / denom)
         if config.data_loss_type == "mse":
             dl = resid_sq
-        else:
+        elif config.data_loss_type == "charb":
             dl = torch.sqrt(resid_sq + config.charb_padding**2)
+        else:
+            # RawNeRF: the render clipped at 1 (sensor saturation), the
+            # residual weighted by the gradient of the log tone curve so
+            # that dark linear-HDR regions count.
+            rgb_clip = torch.clamp(rendering["rgb"], max=1.0)
+            scaling_grad = 1.0 / (1e-3 + rgb_clip.detach())
+            dl = (rgb_clip - batch["rgb"][..., :3]) ** 2 * scaling_grad**2
         losses.append((lossmult * dl).sum() / denom)
     loss = (config.data_coarse_loss_mult * sum(losses[:-1])
             + config.data_loss_mult * losses[-1])
@@ -218,6 +213,48 @@ def distortion_loss(ray_history, config: Config, mesh=None):
     last = ray_history[-1]
     return config.distortion_loss_mult * _share(stepfun.lossfun_distortion(
         last["sdist"], last["weights"]).mean(), mesh)
+
+
+def orientation_loss(batch, ray_history, config: Config, mesh=None):
+    """Ref-NeRF orientation loss over the levels whose history holds
+    `orientation_loss_target`."""
+    total = batch["viewdirs"].new_zeros(())
+    for i, rr in enumerate(ray_history):
+        n = rr.get(config.orientation_loss_target)
+        if n is None:
+            continue
+        mult = (config.orientation_coarse_loss_mult
+                if i < len(ray_history) - 1 else config.orientation_loss_mult)
+        total = total + mult * _share(ref_utils.orientation_loss(
+            rr["weights"], n, batch["viewdirs"]), mesh)
+    return total
+
+
+def predicted_normal_loss(ray_history, config: Config, mesh=None):
+    """Predicted normals against the (detached) density normals, over the
+    levels that have both."""
+    total = ray_history[-1]["weights"].new_zeros(())
+    for i, rr in enumerate(ray_history):
+        if rr.get("normals") is None or rr.get("normals_pred") is None:
+            continue
+        mult = (config.predicted_normal_coarse_loss_mult
+                if i < len(ray_history) - 1
+                else config.predicted_normal_loss_mult)
+        total = total + mult * _share(ref_utils.predicted_normal_loss(
+            rr["weights"], rr["normals"].detach(), rr["normals_pred"]), mesh)
+    return total
+
+
+def normal_supervision_loss(batch, renderings, config: Config, mesh=None):
+    """Pseudo-normal supervision: L1 + (1 - cos) on non-sky rays (0 without
+    rendered or given normals)."""
+    if "normals" not in renderings[-1] or "normals" not in batch:
+        return batch["rgb"].new_zeros(())
+    mask = batch["rgb_mask"] & (batch["semantic"] != 10)
+    pred, pseudo = renderings[-1]["normals"], batch["normals"]
+    per_ray = (torch.abs(pred - pseudo).sum(-1)
+               + (1 - torch.sum(pred * pseudo, dim=-1)))
+    return 0.1 * _masked_mean(per_ray, mask, mesh)
 
 
 def hash_decay_loss(model, config: Config, use_kernels: bool = True):
@@ -323,6 +360,17 @@ def compute_losses(model, batch, renderings, ray_history, config: Config,
     if config.hash_decay_mults > 0:
         losses["hash_decay"] = _share(
             hash_decay_loss(model, config, use_kernels), mesh)
+    if config.orientation_loss_mult > 0 or \
+            config.orientation_coarse_loss_mult > 0:
+        losses["orientation"] = orientation_loss(batch, ray_history, config,
+                                                 mesh)
+    if config.predicted_normal_loss_mult > 0 or \
+            config.predicted_normal_coarse_loss_mult > 0:
+        losses["predicted_normals"] = predicted_normal_loss(ray_history,
+                                                            config, mesh)
+    if config.normal_supervision and "normals" in batch:
+        losses["normals"] = normal_supervision_loss(batch, renderings,
+                                                    config, mesh)
     if config.model.latent_size > 0:
         losses["latent_reg"] = _share(latent_reg(model, config), mesh)
     if config.model.symmetrize and "loss_sym" in renderings[-1]:

@@ -6,7 +6,10 @@ as the JAX `optax.multi_transform`: `model`, and with pose refinement
 set on the host each step from its own schedule at the optimizer's update
 count (0 for the first update, as optax's `scale_by_schedule` counts):
 `lr_schedule`, and `posenet_schedule` / `tracknet_schedule`, which are 0
-outside their step windows. Every gradient is NaN-scrubbed; then each
+outside their step windows. The model group holds every parameter of
+the scene model, its GLO vectors and exposure offsets included (the JAX
+"model" subtree), and the training forward reads the rays' GLO vectors
+(`zero_glo` off with GLO). Every gradient is NaN-scrubbed; then each
 group is clipped by its own global norm and by value, as each group's
 optax chain clips. The pose deltas move the batch (by `cam_idx`) and the
 track deltas the tracks before the forward; both start at zero.
@@ -177,7 +180,9 @@ def train_step(model, optimizer: torch.optim.Optimizer, config: Config,
     renderings, ray_history = model(batch, train_frac=train_frac,
                                     use_kernels=use_kernels, train=True,
                                     generator=generator, tracks=tracks,
-                                    track_mask=track_mask, mesh=mesh)
+                                    track_mask=track_mask, mesh=mesh,
+                                    zero_glo=config.model.num_glo_features
+                                    == 0)
     losses = losses_lib.compute_losses(
         model, batch, renderings, ray_history, config, step,
         num_patch_rays=num_patch_rays, use_kernels=use_kernels, mesh=mesh)

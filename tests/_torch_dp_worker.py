@@ -124,7 +124,8 @@ def cli_runs(mesh, argvs, record_batches=0, env=None, cwd=None):
     """cli.main of each argv in this rank's working directory (`cwd[rank]`
     when given) with this rank's `env[rank]` set; the first
     `record_batches` batches that train_step is handed, the runs' seeds,
-    and the files under exp/ afterwards."""
+    states (and eval's steps and metrics), and the files under exp/
+    afterwards."""
     from nerf_lidar_tpu_torch import cli
     from nerf_lidar_tpu_torch.train import train_step
 
@@ -148,7 +149,9 @@ def cli_runs(mesh, argvs, record_batches=0, env=None, cwd=None):
             run = cli.main(argv)
             runs.append(dict(seed=run.cfg.seed, state={
                 k: v.detach().numpy().copy()
-                for k, v in run.model.state_dict().items()}))
+                for k, v in run.model.state_dict().items()},
+                steps=getattr(run, "steps", None),
+                metrics=getattr(run, "metrics", None)))
     finally:
         train_step.train_step = step_fn
     files = sorted(os.path.join(root, n) for root, _, names in

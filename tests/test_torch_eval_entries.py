@@ -18,6 +18,7 @@ import glob
 import json
 import os
 import shutil
+import sys
 import types
 
 import jax.numpy as jnp
@@ -214,9 +215,14 @@ def test_render_entry_panels_and_frames(field, path):
                                            err_msg=k)
 
 
-def test_entries_refuse(field):
-    with pytest.raises(SystemExit, match="imageio.*ffmpeg"):
-        cli.main(["render", *PORT, "--video"])
+def test_entries_refuse(field, monkeypatch):
+    # --video joins the frames through imageio (tests/test_torch_loaders.py
+    # runs it): what refuses is a machine without imageio, before rendering.
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "imageio", None)
+        m.setitem(sys.modules, "imageio.v2", None)
+        with pytest.raises(SystemExit, match="needs imageio"):
+            cli.main(["render", *PORT, "--video"])
     with pytest.raises(SystemExit, match="no checkpoint in exp/none"):
         cli.main(["eval", *PORT, "--exp_name", "none"])
     with pytest.raises(SystemExit, match="no such file"):

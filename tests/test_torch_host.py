@@ -127,12 +127,31 @@ def test_build_config_from_json_equals_jax(tmp_path):
     assert got.batch_size == 64 and cli.exp_dir(got) == jcli.exp_dir(want)
 
 
-def test_unported_loaders_refuse():
-    for loader in ("llff", "blender", "colmap", "tat_nerfpp", "dtu"):
+def test_unported_loaders_refuse(tmp_path, monkeypatch):
+    """Every loader of the JAX CLI is ported (each name reaches its
+    module, `tests/test_torch_loaders.py` holds them equal to JAX's); what
+    still refuses is a capture the loaders cannot read: a directory with
+    neither a COLMAP model nor a transforms.json, as in JAX."""
+    from nerf_lidar_tpu_torch.data import llff, tat_dtu
+    called = []
+    for mod, name in ((llff, "load_scene"), (tat_dtu, "load_tat_nerfpp"),
+                      (tat_dtu, "load_tat_fvs"), (tat_dtu, "load_dtu")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **kw:
+                            called.append(_n) or "scene")
+    for loader in ("llff", "blender", "colmap", "tat_nerfpp", "tat_fvs",
+                   "dtu"):
         cfg = dataclasses.replace(configs.tiny_debug(),
                                   dataset_loader=loader, data_dir="x")
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.load_scene_for(cfg)
+        assert cli.load_scene_for(cfg) == "scene"
+    assert called == ["load_scene"] * 3 + ["load_tat_nerfpp", "load_tat_fvs",
+                                            "load_dtu"]
+    monkeypatch.undo()
+    for mod in (cli, jcli):
+        cfgs = configs if mod is cli else jconfigs
+        cfg = dataclasses.replace(cfgs.tiny_debug(), dataset_loader="llff",
+                                  data_dir=str(tmp_path))
+        with pytest.raises(FileNotFoundError, match="no COLMAP sparse"):
+            mod.load_scene_for(cfg)
 
 
 # ---------------------------------------------------------------- data
@@ -575,6 +594,63 @@ def test_marching_equals_jax(monkeypatch, tmp_path, r):
             (tmp_path / "j.ply").read_bytes()
 
 
+# ------------------------------------------------------- raw, colmap
+def test_raw_copy_equals_jax(tmp_path):
+    """utils/raw.py: the Bayer mask, the demosaic, the EXIF processing,
+    the raw dataset (mosaics, exposures, the exposure point), the sRGB
+    postprocessing and the affine match, exactly as the original."""
+    from nerf_lidar_tpu.utils import raw as jraw
+    from nerf_lidar_tpu_torch.data import synth_llff
+    from nerf_lidar_tpu_torch.utils import raw
+    root = synth_llff.write_capture(str(tmp_path / "c"), num_views=3,
+                                    height=10, width=14, raw=True)
+    names = sorted(n for n in os.listdir(os.path.join(root, "raw"))
+                   if n.endswith(".npy"))
+    for n_down in (1, 2):
+        got, gmeta = raw.load_raw_dataset(root, names, n_downsample=n_down)
+        want, wmeta = jraw.load_raw_dataset(root, names,
+                                            n_downsample=n_down)
+        assert_same(got, want)
+        for k in ("exposure_idx", "exposure_values", "cam2rgb",
+                  "exposure", "unique_shutters"):
+            assert_same(np.asarray(gmeta[k]), np.asarray(wmeta[k]), k)
+        assert_same(gmeta["postprocess_fn"](got[0]),
+                    wmeta["postprocess_fn"](want[0]))
+    rng = np.random.RandomState(0)
+    x, y = rng.randint(0, 9, 50), rng.randint(0, 9, 50)
+    assert_same(raw.pixels_to_bayer_mask(x, y),
+                jraw.pixels_to_bayer_mask(x, y))
+    a, b = rng.rand(6, 5, 3), rng.rand(6, 5, 3)
+    assert_same(raw.match_images_affine(a, b), jraw.match_images_affine(a, b))
+    assert_same(raw.bilinear_demosaic(a[..., 0]),
+                jraw.bilinear_demosaic(a[..., 0]))
+
+
+def test_colmap_copy_equals_jax(tmp_path):
+    """data/colmap.py: a binary and a text model written by the port read
+    back by both packages' readers to the same poses, intrinsics and
+    distortion; the JAX writer's bytes equal the port's."""
+    from nerf_lidar_tpu.data import colmap as jcolmap
+    from nerf_lidar_tpu_torch.data import colmap, synth_llff
+    for kw in ({}, dict(text_model=True)):
+        root = synth_llff.write_capture(str(tmp_path / str(len(kw))),
+                                        num_views=4, height=8, width=10,
+                                        **kw)
+        sparse = os.path.join(root, "sparse", "0")
+        assert_same(colmap.load_nerf_poses(sparse),
+                    jcolmap.load_nerf_poses(sparse))
+    cams, images, _ = colmap.read_model(sparse)
+    for mod, name in ((colmap, "port"), (jcolmap, "jax")):
+        d = tmp_path / name
+        os.makedirs(d)
+        mod.write_cameras_bin(str(d / "cameras.bin"), cams)
+        mod.write_images_bin(str(d / "images.bin"), images)
+        mod.write_points3d_bin(str(d / "points3D.bin"), np.eye(3))
+    for f in ("cameras.bin", "images.bin", "points3D.bin"):
+        assert (tmp_path / "port" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes(), f
+
+
 # ----------------------------------------------------------- isolation
 _ISOLATED = """
 import importlib, os, pkgutil, sys
@@ -602,6 +678,21 @@ objs = ['--config', 'tiny_debug', '--data_dir', 'scene', '--device', 'cpu',
         '--set', 'track_refine=true', '--set', 'track_start_opt=0']
 run = cli.main(['train', *objs, '--steps', '2'])
 assert run.tracknet is not None and run.cfg.model.num_objects == 1
+assert cli.main(['validate_scene', 'scene', '--sensor_num', '1']).code == 0
+# A COLMAP capture through the llff loader, with GLO, predicted normals and
+# roughness through the IDE, and the orientation loss.
+from nerf_lidar_tpu_torch.data import synth_llff
+synth_llff.write_capture('cap', num_views=5, height=12, width=16)
+llff = cli.main(['train', '--config', 'tiny_debug', '--data_dir', 'cap',
+                 '--device', 'cpu', '--exp_name', 'iso_llff', '--steps', '2',
+                 '--set', 'dataset_loader=llff', '--set', 'llffhold=4',
+                 '--set', 'model.num_glo_features=4',
+                 '--set', 'model.nerf_mlp.num_glo_features=4',
+                 '--set', 'model.nerf_mlp.use_directional_enc=true',
+                 '--set', 'model.nerf_mlp.enable_pred_normals=true',
+                 '--set', 'model.nerf_mlp.enable_pred_roughness=true',
+                 '--set', 'orientation_loss_mult=0.1'])
+assert llff.model.glo_vecs.weight.shape == (1000, 4)
 cli.main(['render_lidar', *objs, '--mode', 'replay', '--num_sweeps', '2',
           '--azimuth_steps', '8', '--params', run.params])
 cli.main(['render_video', *objs, '--mode', 'laneshift', '--num_frames', '1',
@@ -670,8 +761,10 @@ print('MODULES', len(names))
 
 def test_port_runs_without_the_jax_package(tmp_path):
     """Every module of the port imported, two tiny_debug train steps, a
-    render and a mesh extraction on the CPU, on the synthetic scene and on
-    a synth_nusc scene with its moving car (objects, tracknet, replay
+    render and a mesh extraction on the CPU, on the synthetic scene, on a
+    COLMAP capture through the llff loader (GLO, predicted normals, the
+    IDE, the orientation loss; `validate_scene` on the synth_nusc scene)
+    and on a synth_nusc scene with its moving car (objects, tracknet, replay
     render, render_video, render_instance, an object MLP written and
     transplanted by train --obj_ckpt), then the ray-drop CLIs on that
     render (features, the VGG / Darknet converters, training with both
@@ -735,7 +828,8 @@ def test_copies_name_their_original():
                 "data/synthetic.py", "data/nuscenes.py",
                 "data/synth_nusc.py", "lidar/range_image.py",
                 "lidar/export.py", "raydrop/features.py",
-                "utils/marching.py"):
+                "utils/marching.py", "utils/raw.py", "data/colmap.py",
+                "data/llff.py", "data/tat_dtu.py", "data/validate.py"):
         with open(os.path.join(PORT, rel)) as f:
             first = f.readline()
         assert first.startswith(f"# Copy of nerf_lidar_tpu/{rel} "), rel

@@ -200,13 +200,16 @@ def test_cli_import_leaves_jax_out():
 
 
 def test_unported_flags_raise():
-    """What still refuses: a non-constant background and the MLP flags
-    below. Dynamic objects and the object-MLP flags (fixed_semantic,
-    latent_size with split_latent, re_weights=False, warp_fn=None,
-    density_init, obj_mode) build; a per-class slot list that does not
-    name every object slot is refused. The field presets' flags, refused
-    before (ms_coarse_res_cutoff, diff_inputs=False, interp='tetra', the
-    spectral encoder, compute_dtype='bfloat16'), now build."""
+    """What still refuses: an MLP compute dtype and a warp neither package
+    has (the JAX Dense takes only float32 / bfloat16 policies here, and
+    `track_linearize` only 'contract'). Dynamic objects and the object-MLP
+    flags (fixed_semantic, latent_size with split_latent, re_weights=False,
+    warp_fn=None, density_init, obj_mode) build; a per-class slot list
+    that does not name every object slot is refused. The field presets'
+    flags (ms_coarse_res_cutoff, diff_inputs=False, interp='tetra', the
+    spectral encoder, compute_dtype='bfloat16'), the background range,
+    GLO, learned exposure and the Ref-NeRF flags, refused before, now
+    build (`tests/test_torch_field_features.py` holds them to JAX)."""
     m = tconfigs.tiny_debug().model
     objs = Model(dataclasses.replace(m, instance_obj=True, num_objects=2,
                                      latent_size=8), device="meta")
@@ -219,13 +222,22 @@ def test_unported_flags_raise():
     with pytest.raises(ValueError):
         Model(dataclasses.replace(m, instance_obj=True, num_objects=2,
                                   obj_class_ids=(13,)), device="meta")
-    with pytest.raises(NotImplementedError):
-        Model(dataclasses.replace(m, bg_intensity_range=(0.0, 1.0)),
-              device="meta")
+    full = Model(dataclasses.replace(
+        m, bg_intensity_range=(0.0, 1.0), num_glo_features=4,
+        learned_exposure_scaling=True, nerf_mlp=dataclasses.replace(
+            m.nerf_mlp, num_glo_features=4)), device="meta")
+    assert full.glo_vecs.weight.shape == (1000, 4)
+    assert full.exposure_scaling_offsets.weight.shape == (1000, 3)
+    assert len(full.nerf_mlp.glo_layers) == 2
     for flag in (dict(use_directional_enc=True),
                  dict(scale_featurization=True),
                  dict(disable_density_normals=False),
-                 dict(compute_dtype="float16")):
+                 dict(use_reflections=True, enable_pred_normals=True,
+                      enable_pred_roughness=True, use_n_dot_v=True,
+                      use_diffuse_color=True, use_specular_tint=True)):
+        ZipMLP(dataclasses.replace(m.nerf_mlp, **flag), device="meta")
+    for flag in (dict(compute_dtype="float16"),
+                 dict(warp_fn="piecewise")):
         with pytest.raises(NotImplementedError):
             ZipMLP(dataclasses.replace(m.nerf_mlp, **flag), device="meta")
     g = m.nerf_mlp.grid

@@ -17,6 +17,7 @@ import glob
 import json
 import os
 import shutil
+import sys
 import types
 
 import flax.serialization
@@ -141,10 +142,11 @@ def test_render_video_equals_jax(field, mode):
     _close(run.frames[0], want, mode)
 
 
-def test_render_video_hq_and_refusals(field):
+def test_render_video_hq_and_refusals(field, monkeypatch):
     """--hq renders 256 + 64 proposal and 64 NeRF samples (two proposal
-    levels, as the nuScenes presets have; a seeded init here); --video and
-    a missing checkpoint are refused."""
+    levels, as the nuScenes presets have; a seeded init here); --video on
+    a machine without imageio (it joins the frames through imageio,
+    tests/test_torch_loaders.py) and a missing checkpoint are refused."""
     run = cli.main(["render_video", *SCENE_ARGS, "--device", "cpu",
                     "--exp_name", "hq", "--allow_fresh",
                     "--set", "model.num_prop_samples=(8,8)",
@@ -153,8 +155,11 @@ def test_render_video_hq_and_refusals(field):
     assert run.cfg.model.num_prop_samples == (256, 64)
     assert run.cfg.model.num_nerf_samples == 64
     assert np.isfinite(run.frames[0]["depth"]).all()
-    with pytest.raises(SystemExit, match="imageio.*ffmpeg"):
-        cli.main(["render_video", *PORT, "--video"])
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "imageio", None)
+        m.setitem(sys.modules, "imageio.v2", None)
+        with pytest.raises(SystemExit, match="needs imageio"):
+            cli.main(["render_video", *PORT, "--video"])
     with pytest.raises(SystemExit, match="no checkpoint in exp/none"):
         cli.main(["render_video", *SCENE_ARGS, "--device", "cpu",
                   "--exp_name", "none"])

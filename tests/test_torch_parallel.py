@@ -342,3 +342,39 @@ def test_device_cuda_is_the_local_rank(monkeypatch):
     assert cli._device("cuda") == torch.device("cuda", 3)
     assert cli._device("cuda:1") == torch.device("cuda", 1)
     assert cli._device("cpu") == torch.device("cpu")
+
+
+def test_eval_follow_on_two_ranks(tmp_path):
+    """`eval --follow` under a data mesh: rank 0 polls its experiment
+    directory (rank 1 works in another, which holds no checkpoint), both
+    ranks evaluate the step rank 0 found with rank 0's weights, each
+    rendering its rows of every chunk, and stop after --steps; the
+    metrics equal one process's eval of the same weights."""
+    base = ["--config", "tiny_debug", "--set", "dataset_loader=synthetic",
+            "--device", "cpu", "--exp_name", "f"]
+    dirs = [str(tmp_path / f"rank{r}") for r in range(2)]
+    for d in dirs:
+        os.makedirs(d)
+    here = os.getcwd()
+    os.chdir(dirs[0])
+    try:
+        cli.main(["train", *base, "--steps", "2"])
+        want = cli.main(["eval", *base, "--exp_name", "one", "--params",
+                         os.path.join("exp", "f", "params_2.npz"),
+                         "--max_views", "1"]).metrics
+    finally:
+        os.chdir(here)
+    ranks = dp.launch([dict(fn="cli_runs", cwd=dirs, argvs=[
+        ["eval", *base, "--follow", "--steps", "2", "--poll_every", "0.1",
+         "--follow_timeout", "20", "--max_views", "1"]])], 2, str(tmp_path),
+        TIMEOUT_S)
+    runs = [r["results"][0]["runs"][0] for r in ranks]
+    assert [r["steps"] for r in runs] == [[2], [2]]
+    for run in runs:
+        assert {k: v for k, v in run["metrics"].items()
+                if k != "median_render_time_s"} == {
+            k: v for k, v in want.items() if k != "median_render_time_s"}
+    for name, v in runs[0]["state"].items():
+        np.testing.assert_array_equal(runs[1]["state"][name], v,
+                                      err_msg=name)
+    assert os.listdir(dirs[1]) == []
