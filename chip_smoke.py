@@ -119,6 +119,9 @@ Phases (each raises on failure, so the script exits non-zero):
    one train step in float64 (at RD_LOSS_TOL / RD_GRAD_TOL / RD_BN_TOL) and
    in float32 (its loss; its gradients reported); and the times of a train
    step (VGG; VGG + Darknet), a predict, and features / drop per sweep;
+   the VGG step in turns with the port's resize and cross-entropy
+   (interpolation matrices, a one-hot), torch's (`F.interpolate`,
+   `F.cross_entropy`), and under `cli.deterministic_mode`;
 14. evaluation, on [13]'s scene and field: the port's `eval` (every test
    view; K1 and H1), `lidar_eval --max_rays 0` (every replayed return,
    seeded per-point labels for the mIoU path; K1 and H1) and `render
@@ -131,7 +134,7 @@ Phases (each raises on failure, so the script exits non-zero):
    writer) and evaluated through the port's decoder: metrics and images
    equal to the .npz's; PSNR / SSIM card vs CPU (rtol 1e-5) and Chamfer vs
    a float64 k-d tree (rtol 1e-5) on lidar_eval's clouds and on seeded
-   clouds of 35,200 and 10^6 points; eval s/view, lidar_eval s, Chamfer
+   clouds of 35,200 and 5 x 10^5 points; eval s/view, lidar_eval s, Chamfer
    ms, peak GiB.
 15. the field presets: `nuscenes_single_fast` and `nuscenes_single_speed`
    train PRESET_STEPS steps each through the `train` entry at full width
@@ -204,9 +207,36 @@ Phases (each raises on failure, so the script exits non-zero):
    exposure keys); `validate_scene` on [13]'s scene (no ERROR); with the
    profiler phases, H1 / H1-bwd per grid, K1 and K3 on this path's own
    inputs.
+19. determinism (torch's deterministic algorithms; `--deterministic`):
+   on [8]'s recorded train inputs of every grid, H1-bwd's deterministic
+   d_table (`hash_encode_ms_bwd_fixed` + `fixed_to_float`) the same bits
+   on 3 fresh copies and in both block orders, against the float twin
+   (4096 float32 eps of each entry's |terms| + half a quantum a term) and
+   the plain deterministic twin (+ one quantum a term), and against the
+   atomic kernel at [6]'s tolerance; the bound S and quantum per level,
+   the peak memory of a call; K3's deterministic variant at each grid's
+   hash-decay level sums and at K3's own shape (rows 2^17, N 2^22, C16)
+   bit-identical to its plain twin and within half a quantum a term (and
+   the sum's rounding to float32) of float64; the d_x01 / d_stds gather
+   pass (`hash_encode_ms_pos_grads`) on [12]'s recorded object-grid call
+   and [15]'s `_fast` NeRF call (mean-point levels): the same bits on 3
+   copies, against the plain version and the atomic kernel at [6]'s
+   tolerance; device times beside the atomic kernels (on the NeRF grid and
+   K3's shape in turns, by kernel, and under the switch with and without
+   torch's fill of uninitialized memory), the bound and (K3) `index_add_`
+   under the switch; then `train --deterministic` twice from one seed on
+   `nuscenes_single` (DET_STEPS steps, 20,480 rays a step; once more
+   without the fill), on [12]'s object scene with the tracknet live
+   (DET_OBJ_STEPS; the d_x01 pass) and on `nuscenes_single_fast`
+   (DET_FAST_STEPS; tetrahedral, mean-point and C16 modes): every
+   parameter, buffer, Adam moment and logged stat equal to the bit, no
+   atomic kernel launched; `raydrop_train --deterministic` twice on [13]'s
+   features (VGG loss), the same; each beside the default mode's two runs
+   (their difference printed, not a condition); ms/step and peak GiB of
+   both modes.
 The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17, 18,
 12-profiled, 15-profiled, 16-profiled, 18-profiled, 8-profiled, 6, 7, 9,
-10, 11: [4]
+10, 11, 19 ([19] last: it turns torch's process-wide switch on and off): [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -229,7 +259,10 @@ over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
 and K3 on the object grid under "obj_grid", H1 and H1-bwd per [15] path
 and grid under "preset_modes", H1 on [16]'s lattice chunk under
 "lattice_chunk", [18]'s numbers of each kernel on its path under
-"refnerf"), the nvidia-smi line,
+"refnerf", [19]'s under "deterministic" of H1-bwd and K3, with their
+launches on [19]'s paths `train_static_deterministic`,
+`train_objects_deterministic`, `train_fast_deterministic`), the
+nvidia-smi line,
 then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -366,16 +399,15 @@ def cuda_ms_once(fn):
     return start.elapsed_time(end), out
 
 
-def device_ms(fn, iters=50):
-    """Device milliseconds per call of fn: the summed time of the device
-    activities (kernels, copies, fills) of `iters` calls under
-    torch.profiler, so host launch gaps between short kernels do not
-    count. This card's tracer now and then drops activities from a session
-    (late in a long process, the first launch of every session, or most of
-    them), so a session counts only if each activity name appears a whole
-    multiple of `iters` times; up to five are taken, and if none is whole,
-    the last one counts each name's mean duration times its launches per
-    call, rounded. If that is zero too, CUDA events time fn, with a note."""
+def device_spans(fn, iters=50):
+    """{device activity name: its device milliseconds per call of fn}, from
+    `iters` calls under torch.profiler, so host launch gaps between short
+    kernels do not count. This card's tracer now and then drops activities
+    from a session (late in a long process, the first launch of every
+    session, or most of them), so a session counts only if each activity
+    name appears a whole multiple of `iters` times; up to five are taken,
+    and if none is whole, the last one gives each name's mean duration
+    times its launches per call, rounded."""
     import statistics
     import torch
     from torch.autograd import DeviceType
@@ -393,14 +425,58 @@ def device_ms(fn, iters=50):
             if e.device_type == DeviceType.CUDA:
                 spans.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if spans and all(len(v) % iters == 0 for v in spans.values()):
-            return sum(map(sum, spans.values())) / 1e3 / iters
-    us = sum(statistics.fmean(v) * round(len(v) / iters)
-             for v in spans.values())
-    if us > 0:
-        return us / 1e3
+            return {k: sum(v) / 1e3 / iters for k, v in spans.items()}
+    return {k: statistics.fmean(v) * round(len(v) / iters) / 1e3
+            for k, v in spans.items()}
+
+
+def device_ms(fn, iters=50):
+    """Device milliseconds per call of fn: the summed time of its device
+    activities (kernels, copies, fills) by `device_spans`. If that is zero,
+    CUDA events time fn, with a note."""
+    ms = sum(device_spans(fn, iters).values())
+    if ms > 0:
+        return ms
     print("    (torch.profiler recorded no whole launch in five sessions: "
           "CUDA events instead)")
     return cuda_ms(fn, iters)
+
+
+def queued_ms(fn, iters=20):
+    """Device ms per call of fn by CUDA events around `iters` calls queued
+    behind a device sleep (`torch.cuda._sleep`), so the kernels run back
+    to back and a wrapper's host side, longer than a short kernel, does not
+    count. The sleep outlasts the host's enqueueing by twice its measured
+    time, doubled up to twice more while the host outlasts it; None if it
+    still does."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10**6)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10**6 / start.elapsed_time(end)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    sleep_ms = 2e3 * (time.perf_counter() - t) + 5
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        t = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        if queued < sleep_ms:
+            return start.elapsed_time(end) / iters
+        sleep_ms *= 2
+    return None
 
 
 def nbytes(*tensors):
@@ -2226,7 +2302,7 @@ def phase_objects(dev):
                                         for p, c in on_obj_grid.items()}
         return obj_grid
 
-    return dict(paths=paths, profiled=profiled)
+    return dict(paths=paths, profiled=profiled, det_rec=bwd_rec)
 
 
 def _rd_host_step(trainer, state, batch, shift, noise, dtype):
@@ -2523,9 +2599,52 @@ def phase_raydrop(dev):
           f"earlier phases hold) with VGG "
           f"{peak_vgg / 2**30:.2f} GiB, with VGG + Darknet "
           f"{peak_dk / 2**30:.2f} GiB")
+    forms = rd_form_times(lambda: step_ms(vgg_trainer, rd.state))
+    print(f"[13] raydrop_train step with VGG by the forms of its resize and "
+          f"cross-entropy (the port's: interpolation matrices, a one-hot), "
+          f"in turns (ms, median of 10 each turn): "
+          + "; ".join(f"{k} {v}" for k, v in forms.items()))
     del rd, dk, drop, trainer, state, vgg_trainer, cpu_model, cpu_state
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def torch_rd_forms():
+    """Within the block the ray-drop modules resize by `F.interpolate` and
+    take `F.cross_entropy`, torch's forms of the port's interpolation
+    matrices (`unet.resize_bilinear`) and one-hot cross-entropy
+    (`trainer.cross_entropy`)."""
+    import torch.nn.functional as F
+    from nerf_lidar_tpu_torch.raydrop import pretrain, trainer, unet, vgg
+    saved = [(m, "resize_bilinear", m.resize_bilinear)
+             for m in (unet, vgg, pretrain)]
+    saved.append((trainer, "cross_entropy", trainer.cross_entropy))
+    for m in (unet, vgg, pretrain):
+        m.resize_bilinear = lambda x, size: F.interpolate(
+            x, size=size, mode="bilinear", align_corners=False)
+    trainer.cross_entropy = F.cross_entropy
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def rd_form_times(step_ms):
+    """[13] `step_ms()` (a U-Net train step's median ms) in turns: the
+    port's resize and cross-entropy, torch's (`torch_rd_forms`), and the
+    port's under `cli.deterministic_mode()`. Returns {form: [ms of each
+    turn]}."""
+    from nerf_lidar_tpu_torch import cli
+    cases = {"port's": contextlib.nullcontext,
+             "torch's F.interpolate, F.cross_entropy": torch_rd_forms,
+             "deterministic mode": cli.deterministic_mode}
+    out = {k: [] for k in cases}
+    for name in [*cases, *reversed(cases)]:
+        with cases[name]():
+            out[name].append(round(step_ms()[0], 2))
+    return out
 
 
 EVAL_CKPT_EXP = "chip_smoke_eval_ckpt"
@@ -3243,6 +3362,7 @@ def phase_presets(dev):
     paths["render_lidar_spectral_obj"] = objects["render"]
 
     speed_nerf_points = trains["speed"]["inputs"]["nerf"][1:3]
+    det_rec = trains["fast"]["inputs"]["nerf"]  # for [19]
     h1, h1_bwd = {}, {}
     for key in ("fast", "speed", "mxu"):
         h1.update(time_preset_encodes(dev, f"render_lidar_{key}",
@@ -3288,7 +3408,8 @@ def phase_presets(dev):
         torch.cuda.empty_cache()
         return out
 
-    return dict(paths=paths, h1=h1, h1_bwd=h1_bwd, profiled=profiled)
+    return dict(paths=paths, h1=h1, h1_bwd=h1_bwd, profiled=profiled,
+                det_rec=det_rec)
 
 
 def obj_encode(dev, rec, fwd):
@@ -4222,6 +4343,580 @@ def phase_gather_bench(dev):
                 tile_grid_gather=launches["tile_grid_gather"])
 
 
+# [19]: determinism. H1-bwd's deterministic d_table against its float and
+# plain twins: 4096 float32 eps of each entry's summed |terms| plus half a
+# quantum (2^-k of its level and channel) per written-out term against
+# the float sum of the same terms (the written-out backward, index_add_),
+# plus one quantum per term against the plain deterministic twin, which
+# rounds the same merged terms (each side once; a term's float value may
+# differ by the kernel's fused multiply-adds). K3's deterministic variant
+# rounds the same float32 values as its plain twin, with no product
+# before, so it must equal the twin bit for bit, and lie within half a
+# quantum a term of the float64 sum, plus the sum's one rounding to
+# float32 (half its float32 ulp) and float64's own (2^-53 of the terms a
+# term). The d_x01 / d_stds gather pass sums in float32, as the atomic
+# kernel does: [6]'s BWD_TOL of max against the plain version.
+DET_EPS_MULT = 4096
+DET_STEPS = 10
+DET_OBJ_STEPS = 5
+DET_FAST_STEPS = 5
+DET_RD_EPOCHS = 1  # 2 epochs of [13]'s 7 training sweeps: 4 steps
+DET_TRAIN = {
+    "static": ["train", "--config", "nuscenes_single", "--set",
+               "dataset_loader=synthetic", "--steps", str(DET_STEPS)],
+    "objects": ["train", "--config", "nuscenes_single", "--set",
+                "dataset_loader=nusc", "--data_dir", OBJ_SCENE, "--set",
+                "track_start_opt=0", "--steps", str(DET_OBJ_STEPS)],
+    "fast": ["train", "--config", "nuscenes_single_fast", "--set",
+             "dataset_loader=synthetic", "--steps", str(DET_FAST_STEPS)],
+}
+DET_COMMON = ["--set", "print_every=1", "--device", "cuda"]
+# Keys of a train entry's history that are times, not results.
+DET_TIME_KEYS = ("step_s", "rays_per_sec")
+
+
+def det_within(name, got, want, terms, counts, quantum, per_term):
+    """max (|got - want| - 4096 eps32 terms) / quantum over the entries, and
+    the count of entries that differ at all; fails where |got - want|
+    exceeds 4096 eps32 terms + per_term quanta per term."""
+    import torch
+    err = (got.double() - want.double()).abs()
+    allowed = DET_EPS_MULT * EPS32 * terms + per_term * quantum * counts
+    bad = err > allowed
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: {int(bad.sum())} of {got.numel()} entries outside "
+             f"{DET_EPS_MULT} eps of their terms + {per_term} quantum a "
+             f"term (worst excess {float((err - allowed).max())})")
+    beyond = ((err - DET_EPS_MULT * EPS32 * terms) / quantum).clamp(min=0)
+    return dict(max_abs_err=float(err.max()),
+                quanta_beyond_eps=float(beyond.max()),
+                entries_differing=int((err > 0).sum()))
+
+
+def det_exact_within(name, got, exact, terms, counts, quantum):
+    """Fails unless |got - exact| <= quantum counts / 2 + half got's float32
+    ulp + 2^-53 terms counts (exact: the float64 sum). Returns the worst
+    error, and in float32 ulps beyond the quanta."""
+    import torch
+    err = (got.double() - exact.double()).abs()
+    mag = got.abs()
+    ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+           ).double().clamp(min=2.0**-149)
+    allowed = 0.5 * quantum * counts + 0.5 * ulp + 2.0**-53 * terms * counts
+    bad = err > allowed
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: {int(bad.sum())} of {got.numel()} entries outside "
+             f"half a quantum a term + half a float32 ulp (worst excess "
+             f"{float((err - allowed).max())})")
+    beyond = ((err - 0.5 * quantum * counts).clamp(min=0) / ulp)
+    return dict(max_abs_err=float(err.max()),
+                ulps_beyond_quanta=float(beyond.max()),
+                entries_differing=int((err > 0).sum()))
+
+
+def same_values(name, got, want):
+    """Fails unless got equals want bit for bit (NaN where NaN)."""
+    import torch
+    if got.shape != want.shape or not bool(
+            (torch.eq(got, want) | (torch.isnan(got) & torch.isnan(want)))
+            .all()):
+        fail(f"{name}: not bit-identical ("
+             f"{int((got != want).sum())} entries differ)")
+
+
+def short_spans(spans):
+    """device_spans' {name: ms} with names cut before their argument list,
+    largest first, rounded for printing."""
+    out = {}
+    for name, ms in spans.items():
+        key = (name.removeprefix("void ")
+               .replace("(anonymous namespace)::", "")
+               .replace("at::native::", "").split("(")[0][:60].strip())
+        out[key] = out.get(key, 0.0) + ms
+    return {k: round(v, 4) for k, v in sorted(out.items(),
+                                              key=lambda kv: -kv[1])}
+
+
+@contextlib.contextmanager
+def det_switch(fill):
+    """torch's deterministic algorithms on within the block, with
+    `torch.utils.deterministic.fill_uninitialized_memory` = fill (torch's
+    default under the switch: True, every torch.empty filled)."""
+    import torch
+    from torch.utils import deterministic
+    was = (torch.are_deterministic_algorithms_enabled(),
+           deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    deterministic.fill_uninitialized_memory = fill
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        deterministic.fill_uninitialized_memory = was[1]
+
+
+def det_turns(det, atomic, iters, full):
+    """Device ms of det and atomic: with full, in turns (det, atomic,
+    atomic, det) and det also under the switch with and without the fill
+    of uninitialized memory; else once each. Returns {"det": [ms],
+    "atomic": [ms], "det_split": det's first turn by kernel, and with full
+    "switch_fill" / "switch_no_fill": {kernel: ms}}."""
+    out = {"det": [], "atomic": []}
+    for name in ("det", "atomic", "atomic", "det")[:4 if full else 2]:
+        spans = device_spans(det if name == "det" else atomic, iters)
+        out[name].append(round(sum(spans.values()), 4))
+        if name == "det" and "det_split" not in out:
+            out["det_split"] = short_spans(spans)
+    for fill in (True, False) if full else ():
+        with det_switch(fill):
+            out["switch_fill" if fill else "switch_no_fill"] = short_spans(
+                device_spans(det, iters))
+    return out
+
+
+def same_bits(name, runs):
+    """Fails unless every tensor of every run equals the first run's."""
+    import torch
+    for i, run in enumerate(runs[1:], 1):
+        for a, b in zip(runs[0], run):
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a, b)):
+                fail(f"{name}: run {i} differs from run 0")
+
+
+def det_bwd_grid(dev, name, args, cutoff, full):
+    """[19] H1-bwd's deterministic d_table on one grid's recorded train
+    inputs: bit-identical on 3 fresh copies and in both block orders,
+    against its float twin (and, with full, its plain deterministic twin),
+    the bound S and quantum per level, device ms beside the atomic
+    kernel's (with full, in turns and under the switch, `det_turns`) and
+    by kernel, the bound, the peak memory of a call."""
+    import torch
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    table, x01, stds, g_out, spec = args
+    only = (True, False, False)
+    runs = [grid.hash_encode_multisample_bwd_det(
+        *(t.clone() for t in args[:4]), spec, only, cutoff,
+        level_major_order=order) for order in (None, None, None, True, False)]
+    same_bits(f"hash_encode_ms_bwd_det {name} (3 copies, both orders)", runs)
+    got = runs[0][0]
+    del runs
+    terms, counts = grid.table_grad_terms(x01, stds, g_out, spec, cutoff)
+    quantum = grid.table_grad_quantum(g_out, spec)
+    twin_ms, float_twin = cuda_ms_once(
+        lambda: grid.hash_encode_multisample_bwd_plain(
+            *args, only, cutoff)[0])
+    vs_float = det_within(f"hash_encode_ms_bwd_det {name} vs float twin",
+                          got, float_twin, terms, counts, quantum, 0.5)
+    del float_twin
+    det_twin_ms = vs_twin = None
+    if full:
+        det_twin_ms, twin = cuda_ms_once(
+            lambda: grid.hash_encode_multisample_bwd_det_plain(
+                *args, only, cutoff)[0])
+        vs_twin = det_within(f"hash_encode_ms_bwd_det {name} vs det twin",
+                             got, twin, terms, counts, quantum, 1.0)
+        del twin
+    atomic = grid.hash_encode_multisample_bwd(*args, only, cutoff)[0]
+    vs_atomic = rel_err(f"hash_encode_ms_bwd_det {name} vs atomic", got,
+                        atomic, BWD_TOL)
+    del atomic, terms, counts
+    bound_s = grid._abs_bound(g_out.reshape(-1, spec.output_dim)).reshape(
+        spec.num_levels, spec.level_dim).amax(-1)
+    k = grid.fixed_exponents(bound_s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    grid.hash_encode_multisample_bwd_det(*args, only, cutoff)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    turns = det_turns(
+        lambda: grid.hash_encode_multisample_bwd_det(*args, only, cutoff),
+        lambda: grid.hash_encode_multisample_bwd(*args, only, cutoff), 5,
+        full)
+    lim = bound(*hb.bwd_bound(spec, x01, stds, g_out, cutoff))
+    out = dict(max_abs_err=vs_float["max_abs_err"],
+               ms=statistics.fmean(turns["det"]), plain_ms=twin_ms,
+               det_plain_ms=det_twin_ms,
+               atomic_ms=statistics.fmean(turns["atomic"]), library_ms=None,
+               **lim, turns=turns, vs_float_twin=vs_float,
+               vs_det_twin=vs_twin, vs_atomic_rel=vs_atomic[1],
+               bound_s=[float(v) for v in bound_s],
+               quantum=[float(2.0 ** -int(e)) for e in k],
+               peak_gib=peak / 2**30, mode=encode_mode(spec, cutoff))
+    print(f"[19] hash_encode_ms_bwd_det {name} ({out['mode']}, B="
+          f"{stds.shape[0]}): same bits on 3 copies and both orders; vs "
+          f"float twin {vs_float}, vs det twin {vs_twin}, vs atomic "
+          f"{vs_atomic[1]:.2e} of max; S per level {out['bound_s']}, quantum "
+          f"{out['quantum']}; device ms in turns: det {turns['det']}, atomic "
+          f"{turns['atomic']}; det by kernel {turns['det_split']}; under "
+          f"the switch {turns.get('switch_fill')}, without its fill "
+          f"{turns.get('switch_no_fill')}; bound {lim['bound_ms']:.4f} "
+          f"({lim['bound_by']}); float twin {twin_ms:.1f} ms, det twin "
+          f"{det_twin_ms} ms (CUDA events); peak {out['peak_gib']:.3f} GiB "
+          f"a call")
+    return out
+
+
+def det_pos_grads(dev, name, rec):
+    """[19] The deterministic d_x01 / d_stds pass (`hash_encode_ms_pos_grads`:
+    a gather, one thread a sample, no atomics) on a train step's recorded
+    call `rec`: the same bits on 3 fresh copies, against the plain version
+    and the atomic kernel at [6]'s BWD_TOL of max (an all-zero gradient
+    exactly), device ms in turns with the atomic kernel's (`queued_ms`:
+    torch.profiler records no activity of these calls late in the
+    script), the bound (the encode's bytes, d_x01 and d_stds written; a
+    multiply-add per corner channel)."""
+    import torch
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    args = tuple(t.to(dev) for t in rec[:4])
+    spec = rec[4]
+    cutoff = rec[6] if len(rec) > 6 else 0
+    x01, stds = args[1], args[2]
+    asked = (False, True, True)
+    runs = [grid.hash_encode_multisample_bwd_det(
+        *(t.clone() for t in args), spec, asked, cutoff)[1:]
+        for _ in range(3)]
+    same_bits(f"hash_encode_ms_pos_grads {name} (3 copies)", runs)
+    got = runs[0]
+    plain_ms, plain = cuda_ms_once(
+        lambda: grid.hash_encode_multisample_bwd_plain(
+            *args, spec, asked, cutoff)[1:])
+    atomic = grid.hash_encode_multisample_bwd(*args, spec, asked, cutoff)[1:]
+    errs = {}
+    for i, key in enumerate(GRADS[1:]):
+        for what, want in (("plain", plain[i]), ("atomic", atomic[i])):
+            label = f"hash_encode_ms_pos_grads {name} {key} vs {what}"
+            if not bool(want.any()):
+                same_values(label, got[i], want)
+                errs[f"{key} vs {what}"] = 0.0
+            else:
+                errs[f"{key} vs {what}"] = rel_err(label, got[i], want,
+                                                   BWD_TOL)[1]
+    del runs, got, plain
+    det = lambda: grid.hash_encode_multisample_bwd_det(*args, spec, asked,
+                                                       cutoff)
+    atomic = lambda: grid.hash_encode_multisample_bwd(*args, spec, asked,
+                                                      cutoff)
+    turns = {"det": [], "atomic": []}
+    for turn in ("det", "atomic", "atomic", "det"):
+        turns[turn].append(queued_ms(det if turn == "det" else atomic))
+    n_bytes, flops = hb.fwd_bound(spec, x01, stds, cutoff)
+    lim = bound(n_bytes + nbytes(x01, stds), flops)
+    n = stds.shape[-1]
+    mean = lambda v: None if None in v else statistics.fmean(v)
+    out = dict(max_abs_err=max(errs.values()), ms=mean(turns["det"]),
+               plain_ms=plain_ms, atomic_ms=mean(turns["atomic"]),
+               library_ms=None, **lim, errs=errs, turns=turns,
+               mode=encode_mode(spec, cutoff), B=stds.numel() // n, n=n)
+    print(f"[19] hash_encode_ms_pos_grads {name} ({out['mode']}; "
+          f"B={out['B']} n={n}): same bits on 3 copies; errors (of max) "
+          f"{errs}; device ms in turns (CUDA events, calls queued behind a "
+          f"device sleep): det {turns['det']}, atomic {turns['atomic']}; "
+          f"plain {plain_ms:.1f} ms (CUDA events); "
+          f"bound {lim['bound_ms']:.5f} ({lim['bound_by']})")
+    return out
+
+
+def det_scatter(dev, name, idx, vals, rows, full):
+    """[19] K3's deterministic variant: bit-identical on 3 fresh copies and
+    to its plain twin, within half a quantum a term (and the sum's rounding
+    to float32) of float64, device ms beside the atomic K3's (with full,
+    in turns and under the switch, `det_turns`) and by kernel, `index_add_`
+    under torch's deterministic algorithms, and the bound."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import grid
+    runs = [(grid.scatter_add_rows_det(idx.clone(), vals.clone(), rows),)
+            for _ in range(3)]
+    same_bits(f"scatter_add_rows_det {name} (3 copies)", runs)
+    got = runs[0][0]
+    ok = (idx >= 0) & (idx < rows)
+    i64 = idx[ok].long()
+    terms = torch.zeros(rows, vals.shape[1], dtype=torch.float64,
+                        device=dev).index_add_(0, i64, vals[ok].abs().double())
+    counts = torch.zeros(rows, 1, dtype=torch.float64, device=dev).index_add_(
+        0, i64, torch.ones(len(i64), 1, dtype=torch.float64, device=dev))
+    quantum = torch.exp2(-grid.fixed_exponents(grid._abs_bound(vals))
+                         .double()).expand(rows, -1)
+    exact = grid.scatter_add_rows_plain(idx, vals.double(), rows)
+    plain_ms, twin = cuda_ms_once(
+        lambda: grid.scatter_add_rows_det_plain(idx, vals, rows))
+    vs_exact = det_exact_within(f"scatter_add_rows_det {name} vs float64",
+                                got, exact, terms, counts, quantum)
+    same_values(f"scatter_add_rows_det {name} vs det twin", got, twin)
+    del exact, twin, terms, counts
+    turns = det_turns(lambda: grid.scatter_add_rows_det(idx, vals, rows),
+                      lambda: grid.scatter_add_rows(idx, vals, rows), 20,
+                      full)
+    ids64 = idx.long().clamp(0, rows - 1)
+    keep = ok[:, None].to(vals.dtype)
+    kept = vals * keep
+    with det_switch(True):
+        library_ms = device_ms(lambda: vals.new_zeros(
+            rows, vals.shape[1]).index_add_(0, ids64, kept), iters=5)
+    lim = bound(nbytes(idx, vals, got), vals.numel())
+    out = dict(max_abs_err=vs_exact["max_abs_err"],
+               ms=statistics.fmean(turns["det"]), plain_ms=plain_ms,
+               atomic_ms=statistics.fmean(turns["atomic"]),
+               library_ms=library_ms, **lim, turns=turns,
+               vs_float64=vs_exact, vs_det_twin="bit-identical")
+    print(f"[19] scatter_add_rows_det {name} (N={vals.shape[0]} onto {rows},"
+          f" C{vals.shape[1]}): same bits on 3 copies and as its det twin; "
+          f"vs float64 {vs_exact}; device ms in turns: det {turns['det']}, "
+          f"atomic {turns['atomic']}; det by kernel {turns['det_split']}; "
+          f"under the switch {turns.get('switch_fill')}, without its fill "
+          f"{turns.get('switch_no_fill')}; index_add_ (deterministic) "
+          f"{library_ms:.4f}; bound {lim['bound_ms']:.4f} ({lim['bound_by']})"
+          f"; plain twin {plain_ms:.1f} ms (CUDA events)")
+    return out
+
+
+def _train_state(run):
+    """[(name, tensor)] of a train entry's result: parameters and buffers
+    (model, posenet, tracknet), each Adam group's moments and step."""
+    out = []
+    for prefix, mod in (("model", run.model), ("posenet", run.posenet),
+                        ("tracknet", run.tracknet)):
+        if mod is not None:
+            out += [(f"{prefix}.{k}", v.detach().clone())
+                    for k, v in mod.state_dict().items()]
+    for group in run.optimizer.param_groups:
+        for i, p in enumerate(group["params"]):
+            for key, v in run.optimizer.state.get(p, {}).items():
+                out.append((f"adam.{group['name']}.{i}.{key}",
+                            v.detach().clone()))
+    return out
+
+
+def _two_run_diff(a, b):
+    """(bit-identical?, max abs difference) of two runs' [(name, tensor)]
+    states and histories."""
+    import torch
+    sa, ha = a
+    sb, hb_ = b
+    if [k for k, _ in sa] != [k for k, _ in sb]:
+        fail(f"two runs hold different tensors: {len(sa)} vs {len(sb)}")
+    same = all(torch.equal(x, y) for (_, x), (_, y) in zip(sa, sb))
+    diff = max((float((x.double() - y.double()).abs().max())
+                for (_, x), (_, y) in zip(sa, sb) if x.numel()), default=0.0)
+    strip = lambda h: [{k: v for k, v in row.items()
+                        if k not in DET_TIME_KEYS} for row in h]
+    same_hist = strip(ha) == strip(hb_)
+    loss_diff = max(abs(x["loss"] - y["loss"]) for x, y in zip(ha, hb_))
+    return same and same_hist, max(diff, loss_diff)
+
+
+def _det_counters():
+    from nerf_lidar_tpu_torch.ops import grid
+    return dict(hash_encode_ms_bwd=(grid.hash_encode_multisample_bwd,
+                                    "launches"),
+                hash_encode_ms_bwd_det=(grid.hash_encode_multisample_bwd_det,
+                                        "launches"),
+                hash_encode_ms_pos_grads=(
+                    grid.hash_encode_multisample_bwd_det,
+                    "position_launches"),
+                scatter_add_rows=(grid.scatter_add_rows, "launches"),
+                scatter_add_rows_det=(grid.scatter_add_rows_det, "launches"))
+
+
+def det_train_run(dev, key, argv, deterministic, tag):
+    """One run of a train argv in a fresh directory, with or without
+    --deterministic: (its [(name, tensor)] state, history, ms/step of its
+    later half, peak GiB, launches)."""
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    counters = _det_counters()
+    exp = f"chip_smoke_det_{key}_{tag}"
+    full = [*argv, *DET_COMMON, "--exp_name", exp,
+            *(["--deterministic"] if deterministic else [])]
+    fresh_exp_dir(full)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    run = cli.main(full)
+    torch.cuda.synchronize()
+    if torch.are_deterministic_algorithms_enabled():
+        fail("the train entry left torch's deterministic switch on")
+    peak = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    hist = run.history
+    ms = 1e3 * statistics.median(h["step_s"] for h in hist[len(hist) // 2:])
+    out = (_train_state(run), run.history, ms, peak, launches)
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def det_train_pair(dev, key, argv, deterministic):
+    """Two runs of one train argv (fresh directories), with or without
+    --deterministic: (bit-identical?, max difference, ms/step of the
+    first run's later half, its peak GiB, launches of the first run, the
+    first run's (state, history))."""
+    mode = "det" if deterministic else "def"
+    first = det_train_run(dev, key, argv, deterministic, f"{mode}0")
+    second = det_train_run(dev, key, argv, deterministic, f"{mode}1")
+    same, diff = _two_run_diff(first[:2], second[:2])
+    return same, diff, first[2], first[3], first[4], first[:2]
+
+
+def det_raydrop_pair(dev, feats, deterministic):
+    """Two raydrop_train runs of [13]'s features (VGG loss): (bit-identical
+    U-Net state, Adam moments and history?, max difference)."""
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    runs = []
+    for i in range(2):
+        exp = f"chip_smoke_det_raydrop_{'det' if deterministic else 'def'}{i}"
+        shutil.rmtree(os.path.join("exp", exp), ignore_errors=True)
+        rd = cli.main(["raydrop_train", "--features", feats, "--exp_name",
+                       exp, "--epochs", str(DET_RD_EPOCHS), "--batch_size",
+                       "4", "--device", "cuda",
+                       *(["--deterministic"] if deterministic else [])])
+        torch.cuda.synchronize()
+        state = [(k, v.detach().clone())
+                 for k, v in rd.state.model.state_dict().items()]
+        for i_p, p in enumerate(rd.state.model.parameters()):
+            for key, v in rd.state.optimizer.state.get(p, {}).items():
+                state.append((f"adam.{i_p}.{key}", v.detach().clone()))
+        runs.append((state, rd.history))
+        steps = sum(h["steps"] for h in rd.history)
+        del rd
+    same, diff = _two_run_diff(*runs)
+    return same, diff, steps
+
+
+def phase_determinism(dev, train_inputs, pos_inputs):
+    """[19] The deterministic mode: H1-bwd's and K3's deterministic kernels
+    on [8]'s recorded train inputs (and K3's own shape), the d_x01 / d_stds
+    pass on `pos_inputs` ({name: a train step's recorded encode backward
+    call}: [12]'s object grid, [15]'s `_fast` NeRF grid with its
+    mean-point levels), then `train --deterministic` twice per path (static
+    nuscenes_single, [12]'s object scene with track refinement,
+    nuscenes_single_fast; the static path once more without torch's fill
+    of uninitialized memory) and `raydrop_train --deterministic` twice,
+    each beside the default mode's two runs (the evidence that the check
+    sees a difference; not a failure condition). Returns the
+    "deterministic" numbers of the kernels line and the launches by
+    path."""
+    import torch
+    from torch.utils import deterministic as torch_det
+    from nerf_lidar_tpu_torch.ops import grid
+
+    bwd_grids, k3_grids, pos = {}, {}, {}
+    for name, rec in train_inputs.items():
+        table, x01, stds, g_out, spec = rec[:5]
+        cutoff = rec[6] if len(rec) > 6 else 0
+        bwd_grids[name] = det_bwd_grid(dev, name,
+                                       (table, x01, stds, g_out, spec),
+                                       cutoff, full=name == "nerf")
+        k3_grids[name] = det_scatter(dev, f"hash decay {name}",
+                                     grid.level_ids(spec, dev), table**2,
+                                     spec.num_levels, full=name == "nerf")
+        torch.cuda.empty_cache()
+    for name, rec in pos_inputs.items():
+        pos[name] = det_pos_grads(dev, name, rec)
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows, n = 1 << 17, 1 << 22
+    idx = torch.randint(0, rows, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    k3_own = det_scatter(dev, f"rows={rows} N={n}", idx,
+                         torch.randn(n, 16, device=dev, generator=g), rows,
+                         full=True)
+    del idx
+
+    paths, train = {}, {}
+    for key, argv in DET_TRAIN.items():
+        res = {}
+        for det in (True, False):
+            same, diff, ms, peak, launches, first = det_train_pair(
+                dev, key, argv, det)
+            res["det" if det else "default"] = dict(
+                bit_identical=same, max_diff=diff, ms_per_step=ms,
+                peak_gib=peak)
+            if det:
+                if not same:
+                    fail(f"train --deterministic ({key}): two runs differ "
+                         f"(max difference {diff})")
+                if launches["hash_encode_ms_bwd"] or \
+                        launches["scatter_add_rows"]:
+                    fail(f"train --deterministic ({key}) launched an "
+                         f"atomic kernel: {launches}")
+                need = ["hash_encode_ms_bwd_det", "scatter_add_rows_det"]
+                if key == "objects":
+                    need.append("hash_encode_ms_pos_grads")
+                need_launches(f"train --deterministic ({key})", launches,
+                              need)
+                paths[f"train_{key}_deterministic"] = launches
+                if key == "static":
+                    torch_det.fill_uninitialized_memory = False
+                    try:
+                        nofill = det_train_run(dev, key, argv, True,
+                                               "det_nofill")
+                    finally:
+                        torch_det.fill_uninitialized_memory = True
+                    res["det_no_fill"] = dict(
+                        same_as_filled=_two_run_diff(first, nofill[:2])[0],
+                        ms_per_step=nofill[2], peak_gib=nofill[3])
+                    del nofill
+            elif launches["hash_encode_ms_bwd_det"] or \
+                    launches["scatter_add_rows_det"]:
+                fail(f"train ({key}) without the switch launched a "
+                     f"deterministic kernel: {launches}")
+            del first
+        train[key] = res
+        print(f"[19] train {key}: --deterministic twice: bit-identical "
+              f"{res['det']['bit_identical']} (max diff "
+              f"{res['det']['max_diff']}), {res['det']['ms_per_step']:.1f} "
+              f"ms/step, peak {res['det']['peak_gib']:.2f} GiB; default "
+              f"twice: bit-identical {res['default']['bit_identical']} (max "
+              f"diff {res['default']['max_diff']:.3e}), "
+              f"{res['default']['ms_per_step']:.1f} ms/step, peak "
+              f"{res['default']['peak_gib']:.2f} GiB; launches "
+              f"{paths[f'train_{key}_deterministic']}")
+        if "det_no_fill" in res:
+            nf = res["det_no_fill"]
+            print(f"[19] train {key} --deterministic without torch's fill of "
+                  f"uninitialized memory: {nf['ms_per_step']:.1f} ms/step, "
+                  f"peak {nf['peak_gib']:.2f} GiB, the same bits as with it: "
+                  f"{nf['same_as_filled']}")
+
+    feats = os.path.join("exp", RD_EXP, "features.npy")
+    if not os.path.exists(feats):
+        fail(f"[19] needs [13]'s features at {feats}")
+    rd = {}
+    for det in (True, False):
+        same, diff, steps = det_raydrop_pair(dev, feats, det)
+        rd["det" if det else "default"] = dict(bit_identical=same,
+                                               max_diff=diff, steps=steps)
+    if not rd["det"]["bit_identical"]:
+        fail(f"raydrop_train --deterministic: two runs differ (max "
+             f"difference {rd['det']['max_diff']})")
+    print(f"[19] raydrop_train ({rd['det']['steps']} steps, VGG): "
+          f"--deterministic twice bit-identical; default twice: "
+          f"bit-identical {rd['default']['bit_identical']} (max diff "
+          f"{rd['default']['max_diff']:.3e})")
+
+    by_path = lambda name: {p: c[name] for p, c in paths.items()}
+    bwd = dict(bwd_grids["nerf"], grids=bwd_grids,
+               launches=sum(by_path("hash_encode_ms_bwd_det").values()),
+               launches_by_path=by_path("hash_encode_ms_bwd_det"),
+               source=KERNEL_SOURCE, train=train, raydrop=rd,
+               pos_grads=dict(
+                   pos["object grid"], grids=pos,
+                   launches=sum(by_path("hash_encode_ms_pos_grads").values()),
+                   launches_by_path=by_path("hash_encode_ms_pos_grads")))
+    k3 = dict(k3_grids["nerf"], grids=k3_grids,
+              launches=sum(by_path("scatter_add_rows_det").values()),
+              launches_by_path=by_path("scatter_add_rows_det"),
+              source=KERNEL_SOURCE,
+              k3_shape_rows131072_n4194304_c16=k3_own)
+    return dict(hash_encode_ms_bwd=bwd, scatter_add_rows=k3)
+
+
 def main():
     if "--dp_rank" in sys.argv:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
@@ -4289,12 +4984,15 @@ def main():
     ref_kernels = timed("[18] profiled", refnerf.pop("profiled"))
     timed("[8] profiled", phase_train_trace, dev)
     h1_bwd = timed("[6]", phase_hash_encode_bwd, dev, cfg, train_inputs)
-    del train_inputs
     k3_path, k3_own = timed("[7]", phase_scatter, dev, cfg)
     k1 = timed("[3] timing", time_composite, dev, k1_err)
     k1_trained = timed("[9]", phase_train_to_render, dev, params)
     gathers = timed("[10]", phase_gathers, dev)
     bench_launches = timed("[11]", phase_gather_bench, dev)
+    det = timed("[19]", phase_determinism, dev, train_inputs,
+                {"object grid": objects.pop("det_rec"),
+                 "_fast nerf": presets.pop("det_rec")})
+    del train_inputs
     barred = sorted(m for m in sys.modules
                     if m.split(".")[0] in MODULES_BARRED)
     if barred:
@@ -4348,7 +5046,8 @@ def main():
               "NeRF grid, d_table of one warm [8] train step (uniform_*: "
               "uniform points of the same shape)", h1_bwd,
               obj_grid=obj_grid["hash_encode_ms_bwd"],
-              preset_modes=presets["h1_bwd"], refnerf=ref_kernels["h1_bwd"]),
+              preset_modes=presets["h1_bwd"], refnerf=ref_kernels["h1_bwd"],
+              deterministic=det["hash_encode_ms_bwd"]),
         # Every grid's hash-decay level sums under "grids", every own
         # shape under "own_shapes".
         entry("scatter_add_rows", KERNEL_SOURCE,
@@ -4357,7 +5056,8 @@ def main():
               "shape beside", k3_path,
               k3_shape_rows131072_n4194304_c16=k3_own,
               obj_grid=obj_grid["scatter_add_rows"],
-              refnerf=ref_kernels["k3"]),
+              refnerf=ref_kernels["k3"],
+              deterministic=det["scatter_add_rows"]),
         # K2, on the bench's path as K4's form 1 (which computes the same).
         entry("tile_lane_gather", GATHER_SOURCE,
               "nerf_lidar_tpu/ops/grid_pallas.py:51",

@@ -73,11 +73,18 @@ render can also start from a seeded fresh init for debugging
 view every `train_render_every` steps (train_renders/rgb_<step>.png and
 `test_psnr`), and `--trace_dir` writes a torch.profiler Chrome trace of
 steps [trace_start, trace_stop].
+
+`--deterministic` (every entry that takes `--device`) runs the entry under
+torch's deterministic algorithms (`deterministic_mode`): two runs of the
+same command give the same bits, as the JAX package's runs do. The
+hash-grid backward and K3 then sum in fixed point (`ops/grid.py`), and
+torch's own ops take their deterministic paths or raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -246,6 +253,27 @@ def _device(name: str) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """torch's deterministic algorithms for the duration (no warn-only: an
+    op without a deterministic path raises), cuDNN's autotuner off, and
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 unless the environment sets it (cuBLAS
+    reads it at its first call in a process; torch refuses a GEMM under
+    the switch without it). The switch and the autotuner flag are put back
+    on exit; the variable stays."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=False)
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.benchmark = was[2]
 
 
 def _data_mesh(device: torch.device, multihost: bool = False,
@@ -1415,6 +1443,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="dotted config override key=value")
         sp.add_argument("--device", default="cuda",
                         help="torch device; cuda with no GPU is an error")
+        deterministic(sp)
+
+    def deterministic(sp):
+        sp.add_argument("--deterministic", action="store_true",
+                        help="bit-identical results from run to run "
+                             "(torch's deterministic algorithms; the "
+                             "hash-grid backward sums in fixed point)")
 
     def weights(sp):
         sp.add_argument("--params", default=None,
@@ -1539,6 +1574,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     def device(sp):
         sp.add_argument("--device", default="cuda",
                         help="torch device; cuda with no GPU is an error")
+        deterministic(sp)
 
     sp = sub.add_parser("points_vis")
     sp.add_argument("--points", action="append", required=True,
@@ -1640,7 +1676,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
-    return args.fn(args)
+    with (deterministic_mode() if getattr(args, "deterministic", False)
+          else contextlib.nullcontext()):
+        return args.fn(args)
 
 
 if __name__ == "__main__":

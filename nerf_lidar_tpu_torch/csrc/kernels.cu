@@ -123,6 +123,39 @@
 //   (persistent blocks, one flush per block), slower than the merged device
 //   atomics on the train step's points (PERF.md). Atomics make every sum
 //   order change from run to run.
+//
+// Deterministic variants (torch.are_deterministic_algorithms_enabled(); the
+//   JAX package's scatter-adds are XLA's, whose sums do not depend on the
+//   run): hash_encode_ms_bwd_fixed (d_table), hash_encode_ms_pos_grads
+//   (d_x01 / d_stds) and scatter_add_rows_fixed (K3), then fixed_to_float.
+//   A float sum depends on its order; an integer sum does not. So every
+//   term is rounded once to a fixed-point int64, u * 2^k[g, c] to the
+//   nearest integer, and all sums after that are exact: the results are
+//   the same bits whatever the order of the atomics, the block order or
+//   the block size. The caller picks k[g, c] = 62 - ceil(log2 S[g, c])
+//   from S = the sum of |g_out| (H1-bwd, per level g and channel c) or of
+//   |vals| (K3, per channel) over the finite entries: each term of an
+//   entry of group g is at most |that g_out| (the corner weights of a
+//   point times its erf weight / n sum to at most 1), so the entries of a
+//   group sum to at most S * 2^k <= 2^62 and no int64 overflows. A
+//   non-finite term adds nothing and sets its entry's NaN / +inf / -inf
+//   flag (an atomicOr, which no order changes); fixed_to_float then writes
+//   NaN (NaN, or both infinities), +-inf, or the sum times 2^-k, which is
+//   what a float sum of the same terms gives. Design:
+//   - H1-bwd keeps its threads, block orders, corner-run merge and warp
+//     aggregation: a thread rounds its own run's merged corner value once,
+//     before any cross-lane sum (so no sum depends on which lanes share a
+//     warp), then the segmented scan and the row atomics run on int64
+//     (scalar atomics: C per row where the float path takes one vector);
+//   - d_x01 / d_stds are a gather, not a scatter: one thread per sample
+//     walks the levels in order, reads the corner rows as H1 does, and
+//     sums its n points' gradients in shared-memory slots of its own,
+//     written once; float sums in a fixed order, no atomics;
+//   - K3 keeps its tiling, with each value rounded as it is loaded and the
+//     runs summed in int64 registers, shuffles and shared memory.
+//   Bound as the float kernels (table / output atomics), plus the int64
+//   accumulator (8 bytes an entry) written and read once more by
+//   fixed_to_float.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -618,6 +651,70 @@ __device__ __forceinline__ void add_row(float* dst, const float* v) {
   }
 }
 
+// The non-finite flags of the deterministic kernels: 4 bits an entry of a
+// [rows, C] output, 8 entries a word.
+constexpr unsigned kFlagNaN = 1u, kFlagPosInf = 2u, kFlagNegInf = 4u;
+
+__device__ __forceinline__ void mark_nonfinite(unsigned* flags, int64_t e,
+                                               float u) {
+  const unsigned f = isnan(u) ? kFlagNaN : (u > 0.f ? kFlagPosInf
+                                                    : kFlagNegInf);
+  atomicOr(flags + (e >> 3), f << (4 * (e & 7)));
+}
+
+// u * 2^k rounded to the nearest int64 (ties to even): one rounding, since
+// scaling by a power of two is exact here (|u| * 2^k <= 2^62).
+__device__ __forceinline__ long long to_fixed(float u, int k) {
+  return __float2ll_rn(ldexpf(u, k));
+}
+
+// Where add_runs puts a segment's sum for one corner row: a float atomic on
+// d_table (the default kernel), or exact int64 atomics on an accumulator of
+// fixed-point terms (the deterministic one). term() is called by every lane
+// of the warp; `act` says its run ends here.
+template <int C>
+struct FloatRows {
+  using T = float;
+  float* dst;  // the level's d_table slice; nullptr: d_table not wanted
+  __device__ __forceinline__ bool on() const { return dst != nullptr; }
+  template <class Row>
+  __device__ __forceinline__ T term(float w, float g, bool, int,
+                                    Row) const {
+    return w * g;
+  }
+  __device__ __forceinline__ void add(uint32_t row, const T* u) const {
+    add_row<C>(dst + (int64_t)row * C, u);
+  }
+};
+
+template <int C, bool kTetra>
+struct FixedRows {
+  using T = long long;
+  unsigned long long* acc;  // the level's slice of the [rows, C] sums
+  unsigned* flags;          // the whole table's flags
+  int64_t base;             // the level's first entry, offset * C
+  int k[C];                 // the level's exponent per channel
+  __device__ __forceinline__ bool on() const { return true; }
+  // With tetra a weight of 0 is a corner that no point of the run reaches
+  // (or a simplex vertex of weight 0): it adds nothing, also against a
+  // non-finite g. Trilinear corners are all terms, as in JAX.
+  template <class Row>
+  __device__ __forceinline__ T term(float w, float g, bool act, int ch,
+                                    Row row) const {
+    if (kTetra && w == 0.f) return 0;
+    const float u = w * g;
+    if (isfinite(u)) return to_fixed(u, k[ch]);
+    if (act) mark_nonfinite(flags, base + (int64_t)row() * C + ch, u);
+    return 0;
+  }
+  __device__ __forceinline__ void add(uint32_t row, const T* q) const {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (q[c] != 0)
+        atomicAdd(acc + (int64_t)row * C + c, (unsigned long long)q[c]);
+  }
+};
+
 // K3's block, and the float4s of vals a thread loads before it sums them.
 constexpr int kScatterThreads = 256;
 constexpr int kScatterUnroll = 4;
@@ -648,35 +745,72 @@ __device__ __forceinline__ void rows_of(const int32_t* idx, int64_t v,
   }
 }
 
+// How K3 sums: the values with float atomics (the default), or each value
+// rounded to fixed point (channel c at 2^k[c]) and summed in int64 (the
+// deterministic variant; a non-finite value adds nothing and flags its
+// entry). term(v, row, channel) is a value's summand, add<W>(e, s) adds W
+// channels of sums at entry e of the [rows, C] output.
+template <int C>
+struct FloatSums {
+  using T = float;
+  float* out;
+  __device__ __forceinline__ T term(float v, int, int) const { return v; }
+  template <int W>
+  __device__ __forceinline__ void add(int64_t e, const T* s) const {
+    add_row<W>(out + e, s);
+  }
+};
+
+template <int C>
+struct FixedSums {
+  using T = long long;
+  unsigned long long* out;
+  unsigned* flags;
+  const int* k;  // [C]
+  int64_t rows;
+  __device__ __forceinline__ T term(float v, int r, int ch) const {
+    if (isfinite(v)) return to_fixed(v, __ldg(k + ch));
+    if (r >= 0 && r < rows) mark_nonfinite(flags, (int64_t)r * C + ch, v);
+    return 0;
+  }
+  template <int W>
+  __device__ __forceinline__ void add(int64_t e, const T* s) const {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (s[i] != 0) atomicAdd(out + e + i, (unsigned long long)s[i]);
+  }
+};
+
 // Adds a run's sum v[0..kW) to channels [ch, ch + kW) of row r; rows
 // outside [0, rows) are dropped.
-template <int C>
-__device__ __forceinline__ void add_run(float* out, int r, int64_t rows,
-                                        int ch, const float* v) {
+template <int C, class Sums>
+__device__ __forceinline__ void add_run(const Sums& out, int r, int64_t rows,
+                                        int ch, const typename Sums::T* v) {
   if (r >= 0 && r < rows)
-    add_row<ScatterTile<C>::kW>(out + (int64_t)r * C + ch, v);
+    out.template add<ScatterTile<C>::kW>((int64_t)r * C + ch, v);
 }
 
 // Block b sums float4s [b * chunk, min((b + 1) * chunk, V)) of vals, thread
 // t the float4s t, t + kScatterThreads, ... of it. chunk is a multiple of
 // kScatterThreads, so for C >= 4 a thread's float4s are all of channel
 // group t % kG. The last block also adds the `tail` values past float4 V.
-template <int C>
+template <int C, class Sums>
 __global__ void __launch_bounds__(kScatterThreads)
     scatter_add_rows_kernel(const int32_t* __restrict__ idx,
-                            const float* __restrict__ vals,
-                            float* __restrict__ out, int64_t V,
-                            int64_t chunk, int tail, int64_t rows) {
+                            const float* __restrict__ vals, Sums out,
+                            int64_t V, int64_t chunk, int tail,
+                            int64_t rows) {
   using Tile = ScatterTile<C>;
+  using T = typename Sums::T;
   constexpr int kW = Tile::kW, kP = Tile::kP, kG = Tile::kG;
   constexpr int kWarps = kScatterThreads / 32;
-  __shared__ float part[kWarps][kG * kW];
+  __shared__ T part[kWarps][kG * kW];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   if (blockIdx.x == gridDim.x - 1 && t < tail) {
     const int64_t e = 4 * V + t;
     const int r = __ldg(idx + e / C);
-    if (r >= 0 && r < rows)
-      atomicAdd(out + (int64_t)r * C + e % C, __ldg(vals + e));
+    const T v = out.term(__ldg(vals + e), r, (int)(e % C));
+    if (r >= 0 && r < rows) out.template add<1>((int64_t)r * C + e % C, &v);
   }
   const int64_t v0 = (int64_t)blockIdx.x * chunk;
   const int64_t v1 = v0 + chunk < V ? v0 + chunk : V;
@@ -684,7 +818,7 @@ __global__ void __launch_bounds__(kScatterThreads)
   const float4* vals4 = reinterpret_cast<const float4*>(vals);
   const int ch = (t % kG) * kW;
   int cur = -1;  // the row being summed; -1 is dropped like any other
-  float acc[kW] = {};
+  T acc[kW] = {};
   for (int64_t base = v0 + t; base < v1;
        base += kScatterUnroll * kScatterThreads) {
     // All loads of the tile first, then the sums and atomics.
@@ -708,10 +842,11 @@ __global__ void __launch_bounds__(kScatterThreads)
           add_run<C>(out, cur, rows, ch, acc);
           cur = r[u][p];
 #pragma unroll
-          for (int k = 0; k < kW; ++k) acc[k] = 0.f;
+          for (int k = 0; k < kW; ++k) acc[k] = 0;
         }
 #pragma unroll
-        for (int k = 0; k < kW; ++k) acc[k] += f[p * kW + k];
+        for (int k = 0; k < kW; ++k)
+          acc[k] += out.term(f[p * kW + k], r[u][p], ch + k);
       }
     }
   }
@@ -722,9 +857,9 @@ __global__ void __launch_bounds__(kScatterThreads)
   const int last = __ldg(idx + (4 * v1 - 1) / C);
   const bool mine = cur == last;
   if (!mine) add_run<C>(out, cur, rows, ch, acc);
-  float s[kW];
+  T s[kW];
 #pragma unroll
-  for (int k = 0; k < kW; ++k) s[k] = mine ? acc[k] : 0.f;
+  for (int k = 0; k < kW; ++k) s[k] = mine ? acc[k] : T(0);
 #pragma unroll
   for (int off = 16; off >= kG; off >>= 1) {
 #pragma unroll
@@ -736,7 +871,7 @@ __global__ void __launch_bounds__(kScatterThreads)
   }
   __syncthreads();
   if (t < kG) {
-    float sum[kW] = {};
+    T sum[kW] = {};
     for (int w = 0; w < kWarps; ++w) {
 #pragma unroll
       for (int k = 0; k < kW; ++k) sum[k] += part[w][t * kW + k];
@@ -749,12 +884,14 @@ __global__ void __launch_bounds__(kScatterThreads)
 // W[c] * g, where `act` says this lane has a run. All 32 lanes call
 // (warp-uniform): a lane whose run is in the same cell as its left
 // neighbour's joins that lane's segment, a segmented scan sums each
-// segment, and its last lane adds the sum. With tetra a corner that no
-// lane's run weights is skipped, and a segment whose sum is 0 adds nothing.
-template <int C, bool kTetra>
+// segment (of Rows::T: float, or the int64 of each lane's fixed-point
+// term), and its last lane adds the sum. With tetra a corner that no lane's
+// run weights is skipped, and a segment whose sum is 0 adds nothing.
+template <int C, bool kTetra, class Rows>
 __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
                                          const float* W, const float* g,
-                                         float* dst, const Level& v) {
+                                         const Rows& rows, const Level& v) {
+  using T = typename Rows::T;
   const int lane = threadIdx.x & 31;
   const int px = __shfl_up_sync(kFullMask, ix, 1);
   const int py = __shfl_up_sync(kFullMask, iy, 1);
@@ -769,15 +906,16 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (kTetra && !__any_sync(kFullMask, act && W[c] != 0.f)) continue;
-    float u[C];
+    const auto row = [&] { return corner_row(ix, iy, iz, c, v); };
+    T u[C];
 #pragma unroll
-    for (int k = 0; k < C; ++k) u[k] = W[c] * g[k];
+    for (int k = 0; k < C; ++k) u[k] = rows.term(W[c], g[k], act, k, row);
     if (scan) {
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
 #pragma unroll
         for (int k = 0; k < C; ++k) {
-          const float t = __shfl_up_sync(kFullMask, u[k], off);
+          const T t = __shfl_up_sync(kFullMask, u[k], off);
           if (lane - off >= start) u[k] += t;
         }
       }
@@ -786,9 +924,9 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
     if (kTetra && add) {
       add = false;
 #pragma unroll
-      for (int k = 0; k < C; ++k) add |= u[k] != 0.f;
+      for (int k = 0; k < C; ++k) add |= u[k] != T(0);
     }
-    if (add) add_row<C>(dst + (int64_t)corner_row(ix, iy, iz, c, v) * C, u);
+    if (add) rows.add(row(), u);
   }
 }
 
@@ -858,14 +996,15 @@ __device__ __forceinline__ float erf_weight_grad(float s, const Level& v) {
 
 // The backward of one sample at one level. Every lane of the warp calls
 // (`active`: this lane holds a sample), because add_runs shuffles.
-// g: g_out[b, l]; tbl: the level's table slice; dst: its d_table slice,
-// nullptr when d_table is not wanted; dx / ds: this sample's d_x01 /
-// d_stds, nullptr when not wanted.
-template <int C, bool kTetra>
+// g: g_out[b, l]; tbl: the level's table slice; rows: where its d_table
+// updates go (rows.on() false when d_table is not wanted); dx / ds: this
+// sample's d_x01 / d_stds, nullptr when not wanted.
+template <int C, bool kTetra, class Rows>
 __device__ __forceinline__ void backward_one(bool active, Points pt,
                                              const float* g,
-                                             const float* tbl, float* dst,
-                                             float* dx, float* ds, int n,
+                                             const float* tbl,
+                                             const Rows& rows, float* dx,
+                                             float* ds, int n,
                                              const Level& v) {
   const float inv_n = 1.0f / (float)n;
   float W[8] = {};
@@ -883,10 +1022,10 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
     const bool in = active && in_unit_cube(x, y, z);
     const float coef = erf_weight(s, v) * inv_n;  // d out / d feat of j
     const Cell p = cell_of(x, y, z, v.scale);
-    if (dst != nullptr) {
+    if (rows.on()) {
       const bool ends = in && have && !same_cell(p, cx, cy, cz);
       if (__any_sync(kFullMask, ends))
-        add_runs<C, kTetra>(ends, cx, cy, cz, W, g, dst, v);
+        add_runs<C, kTetra>(ends, cx, cy, cz, W, g, rows, v);
       if (ends) have = false;
       if (in) {
         if (!have) {
@@ -912,28 +1051,29 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
       if (ds != nullptr) atomicAdd(ds + j, inv_n * erf_weight_grad(s, v) * fdot);
     }
   }
-  if (dst != nullptr && __any_sync(kFullMask, have))
-    add_runs<C, kTetra>(have, cx, cy, cz, W, g, dst, v);
+  if (rows.on() && __any_sync(kFullMask, have))
+    add_runs<C, kTetra>(have, cx, cy, cz, W, g, rows, v);
 }
 
 // The backward of a mean-point level: the mean point's corners get
 // w_mean * weight * g (one run; neighbouring lanes in the same cell are
 // merged by add_runs), and each of the n points 1/n of the mean's position
 // and weight gradients. Warp-uniform, as backward_one.
-template <int C, bool kTetra>
+template <int C, bool kTetra, class Rows>
 __device__ __forceinline__ void backward_mean(bool active, Points pt,
                                               const float* g,
-                                              const float* tbl, float* dst,
-                                              float* dx, float* ds, int n,
+                                              const float* tbl,
+                                              const Rows& rows, float* dx,
+                                              float* ds, int n,
                                               const Level& v) {
   MeanPoint m{0.f, 0.f, 0.f, 0.f};
   if (active) m = mean_of(pt, n, v);
   const bool in = active && in_unit_cube(m.x, m.y, m.z);
   const Cell p = cell_of(m.x, m.y, m.z, v.scale);
-  if (dst != nullptr && __any_sync(kFullMask, in)) {
+  if (rows.on() && __any_sync(kFullMask, in)) {
     float W[8] = {};
     if (in) add_weights<kTetra>(p, m.w, W);
-    add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, dst, v);
+    add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
   }
   if ((dx == nullptr && ds == nullptr) || !in) return;
   const float fn = (float)n;
@@ -973,13 +1113,114 @@ __global__ void hash_encode_ms_bwd_kernel(
   float g[C] = {};
   if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  float* dst = d_table != nullptr ? d_table + off : nullptr;
+  const FloatRows<C> rows{d_table != nullptr ? d_table + off : nullptr};
   float* dx = d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr;
   float* ds = d_stds != nullptr ? d_stds + b * n : nullptr;
   if (v.mean)
-    backward_mean<C, kTetra>(active, pt, g, table + off, dst, dx, ds, n, v);
+    backward_mean<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n, v);
   else
-    backward_one<C, kTetra>(active, pt, g, table + off, dst, dx, ds, n, v);
+    backward_one<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n, v);
+}
+
+// The deterministic d_table: hash_encode_ms_bwd_kernel's threads, block
+// order and run merge, with each lane's merged corner values rounded to
+// fixed point (k: [L, C] exponents) and summed into acc ([rows, C] int64)
+// and flags (the non-finite terms). d_x01 / d_stds: pos_grads_kernel.
+template <int C, bool kTetra>
+__global__ void hash_encode_ms_bwd_fixed_kernel(
+    const float* __restrict__ x01, const float* __restrict__ stds,
+    const float* __restrict__ g_out, const int* __restrict__ k,
+    unsigned long long* __restrict__ acc, unsigned* __restrict__ flags,
+    int64_t B, int n, int L, int64_t tiles, int level_major, int stage,
+    GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const Work w = work_of(tiles, L, level_major != 0);
+  const int cnt = tile_count(B, w.b0);
+  const Level v = level_of(lv, w.l);
+  if (stage) {
+    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
+    __syncthreads();
+  }
+  const bool active = (int)threadIdx.x < cnt;
+  const int64_t b = w.b0 + threadIdx.x;
+  const int64_t off = (int64_t)lv.offset[w.l] * C;
+  float g[C] = {};
+  if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
+  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+  FixedRows<C, kTetra> rows{acc + off, flags, off, {}};
+#pragma unroll
+  for (int c = 0; c < C; ++c) rows.k[c] = __ldg(k + w.l * C + c);
+  if (v.mean)
+    backward_mean<C, kTetra>(active, pt, g, nullptr, rows, nullptr, nullptr,
+                             n, v);
+  else
+    backward_one<C, kTetra>(active, pt, g, nullptr, rows, nullptr, nullptr, n,
+                            v);
+}
+
+// d_x01 / d_stds without atomics: one thread per sample walks the levels in
+// order, reads its corner rows as H1 does, and sums each point's gradient
+// (the terms of backward_one / backward_mean, the same float expressions)
+// in shared-memory slots of its own, [4n][blockDim.x] (dx, dy, dz, ds of
+// point j at (4j + q) * blockDim.x + t), written once. d_x01 / d_stds:
+// nullptr when not wanted.
+template <int C, bool kTetra>
+__global__ void pos_grads_kernel(const float* __restrict__ table,
+                                 const float* __restrict__ x01,
+                                 const float* __restrict__ stds,
+                                 const float* __restrict__ g_out,
+                                 float* __restrict__ d_x01,
+                                 float* __restrict__ d_stds, int64_t B, int n,
+                                 int L, GridLevels lv) {
+  extern __shared__ float slots[];
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int64_t b = (int64_t)blockIdx.x * nt + t;
+  if (b >= B) return;  // no shuffles below
+  float* sum = slots + t;  // slot i of this thread: sum[i * nt]
+  for (int i = 0; i < 4 * n; ++i) sum[i * nt] = 0.f;
+  const Points pt{x01 + b * n * 3, stds + b * n};
+  const float inv_n = 1.0f / (float)n;
+  for (int l = 0; l < L; ++l) {
+    const Level v = level_of(lv, l);
+    const float* tbl = table + (int64_t)lv.offset[l] * C;
+    float g[C];
+    load_row<C>(g_out + (b * L + l) * C, g);
+    if (v.mean) {
+      const MeanPoint m = mean_of(pt, n, v);
+      if (!in_unit_cube(m.x, m.y, m.z)) continue;
+      const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+      float fdot, df[3];
+      point_grads<C, kTetra>(tbl, p, g, v, fdot, df);
+      const float k = m.w / (float)n * v.scale;
+      const float fd = fdot / (float)n;
+      for (int j = 0; j < n; ++j) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) sum[(4 * j + d) * nt] += k * df[d];
+        sum[(4 * j + 3) * nt] += erf_weight_grad(pt.s[j], v) * fd;
+      }
+    } else {
+      for (int j = 0; j < n; ++j) {
+        const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
+        if (!in_unit_cube(x, y, z)) continue;
+        const float s = pt.s[j];
+        const float coef = erf_weight(s, v) * inv_n;
+        float fdot, df[3];
+        point_grads<C, kTetra>(tbl, cell_of(x, y, z, v.scale), g, v, fdot,
+                               df);
+        const float k = coef * v.scale;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) sum[(4 * j + d) * nt] += k * df[d];
+        sum[(4 * j + 3) * nt] += inv_n * erf_weight_grad(s, v) * fdot;
+      }
+    }
+  }
+  for (int j = 0; j < n; ++j) {
+    if (d_x01 != nullptr) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) d_x01[(b * n + j) * 3 + d] = sum[(4 * j + d) * nt];
+    }
+    if (d_stds != nullptr) d_stds[b * n + j] = sum[(4 * j + 3) * nt];
+  }
 }
 
 void fill_levels(GridLevels* lv, int L, const float* scale,
@@ -1008,11 +1249,12 @@ struct Launch {
   int smem;
 };
 
-cudaError_t launch_of(int64_t B, int n, int L, int level_major, Launch* g) {
-  g->tiles = (B + kThreads - 1) / kThreads;
+cudaError_t launch_of(int64_t B, int n, int L, int level_major, Launch* g,
+                      int threads = kThreads) {
+  g->tiles = (B + threads - 1) / threads;
   if (g->tiles * L > 0x7fffffff) return cudaErrorInvalidValue;
   g->blocks = (unsigned)(g->tiles * L);
-  const int64_t bytes = 16LL * kThreads * n;
+  const int64_t bytes = 16LL * threads * n;
   g->smem = level_major && bytes <= kStageBytes ? (int)bytes : 0;
   return cudaSuccess;
 }
@@ -1053,10 +1295,58 @@ cudaError_t backward(const float* table, const float* x01, const float* stds,
   return cudaGetLastError();
 }
 
-// K3 on N x C values: one chunk of whole tiles per block, with as many
-// blocks as the card holds at once.
+// The deterministic d_table in blocks of `threads` samples (a multiple of
+// 32 up to 1024; kThreads on the path): the sums do not depend on it.
 template <int C>
-cudaError_t scatter(const int32_t* idx, const float* vals, float* out,
+cudaError_t backward_fixed(const float* x01, const float* stds,
+                           const float* g_out, const int* k,
+                           unsigned long long* acc, unsigned* flags,
+                           int64_t B, int n, int L, const GridLevels& lv,
+                           int tetra, int level_major, int threads,
+                           cudaStream_t s) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  Launch g;
+  const cudaError_t err = launch_of(B, n, L, level_major, &g, threads);
+  if (err != cudaSuccess) return err;
+  if (tetra)
+    hash_encode_ms_bwd_fixed_kernel<C, true><<<g.blocks, threads, g.smem, s>>>(
+        x01, stds, g_out, k, acc, flags, B, n, L, g.tiles, level_major,
+        g.smem > 0, lv);
+  else
+    hash_encode_ms_bwd_fixed_kernel<C, false>
+        <<<g.blocks, threads, g.smem, s>>>(x01, stds, g_out, k, acc, flags, B,
+                                           n, L, g.tiles, level_major,
+                                           g.smem > 0, lv);
+  return cudaGetLastError();
+}
+
+// d_x01 / d_stds by pos_grads_kernel: the largest block (up to kThreads)
+// whose slots, 16 n bytes a sample, fit kStageBytes.
+template <int C>
+cudaError_t pos_grads(const float* table, const float* x01, const float* stds,
+                      const float* g_out, float* d_x01, float* d_stds,
+                      int64_t B, int n, int L, const GridLevels& lv, int tetra,
+                      cudaStream_t s) {
+  int threads = kThreads;
+  while (threads > 32 && 16LL * threads * n > kStageBytes) threads >>= 1;
+  const int64_t smem = 16LL * threads * n;
+  if (smem > kStageBytes) return cudaErrorInvalidValue;
+  const int64_t blocks = (B + threads - 1) / threads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  if (tetra)
+    pos_grads_kernel<C, true><<<(unsigned)blocks, threads, smem, s>>>(
+        table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
+  else
+    pos_grads_kernel<C, false><<<(unsigned)blocks, threads, smem, s>>>(
+        table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
+  return cudaGetLastError();
+}
+
+// K3 on N x C values: one chunk of whole tiles per block, with as many
+// blocks as the card holds at once. Sums: FloatSums or FixedSums.
+template <int C, class Sums>
+cudaError_t scatter(const int32_t* idx, const float* vals, Sums out,
                     int64_t N, int64_t rows, int device, cudaStream_t s) {
   const int64_t V = N * C / 4;
   const int tail = (int)(N * C - 4 * V);
@@ -1065,16 +1355,72 @@ cudaError_t scatter(const int32_t* idx, const float* vals, float* out,
       &sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, scatter_add_rows_kernel<C>, kScatterThreads, 0);
+      &per_sm, scatter_add_rows_kernel<C, Sums>, kScatterThreads, 0);
   if (err != cudaSuccess) return err;
   const int64_t most = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t per_block = (V + most - 1) / most;
   const int64_t tiles = (per_block + kScatterThreads - 1) / kScatterThreads;
   const int64_t chunk = (tiles > 0 ? tiles : 1) * kScatterThreads;
   const int64_t blocks = V > 0 ? (V + chunk - 1) / chunk : 1;
-  scatter_add_rows_kernel<C><<<(unsigned)blocks, kScatterThreads, 0, s>>>(
-      idx, vals, out, V, chunk, tail, rows);
+  scatter_add_rows_kernel<C, Sums>
+      <<<(unsigned)blocks, kScatterThreads, 0, s>>>(idx, vals, out, V, chunk,
+                                                    tail, rows);
   return cudaGetLastError();
+}
+
+// K3 at any C it takes, through `Sums` (FloatSums<C> or FixedSums<C>).
+template <template <int> class Sums, class... A>
+cudaError_t scatter_any(int C, const int32_t* idx, const float* vals,
+                        int64_t N, int64_t rows, int device, cudaStream_t s,
+                        A... a) {
+  switch (C) {
+    case 1: return scatter<1>(idx, vals, Sums<1>{a...}, N, rows, device, s);
+    case 2: return scatter<2>(idx, vals, Sums<2>{a...}, N, rows, device, s);
+    case 4: return scatter<4>(idx, vals, Sums<4>{a...}, N, rows, device, s);
+    case 8: return scatter<8>(idx, vals, Sums<8>{a...}, N, rows, device, s);
+    case 16: return scatter<16>(idx, vals, Sums<16>{a...}, N, rows, device, s);
+    case 32: return scatter<32>(idx, vals, Sums<32>{a...}, N, rows, device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The row ranges of fixed_to_float's exponent groups: H1-bwd's levels, or
+// one group (K3).
+struct Groups {
+  int64_t start[kMaxLevels + 1];
+  int count;
+};
+
+// out[e] = the deterministic kernels' sum of entry e of a [rows, C] output:
+// NaN where a NaN term (or both infinities) was flagged, else +-inf where
+// one was, else acc[e] * 2^-k[g, c] (g: the entry's group). Through
+// float64, as the plain version takes it: the int64 rounded to double, an
+// exact scaling, one rounding to float.
+__global__ void fixed_to_float_kernel(const long long* __restrict__ acc,
+                                      const unsigned* __restrict__ flags,
+                                      const int* __restrict__ k,
+                                      float* __restrict__ out, int64_t total,
+                                      int C, Groups gr) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += step) {
+    const int64_t r = e / C;
+    const int c = (int)(e - r * C);
+    int g = 0;
+    while (g + 1 < gr.count && r >= gr.start[g + 1]) ++g;
+    const unsigned f = (flags[e >> 3] >> (4 * (e & 7))) & 0xfu;
+    const unsigned inf = kFlagPosInf | kFlagNegInf;
+    float v;
+    if ((f & kFlagNaN) || (f & inf) == inf)
+      v = __int_as_float(0x7fc00000);
+    else if (f & kFlagPosInf)
+      v = __int_as_float(0x7f800000);
+    else if (f & kFlagNegInf)
+      v = __int_as_float((int)0xff800000u);
+    else
+      v = __double2float_rn(ldexp(__ll2double_rn(acc[e]), -k[g * C + c]));
+    out[e] = v;
+  }
 }
 
 }  // namespace
@@ -1204,16 +1550,127 @@ int nl_scatter_add_rows(const int* idx, const float* vals, float* out,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N == 0) return cudaSuccess;
+  return scatter_any<FloatSums>(C, idx, vals, N, rows, device,
+                                static_cast<cudaStream_t>(stream), out);
+}
+
+// The deterministic K3: acc [rows, C] int64 and flags (4 bits an entry)
+// zero-filled (or holding sums to add to) by the caller; k: [C] exponents
+// on the device. Then nl_fixed_to_float. idx and vals start on 16 bytes.
+int nl_scatter_add_rows_fixed(const int* idx, const float* vals, const int* k,
+                              long long* acc, unsigned* flags, long long N,
+                              int C, long long rows, int device,
+                              void* stream) {
+  if (N < 0 || C <= 0 || ((uintptr_t)idx | (uintptr_t)vals) % 16 != 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (N == 0) return cudaSuccess;
+  return scatter_any<FixedSums>(
+      C, idx, vals, N, rows, device, static_cast<cudaStream_t>(stream),
+      reinterpret_cast<unsigned long long*>(acc), flags, k, (int64_t)rows);
+}
+
+// The deterministic H1-bwd d_table: acc [rows, C] int64 and flags
+// zero-filled by the caller, k: [L, C] exponents on the device; then
+// nl_fixed_to_float. threads: the block size (a multiple of 32). The
+// other arguments as nl_hash_encode_ms_bwd's.
+int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
+                                const float* g_out, const int* k,
+                                long long* acc, unsigned* flags, long long B,
+                                int n, int L, int C, const float* scale,
+                                const float* grid_size,
+                                const unsigned int* res,
+                                const unsigned int* rows,
+                                const unsigned int* offset, const int* tiled,
+                                const int* mean, int tetra, int level_major,
+                                int threads, int device, void* stream) {
+  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  GridLevels lv;
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, mean);
+  if (B == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
+  switch (C) {
+    case 1:
+      return backward_fixed<1>(x01, stds, g_out, k, a, flags, B, n, L, lv,
+                               tetra, level_major, threads, s);
+    case 2:
+      return backward_fixed<2>(x01, stds, g_out, k, a, flags, B, n, L, lv,
+                               tetra, level_major, threads, s);
+    case 4:
+      return backward_fixed<4>(x01, stds, g_out, k, a, flags, B, n, L, lv,
+                               tetra, level_major, threads, s);
+    case 16:
+      return backward_fixed<16>(x01, stds, g_out, k, a, flags, B, n, L, lv,
+                                tetra, level_major, threads, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// d_x01 / d_stds of hash_encode_ms without atomics (each nullptr when not
+// wanted; written, not added to). Arguments as nl_hash_encode_ms_bwd's.
+int nl_hash_encode_ms_pos_grads(const float* table, const float* x01,
+                                const float* stds, const float* g_out,
+                                float* d_x01, float* d_stds, long long B,
+                                int n, int L, int C, const float* scale,
+                                const float* grid_size,
+                                const unsigned int* res,
+                                const unsigned int* rows,
+                                const unsigned int* offset, const int* tiled,
+                                const int* mean, int tetra, int device,
+                                void* stream) {
+  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  GridLevels lv;
+  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, mean);
+  if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 1: return scatter<1>(idx, vals, out, N, rows, device, s);
-    case 2: return scatter<2>(idx, vals, out, N, rows, device, s);
-    case 4: return scatter<4>(idx, vals, out, N, rows, device, s);
-    case 8: return scatter<8>(idx, vals, out, N, rows, device, s);
-    case 16: return scatter<16>(idx, vals, out, N, rows, device, s);
-    case 32: return scatter<32>(idx, vals, out, N, rows, device, s);
-    default: return cudaErrorInvalidValue;
+    case 1:
+      return pos_grads<1>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
+                          tetra, s);
+    case 2:
+      return pos_grads<2>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
+                          tetra, s);
+    case 4:
+      return pos_grads<4>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
+                          tetra, s);
+    case 16:
+      return pos_grads<16>(table, x01, stds, g_out, d_x01, d_stds, B, n, L,
+                           lv, tetra, s);
+    default:
+      return cudaErrorInvalidValue;
   }
+}
+
+// out [rows, C] float32 from the deterministic kernels' acc, flags and k
+// ([G, C] on the device); starts: G + 1 row starts on the host (the
+// groups' row ranges, starts[G] = rows).
+int nl_fixed_to_float(const long long* acc, const unsigned* flags,
+                      const int* k, const long long* starts, int G,
+                      float* out, long long rows, int C, int device,
+                      void* stream) {
+  if (G <= 0 || G > kMaxLevels || C <= 0 || rows < 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  Groups gr{};
+  for (int g = 0; g <= G; ++g) gr.start[g] = starts[g];
+  gr.count = G;
+  const int64_t total = rows * C;
+  if (total == 0) return cudaSuccess;
+  constexpr int kBlock = 256;
+  int64_t blocks = (total + kBlock - 1) / kBlock;
+  if (blocks > 65535LL * 64) blocks = 65535LL * 64;
+  fixed_to_float_kernel<<<(unsigned)blocks, kBlock, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      acc, flags, k, out, total, C, gr);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

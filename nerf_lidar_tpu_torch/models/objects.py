@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import grid as gridlib
 from ..ops import render as render_ops
 
 _MIRROR = (1.0, -1.0, 1.0)
@@ -111,15 +112,16 @@ def get_pose(time: torch.Tensor, tracks: torch.Tensor) -> torch.Tensor:
     t2 = torch.gather(tt, -1, idx[..., 1:2])[..., 0]
     total = (t1 - t2).abs() + 1e-9
     w1 = torch.clamp((time[:, None] - t2).abs() / total, 0, 1)
-    # Rows of the flattened [N_obj T, F] tracks through index_select, whose
-    # backward adds into the rows (advanced indexing's backward sorts the
-    # R N_obj indices, thousands per row, and sums each row in turn).
+    # Rows of the flattened [N_obj T, F] tracks through index_select
+    # (`grid.select_rows`), whose backward adds into the rows (advanced
+    # indexing's backward sorts the R N_obj indices, thousands per row, and
+    # sums each row in turn).
     n_obj, t = tracks.shape[:2]
     rows = torch.arange(n_obj, device=tracks.device)[None] * t
     flat = tracks.reshape(n_obj * t, -1)
 
     def pick(i):
-        return flat.index_select(0, (rows + i).reshape(-1)).reshape(
+        return gridlib.select_rows(flat, (rows + i).reshape(-1)).reshape(
             i.shape + flat.shape[-1:])
 
     info1, info2 = pick(idx[..., 0]), pick(idx[..., 1])
@@ -234,23 +236,23 @@ def _compact_flags(flag_flat: torch.Tensor, budget: int, offset=0,
                    slots: Optional[int] = None):
     """Static-shape stream compaction of a bool mask [N]. Returns
     (sample_ids [slots] — the indices of the set flags whose rank is below
-    `budget`, valid [slots] bool, pos [N] — each element's rank among the
-    set flags). A cumsum ranks the flags and one scatter writes their
-    indices into slots + 1 places (the last takes the unset and
-    overflowing ones); no host sync. offset: the set flags before this
-    mask (a data-parallel rank's shard of the global batch: its ranks
-    count from the earlier shards' flags); slots: the buffer's size, by
-    default `budget`, at least the flags this mask can keep."""
+    `budget`, 0 past them, valid [slots] bool, pos [N] — each element's
+    rank among the set flags). A cumsum ranks the flags and a binary
+    search in it finds slot j's flag, the first element whose count
+    reaches j + 1; no host sync. (A scatter of the unset flags onto one
+    spare slot would add its repeats in turn under torch's deterministic
+    algorithms: ~90 ms a call.) offset: the set flags before this mask (a
+    data-parallel rank's shard of the global batch: its ranks count from
+    the earlier shards' flags); slots: the buffer's size, by default
+    `budget`, at least the flags this mask can keep."""
     slots = budget if slots is None else slots
-    n = flag_flat.shape[0]
-    pos = torch.cumsum(flag_flat.long(), dim=0) - 1 + offset
-    target = torch.where(flag_flat & (pos < budget), pos - offset,
-                         torch.full_like(pos, slots))
-    buf = torch.zeros(slots + 1, dtype=torch.long, device=flag_flat.device)
-    buf.scatter_(0, target, torch.arange(n, device=flag_flat.device))
-    valid = torch.arange(slots, device=flag_flat.device) < torch.clamp(
+    count = torch.cumsum(flag_flat.long(), dim=0)
+    pos = count - 1 + offset
+    ranks = torch.arange(slots, device=flag_flat.device)
+    valid = ranks < torch.clamp(
         torch.clamp(pos[-1] + 1, max=budget) - offset, min=0)
-    return buf[:slots], valid, pos
+    found = torch.searchsorted(count, ranks + 1)
+    return torch.where(valid, found, 0), valid, pos
 
 
 def _sym_loss(outs, outs_sym, m, mesh=None):
@@ -340,7 +342,7 @@ def composite_objects(obj_mlp, obj_latents: Optional[torch.Tensor],
             winner_slot.shape + (1, 3))
         pts_e = torch.gather(pts_o, 2, w_idx)  # [R, S, 1, 3]
         dirs_e = torch.gather(dirs_o, 2, w_idx)
-        lat_e = (obj_latents.index_select(0, winner_slot.reshape(-1))
+        lat_e = (gridlib.select_rows(obj_latents, winner_slot.reshape(-1))
                  .reshape(winner_slot.shape + obj_latents.shape[1:])
                  if obj_latents is not None else None)
 
@@ -395,10 +397,12 @@ def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
     through the K points and one gather of the poses. Samples past the
     budget keep the field's prediction.
 
-    The gathers with gradient are index_select and index_copy: their
-    backward adds or gathers rows, where advanced indexing's backward
-    sorts its indices and sums each row's run in turn (K latent rows of
-    one object, R S samples onto K slots)."""
+    The gathers with gradient are index_select (`grid.select_rows`) and
+    index_copy: their backward adds or gathers rows, where advanced
+    indexing's backward sorts its indices and sums each row's run in turn
+    (K latent rows of one object, R S samples onto K slots); under torch's
+    deterministic algorithms index_select's backward does so too, and
+    `select_rows` sums it with K3's deterministic variant instead."""
     R, S = any_inter.shape
     rs = R * S
     flags = any_inter.reshape(rs)
@@ -420,15 +424,16 @@ def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
     r_idx = torch.div(sid, S, rounding_mode="floor")
     w_slot = winner_slot.reshape(rs)[sid]  # [K] winning slot
     n_obj = obj_pose.shape[1]
-    pose_k = obj_pose.reshape(R * n_obj, -1).index_select(
-        0, r_idx * n_obj + w_slot)  # [K, F]
-    pts_ok, dirs_ok = world2object(pts_w.reshape(rs, 3).index_select(0, sid),
-                                   viewdirs.index_select(0, r_idx),
+    pose_k = gridlib.select_rows(obj_pose.reshape(R * n_obj, -1),
+                                 r_idx * n_obj + w_slot)  # [K, F]
+    pts_ok, dirs_ok = world2object(gridlib.select_rows(pts_w.reshape(rs, 3),
+                                                       sid),
+                                   gridlib.select_rows(viewdirs, r_idx),
                                    pose_k[:, :3], pose_k[:, 3],
                                    pose_k[:, 4:7])
     # [1, K, 1, 3]: batch 1, K sample slots, one object each.
     pts_e, dirs_e = pts_ok[None, :, None], dirs_ok[None, :, None]
-    lat_k = (obj_latents.index_select(0, w_slot)[None]
+    lat_k = (gridlib.select_rows(obj_latents, w_slot)[None]
              if obj_latents is not None else None)
 
     if class_groups is None:
@@ -468,10 +473,15 @@ def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
                                         valid_k[None, :, None].float(), mesh)
 
     # Slot k's evaluation goes to sample sid[k] for the valid slots (the
-    # first K samples in a box); the padding slots to a dump row past the
-    # R S samples. Samples past the budget keep the field prediction.
+    # first K samples in a box); padding slot k to dump row rs + k past the
+    # R S samples (one dump row for all of them would repeat an index
+    # thousands of times, which index_copy writes in turn under torch's
+    # deterministic algorithms). Samples past the budget keep the field
+    # prediction.
     ok = any_inter & (pos.reshape(R, S) < budget)
-    dest = torch.where(valid_k, sid, rs)
+    k_slots = sid.shape[0]
+    dest = torch.where(valid_k, sid,
+                       rs + torch.arange(k_slots, device=sid.device))
     results["obj_overflow"] = torch.clamp(n_hit - budget, min=0)
     results["obj_hit_frac"] = n_hit.float() / total
     for key in ("density", "rgb", "semantic", "intensity"):
@@ -479,7 +489,8 @@ def _composite_objects_compact(obj_mlp, obj_latents, pts_w, viewdirs,
         if base is None or ov is None:
             continue
         flat = base.reshape((rs,) + base.shape[2:])
-        flat = torch.cat([flat, flat[:1]]).index_copy(0, dest, ov[0, :, 0])
+        flat = torch.cat([flat, flat[:1].expand((k_slots,) + flat.shape[1:])]
+                         ).index_copy(0, dest, ov[0, :, 0])
         results[key] = flat[:rs].reshape(base.shape)
     _label_semantic(results, obj_sem_ids, winner_slot, ok)
     results["obj_mask"] = inter

@@ -46,8 +46,20 @@ _SIGNATURES = {
     # device, stream
     "nl_hash_encode_ms_bwd": [_P] * 7 + [_LL, _I, _I, _I] + [_P] * 7
                              + [_I, _I, _I, _P],
+    # x01, stds, g_out, k, acc, flags, B, n, L, C, scale, grid_size, res,
+    # rows, offset, tiled, mean, tetra, level_major, threads, device, stream
+    "nl_hash_encode_ms_bwd_fixed": [_P] * 6 + [_LL, _I, _I, _I] + [_P] * 7
+                                   + [_I, _I, _I, _I, _P],
+    # table, x01, stds, g_out, d_x01, d_stds, B, n, L, C, scale, grid_size,
+    # res, rows, offset, tiled, mean, tetra, device, stream
+    "nl_hash_encode_ms_pos_grads": [_P] * 6 + [_LL, _I, _I, _I] + [_P] * 7
+                                   + [_I, _I, _P],
     # idx, vals, out, N, C, rows, device, stream
     "nl_scatter_add_rows": [_P] * 3 + [_LL, _I, _LL, _I, _P],
+    # idx, vals, k, acc, flags, N, C, rows, device, stream
+    "nl_scatter_add_rows_fixed": [_P] * 5 + [_LL, _I, _LL, _I, _P],
+    # acc, flags, k, starts, G, out, rows, C, device, stream
+    "nl_fixed_to_float": [_P] * 4 + [_I, _P, _LL, _I, _I, _P],
     # tbl, idx, out, A, B, G, I, J, axis, device, stream
     "nl_take_along_axis": [_P] * 3 + [_I, _I, _LL, _I, _I, _I, _I, _P],
     # tbl, idx, out, R, C, N, device, stream

@@ -22,6 +22,17 @@ d_table and d_x01).
 `scatter_add_rows` (kernel K3 on CUDA, `index_add` on the CPU) is the row
 scatter-add that K3's Pallas version did with a one-hot matmul; the
 hash-decay loss sums its levels with it.
+
+Deterministic sums: with `torch.are_deterministic_algorithms_enabled()`
+the backward and K3 take `hash_encode_multisample_bwd_det` and
+`scatter_add_rows_det`, whose results do not depend on the order of their
+sums, as the JAX package's XLA scatter-adds do not: each term is rounded
+once to a fixed-point int64 (`fixed_exponents`) and summed exactly, on
+CUDA by the kernels `hash_encode_ms_bwd_fixed` / `scatter_add_rows_fixed`
+(d_x01 / d_stds by the atomic-free `hash_encode_ms_pos_grads`), on the CPU
+by their plain twins (`..._det_plain`: the same terms and rounding,
+`index_add_` on int64). A non-finite term flags its entry NaN / +inf /
+-inf, as a float sum of the same terms ends.
 """
 
 from __future__ import annotations
@@ -475,22 +486,33 @@ def _encode_kernel(table, x01, stds, spec: HashGridSpec,
     return out.reshape(x01.shape[:-2] + (spec.output_dim,))
 
 
+def _bwd_kernel_inputs(table, x01, stds, g_out, spec: HashGridSpec):
+    """`_kernel_inputs` and g_out as a checked [B, L*C] view."""
+    table, x, s = _kernel_inputs(table, x01, stds, spec)
+    g = g_out.contiguous()
+    _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
+    g = _aligned("g_out", g.reshape(s.shape[0], spec.output_dim),
+                 min(spec.level_dim, 4))
+    return table, x, s, g
+
+
 def hash_encode_multisample_bwd(table: torch.Tensor, x01: torch.Tensor,
                                 stds: torch.Tensor, g_out: torch.Tensor,
                                 spec: HashGridSpec, needs=(True, True, True),
                                 coarse_res_cutoff: int = 0):
     """Same contract as `hash_encode_multisample_bwd_plain`; CUDA tensors
-    launch the H1 backward kernel (`hash_encode_ms_bwd`) or raise."""
+    launch the H1 backward kernel (`hash_encode_ms_bwd`) or raise. With
+    torch's deterministic algorithms on: `hash_encode_multisample_bwd_det`
+    (its kernels on CUDA tensors, its plain twin on CPU ones)."""
+    if torch.are_deterministic_algorithms_enabled():
+        return hash_encode_multisample_bwd_det(
+            table, x01, stds, g_out, spec, needs, coarse_res_cutoff)
     if _on_cpu(table, x01, stds, g_out):
         return hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
                                                  spec, needs,
                                                  coarse_res_cutoff)
-    table, x, s = _kernel_inputs(table, x01, stds, spec)
+    table, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
     b, n_ms = s.shape
-    g = g_out.contiguous()
-    _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
-    g = _aligned("g_out", g.reshape(b, spec.output_dim),
-                 min(spec.level_dim, 4))
     outs = [torch.zeros_like(t) if need else None
             for t, need in zip((table, x, s), needs)]
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -589,9 +611,9 @@ def scatter_add_rows_plain(idx: torch.Tensor, vals: torch.Tensor,
     return out.index_add(0, idx[ok].long(), vals[ok])
 
 
-def _scatter_kernel(idx: torch.Tensor, vals: torch.Tensor,
-                    rows: int) -> torch.Tensor:
-    """Launch kernel K3 (`scatter_add_rows`)."""
+def _scatter_inputs(idx: torch.Tensor, vals: torch.Tensor):
+    """Checked, contiguous idx [N] int32 and vals [N, C] for K3; raises on
+    what the kernels do not take."""
     idx, vals = idx.contiguous(), vals.contiguous()
     n, c = vals.shape
     if c not in _SCATTER_WIDTHS:
@@ -599,8 +621,14 @@ def _scatter_kernel(idx: torch.Tensor, vals: torch.Tensor,
                                   f"{_SCATTER_WIDTHS}, not {c}")
     _build.require_cuda("idx", idx, (n,), torch.int32)
     _build.require_cuda("vals", vals, (n, c))
-    _aligned("idx", idx, 4)
-    _aligned("vals", vals, 4)
+    return _aligned("idx", idx, 4), _aligned("vals", vals, 4)
+
+
+def _scatter_kernel(idx: torch.Tensor, vals: torch.Tensor,
+                    rows: int) -> torch.Tensor:
+    """Launch kernel K3 (`scatter_add_rows`)."""
+    idx, vals = _scatter_inputs(idx, vals)
+    n, c = vals.shape
     out = torch.zeros((rows, c), dtype=torch.float32, device=vals.device)
     lib = _build.library()
     rc = lib.nl_scatter_add_rows(idx.data_ptr(), vals.data_ptr(),
@@ -618,6 +646,8 @@ class ScatterAddRows(torch.autograd.Function):
     def forward(ctx, idx, vals, rows: int):
         ctx.save_for_backward(idx)
         ctx.rows = rows
+        if torch.are_deterministic_algorithms_enabled():
+            return scatter_add_rows_det(idx, vals, rows)
         if _on_cpu(idx, vals):
             return scatter_add_rows_plain(idx, vals, rows)
         return _scatter_kernel(idx, vals, rows)
@@ -643,3 +673,399 @@ def scatter_add_rows(idx: torch.Tensor, vals: torch.Tensor,
 
 
 scatter_add_rows.launches = 0
+
+
+# Deterministic sums: fixed-point terms, summed exactly in int64.
+
+_FIXED_BITS = 62
+
+
+def _abs_bound(v: torch.Tensor) -> torch.Tensor:
+    """[...] float64 sums over axis 0 of |v| over its finite entries: the
+    bound S of the fixed-point sums of v's terms."""
+    return v.abs().nan_to_num(nan=0.0, posinf=0.0).sum(0, dtype=torch.float64)
+
+
+def fixed_exponents(bound: torch.Tensor) -> torch.Tensor:
+    """int32 k = 62 - ceil(log2 S) of every entry of S (float64, >= 0), 0
+    where S is 0: terms whose magnitudes sum to at most S, each rounded to
+    the nearest integer of term * 2^k, sum to at most 2^62 in int64 (plus
+    half a unit a term). The quantum of an entry is 2^-k."""
+    mant, exp = torch.frexp(bound)
+    ceil_log2 = exp - (mant == 0.5).to(exp.dtype)  # S = 2^e exactly: e
+    k = _FIXED_BITS - ceil_log2
+    return torch.where(bound > 0, k, torch.zeros_like(k)).to(torch.int32)
+
+
+def _to_fixed(u: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """int64 round(u * 2^k) (ties to even) of the finite entries of u, 0
+    elsewhere: u * 2^k is exact in float64, as in float32 in the kernels."""
+    u = torch.where(torch.isfinite(u), u, 0.0).to(torch.float64)
+    return torch.round(u * torch.exp2(k.to(torch.float64))).to(torch.int64)
+
+
+class _FixedSums:
+    """The plain twin of the kernels' int64 accumulator and non-finite
+    flags for a [rows, C] output. Integer sums are exact, so the result
+    does not depend on the order of `add`s."""
+
+    def __init__(self, rows: int, c: int, device):
+        self.acc = torch.zeros((rows, c), dtype=torch.int64, device=device)
+        self.flags = None  # [3, rows, C] counts of NaN, +inf, -inf terms
+
+    def add(self, rows: torch.Tensor, u: torch.Tensor, k: torch.Tensor):
+        """Adds the terms u [M, C] (float32) at rows [M], rounded at 2^k
+        ([M, C] or broadcast)."""
+        self.acc.index_add_(0, rows, _to_fixed(u, k))
+        bad = torch.stack([torch.isnan(u), u == float("inf"),
+                           u == float("-inf")])
+        if bool(bad.any()):
+            if self.flags is None:
+                self.flags = torch.zeros((3,) + self.acc.shape,
+                                         dtype=torch.int64,
+                                         device=self.acc.device)
+            self.flags.index_add_(1, rows, bad.to(torch.int64))
+
+    def result(self, k_rows: torch.Tensor) -> torch.Tensor:
+        """float32 sums: acc * 2^-k (k_rows [rows, C]) through float64, as
+        `fixed_to_float` takes it; NaN where a NaN term or both infinities
+        were added, else +-inf where one was."""
+        out = (self.acc.to(torch.float64)
+               * torch.exp2(-k_rows.to(torch.float64))).to(torch.float32)
+        if self.flags is not None:
+            nan, pos, neg = self.flags > 0
+            out = torch.where(neg, float("-inf"), out)
+            out = torch.where(pos, float("inf"), out)
+            out = torch.where(nan | (pos & neg), float("nan"), out)
+        return out
+
+
+def _cube_weights(spec: HashGridSpec, level: int, pts: torch.Tensor):
+    """[N, 8] interpolation weights of points pts [N, 3] (in range) per
+    corner c = (c & 1, c >> 1 & 1, c >> 2 & 1) of their cell, as the
+    kernels' `add_weights` keeps them: the 8 trilinear weights, or the 4
+    simplex weights at their cube corners and 0 at the other 4."""
+    corners = _corners(spec, level, pts)
+    if spec.interp != "tetra":
+        return torch.stack([w for _, w, _ in corners], dim=-1)
+    pos = grid_pos(pts, spec.scales[level])
+    frac = pos - torch.floor(pos)
+    fx, fy, fz = frac.unbind(-1)
+    ranks = torch.stack([
+        (fy > fx).long() + (fz > fx).long(),
+        (fx >= fy).long() + (fz > fy).long(),
+        (fx >= fz).long() + (fy >= fz).long()], dim=-1)
+    out = []
+    for c, offset in enumerate(_CORNERS3):
+        k = sum(offset)
+        at = ((ranks < k).long() == torch.tensor(offset, device=pts.device)
+              ).all(-1)
+        out.append(torch.where(at, corners[k][1], 0.0))
+    return torch.stack(out, dim=-1)
+
+
+def _cells(spec: HashGridSpec, level: int, pts: torch.Tensor):
+    """[N, 3] int64 cell of points pts [N, 3] at `level`."""
+    return torch.floor(grid_pos(pts, spec.scales[level])).to(torch.int64)
+
+
+def _table_runs(spec: HashGridSpec, x01: torch.Tensor, stds: torch.Tensor,
+                coarse_res_cutoff: int):
+    """Per level, the merged runs the deterministic backward rounds: a list
+    of (level, sample ids [M], cells [M, 3], weights [M, 8]) as the kernel
+    `hash_encode_ms_bwd_fixed` forms them. A run is a sample's consecutive
+    in-range points in one cell (out-of-range points break none), its
+    per-corner weights the sum in point order of erf_w / n times each
+    point's corner weights; a mean-point level has one run a sample, the
+    mean point's, weighted by the mean erf weight."""
+    n = x01.shape[-2]
+    x = x01.reshape(-1, n, 3)
+    s = stds.reshape(-1, n)
+    b = x.shape[0]
+    inv_n = float(np.float32(1.0) / np.float32(n))
+    out = []
+    for l, at_mean in enumerate(mean_levels(spec, coarse_res_cutoff)):
+        erf_w = _erf_weight(s, spec.grid_sizes()[l])[0]
+        if at_mean:
+            pts, oob = _in_range(_seq_mean(x))
+            ids = torch.nonzero(~oob)[:, 0]
+            w = _seq_mean(erf_w)[ids, None] * _cube_weights(
+                spec, l, pts[ids])
+            out.append((l, ids, _cells(spec, l, pts[ids]), w))
+            continue
+        pts, oob = _in_range(x.reshape(-1, 3))
+        inside = (~oob).reshape(b, n)
+        cells = _cells(spec, l, pts).reshape(b, n, 3)
+        weights = _cube_weights(spec, l, pts).reshape(b, n, 8)
+        coef = erf_w * inv_n
+        have = torch.zeros(b, dtype=torch.bool, device=x.device)
+        cur = torch.zeros((b, 3), dtype=torch.int64, device=x.device)
+        acc = torch.zeros((b, 8), dtype=x.dtype, device=x.device)
+
+        def emit(mask):
+            ids = torch.nonzero(mask)[:, 0]
+            if ids.numel():
+                out.append((l, ids, cur[ids], acc[ids]))
+
+        for j in range(n):
+            ins = inside[:, j]
+            ends = ins & have & (cells[:, j] != cur).any(-1)
+            emit(ends)
+            start = ins & ~(have & ~ends)
+            cur = torch.where(start[:, None], cells[:, j], cur)
+            acc = torch.where(start[:, None], 0.0, acc)
+            have = have | ins
+            acc = torch.where(ins[:, None],
+                              acc + coef[:, j, None] * weights[:, j], acc)
+        emit(have)
+    return out
+
+
+def _table_fixed_plain(x01: torch.Tensor, stds: torch.Tensor,
+                       g_out: torch.Tensor, spec: HashGridSpec,
+                       coarse_res_cutoff: int) -> torch.Tensor:
+    """The deterministic d_table, plain: every merged run's corner value
+    (weights x g_out) rounded once at its level's 2^k and summed in
+    int64."""
+    c, levels = spec.level_dim, spec.num_levels
+    g = g_out.reshape(-1, spec.output_dim)
+    k = fixed_exponents(_abs_bound(g).reshape(levels, c))
+    sums = _FixedSums(spec.total_rows, c, g.device)
+    for l, ids, cells, w in _table_runs(spec, x01, stds, coarse_res_cutoff):
+        gl = g[ids, l * c:(l + 1) * c]
+        for corner, offset in enumerate(_CORNERS3):
+            wc = w[:, corner]
+            sel = slice(None)
+            if spec.interp == "tetra":  # corners no point reaches add none
+                sel = torch.nonzero(wc != 0)[:, 0]
+            cc = cells[sel] + torch.tensor(offset, device=cells.device)
+            rows = spec.offsets[l] + _corner_index(
+                spec, l, cc[:, 0], cc[:, 1], cc[:, 2])
+            sums.add(rows, wc[sel, None] * gl[sel], k[l])
+    return sums.result(k[level_ids(spec, g.device).long()])
+
+
+def hash_encode_multisample_bwd_det_plain(
+        table: torch.Tensor, x01: torch.Tensor, stds: torch.Tensor,
+        g_out: torch.Tensor, spec: HashGridSpec, needs=(True, True, True),
+        coarse_res_cutoff: int = 0):
+    """The plain twin of `hash_encode_multisample_bwd_det`: d_table from
+    fixed-point terms summed in int64 (bit-identical under any order of
+    the samples), d_x01 / d_stds as `hash_encode_multisample_bwd_plain`
+    (sums in a fixed order, no scatter)."""
+    _check_ported(spec)
+    _, d_x, d_s = hash_encode_multisample_bwd_plain(
+        table, x01, stds, g_out, spec, (False, needs[1], needs[2]),
+        coarse_res_cutoff)
+    d_table = (_table_fixed_plain(x01, stds, g_out, spec, coarse_res_cutoff)
+               if needs[0] else None)
+    return d_table, d_x, d_s
+
+
+def table_grad_terms(x01: torch.Tensor, stds: torch.Tensor,
+                     g_out: torch.Tensor, spec: HashGridSpec,
+                     coarse_res_cutoff: int = 0):
+    """(terms [rows, C], counts [rows, 1]), float64: per d_table entry, the
+    sum of the magnitudes of its written-out terms, |erf_w / n * corner
+    weight * g_out| (a mean-point level: the mean erf weight), with the
+    float32 cells and weights of the encode (a tetrahedral weight may
+    round to -1 ulp), and the number of those terms; the tolerances of
+    the deterministic backward are stated in them."""
+    n, c = x01.shape[-2], spec.level_dim
+    x = x01.reshape(-1, n, 3)
+    s = stds.reshape(-1, n)
+    g = g_out.reshape(-1, spec.output_dim).abs().to(torch.float64)
+    terms = torch.zeros((spec.total_rows, c), dtype=torch.float64,
+                        device=x.device)
+    counts = torch.zeros((spec.total_rows, 1), dtype=torch.float64,
+                         device=x.device)
+    for l, at_mean in enumerate(mean_levels(spec, coarse_res_cutoff)):
+        erf_w = _erf_weight(s, spec.grid_sizes()[l])[0]
+        gl = g[:, l * c:(l + 1) * c]
+        if at_mean:
+            pts, oob = _in_range(_seq_mean(x))
+            coef = _seq_mean(erf_w)
+        else:
+            pts, oob = _in_range(x.reshape(-1, 3))
+            coef = erf_w.reshape(-1) / n
+            gl = gl.repeat_interleave(n, dim=0)
+        keep = torch.nonzero(~oob)[:, 0]
+        for idx, w, _ in _corners(spec, l, pts[keep]):
+            rows = spec.offsets[l] + idx
+            terms.index_add_(0, rows, (coef[keep] * w).abs().to(
+                torch.float64)[:, None] * gl[keep])
+            counts.index_add_(0, rows, torch.ones(
+                (len(rows), 1), dtype=torch.float64, device=x.device))
+    return terms, counts
+
+
+def table_grad_quantum(g_out: torch.Tensor,
+                       spec: HashGridSpec) -> torch.Tensor:
+    """[rows, C] float64 quantum 2^-k of every entry of the deterministic
+    d_table for this g_out."""
+    k = fixed_exponents(_abs_bound(g_out.reshape(-1, spec.output_dim))
+                        .reshape(spec.num_levels, spec.level_dim))
+    return torch.exp2(-k[level_ids(spec, g_out.device).long()].to(
+        torch.float64))
+
+
+def _fixed_to_float(lib, acc, flags, k, starts, out) -> None:
+    """Launch `fixed_to_float`: out [rows, C] from acc, flags and k ([G, C]
+    exponents of the row groups that start at `starts`, G + 1 of them)."""
+    starts = np.asarray(starts, np.int64)  # alive through the call
+    rc = lib.nl_fixed_to_float(
+        acc.data_ptr(), flags.data_ptr(), k.data_ptr(), starts.ctypes.data,
+        len(starts) - 1, out.data_ptr(), out.shape[0], out.shape[1],
+        out.device.index, _build.stream_of(out))
+    _build.check(lib, rc, "fixed_to_float")
+
+
+def _fixed_buffers(rows: int, c: int, device):
+    """Zeroed int64 sums [rows, C] and their flags, 4 bits an entry."""
+    return (torch.zeros((rows, c), dtype=torch.int64, device=device),
+            torch.zeros(((rows * c + 7) // 8,), dtype=torch.int32,
+                        device=device))
+
+
+def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
+                                    stds: torch.Tensor, g_out: torch.Tensor,
+                                    spec: HashGridSpec,
+                                    needs=(True, True, True),
+                                    coarse_res_cutoff: int = 0,
+                                    level_major_order=None, threads=128):
+    """Same contract as `hash_encode_multisample_bwd_plain`, with sums that
+    do not depend on their order: CPU tensors take the plain twin
+    (`hash_encode_multisample_bwd_det_plain`); CUDA tensors launch
+    `hash_encode_ms_bwd_fixed` then `fixed_to_float` (d_table) and
+    `hash_encode_ms_pos_grads` (d_x01 / d_stds), or raise.
+    level_major_order (default: `level_major`) and threads (the block
+    size, a multiple of 32) change the launch, never the result."""
+    if _on_cpu(table, x01, stds, g_out):
+        return hash_encode_multisample_bwd_det_plain(
+            table, x01, stds, g_out, spec, needs, coarse_res_cutoff)
+    table, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
+    b, n_ms = s.shape
+    c, levels = spec.level_dim, spec.num_levels
+    arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
+    lib = _build.library()
+    dev, stream = x.device.index, _build.stream_of(x)
+    d_table = d_x = d_s = None
+    if needs[0]:
+        if level_major_order is None:
+            level_major_order = level_major(spec, _l2_bytes(dev))
+        k = fixed_exponents(_abs_bound(g).reshape(levels, c))
+        acc, flags = _fixed_buffers(spec.total_rows, c, x.device)
+        rc = lib.nl_hash_encode_ms_bwd_fixed(
+            x.data_ptr(), s.data_ptr(), g.data_ptr(), k.data_ptr(),
+            acc.data_ptr(), flags.data_ptr(), b, n_ms, levels, c,
+            *(a.ctypes.data for a in arrays), spec.interp == "tetra",
+            bool(level_major_order), threads, dev, stream)
+        _build.check(lib, rc, "hash_encode_ms_bwd_fixed")
+        hash_encode_multisample_bwd_det.launches += 1
+        d_table = torch.empty_like(table)
+        _fixed_to_float(lib, acc, flags, k, spec.offsets, d_table)
+    if needs[1] or needs[2]:
+        d_x = torch.empty_like(x) if needs[1] else None
+        d_s = torch.empty_like(s) if needs[2] else None
+        ptr = lambda t: None if t is None else t.data_ptr()
+        rc = lib.nl_hash_encode_ms_pos_grads(
+            table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
+            ptr(d_x), ptr(d_s), b, n_ms, levels, c,
+            *(a.ctypes.data for a in arrays), spec.interp == "tetra", dev,
+            stream)
+        _build.check(lib, rc, "hash_encode_ms_pos_grads")
+        hash_encode_multisample_bwd_det.position_launches += 1
+    return (d_table,
+            None if d_x is None else d_x.reshape(x01.shape),
+            None if d_s is None else d_s.reshape(stds.shape))
+
+
+hash_encode_multisample_bwd_det.launches = 0
+hash_encode_multisample_bwd_det.position_launches = 0
+
+
+def scatter_add_rows_det_plain(idx: torch.Tensor, vals: torch.Tensor,
+                               rows: int) -> torch.Tensor:
+    """The plain twin of `scatter_add_rows_det`: every value rounded at its
+    channel's 2^k (S = the sum of |vals[:, c]| over the finite values) and
+    summed in int64; bit-identical under any order of the rows."""
+    k = fixed_exponents(_abs_bound(vals))
+    sums = _FixedSums(rows, vals.shape[-1], vals.device)
+    ok = (idx >= 0) & (idx < rows)
+    sums.add(idx[ok].long(), vals[ok], k)
+    return sums.result(k.expand(rows, -1))
+
+
+def scatter_add_rows_det(idx: torch.Tensor, vals: torch.Tensor,
+                         rows: int) -> torch.Tensor:
+    """Same contract as `scatter_add_rows_plain` (no gradient), with sums
+    that do not depend on their order: CPU tensors take
+    `scatter_add_rows_det_plain`; CUDA tensors launch
+    `scatter_add_rows_fixed` then `fixed_to_float`, or raise."""
+    if _on_cpu(idx, vals):
+        return scatter_add_rows_det_plain(idx, vals, rows)
+    idx, vals = _scatter_inputs(idx, vals)
+    n, c = vals.shape
+    k = fixed_exponents(_abs_bound(vals))
+    acc, flags = _fixed_buffers(rows, c, vals.device)
+    lib = _build.library()
+    rc = lib.nl_scatter_add_rows_fixed(
+        idx.data_ptr(), vals.data_ptr(), k.data_ptr(), acc.data_ptr(),
+        flags.data_ptr(), n, c, rows, vals.device.index,
+        _build.stream_of(vals))
+    _build.check(lib, rc, "scatter_add_rows_fixed")
+    scatter_add_rows_det.launches += 1
+    out = torch.empty((rows, c), dtype=torch.float32, device=vals.device)
+    _fixed_to_float(lib, acc, flags, k.reshape(1, c), (0, rows), out)
+    return out
+
+
+scatter_add_rows_det.launches = 0
+
+
+def _scatter_rows_det_any(idx: torch.Tensor, g: torch.Tensor,
+                          rows: int) -> torch.Tensor:
+    """scatter_add_rows_det at any width F of g [N, F]: column blocks of up
+    to 32, each padded with zeros to a width K3 takes."""
+    idx = idx.to(torch.int32)
+    g32 = g.to(torch.float32)
+    outs = []
+    for c0 in range(0, g.shape[1], 32):
+        part = g32[:, c0:c0 + 32]
+        f = part.shape[1]
+        width = next(w for w in _SCATTER_WIDTHS if w >= f)
+        if width != f:
+            part = torch.cat([part, part.new_zeros(part.shape[0],
+                                                   width - f)], dim=1)
+        outs.append(scatter_add_rows_det(idx, part.contiguous(), rows)[:, :f])
+    return torch.cat(outs, dim=1).to(g.dtype)
+
+
+class _SelectRowsDet(torch.autograd.Function):
+    """src.index_select(0, idx), its backward summed by K3's deterministic
+    variant."""
+
+    @staticmethod
+    def forward(ctx, src, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = src.shape
+        return src.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        rows = ctx.shape[0]
+        g2 = g.reshape(g.shape[0], -1)
+        return _scatter_rows_det_any(idx, g2, rows).reshape(ctx.shape), None
+
+
+def select_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`src.index_select(0, idx)`. With torch's deterministic algorithms on
+    and a src that takes a gradient, the backward (a row scatter-add of the
+    gradient) goes through `scatter_add_rows_det`: torch's deterministic
+    `index_add_` sorts the indices and adds each row's duplicates in turn,
+    which took ~90 ms a call on the object path's selects (a sample budget
+    of indices onto one latent row)."""
+    if torch.are_deterministic_algorithms_enabled() and src.requires_grad:
+        return _SelectRowsDet.apply(src, idx)
+    return src.index_select(0, idx)

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import vgg as vgg_lib
-from .unet import init_flax_default_
+from .unet import init_flax_default_, resize_bilinear
 
 
 class _Decoder(nn.Module):
@@ -32,8 +32,7 @@ class _Decoder(nn.Module):
         self.out = nn.Conv2d(64, 1, 1)
 
     def forward(self, feats: List[torch.Tensor], h: int, w: int):
-        ups = [F.interpolate(lat(f), size=(h, w), mode="bilinear",
-                             align_corners=False)
+        ups = [resize_bilinear(lat(f), (h, w))
                for lat, f in zip(self.lat, feats)]
         x = F.relu(torch.cat(ups, dim=1))
         x = F.relu(self.mix(x))

@@ -85,6 +85,15 @@ def gumbel_softmax_hard(logits: torch.Tensor, tau: float = 1.0,
     return hard + y - y.detach()
 
 
+def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """`F.cross_entropy(logits, target)` of [N, K, H, W] logits against [N,
+    H, W] class ids, as log_softmax times a one-hot summed over the
+    classes: CUDA's `nll_loss2d` has no deterministic forward, and torch
+    refuses it under its deterministic algorithms."""
+    picked = F.one_hot(target, logits.shape[1]).movedim(-1, 1)
+    return -(torch.log_softmax(logits, dim=1) * picked).sum(1).mean()
+
+
 def to_nchw(images: np.ndarray, device) -> torch.Tensor:
     """[N, H, W, C] numpy -> [N, C, H, W] float32 tensor on `device`."""
     t = torch.from_numpy(np.ascontiguousarray(images, np.float32))
@@ -145,7 +154,7 @@ class RayDropTrainer:
             loss = loss + reg
             stats["range_l1"] = reg
         if cfg.mask_loss:
-            ce = F.cross_entropy(logits, gt_mask.long())
+            ce = cross_entropy(logits, gt_mask.long())
             loss = loss + ce
             stats["ce"] = ce
         if (cfg.vgg or cfg.darknet) and train:
@@ -195,7 +204,7 @@ class RayDropTrainer:
         state.model.eval()
         out = state.model(img)
         logits = out[0] if self.cfg.regression else out
-        return F.cross_entropy(logits, gt_mask.long())
+        return cross_entropy(logits, gt_mask.long())
 
     def batch(self, images, masks, ranges, idx):
         """Frames `idx` of the data as (img NCHW, masks, ranges) tensors on

@@ -18,8 +18,9 @@ Two places where torch's defaults differ from Flax's, both matched here:
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +51,36 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(m).add_(var, alpha=1.0 - m)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_out: int, n_in: int, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] weights of torch's bilinear resize along one axis
+    (align_corners=False): output i reads (i + 0.5) * n_in / n_out - 0.5,
+    clamped at 0, from its two neighbours. Built once per shape and
+    device; shared, do not modify it."""
+    src = ((torch.arange(n_out, dtype=torch.float64) + 0.5) * (n_in / n_out)
+           - 0.5).clamp(min=0.0)
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    lam = src - i0
+    rows = torch.arange(n_out)
+    m = torch.zeros((n_out, n_in), dtype=torch.float64)
+    m.index_put_((rows, i0), 1.0 - lam, accumulate=True)
+    m.index_put_((rows, i1), lam, accumulate=True)
+    return m.to(dtype=dtype, device=device)
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """`F.interpolate(x, size, mode="bilinear", align_corners=False)` of
+    [N, C, H, W], as a product with two fixed interpolation matrices,
+    whose backward is a product too: F.interpolate's CUDA backward sums
+    with atomics, and torch refuses it under its deterministic
+    algorithms."""
+    mh = _resize_matrix(size[0], x.shape[2], x.dtype, x.device)
+    mw = _resize_matrix(size[1], x.shape[3], x.dtype, x.device)
+    return torch.matmul(torch.matmul(mh, x), mw.t())
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -123,8 +154,7 @@ class Up(nn.Module):
 
     def forward(self, x1, x2):
         if self.bilinear:
-            x1 = F.interpolate(x1, size=(x1.shape[2] * 2, x1.shape[3] * 2),
-                               mode="bilinear", align_corners=False)
+            x1 = resize_bilinear(x1, (x1.shape[2] * 2, x1.shape[3] * 2))
         up = self.up(x1)
         # Pad to match the skip connection (odd sizes).
         dh = x2.shape[2] - up.shape[2]

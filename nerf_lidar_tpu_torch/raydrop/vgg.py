@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet import init_flax_default_
+from .unet import init_flax_default_, resize_bilinear
 
 # VGG19 feature config up to relu4_1: (out_channels, pool_before) per conv.
 _SLICES = [
@@ -143,9 +143,7 @@ def vgg_loss_map(model: Vgg19Features, x: torch.Tensor,
     for i in range(len(fx) - 1):
         a, b = fx[i], fy[i]
         if i > 0:
-            a = F.interpolate(a, size=(h, w), mode="bilinear",
-                              align_corners=False)
-            b = F.interpolate(b, size=(h, w), mode="bilinear",
-                              align_corners=False)
+            a = resize_bilinear(a, (h, w))
+            b = resize_bilinear(b, (h, w))
         loss = loss + _WEIGHTS[i] * (a - b).abs().mean(1)
     return loss

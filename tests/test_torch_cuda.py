@@ -14,8 +14,20 @@ version's roundings, so both pick the same corners); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
+The deterministic H1 backward and K3 (fixed-point terms summed in int64):
+the same bits on fresh copies of their inputs, in both block orders and
+at block sizes 64, 128 and 256; against the atomic kernels at the
+tolerance above. The H1 backward's d_table against the float sum of the
+same terms (the written-out twin, `index_add_`) at 4096 float32 eps of
+each entry's summed |terms| plus half a quantum (2^-k) per term, and
+against its plain twin (which rounds the same terms, each side once,
+after the kernel's fused multiply-adds) at 4096 eps plus one quantum per
+term. K3's variant rounds the same float32 values as its plain twin:
+bit-identical to it, and within half a quantum a term of the float64 sum
+plus the sum's one rounding to float32 (half its float32 ulp).
 """
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -810,3 +822,261 @@ def test_raydrop_predict_prob_matches_cpu(dev):
     want = th.predict_prob(sh, images)
     assert got.shape == want.shape == images.shape[:3]
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+EPS32 = 2.0**-23
+DET_EPS_MULT = 4096
+
+
+def _det_within(name, got, want, terms, counts, quantum, per_term):
+    """|got - want| <= 4096 eps32 terms + per_term * quantum * counts."""
+    err = (got.double() - want.double()).abs()
+    allowed = DET_EPS_MULT * EPS32 * terms + per_term * quantum * counts
+    bad = err > allowed
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} entries outside; worst excess "
+        f"{float((err - allowed).max())}")
+
+
+def _det_exact_within(name, got, exact, terms, counts, quantum):
+    """|got - exact| <= quantum * counts / 2 + half got's float32 ulp +
+    2^-53 terms counts: K3's deterministic variant against the float64 sum
+    (each value rounded once to its quantum, the int64 sum exact, one
+    rounding to float32)."""
+    err = (got.double() - exact.double()).abs()
+    mag = got.abs()
+    ulp = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+           ).double().clamp(min=2.0**-149)
+    allowed = 0.5 * quantum * counts + 0.5 * ulp + 2.0**-53 * terms * counts
+    bad = err > allowed
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} entries outside; worst excess "
+        f"{float((err - allowed).max())}")
+
+
+def _bit_identical(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _det_case(dev, level_dim, interp, cutoff, case, seed):
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=level_dim, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16, interp=interp))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x01, stds = _mode_points(dev, spec, case, g)
+    table = torch.rand(spec.total_rows, level_dim, device=dev,
+                       generator=g) * 2 - 1
+    g_out = torch.randn(x01.shape[0], spec.output_dim, device=dev,
+                        generator=g)
+    return spec, table, x01, stds, g_out
+
+
+@pytest.mark.parametrize("case", ["ties", "rays", "oob_mean"])
+@pytest.mark.parametrize("cutoff", [0, 40])
+@pytest.mark.parametrize("interp", ["linear", "tetra"])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 16])
+def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
+                                                   cutoff, case):
+    """The deterministic backward: d_table, d_x01 and d_stds the same bits
+    on 3 fresh copies of the inputs, in both block orders and at 64, 128
+    and 256 threads a block; d_table against the float twin, the plain
+    deterministic twin and the atomic kernel; d_x01 / d_stds (float sums
+    in a fixed order) against the atomic kernel."""
+    spec, table, x01, stds, g_out = _det_case(dev, level_dim, interp,
+                                              cutoff, case, 80 + level_dim)
+    args = (table, x01, stds, g_out, spec)
+    before = (grid.hash_encode_multisample_bwd_det.launches,
+              grid.hash_encode_multisample_bwd_det.position_launches,
+              grid.hash_encode_multisample_bwd.launches)
+    first = grid.hash_encode_multisample_bwd_det(
+        *args, coarse_res_cutoff=cutoff)
+    plans = [(lm, th) for lm in (False, True) for th in (64, 128, 256)]
+    for lm, th in plans + [(None, 128)] * 2:
+        copies = [t.clone() for t in args[:4]]
+        got = grid.hash_encode_multisample_bwd_det(
+            *copies, spec, coarse_res_cutoff=cutoff, level_major_order=lm,
+            threads=th)
+        for a, b in zip(got, first):
+            assert torch.equal(a, b), (lm, th)
+    assert (grid.hash_encode_multisample_bwd_det.launches,
+            grid.hash_encode_multisample_bwd_det.position_launches,
+            grid.hash_encode_multisample_bwd.launches) == (
+        before[0] + 9, before[1] + 9, before[2])
+    terms, counts = grid.table_grad_terms(x01, stds, g_out, spec, cutoff)
+    quantum = grid.table_grad_quantum(g_out, spec)
+    float_twin = grid.hash_encode_multisample_bwd_plain(
+        *args, coarse_res_cutoff=cutoff)
+    det_twin = grid.hash_encode_multisample_bwd_det_plain(
+        *args, (True, False, False), cutoff)[0]
+    atomic = grid.hash_encode_multisample_bwd(*args,
+                                              coarse_res_cutoff=cutoff)
+    torch.cuda.synchronize()
+    _det_within("vs float twin", first[0], float_twin[0], terms, counts,
+                quantum, 0.5)
+    _det_within("vs det twin", first[0], det_twin, terms, counts, quantum,
+                1.0)
+    for i, name in enumerate(("table", "x01", "stds")):
+        _close_to_max(first[i], atomic[i], f"{name} vs atomic")
+
+
+@pytest.mark.parametrize("level_major", [False, True])
+def test_det_bwd_kernel_as_the_object_encode(dev, level_major):
+    """n = 1, stds 0 on the object grid (the track refinement's d_x01
+    pass): bit-identical on fresh copies, against the atomic kernel."""
+    spec = grid.spec_for(dataclasses.replace(
+        configs.nuscenes_single().model.obj_mlp.grid, log2_hashmap_size=14))
+    g = torch.Generator(device=dev).manual_seed(51)
+    x01 = torch.rand(4000, 1, 3, device=dev, generator=g) * 0.3 + 0.35
+    x01[:1000] = x01[0]
+    stds = torch.zeros(4000, 1, device=dev)
+    table = torch.rand(spec.total_rows, 2, device=dev, generator=g) * 2 - 1
+    g_out = torch.randn(4000, spec.output_dim, device=dev, generator=g)
+    needs = (True, True, False)
+    runs = [grid.hash_encode_multisample_bwd_det(
+        table.clone(), x01.clone(), stds.clone(), g_out.clone(), spec, needs,
+        level_major_order=level_major) for _ in range(3)]
+    atomic = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
+                                              needs)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run[0], runs[0][0])
+        assert torch.equal(run[1], runs[0][1])
+    assert runs[0][2] is None
+    _close_to_max(runs[0][0], atomic[0], "table vs atomic")
+    _close_to_max(runs[0][1], atomic[1], "x01 vs atomic")
+
+
+def test_det_bwd_kernel_flags_non_finite_terms(dev):
+    """NaN, +inf and -inf in g_out: the kernel's NaN / inf entries are the
+    plain twin's, which are a float sum's (tests/test_torch_determinism.py
+    holds that against JAX); the finite entries as above."""
+    spec, table, x01, stds, g_out = _det_case(dev, 4, "linear", 0, "rays",
+                                              90)
+    for b, col, v in ((3, 0, float("nan")), (5, 1, float("inf")),
+                      (6, 1, float("-inf")), (900, 4, float("inf")),
+                      (1200, 23, float("-inf"))):
+        g_out[b, col] = v
+    got = grid.hash_encode_multisample_bwd_det(table, x01, stds, g_out,
+                                               spec, (True, False, False))[0]
+    want = grid.hash_encode_multisample_bwd_det_plain(
+        table, x01, stds, g_out, spec, (True, False, False))[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want)), test.__name__
+    terms, counts = grid.table_grad_terms(
+        x01, stds, g_out.nan_to_num(nan=0.0, posinf=0.0, neginf=0.0), spec)
+    _det_within("finite entries", got.nan_to_num(), want.nan_to_num(),
+                terms, counts, grid.table_grad_quantum(g_out, spec), 1.0)
+
+
+@pytest.mark.parametrize("scale", [1.0, 3.0, 2.0**-70, 2.0**60])
+def test_det_kernels_at_the_int64_bound(dev, scale):
+    """A single term equal to S (one point on a grid vertex, erf weight 1,
+    one non-zero g_out), S a power of two or not, is 2^62 or just below
+    it in int64, and comes back as itself; K3 alike."""
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=4, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16))
+    x01 = torch.full((1, 1, 3), 0.5, device=dev)
+    pos = grid.grid_pos(x01.reshape(1, 3), spec.scales[0])
+    assert bool((pos == 2.0).all())  # scale 3: on a vertex, weight 1
+    stds = torch.zeros(1, 1, device=dev)
+    g_out = torch.zeros(1, spec.output_dim, device=dev)
+    g_out[0, 2] = scale  # level 0, channel 2
+    table = torch.zeros(spec.total_rows, 4, device=dev)
+    got = grid.hash_encode_multisample_bwd_det(table, x01, stds, g_out,
+                                               spec, (True, False, False))[0]
+    want = grid.hash_encode_multisample_bwd_plain(
+        table, x01, stds, g_out, spec, (True, False, False))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and float(got.abs().max()) == scale
+    vals = torch.zeros(8, 4, device=dev)
+    vals[3, 1] = -scale
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    out = grid.scatter_add_rows_det(idx, vals, 8)
+    assert torch.equal(out, vals)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("case", ["levels", "long", "ones", "oob"])
+def test_det_scatter_kernel_is_bit_identical_and_close(dev, case, c):
+    """The deterministic K3 on K3's sorted-run cases: the same bits on 3
+    fresh copies, against index_add_ in float64 and its plain twin (the
+    terms and counts of each output entry), and against the atomic K3."""
+    g = torch.Generator(device=dev).manual_seed(14 + c)
+    idx, vals, rows = _sorted_case(dev, case, c, g)
+    before = (grid.scatter_add_rows_det.launches,
+              grid.scatter_add_rows.launches)
+    runs = [grid.scatter_add_rows_det(idx.clone(), vals.clone(), rows)
+            for _ in range(3)]
+    assert (grid.scatter_add_rows_det.launches,
+            grid.scatter_add_rows.launches) == (before[0] + 3, before[1])
+    atomic = grid.scatter_add_rows(idx, vals, rows)
+    ok = (idx >= 0) & (idx < rows)
+    i = idx[ok].long()
+    terms = torch.zeros(rows, c, dtype=torch.float64, device=dev).index_add_(
+        0, i, vals[ok].abs().double())
+    counts = torch.zeros(rows, 1, dtype=torch.float64, device=dev).index_add_(
+        0, i, torch.ones(len(i), 1, dtype=torch.float64, device=dev))
+    quantum = torch.exp2(-grid.fixed_exponents(grid._abs_bound(vals))
+                         .double())
+    exact = grid.scatter_add_rows_plain(idx, vals.double(), rows)
+    twin = grid.scatter_add_rows_det_plain(idx, vals, rows)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run, runs[0])
+    _det_exact_within("vs float64", runs[0], exact, terms, counts, quantum)
+    _bit_identical(runs[0], twin)
+    _close_to_max(runs[0].double(), atomic.double(), "vs atomic")
+
+
+@pytest.mark.parametrize("rows,n,c", [(1 << 17, 1 << 22, 16),
+                                      (3, 100_003, 32)])
+def test_det_scatter_kernel_at_its_own_shape(dev, rows, n, c):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    idx = torch.randint(-2, rows + 2, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    vals = torch.randn(n, c, device=dev, generator=g)
+    vals[7, 0], vals[9, c - 1] = float("nan"), float("-inf")
+    idx[7], idx[9] = 1, 2
+    runs = [grid.scatter_add_rows_det(idx.clone(), vals.clone(), rows)
+            for _ in range(3)]
+    twin = grid.scatter_add_rows_det_plain(idx, vals, rows)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        _bit_identical(run, runs[0])
+    _bit_identical(runs[0], twin)
+
+
+def test_wrappers_launch_the_det_kernels_under_the_switch(dev):
+    """Under torch.use_deterministic_algorithms: autograd through the
+    encode and the differentiable K3 launch the deterministic kernels,
+    never the atomic ones; the switch is restored after."""
+    spec, table, x01, stds, g_out = _det_case(dev, 4, "linear", 0, "rays",
+                                              95)
+    leaves = [t.clone().requires_grad_(True) for t in (table, x01, stds)]
+    counts = lambda: (grid.hash_encode_multisample_bwd_det.launches,
+                      grid.hash_encode_multisample_bwd_det.position_launches,
+                      grid.hash_encode_multisample_bwd.launches,
+                      grid.scatter_add_rows_det.launches,
+                      grid.scatter_add_rows.launches)
+    before = counts()
+    with _deterministic():
+        grid.hash_encode_multisample(*leaves, spec).backward(g_out)
+        sums = grid.scatter_add_rows(grid.level_ids(spec, dev),
+                                     leaves[0]**2, spec.num_levels)
+        sums.sum().backward()
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2],
+                        before[3] + 1, before[4])
