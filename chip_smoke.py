@@ -208,15 +208,21 @@ Phases (each raises on failure, so the script exits non-zero):
    profiler phases, H1 / H1-bwd per grid, K1 and K3 on this path's own
    inputs.
 19. determinism (torch's deterministic algorithms; `--deterministic`):
-   on [8]'s recorded train inputs of every grid, H1-bwd's deterministic
-   d_table (`hash_encode_ms_bwd_fixed` + `fixed_to_float`) the same bits
-   on 3 fresh copies and in both block orders, against the float twin
-   (4096 float32 eps of each entry's |terms| + half a quantum a term) and
-   the plain deterministic twin (+ one quantum a term), and against the
+   on [8]'s recorded train inputs of every grid, kernel `abs_bound` (the
+   bound S of the sums and its exponents) on each g_out and hash-decay
+   table (and K3's shape): S the same bits as its plain version and on 3
+   copies, k = `fixed_exponents(S)`, within float64 rounding of torch's
+   sum (whether k equals torch's recorded); H1-bwd's deterministic
+   d_table (`abs_bound`, `hash_encode_ms_bwd_fixed`, `fixed_to_float`) the
+   same bits on 3 fresh copies and in both block orders, against the float
+   twin (4096 float32 eps of each entry's |terms| + half a quantum a term)
+   and the plain deterministic twin at the kernel's exponents (+ one
+   quantum a term), and against the
    atomic kernel at [6]'s tolerance; the bound S and quantum per level,
    the peak memory of a call; K3's deterministic variant at each grid's
    hash-decay level sums and at K3's own shape (rows 2^17, N 2^22, C16)
-   bit-identical to its plain twin and within half a quantum a term (and
+   bit-identical to its plain twin at the kernel's exponents and within
+   half a quantum a term (and
    the sum's rounding to float32) of float64; the d_x01 / d_stds gather
    pass (`hash_encode_ms_pos_grads`) on [12]'s recorded object-grid call
    and [15]'s `_fast` NeRF call (mean-point levels): the same bits on 3
@@ -230,7 +236,8 @@ Phases (each raises on failure, so the script exits non-zero):
    (DET_OBJ_STEPS; the d_x01 pass) and on `nuscenes_single_fast`
    (DET_FAST_STEPS; tetrahedral, mean-point and C16 modes): every
    parameter, buffer, Adam moment and logged stat equal to the bit, no
-   atomic kernel launched; `raydrop_train --deterministic` twice on [13]'s
+   atomic kernel launched and `abs_bound` launched;
+   `raydrop_train --deterministic` twice on [13]'s
    features (VGG loss), the same; each beside the default mode's two runs
    (their difference printed, not a condition); ms/step and peak GiB of
    both modes.
@@ -4460,12 +4467,16 @@ def det_turns(det, atomic, iters, full):
     atomic, det) and det also under the switch with and without the fill
     of uninitialized memory; else once each. Returns {"det": [ms],
     "atomic": [ms], "det_split": det's first turn by kernel, and with full
-    "switch_fill" / "switch_no_fill": {kernel: ms}}."""
+    "switch_fill" / "switch_no_fill": {kernel: ms}}. A turn whose session
+    the tracer left empty (late in the script) is timed by CUDA events
+    behind a device sleep (`queued_ms`) instead."""
     out = {"det": [], "atomic": []}
     for name in ("det", "atomic", "atomic", "det")[:4 if full else 2]:
-        spans = device_spans(det if name == "det" else atomic, iters)
-        out[name].append(round(sum(spans.values()), 4))
-        if name == "det" and "det_split" not in out:
+        fn = det if name == "det" else atomic
+        spans = device_spans(fn, iters)
+        ms = sum(spans.values()) or queued_ms(fn) or cuda_ms(fn, iters)
+        out[name].append(round(ms, 4))
+        if name == "det" and sum(spans.values()) and "det_split" not in out:
             out["det_split"] = short_spans(spans)
     for fill in (True, False) if full else ():
         with det_switch(fill):
@@ -4503,7 +4514,12 @@ def det_bwd_grid(dev, name, args, cutoff, full):
     got = runs[0][0]
     del runs
     terms, counts = grid.table_grad_terms(x01, stds, g_out, spec, cutoff)
-    quantum = grid.table_grad_quantum(g_out, spec)
+    g2 = g_out.reshape(-1, spec.output_dim)
+    bound_s, k = grid.bound_exponents(g2)
+    k = k.reshape(spec.num_levels, spec.level_dim)
+    k_as_torch = bool(torch.equal(k, grid.fixed_exponents(
+        grid._abs_bound(g2)).reshape(k.shape)))
+    quantum = grid.table_grad_quantum(g_out, spec, k)
     twin_ms, float_twin = cuda_ms_once(
         lambda: grid.hash_encode_multisample_bwd_plain(
             *args, only, cutoff)[0])
@@ -4514,7 +4530,7 @@ def det_bwd_grid(dev, name, args, cutoff, full):
     if full:
         det_twin_ms, twin = cuda_ms_once(
             lambda: grid.hash_encode_multisample_bwd_det_plain(
-                *args, only, cutoff)[0])
+                *args, only, cutoff, k=k)[0])
         vs_twin = det_within(f"hash_encode_ms_bwd_det {name} vs det twin",
                              got, twin, terms, counts, quantum, 1.0)
         del twin
@@ -4522,9 +4538,8 @@ def det_bwd_grid(dev, name, args, cutoff, full):
     vs_atomic = rel_err(f"hash_encode_ms_bwd_det {name} vs atomic", got,
                         atomic, BWD_TOL)
     del atomic, terms, counts
-    bound_s = grid._abs_bound(g_out.reshape(-1, spec.output_dim)).reshape(
-        spec.num_levels, spec.level_dim).amax(-1)
-    k = grid.fixed_exponents(bound_s)
+    bound_s = bound_s.reshape(spec.num_levels, spec.level_dim).amax(-1)
+    k = k.amin(-1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
@@ -4544,18 +4559,21 @@ def det_bwd_grid(dev, name, args, cutoff, full):
                vs_det_twin=vs_twin, vs_atomic_rel=vs_atomic[1],
                bound_s=[float(v) for v in bound_s],
                quantum=[float(2.0 ** -int(e)) for e in k],
-               peak_gib=peak / 2**30, mode=encode_mode(spec, cutoff))
+               k_equals_torch_bound=k_as_torch, peak_gib=peak / 2**30,
+               pool_gib=grid.fixed_pool_bytes() / 2**30,
+               mode=encode_mode(spec, cutoff))
     print(f"[19] hash_encode_ms_bwd_det {name} ({out['mode']}, B="
           f"{stds.shape[0]}): same bits on 3 copies and both orders; vs "
           f"float twin {vs_float}, vs det twin {vs_twin}, vs atomic "
           f"{vs_atomic[1]:.2e} of max; S per level {out['bound_s']}, quantum "
-          f"{out['quantum']}; device ms in turns: det {turns['det']}, atomic "
-          f"{turns['atomic']}; det by kernel {turns['det_split']}; under "
+          f"{out['quantum']} (k as from torch's S: {k_as_torch}); device ms "
+          f"in turns: det {turns['det']}, atomic "
+          f"{turns['atomic']}; det by kernel {turns.get('det_split')}; under "
           f"the switch {turns.get('switch_fill')}, without its fill "
           f"{turns.get('switch_no_fill')}; bound {lim['bound_ms']:.4f} "
           f"({lim['bound_by']}); float twin {twin_ms:.1f} ms, det twin "
           f"{det_twin_ms} ms (CUDA events); peak {out['peak_gib']:.3f} GiB "
-          f"a call")
+          f"a call, the kept sums {out['pool_gib']:.3f} GiB")
     return out
 
 
@@ -4638,11 +4656,13 @@ def det_scatter(dev, name, idx, vals, rows, full):
                         device=dev).index_add_(0, i64, vals[ok].abs().double())
     counts = torch.zeros(rows, 1, dtype=torch.float64, device=dev).index_add_(
         0, i64, torch.ones(len(i64), 1, dtype=torch.float64, device=dev))
-    quantum = torch.exp2(-grid.fixed_exponents(grid._abs_bound(vals))
-                         .double()).expand(rows, -1)
+    k = grid.bound_exponents(vals)[1]
+    k_as_torch = bool(torch.equal(k, grid.fixed_exponents(
+        grid._abs_bound(vals))))
+    quantum = torch.exp2(-k.double()).expand(rows, -1)
     exact = grid.scatter_add_rows_plain(idx, vals.double(), rows)
     plain_ms, twin = cuda_ms_once(
-        lambda: grid.scatter_add_rows_det_plain(idx, vals, rows))
+        lambda: grid.scatter_add_rows_det_plain(idx, vals, rows, k))
     vs_exact = det_exact_within(f"scatter_add_rows_det {name} vs float64",
                                 got, exact, terms, counts, quantum)
     same_values(f"scatter_add_rows_det {name} vs det twin", got, twin)
@@ -4661,15 +4681,53 @@ def det_scatter(dev, name, idx, vals, rows, full):
                ms=statistics.fmean(turns["det"]), plain_ms=plain_ms,
                atomic_ms=statistics.fmean(turns["atomic"]),
                library_ms=library_ms, **lim, turns=turns,
-               vs_float64=vs_exact, vs_det_twin="bit-identical")
+               vs_float64=vs_exact, vs_det_twin="bit-identical",
+               k_equals_torch_bound=k_as_torch)
     print(f"[19] scatter_add_rows_det {name} (N={vals.shape[0]} onto {rows},"
-          f" C{vals.shape[1]}): same bits on 3 copies and as its det twin; "
+          f" C{vals.shape[1]}): same bits on 3 copies and as its det twin "
+          f"(k as from torch's S: {k_as_torch}); "
           f"vs float64 {vs_exact}; device ms in turns: det {turns['det']}, "
-          f"atomic {turns['atomic']}; det by kernel {turns['det_split']}; "
+          f"atomic {turns['atomic']}; det by kernel {turns.get('det_split')}; "
           f"under the switch {turns.get('switch_fill')}, without its fill "
           f"{turns.get('switch_no_fill')}; index_add_ (deterministic) "
           f"{library_ms:.4f}; bound {lim['bound_ms']:.4f} ({lim['bound_by']})"
           f"; plain twin {plain_ms:.1f} ms (CUDA events)")
+    return out
+
+
+def det_bound(dev, name, v):
+    """[19] Kernel `abs_bound` (the bound S of the deterministic sums and its
+    exponents, `grid.bound_exponents`) on v [N, F]: S the same bits as its
+    plain version (`grid.abs_bound_plain`, the kernel's order of sums) and
+    on 3 fresh copies, k = `fixed_exponents(S)`, S within float64 rounding
+    (rtol 1e-12) of torch's `_abs_bound` and whether k equals torch's;
+    device ms beside torch's four passes (`_abs_bound`: abs, nan_to_num, a
+    float64 copy, a sum; not one call, so no library time), the bound (v
+    read once)."""
+    import torch
+    from nerf_lidar_tpu_torch.ops import grid
+    runs = [grid.bound_exponents(v.clone()) for _ in range(3)]
+    same_bits(f"abs_bound {name} (3 copies)", runs)
+    s, k = runs[0]
+    plain_ms, want = cuda_ms_once(lambda: grid.abs_bound_plain(v))
+    same_values(f"abs_bound {name} vs plain", s, want)
+    same_values(f"abs_bound {name} k", k, grid.fixed_exponents(want))
+    torch_s = grid._abs_bound(v)
+    err = float(((s - torch_s).abs() / torch_s.abs().clamp(min=1e-300)).max())
+    if not err <= 1e-12:
+        fail(f"abs_bound {name}: {err} relative to torch's sum")
+    k_as_torch = bool(torch.equal(k, grid.fixed_exponents(torch_s)))
+    ms = device_ms(lambda: grid.bound_exponents(v), iters=20)
+    torch_ms = device_ms(lambda: grid._abs_bound(v), iters=20)
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+               torch_passes_ms=torch_ms, **bound(nbytes(v), v.numel()),
+               rel_to_torch_sum=err, k_equals_torch_bound=k_as_torch,
+               shape=list(v.shape))
+    print(f"[19] abs_bound {name} ({list(v.shape)}): same bits as its plain "
+          f"version and on 3 copies; {err:.2e} relative to torch's sum, k as "
+          f"torch's: {k_as_torch}; device ms {ms:.4f} against torch's passes "
+          f"{torch_ms:.4f}; plain {plain_ms:.1f} ms (CUDA events); bound "
+          f"{out['bound_ms']:.4f} ({out['bound_by']})")
     return out
 
 
@@ -4718,7 +4776,8 @@ def _det_counters():
                     grid.hash_encode_multisample_bwd_det,
                     "position_launches"),
                 scatter_add_rows=(grid.scatter_add_rows, "launches"),
-                scatter_add_rows_det=(grid.scatter_add_rows_det, "launches"))
+                scatter_add_rows_det=(grid.scatter_add_rows_det, "launches"),
+                abs_bound=(grid.bound_exponents, "launches"))
 
 
 def det_train_run(dev, key, argv, deterministic, tag):
@@ -4805,10 +4864,14 @@ def phase_determinism(dev, train_inputs, pos_inputs):
     from torch.utils import deterministic as torch_det
     from nerf_lidar_tpu_torch.ops import grid
 
-    bwd_grids, k3_grids, pos = {}, {}, {}
+    bwd_grids, k3_grids, pos, bounds = {}, {}, {}, {}
     for name, rec in train_inputs.items():
         table, x01, stds, g_out, spec = rec[:5]
         cutoff = rec[6] if len(rec) > 6 else 0
+        bounds[f"g_out {name}"] = det_bound(
+            dev, f"g_out {name}", g_out.reshape(-1, spec.output_dim))
+        bounds[f"hash decay {name}"] = det_bound(
+            dev, f"hash decay {name}", table**2)
         bwd_grids[name] = det_bwd_grid(dev, name,
                                        (table, x01, stds, g_out, spec),
                                        cutoff, full=name == "nerf")
@@ -4823,10 +4886,11 @@ def phase_determinism(dev, train_inputs, pos_inputs):
     rows, n = 1 << 17, 1 << 22
     idx = torch.randint(0, rows, (n,), device=dev, generator=g,
                         dtype=torch.int32)
-    k3_own = det_scatter(dev, f"rows={rows} N={n}", idx,
-                         torch.randn(n, 16, device=dev, generator=g), rows,
+    own_vals = torch.randn(n, 16, device=dev, generator=g)
+    bounds["K3 shape"] = det_bound(dev, "K3 shape", own_vals)
+    k3_own = det_scatter(dev, f"rows={rows} N={n}", idx, own_vals, rows,
                          full=True)
-    del idx
+    del idx, own_vals
 
     paths, train = {}, {}
     for key, argv in DET_TRAIN.items():
@@ -4845,7 +4909,8 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                         launches["scatter_add_rows"]:
                     fail(f"train --deterministic ({key}) launched an "
                          f"atomic kernel: {launches}")
-                need = ["hash_encode_ms_bwd_det", "scatter_add_rows_det"]
+                need = ["hash_encode_ms_bwd_det", "scatter_add_rows_det",
+                        "abs_bound"]
                 if key == "objects":
                     need.append("hash_encode_ms_pos_grads")
                 need_launches(f"train --deterministic ({key})", launches,
@@ -4863,7 +4928,7 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                         ms_per_step=nofill[2], peak_gib=nofill[3])
                     del nofill
             elif launches["hash_encode_ms_bwd_det"] or \
-                    launches["scatter_add_rows_det"]:
+                    launches["scatter_add_rows_det"] or launches["abs_bound"]:
                 fail(f"train ({key}) without the switch launched a "
                      f"deterministic kernel: {launches}")
             del first
@@ -4914,6 +4979,16 @@ def phase_determinism(dev, train_inputs, pos_inputs):
               launches_by_path=by_path("scatter_add_rows_det"),
               source=KERNEL_SOURCE,
               k3_shape_rows131072_n4194304_c16=k3_own)
+    # The bound S of both deterministic sums: one kernel, on g_out (H1-bwd)
+    # and on vals (K3); its top-level numbers on the NeRF grid's g_out.
+    s_kernel = dict(bounds["g_out nerf"], name="abs_bound", route="cuda",
+                    source=KERNEL_SOURCE, inputs=bounds,
+                    launches=sum(by_path("abs_bound").values()),
+                    launches_by_path=by_path("abs_bound"))
+    bwd["abs_bound"] = s_kernel
+    k3["abs_bound"] = dict(bounds["hash decay nerf"], name="abs_bound",
+                           route="cuda", source=KERNEL_SOURCE,
+                           launches=s_kernel["launches"])
     return dict(hash_encode_ms_bwd=bwd, scatter_add_rows=k3)
 
 

@@ -127,35 +127,56 @@
 // Deterministic variants (torch.are_deterministic_algorithms_enabled(); the
 //   JAX package's scatter-adds are XLA's, whose sums do not depend on the
 //   run): hash_encode_ms_bwd_fixed (d_table), hash_encode_ms_pos_grads
-//   (d_x01 / d_stds) and scatter_add_rows_fixed (K3), then fixed_to_float.
-//   A float sum depends on its order; an integer sum does not. So every
-//   term is rounded once to a fixed-point int64, u * 2^k[g, c] to the
-//   nearest integer, and all sums after that are exact: the results are
-//   the same bits whatever the order of the atomics, the block order or
-//   the block size. The caller picks k[g, c] = 62 - ceil(log2 S[g, c])
-//   from S = the sum of |g_out| (H1-bwd, per level g and channel c) or of
-//   |vals| (K3, per channel) over the finite entries: each term of an
-//   entry of group g is at most |that g_out| (the corner weights of a
-//   point times its erf weight / n sum to at most 1), so the entries of a
-//   group sum to at most S * 2^k <= 2^62 and no int64 overflows. A
-//   non-finite term adds nothing and sets its entry's NaN / +inf / -inf
-//   flag (an atomicOr, which no order changes); fixed_to_float then writes
-//   NaN (NaN, or both infinities), +-inf, or the sum times 2^-k, which is
-//   what a float sum of the same terms gives. Design:
-//   - H1-bwd keeps its threads, block orders, corner-run merge and warp
-//     aggregation: a thread rounds its own run's merged corner value once,
-//     before any cross-lane sum (so no sum depends on which lanes share a
-//     warp), then the segmented scan and the row atomics run on int64
-//     (scalar atomics: C per row where the float path takes one vector);
+//   (d_x01 / d_stds) and scatter_add_rows_fixed (K3), with abs_bound before
+//   and fixed_to_float after. A float sum depends on its order; an integer
+//   sum does not. So every term is rounded once, by its own lane and before
+//   any cross-lane sum, to a fixed-point int64, u * 2^k[g, c] to the
+//   nearest integer, and all sums after that are exact: where terms are
+//   merged (a thread's run, a warp's segmented scan, L2 atomics) and in
+//   what order cannot move a bit, so neither can the block order, the
+//   block size or the sinks' layout. k[g, c] = 62 - ceil(log2
+//   S[g, c]), S = the sum of |g_out| (H1-bwd, per level g and channel c) or
+//   of |vals| (K3, per channel) over the finite entries: each term of an
+//   entry of group g is at most |that g_out| (the corner weights of a point
+//   times its erf weight / n sum to at most 1), so the entries of a group
+//   sum to at most S * 2^k <= 2^62 and no int64 overflows. A non-finite
+//   term adds nothing and sets its entry's NaN / +inf / -inf flag (an
+//   atomicOr, which no order changes); fixed_to_float then writes NaN (NaN,
+//   or both infinities), +-inf, or the sum times 2^-k, which is what a
+//   float sum of the same terms gives. Design:
+//   - abs_bound: S as a kernel (one read of g_out or vals, float64 sums in
+//     an order fixed by the shape: block partials by a tree, then a warp a
+//     column over the blocks), and k from it, in place of four torch
+//     passes;
+//   - H1-bwd keeps its threads, block orders (picked for the int64 table's
+//     size, ops/grid.py:fixed_level_major), corner-run merge and warp
+//     aggregation on int64; its row sums leave by add_rows_transposed: the
+//     warp compacts its segment ends by a ballot and lane j adds channel
+//     j % C of the (j / C)-th, so one atomic instruction covers 32 / C
+//     whole rows (C4: a 32-byte sector a row) where a lane a row spent C
+//     scalar ones over 32 sectors (15.9 ms on the NeRF grid's train step
+//     with a lane a row, 12.3 transposed; PERF.md). Measured and dropped
+//     (PERF.md): a
+//     block's shared-memory table keyed by row that merged its rows'
+//     updates before device memory (slower at every level and size: its
+//     64-bit shared atomics, fill and flush cost more than the device
+//     atomics they saved), and cutting a hashed level's rows into passes so
+//     each pass's 32 MB of sums stay in L2 (each pass walks every point
+//     again: 1.8 ms a level against 1.3);
 //   - d_x01 / d_stds are a gather, not a scatter: one thread per sample
 //     walks the levels in order, reads the corner rows as H1 does, and
 //     sums its n points' gradients in shared-memory slots of its own,
 //     written once; float sums in a fixed order, no atomics;
-//   - K3 keeps its tiling, with each value rounded as it is loaded and the
-//     runs summed in int64 registers, shuffles and shared memory.
+//   - K3 keeps its chunks and tiling, with each value rounded as it is
+//     loaded, the runs summed in int64 registers, shuffles and shared
+//     memory, and every finished run added by its warp lane-transposed;
+//   - fixed_to_float reads each int64 sum once and leaves it and the flags
+//     zero, so the wrappers keep one accumulator a shape (no zero fill a
+//     call).
 //   Bound as the float kernels (table / output atomics), plus the int64
-//   accumulator (8 bytes an entry) written and read once more by
-//   fixed_to_float.
+//   accumulator (8 bytes an entry) read and cleared once by fixed_to_float;
+//   on the card the sums are held back by the L2's int64 atomics, C a row
+//   where the float kernels' vector atomic is one (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -662,16 +683,87 @@ __device__ __forceinline__ void mark_nonfinite(unsigned* flags, int64_t e,
   atomicOr(flags + (e >> 3), f << (4 * (e & 7)));
 }
 
+// The fixed-point scale of one exponent k: sc = 2^k where that is a normal
+// float, else 0 (then to_fixed takes ldexpf).
+struct FixedScale {
+  float sc;
+  int k;
+};
+
+__device__ __forceinline__ FixedScale fixed_scale(int k) {
+  return FixedScale{
+      k >= -126 && k <= 127 ? __int_as_float((127 + k) << 23) : 0.f, k};
+}
+
 // u * 2^k rounded to the nearest int64 (ties to even): one rounding, since
-// scaling by a power of two is exact here (|u| * 2^k <= 2^62).
-__device__ __forceinline__ long long to_fixed(float u, int k) {
-  return __float2ll_rn(ldexpf(u, k));
+// scaling by a power of two is exact here (|u| * 2^k <= 2^62): a product by
+// 2^k where that is a float (correctly rounded, as ldexpf is, also where it
+// lands below the normal range), ldexpf elsewhere.
+__device__ __forceinline__ long long to_fixed(float u, FixedScale f) {
+  return __float2ll_rn(f.sc != 0.f ? u * f.sc : ldexpf(u, f.k));
+}
+
+// The index of set bit k of m, counting from 0 at the lowest (k < popc(m)):
+// a binary search on popcounts.
+__device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// Warp-collective int64 row adds into dst [rows, C], lane-transposed: every
+// lane of the warp calls. A row's C sums are held by kG = C / kW
+// neighbouring lanes, the first at a multiple of kG, each holding kW
+// channels in v, all with the same `has` and `row`. Round by round, lane j
+// adds channel j % C of the (j / C)-th row still to add (its value and row
+// fetched by shuffles): one atomic instruction covers 32 / C whole rows,
+// each row's C values contiguous (C4: 32 bytes, one sector), where a lane
+// per row spends C instructions, each touching a sector of every row. A
+// zero sum adds nothing. C = 1: each lane adds its own.
+template <int C, int kW>
+__device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
+                                                    bool has, uint32_t row,
+                                                    const long long* v) {
+  if constexpr (C == 1) {
+    if (has && v[0] != 0) atomicAdd(dst + row, (unsigned long long)v[0]);
+  } else {
+    constexpr int kG = C / kW, kRows = 32 / C;
+    const int lane = threadIdx.x & 31;
+    const int slot = lane / C, ch = lane % C;
+    unsigned heads = __ballot_sync(kFullMask, has && lane % kG == 0);
+    while (heads != 0u) {
+      const int cnt = __popc(heads);
+      const bool mine = slot < cnt;
+      const int src = (mine ? nth_set_bit(heads, slot) : 0) + ch / kW;
+      long long s = 0;
+#pragma unroll
+      for (int r = 0; r < kW; ++r) {
+        const long long t = __shfl_sync(kFullMask, v[r], src);
+        if (r == ch % kW) s = t;
+      }
+      const uint32_t to = __shfl_sync(kFullMask, row, src);
+      if (mine && s != 0)
+        atomicAdd(dst + (int64_t)to * C + ch, (unsigned long long)s);
+      heads = cnt > kRows
+                  ? heads & ~((2u << nth_set_bit(heads, kRows - 1)) - 1u)
+                  : 0u;
+    }
+  }
 }
 
 // Where add_runs puts a segment's sum for one corner row: a float atomic on
 // d_table (the default kernel), or exact int64 atomics on an accumulator of
-// fixed-point terms (the deterministic one). term() is called by every lane
-// of the warp; `act` says its run ends here.
+// fixed-point terms (the deterministic one). term() and flush() are called
+// by every lane of the warp; `act` says its run ends here, `add` that it
+// holds a segment's sum.
 template <int C>
 struct FloatRows {
   using T = float;
@@ -682,8 +774,10 @@ struct FloatRows {
                                     Row) const {
     return w * g;
   }
-  __device__ __forceinline__ void add(uint32_t row, const T* u) const {
-    add_row<C>(dst + (int64_t)row * C, u);
+  template <class Row>
+  __device__ __forceinline__ void flush(bool add, Row row,
+                                        const T* u) const {
+    if (add) add_row<C>(dst + (int64_t)row() * C, u);
   }
 };
 
@@ -693,7 +787,7 @@ struct FixedRows {
   unsigned long long* acc;  // the level's slice of the [rows, C] sums
   unsigned* flags;          // the whole table's flags
   int64_t base;             // the level's first entry, offset * C
-  int k[C];                 // the level's exponent per channel
+  FixedScale q[C];          // the level's exponent per channel
   __device__ __forceinline__ bool on() const { return true; }
   // With tetra a weight of 0 is a corner that no point of the run reaches
   // (or a simplex vertex of weight 0): it adds nothing, also against a
@@ -703,15 +797,15 @@ struct FixedRows {
                                     Row row) const {
     if (kTetra && w == 0.f) return 0;
     const float u = w * g;
-    if (isfinite(u)) return to_fixed(u, k[ch]);
+    if (isfinite(u)) return to_fixed(u, q[ch]);
     if (act) mark_nonfinite(flags, base + (int64_t)row() * C + ch, u);
     return 0;
   }
-  __device__ __forceinline__ void add(uint32_t row, const T* q) const {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (q[c] != 0)
-        atomicAdd(acc + (int64_t)row * C + c, (unsigned long long)q[c]);
+  // The segment sums leave by the warp's transposed atomics.
+  template <class Row>
+  __device__ __forceinline__ void flush(bool add, Row row,
+                                        const T* u) const {
+    add_rows_transposed<C, C>(acc, add, add ? row() : 0u, u);
   }
 };
 
@@ -745,11 +839,10 @@ __device__ __forceinline__ void rows_of(const int32_t* idx, int64_t v,
   }
 }
 
-// How K3 sums: the values with float atomics (the default), or each value
-// rounded to fixed point (channel c at 2^k[c]) and summed in int64 (the
-// deterministic variant; a non-finite value adds nothing and flags its
-// entry). term(v, row, channel) is a value's summand, add<W>(e, s) adds W
-// channels of sums at entry e of the [rows, C] output.
+// How K3 sums: the values with float atomics. term(v, row, channel) is a
+// value's summand, add<W>(e, s) adds W channels of sums at entry e of the
+// [rows, C] output. (The deterministic variant is a kernel of its own,
+// scatter_add_rows_fixed_kernel.)
 template <int C>
 struct FloatSums {
   using T = float;
@@ -758,26 +851,6 @@ struct FloatSums {
   template <int W>
   __device__ __forceinline__ void add(int64_t e, const T* s) const {
     add_row<W>(out + e, s);
-  }
-};
-
-template <int C>
-struct FixedSums {
-  using T = long long;
-  unsigned long long* out;
-  unsigned* flags;
-  const int* k;  // [C]
-  int64_t rows;
-  __device__ __forceinline__ T term(float v, int r, int ch) const {
-    if (isfinite(v)) return to_fixed(v, __ldg(k + ch));
-    if (r >= 0 && r < rows) mark_nonfinite(flags, (int64_t)r * C + ch, v);
-    return 0;
-  }
-  template <int W>
-  __device__ __forceinline__ void add(int64_t e, const T* s) const {
-#pragma unroll
-    for (int i = 0; i < W; ++i)
-      if (s[i] != 0) atomicAdd(out + e + i, (unsigned long long)s[i]);
   }
 };
 
@@ -880,6 +953,122 @@ __global__ void __launch_bounds__(kScatterThreads)
   }
 }
 
+// K3's deterministic variant: scatter_add_rows_kernel's chunks, tiles and
+// run sums, with each value rounded to fixed point (channel c at 2^k[c]) as
+// it is loaded and the runs summed in int64; a non-finite value adds nothing
+// and flags its entry. Every finished run is added by its warp together,
+// lane-transposed (add_rows_transposed; C16: the kG = 4 lanes of a row
+// hold its 16 channels, and one instruction adds two whole rows), so every
+// lane walks the same tiles and steps: lanes past the chunk's end carry
+// their run on. out / flags: [rows, C] int64 sums and their flags.
+template <int C>
+__global__ void __launch_bounds__(kScatterThreads)
+    scatter_add_rows_fixed_kernel(const int32_t* __restrict__ idx,
+                                  const float* __restrict__ vals,
+                                  const int* __restrict__ k,
+                                  unsigned long long* __restrict__ out,
+                                  unsigned* __restrict__ flags, int64_t V,
+                                  int64_t chunk, int tail, int64_t rows) {
+  using Tile = ScatterTile<C>;
+  constexpr int kW = Tile::kW, kP = Tile::kP, kG = Tile::kG;
+  constexpr int kWarps = kScatterThreads / 32;
+  __shared__ long long part[kWarps][kG * kW];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const auto in_rows = [&](int r) { return r >= 0 && r < rows; };
+  if (blockIdx.x == gridDim.x - 1 && t < tail) {
+    const int64_t e = 4 * V + t;
+    const int r = __ldg(idx + e / C);
+    const int c = (int)(e % C);
+    const float v = __ldg(vals + e);
+    if (in_rows(r)) {
+      if (!isfinite(v))
+        mark_nonfinite(flags, (int64_t)r * C + c, v);
+      else if (const long long s = to_fixed(v, fixed_scale(__ldg(k + c))))
+        atomicAdd(out + (int64_t)r * C + c, (unsigned long long)s);
+    }
+  }
+  const int64_t v0 = (int64_t)blockIdx.x * chunk;
+  const int64_t v1 = v0 + chunk < V ? v0 + chunk : V;
+  if (v1 <= v0) return;  // the whole block: no float4 in its chunk
+  const float4* vals4 = reinterpret_cast<const float4*>(vals);
+  const int ch = (t % kG) * kW;
+  FixedScale q[kW];
+#pragma unroll
+  for (int i = 0; i < kW; ++i) q[i] = fixed_scale(__ldg(k + ch + i));
+  int cur = -1;  // the row being summed; -1 is dropped like any other
+  long long acc[kW] = {};
+  for (int64_t tile = v0; tile < v1;
+       tile += kScatterUnroll * kScatterThreads) {
+    const int64_t base = tile + t;
+    float4 x[kScatterUnroll] = {};
+    int r[kScatterUnroll][kP];
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const int64_t v = base + u * kScatterThreads;
+      if (v < v1) {
+        x[u] = __ldcs(vals4 + v);
+        rows_of<C>(idx, v, r[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const bool valid = base + u * kScatterThreads < v1;
+      const float f[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int rr = valid ? r[u][p] : cur;
+        const bool ends = rr != cur;
+        add_rows_transposed<C, kW>(out, ends && in_rows(cur), (uint32_t)cur,
+                                   acc);
+        if (ends) {
+          cur = rr;
+#pragma unroll
+          for (int i = 0; i < kW; ++i) acc[i] = 0;
+        }
+        if (!valid) continue;
+#pragma unroll
+        for (int i = 0; i < kW; ++i) {
+          const float v = f[p * kW + i];
+          if (isfinite(v))
+            acc[i] += to_fixed(v, q[i]);
+          else if (in_rows(rr))
+            mark_nonfinite(flags, (int64_t)rr * C + ch + i, v);
+        }
+      }
+    }
+  }
+  // The runs still open, as scatter_add_rows_kernel sums them: those on the
+  // chunk's last row across the lanes of a group and across warps, then
+  // added once by warp 0's first kG lanes; any other by its warp.
+  const int last = __ldg(idx + (4 * v1 - 1) / C);
+  const bool mine = cur == last;
+  add_rows_transposed<C, kW>(out, !mine && in_rows(cur), (uint32_t)cur, acc);
+  long long s[kW];
+#pragma unroll
+  for (int i = 0; i < kW; ++i) s[i] = mine ? acc[i] : 0;
+#pragma unroll
+  for (int off = 16; off >= kG; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) s[i] += __shfl_xor_sync(kFullMask, s[i], off);
+  }
+  if (lane < kG) {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) part[warp][lane * kW + i] = s[i];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    long long sum[kW] = {};
+    if (lane < kG) {
+      for (int w = 0; w < kWarps; ++w) {
+#pragma unroll
+        for (int i = 0; i < kW; ++i) sum[i] += part[w][lane * kW + i];
+      }
+    }
+    add_rows_transposed<C, kW>(out, lane < kG && in_rows(last),
+                               (uint32_t)last, sum);
+  }
+}
+
 // The row updates of a run that ends: corner c of cell (ix, iy, iz) gets
 // W[c] * g, where `act` says this lane has a run. All 32 lanes call
 // (warp-uniform): a lane whose run is in the same cell as its left
@@ -926,7 +1115,7 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
 #pragma unroll
       for (int k = 0; k < C; ++k) add |= u[k] != T(0);
     }
-    if (add) rows.add(row(), u);
+    rows.flush(add, row, u);
   }
 }
 
@@ -1125,7 +1314,8 @@ __global__ void hash_encode_ms_bwd_kernel(
 // The deterministic d_table: hash_encode_ms_bwd_kernel's threads, block
 // order and run merge, with each lane's merged corner values rounded to
 // fixed point (k: [L, C] exponents) and summed into acc ([rows, C] int64)
-// and flags (the non-finite terms). d_x01 / d_stds: pos_grads_kernel.
+// and flags (the non-finite terms) by the warp's transposed atomics.
+// d_x01 / d_stds: pos_grads_kernel.
 template <int C, bool kTetra>
 __global__ void hash_encode_ms_bwd_fixed_kernel(
     const float* __restrict__ x01, const float* __restrict__ stds,
@@ -1149,7 +1339,7 @@ __global__ void hash_encode_ms_bwd_fixed_kernel(
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
   FixedRows<C, kTetra> rows{acc + off, flags, off, {}};
 #pragma unroll
-  for (int c = 0; c < C; ++c) rows.k[c] = __ldg(k + w.l * C + c);
+  for (int c = 0; c < C; ++c) rows.q[c] = fixed_scale(__ldg(k + w.l * C + c));
   if (v.mean)
     backward_mean<C, kTetra>(active, pt, g, nullptr, rows, nullptr, nullptr,
                              n, v);
@@ -1343,32 +1533,43 @@ cudaError_t pos_grads(const float* table, const float* x01, const float* stds,
   return cudaGetLastError();
 }
 
-// K3 on N x C values: one chunk of whole tiles per block, with as many
-// blocks as the card holds at once. Sums: FloatSums or FixedSums.
+// K3's cut of V float4s: one chunk of whole tiles per block, with as many
+// blocks as the card holds at once of `kernel`.
+template <class Kernel>
+cudaError_t scatter_plan(Kernel kernel, int64_t V, int device, int64_t* chunk,
+                         int64_t* blocks) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kScatterThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int64_t most = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  const int64_t per_block = (V + most - 1) / most;
+  const int64_t tiles = (per_block + kScatterThreads - 1) / kScatterThreads;
+  *chunk = (tiles > 0 ? tiles : 1) * kScatterThreads;
+  *blocks = V > 0 ? (V + *chunk - 1) / *chunk : 1;
+  return cudaSuccess;
+}
+
+// K3 on N x C values, summed by FloatSums.
 template <int C, class Sums>
 cudaError_t scatter(const int32_t* idx, const float* vals, Sums out,
                     int64_t N, int64_t rows, int device, cudaStream_t s) {
   const int64_t V = N * C / 4;
   const int tail = (int)(N * C - 4 * V);
-  int sms = 0, per_sm = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &sms, cudaDevAttrMultiProcessorCount, device);
+  int64_t chunk, blocks;
+  const cudaError_t err = scatter_plan(scatter_add_rows_kernel<C, Sums>, V,
+                                       device, &chunk, &blocks);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, scatter_add_rows_kernel<C, Sums>, kScatterThreads, 0);
-  if (err != cudaSuccess) return err;
-  const int64_t most = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int64_t per_block = (V + most - 1) / most;
-  const int64_t tiles = (per_block + kScatterThreads - 1) / kScatterThreads;
-  const int64_t chunk = (tiles > 0 ? tiles : 1) * kScatterThreads;
-  const int64_t blocks = V > 0 ? (V + chunk - 1) / chunk : 1;
   scatter_add_rows_kernel<C, Sums>
       <<<(unsigned)blocks, kScatterThreads, 0, s>>>(idx, vals, out, V, chunk,
                                                     tail, rows);
   return cudaGetLastError();
 }
 
-// K3 at any C it takes, through `Sums` (FloatSums<C> or FixedSums<C>).
+// K3 at any C it takes, through `Sums` (FloatSums<C>).
 template <template <int> class Sums, class... A>
 cudaError_t scatter_any(int C, const int32_t* idx, const float* vals,
                         int64_t N, int64_t rows, int device, cudaStream_t s,
@@ -1384,6 +1585,23 @@ cudaError_t scatter_any(int C, const int32_t* idx, const float* vals,
   }
 }
 
+// K3's deterministic variant on N x C values, in K3's chunks.
+template <int C>
+cudaError_t scatter_fixed(const int32_t* idx, const float* vals, const int* k,
+                          unsigned long long* out, unsigned* flags, int64_t N,
+                          int64_t rows, int device, cudaStream_t s) {
+  const int64_t V = N * C / 4;
+  const int tail = (int)(N * C - 4 * V);
+  int64_t chunk, blocks;
+  const cudaError_t err = scatter_plan(scatter_add_rows_fixed_kernel<C>, V,
+                                       device, &chunk, &blocks);
+  if (err != cudaSuccess) return err;
+  scatter_add_rows_fixed_kernel<C>
+      <<<(unsigned)blocks, kScatterThreads, 0, s>>>(idx, vals, k, out, flags,
+                                                    V, chunk, tail, rows);
+  return cudaGetLastError();
+}
+
 // The row ranges of fixed_to_float's exponent groups: H1-bwd's levels, or
 // one group (K3).
 struct Groups {
@@ -1391,35 +1609,155 @@ struct Groups {
   int count;
 };
 
-// out[e] = the deterministic kernels' sum of entry e of a [rows, C] output:
-// NaN where a NaN term (or both infinities) was flagged, else +-inf where
-// one was, else acc[e] * 2^-k[g, c] (g: the entry's group). Through
-// float64, as the plain version takes it: the int64 rounded to double, an
-// exact scaling, one rounding to float.
-__global__ void fixed_to_float_kernel(const long long* __restrict__ acc,
-                                      const unsigned* __restrict__ flags,
+// One entry's float32 sum from its int64 sum a, its flags f and its
+// exponent kk: NaN where a NaN term (or both infinities) was flagged, else
+// +-inf where one was, else a * 2^-kk through float64, as the plain version
+// takes it: the int64 rounded to double, an exact scaling (2^-kk is a
+// normal double for the exponents of fixed_exponents), one rounding.
+__device__ __forceinline__ float fixed_value(long long a, unsigned f,
+                                             int kk) {
+  const unsigned inf = kFlagPosInf | kFlagNegInf;
+  if ((f & kFlagNaN) || (f & inf) == inf) return __int_as_float(0x7fc00000);
+  if (f & kFlagPosInf) return __int_as_float(0x7f800000);
+  if (f & kFlagNegInf) return __int_as_float((int)0xff800000u);
+  const double scale = __longlong_as_double((long long)(1023 - kk) << 52);
+  return __double2float_rn(__ll2double_rn(a) * scale);
+}
+
+// out = the deterministic kernels' sums of a [rows, C] output (C = 2^log2c;
+// g: an entry's row group), and acc and flags zeroed as they are read, so
+// that the next call finds them zero (the wrappers keep one accumulator a
+// shape). Thread i takes entries [4i, 4i + 4): two 16-byte loads of acc,
+// one of out, the upper or lower half of a flags word (the two threads of
+// a word read it, then the even one clears it), and one group, since groups
+// start on multiples of 4 entries. Zero words are not written again.
+__global__ void fixed_to_float_kernel(long long* __restrict__ acc,
+                                      unsigned* __restrict__ flags,
                                       const int* __restrict__ k,
                                       float* __restrict__ out, int64_t total,
-                                      int C, Groups gr) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += step) {
-    const int64_t r = e / C;
-    const int c = (int)(e - r * C);
-    int g = 0;
-    while (g + 1 < gr.count && r >= gr.start[g + 1]) ++g;
-    const unsigned f = (flags[e >> 3] >> (4 * (e & 7))) & 0xfu;
-    const unsigned inf = kFlagPosInf | kFlagNegInf;
-    float v;
-    if ((f & kFlagNaN) || (f & inf) == inf)
-      v = __int_as_float(0x7fc00000);
-    else if (f & kFlagPosInf)
-      v = __int_as_float(0x7f800000);
-    else if (f & kFlagNegInf)
-      v = __int_as_float((int)0xff800000u);
-    else
-      v = __double2float_rn(ldexp(__ll2double_rn(acc[e]), -k[g * C + c]));
-    out[e] = v;
+                                      int log2c, Groups gr) {
+  const int64_t e0 = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  const bool on = e0 < total;
+  const unsigned word = on ? flags[e0 >> 3] : 0u;
+  __syncwarp();  // both threads of a word have read it
+  if (on && (e0 & 7) == 0 && word != 0u) flags[e0 >> 3] = 0u;
+  if (!on) return;
+  const unsigned f4 = word >> (4 * (e0 & 7));
+  const int64_t r0 = e0 >> log2c;
+  int g = 0;
+  while (g + 1 < gr.count && r0 >= gr.start[g + 1]) ++g;
+  const int mask = (1 << log2c) - 1;
+  const int* kg = k + ((int64_t)g << log2c);
+  if (e0 + 4 <= total) {
+    longlong2* a2 = reinterpret_cast<longlong2*>(acc + e0);
+    const longlong2 a = a2[0], b = a2[1];
+    const long long v[4] = {a.x, a.y, b.x, b.y};
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = fixed_value(v[j], (f4 >> (4 * j)) & 0xfu,
+                         __ldg(kg + ((e0 + j) & mask)));
+    *reinterpret_cast<float4*>(out + e0) = make_float4(o[0], o[1], o[2], o[3]);
+    if ((a.x | a.y) != 0) a2[0] = make_longlong2(0, 0);
+    if ((b.x | b.y) != 0) a2[1] = make_longlong2(0, 0);
+  } else {
+    for (int64_t e = e0; e < total; ++e) {
+      out[e] = fixed_value(acc[e], (f4 >> (4 * (e - e0))) & 0xfu,
+                           __ldg(kg + (e & mask)));
+      acc[e] = 0;
+    }
+  }
+}
+
+// The bound S of the deterministic sums, over the columns of v [N, F] (the
+// K3 values' channels, or H1-bwd's g_out columns: level x channel): the
+// float64 sum of |v| over the finite entries, in an order fixed by (N, F)
+// and the plan (Q, P, chunk) that ops/grid.py:_bound_plan gives both this
+// and the plain version (abs_bound_plain), so that S is the same bits on
+// every run. Pass 1: block (b, y) takes rows [b chunk, (b + 1) chunk) and
+// the columns [256 y, 256 y + W) (W = min(F - 256 y, 256)); thread t takes
+// column t % W and the rows q, q + Q, ... of the chunk (q = t / W < Q;
+// Q = 1 for F > 256), summed in that order; the block then adds its Q row
+// sums by a tree in shared memory (step h = Q / 2, ..., 1: sum[q] +=
+// sum[q + h] for q < h) into part[b, f]. Bound by bytes: v read once.
+constexpr int kBoundThreads = 256;
+constexpr int kFixedBits = 62;
+
+__global__ void __launch_bounds__(kBoundThreads)
+    abs_bound_part_kernel(const float* __restrict__ v,
+                          double* __restrict__ part, int64_t N, int F, int Q,
+                          int64_t chunk) {
+  __shared__ double sm[kBoundThreads];
+  const int f0 = blockIdx.y * kBoundThreads;
+  const int W = min(F - f0, kBoundThreads);
+  const int t = threadIdx.x, q = t / W, f = t % W;
+  const int64_t r0 = (int64_t)blockIdx.x * chunk;
+  const int64_t r1 = min(r0 + chunk, N);
+  double s = 0.0;
+  if (q < Q) {
+    const float* col = v + f0 + f;
+#pragma unroll 8
+    for (int64_t r = r0 + q; r < r1; r += Q) {
+      const float x = __ldcs(col + r * F);
+      if (isfinite(x)) s += (double)fabsf(x);
+    }
+  }
+  sm[t] = s;
+  __syncthreads();
+  for (int h = Q >> 1; h > 0; h >>= 1) {
+    if (q < h) sm[t] += sm[t + h * W];
+    __syncthreads();
+  }
+  if (q == 0) part[(int64_t)blockIdx.x * F + f0 + f] = sm[t];
+}
+
+// Pass 2: a warp a column f: lane i sums part[b, f] over b = i, i + 32,
+// ... < P in that order, then the lanes by a tree (h = 16, ..., 1: lane i
+// adds lane i + h's sum), so S[f] is lane 0's; k[f] = 62 - ceil(log2
+// S[f]) (0 where S is 0), as ops/grid.py:fixed_exponents computes it.
+__global__ void abs_bound_total_kernel(const double* __restrict__ part,
+                                       double* __restrict__ S,
+                                       int* __restrict__ k, int P, int F) {
+  const int f = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (f >= F) return;  // the whole warp
+  double s = 0.0;
+  for (int b = lane; b < P; b += 32) s += part[(int64_t)b * F + f];
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) s += __shfl_down_sync(kFullMask, s, h);
+  if (lane != 0) return;
+  S[f] = s;
+  int e = 0;
+  const double m = frexp(s, &e);
+  k[f] = s > 0.0 ? kFixedBits - (e - (m == 0.5 ? 1 : 0)) : 0;
+}
+
+// The two row sinks of the deterministic kernels alone, for the
+// micro-benchmark of experiments/row_kernels_bench.py: thread i adds
+// terms[i, 0..C) at row rows[i] of acc [*, C], by C scalar atomics of its
+// own (transposed 0: the earlier sink, one lane a row) or
+// warp-collectively through add_rows_transposed (1).
+template <int C>
+__global__ void fixed_sink_kernel(const uint32_t* __restrict__ rows,
+                                  const long long* __restrict__ terms,
+                                  int64_t M, unsigned long long* acc,
+                                  int transposed) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool has = i < M;
+  long long v[C] = {};
+  uint32_t r = 0;
+  if (has) {
+    r = rows[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = terms[i * C + c];
+  }
+  if (transposed) {
+    add_rows_transposed<C, C>(acc, has, r, v);
+  } else if (has) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (v[c] != 0)
+        atomicAdd(acc + (int64_t)r * C + c, (unsigned long long)v[c]);
   }
 }
 
@@ -1566,15 +1904,25 @@ int nl_scatter_add_rows_fixed(const int* idx, const float* vals, const int* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N == 0) return cudaSuccess;
-  return scatter_any<FixedSums>(
-      C, idx, vals, N, rows, device, static_cast<cudaStream_t>(stream),
-      reinterpret_cast<unsigned long long*>(acc), flags, k, (int64_t)rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
+  switch (C) {
+    case 1: return scatter_fixed<1>(idx, vals, k, a, flags, N, rows, device, s);
+    case 2: return scatter_fixed<2>(idx, vals, k, a, flags, N, rows, device, s);
+    case 4: return scatter_fixed<4>(idx, vals, k, a, flags, N, rows, device, s);
+    case 8: return scatter_fixed<8>(idx, vals, k, a, flags, N, rows, device, s);
+    case 16:
+      return scatter_fixed<16>(idx, vals, k, a, flags, N, rows, device, s);
+    case 32:
+      return scatter_fixed<32>(idx, vals, k, a, flags, N, rows, device, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The deterministic H1-bwd d_table: acc [rows, C] int64 and flags
 // zero-filled by the caller, k: [L, C] exponents on the device; then
-// nl_fixed_to_float. threads: the block size (a multiple of 32). The
-// other arguments as nl_hash_encode_ms_bwd's.
+// nl_fixed_to_float. threads: the block size (a multiple of 32). The other
+// arguments as nl_hash_encode_ms_bwd's.
 int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
                                 const float* g_out, const int* k,
                                 long long* acc, unsigned* flags, long long B,
@@ -1583,8 +1931,9 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
                                 const unsigned int* res,
                                 const unsigned int* rows,
                                 const unsigned int* offset, const int* tiled,
-                                const int* mean, int tetra, int level_major,
-                                int threads, int device, void* stream) {
+                                const int* mean, int tetra,
+                                int level_major, int threads, int device,
+                                void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1649,27 +1998,97 @@ int nl_hash_encode_ms_pos_grads(const float* table, const float* x01,
 }
 
 // out [rows, C] float32 from the deterministic kernels' acc, flags and k
-// ([G, C] on the device); starts: G + 1 row starts on the host (the
-// groups' row ranges, starts[G] = rows).
-int nl_fixed_to_float(const long long* acc, const unsigned* flags,
-                      const int* k, const long long* starts, int G,
-                      float* out, long long rows, int C, int device,
-                      void* stream) {
-  if (G <= 0 || G > kMaxLevels || C <= 0 || rows < 0)
+// ([G, C] on the device), leaving acc and flags zero; starts: G + 1 row
+// starts on the host (the groups' row ranges, starts[G] = rows), each group
+// starting on a multiple of 4 entries. C a power of two; acc and out start
+// on 16 bytes.
+int nl_fixed_to_float(long long* acc, unsigned* flags, const int* k,
+                      const long long* starts, int G, float* out,
+                      long long rows, int C, int device, void* stream) {
+  if (G <= 0 || G > kMaxLevels || C <= 0 || (C & (C - 1)) != 0 || rows < 0 ||
+      ((uintptr_t)acc | (uintptr_t)out) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Groups gr{};
-  for (int g = 0; g <= G; ++g) gr.start[g] = starts[g];
+  for (int g = 0; g <= G; ++g) {
+    gr.start[g] = starts[g];
+    if (g < G && starts[g] * C % 4 != 0) return cudaErrorInvalidValue;
+  }
   gr.count = G;
   const int64_t total = rows * C;
   if (total == 0) return cudaSuccess;
   constexpr int kBlock = 256;
-  int64_t blocks = (total + kBlock - 1) / kBlock;
-  if (blocks > 65535LL * 64) blocks = 65535LL * 64;
+  const int64_t blocks = ((total + 3) / 4 + kBlock - 1) / kBlock;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   fixed_to_float_kernel<<<(unsigned)blocks, kBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      acc, flags, k, out, total, C, gr);
+      acc, flags, k, out, total, __builtin_ctz(C), gr);
+  return cudaGetLastError();
+}
+
+// The bound S [F] (float64) of the deterministic sums of v [N, F] and its
+// exponents k [F] (int32): the sum of |v| over the finite entries of each
+// column, in the order of the plan (Q, P, chunk) of ops/grid.py:_bound_plan
+// (Q a power of two, 1 for F > 256; P blocks of chunk rows, P * chunk >= N);
+// part: [P, F] float64 scratch. v starts on 4 bytes.
+int nl_abs_bound(const float* v, double* part, double* S, int* k, long long N,
+                 int F, int Q, int P, long long chunk, int device,
+                 void* stream) {
+  if (N < 0 || F <= 0 || Q <= 0 || (Q & (Q - 1)) != 0 || P <= 0 ||
+      P > 65535 || chunk <= 0 || (int64_t)P * chunk < N ||
+      (F > kBoundThreads ? Q != 1 : Q * F > kBoundThreads))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(P, (F + kBoundThreads - 1) / kBoundThreads);
+  abs_bound_part_kernel<<<grid, kBoundThreads, 0, s>>>(v, part, N, F, Q,
+                                                        chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  abs_bound_total_kernel<<<(F + 3) / 4, 128, 0, s>>>(part, S, k, P, F);
+  return cudaGetLastError();
+}
+
+// The micro-benchmark of the deterministic kernels' row sinks: terms [M, C]
+// int64 added at rows [M] of acc [*, C] (fixed_sink_kernel), C = 1, 2, 4,
+// 8 or 16, blocks of kThreads.
+int nl_fixed_sink(const unsigned* rows, const long long* terms, long long M,
+                  int C, long long* acc, int transposed, int device,
+                  void* stream) {
+  if (M < 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (M == 0) return cudaSuccess;
+  const int64_t blocks = (M + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(acc);
+  switch (C) {
+    case 1:
+      fixed_sink_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(
+          rows, terms, M, a, transposed);
+      break;
+    case 2:
+      fixed_sink_kernel<2><<<(unsigned)blocks, kThreads, 0, s>>>(
+          rows, terms, M, a, transposed);
+      break;
+    case 4:
+      fixed_sink_kernel<4><<<(unsigned)blocks, kThreads, 0, s>>>(
+          rows, terms, M, a, transposed);
+      break;
+    case 8:
+      fixed_sink_kernel<8><<<(unsigned)blocks, kThreads, 0, s>>>(
+          rows, terms, M, a, transposed);
+      break;
+    case 16:
+      fixed_sink_kernel<16><<<(unsigned)blocks, kThreads, 0, s>>>(
+          rows, terms, M, a, transposed);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

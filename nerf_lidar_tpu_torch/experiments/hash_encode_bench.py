@@ -25,6 +25,19 @@ and power limit of the card.
   (picked, other, other, picked).
 --profile: torch.profiler over 2 warm train steps: wall and device busy
   time, idle share, and device time by kernel kind.
+--det: the deterministic d_table instead (`det_grid`), per grid on the
+  recorded train inputs: each level alone in both block orders, the
+  fixed-point kernel beside the atomic one and, with --root, the --root
+  checkout's fixed-point kernel; the whole call in turns with the atomic
+  kernel, at the block sizes of `DET_THREADS`, on fresh copies, and with
+  --root its call; the bound S kernel's
+  exponents against `fixed_exponents(_abs_bound(...))`; with --root, the
+  int64 sums and flags of the two checkouts' kernels at the same
+  exponents, which must be bit-equal. With --root the package is still
+  imported from DIR (the other checkout), and this file's own checkout's
+  `ops` beside it (`here_grid`).
+--save_inputs FILE / --inputs FILE: write the recorded train inputs to
+  FILE, or read them from FILE instead of training (with --det only).
 """
 
 from __future__ import annotations
@@ -276,14 +289,20 @@ COPIES = 3
 
 @contextlib.contextmanager
 def other_order(grid):
-    """Within the block, H1 and its backward run in the block order that
-    `grid.level_major` does not pick."""
-    picked = grid.level_major
-    grid.level_major = lambda spec, l2_bytes: not picked(spec, l2_bytes)
+    """Within the block, H1 and its backward (and the deterministic d_table,
+    where `grid.fixed_level_major` exists) run in the block order that
+    `grid.level_major` (`fixed_level_major`) does not pick."""
+    names = [n for n in ("level_major", "fixed_level_major")
+             if hasattr(grid, n)]
+    picked = {n: getattr(grid, n) for n in names}
+    for n in names:
+        setattr(grid, n, lambda spec, l2_bytes, f=picked[n]:
+                not f(spec, l2_bytes))
     try:
         yield
     finally:
-        grid.level_major = picked
+        for n in names:
+            setattr(grid, n, picked[n])
 
 
 def on_copies(fn, tensors, check):
@@ -308,6 +327,195 @@ def on_copies(fn, tensors, check):
 
 def emit(**rec):
     print(json.dumps(rec), flush=True)
+
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# Block sizes that --det times the whole deterministic call at.
+DET_THREADS = (64, 128, 256)
+
+
+def here_grid():
+    """The `ops.grid` module of this file's own checkout: the imported
+    package's when that is this checkout, else the checkout's `ops`
+    imported as `nl_here_ops` beside the --root one's (its kernels build
+    into this checkout)."""
+    import importlib
+    import importlib.util
+    import nerf_lidar_tpu_torch
+    if os.path.dirname(os.path.dirname(os.path.abspath(
+            nerf_lidar_tpu_torch.__file__))) == HERE:
+        return importlib.import_module("nerf_lidar_tpu_torch.ops.grid")
+    name = "nl_here_ops"
+    if name not in sys.modules:
+        path = os.path.join(HERE, "nerf_lidar_tpu_torch", "ops")
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(path, "__init__.py"),
+            submodule_search_locations=[path])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(name + ".grid")
+
+
+def fixed_sums(lib, x, s, g, k, arrays, levels, c, tetra, level_major_order,
+               threads=128):
+    """(sums [rows, C] int64, flags): one call of `nl_hash_encode_ms_bwd_fixed`
+    of `lib` (the same interface in this checkout and its parent) on zeroed
+    buffers, for (x [B, n, 3], s [B, n], g [B, levels * C]) at exponents
+    k [levels, C]; arrays: the levels' constants (`grid._kernel_levels`, or
+    a slice of them; rows from their offsets)."""
+    rows = int(arrays[4][-1]) + int(arrays[3][-1])
+    acc = torch.zeros((rows, c), dtype=torch.int64, device=x.device)
+    flags = torch.zeros(((rows * c + 7) // 8,), dtype=torch.int32,
+                        device=x.device)
+    call_fixed(lib, x, s, g, k, acc, flags, arrays, levels, c, tetra,
+               level_major_order, threads)
+    return acc, flags
+
+
+def call_fixed(lib, x, s, g, k, acc, flags, arrays, levels, c, tetra,
+               level_major_order, threads=128):
+    """One launch of `lib`'s `nl_hash_encode_ms_bwd_fixed` (see
+    `fixed_sums`), adding into acc and flags."""
+    from nerf_lidar_tpu_torch.ops import _build
+    b, n_ms = s.shape
+    rc = lib.nl_hash_encode_ms_bwd_fixed(
+        x.data_ptr(), s.data_ptr(), g.data_ptr(), k.data_ptr(),
+        acc.data_ptr(), flags.data_ptr(), b, n_ms, levels, c,
+        *(a.ctypes.data for a in arrays), tetra, bool(level_major_order),
+        threads, x.device.index, _build.stream_of(x))
+    _build.check(lib, rc, "hash_encode_ms_bwd_fixed")
+
+
+def call_float(lib, table, x, s, g, d_table, arrays, levels, c, tetra,
+               level_major_order):
+    """One launch of the atomic H1 backward (`nl_hash_encode_ms_bwd`),
+    d_table only, adding into d_table."""
+    from nerf_lidar_tpu_torch.ops import _build
+    b, n_ms = s.shape
+    rc = lib.nl_hash_encode_ms_bwd(
+        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
+        d_table.data_ptr(), None, None, b, n_ms, levels, c,
+        *(a.ctypes.data for a in arrays), tetra, bool(level_major_order),
+        x.device.index, _build.stream_of(x))
+    _build.check(lib, rc, "hash_encode_ms_bwd")
+
+
+def det_grid(root, name, rec, copies):
+    """--det on one grid's recorded train inputs `rec` (table, x01, stds,
+    g_out, spec, ...): emits the per-level split, the whole call's turns,
+    the exponents' check and, with --root, the bit-equality of the int64
+    sums of the two checkouts' kernels."""
+    from nerf_lidar_tpu_torch.ops import _build, grid
+    here = here_grid()
+    table, x01, stds, g_out, spec = rec[:5]
+    cutoff = rec[6] if len(rec) > 6 else 0
+    other = os.path.abspath(root) != HERE
+    c, levels = spec.level_dim, spec.num_levels
+    tetra = spec.interp == "tetra"
+    n_ms = x01.shape[-2]
+    x = x01.reshape(-1, n_ms, 3).contiguous()
+    s = stds.reshape(-1, n_ms).contiguous()
+    g = g_out.reshape(s.shape[0], spec.output_dim).contiguous()
+    arrays = here._kernel_levels(spec, cutoff)
+    here_lib = here._build.library()
+    root_lib = _build.library()
+    dev = x.device.index
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    picked = here.fixed_level_major(spec, l2)
+    s_kernel, k_here = here.bound_exponents(g)
+    k_torch = grid.fixed_exponents(grid._abs_bound(g))
+    k_here = k_here.reshape(levels, c)
+    emit(root=root, what="det_exponents", grid=name,
+         k_equal=bool(torch.equal(k_here, k_torch.reshape(levels, c))),
+         s_max_rel_diff=float(((s_kernel - grid._abs_bound(g)).abs()
+                               / grid._abs_bound(g).clamp(min=1e-300))
+                              .max()),
+         level_major=bool(picked))
+    if other:
+        # The two checkouts' kernels at the same exponents.
+        k = k_torch.reshape(levels, c).contiguous()
+        want = fixed_sums(root_lib, x, s, g, k, arrays, levels, c, tetra,
+                          picked)
+        same = {}
+        for order in (True, False):
+            for threads in DET_THREADS:
+                got = fixed_sums(here_lib, x, s, g, k, arrays, levels, c,
+                                 tetra, order, threads)
+                same[f"level_major={order} threads={threads}"] = bool(
+                    torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]))
+                del got
+        del want
+        emit(root=root, what="det_sums_vs_here", grid=name, here=HERE,
+             bit_equal=same)
+        if not all(same.values()):
+            raise SystemExit(f"{name}: the int64 sums of {HERE} differ from "
+                             f"those of {root} at the same exponents: {same}")
+    # Each level alone: slices of g, k and the level constants.
+    acc = torch.zeros((spec.total_rows, c), dtype=torch.int64,
+                      device=x.device)
+    flags = torch.zeros(((spec.total_rows * c + 7) // 8,), dtype=torch.int32,
+                        device=x.device)
+    d_table = torch.zeros_like(table)
+    for l in range(levels):
+        gl = g[:, l * c:(l + 1) * c].contiguous()
+        kl = k_here[l:l + 1].contiguous()
+        al = tuple(np.ascontiguousarray(a[l:l + 1]) for a in arrays)
+        rec_l = dict(root=root, what="det_level", grid=name, level=l,
+                     rows=spec.rows_per_level[l], tiled=spec.is_tiled(l),
+                     slice_mb=spec.rows_per_level[l] * c * 8 / 2**20)
+        for order in (True, False):
+            key = "level_major" if order else "tile_major"
+            rec_l[f"{key}_fixed_ms"] = cuda_ms(
+                lambda: call_fixed(here_lib, x, s, gl, kl, acc, flags, al, 1,
+                                   c, tetra, order))
+            rec_l[f"{key}_atomic_ms"] = cuda_ms(
+                lambda: call_float(here_lib, table, x, s, gl, d_table, al, 1,
+                                   c, tetra, order))
+            if other:
+                rec_l[f"{key}_root_fixed_ms"] = cuda_ms(
+                    lambda: call_fixed(root_lib, x, s, gl, kl, acc, flags,
+                                       al, 1, c, tetra, order))
+        emit(**rec_l)
+    del acc, flags, d_table
+    torch.cuda.empty_cache()
+    # The whole call, in turns: this checkout's deterministic wrapper and
+    # the atomic one (and --root's deterministic one).
+    only = (True, False, False)
+    det = lambda *t: here.hash_encode_multisample_bwd_det(*t, spec, only,
+                                                          cutoff)
+    args = (table, x01, stds, g_out)
+    turns = {"det": [], "atomic": [], "root_det": []}
+    turns.update({f"det_threads_{t}": [] for t in DET_THREADS})
+    order = (("root_det", "det", "det", "root_det") if other
+             else ("det", "atomic", "atomic", "det",
+                   *(f"det_threads_{t}" for t in DET_THREADS)))
+    fns = dict(det=lambda: det(*args),
+               **{f"det_threads_{t}": lambda t=t:
+                  here.hash_encode_multisample_bwd_det(
+                      *args, spec, only, cutoff, threads=t)
+                  for t in DET_THREADS},
+               atomic=lambda: grid.hash_encode_multisample_bwd(
+                   *args, spec, only, cutoff),
+               root_det=lambda: grid.hash_encode_multisample_bwd_det(
+                   *args, spec, only, cutoff))
+    for turn in order:
+        turns[turn].append(cuda_ms(fns[turn]))
+    if other:
+        turns["atomic"].append(cuda_ms(fns["atomic"]))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    det(*args)
+    torch.cuda.synchronize()
+    emit(root=root, what="det_call", grid=name, ms=turns,
+         peak_gib_above_held=(torch.cuda.max_memory_allocated(dev) - held)
+         / 2**30, pool_bytes=here.fixed_pool_bytes())
+    if copies:
+        emit(root=root, what="det_call", grid=name, copies_ms=on_copies(
+            det, args, lambda got: None))
 
 
 def profile_train(run, step, steps=2):
@@ -440,6 +648,26 @@ def host_wait_sites(run, step, steps=2):
     return wait_sites(prof.events(), steps)
 
 
+def record_inputs(steps):
+    """{grid: (table, x01, stds, g_out, spec, needs)}: what one warm step of
+    the train entry (nuscenes_single, synthetic scene, `steps` steps first)
+    hands the encode backward."""
+    from nerf_lidar_tpu_torch import cli
+    argv = ["train", "--config", "nuscenes_single", "--set",
+            "dataset_loader=synthetic", "--device", "cuda", "--exp_name",
+            f"hash_encode_bench_{os.getpid()}", "--steps", str(steps)]
+    out_dir = cli.exp_dir(cli.build_config(cli.parse_args(argv)))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        run = cli.main(argv)
+        train = record_train_inputs(run, steps)
+        del run
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return train
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("hash_encode_bench")
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -447,6 +675,9 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--copies", action="store_true")
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--det", action="store_true")
+    p.add_argument("--save_inputs")
+    p.add_argument("--inputs")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -466,6 +697,17 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if args.det:
+        if args.inputs:
+            train = torch.load(args.inputs, weights_only=False)
+        else:
+            train = record_inputs(args.steps)
+            if args.save_inputs:
+                torch.save(train, args.save_inputs)
+        for name in GRIDS:
+            det_grid(root, name, train.pop(name), args.copies)
+            torch.cuda.empty_cache()
+        return
     tag = f"hash_encode_bench_{os.getpid()}"
     base = ["--config", "nuscenes_single", "--set",
             "dataset_loader=synthetic", "--device", "cuda", "--exp_name",

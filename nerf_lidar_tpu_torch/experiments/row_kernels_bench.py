@@ -25,6 +25,19 @@ measurement, after nvidia-smi's name and power limit of the card. Fails
 --sass: also print, per kernel function of the built library whose name
   holds `scatter_add_rows` or `take_rows`, its SASS instruction count and
   the subroutine calls in it (`cuobjdump -sass`, from nvcc's directory).
+--det: K3's deterministic variant instead (`bench_det_scatter`): at the
+  hash-decay level sums and K3's own shape (rows 2^17, N 2^22, C16), the
+  wrapper (bound S, kernel, fixed_to_float) by device time in turns with
+  torch's deterministic `index_add_`, split by kernel, the exponents
+  against `fixed_exponents(_abs_bound(...))`; with --root, the int64 sums
+  and flags of the --root checkout's `scatter_add_rows_fixed` and of this
+  file's own checkout's at the same exponents, which must be bit-equal.
+--sink: the micro-benchmark of the deterministic kernels' int64 row sink
+  (`bench_sinks`, this file's own checkout's kernel `fixed_sink`): the same
+  rows and int64 terms added one lane a row with C scalar atomics (the
+  earlier sink) and lane-transposed, in turns, at K3's shape and, with
+  --inputs FILE (hash_encode_bench.py --save_inputs), on the merged
+  corner runs of a train step's NeRF encode backward.
 """
 
 from __future__ import annotations
@@ -38,6 +51,8 @@ import sys
 
 import torch
 
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 # Published peak of one H100 SXM at 700 W: 3.35 TB/s (per millisecond).
 HBM_BYTES_PER_MS = 3.35e9
 # K3 against index_add_ in float64 on the level sums, relative to the
@@ -81,6 +96,22 @@ def device_ms(fn, iters=50):
         if us > 0:
             return us / 1e3 / iters
     raise SystemExit("torch.profiler recorded no device time")
+
+
+def fixed_sink(rows, terms, acc, transposed, lib=None):
+    """The deterministic kernels' int64 row sink alone (`fixed_sink`):
+    terms [M, C] int64 added at rows [M] (int32, in range) of acc [*, C]
+    int64, C = 1, 2, 4, 8 or 16, one thread an update, by C scalar atomics
+    of its own (transposed False: the earlier sink) or lane-transposed. lib:
+    the kernel library (default: this package's)."""
+    if lib is None:
+        from nerf_lidar_tpu_torch.ops import _build
+        lib = _build.library()
+    from nerf_lidar_tpu_torch.ops import _build as build
+    rc = lib.nl_fixed_sink(rows.data_ptr(), terms.data_ptr(), rows.numel(),
+                           terms.shape[1], acc.data_ptr(), int(transposed),
+                           acc.device.index, build.stream_of(acc))
+    build.check(lib, rc, "fixed_sink")
 
 
 def rel_err(name, got, want, tol):
@@ -142,6 +173,194 @@ def bench_scatter(root, dev):
         del idx64, want
 
 
+def here_grid():
+    """This file's own checkout's `ops.grid` (hash_encode_bench.here_grid)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import hash_encode_bench
+    return hash_encode_bench.here_grid()
+
+
+def det_split(fn, iters=20):
+    """{kernel: device ms per call} of fn, names cut before their
+    arguments, and their sum under "total"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = re.sub(r"^void |\(anonymous namespace\)::|at::native::",
+                         "", e.name).split("(")[0][:50]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    out["total"] = sum(out.values())
+    return out
+
+
+def fixed_scatter_sums(lib, idx, vals, k, rows):
+    """(sums [rows, C] int64, flags) of one `nl_scatter_add_rows_fixed` of
+    `lib` on zeroed buffers at exponents k [C] (the same interface in this
+    checkout and its parent)."""
+    from nerf_lidar_tpu_torch.ops import _build
+    c = vals.shape[1]
+    acc = torch.zeros((rows, c), dtype=torch.int64, device=vals.device)
+    flags = torch.zeros(((rows * c + 7) // 8,), dtype=torch.int32,
+                        device=vals.device)
+    rc = lib.nl_scatter_add_rows_fixed(
+        idx.data_ptr(), vals.data_ptr(), k.data_ptr(), acc.data_ptr(),
+        flags.data_ptr(), vals.shape[0], c, rows, vals.device.index,
+        _build.stream_of(vals))
+    _build.check(lib, rc, "scatter_add_rows_fixed")
+    return acc, flags
+
+
+def det_cases(dev):
+    """[(shape, idx, vals, rows)]: the hash-decay level sums of every
+    `nuscenes_single` grid (table seeded uniform(-1, 1)) and K3's shape."""
+    from nerf_lidar_tpu_torch import configs
+    from nerf_lidar_tpu_torch.ops import grid
+    g = torch.Generator(device=dev).manual_seed(19)
+    m = configs.nuscenes_single().model
+    out = []
+    for name, grid_cfg in [("nerf", m.nerf_mlp.grid)] + [
+            (f"prop{i}", m.prop_mlp_for_level(i).grid)
+            for i in range(len(m.num_prop_samples))]:
+        spec = grid.spec_for(grid_cfg)
+        table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
+                           generator=g) * 2 - 1
+        out.append((f"hash decay {name}", grid.level_ids(spec, dev),
+                    table**2, spec.num_levels))
+    rows, n = 1 << 17, 1 << 22
+    out.append((f"rows={rows} N={n} C=16", torch.randint(
+        0, rows, (n,), device=dev, generator=g, dtype=torch.int32),
+        torch.randn(n, 16, device=dev, generator=g), rows))
+    return out
+
+
+def bench_det_scatter(root, dev):
+    from nerf_lidar_tpu_torch.ops import _build, grid
+    here = here_grid()
+    other = os.path.abspath(root) != os.path.abspath(HERE)
+    for shape, idx, vals, rows in det_cases(dev):
+        k_torch = grid.fixed_exponents(grid._abs_bound(vals))
+        _, k_here = here.bound_exponents(vals)
+        rec = dict(root=root, kernel="scatter_add_rows_det", shape=shape,
+                   k_equal=bool(torch.equal(k_here, k_torch)))
+        if other:
+            want = fixed_scatter_sums(_build.library(), idx, vals, k_torch,
+                                      rows)
+            got = fixed_scatter_sums(here._build.library(), idx, vals,
+                                     k_torch, rows)
+            rec["sums_bit_equal_to_here"] = bool(
+                torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+            del want, got
+            if not rec["sums_bit_equal_to_here"]:
+                raise SystemExit(f"scatter_add_rows_fixed {shape}: the int64 "
+                                 f"sums of {HERE} differ from {root}'s")
+        ok = (idx >= 0) & (idx < rows)
+        ids64 = idx.long().clamp(0, rows - 1)
+        kept = vals * ok[:, None].to(vals.dtype)
+        library = lambda: vals.new_zeros(rows, vals.shape[1]).index_add_(
+            0, ids64, kept)
+        fns = {"root": lambda: grid.scatter_add_rows_det(idx, vals, rows),
+               "here": lambda: here.scatter_add_rows_det(idx, vals, rows)}
+        turns = {"kernel": [], "library": []}
+        for turn in ("kernel", "library", "library", "kernel"):
+            if turn == "kernel":
+                turns[turn].append(device_ms(fns["here"], iters=20))
+                continue
+            torch.use_deterministic_algorithms(True)
+            try:  # torch's deterministic index_add_
+                turns[turn].append(device_ms(library, iters=3))
+            finally:
+                torch.use_deterministic_algorithms(False)
+        if other:
+            turns["root_kernel"] = [device_ms(fns["root"], iters=20)]
+        rec.update(turns_device_ms=turns, split=det_split(fns["here"]))
+        if other:
+            rec["root_split"] = det_split(fns["root"])
+        n_bytes = idx.numel() * 4 + vals.numel() * 4 + rows * vals.shape[1] * 4
+        emit(**rec, bound_ms=n_bytes / HBM_BYTES_PER_MS)
+
+
+# K3's shape for the sink micro-benchmark: rows and updates of C16.
+SINK_ROWS, SINK_UPDATES = 1 << 17, 1 << 22
+
+
+def nerf_runs(rec):
+    """[(level, rows [M] int32, terms [M, C] int64)] of the NeRF grid's
+    recorded train inputs `rec`: per level and corner, the rows and
+    fixed-point terms of every merged run (`grid._table_runs`, at the
+    exponents of `grid.fixed_exponents(grid._abs_bound(g))`), in sample
+    order, the order in which the kernel's lanes hold them."""
+    from nerf_lidar_tpu_torch.ops import grid
+    table, x01, stds, g_out, spec = rec[:5]
+    c = spec.level_dim
+    g = g_out.reshape(-1, spec.output_dim)
+    k = grid.fixed_exponents(grid._abs_bound(g)).reshape(spec.num_levels, c)
+    by_level = {}
+    for l, ids, cells, w in grid._table_runs(spec, x01, stds, 0):
+        by_level.setdefault(l, []).append((ids, cells, w))
+    out = []
+    for l, parts in sorted(by_level.items()):
+        ids = torch.cat([p[0] for p in parts])
+        order = torch.sort(ids, stable=True).indices
+        ids = ids[order]
+        cells = torch.cat([p[1] for p in parts])[order]
+        w = torch.cat([p[2] for p in parts])[order]
+        gl = g[ids, l * c:(l + 1) * c]
+        rows, terms = [], []
+        for corner, offset in enumerate(grid._CORNERS3):
+            cc = cells + torch.tensor(offset, device=cells.device)
+            rows.append(grid._corner_index(spec, l, cc[:, 0], cc[:, 1],
+                                           cc[:, 2]).to(torch.int32))
+            terms.append(grid._to_fixed(w[:, corner, None] * gl, k[l]))
+        out.append((l, torch.cat(rows), torch.cat(terms)))
+    return out
+
+
+def bench_sinks(root, dev, inputs):
+    """The two row sinks on the same rows and terms, in turns (one lane a
+    row, transposed, transposed, one lane a row), device ms from
+    torch.profiler, and their results against each other."""
+    lib = here_grid()._build.library()
+    g = torch.Generator(device=dev).manual_seed(15)
+    cases = [(f"K3 shape rows={SINK_ROWS} M={SINK_UPDATES} C=16",
+              torch.randint(0, SINK_ROWS, (SINK_UPDATES,), device=dev,
+                            generator=g, dtype=torch.int32),
+              torch.randint(-2**40, 2**40, (SINK_UPDATES, 16), device=dev,
+                            generator=g, dtype=torch.int64), SINK_ROWS)]
+    if inputs:
+        rec = torch.load(inputs, weights_only=False)["nerf"]
+        spec = rec[4]
+        for l, rows, terms in nerf_runs(rec):
+            cases.append((f"NeRF level {l} runs", rows, terms,
+                          spec.rows_per_level[l]))
+        del rec
+    for shape, rows, terms, n_rows in cases:
+        accs = {}
+        turns = {"lane_per_row": [], "transposed": []}
+        for turn in ("lane_per_row", "transposed", "transposed",
+                     "lane_per_row"):
+            acc = torch.zeros((n_rows, terms.shape[1]), dtype=torch.int64,
+                              device=dev)
+            fixed_sink(rows, terms, acc, turn == "transposed", lib)
+            accs[turn] = acc
+            turns[turn].append(device_ms(lambda: fixed_sink(
+                rows, terms, acc, turn == "transposed", lib), iters=10))
+        if not torch.equal(accs["lane_per_row"], accs["transposed"]):
+            raise SystemExit(f"fixed_sink {shape}: the two sinks differ")
+        emit(root=root, kernel="fixed_sink", shape=shape, updates=len(rows),
+             distinct_rows=int(torch.unique(rows).numel()),
+             turns_device_ms=turns)
+        del accs
+
+
 def bench_take_rows(root, dev):
     from nerf_lidar_tpu_torch.ops import tile_gather as tg
     g = torch.Generator(device=dev).manual_seed(10)
@@ -184,6 +403,9 @@ def main(argv=None):
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     p.add_argument("--sass", action="store_true")
+    p.add_argument("--det", action="store_true")
+    p.add_argument("--sink", action="store_true")
+    p.add_argument("--inputs")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -204,6 +426,12 @@ def main(argv=None):
     _build.library()
     if args.sass:
         sass_summary(root, _build.library_path())
+    if args.det or args.sink:
+        if args.sink:
+            bench_sinks(root, dev, args.inputs)
+        if args.det:
+            bench_det_scatter(root, dev)
+        return
     bench_scatter(root, dev)
     bench_take_rows(root, dev)
 

@@ -29,16 +29,19 @@ the backward and K3 take `hash_encode_multisample_bwd_det` and
 sums, as the JAX package's XLA scatter-adds do not: each term is rounded
 once to a fixed-point int64 (`fixed_exponents`) and summed exactly, on
 CUDA by the kernels `hash_encode_ms_bwd_fixed` / `scatter_add_rows_fixed`
-(d_x01 / d_stds by the atomic-free `hash_encode_ms_pos_grads`), on the CPU
-by their plain twins (`..._det_plain`: the same terms and rounding,
-`index_add_` on int64). A non-finite term flags its entry NaN / +inf /
--inf, as a float sum of the same terms ends.
+(d_x01 / d_stds by the atomic-free `hash_encode_ms_pos_grads`), their
+exponents from kernel `abs_bound` (`bound_exponents`), on the CPU by their
+plain twins (`..._det_plain`: the same terms and rounding, `index_add_` on
+int64). A non-finite term flags its entry NaN / +inf / -inf, as a float
+sum of the same terms ends.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -682,8 +685,97 @@ _FIXED_BITS = 62
 
 def _abs_bound(v: torch.Tensor) -> torch.Tensor:
     """[...] float64 sums over axis 0 of |v| over its finite entries: the
-    bound S of the fixed-point sums of v's terms."""
+    bound S of the fixed-point sums of v's terms (torch's sum, in torch's
+    order; the CPU twins take their exponents from it)."""
     return v.abs().nan_to_num(nan=0.0, posinf=0.0).sum(0, dtype=torch.float64)
+
+
+# Threads of a block of the bound kernel (`abs_bound`).
+_BOUND_THREADS = 256
+
+
+def _bound_plan(n: int, f: int):
+    """(Q, P, chunk): the order in which kernel `abs_bound` and
+    `abs_bound_plain` sum the columns of an [n, f] matrix. P blocks of
+    `chunk` rows (at least 4096 values a block, at most 1024 blocks); in a
+    block, Q (a power of two, 1 for f > 256) threads a column, each summing
+    every Q-th row. It depends on the shape alone, never on the card."""
+    w = min(f, _BOUND_THREADS)
+    q = 1 if f > _BOUND_THREADS else 1 << ((_BOUND_THREADS // w).bit_length()
+                                           - 1)
+    p = max(1, min(1024, -(-n * f // 4096)))
+    return q, p, max(1, -(-n // p))
+
+
+def abs_bound_plain(v: torch.Tensor) -> torch.Tensor:
+    """[F] float64 sums over the rows of v [N, F] of |v| over its finite
+    entries, in the order of kernel `abs_bound` (`_bound_plan`): per block
+    of rows, each thread's rows in turn, the block's Q threads of a column
+    by a tree (pairs h apart, h = Q / 2, ..., 1); then 32 lanes a column,
+    lane i summing the blocks i, i + 32, ... in turn, and the lanes by the
+    tree. The same bits as the kernel; within float64 rounding of
+    `_abs_bound`."""
+    n, f = v.shape
+    q, p, chunk = _bound_plan(n, f)
+    steps = -(-chunk // q)
+    a = torch.zeros((p * chunk, f), dtype=torch.float64, device=v.device)
+    a[:n] = v.abs().nan_to_num(nan=0.0, posinf=0.0).to(torch.float64)
+    a = torch.cat([a.reshape(p, chunk, f),
+                   a.new_zeros((p, steps * q - chunk, f))], dim=1)
+    a = a.reshape(p, steps, q, f)
+    s = a[:, 0]
+    for i in range(1, steps):
+        s = s + a[:, i]
+    part = _tree_sum(s.transpose(0, 1), q)[0]  # [p, f]
+    # Pass 2: lane i of 32 sums the blocks i, i + 32, ... in turn, then
+    # the lanes by the tree.
+    lanes = torch.cat([part, part.new_zeros((-(-p // 32) * 32 - p, f))])
+    lanes = lanes.reshape(-1, 32, f)
+    t = lanes[0]
+    for j in range(1, lanes.shape[0]):
+        t = t + lanes[j]
+    return _tree_sum(t, 32)[0]
+
+
+def _tree_sum(s: torch.Tensor, q: int) -> torch.Tensor:
+    """Sums the first q (a power of two) rows of s [q, ...] by a tree:
+    h = q / 2, ..., 1, row i += row i + h for i < h; row 0 of the result
+    is the sum."""
+    h = q // 2
+    while h:
+        s = s[:h] + s[h:2 * h]
+        h //= 2
+    return s
+
+
+def bound_exponents(v: torch.Tensor):
+    """(S [F] float64, k [F] int32) of v [N, F]: S the sum of |v| over the
+    finite entries of each column, summed in a fixed order (`_bound_plan`),
+    so the same bits on every run, and k = `fixed_exponents(S)`. CPU
+    tensors take `abs_bound_plain`; CUDA float32 tensors launch kernel
+    `abs_bound` (both passes, k too), or raise."""
+    if _on_cpu(v):
+        s = abs_bound_plain(v)
+        return s, fixed_exponents(s)
+    v = v.contiguous()
+    n, f = v.shape
+    _build.require_cuda("v", v, (n, f))
+    q, p, chunk = _bound_plan(n, f)
+    ws = torch.empty(((p + 1) * f * 8 + f * 4,), dtype=torch.uint8,
+                     device=v.device)
+    part = ws[:p * f * 8].view(torch.float64)
+    s = ws[p * f * 8:(p + 1) * f * 8].view(torch.float64)
+    k = ws[(p + 1) * f * 8:].view(torch.int32)
+    lib = _build.library()
+    rc = lib.nl_abs_bound(v.data_ptr(), part.data_ptr(), s.data_ptr(),
+                          k.data_ptr(), n, f, q, p, chunk, v.device.index,
+                          _build.stream_of(v))
+    _build.check(lib, rc, "abs_bound")
+    bound_exponents.launches += 1
+    return s, k
+
+
+bound_exponents.launches = 0
 
 
 def fixed_exponents(bound: torch.Tensor) -> torch.Tensor:
@@ -823,13 +915,16 @@ def _table_runs(spec: HashGridSpec, x01: torch.Tensor, stds: torch.Tensor,
 
 def _table_fixed_plain(x01: torch.Tensor, stds: torch.Tensor,
                        g_out: torch.Tensor, spec: HashGridSpec,
-                       coarse_res_cutoff: int) -> torch.Tensor:
+                       coarse_res_cutoff: int, k=None) -> torch.Tensor:
     """The deterministic d_table, plain: every merged run's corner value
     (weights x g_out) rounded once at its level's 2^k and summed in
-    int64."""
+    int64. k: [L, C] exponents (default: `fixed_exponents` of
+    `_abs_bound`)."""
     c, levels = spec.level_dim, spec.num_levels
     g = g_out.reshape(-1, spec.output_dim)
-    k = fixed_exponents(_abs_bound(g).reshape(levels, c))
+    if k is None:
+        k = fixed_exponents(_abs_bound(g).reshape(levels, c))
+    k = k.reshape(levels, c).to(g.device)
     sums = _FixedSums(spec.total_rows, c, g.device)
     for l, ids, cells, w in _table_runs(spec, x01, stds, coarse_res_cutoff):
         gl = g[ids, l * c:(l + 1) * c]
@@ -848,16 +943,19 @@ def _table_fixed_plain(x01: torch.Tensor, stds: torch.Tensor,
 def hash_encode_multisample_bwd_det_plain(
         table: torch.Tensor, x01: torch.Tensor, stds: torch.Tensor,
         g_out: torch.Tensor, spec: HashGridSpec, needs=(True, True, True),
-        coarse_res_cutoff: int = 0):
+        coarse_res_cutoff: int = 0, k=None):
     """The plain twin of `hash_encode_multisample_bwd_det`: d_table from
     fixed-point terms summed in int64 (bit-identical under any order of
     the samples), d_x01 / d_stds as `hash_encode_multisample_bwd_plain`
-    (sums in a fixed order, no scatter)."""
+    (sums in a fixed order, no scatter). k: the [L, C] exponents to round
+    at (default: `fixed_exponents` of `_abs_bound`; give the kernel's,
+    `bound_exponents`, to hold the two at the same k)."""
     _check_ported(spec)
     _, d_x, d_s = hash_encode_multisample_bwd_plain(
         table, x01, stds, g_out, spec, (False, needs[1], needs[2]),
         coarse_res_cutoff)
-    d_table = (_table_fixed_plain(x01, stds, g_out, spec, coarse_res_cutoff)
+    d_table = (_table_fixed_plain(x01, stds, g_out, spec, coarse_res_cutoff,
+                                  k)
                if needs[0] else None)
     return d_table, d_x, d_s
 
@@ -899,19 +997,21 @@ def table_grad_terms(x01: torch.Tensor, stds: torch.Tensor,
     return terms, counts
 
 
-def table_grad_quantum(g_out: torch.Tensor,
-                       spec: HashGridSpec) -> torch.Tensor:
+def table_grad_quantum(g_out: torch.Tensor, spec: HashGridSpec,
+                       k=None) -> torch.Tensor:
     """[rows, C] float64 quantum 2^-k of every entry of the deterministic
-    d_table for this g_out."""
-    k = fixed_exponents(_abs_bound(g_out.reshape(-1, spec.output_dim))
-                        .reshape(spec.num_levels, spec.level_dim))
+    d_table for this g_out (k: [L, C], default as the CPU twin takes it)."""
+    if k is None:
+        k = fixed_exponents(_abs_bound(g_out.reshape(-1, spec.output_dim)))
+    k = k.reshape(spec.num_levels, spec.level_dim).to(g_out.device)
     return torch.exp2(-k[level_ids(spec, g_out.device).long()].to(
         torch.float64))
 
 
 def _fixed_to_float(lib, acc, flags, k, starts, out) -> None:
     """Launch `fixed_to_float`: out [rows, C] from acc, flags and k ([G, C]
-    exponents of the row groups that start at `starts`, G + 1 of them)."""
+    exponents of the row groups that start at `starts`, G + 1 of them);
+    acc and flags are zero after it."""
     starts = np.asarray(starts, np.int64)  # alive through the call
     rc = lib.nl_fixed_to_float(
         acc.data_ptr(), flags.data_ptr(), k.data_ptr(), starts.ctypes.data,
@@ -920,11 +1020,54 @@ def _fixed_to_float(lib, acc, flags, k, starts, out) -> None:
     _build.check(lib, rc, "fixed_to_float")
 
 
-def _fixed_buffers(rows: int, c: int, device):
-    """Zeroed int64 sums [rows, C] and their flags, 4 bits an entry."""
-    return (torch.zeros((rows, c), dtype=torch.int64, device=device),
-            torch.zeros(((rows * c + 7) // 8,), dtype=torch.int32,
-                        device=device))
+# The int64 sums of the deterministic kernels and their non-finite flags,
+# kept between calls: one pair per (device, stream, rows, C), at most
+# _FIXED_POOL_SIZE pairs (the least recently used go first).
+_FIXED_POOL: "collections.OrderedDict" = collections.OrderedDict()
+_FIXED_POOL_SIZE = 8
+_FIXED_POOL_LOCK = threading.Lock()
+
+
+def _take_fixed_buffers(rows: int, c: int, device):
+    """(key, (sums, flags)): zeroed int64 sums [rows, C] and their flags,
+    4 bits an entry, for one call on the current stream. Terms are rounded
+    to fixed point before any sum and summed exactly, so where the kernels
+    merge them (warp, block, L2) cannot move a bit; `fixed_to_float` reads
+    the sums and leaves them and the flags zero, so a call hands the pair
+    back (`_give_fixed_buffers`) for the next call of its shape, which then
+    allocates only its float32 output. A call that raises keeps its pair:
+    the next one allocates a zeroed pair anew."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream, rows, c)
+    with _FIXED_POOL_LOCK:
+        bufs = _FIXED_POOL.pop(key, None)
+    if bufs is None:
+        bufs = (torch.zeros((rows, c), dtype=torch.int64, device=device),
+                torch.zeros(((rows * c + 7) // 8,), dtype=torch.int32,
+                            device=device))
+    return key, bufs
+
+
+def _give_fixed_buffers(key, bufs) -> None:
+    with _FIXED_POOL_LOCK:
+        _FIXED_POOL[key] = bufs
+        while len(_FIXED_POOL) > _FIXED_POOL_SIZE:
+            _FIXED_POOL.popitem(last=False)
+
+
+def fixed_pool_bytes() -> int:
+    """Device bytes the kept sums and flags hold."""
+    with _FIXED_POOL_LOCK:
+        return sum(t.numel() * t.element_size()
+                   for bufs in _FIXED_POOL.values() for t in bufs)
+
+
+def fixed_level_major(spec: HashGridSpec, l2_bytes: int) -> bool:
+    """Block order of kernel `hash_encode_ms_bwd_fixed`: level-major where
+    its int64 sums (8 bytes an entry) exceed 1.5 times the L2, so that one
+    level's slice at a time takes the atomics, as measured on the train
+    step's points (PERF.md: prop1's 86 MB 4.30 ms level-major
+    against 6.30; prop0's 53 MB 2.30 tile-major against 2.71)."""
+    return spec.total_rows * spec.level_dim * 8 > 1.5 * l2_bytes
 
 
 def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
@@ -936,10 +1079,11 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
     """Same contract as `hash_encode_multisample_bwd_plain`, with sums that
     do not depend on their order: CPU tensors take the plain twin
     (`hash_encode_multisample_bwd_det_plain`); CUDA tensors launch
-    `hash_encode_ms_bwd_fixed` then `fixed_to_float` (d_table) and
-    `hash_encode_ms_pos_grads` (d_x01 / d_stds), or raise.
-    level_major_order (default: `level_major`) and threads (the block
-    size, a multiple of 32) change the launch, never the result."""
+    `abs_bound` (the exponents), `hash_encode_ms_bwd_fixed` then
+    `fixed_to_float` (d_table) and `hash_encode_ms_pos_grads` (d_x01 /
+    d_stds), or raise. level_major_order (default: `fixed_level_major`)
+    and threads (the block size, a multiple of 32) change the launch, never
+    the result."""
     if _on_cpu(table, x01, stds, g_out):
         return hash_encode_multisample_bwd_det_plain(
             table, x01, stds, g_out, spec, needs, coarse_res_cutoff)
@@ -952,9 +1096,9 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
     d_table = d_x = d_s = None
     if needs[0]:
         if level_major_order is None:
-            level_major_order = level_major(spec, _l2_bytes(dev))
-        k = fixed_exponents(_abs_bound(g).reshape(levels, c))
-        acc, flags = _fixed_buffers(spec.total_rows, c, x.device)
+            level_major_order = fixed_level_major(spec, _l2_bytes(dev))
+        k = bound_exponents(g)[1]
+        key, (acc, flags) = _take_fixed_buffers(spec.total_rows, c, x.device)
         rc = lib.nl_hash_encode_ms_bwd_fixed(
             x.data_ptr(), s.data_ptr(), g.data_ptr(), k.data_ptr(),
             acc.data_ptr(), flags.data_ptr(), b, n_ms, levels, c,
@@ -964,6 +1108,7 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
         hash_encode_multisample_bwd_det.launches += 1
         d_table = torch.empty_like(table)
         _fixed_to_float(lib, acc, flags, k, spec.offsets, d_table)
+        _give_fixed_buffers(key, (acc, flags))
     if needs[1] or needs[2]:
         d_x = torch.empty_like(x) if needs[1] else None
         d_s = torch.empty_like(s) if needs[2] else None
@@ -985,11 +1130,16 @@ hash_encode_multisample_bwd_det.position_launches = 0
 
 
 def scatter_add_rows_det_plain(idx: torch.Tensor, vals: torch.Tensor,
-                               rows: int) -> torch.Tensor:
+                               rows: int, k=None) -> torch.Tensor:
     """The plain twin of `scatter_add_rows_det`: every value rounded at its
-    channel's 2^k (S = the sum of |vals[:, c]| over the finite values) and
-    summed in int64; bit-identical under any order of the rows."""
-    k = fixed_exponents(_abs_bound(vals))
+    channel's 2^k and summed in int64; bit-identical under any order of
+    the rows. k: [C] exponents (default: `fixed_exponents` of
+    `_abs_bound(vals)`, S = the sum of |vals[:, c]| over the finite
+    values; give the kernel's, `bound_exponents`, to hold the two at the
+    same k)."""
+    if k is None:
+        k = fixed_exponents(_abs_bound(vals))
+    k = k.to(vals.device)
     sums = _FixedSums(rows, vals.shape[-1], vals.device)
     ok = (idx >= 0) & (idx < rows)
     sums.add(idx[ok].long(), vals[ok], k)
@@ -1000,14 +1150,15 @@ def scatter_add_rows_det(idx: torch.Tensor, vals: torch.Tensor,
                          rows: int) -> torch.Tensor:
     """Same contract as `scatter_add_rows_plain` (no gradient), with sums
     that do not depend on their order: CPU tensors take
-    `scatter_add_rows_det_plain`; CUDA tensors launch
-    `scatter_add_rows_fixed` then `fixed_to_float`, or raise."""
+    `scatter_add_rows_det_plain`; CUDA tensors launch `abs_bound` (the
+    exponents), `scatter_add_rows_fixed` then `fixed_to_float`, or
+    raise."""
     if _on_cpu(idx, vals):
         return scatter_add_rows_det_plain(idx, vals, rows)
     idx, vals = _scatter_inputs(idx, vals)
     n, c = vals.shape
-    k = fixed_exponents(_abs_bound(vals))
-    acc, flags = _fixed_buffers(rows, c, vals.device)
+    k = bound_exponents(vals)[1]
+    key, (acc, flags) = _take_fixed_buffers(rows, c, vals.device)
     lib = _build.library()
     rc = lib.nl_scatter_add_rows_fixed(
         idx.data_ptr(), vals.data_ptr(), k.data_ptr(), acc.data_ptr(),
@@ -1017,6 +1168,7 @@ def scatter_add_rows_det(idx: torch.Tensor, vals: torch.Tensor,
     scatter_add_rows_det.launches += 1
     out = torch.empty((rows, c), dtype=torch.float32, device=vals.device)
     _fixed_to_float(lib, acc, flags, k.reshape(1, c), (0, rows), out)
+    _give_fixed_buffers(key, (acc, flags))
     return out
 
 

@@ -24,7 +24,10 @@ against its plain twin (which rounds the same terms, each side once,
 after the kernel's fused multiply-adds) at 4096 eps plus one quantum per
 term. K3's variant rounds the same float32 values as its plain twin:
 bit-identical to it, and within half a quantum a term of the float64 sum
-plus the sum's one rounding to float32 (half its float32 ulp).
+plus the sum's one rounding to float32 (half its float32 ulp). The twins
+are given the kernels' exponents (`grid.bound_exponents`, kernel
+`abs_bound`, whose S is the same bits as `grid.abs_bound_plain`). The
+int64 row sinks alone: exactly index_add_ on int64.
 """
 
 import contextlib
@@ -889,9 +892,10 @@ def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                                    cutoff, case):
     """The deterministic backward: d_table, d_x01 and d_stds the same bits
     on 3 fresh copies of the inputs, in both block orders and at 64, 128
-    and 256 threads a block; d_table against the float twin, the plain
-    deterministic twin and the atomic kernel; d_x01 / d_stds (float sums
-    in a fixed order) against the atomic kernel."""
+    and 256 threads a block; d_table against
+    the float twin, the plain deterministic twin (at the kernel's
+    exponents) and the atomic kernel; d_x01 / d_stds (float sums in a
+    fixed order) against the atomic kernel."""
     spec, table, x01, stds, g_out = _det_case(dev, level_dim, interp,
                                               cutoff, case, 80 + level_dim)
     args = (table, x01, stds, g_out, spec)
@@ -913,11 +917,12 @@ def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
             grid.hash_encode_multisample_bwd.launches) == (
         before[0] + 9, before[1] + 9, before[2])
     terms, counts = grid.table_grad_terms(x01, stds, g_out, spec, cutoff)
-    quantum = grid.table_grad_quantum(g_out, spec)
+    k = grid.bound_exponents(g_out)[1]
+    quantum = grid.table_grad_quantum(g_out, spec, k)
     float_twin = grid.hash_encode_multisample_bwd_plain(
         *args, coarse_res_cutoff=cutoff)
     det_twin = grid.hash_encode_multisample_bwd_det_plain(
-        *args, (True, False, False), cutoff)[0]
+        *args, (True, False, False), cutoff, k=k)[0]
     atomic = grid.hash_encode_multisample_bwd(*args,
                                               coarse_res_cutoff=cutoff)
     torch.cuda.synchronize()
@@ -1029,10 +1034,10 @@ def test_det_scatter_kernel_is_bit_identical_and_close(dev, case, c):
         0, i, vals[ok].abs().double())
     counts = torch.zeros(rows, 1, dtype=torch.float64, device=dev).index_add_(
         0, i, torch.ones(len(i), 1, dtype=torch.float64, device=dev))
-    quantum = torch.exp2(-grid.fixed_exponents(grid._abs_bound(vals))
-                         .double())
+    k = grid.bound_exponents(vals)[1]
+    quantum = torch.exp2(-k.double())
     exact = grid.scatter_add_rows_plain(idx, vals.double(), rows)
-    twin = grid.scatter_add_rows_det_plain(idx, vals, rows)
+    twin = grid.scatter_add_rows_det_plain(idx, vals, rows, k)
     torch.cuda.synchronize()
     for run in runs[1:]:
         assert torch.equal(run, runs[0])
@@ -1052,11 +1057,87 @@ def test_det_scatter_kernel_at_its_own_shape(dev, rows, n, c):
     idx[7], idx[9] = 1, 2
     runs = [grid.scatter_add_rows_det(idx.clone(), vals.clone(), rows)
             for _ in range(3)]
-    twin = grid.scatter_add_rows_det_plain(idx, vals, rows)
+    twin = grid.scatter_add_rows_det_plain(idx, vals, rows,
+                                           grid.bound_exponents(vals)[1])
     torch.cuda.synchronize()
     for run in runs[1:]:
         _bit_identical(run, runs[0])
     _bit_identical(runs[0], twin)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", ["random", "runs", "sparse"])
+def test_det_row_sinks_add_exactly(dev, case, c):
+    """The deterministic kernels' int64 row sinks alone (the bench's
+    `fixed_sink`): lane-transposed and one lane a row, each equal to
+    index_add_ on int64. "random": rows at random; "runs": 7 updates a
+    row in a row, so a warp holds few rows; "sparse": 90% of the updates
+    all zero (a lane with a row and nothing to add)."""
+    from nerf_lidar_tpu_torch.experiments import row_kernels_bench as rkb
+    g = torch.Generator(device=dev).manual_seed(30 + c)
+    m, rows = 100_003, 4099
+    if case == "runs":
+        r = torch.randint(0, rows, (m // 7 + 1,), device=dev, generator=g,
+                          dtype=torch.int32).repeat_interleave(7)[:m]
+    else:
+        r = torch.randint(0, rows, (m,), device=dev, generator=g,
+                          dtype=torch.int32)
+    terms = torch.randint(-2**40, 2**40, (m, c), device=dev, generator=g,
+                          dtype=torch.int64)
+    if case == "sparse":
+        terms[torch.rand(m, device=dev, generator=g) < 0.9] = 0
+    want = torch.zeros(rows, c, dtype=torch.int64, device=dev).index_add_(
+        0, r.long(), terms)
+    for transposed in (False, True):
+        acc = torch.zeros(rows, c, dtype=torch.int64, device=dev)
+        rkb.fixed_sink(r, terms, acc, transposed)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, want), transposed
+
+
+@pytest.mark.parametrize("n,f", [(0, 4), (1, 1), (1000, 3), (70_001, 40),
+                                 (4099, 300), (1 << 20, 16), (8, 2)])
+def test_bound_kernel_matches_its_plain_version(dev, n, f):
+    """Kernel `abs_bound`: S the same bits as `abs_bound_plain` (its order
+    of sums) with NaN and +-inf skipped, within float64 rounding of
+    `_abs_bound`, and k = `fixed_exponents(S)`, also where S is exactly a
+    power of two ((8, 2): eight 0.5s, S = 4)."""
+    g = torch.Generator(device=dev).manual_seed(n + f)
+    v = torch.randn(n, f, device=dev, generator=g) * 3.0
+    if (n, f) == (8, 2):
+        v = torch.full((n, f), 0.5, device=dev)
+    elif n > 9:
+        v[3, 0], v[5, f - 1], v[9, 0] = (float("nan"), float("inf"),
+                                         float("-inf"))
+    before = grid.bound_exponents.launches
+    s, k = grid.bound_exponents(v)
+    want = grid.abs_bound_plain(v)
+    torch.cuda.synchronize()
+    assert grid.bound_exponents.launches == before + 1
+    assert torch.equal(s, want)
+    assert torch.equal(k, grid.fixed_exponents(want))
+    torch.testing.assert_close(s, grid._abs_bound(v), rtol=1e-12, atol=0)
+    if (n, f) == (8, 2):
+        assert s.tolist() == [4.0, 4.0] and k.tolist() == [60, 60]
+
+
+def test_det_kernels_leave_their_sums_zero(dev):
+    """The kept int64 sums and flags are zero after every call, also after
+    one with non-finite terms, so the next call of the shape starts at 0."""
+    spec, table, x01, stds, g_out = _det_case(dev, 4, "linear", 0, "rays",
+                                              91)
+    g_out[3, 0], g_out[7, 5] = float("nan"), float("-inf")
+    vals = torch.randn(5000, 16, device=dev)
+    vals[11, 3] = float("inf")
+    idx = torch.randint(0, 77, (5000,), device=dev, dtype=torch.int32)
+    for _ in range(2):
+        grid.hash_encode_multisample_bwd_det(table, x01, stds, g_out, spec,
+                                             (True, False, False))
+        grid.scatter_add_rows_det(idx, vals, 77)
+    torch.cuda.synchronize()
+    assert grid._FIXED_POOL and grid.fixed_pool_bytes() > 0
+    for acc, flags in grid._FIXED_POOL.values():
+        assert not bool(acc.any()) and not bool(flags.any())
 
 
 def test_wrappers_launch_the_det_kernels_under_the_switch(dev):
