@@ -152,7 +152,9 @@ Phases (each raises on failure, so the script exits non-zero):
    steps through `--config_json` on [12]'s scene with the tracknet live
    (H1-bwd's tetrahedral d_x01 on the object grid against its twin) and
    renders a replay sweep; then H1 / H1-bwd per grid on each path's own
-   inputs (kernel, plain and bound), the speed field's Fourier band, and
+   inputs (kernel, plain and bound; beside the bound the rows H1 reads and
+   the row updates H1-bwd issues, counted on the host from those inputs),
+   the speed field's Fourier band, and
    (with the profiler phases) a torch.profiler breakdown of one warm
    `_fast` and `_speed` step.
 16. mesh extraction and the object-scene entries: `extract --resolution
@@ -241,9 +243,16 @@ Phases (each raises on failure, so the script exits non-zero):
    features (VGG loss), the same; each beside the default mode's two runs
    (their difference printed, not a condition); ms/step and peak GiB of
    both modes.
+20. a C8 grid (`nuscenes_single` with `model.nerf_mlp.grid.level_dim=8`):
+   the train entry 3 steps (launches, a gradient on every table), 3 steps
+   kernels on vs off under [8]'s rules, on one more step's recorded call
+   H1 against its plain version, H1-bwd against its written-out twin and
+   the deterministic d_table against its twins as [19] holds them;
+   `train --deterministic` twice (the same bits); a `render_lidar` sweep
+   of its weights with every K1 and H1 call held against its plain version.
 The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17, 18,
 12-profiled, 15-profiled, 16-profiled, 18-profiled, 8-profiled, 6, 7, 9,
-10, 11, 19 ([19] last: it turns torch's process-wide switch on and off): [4]
+10, 11, 20, 19 ([19] last: it turns torch's process-wide switch on and off): [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -257,9 +266,9 @@ JSON line (every kernel's launches on each path, the object paths
 `render_lidar_mxu`, `train_spectral_obj`, `render_lidar_spectral_obj` and
 [16]'s `extract`, `render_video`, `render_video_hq`, `render_instance`,
 `train_obj_ckpt`, [17]'s `train_dp_rank<r>`, `render_lidar_dp_rank<r>`
-and `train_objects_dp_rank<r>` and [18]'s `train_refnerf`,
-`eval_refnerf`, `render_refnerf`, `train_rawnerf`, `eval_rawnerf`
-included, times,
+and `train_objects_dp_rank<r>`, [18]'s `train_refnerf`,
+`eval_refnerf`, `render_refnerf`, `train_rawnerf`, `eval_rawnerf` and
+[20]'s `train_c8`, `render_lidar_c8` included, times,
 and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
@@ -447,43 +456,6 @@ def device_ms(fn, iters=50):
     print("    (torch.profiler recorded no whole launch in five sessions: "
           "CUDA events instead)")
     return cuda_ms(fn, iters)
-
-
-def queued_ms(fn, iters=20):
-    """Device ms per call of fn by CUDA events around `iters` calls queued
-    behind a device sleep (`torch.cuda._sleep`), so the kernels run back
-    to back and a wrapper's host side, longer than a short kernel, does not
-    count. The sleep outlasts the host's enqueueing by twice its measured
-    time, doubled up to twice more while the host outlasts it; None if it
-    still does."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    torch.cuda._sleep(10**6)
-    end.record()
-    torch.cuda.synchronize()
-    cycles_per_ms = 10**6 / start.elapsed_time(end)
-    t = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    sleep_ms = 2e3 * (time.perf_counter() - t) + 5
-    for _ in range(3):
-        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
-        t = time.perf_counter()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        queued = 1e3 * (time.perf_counter() - t)
-        torch.cuda.synchronize()
-        if queued < sleep_ms:
-            return start.elapsed_time(end) / iters
-        sleep_ms *= 2
-    return None
 
 
 def nbytes(*tensors):
@@ -2993,10 +2965,8 @@ def encode_mode(spec, cutoff):
     """A grid's mode combination as [15] names it: interpolation, channels,
     and per level kind (the mean point or every point; tiled or hashed),
     e.g. "tetra C16: mean-tiled x2, point-hashed x2"."""
-    kinds = []
-    for l, r in enumerate(spec.resolutions):
-        kinds.append(("mean" if r <= cutoff else "point") + "-"
-                     + ("tiled" if spec.is_tiled(l) else "hashed"))
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    kinds = [hb.level_kind(spec, cutoff, l) for l in range(spec.num_levels)]
     parts = []
     for k in dict.fromkeys(kinds):
         parts.append(f"{k} x{kinds.count(k)}")
@@ -3266,7 +3236,10 @@ def time_preset_encodes(dev, path, inputs, fwd, tag="[15]"):
     inputs: the kernel's device ms (torch.profiler, as [12] times the
     object grid) and its ms per call under CUDA events (back to back, so
     the host's launch gaps count where they outlast the kernel), the plain
-    version's ms (CUDA events), the bound, the error, printed under `tag`
+    version's ms (CUDA events), the bound and beside it the rows the call
+    reads (H1: each run's corners) or the row updates it issues (H1-bwd:
+    after its warp merge, with the floors of a merge by row;
+    `hash_encode_bench.call_row_updates`), the error, printed under `tag`
     ([18] times its path the same way). Returns {"<path> <grid>":
     numbers}."""
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
@@ -3297,16 +3270,19 @@ def time_preset_encodes(dev, path, inputs, fwd, tag="[15]"):
         events_ms = cuda_ms(call, iters=5, warmup=1)
         plain_ms = cuda_ms_once(plain)[0]
         n = stds.shape[-1]
+        rows = hb.call_row_updates(spec, x01, cutoff)
+        rows = dict(row_reads=rows["runs"]) if fwd else dict(
+            row_updates=rows)
         out[f"{path} {name}"] = dict(
             mode=encode_mode(spec, cutoff), B=stds.numel() // n, n=n,
             ms=ms, events_ms=events_ms, plain_ms=plain_ms, max_abs_err=err,
-            **lim)
+            **lim, **rows)
         print(f"{tag} {'H1' if fwd else 'H1-bwd'} {path} {name} "
               f"({encode_mode(spec, cutoff)}; B={stds.numel() // n} n={n}): "
               f"kernel {ms:.4f} ms on the device ({events_ms:.4f} ms per "
               f"call, CUDA events), plain {plain_ms:.2f} ms, bound "
-              f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}); max err "
-              f"{err:.2e}")
+              f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}), {rows}; max "
+              f"err {err:.2e}")
     return out
 
 
@@ -4469,12 +4445,13 @@ def det_turns(det, atomic, iters, full):
     "atomic": [ms], "det_split": det's first turn by kernel, and with full
     "switch_fill" / "switch_no_fill": {kernel: ms}}. A turn whose session
     the tracer left empty (late in the script) is timed by CUDA events
-    behind a device sleep (`queued_ms`) instead."""
+    behind a device sleep (`hash_encode_bench.queued_ms`) instead."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     out = {"det": [], "atomic": []}
     for name in ("det", "atomic", "atomic", "det")[:4 if full else 2]:
         fn = det if name == "det" else atomic
         spans = device_spans(fn, iters)
-        ms = sum(spans.values()) or queued_ms(fn) or cuda_ms(fn, iters)
+        ms = sum(spans.values()) or hb.queued_ms(fn) or cuda_ms(fn, iters)
         out[name].append(round(ms, 4))
         if name == "det" and sum(spans.values()) and "det_split" not in out:
             out["det_split"] = short_spans(spans)
@@ -4582,7 +4559,7 @@ def det_pos_grads(dev, name, rec):
     a gather, one thread a sample, no atomics) on a train step's recorded
     call `rec`: the same bits on 3 fresh copies, against the plain version
     and the atomic kernel at [6]'s BWD_TOL of max (an all-zero gradient
-    exactly), device ms in turns with the atomic kernel's (`queued_ms`:
+    exactly), device ms in turns with the atomic kernel's (`hb.queued_ms`:
     torch.profiler records no activity of these calls late in the
     script), the bound (the encode's bytes, d_x01 and d_stds written; a
     multiply-add per corner channel)."""
@@ -4620,7 +4597,7 @@ def det_pos_grads(dev, name, rec):
                                                       cutoff)
     turns = {"det": [], "atomic": []}
     for turn in ("det", "atomic", "atomic", "det"):
-        turns[turn].append(queued_ms(det if turn == "det" else atomic))
+        turns[turn].append(hb.queued_ms(det if turn == "det" else atomic))
     n_bytes, flops = hb.fwd_bound(spec, x01, stds, cutoff)
     lim = bound(n_bytes + nbytes(x01, stds), flops)
     n = stds.shape[-1]
@@ -4847,6 +4824,101 @@ def det_raydrop_pair(dev, feats, deterministic):
     return same, diff, steps
 
 
+# [20]: a hash grid of 8 channels a level (`model.nerf_mlp.grid.level_dim=8`
+# on nuscenes_single: the JAX package takes it, no preset uses it), through
+# H1 and H1-bwd (C >= 8: a group of lanes a row), atomic and deterministic.
+C8_STEPS = 3
+C8_DET_STEPS = 2
+C8_ARGS = ["--config", "nuscenes_single", "--set", "dataset_loader=synthetic",
+           "--set", "model.nerf_mlp.grid.level_dim=8"]
+
+
+def phase_c8(dev):
+    """[20] The train entry on nuscenes_single with a C8 NeRF grid for
+    C8_STEPS steps (finite losses, a gradient on every table, launches),
+    ON_OFF_STEPS steps kernels on vs off under [8]'s rules, then on one more
+    step's recorded encode-backward call of the C8 grid: H1 against its
+    plain version ([4]'s tolerances), H1-bwd against its written-out twin
+    ([6]'s) and the deterministic d_table against its float and plain
+    deterministic twins ([19]'s `det_bwd_grid`); `train --deterministic`
+    twice for C8_DET_STEPS steps (the same bits, no atomic H1-bwd); and a
+    `render_lidar` sweep of the weights it wrote with every H1 and K1 call
+    held against its plain version. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    exp = ["--device", "cuda", "--exp_name", "chip_smoke_c8"]
+    argv = ["train", *C8_ARGS, *exp, "--set", "print_every=1", "--steps",
+            str(C8_STEPS)]
+    fresh_exp_dir(argv)
+    with counted_launches() as launches:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    need_launches("train_c8", launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd", "scatter_add_rows"))
+    spec = run.model.nerf_mlp.spec
+    hist = run.history
+    if spec.level_dim != 8 or len(hist) != C8_STEPS or not all(
+            np.isfinite(h["loss"]) for h in hist):
+        fail(f"train_c8: NeRF grid C{spec.level_dim}, {len(hist)} steps, "
+             "or a loss is not finite")
+    _table_grads_nonzero(run.model, "train_c8")
+    on_off = train_on_vs_off(dev, run, C8_STEPS + 1, "train_c8 step")
+    print(f"[20] train_c8 ({encode_mode(spec, 0)}, {spec.total_rows} rows; "
+          f"{C8_STEPS} steps): launches {launches}; loss "
+          f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
+          f"{ON_OFF_STEPS} steps kernels on vs off: {on_off}")
+    rec = hb.record_train_inputs(run, C8_STEPS + 1 + ON_OFF_STEPS)["nerf"]
+    table, x01, stds, g_out, rspec, needs, cutoff = rec
+    fwd_err = close("[20] C8 H1", grid.hash_encode_multisample(
+        table, x01, stds, rspec, cutoff), grid.hash_encode_multisample_plain(
+        table, x01, stds, rspec, cutoff)[0], 1e-5, 1e-6)
+    got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, rspec,
+                                           needs, cutoff)
+    want = grid.hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
+                                                  rspec, needs, cutoff)
+    bwd_err = max(rel_err(f"[20] C8 H1-bwd {key}", got[i], want[i],
+                          BWD_TOL)[1]
+                  for i, key in enumerate(GRADS) if needs[i])
+    del got, want
+    det = det_bwd_grid(dev, "C8 nerf", (table, x01, stds, g_out, rspec),
+                       cutoff, full=True)
+    print(f"[20] C8 NeRF grid on a recorded step (B="
+          f"{stds.numel() // stds.shape[-1]}, n={stds.shape[-1]}, needs "
+          f"{needs}): H1 max abs err {fwd_err:.2e}, H1-bwd {bwd_err:.2e} of "
+          f"max; deterministic d_table vs its twins as [19] above")
+    del rec, table, x01, stds, g_out
+    torch.cuda.empty_cache()
+    same, diff, ms, peak, det_launches, _ = det_train_pair(
+        dev, "c8", ["train", *C8_ARGS, "--steps", str(C8_DET_STEPS)], True)
+    if not same or det_launches["hash_encode_ms_bwd"] or not det_launches[
+            "hash_encode_ms_bwd_det"]:
+        fail(f"train_c8 --deterministic: bit-identical {same} (max diff "
+             f"{diff}), launches {det_launches}")
+    print(f"[20] train_c8 --deterministic, twice ({C8_DET_STEPS} steps): "
+          f"bit-identical, launches {det_launches}, {ms:.1f} ms/step, peak "
+          f"{peak:.2f} GiB")
+    render_argv = ["render_lidar", *C8_ARGS, *exp, "--mode", "simu",
+                   "--num_sweeps", "1", "--params", run.params]
+    del run
+    torch.cuda.empty_cache()
+    with counted_launches() as render_launches, kernels_checked() as checked:
+        rendered = cli.main(render_argv)
+        torch.cuda.synchronize()
+    need_launches("render_lidar_c8", render_launches,
+                  ("hash_encode_ms", "composite"))
+    check_sweep_files("render_lidar_c8", rendered,
+                      rendered.cfg.model.nerf_mlp.class_num)
+    print(f"[20] render_lidar_c8 (1 sweep): launches {render_launches}; "
+          f"every call vs its plain version, max abs err K1 "
+          f"{max(checked['k1'])} ({len(checked['k1'])} calls), H1 "
+          f"{max(checked['h1']):.3e} ({len(checked['h1'])} calls), per mode "
+          f"{ {m: f'{e:.2e}' for m, e in checked['h1_modes'].items()} }")
+    return {"train_c8": launches, "render_lidar_c8": render_launches}
+
+
 def phase_determinism(dev, train_inputs, pos_inputs):
     """[19] The deterministic mode: H1-bwd's and K3's deterministic kernels
     on [8]'s recorded train inputs (and K3's own shape), the d_x01 / d_stds
@@ -5064,6 +5136,7 @@ def main():
     k1_trained = timed("[9]", phase_train_to_render, dev, params)
     gathers = timed("[10]", phase_gathers, dev)
     bench_launches = timed("[11]", phase_gather_bench, dev)
+    c8_launches = timed("[20]", phase_c8, dev)
     det = timed("[19]", phase_determinism, dev, train_inputs,
                 {"object grid": objects.pop("det_rec"),
                  "_fast nerf": presets.pop("det_rec")})
@@ -5079,14 +5152,16 @@ def main():
     # to export, which launches none), [14]'s eval, lidar_eval and render
     # entries, [15]'s preset paths, [16]'s extract, render_video (and
     # --hq), render_instance and train --obj_ckpt, [17]'s train and
-    # sweep on each rank, and [18]'s Ref-NeRF train, eval and render and
-    # RawNeRF train and eval; `launches` is their sum.
+    # sweep on each rank, [18]'s Ref-NeRF train, eval and render and
+    # RawNeRF train and eval, and [20]'s C8 train and sweep; `launches` is
+    # their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
              *objects["paths"].items(), ("raydrop", raydrop_launches),
              *eval_launches.items(), *presets["paths"].items(),
              ("extract", mesh["launches"]), *obj_entries.items(),
-             *dp_launches.items(), *refnerf["paths"].items())
+             *dp_launches.items(), *refnerf["paths"].items(),
+             *c8_launches.items())
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""

@@ -42,7 +42,7 @@
 // H1 hash_encode_ms: replaces the XLA gathers of
 //   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample):
 //   trilinear (8 corners) or tetrahedral (the 4 vertices of the point's
-//   Kuhn simplex) interpolation, C = 1, 2, 4 or 16 channels, and levels at
+//   Kuhn simplex) interpolation, C = 1, 2, 4, 8 or 16 channels, and levels at
 //   or below the coarse cutoff that encode each sample's mean point once
 //   with the mean erf weight (the presets'). Bound by table reads: up to 8
 //   corners x n multisamples x L levels per sample, at random rows of
@@ -67,6 +67,18 @@
 //     through shared memory in one coalesced copy (the tile comes from
 //     device memory once per level); a smaller table runs a tile's levels
 //     in neighbouring blocks, which find the tile in L2.
+//   - C >= 8 (the presets' C16 NeRF grids, and C8): lane = sample for the
+//     cells, weights and runs as above, but the kG = C / 4 lanes of a group
+//     read their samples' rows together (gather_wide): in round m lane p of
+//     the group reads float4 p of the row of its m-th sample, so a warp
+//     load covers 32 / kG whole rows in full 32-byte sectors, where a lane
+//     a row spread each of its C / 4 loads over 32 rows and half of each
+//     sector; a run's end becomes a warp-wide step, with tetra one step per
+//     corner of non-zero weight of each lane (4 for a run of one point)
+//     instead of 8; the same lanes store the output rows, contiguous;
+//   - tetra: the 4 simplex corners placed by the axis ranks (no loop over
+//     the 8), and a hashed level's row `& (rows - 1)` (the same value as
+//     `% rows` for its power-of-two rows).
 //   Measured and dropped: a shared-memory copy of the coarse levels' slices
 //   in persistent blocks, slower than these reads on the render's and the
 //   train step's points (PERF.md).
@@ -118,7 +130,21 @@
 //     instead of 8 per point (56 -> 8 at the coarse levels for n = 7);
 //   - neighbouring lanes (neighbouring samples of a ray) whose runs end in
 //     the same cell sum their updates with a segmented shuffle scan, and
-//     the segment's last lane adds them through add_row, K3's row atomic.
+//     the segment's last lane adds them through add_row, K3's row atomic;
+//     in the preset modes (tetra, C >= 8) the scan stops below the longest
+//     segment (one warp reduction) instead of always taking 5 steps;
+//   - C >= 8: the segments' sums leave lane-transposed (WideRows): staged in
+//     the warp's shared-memory slots, then lane p of a group adds float4 p
+//     of its group's rows, so one float4 atomic instruction covers 32 / kG
+//     whole rows in full sectors where a lane a row covered 32 rows, half of
+//     each sector. The count of atomics, not their bytes, bounds these
+//     levels: the host counts of the train step's updates (PERF.md) leave
+//     <= 10% to a merge by row within a sample or a warp, so none is built;
+//   - C >= 8 mean levels (add_mean_segments): every lane stages g and its
+//     corner weights, and lane (corner, float4) of a segment sums its
+//     members' products in one pass, in place of 8 segmented scans of C
+//     values over a ray's long same-cell segments. What holds a mean level
+//     near 0.12 ms against its 0.035 ms bound is open (PERF.md).
 //   Measured and dropped: summing the coarse levels in shared memory
 //   (persistent blocks, one flush per block), slower than the merged device
 //   atomics on the train step's points (PERF.md). Atomics make every sum
@@ -319,17 +345,21 @@ __global__ void composite_kernel(
   for (int k = lane; k < K; k += 32) sem_out[(size_t)r * K + k] = sem_sum[k];
 }
 
-// One level's constants, as a thread uses them.
+// One level's constants, as a thread uses them. mask: rows - 1 where rows
+// is a power of two (every hashed level), else 0.
 struct Level {
   float scale, g2;
-  uint32_t res, rows;
+  uint32_t res, rows, mask;
   bool tiled, mean;
 };
 
 __device__ __forceinline__ Level level_of(const GridLevels& lv, int l) {
   const float g = lv.grid_size[l];
-  return Level{lv.scale[l], g * g,          lv.res[l],
-               lv.rows[l],  lv.tiled[l] != 0, lv.mean[l] != 0};
+  const uint32_t rows = lv.rows[l];
+  return Level{lv.scale[l],       g * g,
+               lv.res[l],         rows,
+               (rows & (rows - 1u)) == 0u ? rows - 1u : 0u,
+               lv.tiled[l] != 0,  lv.mean[l] != 0};
 }
 
 // A point's cell at one level and its fractions within it.
@@ -400,18 +430,30 @@ __device__ __forceinline__ int vertex_corner(const Simplex& t, int k) {
 }
 
 // W[c] += a * (weight of corner c) for one point: the 8 trilinear weights,
-// or the 4 simplex weights (corner c is vertex popcount(c) or none). c is
-// a constant in each unrolled step, so W stays in registers.
+// or the 4 simplex weights. Simplex vertex k is corner vertex_corner(t, k):
+// vertex 0 is corner 0 and vertex 3 corner 7; vertex 1 steps along the
+// axis of rank 0 (corner 1, 2 or 4), vertex 2 along all but the axis of
+// rank 2 (corner 6, 5 or 3). c is a constant in each branch, so W stays in
+// registers.
 template <bool kTetra>
 __device__ __forceinline__ void add_weights(const Cell& p, float a,
                                             float* W) {
   if constexpr (kTetra) {
     const Simplex t = simplex_of(p);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int k = (c & 1) + ((c >> 1) & 1) + ((c >> 2) & 1);
-      if (vertex_corner(t, k) == c) W[c] += a * t.w[k];
-    }
+    W[0] += a * t.w[0];
+    if (t.r[0] == 0)
+      W[1] += a * t.w[1];
+    else if (t.r[1] == 0)
+      W[2] += a * t.w[1];
+    else
+      W[4] += a * t.w[1];
+    if (t.r[0] == 2)
+      W[6] += a * t.w[2];
+    else if (t.r[1] == 2)
+      W[5] += a * t.w[2];
+    else
+      W[3] += a * t.w[2];
+    W[7] += a * t.w[3];
   } else {
 #pragma unroll
     for (int c = 0; c < 8; ++c) W[c] += a * corner_weight(p, c);
@@ -436,7 +478,10 @@ __device__ __forceinline__ void sorted_grad(const Cell& p, float* d) {
 }
 
 // Row of corner c of cell (ix, iy, iz) within the level's slice: uint32
-// arithmetic and `% rows`, as the reference.
+// arithmetic and `% rows`, as the reference. kMask (the preset modes):
+// `& (rows - 1)` where rows is a power of two, the same value without the
+// division's instruction sequence.
+template <bool kMask = false>
 __device__ __forceinline__ uint32_t corner_row(int ix, int iy, int iz, int c,
                                                const Level& v) {
   const uint32_t ux = (uint32_t)(ix + (c & 1));
@@ -445,6 +490,7 @@ __device__ __forceinline__ uint32_t corner_row(int ix, int iy, int iz, int c,
   const uint32_t idx =
       v.tiled ? (ux + uy * v.res + uz * v.res * v.res)
               : ((ux * 1u) ^ (uy * 2654435761u) ^ (uz * 805459861u));
+  if (kMask && v.mask != 0u) return idx & v.mask;
   return idx % v.rows;
 }
 
@@ -544,9 +590,88 @@ __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
   for (int c = 0; c < 8; ++c) {
     if (kTetra && W[c] == 0.f) continue;
     float row[C];
-    load_row<C>(tbl + (int64_t)corner_row(ix, iy, iz, c, v) * C, row);
+    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C, row);
 #pragma unroll
     for (int k = 0; k < C; ++k) acc[k] += W[c] * row[k];
+  }
+}
+
+// The kG = C / 4 lanes of a group (C >= 8): lanes base .. base + kG - 1 of
+// a warp, base = lane - lane % kG. They read and write their samples' rows
+// together, one float4 (part p = lane % kG) of a row each.
+struct Group {
+  int p, base;
+};
+
+template <int C>
+__device__ __forceinline__ Group group_of() {
+  constexpr int kG = C / 4;
+  const int lane = threadIdx.x & 31;
+  return Group{lane % kG, lane - lane % kG};
+}
+
+// One corner of every lane's run, read by the lanes of its group (C >= 8,
+// warp-collective): on / row / w are this lane's (on: it reads a row of
+// weight w); in round m lane base + p reads float4 p of the row of sample
+// base + m and adds it into acc[m], float4 p of that sample's sum.
+template <int C>
+__device__ __forceinline__ void gather_corner(bool on, uint32_t row, float w,
+                                              const float4* part,
+                                              float4* acc) {
+  constexpr int kG = C / 4;
+  const Group gr = group_of<C>();
+  const unsigned ons = __ballot_sync(kFullMask, on);
+#pragma unroll
+  for (int m = 0; m < kG; ++m) {
+    const int src = gr.base + m;
+    const uint32_t r = __shfl_sync(kFullMask, row, src);
+    const float wm = __shfl_sync(kFullMask, w, src);
+    if ((ons >> src) & 1u) {
+      const float4 t = __ldg(part + (int64_t)r * kG);
+      acc[m].x += wm * t.x;
+      acc[m].y += wm * t.y;
+      acc[m].z += wm * t.z;
+      acc[m].w += wm * t.w;
+    }
+  }
+}
+
+// gather_run for C >= 8, warp-collective: every lane calls, `act` says
+// that its run ends here. The lanes of a group read their runs' rows
+// together (gather_corner), so one load instruction of the warp covers
+// 32 / kG whole rows in full 32-byte sectors, where one lane a row reads
+// C / 4 float4s, each instruction over 32 rows and half of each sector.
+// With tetra the warp steps through each lane's corners of non-zero
+// weight, the i-th of every lane at step i (a run of one point has 4 of
+// the 8), instead of through the 8 corners. The corners, weights and order
+// of adds are gather_run's, so the sums are its bits.
+template <int C, bool kTetra>
+__device__ __forceinline__ void gather_wide(bool act, int ix, int iy, int iz,
+                                            const float* W, const Level& v,
+                                            const float* tbl, float4* acc) {
+  const float4* part =
+      reinterpret_cast<const float4*>(tbl) + group_of<C>().p;
+  if constexpr (kTetra) {
+    unsigned left = 0u;  // this lane's corners still to read
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (act && W[c] != 0.f) left |= 1u << c;
+    const int steps = (int)__reduce_max_sync(kFullMask, __popc(left));
+    for (int i = 0; i < steps; ++i) {
+      const bool on = left != 0u;
+      const int c = on ? __ffs(left) - 1 : 0;
+      left &= left - 1u;
+      float w = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w = c == k ? W[k] : w;
+      gather_corner<C>(on, on ? corner_row<true>(ix, iy, iz, c, v) : 0u, w,
+                       part, acc);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      gather_corner<C>(act, act ? corner_row<true>(ix, iy, iz, c, v) : 0u,
+                       W[c], part, acc);
   }
 }
 
@@ -622,6 +747,61 @@ __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
   gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc);
 }
 
+// encode_one for C >= 8, warp-collective (active: this lane holds a
+// sample): the runs of encode_one, each read by gather_wide when it ends.
+template <int C, bool kTetra>
+__device__ __forceinline__ void encode_one_wide(bool active, const float* tbl,
+                                                Points pt, int n,
+                                                const Level& v, float4* acc) {
+  float W[8] = {};
+  int cx = 0, cy = 0, cz = 0;
+  bool have = false;
+  for (int j = 0; j < n; ++j) {
+    float x = 0.f, y = 0.f, z = 0.f, s = 0.f;
+    if (active) {
+      x = pt.x[3 * j];
+      y = pt.x[3 * j + 1];
+      z = pt.x[3 * j + 2];
+      s = pt.s[j];
+    }
+    const bool in = active && in_unit_cube(x, y, z);
+    const Cell p = cell_of(x, y, z, v.scale);
+    const bool ends = in && have && !same_cell(p, cx, cy, cz);
+    if (__any_sync(kFullMask, ends))
+      gather_wide<C, kTetra>(ends, cx, cy, cz, W, v, tbl, acc);
+    if (ends) have = false;
+    if (in) {
+      if (!have) {
+        cx = p.ix;
+        cy = p.iy;
+        cz = p.iz;
+        have = true;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) W[c] = 0.f;
+      }
+      add_weights<kTetra>(p, erf_weight(s, v), W);
+    }
+  }
+  if (__any_sync(kFullMask, have))
+    gather_wide<C, kTetra>(have, cx, cy, cz, W, v, tbl, acc);
+}
+
+// encode_mean for C >= 8, warp-collective.
+template <int C, bool kTetra>
+__device__ __forceinline__ void encode_mean_wide(bool active,
+                                                 const float* tbl, Points pt,
+                                                 int n, const Level& v,
+                                                 float4* acc) {
+  MeanPoint m{0.f, 0.f, 0.f, 0.f};
+  if (active) m = mean_of(pt, n, v);
+  const bool in = active && in_unit_cube(m.x, m.y, m.z);
+  const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+  float W[8] = {};
+  if (in) add_weights<kTetra>(p, m.w, W);
+  if (__any_sync(kFullMask, in))
+    gather_wide<C, kTetra>(in, p.ix, p.iy, p.iz, W, v, tbl, acc);
+}
+
 template <int C, bool kTetra>
 __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
                                       const float* __restrict__ x01,
@@ -638,9 +818,41 @@ __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
     stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
     __syncthreads();
   }
+  const float* tbl = table + (int64_t)lv.offset[w.l] * C;
+  if constexpr (C >= 8) {
+    // Lane = sample for the cells and weights; a group's lanes read its
+    // rows together (gather_wide), so a warp with any sample keeps all its
+    // lanes, and each lane stores float4 p of its group's samples.
+    if ((int)(threadIdx.x & ~31u) >= cnt) return;
+    const bool active = (int)threadIdx.x < cnt;
+    const Points pt =
+        points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+    constexpr int kG = C / 4;
+    float4 acc[kG];
+#pragma unroll
+    for (int m = 0; m < kG; ++m) acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (v.mean) {
+      encode_mean_wide<C, kTetra>(active, tbl, pt, n, v, acc);
+    } else {
+      encode_one_wide<C, kTetra>(active, tbl, pt, n, v, acc);
+      const float fn = (float)n;
+#pragma unroll
+      for (int m = 0; m < kG; ++m)
+        acc[m] = make_float4(acc[m].x / fn, acc[m].y / fn, acc[m].z / fn,
+                             acc[m].w / fn);
+    }
+    const Group gr = group_of<C>();
+    const int t0 = (int)(threadIdx.x & ~31u) + gr.base;
+#pragma unroll
+    for (int m = 0; m < kG; ++m) {
+      if (t0 + m >= cnt) break;
+      const int64_t b = w.b0 + t0 + m;
+      reinterpret_cast<float4*>(out + (b * L + w.l) * C)[gr.p] = acc[m];
+    }
+    return;
+  }
   if ((int)threadIdx.x >= cnt) return;
   float acc[C] = {};
-  const float* tbl = table + (int64_t)lv.offset[w.l] * C;
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
   if (v.mean) {
     encode_mean<C, kTetra>(tbl, pt, n, v, acc);
@@ -767,6 +979,7 @@ __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
 template <int C>
 struct FloatRows {
   using T = float;
+  static constexpr bool kSegments = false;  // mean levels: add_runs
   float* dst;  // the level's d_table slice; nullptr: d_table not wanted
   __device__ __forceinline__ bool on() const { return dst != nullptr; }
   template <class Row>
@@ -781,9 +994,70 @@ struct FloatRows {
   }
 };
 
+// Float4s of a lane's staging slot in WideRows' buffer: kG = C / 4 for a
+// row of sums or of g, 2 for the weights W[8] (add_mean_segments), and a
+// pad, which keeps a quarter-warp's 16-byte accesses on distinct banks.
+template <int C>
+__host__ __device__ constexpr int wide_slot() {
+  return C / 4 + 3;
+}
+
+// C >= 8: FloatRows' atomics lane-transposed, the float counterpart of
+// add_rows_transposed. The lanes whose segment ends stage their sums in
+// the warp's slots of shared memory (buf: 32 lanes x wide_slot<C>()
+// float4s); then in round m lane base + p adds float4 p of the sums of
+// sample base + m, so one atomic instruction of the warp covers 32 / kG
+// whole rows in full sectors (C16: 8 rows) where a lane a row covered 32
+// rows, half of each sector. A float4 of zeros adds nothing. The mean
+// levels take add_mean_segments instead.
+template <int C>
+struct WideRows {
+  using T = float;
+  static constexpr bool kSegments = true;
+  float* dst;   // the level's d_table slice; nullptr: d_table not wanted
+  float4* buf;  // this warp's staging slots
+  __device__ __forceinline__ bool on() const { return dst != nullptr; }
+  template <class Row>
+  __device__ __forceinline__ T term(float w, float g, bool, int,
+                                    Row) const {
+    return w * g;
+  }
+  template <class Row>
+  __device__ __forceinline__ void flush(bool add, Row row,
+                                        const T* u) const {
+    constexpr int kG = C / 4, kS = wide_slot<C>();
+    const unsigned adds = __ballot_sync(kFullMask, add);
+    if (adds == 0u) return;
+    const int lane = threadIdx.x & 31;
+    const Group gr = group_of<C>();
+    uint32_t r = 0u;
+    if (add) {
+      r = row();
+#pragma unroll
+      for (int q = 0; q < kG; ++q)
+        buf[lane * kS + q] =
+            make_float4(u[4 * q], u[4 * q + 1], u[4 * q + 2], u[4 * q + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < kG; ++m) {
+      const int src = gr.base + m;
+      const uint32_t to = __shfl_sync(kFullMask, r, src);
+      if ((adds >> src) & 1u) {
+        const float4 t = buf[src * kS + gr.p];
+        if (t.x != 0.f || t.y != 0.f || t.z != 0.f || t.w != 0.f)
+          atomicAdd(reinterpret_cast<float4*>(dst + (int64_t)to * C) + gr.p,
+                    t);
+      }
+    }
+    __syncwarp();  // the slots are read before the next flush writes them
+  }
+};
+
 template <int C, bool kTetra>
 struct FixedRows {
   using T = long long;
+  static constexpr bool kSegments = false;  // mean levels: add_runs
   unsigned long long* acc;  // the level's slice of the [rows, C] sums
   unsigned* flags;          // the whole table's flags
   int64_t base;             // the level's first entry, offset * C
@@ -1075,12 +1349,15 @@ __global__ void __launch_bounds__(kScatterThreads)
 // neighbour's joins that lane's segment, a segmented scan sums each
 // segment (of Rows::T: float, or the int64 of each lane's fixed-point
 // term), and its last lane adds the sum. With tetra a corner that no lane's
-// run weights is skipped, and a segment whose sum is 0 adds nothing.
+// run weights is skipped, and a segment whose sum is 0 adds nothing. In the
+// preset modes (tetra, C >= 8) the scan stops below the longest segment's
+// length, one warp reduction: the steps past it add nothing anywhere.
 template <int C, bool kTetra, class Rows>
 __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
                                          const float* W, const float* g,
                                          const Rows& rows, const Level& v) {
   using T = typename Rows::T;
+  constexpr bool kPreset = kTetra || C >= 8;
   const int lane = threadIdx.x & 31;
   const int px = __shfl_up_sync(kFullMask, ix, 1);
   const int py = __shfl_up_sync(kFullMask, iy, 1);
@@ -1092,16 +1369,20 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
   const int start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
   const bool last = act && (lane == 31 || ((heads >> (lane + 1)) & 1u));
   const bool scan = heads != kFullMask;
+  int depth = 32;
+  if (kPreset && scan)
+    depth = (int)__reduce_max_sync(kFullMask, (unsigned)(lane - start + 1));
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (kTetra && !__any_sync(kFullMask, act && W[c] != 0.f)) continue;
-    const auto row = [&] { return corner_row(ix, iy, iz, c, v); };
+    const auto row = [&] { return corner_row<kPreset>(ix, iy, iz, c, v); };
     T u[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) u[k] = rows.term(W[c], g[k], act, k, row);
     if (scan) {
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
+        if (kPreset && off >= depth) break;
 #pragma unroll
         for (int k = 0; k < C; ++k) {
           const T t = __shfl_up_sync(kFullMask, u[k], off);
@@ -1117,6 +1398,76 @@ __device__ __forceinline__ void add_runs(bool act, int ix, int iy, int iz,
     }
     rows.flush(add, row, u);
   }
+}
+
+// A mean level's d_table updates for C >= 8 (WideRows: float sums),
+// warp-collective: a lane whose mean point is in the same cell as its left
+// neighbour's joins that lane's segment, as in add_runs. Every lane stages
+// its g and its corner weights W[8] in the warp's slots; the warp then
+// takes its segments 32 / (8 kG) at a time (C16: one), lane (c, q) of a
+// segment summing W_m[c] * g_m[4q, 4q + 4) over the members m in order and
+// adding that float4 to corner c's row, so one atomic instruction covers
+// whole rows. add_runs instead runs a segmented scan of C values for each
+// of the 8 corners over these levels' long segments (a ray's samples in
+// one coarse cell); the pass issues fewer instructions (PERF.md, on an
+// NVIDIA H100 80GB HBM3: the presets' whole backward calls 12-13% faster,
+// each mean level alone within 10%).
+template <int C, bool kTetra>
+__device__ __forceinline__ void add_mean_segments(bool act, int ix, int iy,
+                                                  int iz, const float* W,
+                                                  const float* g,
+                                                  const WideRows<C>& rows,
+                                                  const Level& v) {
+  constexpr int kG = C / 4, kS = wide_slot<C>(), kP = 8 * kG, kSeg = 32 / kP;
+  const int lane = threadIdx.x & 31;
+  const int px = __shfl_up_sync(kFullMask, ix, 1);
+  const int py = __shfl_up_sync(kFullMask, iy, 1);
+  const int pz = __shfl_up_sync(kFullMask, iz, 1);
+  const bool pact = __shfl_up_sync(kFullMask, (int)act, 1) != 0;
+  const bool head =
+      lane == 0 || !act || !pact || px != ix || py != iy || pz != iz;
+  const unsigned heads = __ballot_sync(kFullMask, head);
+  const int start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
+  const bool last = act && (lane == 31 || ((heads >> (lane + 1)) & 1u));
+  float4* mine = rows.buf + lane * kS;
+#pragma unroll
+  for (int q = 0; q < kG; ++q)
+    mine[q] = make_float4(g[4 * q], g[4 * q + 1], g[4 * q + 2], g[4 * q + 3]);
+  mine[kG] = make_float4(W[0], W[1], W[2], W[3]);
+  mine[kG + 1] = make_float4(W[4], W[5], W[6], W[7]);
+  __syncwarp();
+  const float* weights = reinterpret_cast<const float*>(rows.buf);
+  const int t = lane % kP, c = t / kG, q = t % kG, slot = lane / kP;
+  unsigned ends = __ballot_sync(kFullMask, last);
+  while (ends != 0u) {
+    const int cnt = __popc(ends);
+    const bool mine_seg = slot < cnt;
+    const int e = mine_seg ? nth_set_bit(ends, slot) : 0;
+    const int s0 = __shfl_sync(kFullMask, start, e);
+    const int ex = __shfl_sync(kFullMask, ix, e);
+    const int ey = __shfl_sync(kFullMask, iy, e);
+    const int ez = __shfl_sync(kFullMask, iz, e);
+    if (mine_seg) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int m = s0; m <= e; ++m) {
+        const float w = weights[(m * kS + kG) * 4 + c];
+        const float4 gm = rows.buf[m * kS + q];
+        a.x += w * gm.x;
+        a.y += w * gm.y;
+        a.z += w * gm.z;
+        a.w += w * gm.w;
+      }
+      if (a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f)
+        atomicAdd(reinterpret_cast<float4*>(
+                      rows.dst + (int64_t)corner_row<true>(ex, ey, ez, c, v) *
+                                     C) +
+                      q,
+                  a);
+    }
+    ends = cnt > kSeg ? ends & ~((2u << nth_set_bit(ends, kSeg - 1)) - 1u)
+                      : 0u;
+  }
+  __syncwarp();  // the slots are read before the next flush writes them
 }
 
 // <g, feature> (fdot) and <g, d feature / d frac> (df[3]) of a point in
@@ -1262,7 +1613,10 @@ __device__ __forceinline__ void backward_mean(bool active, Points pt,
   if (rows.on() && __any_sync(kFullMask, in)) {
     float W[8] = {};
     if (in) add_weights<kTetra>(p, m.w, W);
-    add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
+    if constexpr (Rows::kSegments)
+      add_mean_segments<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
+    else
+      add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
   }
   if ((dx == nullptr && ds == nullptr) || !in) return;
   const float fn = (float)n;
@@ -1302,13 +1656,29 @@ __global__ void hash_encode_ms_bwd_kernel(
   float g[C] = {};
   if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  const FloatRows<C> rows{d_table != nullptr ? d_table + off : nullptr};
   float* dx = d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr;
   float* ds = d_stds != nullptr ? d_stds + b * n : nullptr;
-  if (v.mean)
-    backward_mean<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n, v);
-  else
-    backward_one<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n, v);
+  float* dst = d_table != nullptr ? d_table + off : nullptr;
+  const auto run = [&](const auto& rows) {
+    if (v.mean)
+      backward_mean<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n,
+                               v);
+    else
+      backward_one<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n,
+                              v);
+  };
+  if constexpr (C >= 8) {
+    __shared__ float4 slots[kThreads / 32][32 * wide_slot<C>()];
+    run(WideRows<C>{dst, slots[threadIdx.x >> 5]});
+  } else {
+    run(FloatRows<C>{dst});
+  }
+}
+
+// Static shared memory of hash_encode_ms_bwd_kernel<C>: WideRows' slots.
+template <int C>
+constexpr int bwd_static_smem() {
+  return C >= 8 ? kThreads * wide_slot<C>() * 16 : 0;
 }
 
 // The deterministic d_table: hash_encode_ms_bwd_kernel's threads, block
@@ -1440,12 +1810,12 @@ struct Launch {
 };
 
 cudaError_t launch_of(int64_t B, int n, int L, int level_major, Launch* g,
-                      int threads = kThreads) {
+                      int threads = kThreads, int reserved = 0) {
   g->tiles = (B + threads - 1) / threads;
   if (g->tiles * L > 0x7fffffff) return cudaErrorInvalidValue;
   g->blocks = (unsigned)(g->tiles * L);
   const int64_t bytes = 16LL * threads * n;
-  g->smem = level_major && bytes <= kStageBytes ? (int)bytes : 0;
+  g->smem = level_major && bytes + reserved <= kStageBytes ? (int)bytes : 0;
   return cudaSuccess;
 }
 
@@ -1472,7 +1842,8 @@ cudaError_t backward(const float* table, const float* x01, const float* stds,
                      const GridLevels& lv, int tetra, int level_major,
                      cudaStream_t s) {
   Launch g;
-  const cudaError_t err = launch_of(B, n, L, level_major, &g);
+  const cudaError_t err =
+      launch_of(B, n, L, level_major, &g, kThreads, bwd_static_smem<C>());
   if (err != cudaSuccess) return err;
   if (tetra)
     hash_encode_ms_bwd_kernel<C, true><<<g.blocks, kThreads, g.smem, s>>>(
@@ -1820,7 +2191,7 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The presets' grids: C = 1 and 4 (proposal), 4 and 16 (NeRF), 2
-  // (objects, tiny_debug).
+  // (objects, tiny_debug); and C = 8, which the JAX package takes too.
   switch (C) {
     case 1:
       return encode<1>(table, x01, stds, out, B, n, L, lv, tetra,
@@ -1830,6 +2201,9 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                        level_major, s);
     case 4:
       return encode<4>(table, x01, stds, out, B, n, L, lv, tetra,
+                       level_major, s);
+    case 8:
+      return encode<8>(table, x01, stds, out, B, n, L, lv, tetra,
                        level_major, s);
     case 16:
       return encode<16>(table, x01, stds, out, B, n, L, lv, tetra,
@@ -1866,6 +2240,9 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
                          n, L, lv, tetra, level_major, s);
     case 4:
       return backward<4>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
+                         n, L, lv, tetra, level_major, s);
+    case 8:
+      return backward<8>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
                          n, L, lv, tetra, level_major, s);
     case 16:
       return backward<16>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
@@ -1952,6 +2329,9 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
     case 4:
       return backward_fixed<4>(x01, stds, g_out, k, a, flags, B, n, L, lv,
                                tetra, level_major, threads, s);
+    case 8:
+      return backward_fixed<8>(x01, stds, g_out, k, a, flags, B, n, L, lv,
+                               tetra, level_major, threads, s);
     case 16:
       return backward_fixed<16>(x01, stds, g_out, k, a, flags, B, n, L, lv,
                                 tetra, level_major, threads, s);
@@ -1988,6 +2368,9 @@ int nl_hash_encode_ms_pos_grads(const float* table, const float* x01,
                           tetra, s);
     case 4:
       return pos_grads<4>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
+                          tetra, s);
+    case 8:
+      return pos_grads<8>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
                           tetra, s);
     case 16:
       return pos_grads<16>(table, x01, stds, g_out, d_x01, d_stds, B, n, L,

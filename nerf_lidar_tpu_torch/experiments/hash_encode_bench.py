@@ -3,6 +3,7 @@ paths give them, on one GPU.
 
     python nerf_lidar_tpu_torch/experiments/hash_encode_bench.py \
         [--root DIR] [--copies] [--profile] [--steps N]
+        [--config NAME [--set KEY=VALUE ...]] [--det]
 
 Runs the port's `train` entry on `nuscenes_single` (synthetic scene, full
 width) for `--steps` steps, records the (x01, stds, g_out) that one more
@@ -38,6 +39,14 @@ and power limit of the card.
   `ops` beside it (`here_grid`).
 --save_inputs FILE / --inputs FILE: write the recorded train inputs to
   FILE, or read them from FILE instead of training (with --det only).
+--config NAME: the train-step and render-chunk inputs of that preset
+  (`--set KEY=VALUE` passed on to its entries; the synthetic scene, full
+  width), then per grid H1 (render chunk) and H1-bwd (train step, d_table)
+  each level alone, and the whole calls, all on the same recorded inputs;
+  with --root, the --root checkout's kernels and this file's checkout's
+  (`here_grid`) in turns (root, here, here, root). Beside each level's
+  bound: the row updates its backward issues after merging, counted on the
+  recorded inputs (`row_updates`).
 """
 
 from __future__ import annotations
@@ -518,6 +527,283 @@ def det_grid(root, name, rec, copies):
             det, args, lambda got: None))
 
 
+def queued_ms(fn, iters=20):
+    """Device ms per call of fn by CUDA events around `iters` calls queued
+    behind a device sleep (`torch.cuda._sleep`), so the kernels run back
+    to back and a wrapper's host side, longer than a short kernel, does not
+    count. The sleep outlasts the host's enqueueing by twice its measured
+    time, doubled up to twice more while the host outlasts it; None if it
+    still does."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(10**6)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10**6 / start.elapsed_time(end)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    sleep_ms = 2e3 * (time.perf_counter() - t) + 5
+    for _ in range(3):
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        t = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        if queued < sleep_ms:
+            return start.elapsed_time(end) / iters
+        sleep_ms *= 2
+    return None
+
+
+def level_kind(spec, cutoff, l):
+    """"mean-tiled", "point-hashed", ...: how level l encodes."""
+    from nerf_lidar_tpu_torch.ops import grid
+    return (("mean" if grid.mean_levels(spec, cutoff)[l] else "point") + "-"
+            + ("tiled" if spec.is_tiled(l) else "hashed"))
+
+
+def level_runs(spec, x01, cutoff, l):
+    """The runs H1-bwd forms at level l: (sample ids [M], end step [M],
+    cells [M, 3], corner weights [M, 8]), a run being a sample's
+    consecutive in-range points in one cell (out-of-range points break
+    none), ending at the step of the next in-range point in another cell
+    (or n after the last point); a mean-point level has one run a sample at
+    step 0. The erf weights are left out: they scale a run's corners
+    alike and only decide which are non-zero where they underflow."""
+    from nerf_lidar_tpu_torch.ops import grid
+    n = x01.shape[-2]
+    x = x01.reshape(-1, n, 3)
+    b = x.shape[0]
+    if grid.mean_levels(spec, cutoff)[l]:
+        pts, oob = grid._in_range(grid._seq_mean(x))
+        ids = torch.nonzero(~oob)[:, 0]
+        return (ids, torch.zeros_like(ids), grid._cells(spec, l, pts[ids]),
+                grid._cube_weights(spec, l, pts[ids]))
+    pts, oob = grid._in_range(x.reshape(-1, 3))
+    inside = (~oob).reshape(b, n)
+    cells = grid._cells(spec, l, pts).reshape(b, n, 3)
+    weights = grid._cube_weights(spec, l, pts).reshape(b, n, 8)
+    have = torch.zeros(b, dtype=torch.bool, device=x.device)
+    cur = torch.zeros((b, 3), dtype=torch.int64, device=x.device)
+    acc = torch.zeros((b, 8), dtype=weights.dtype, device=x.device)
+    out = []
+
+    def emit(mask, step):
+        ids = torch.nonzero(mask)[:, 0]
+        out.append((ids, torch.full_like(ids, step), cur[ids], acc[ids]))
+
+    for j in range(n):
+        ins = inside[:, j]
+        ends = ins & have & (cells[:, j] != cur).any(-1)
+        emit(ends, j)
+        start = ins & ~(have & ~ends)
+        cur = torch.where(start[:, None], cells[:, j], cur)
+        acc = torch.where(start[:, None], 0.0, acc)
+        have = have | ins
+        acc = torch.where(ins[:, None], acc + weights[:, j], acc)
+    emit(have, n)
+    return tuple(torch.cat([o[i] for o in out]) for i in range(4))
+
+
+def row_updates(spec, x01, cutoff, l, warp=32):
+    """Row updates of H1-bwd's d_table at level l on these points, counted
+    on the host: "points" (every in-range point's corners of non-zero
+    weight), "runs" (each run's), "issued" (after the merge of neighbouring
+    lanes whose runs end at the same step in the same cell: what the
+    atomic kernel adds), and the floors of a merge by row: the distinct
+    (sample, row) and (warp, row) pairs. A warp is `warp` consecutive
+    samples."""
+    from nerf_lidar_tpu_torch.ops import grid
+    ids, step, cells, w = level_runs(spec, x01, cutoff, l)
+    nz = w != 0
+    cc = cells[:, None, :] + torch.tensor(grid._CORNERS3,
+                                          device=cells.device)
+    rows = grid._corner_index(spec, l, cc[..., 0], cc[..., 1], cc[..., 2])
+    r, b = rows[nz], ids[:, None].expand(-1, 8)[nz]
+    per = spec.rows_per_level[l]
+    order = torch.argsort(step * (1 << 40) + ids)
+    ids, step, cells, w = ids[order], step[order], cells[order], w[order]
+    joins = torch.zeros(len(ids), dtype=torch.bool, device=ids.device)
+    joins[1:] = ((ids[1:] == ids[:-1] + 1) & (step[1:] == step[:-1])
+                 & (cells[1:] == cells[:-1]).all(-1)
+                 & (ids[1:] // warp == ids[:-1] // warp))
+    seg = torch.cumsum(~joins, 0) - 1
+    sums = torch.zeros((len(ids) and int(seg[-1]) + 1, 8), dtype=w.dtype,
+                       device=w.device).index_add_(0, seg, w)
+    pts = level_points(spec, x01, cutoff)[l]
+    return dict(
+        points=int((grid._cube_weights(spec, l, pts) != 0).sum()),
+        runs=int(nz.sum()), issued=int((sums != 0).sum()),
+        distinct_sample_rows=int(torch.unique(b * per + r).numel()),
+        distinct_warp_rows=int(torch.unique((b // warp) * per + r).numel()))
+
+
+def call_row_updates(spec, x01, cutoff=0):
+    """`row_updates` summed over the levels: the row updates of one H1-bwd
+    call on these points (its "runs" count is also the rows H1 reads, a
+    run's corners of non-zero weight each)."""
+    out = {}
+    for l in range(spec.num_levels):
+        for k, v in row_updates(spec, x01, cutoff, l).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def call_encode(lib, table, x, s, out, arrays, levels, c, tetra,
+                level_major_order):
+    """One launch of `lib`'s H1 (`nl_hash_encode_ms`) into out [B, levels
+    * C]; arrays: the levels' constants (`grid._kernel_levels`, or a slice
+    of them)."""
+    from nerf_lidar_tpu_torch.ops import _build
+    b, n_ms = s.shape
+    rc = lib.nl_hash_encode_ms(
+        table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(), b, n_ms,
+        levels, c, *(a.ctypes.data for a in arrays), tetra,
+        bool(level_major_order), x.device.index, _build.stream_of(x))
+    _build.check(lib, rc, "hash_encode_ms")
+
+
+def in_turns(fns, other):
+    """{name: [ms, ...]}: fns["here"] and, where `other`, fns["root"] timed
+    in turns (root, here, here, root; else here, here) by `queued_ms`."""
+    order = ("root", "here", "here", "root") if other else ("here", "here")
+    times = {k: [] for k in dict.fromkeys(order)}
+    for k in order:
+        times[k].append(queued_ms(fns[k], iters=10) or cuda_ms(fns[k]))
+    return times
+
+
+def config_grid(root, name, train, render):
+    """--config on one grid: `train` (table, x01, stds, g_out, spec, needs,
+    cutoff) of a train step's encode backward, `render` (table, x01, stds,
+    spec, cutoff) of a render chunk's encode. Emits one line per level of
+    each kernel and one per whole call."""
+    from nerf_lidar_tpu_torch.ops import _build, grid
+    here = here_grid()
+    other = os.path.abspath(root) != HERE
+    table, x01, stds, g_out, spec, needs, cutoff = train
+    c, levels, tetra = spec.level_dim, spec.num_levels, spec.interp == "tetra"
+    dev = x01.device.index
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    if other and c not in getattr(grid, "_KERNEL_LEVEL_DIMS", ()):
+        other = False  # the --root checkout's kernels do not take this C
+    libs = dict(here=here._build.library(),
+                **(dict(root=_build.library()) if other else {}))
+    order = here.level_major(spec, l2)
+    arrays = here._kernel_levels(spec, cutoff)
+    common = dict(root=root, grid=name, interp=spec.interp, C=c,
+                  level_major=bool(order))
+    for kernel, rec in (("hash_encode_ms_bwd", train),
+                        ("hash_encode_ms", render)):
+        x01, stds = rec[1], rec[2]
+        n_ms = x01.shape[-2]
+        x = x01.reshape(-1, n_ms, 3).contiguous()
+        s = stds.reshape(-1, n_ms).contiguous()
+        b = s.shape[0]
+        g = g_out.reshape(b, spec.output_dim).contiguous() \
+            if kernel == "hash_encode_ms_bwd" else None
+        sink = (torch.zeros_like(table) if g is not None
+                else torch.empty((b, c), device=x.device))
+        pts = level_points(spec, x01, cutoff)
+        for l in range(levels):
+            al = tuple(np.ascontiguousarray(a[l:l + 1]) for a in arrays)
+            flops = 2 * pts[l].shape[0] * _corners_per_point(spec) * c
+            if g is not None:
+                gl = g[:, l * c:(l + 1) * c].contiguous()
+                fns = {k: lambda lib=lib: call_float(
+                    lib, table, x, s, gl, sink, al, 1, c, tetra, order)
+                    for k, lib in libs.items()}
+                n_bytes = (nbytes(x, s, gl)
+                           + spec.rows_per_level[l] * c * 4)
+                extra = dict(row_updates=row_updates(spec, x01, cutoff, l))
+            else:
+                fns = {k: lambda lib=lib: call_encode(
+                    lib, table, x, s, sink, al, 1, c, tetra, order)
+                    for k, lib in libs.items()}
+                read = torch.zeros(spec.rows_per_level[l], dtype=torch.bool,
+                                   device=x.device)
+                for idx, _, _ in grid._corners(spec, l, pts[l]):
+                    read[idx] = True
+                n_bytes = nbytes(x, s, sink) + int(read.sum()) * c * 4
+                extra = dict(rows_read=int(read.sum()))
+            emit(**common, what="level", kernel=kernel, level=l,
+                 kind=level_kind(spec, cutoff, l),
+                 resolution=spec.resolutions[l],
+                 rows=spec.rows_per_level[l], B=b, n=n_ms,
+                 ms=in_turns(fns, other), bound_ms=bound_ms(n_bytes, flops),
+                 bytes=n_bytes, flops=flops, **extra)
+        del sink
+        torch.cuda.empty_cache()
+    # The whole calls through each checkout's wrapper, against the plain
+    # versions.
+    mods = dict(here=here, **(dict(root=grid) if other else {}))
+    x01, stds = train[1], train[2]
+    plain = grid.hash_encode_multisample_bwd_plain(
+        table, x01, stds, g_out, spec, needs, cutoff)
+    fns, errs = {}, {}
+    for k, mod in mods.items():
+        fns[k] = lambda mod=mod: mod.hash_encode_multisample_bwd(
+            table, x01, stds, g_out, spec, needs, cutoff)
+        errs[k] = check_bwd(fns[k](), plain, needs)
+    del plain
+    emit(**common, what="call", kernel="hash_encode_ms_bwd", inputs="train",
+         needs=list(needs), ms=in_turns(fns, other), max_rel_err=errs,
+         bound_ms=bound_ms(*bwd_bound(spec, x01, stds, g_out, cutoff)))
+    for inputs, (rt, rx, rs) in (("render", render[:3]),
+                                 ("train", (table, x01, stds))):
+        want = grid.hash_encode_multisample_plain(rt, rx, rs, spec,
+                                                  cutoff)[0]
+        fns, errs = {}, {}
+        for k, mod in mods.items():
+            fns[k] = lambda mod=mod: mod.hash_encode_multisample(
+                rt, rx, rs, spec, cutoff)
+            errs[k] = check_fwd(f"hash_encode_ms {name} {inputs} {k}",
+                                fns[k](), want)
+        emit(**common, what="call", kernel="hash_encode_ms", inputs=inputs,
+             B=rs.numel() // rs.shape[-1], ms=in_turns(fns, other),
+             max_abs_err=errs,
+             bound_ms=bound_ms(*fwd_bound(spec, rx, rs, cutoff)))
+        del want
+
+
+def config_bench(root, config, sets, steps):
+    """--config: train `config` (the synthetic scene, `sets` as --set
+    arguments) for `steps` steps, record one more step's encode-backward
+    inputs and the first render chunk's encode inputs per grid, then
+    `config_grid` on each."""
+    from nerf_lidar_tpu_torch import cli
+    tag = f"hash_encode_bench_{os.getpid()}"
+    base = ["--config", config, "--set", "dataset_loader=synthetic",
+            *(a for kv in sets for a in ("--set", kv)), "--device", "cuda",
+            "--exp_name", tag]
+    train_argv = ["train", *base, "--steps", str(steps)]
+    out_dir = cli.exp_dir(cli.build_config(cli.parse_args(train_argv)))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        run = cli.main(train_argv)
+        train = record_train_inputs(run, steps)
+        render_run = cli.main(["render_lidar", *base, "--mode", "simu",
+                               "--num_sweeps", "1", "--params", run.params])
+        render = record_render_inputs(
+            render_run.renderer, render_run.sweeps[0], render_run.near,
+            render_run.far, render_run.frame)
+        del run, render_run
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for name in list(train):
+        config_grid(root, name, train.pop(name), render.pop(name))
+        torch.cuda.empty_cache()
+
+
 def profile_train(run, step, steps=2):
     """torch.profiler over `steps` warm train steps of the train entry's
     `run` (its refiners and tracks too): wall ms/step, device busy ms/step
@@ -678,6 +964,8 @@ def main(argv=None):
     p.add_argument("--det", action="store_true")
     p.add_argument("--save_inputs")
     p.add_argument("--inputs")
+    p.add_argument("--config")
+    p.add_argument("--set", action="append", default=[])
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -697,6 +985,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    if args.config:
+        config_bench(root, args.config, args.set, args.steps)
+        return
     if args.det:
         if args.inputs:
             train = torch.load(args.inputs, weights_only=False)

@@ -52,8 +52,9 @@ from . import _build
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
 # Channel widths kernel H1 is instantiated for: those of the presets' grids
-# (proposal 1 and 4, NeRF 4 and 16, object and tiny_debug's NeRF 2).
-_KERNEL_LEVEL_DIMS = (1, 2, 4, 16)
+# (proposal 1 and 4, NeRF 4 and 16, object and tiny_debug's NeRF 2), and 8,
+# which the JAX package's grid takes as well.
+_KERNEL_LEVEL_DIMS = (1, 2, 4, 8, 16)
 # Channel widths kernel K3 takes: the powers of two that divide a warp.
 _SCATTER_WIDTHS = (1, 2, 4, 8, 16, 32)
 # The 8 unit-cube corner offsets, corner c = (c & 1, c >> 1 & 1, c >> 2 & 1).
@@ -454,8 +455,9 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
     _check_ported(spec)
     if spec.level_dim not in _KERNEL_LEVEL_DIMS:
         raise NotImplementedError(
-            f"kernel hash_encode_ms is built for level_dim in "
-            f"{_KERNEL_LEVEL_DIMS}, not {spec.level_dim}")
+            f"kernel hash_encode_ms takes level_dim "
+            f"{', '.join(map(str, _KERNEL_LEVEL_DIMS))}, not "
+            f"{spec.level_dim}")
     if spec.total_rows > _U32:
         raise ValueError("table rows exceed the kernel's uint32 offsets")
     n_ms = x01.shape[-2]

@@ -295,7 +295,7 @@ def _check_encode_kernels(dev, spec, x01, stds, g, cutoff=0):
 
 @pytest.mark.parametrize("case", ["one_cell", "rays", "oob_breaks", "faces",
                                   "n1"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8])
 def test_hash_encode_kernels_on_merge_cases(dev, level_dim, case):
     """Tiled coarse levels (merged runs, aggregated updates on shared cells)
     and hashed fine ones."""
@@ -333,13 +333,14 @@ def _mode_points(dev, spec, case, g):
 @pytest.mark.parametrize("case", ["ties", "faces", "rays", "oob_mean"])
 @pytest.mark.parametrize("cutoff", [0, 40])
 @pytest.mark.parametrize("interp", ["linear", "tetra"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4, 16])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
 def test_hash_encode_kernels_in_the_preset_modes(dev, level_dim, interp,
                                                  cutoff, case):
     """The presets' modes of H1 and its backward: tetrahedral
     interpolation, mean-point levels (cutoff 40: levels 5, 9, 17 and 33 at
-    the mean; d_x01 / d_stds through the mean too) and C16 rows, on tiled
-    and hashed levels, against the plain versions."""
+    the mean; d_x01 / d_stds through the mean too) and C8 / C16 rows (read
+    and added a group of lanes a row), on tiled and hashed levels, against
+    the plain versions."""
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=128,
         log2_hashmap_size=16, interp=interp))
@@ -416,6 +417,23 @@ def test_hash_encode_kernels_at_the_shared_memory_budget(dev, level_dim, n,
     g = torch.Generator(device=dev).manual_seed(30)
     x01, stds = _ray_points(dev, 16, 24, n, g)
     _check_encode_kernels(dev, spec, x01, stds, g)
+
+
+@pytest.mark.parametrize("level_dim,n", [(16, 17), (16, 18), (8, 19),
+                                         (8, 20)])
+def test_hash_encode_wide_rows_at_the_shared_memory_budget(dev, level_dim, n,
+                                                           monkeypatch):
+    """At C >= 8 the backward's blocks also hold the warps' staging slots
+    (128 lanes x (C / 4 + 3) float4s), so a level-major tile is staged
+    while both fit 48 KB: C16 n = 17 and C8 n = 19 fill it exactly
+    (staged), n = 18 / 20 do not; cutoff 40 puts levels at the mean."""
+    monkeypatch.setattr(grid, "level_major", lambda spec, l2: True)
+    spec = grid.spec_for(configs.GridConfig(
+        level_dim=level_dim, base_resolution=4, desired_resolution=128,
+        log2_hashmap_size=16, interp="tetra"))
+    g = torch.Generator(device=dev).manual_seed(35)
+    x01, stds = _ray_points(dev, 16, 24, n, g)
+    _check_encode_kernels(dev, spec, x01, stds, g, cutoff=40)
 
 
 @pytest.mark.parametrize("level_major", [False, True])
@@ -502,13 +520,13 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         grid.hash_encode_multisample(table.double(), x01, stds, spec)
     with pytest.raises(ValueError, match="shape"):
         grid.hash_encode_multisample(table[:-8], x01, stds, spec)
-    # C8 is no preset's width: the kernel takes 1, 2, 4 and 16.
-    wide = grid.spec_for(configs.GridConfig(level_dim=8, base_resolution=4,
+    # The kernel takes C = 1, 2, 4, 8 and 16; a width of 3 is refused.
+    wide = grid.spec_for(configs.GridConfig(level_dim=3, base_resolution=4,
                                             desired_resolution=96,
                                             log2_hashmap_size=9))
-    with pytest.raises(NotImplementedError, match="level_dim"):
+    with pytest.raises(NotImplementedError, match="level_dim 1, 2, 4, 8, 16"):
         grid.hash_encode_multisample(
-            torch.zeros(wide.total_rows, 8, device=dev), x01, stds, wide)
+            torch.zeros(wide.total_rows, 3, device=dev), x01, stds, wide)
     args = _composite_args(dev, 8, 4, 2, False, True)
     with pytest.raises(ValueError, match="shape"):
         render_fused.fused_composite(**dict(args, tdist=args["tdist"][:, 1:]))
@@ -526,7 +544,7 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         grid.hash_encode_multisample_bwd(table, x01.cpu(), stds, g_out, spec)
     with pytest.raises(NotImplementedError, match="level_dim"):
         grid.hash_encode_multisample_bwd(
-            torch.zeros(wide.total_rows, 8, device=dev), x01, stds,
+            torch.zeros(wide.total_rows, 3, device=dev), x01, stds,
             torch.rand(4, wide.output_dim, device=dev), wide)
 
     # K3.
@@ -887,7 +905,7 @@ def _det_case(dev, level_dim, interp, cutoff, case, seed):
 @pytest.mark.parametrize("case", ["ties", "rays", "oob_mean"])
 @pytest.mark.parametrize("cutoff", [0, 40])
 @pytest.mark.parametrize("interp", ["linear", "tetra"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4, 16])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
 def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                                    cutoff, case):
     """The deterministic backward: d_table, d_x01 and d_stds the same bits

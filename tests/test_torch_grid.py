@@ -155,7 +155,7 @@ def mode_inputs(spec, seed, b=40, n=5):
 # A small hashmap hashes the fine levels while the coarse ones stay tiled;
 # cutoff 20 puts levels 5 and 9 (and 17 at C = 16's spec) at the mean.
 MODES = [(interp, cutoff, c) for interp in ("linear", "tetra")
-         for cutoff in (0, 20) for c in (1, 2, 4, 16)]
+         for cutoff in (0, 20) for c in (1, 2, 4, 8, 16)]
 
 
 def mode_specs(interp, c, diff_inputs=True):
