@@ -4343,6 +4343,7 @@ DET_EPS_MULT = 4096
 DET_STEPS = 10
 DET_OBJ_STEPS = 5
 DET_FAST_STEPS = 5
+DET_REFINE_STEPS = 5
 DET_RD_EPOCHS = 1  # 2 epochs of [13]'s 7 training sweeps: 4 steps
 DET_TRAIN = {
     "static": ["train", "--config", "nuscenes_single", "--set",
@@ -4352,7 +4353,18 @@ DET_TRAIN = {
                 "track_start_opt=0", "--steps", str(DET_OBJ_STEPS)],
     "fast": ["train", "--config", "nuscenes_single_fast", "--set",
              "dataset_loader=synthetic", "--steps", str(DET_FAST_STEPS)],
+    # The shipped refinement recipe (the JAX bench's full recipe): pose
+    # refinement (rotation and translation) from the first step on every
+    # ray, so every grid's encode backward takes d_x01 / d_stds, and track
+    # refinement, on [12]'s scene.
+    "refine": ["train", "--config", "nuscenes_single", "--set",
+               "dataset_loader=nusc", "--data_dir", OBJ_SCENE, "--set",
+               "track_start_opt=0", "--set", "pose_refine=true", "--set",
+               "learn_R=true", "--set", "learn_t=true", "--set",
+               "start_step=0", "--steps", str(DET_REFINE_STEPS)],
 }
+# The grids whose d_x01 / d_stds the refinement recipe's step takes.
+REFINE_GRIDS = ("nerf", "prop0", "prop1", "obj")
 DET_COMMON = ["--set", "print_every=1", "--device", "cuda"]
 # Keys of a train entry's history that are times, not results.
 DET_TIME_KEYS = ("step_s", "rays_per_sec")
@@ -4556,20 +4568,25 @@ def det_bwd_grid(dev, name, args, cutoff, full):
 
 def det_pos_grads(dev, name, rec):
     """[19] The deterministic d_x01 / d_stds pass (`hash_encode_ms_pos_grads`:
-    a gather, one thread a sample, no atomics) on a train step's recorded
-    call `rec`: the same bits on 3 fresh copies, against the plain version
-    and the atomic kernel at [6]'s BWD_TOL of max (an all-zero gradient
-    exactly), device ms in turns with the atomic kernel's (`hb.queued_ms`:
-    torch.profiler records no activity of these calls late in the
-    script), the bound (the encode's bytes, d_x01 and d_stds written; a
-    multiply-add per corner channel)."""
+    a thread a sample sums its levels in order, no atomics) on a train
+    step's recorded call `rec`: the same bits on 3 fresh copies, against
+    the plain version and
+    the atomic kernel at [6]'s BWD_TOL of max (an all-zero gradient
+    exactly); device ms in turns with the atomic kernel asked for the same
+    gradients, then the atomic kernel at the call's own needs (d_table too,
+    what the default mode runs) and H1 on the same points
+    (`hb.queued_ms`: torch.profiler records no activity of these calls
+    late in the script); the bounds (d_x01 / d_stds: the encode's bytes,
+    d_x01 and d_stds written, a multiply-add per corner channel; the
+    atomic call: H1-bwd's, d_x01 and d_stds written)."""
     import torch
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
     args = tuple(t.to(dev) for t in rec[:4])
     spec = rec[4]
+    needs = tuple(rec[5]) if len(rec) > 5 else (True, True, True)
     cutoff = rec[6] if len(rec) > 6 else 0
-    x01, stds = args[1], args[2]
+    table, x01, stds, g_out = args
     asked = (False, True, True)
     runs = [grid.hash_encode_multisample_bwd_det(
         *(t.clone() for t in args), spec, asked, cutoff)[1:]
@@ -4590,28 +4607,43 @@ def det_pos_grads(dev, name, rec):
             else:
                 errs[f"{key} vs {what}"] = rel_err(label, got[i], want,
                                                    BWD_TOL)[1]
-    del runs, got, plain
-    det = lambda: grid.hash_encode_multisample_bwd_det(*args, spec, asked,
-                                                       cutoff)
-    atomic = lambda: grid.hash_encode_multisample_bwd(*args, spec, asked,
-                                                      cutoff)
-    turns = {"det": [], "atomic": []}
-    for turn in ("det", "atomic", "atomic", "det"):
-        turns[turn].append(hb.queued_ms(det if turn == "det" else atomic))
+    del runs, got, plain, atomic
+    fns = dict(
+        det=lambda: grid.hash_encode_multisample_bwd_det(*args, spec, asked,
+                                                         cutoff),
+        atomic=lambda: grid.hash_encode_multisample_bwd(*args, spec, asked,
+                                                        cutoff),
+        atomic_full=lambda: grid.hash_encode_multisample_bwd(
+            *args, spec, needs, cutoff),
+        h1=lambda: grid.hash_encode_multisample(table, x01, stds, spec,
+                                                cutoff))
+    turns = {k: [] for k in fns}
+    for turn in ("det", "atomic", "atomic", "det", "atomic_full",
+                 "atomic_full", "h1", "h1"):
+        turns[turn].append(hb.queued_ms(fns[turn]))
     n_bytes, flops = hb.fwd_bound(spec, x01, stds, cutoff)
-    lim = bound(n_bytes + nbytes(x01, stds), flops)
+    written = nbytes(x01, stds)
+    lim = bound(n_bytes + written, flops)
+    full = bound(hb.bwd_bound(spec, x01, stds, g_out, cutoff)[0] + written,
+                 2 * flops)
     n = stds.shape[-1]
     mean = lambda v: None if None in v else statistics.fmean(v)
     out = dict(max_abs_err=max(errs.values()), ms=mean(turns["det"]),
                plain_ms=plain_ms, atomic_ms=mean(turns["atomic"]),
-               library_ms=None, **lim, errs=errs, turns=turns,
-               mode=encode_mode(spec, cutoff), B=stds.numel() // n, n=n)
+               atomic_full_ms=mean(turns["atomic_full"]),
+               atomic_full_bound_ms=full["bound_ms"],
+               h1_ms=mean(turns["h1"]), library_ms=None, **lim, errs=errs,
+               turns=turns, needs=list(needs), mode=encode_mode(spec, cutoff),
+               B=stds.numel() // n, n=n)
     print(f"[19] hash_encode_ms_pos_grads {name} ({out['mode']}; "
-          f"B={out['B']} n={n}): same bits on 3 copies; errors (of max) "
-          f"{errs}; device ms in turns (CUDA events, calls queued behind a "
-          f"device sleep): det {turns['det']}, atomic {turns['atomic']}; "
-          f"plain {plain_ms:.1f} ms (CUDA events); "
-          f"bound {lim['bound_ms']:.5f} ({lim['bound_by']})")
+          f"B={out['B']} n={n}): same bits on 3 copies; "
+          f"errors (of max) {errs}; device ms in turns (CUDA events, calls "
+          f"queued behind a device sleep): det {turns['det']}, atomic "
+          f"{turns['atomic']}; the atomic H1-bwd at the call's needs "
+          f"{list(needs)} {turns['atomic_full']} (bound "
+          f"{full['bound_ms']:.5f}); H1 on the same points {turns['h1']}; "
+          f"plain {plain_ms:.1f} ms (CUDA events); bound "
+          f"{lim['bound_ms']:.5f} ({lim['bound_by']})")
     return out
 
 
@@ -4677,10 +4709,12 @@ def det_bound(dev, name, v):
     exponents, `grid.bound_exponents`) on v [N, F]: S the same bits as its
     plain version (`grid.abs_bound_plain`, the kernel's order of sums) and
     on 3 fresh copies, k = `fixed_exponents(S)`, S within float64 rounding
-    (rtol 1e-12) of torch's `_abs_bound` and whether k equals torch's;
-    device ms beside torch's four passes (`_abs_bound`: abs, nan_to_num, a
-    float64 copy, a sum; not one call, so no library time), the bound (v
-    read once)."""
+    (rtol 1e-12) of torch's `_abs_bound` and whether k equals torch's; one
+    kernel a call (the device activities of a call under torch.profiler);
+    device ms beside the library yardstick, one call that computes the
+    same S on finite inputs (`torch.linalg.vector_norm(v, 1, dim=0,
+    dtype=torch.float64)`), and torch's four passes (`_abs_bound`: abs,
+    nan_to_num, a float64 copy, a sum); the bound (v read once)."""
     import torch
     from nerf_lidar_tpu_torch.ops import grid
     runs = [grid.bound_exponents(v.clone()) for _ in range(3)]
@@ -4694,16 +4728,25 @@ def det_bound(dev, name, v):
     if not err <= 1e-12:
         fail(f"abs_bound {name}: {err} relative to torch's sum")
     k_as_torch = bool(torch.equal(k, grid.fixed_exponents(torch_s)))
-    ms = device_ms(lambda: grid.bound_exponents(v), iters=20)
+    spans = device_spans(lambda: grid.bound_exponents(v), iters=20)
+    if len(spans) > 1:
+        fail(f"abs_bound {name}: a call ran {sorted(spans)} on the device")
+    ms = sum(spans.values()) or cuda_ms(lambda: grid.bound_exponents(v))
+    library_ms = device_ms(lambda: torch.linalg.vector_norm(
+        v, 1, dim=0, dtype=torch.float64), iters=20)
     torch_ms = device_ms(lambda: grid._abs_bound(v), iters=20)
-    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-               torch_passes_ms=torch_ms, **bound(nbytes(v), v.numel()),
-               rel_to_torch_sum=err, k_equals_torch_bound=k_as_torch,
-               shape=list(v.shape))
-    print(f"[19] abs_bound {name} ({list(v.shape)}): same bits as its plain "
-          f"version and on 3 copies; {err:.2e} relative to torch's sum, k as "
-          f"torch's: {k_as_torch}; device ms {ms:.4f} against torch's passes "
-          f"{torch_ms:.4f}; plain {plain_ms:.1f} ms (CUDA events); bound "
+    out = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, torch_passes_ms=torch_ms,
+               **bound(nbytes(v), v.numel()), rel_to_torch_sum=err,
+               k_equals_torch_bound=k_as_torch, shape=list(v.shape),
+               plan=list(grid._bound_plan(*v.shape)),
+               device_kernels=short_spans(spans))
+    print(f"[19] abs_bound {name} ({list(v.shape)}, plan (V, Q, P, chunk) "
+          f"{out['plan']}): same bits as its plain version and on 3 copies; "
+          f"{err:.2e} relative to torch's sum, k as torch's: {k_as_torch}; "
+          f"device ms {ms:.4f} ({out['device_kernels']}) against "
+          f"vector_norm {library_ms:.4f} and torch's passes {torch_ms:.4f}; "
+          f"plain {plain_ms:.1f} ms (CUDA events); bound "
           f"{out['bound_ms']:.4f} ({out['bound_by']})")
     return out
 
@@ -4757,10 +4800,71 @@ def _det_counters():
                 abs_bound=(grid.bound_exponents, "launches"))
 
 
-def det_train_run(dev, key, argv, deterministic, tag):
+@contextlib.contextmanager
+def pos_grads_by_spec():
+    """Within the block, counts the d_x01 / d_stds launches
+    (`hash_encode_ms_pos_grads`) per hash-grid spec: yields {spec: count}.
+    Its wrapper takes the deterministic wrapper's counts (as
+    `obj_grid_launches` does) and gives them back."""
+    from nerf_lidar_tpu_torch.ops import grid
+    orig = grid.hash_encode_multisample_bwd_det
+    counts = {}
+
+    def wrapper(*a, **kw):
+        before = wrapper.position_launches
+        out = orig(*a, **kw)
+        counts[a[4]] = (counts.get(a[4], 0) + wrapper.position_launches
+                        - before)
+        return out
+
+    wrapper.launches = orig.launches
+    wrapper.position_launches = orig.position_launches
+    grid.hash_encode_multisample_bwd_det = wrapper
+    try:
+        yield counts
+    finally:
+        orig.launches = wrapper.launches
+        orig.position_launches = wrapper.position_launches
+        grid.hash_encode_multisample_bwd_det = orig
+
+
+def refine_inspect(by_spec, step):
+    """The check of the refinement recipe's first deterministic run, given
+    its `run`: a non-zero last-step gradient on every parameter of the
+    posenet and the tracknet and on every hash table; the d_x01 / d_stds
+    launches per grid so far (`by_spec`: `pos_grads_by_spec`'s counts);
+    then what one more step under the switch hands the encode backward per
+    grid (`hb.record_train_inputs`). Returns ({grid: launches}, {grid:
+    recorded call})."""
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+
+    def inspect(run):
+        per_grid = {name: by_spec.get(mlp.spec, 0)
+                    for name, mlp in hb.grid_names(run.model)}
+        if run.posenet is None or run.tracknet is None:
+            fail("train refine: no posenet or tracknet")
+        _table_grads_nonzero(run.model, "train refine --deterministic")
+        for prefix, mod in (("posenet", run.posenet),
+                            ("tracknet", run.tracknet)):
+            for name, p in mod.named_parameters():
+                if p.grad is None or float(p.grad.abs().max()) == 0.0:
+                    fail(f"train refine --deterministic: {prefix}.{name} "
+                         "got no gradient")
+        with cli.deterministic_mode():
+            rec = hb.record_train_inputs(run, step)
+        missing = [g for g in REFINE_GRIDS if not any(
+            k.startswith(g) and rec[k][5][1] for k in rec)]
+        if missing:
+            fail(f"train refine: no d_x01 asked on {missing}")
+        return per_grid, rec
+    return inspect
+
+
+def det_train_run(dev, key, argv, deterministic, tag, inspect=None):
     """One run of a train argv in a fresh directory, with or without
     --deterministic: (its [(name, tensor)] state, history, ms/step of its
-    later half, peak GiB, launches)."""
+    later half, peak GiB, launches, inspect(run) or None)."""
     import torch
     from nerf_lidar_tpu_torch import cli
     counters = _det_counters()
@@ -4780,22 +4884,25 @@ def det_train_run(dev, key, argv, deterministic, tag):
     launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     hist = run.history
     ms = 1e3 * statistics.median(h["step_s"] for h in hist[len(hist) // 2:])
-    out = (_train_state(run), run.history, ms, peak, launches)
+    state = _train_state(run)  # before inspect, which may step the run
+    extra = inspect(run) if inspect is not None else None
+    out = (state, run.history, ms, peak, launches, extra)
     del run
     torch.cuda.empty_cache()
     return out
 
 
-def det_train_pair(dev, key, argv, deterministic):
+def det_train_pair(dev, key, argv, deterministic, inspect=None):
     """Two runs of one train argv (fresh directories), with or without
     --deterministic: (bit-identical?, max difference, ms/step of the
     first run's later half, its peak GiB, launches of the first run, the
-    first run's (state, history))."""
+    first run's (state, history), inspect(first run) or None)."""
     mode = "det" if deterministic else "def"
-    first = det_train_run(dev, key, argv, deterministic, f"{mode}0")
+    first = det_train_run(dev, key, argv, deterministic, f"{mode}0",
+                          inspect)
     second = det_train_run(dev, key, argv, deterministic, f"{mode}1")
     same, diff = _two_run_diff(first[:2], second[:2])
-    return same, diff, first[2], first[3], first[4], first[:2]
+    return same, diff, first[2], first[3], first[4], first[:2], first[5]
 
 
 def det_raydrop_pair(dev, feats, deterministic):
@@ -4891,7 +4998,7 @@ def phase_c8(dev):
           f"max; deterministic d_table vs its twins as [19] above")
     del rec, table, x01, stds, g_out
     torch.cuda.empty_cache()
-    same, diff, ms, peak, det_launches, _ = det_train_pair(
+    same, diff, ms, peak, det_launches, _, _ = det_train_pair(
         dev, "c8", ["train", *C8_ARGS, "--steps", str(C8_DET_STEPS)], True)
     if not same or det_launches["hash_encode_ms_bwd"] or not det_launches[
             "hash_encode_ms_bwd_det"]:
@@ -4964,12 +5071,16 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                          full=True)
     del idx, own_vals
 
-    paths, train = {}, {}
+    paths, train, refine = {}, {}, {}
     for key, argv in DET_TRAIN.items():
         res = {}
         for det in (True, False):
-            same, diff, ms, peak, launches, first = det_train_pair(
-                dev, key, argv, det)
+            refining = key == "refine" and det
+            with (pos_grads_by_spec() if refining
+                  else contextlib.nullcontext()) as by_spec:
+                same, diff, ms, peak, launches, first, extra = \
+                    det_train_pair(dev, key, argv, det, refine_inspect(
+                        by_spec, DET_REFINE_STEPS) if refining else None)
             res["det" if det else "default"] = dict(
                 bit_identical=same, max_diff=diff, ms_per_step=ms,
                 peak_gib=peak)
@@ -4983,10 +5094,17 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                          f"atomic kernel: {launches}")
                 need = ["hash_encode_ms_bwd_det", "scatter_add_rows_det",
                         "abs_bound"]
-                if key == "objects":
+                if key in ("objects", "refine"):
                     need.append("hash_encode_ms_pos_grads")
                 need_launches(f"train --deterministic ({key})", launches,
                               need)
+                if key == "refine":
+                    refine["launches_by_grid"], refine["inputs"] = extra
+                    need_launches(
+                        "train refine --deterministic, d_x01 / d_stds by "
+                        "grid", {g: sum(c for k, c in extra[0].items()
+                                        if k.startswith(g))
+                                 for g in REFINE_GRIDS}, REFINE_GRIDS)
                 paths[f"train_{key}_deterministic"] = launches
                 if key == "static":
                     torch_det.fill_uninitialized_memory = False
@@ -5013,13 +5131,20 @@ def phase_determinism(dev, train_inputs, pos_inputs):
               f"diff {res['default']['max_diff']:.3e}), "
               f"{res['default']['ms_per_step']:.1f} ms/step, peak "
               f"{res['default']['peak_gib']:.2f} GiB; launches "
-              f"{paths[f'train_{key}_deterministic']}")
+              f"{paths[f'train_{key}_deterministic']}"
+              + (f"; d_x01 / d_stds launches by grid "
+                 f"{refine['launches_by_grid']}" if key == "refine" else ""))
         if "det_no_fill" in res:
             nf = res["det_no_fill"]
             print(f"[19] train {key} --deterministic without torch's fill of "
                   f"uninitialized memory: {nf['ms_per_step']:.1f} ms/step, "
                   f"peak {nf['peak_gib']:.2f} GiB, the same bits as with it: "
                   f"{nf['same_as_filled']}")
+
+    # The refinement recipe's own d_x01 / d_stds calls.
+    for name, rec in refine.pop("inputs").items():
+        pos[f"refine {name}"] = det_pos_grads(dev, f"refine {name}", rec)
+        torch.cuda.empty_cache()
 
     feats = os.path.join("exp", RD_EXP, "features.npy")
     if not os.path.exists(feats):
@@ -5041,11 +5166,17 @@ def phase_determinism(dev, train_inputs, pos_inputs):
     bwd = dict(bwd_grids["nerf"], grids=bwd_grids,
                launches=sum(by_path("hash_encode_ms_bwd_det").values()),
                launches_by_path=by_path("hash_encode_ms_bwd_det"),
-               source=KERNEL_SOURCE, train=train, raydrop=rd,
-               pos_grads=dict(
-                   pos["object grid"], grids=pos,
-                   launches=sum(by_path("hash_encode_ms_pos_grads").values()),
-                   launches_by_path=by_path("hash_encode_ms_pos_grads")))
+               source=KERNEL_SOURCE, train=train, raydrop=rd)
+    # The d_x01 / d_stds pass: its top-level numbers on the refinement
+    # recipe's NeRF grid call, every call under "grids".
+    pos_kernel = dict(
+        pos["refine nerf"], name="hash_encode_ms_pos_grads", route="cuda",
+        source=KERNEL_SOURCE, replaces="nerf_lidar_tpu/ops/grid.py:366",
+        inputs="the refinement recipe's train step, NeRF grid (d_x01 and "
+        "d_stds)", grids=pos,
+        launches=sum(by_path("hash_encode_ms_pos_grads").values()),
+        launches_by_path=by_path("hash_encode_ms_pos_grads"),
+        refine_launches_by_grid=refine["launches_by_grid"])
     k3 = dict(k3_grids["nerf"], grids=k3_grids,
               launches=sum(by_path("scatter_add_rows_det").values()),
               launches_by_path=by_path("scatter_add_rows_det"),
@@ -5054,14 +5185,14 @@ def phase_determinism(dev, train_inputs, pos_inputs):
     # The bound S of both deterministic sums: one kernel, on g_out (H1-bwd)
     # and on vals (K3); its top-level numbers on the NeRF grid's g_out.
     s_kernel = dict(bounds["g_out nerf"], name="abs_bound", route="cuda",
-                    source=KERNEL_SOURCE, inputs=bounds,
+                    source=KERNEL_SOURCE,
+                    replaces="nerf_lidar_tpu/ops/grid.py:297",
+                    inputs="[8]'s NeRF g_out; every input under \"shapes\"",
+                    shapes=bounds,
                     launches=sum(by_path("abs_bound").values()),
                     launches_by_path=by_path("abs_bound"))
-    bwd["abs_bound"] = s_kernel
-    k3["abs_bound"] = dict(bounds["hash decay nerf"], name="abs_bound",
-                           route="cuda", source=KERNEL_SOURCE,
-                           launches=s_kernel["launches"])
-    return dict(hash_encode_ms_bwd=bwd, scatter_add_rows=k3)
+    return dict(hash_encode_ms_bwd=bwd, scatter_add_rows=k3,
+                pos_grads=pos_kernel, abs_bound=s_kernel)
 
 
 def main():
@@ -5222,6 +5353,10 @@ def main():
               "experiments/gather_bench.py:327",
               "seeded indices, tbl [8, 128], idx [1024, 8, 128]",
               gathers["K5"]),
+        # The deterministic mode's own kernels ([19]): the d_x01 / d_stds
+        # pass and the bound S of every deterministic sum.
+        det["pos_grads"],
+        det["abs_bound"],
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,8 +37,26 @@ and power limit of the card.
   exponents, which must be bit-equal. With --root the package is still
   imported from DIR (the other checkout), and this file's own checkout's
   `ops` beside it (`here_grid`).
+--det --refine: the deterministic d_x01 / d_stds pass
+  (`hash_encode_ms_pos_grads`, `refine_grid`) instead, on the calls train
+  steps hand it, each recorded under torch's deterministic switch after
+  --steps steps of `train --deterministic`: the shipped refinement recipe's
+  (nuscenes_single with pose and track refinement from the first step, on
+  a synth_nusc scene with one moving car: its NeRF, proposal and object
+  grids), the object recipe's object grid (track refinement alone) and
+  nuscenes_single_fast's NeRF grid (C16, tetrahedral, mean-point levels).
+  Per call: the whole call and each level alone in turns with the --root
+  checkout's (root, here, here, root), both against the plain version at
+  BWD_TOL; this checkout's the same bits on fresh copies; the atomic
+  backward asked for the same gradients and at the
+  call's needs, and H1, on the same points; the bounds. Beside them: the
+  posenet's gather (advanced indexing against `grid.select_rows`, forward
+  and backward, with and without the switch, `posenet_gathers`) and the
+  int64 atomic sums that fixed-point d_x01 / d_stds would take
+  (`fixed_pos_sums`).
 --save_inputs FILE / --inputs FILE: write the recorded train inputs to
-  FILE, or read them from FILE instead of training (with --det only).
+  FILE, or read them from FILE instead of training (with --det only; with
+  --refine, its calls and camera indices).
 --config NAME: the train-step and render-chunk inputs of that preset
   (`--set KEY=VALUE` passed on to its entries; the synthetic scene, full
   width), then per grid H1 (render chunk) and H1-bwd (train step, d_table)
@@ -527,6 +545,217 @@ def det_grid(root, name, rec, copies):
             det, args, lambda got: None))
 
 
+# The calls --det --refine records: {name: (train arguments, the grids
+# it keeps)}; "<scene>" is the synth_nusc scene it writes.
+REFINE_RECIPES = {
+    "refine": (["--config", "nuscenes_single", "--set", "dataset_loader=nusc",
+                "--data_dir", "<scene>", "--set", "track_start_opt=0",
+                "--set", "pose_refine=true", "--set", "learn_R=true",
+                "--set", "learn_t=true", "--set", "start_step=0"],
+               ("nerf", "prop0", "prop1", "obj")),
+    "objects": (["--config", "nuscenes_single", "--set",
+                 "dataset_loader=nusc", "--data_dir", "<scene>", "--set",
+                 "track_start_opt=0"], ("obj",)),
+    "fast": (["--config", "nuscenes_single_fast", "--set",
+              "dataset_loader=synthetic"], ("nerf",)),
+}
+
+
+def record_refine_inputs(steps):
+    """{"<recipe> <grid>": recorded encode-backward call} of every recipe
+    of REFINE_RECIPES (one step under the switch after `steps` steps of
+    `train --deterministic`), and the refinement recipe's ray batch's
+    camera indices (for `posenet_gathers`)."""
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.data import synth_nusc
+    tag = f"hash_encode_bench_{os.getpid()}"
+    scene = os.path.join("exp", tag + "_scene")
+    synth_nusc.write_scene_dir(scene, sensor_num=1)
+    out, cams = {}, None
+    try:
+        for recipe, (args, keep) in REFINE_RECIPES.items():
+            argv = ["train", *(scene if a == "<scene>" else a for a in args),
+                    "--steps", str(steps), "--device", "cuda",
+                    "--exp_name", tag, "--deterministic"]
+            out_dir = cli.exp_dir(cli.build_config(cli.parse_args(argv)))
+            shutil.rmtree(out_dir, ignore_errors=True)
+            try:
+                run = cli.main(argv)
+                with cli.deterministic_mode():
+                    rec = record_train_inputs(run, steps)
+                if recipe == "refine":
+                    cams = run.batcher.next()["cam_idx"][..., 0].copy()
+                    n_cams = run.posenet.r.shape[0]
+                del run
+            finally:
+                shutil.rmtree(out_dir, ignore_errors=True)
+            for name, call in rec.items():
+                if name.startswith(keep):
+                    out[f"{recipe} {name}"] = call
+            del rec
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(scene, ignore_errors=True)
+    return out, (cams, n_cams)
+
+
+POS_ASKED = (False, True, True)
+
+
+def call_pos(lib, table, x, s, g, d_x, d_s, arrays, levels, c, tetra):
+    """One launch of `lib`'s `nl_hash_encode_ms_pos_grads` (the same
+    interface in this checkout and its parent)."""
+    from nerf_lidar_tpu_torch.ops import _build
+    b, n_ms = s.shape
+    rc = lib.nl_hash_encode_ms_pos_grads(
+        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
+        d_x.data_ptr(), d_s.data_ptr(), b, n_ms, levels, c,
+        *(a.ctypes.data for a in arrays), tetra, x.device.index,
+        _build.stream_of(x))
+    _build.check(lib, rc, "hash_encode_ms_pos_grads")
+
+
+def pos_errs(name, got, plain):
+    """{"d_x01", "d_stds": error of max} of got against plain; where the
+    plain gradient is all zero (the object grid's stds are 0), the same
+    zeros. Raises above BWD_TOL."""
+    out = {}
+    for i, key in ((1, "d_x01"), (2, "d_stds")):
+        if not bool(plain[i].any()):
+            if bool(got[i].any()):
+                raise AssertionError(f"{name} {key}: not the plain zeros")
+            out[key] = 0.0
+            continue
+        out[key] = max_rel_err(got[i], plain[i])
+        if not out[key] <= BWD_TOL:
+            raise AssertionError(f"{name} {key}: error {out[key]} of max")
+    return out
+
+
+def refine_grid(root, name, rec):
+    """--det --refine on one recorded call `rec` (table, x01, stds, g_out,
+    spec, needs, cutoff): emits each level alone and the whole call, in
+    turns with the --root checkout's where it is another, with the checks
+    and yardsticks of the module docstring."""
+    from nerf_lidar_tpu_torch.ops import _build, grid
+    here = here_grid()
+    other = os.path.abspath(root) != HERE
+    table, x01, stds, g_out, spec, needs = rec[:6]
+    cutoff = rec[6] if len(rec) > 6 else 0
+    c, levels, tetra = spec.level_dim, spec.num_levels, spec.interp == "tetra"
+    n_ms = x01.shape[-2]
+    x = x01.reshape(-1, n_ms, 3).contiguous()
+    s = stds.reshape(-1, n_ms).contiguous()
+    b = s.shape[0]
+    g = g_out.reshape(b, spec.output_dim).contiguous()
+    arrays = here._kernel_levels(spec, cutoff)
+    libs = dict(here=here._build.library(),
+                **(dict(root=_build.library()) if other else {}))
+    common = dict(root=root, what="pos_grads", grid=name,
+                  mode=f"{spec.interp} C{c} cutoff {cutoff}", B=b, n=n_ms)
+    # The whole call: both checkouts against the plain version.
+    plain = grid.hash_encode_multisample_bwd_plain(
+        table, x01, stds, g_out, spec, POS_ASKED, cutoff)
+    mods = dict(here=here, **(dict(root=grid) if other else {}))
+    fns, errs = {}, {}
+    for k, mod in mods.items():
+        fns[k] = lambda mod=mod: mod.hash_encode_multisample_bwd_det(
+            table, x01, stds, g_out, spec, POS_ASKED, cutoff)
+        errs[k] = pos_errs(name, fns[k](), plain)
+    runs = [here.hash_encode_multisample_bwd_det(
+        *(t.clone() for t in (table, x01, stds, g_out)), spec, POS_ASKED,
+        cutoff)[1:] for _ in range(COPIES)]
+    same = all(torch.equal(a, b_) for run in runs[1:]
+               for a, b_ in zip(run, runs[0]))
+    del runs, plain
+    if not same:
+        raise SystemExit(f"hash_encode_ms_pos_grads {name}: not the same "
+                         "bits on fresh copies")
+    yard = dict(
+        atomic=lambda: here.hash_encode_multisample_bwd(
+            table, x01, stds, g_out, spec, POS_ASKED, cutoff),
+        atomic_needs=lambda: here.hash_encode_multisample_bwd(
+            table, x01, stds, g_out, spec, needs, cutoff),
+        h1=lambda: here.hash_encode_multisample(table, x01, stds, spec,
+                                                cutoff))
+    n_bytes, flops = fwd_bound(spec, x01, stds, cutoff)
+    emit(**common, kernel="hash_encode_ms_pos_grads", level="call",
+         needs=list(needs), ms=in_turns(fns, other), max_rel_err=errs,
+         same_bits_on_copies=same,
+         yardsticks_ms={k: queued_ms(f, iters=10) for k, f in yard.items()},
+         bound_ms=bound_ms(n_bytes + nbytes(x01, stds), flops),
+         atomic_needs_bound_ms=bound_ms(
+             bwd_bound(spec, x01, stds, g_out, cutoff)[0] + nbytes(x01, stds),
+             2 * flops))
+    # Each level alone: slices of g and of the level constants.
+    d_x, d_s = torch.empty_like(x), torch.empty_like(s)
+    pts = level_points(spec, x01, cutoff)
+    for l in range(levels):
+        al = tuple(np.ascontiguousarray(a[l:l + 1]) for a in arrays)
+        gl = g[:, l * c:(l + 1) * c].contiguous()
+        fns = {k: lambda lib=lib: call_pos(lib, table, x, s, gl, d_x, d_s, al,
+                                           1, c, tetra)
+               for k, lib in libs.items()}
+        read = torch.zeros(spec.rows_per_level[l], dtype=torch.bool,
+                           device=x.device)
+        for idx, _, _ in grid._corners(spec, l, pts[l]):
+            read[idx] = True
+        lb = (nbytes(x, s, gl, d_x, d_s) + int(read.sum()) * c * 4)
+        emit(**common, kernel="hash_encode_ms_pos_grads", level=l,
+             kind=level_kind(spec, cutoff, l),
+             resolution=spec.resolutions[l], rows=spec.rows_per_level[l],
+             rows_read=int(read.sum()), ms=in_turns(fns, other),
+             bound_ms=bound_ms(lb, 2 * pts[l].shape[0]
+                               * _corners_per_point(spec) * c))
+    del d_x, d_s
+
+
+def posenet_gathers(cams, n_cams):
+    """The posenet's per-ray gathers of a refinement step, forward and
+    backward (an upstream gradient of ones), by CUDA events: advanced
+    indexing (r[cam_id]) against `grid.select_rows`, outside and under
+    torch's deterministic switch."""
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.ops import grid
+    dev = torch.device("cuda", 0)
+    cam = torch.as_tensor(cams, device=dev).long().reshape(-1)
+    r = torch.zeros(n_cams, 3, device=dev, requires_grad=True)
+    up = torch.ones(cam.shape[0], 3, device=dev)
+    forms = dict(index=lambda: r[cam].backward(up),
+                 select_rows=lambda: grid.select_rows(r, cam).backward(up))
+    out = {}
+    for mode in ("default", "deterministic"):
+        with (cli.deterministic_mode() if mode == "deterministic"
+              else contextlib.nullcontext()):
+            for k, f in forms.items():
+                out[f"{mode} {k}"] = cuda_ms(f, iters=5, warmup=1)
+    emit(what="posenet_gathers", rays=int(cam.shape[0]), images=n_cams,
+         distinct=int(torch.unique(cam).numel()), ms=out)
+
+
+def fixed_pos_sums(name, rec):
+    """What fixed-point d_x01 / d_stds would take at their sums alone: the
+    int64 row sink (`row_kernels_bench.fixed_sink`, lane-transposed) adding
+    one [C4] term per point and level, level by level, into B n rows; by
+    CUDA events, with the bytes of its terms (read from device memory
+    here, where a kernel would hold them in registers) beside."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import row_kernels_bench as rkb
+    x01, spec = rec[1], rec[4]
+    points = x01.numel() // 3
+    dev = x01.device
+    rows = torch.arange(points, dtype=torch.int32, device=dev).repeat(
+        spec.num_levels)
+    g = torch.Generator(device=dev).manual_seed(17)
+    terms = torch.randint(-2**40, 2**40, (rows.numel(), 4), device=dev,
+                          generator=g, dtype=torch.int64)
+    acc = torch.zeros((points, 4), dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: rkb.fixed_sink(rows, terms, acc, True), iters=3,
+                 warmup=1)
+    emit(what="fixed_pos_sums", grid=name, updates=int(rows.numel()),
+         rows=points, ms=ms, terms_read_ms=bound_ms(nbytes(rows, terms), 0))
+
+
 def queued_ms(fn, iters=20):
     """Device ms per call of fn by CUDA events around `iters` calls queued
     behind a device sleep (`torch.cuda._sleep`), so the kernels run back
@@ -962,6 +1191,7 @@ def main(argv=None):
     p.add_argument("--copies", action="store_true")
     p.add_argument("--profile", action="store_true")
     p.add_argument("--det", action="store_true")
+    p.add_argument("--refine", action="store_true")
     p.add_argument("--save_inputs")
     p.add_argument("--inputs")
     p.add_argument("--config")
@@ -987,6 +1217,19 @@ def main(argv=None):
     print(smi.stdout.strip().splitlines()[0], flush=True)
     if args.config:
         config_bench(root, args.config, args.set, args.steps)
+        return
+    if args.det and args.refine:
+        if args.inputs:
+            calls, cams = torch.load(args.inputs, weights_only=False)
+        else:
+            calls, cams = record_refine_inputs(args.steps)
+            if args.save_inputs:
+                torch.save((calls, cams), args.save_inputs)
+        posenet_gathers(*cams)
+        fixed_pos_sums("refine nerf", calls["refine nerf"])
+        for name in list(calls):
+            refine_grid(root, name, calls.pop(name))
+            torch.cuda.empty_cache()
         return
     if args.det:
         if args.inputs:

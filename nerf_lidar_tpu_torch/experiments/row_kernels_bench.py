@@ -32,6 +32,15 @@ measurement, after nvidia-smi's name and power limit of the card. Fails
   against `fixed_exponents(_abs_bound(...))`; with --root, the int64 sums
   and flags of the --root checkout's `scatter_add_rows_fixed` and of this
   file's own checkout's at the same exponents, which must be bit-equal.
+--det also times kernel `abs_bound` (the bound S of the deterministic
+  sums, `bench_det_bound`) at the path's shapes: each grid's g_out of a
+  `nuscenes_single` train step and of the refinement recipe's object grid,
+  the hash-decay tables and K3's shape (seeded values): device time per
+  call in turns with the --root checkout's (root, here, here, root) and
+  beside its library yardstick, `torch.linalg.vector_norm(v, 1, dim=0,
+  dtype=torch.float64)` (the same S on finite values, one call); its
+  kernels a call; S against `abs_bound_plain` (bit-equal) and the
+  yardstick.
 --sink: the micro-benchmark of the deterministic kernels' int64 row sink
   (`bench_sinks`, this file's own checkout's kernel `fixed_sink`): the same
   rows and int64 terms added one lane a row with C scalar atomics (the
@@ -288,6 +297,86 @@ def bench_det_scatter(root, dev):
         emit(**rec, bound_ms=n_bytes / HBM_BYTES_PER_MS)
 
 
+def bound_cases(dev):
+    """[(name, v)]: seeded values of the shapes kernel `abs_bound` takes on
+    the train path: g_out of each `nuscenes_single` grid at a train step's
+    B (20,480 rays x 32 NeRF / 64 proposal samples), of the object grid
+    (B = 81,920, 7 levels x C2), the hash-decay tables (each grid's
+    [rows, C]) and K3's shape."""
+    from nerf_lidar_tpu_torch import configs
+    from nerf_lidar_tpu_torch.ops import grid
+    g = torch.Generator(device=dev).manual_seed(23)
+    m = configs.nuscenes_single().model
+    grids = [("nerf", m.nerf_mlp.grid, 655_360)] + [
+        (f"prop{i}", m.prop_mlp_for_level(i).grid, 1_310_720)
+        for i in range(len(m.num_prop_samples))] + [
+        ("obj", m.obj_mlp.grid, 81_920)]
+    out = []
+    for name, grid_cfg, b in grids:
+        spec = grid.spec_for(grid_cfg)
+        out.append((f"g_out {name}", torch.randn(
+            b, spec.output_dim, device=dev, generator=g)))
+        if name != "obj":
+            out.append((f"hash decay {name}", torch.rand(
+                spec.total_rows, spec.level_dim, device=dev,
+                generator=g) ** 2))
+    out.append(("K3 shape", torch.randn(1 << 22, 16, device=dev,
+                                        generator=g)))
+    return out
+
+
+def kernels_a_call(fn, iters=10):
+    """{device kernel name: launches a call} of fn under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = re.sub(r"^void |\(anonymous namespace\)::", "",
+                         e.name).split("(")[0][:50]
+            out[key] = out.get(key, 0) + 1 / iters
+    return out
+
+
+def bench_det_bound(root, dev):
+    from nerf_lidar_tpu_torch.ops import grid
+    here = here_grid()
+    other = os.path.abspath(root) != os.path.abspath(HERE)
+    for name, v in bound_cases(dev):
+        s, k = here.bound_exponents(v)
+        plain = here.abs_bound_plain(v)
+        if not (torch.equal(s, plain)
+                and torch.equal(k, here.fixed_exponents(plain))):
+            raise SystemExit(f"abs_bound {name}: S differs from its plain "
+                             "version")
+        library = lambda: torch.linalg.vector_norm(v, 1, dim=0,
+                                                   dtype=torch.float64)
+        lib_s = library()
+        fns = {"here": lambda: here.bound_exponents(v),
+               "root": lambda: grid.bound_exponents(v)}
+        order = ("root", "here", "here", "root") if other else ("here",
+                                                                "here")
+        turns = {k: [] for k in dict.fromkeys(order)}
+        for turn in order:
+            turns[turn].append(device_ms(fns[turn], iters=20))
+        emit(root=root, kernel="abs_bound", shape=name,
+             size=list(v.shape), plan=list(here._bound_plan(*v.shape)),
+             turns_device_ms=turns,
+             library_device_ms=device_ms(library, iters=20),
+             kernels_a_call=kernels_a_call(fns["here"]),
+             s_rel_to_library=float(((s - lib_s).abs()
+                                     / lib_s.clamp(min=1e-300)).max()),
+             bound_ms=v.numel() * 4 / HBM_BYTES_PER_MS)
+        del plain, lib_s
+
+
 # K3's shape for the sink micro-benchmark: rows and updates of C16.
 SINK_ROWS, SINK_UPDATES = 1 << 17, 1 << 22
 
@@ -430,6 +519,7 @@ def main(argv=None):
         if args.sink:
             bench_sinks(root, dev, args.inputs)
         if args.det:
+            bench_det_bound(root, dev)
             bench_det_scatter(root, dev)
         return
     bench_scatter(root, dev)

@@ -16,6 +16,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..ops import grid as gridlib
+
 
 def vec2skew(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> [..., 3, 3] skew-symmetric matrices."""
@@ -56,12 +58,18 @@ class LearnPose(nn.Module):
 
     def forward(self, cam_id: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """cam_id: [N] int. Returns (R [N, 3, 3], t [N, 3])."""
-        cam_id = cam_id.long()
-        r = self.r[cam_id] if self.learn_R else torch.zeros_like(
-            self.r[cam_id])
-        t = (self.t[cam_id] * self.t_ratio if self.learn_t
-             else torch.zeros_like(self.t[cam_id]))
+        """cam_id: [N] int. Returns (R [N, 3, 3], t [N, 3]).
+
+        The deltas are gathered by `grid.select_rows` (index_select): the
+        backward of advanced indexing sorts the ray indices and adds each
+        image's thousands of duplicates in turn on CUDA, and under torch's
+        deterministic switch select_rows sums them with K3's deterministic
+        variant."""
+        cam_id = cam_id.long().reshape(-1)
+        zeros = self.r.new_zeros((cam_id.shape[0], 3))
+        r = gridlib.select_rows(self.r, cam_id) if self.learn_R else zeros
+        t = (gridlib.select_rows(self.t, cam_id) * self.t_ratio
+             if self.learn_t else zeros)
         return so3_exp(r), t
 
 

@@ -60,8 +60,8 @@ _SIGNATURES = {
     "nl_scatter_add_rows_fixed": [_P] * 5 + [_LL, _I, _LL, _I, _P],
     # acc, flags, k, starts, G, out, rows, C, device, stream
     "nl_fixed_to_float": [_P] * 4 + [_I, _P, _LL, _I, _I, _P],
-    # v, part, S, k, N, F, Q, P, chunk, device, stream
-    "nl_abs_bound": [_P] * 4 + [_LL, _I, _I, _I, _LL, _I, _P],
+    # v, part, ticket, S, k, N, F, V, Q, P, chunk, device, stream
+    "nl_abs_bound": [_P] * 5 + [_LL, _I, _I, _I, _I, _LL, _I, _P],
     # rows, terms, M, C, acc, transposed, device, stream
     "nl_fixed_sink": [_P, _P, _LL, _I, _P, _I, _I, _P],
     # tbl, idx, out, A, B, G, I, J, axis, device, stream

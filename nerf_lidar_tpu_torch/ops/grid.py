@@ -692,21 +692,31 @@ def _abs_bound(v: torch.Tensor) -> torch.Tensor:
     return v.abs().nan_to_num(nan=0.0, posinf=0.0).sum(0, dtype=torch.float64)
 
 
-# Threads of a block of the bound kernel (`abs_bound`).
-_BOUND_THREADS = 256
+# Vectors (4 channels of a row, or one value) a block of the bound kernel
+# (`abs_bound`) takes of a row, at most; its blocks at most, and the values
+# a block takes at least.
+_BOUND_VECTORS = 256
+_BOUND_BLOCKS = 256
+_BOUND_BLOCK_VALUES = 16384
 
 
 def _bound_plan(n: int, f: int):
-    """(Q, P, chunk): the order in which kernel `abs_bound` and
-    `abs_bound_plain` sum the columns of an [n, f] matrix. P blocks of
-    `chunk` rows (at least 4096 values a block, at most 1024 blocks); in a
-    block, Q (a power of two, 1 for f > 256) threads a column, each summing
-    every Q-th row. It depends on the shape alone, never on the card."""
-    w = min(f, _BOUND_THREADS)
-    q = 1 if f > _BOUND_THREADS else 1 << ((_BOUND_THREADS // w).bit_length()
-                                           - 1)
-    p = max(1, min(1024, -(-n * f // 4096)))
-    return q, p, max(1, -(-n // p))
+    """(V, Q, P, chunk): the order in which kernel `abs_bound` and
+    `abs_bound_plain` sum the columns of an [n, f] matrix. A vector is V
+    = 4 channels of a row where f % 4 == 0 (one 16-byte load), else one
+    value; P blocks of `chunk` rows (at least _BOUND_BLOCK_VALUES values a
+    block, at most _BOUND_BLOCKS blocks: two a streaming multiprocessor of
+    an H100, few ticket atomics, and a short sum over the blocks in the
+    last one); in a block, Q (a power of two, 1 for more than
+    _BOUND_VECTORS vectors a row) threads a vector, each summing every
+    Q-th row. It depends on the shape alone, never on the card or the
+    data's address."""
+    v = 4 if f % 4 == 0 else 1
+    w = min(f // v, _BOUND_VECTORS)
+    q = 1 if f // v > _BOUND_VECTORS else 1 << (
+        (_BOUND_VECTORS // w).bit_length() - 1)
+    p = max(1, min(_BOUND_BLOCKS, -(-n * f // _BOUND_BLOCK_VALUES)))
+    return v, q, p, max(1, -(-n // p))
 
 
 def abs_bound_plain(v: torch.Tensor) -> torch.Tensor:
@@ -718,7 +728,7 @@ def abs_bound_plain(v: torch.Tensor) -> torch.Tensor:
     tree. The same bits as the kernel; within float64 rounding of
     `_abs_bound`."""
     n, f = v.shape
-    q, p, chunk = _bound_plan(n, f)
+    _, q, p, chunk = _bound_plan(n, f)
     steps = -(-chunk // q)
     a = torch.zeros((p * chunk, f), dtype=torch.float64, device=v.device)
     a[:n] = v.abs().nan_to_num(nan=0.0, posinf=0.0).to(torch.float64)
@@ -729,8 +739,8 @@ def abs_bound_plain(v: torch.Tensor) -> torch.Tensor:
     for i in range(1, steps):
         s = s + a[:, i]
     part = _tree_sum(s.transpose(0, 1), q)[0]  # [p, f]
-    # Pass 2: lane i of 32 sums the blocks i, i + 32, ... in turn, then
-    # the lanes by the tree.
+    # The last block: lane i of 32 sums the blocks i, i + 32, ... in turn,
+    # then the lanes by the tree.
     lanes = torch.cat([part, part.new_zeros((-(-p // 32) * 32 - p, f))])
     lanes = lanes.reshape(-1, 32, f)
     t = lanes[0]
@@ -755,23 +765,24 @@ def bound_exponents(v: torch.Tensor):
     finite entries of each column, summed in a fixed order (`_bound_plan`),
     so the same bits on every run, and k = `fixed_exponents(S)`. CPU
     tensors take `abs_bound_plain`; CUDA float32 tensors launch kernel
-    `abs_bound` (both passes, k too), or raise."""
+    `abs_bound` (one launch, k too), or raise."""
     if _on_cpu(v):
         s = abs_bound_plain(v)
         return s, fixed_exponents(s)
     v = v.contiguous()
     n, f = v.shape
     _build.require_cuda("v", v, (n, f))
-    q, p, chunk = _bound_plan(n, f)
-    ws = torch.empty(((p + 1) * f * 8 + f * 4,), dtype=torch.uint8,
-                     device=v.device)
-    part = ws[:p * f * 8].view(torch.float64)
-    s = ws[p * f * 8:(p + 1) * f * 8].view(torch.float64)
-    k = ws[(p + 1) * f * 8:].view(torch.int32)
+    vec, q, p, chunk = _bound_plan(n, f)
+    if v.data_ptr() % (4 * vec):
+        v = v.clone()  # a fresh allocation starts on 16 bytes
+    out = torch.empty((f * 12,), dtype=torch.uint8, device=v.device)
+    s = out[:f * 8].view(torch.float64)
+    k = out[f * 8:].view(torch.int32)
+    part, ticket = _bound_scratch(p * f * 8, v.device)
     lib = _build.library()
-    rc = lib.nl_abs_bound(v.data_ptr(), part.data_ptr(), s.data_ptr(),
-                          k.data_ptr(), n, f, q, p, chunk, v.device.index,
-                          _build.stream_of(v))
+    rc = lib.nl_abs_bound(v.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                          s.data_ptr(), k.data_ptr(), n, f, vec, q, p, chunk,
+                          v.device.index, _build.stream_of(v))
     _build.check(lib, rc, "abs_bound")
     bound_exponents.launches += 1
     return s, k
@@ -1056,11 +1067,37 @@ def _give_fixed_buffers(key, bufs) -> None:
             _FIXED_POOL.popitem(last=False)
 
 
+# The bound kernel's scratch, kept between calls: per (device, stream), its
+# partials (grown to the largest call; calls on one stream run in turn, so
+# they share them) and its ticket, which every call leaves 0. Kept, they
+# are not allocated (and, under torch's deterministic switch, filled) anew
+# each call.
+_BOUND_SCRATCH: dict = {}
+_BOUND_SCRATCH_LOCK = threading.Lock()
+
+
+def _bound_scratch(nbytes: int, device):
+    """(uint8 partials of at least nbytes, int32 ticket) of kernel
+    `abs_bound` for one call on the current stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    with _BOUND_SCRATCH_LOCK:
+        part, ticket = _BOUND_SCRATCH.get(key, (None, None))
+        if ticket is None:
+            ticket = torch.zeros((1,), dtype=torch.int32, device=device)
+        if part is None or part.numel() < nbytes:
+            part = torch.empty((max(nbytes, 16),), dtype=torch.uint8,
+                               device=device)
+        _BOUND_SCRATCH[key] = (part, ticket)
+    return part[:nbytes], ticket
+
+
 def fixed_pool_bytes() -> int:
-    """Device bytes the kept sums and flags hold."""
-    with _FIXED_POOL_LOCK:
+    """Device bytes the deterministic kernels keep between calls: the int64
+    sums and flags, and the bound kernel's scratch."""
+    with _FIXED_POOL_LOCK, _BOUND_SCRATCH_LOCK:
         return sum(t.numel() * t.element_size()
-                   for bufs in _FIXED_POOL.values() for t in bufs)
+                   for bufs in (*_FIXED_POOL.values(),
+                                *_BOUND_SCRATCH.values()) for t in bufs)
 
 
 def fixed_level_major(spec: HashGridSpec, l2_bytes: int) -> bool:
@@ -1083,9 +1120,10 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
     (`hash_encode_multisample_bwd_det_plain`); CUDA tensors launch
     `abs_bound` (the exponents), `hash_encode_ms_bwd_fixed` then
     `fixed_to_float` (d_table) and `hash_encode_ms_pos_grads` (d_x01 /
-    d_stds), or raise. level_major_order (default: `fixed_level_major`)
-    and threads (the block size, a multiple of 32) change the launch, never
-    the result."""
+    d_stds: a thread a sample sums its levels in order), or raise. The
+    d_table's block order (level_major_order, default
+    `fixed_level_major`) and block size (threads, a multiple of 32) change
+    the launch, never the result."""
     if _on_cpu(table, x01, stds, g_out):
         return hash_encode_multisample_bwd_det_plain(
             table, x01, stds, g_out, spec, needs, coarse_res_cutoff)

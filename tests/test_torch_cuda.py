@@ -14,6 +14,9 @@ version's roundings, so both pick the same corners); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
+The deterministic d_x01 / d_stds (a thread a sample sums its levels in
+order): the same bits on fresh copies, against the plain version and the
+atomic kernel at the backward's tolerance.
 The deterministic H1 backward and K3 (fixed-point terms summed in int64):
 the same bits on fresh copies of their inputs, in both block orders and
 at block sizes 64, 128 and 256; against the atomic kernels at the
@@ -1113,8 +1116,50 @@ def test_det_row_sinks_add_exactly(dev, case, c):
         assert torch.equal(acc, want), transposed
 
 
+@pytest.mark.parametrize("n", [1, 7])
+@pytest.mark.parametrize("cutoff", [0, 40])
+@pytest.mark.parametrize("interp", ["linear", "tetra"])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
+def test_pos_grads_kernel_is_bit_identical_and_close(dev, level_dim, interp,
+                                                     cutoff, n):
+    """The deterministic d_x01 / d_stds (`hash_encode_ms_pos_grads`: a
+    thread a sample sums its levels in order) on the ties, rays and
+    out-of-range-mean cases at n points a sample: the same bits on 3 fresh
+    copies of the inputs, and against the plain version and the atomic
+    kernel at the backward's tolerance; one count a call, the atomic
+    kernel's unchanged."""
+    for case in ("ties", "rays", "oob_mean"):
+        spec, table, x01, stds, g_out = _det_case(
+            dev, level_dim, interp, cutoff, case, 70 + level_dim + n)
+        x01, stds = x01[:, :n].contiguous(), stds[:, :n].contiguous()
+        asked = (False, True, True)
+        before = (grid.hash_encode_multisample_bwd_det.position_launches,
+                  grid.hash_encode_multisample_bwd.launches)
+        runs = [grid.hash_encode_multisample_bwd_det(
+            *(t.clone() for t in (table, x01, stds, g_out)), spec, asked,
+            cutoff) for _ in range(3)]
+        plain = grid.hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out, spec, asked, cutoff)
+        atomic = grid.hash_encode_multisample_bwd(table, x01, stds, g_out,
+                                                  spec, asked, cutoff)
+        torch.cuda.synchronize()
+        assert (grid.hash_encode_multisample_bwd_det.position_launches,
+                grid.hash_encode_multisample_bwd.launches) == (
+            before[0] + 3, before[1] + 1)
+        for run in runs[1:]:
+            assert run[0] is None
+            assert torch.equal(run[1], runs[0][1]), case
+            assert torch.equal(run[2], runs[0][2]), case
+        for i, name in ((1, "x01"), (2, "stds")):
+            _close_to_max(runs[0][i], plain[i], f"{case} {name} vs plain")
+            _close_to_max(runs[0][i], atomic[i], f"{case} {name} vs atomic")
+
+
 @pytest.mark.parametrize("n,f", [(0, 4), (1, 1), (1000, 3), (70_001, 40),
-                                 (4099, 300), (1 << 20, 16), (8, 2)])
+                                 (4099, 300), (1 << 20, 16), (8, 2),
+                                 (33_331, 1), (33_331, 2), (33_331, 4),
+                                 (33_331, 6), (33_331, 8), (33_331, 257),
+                                 (5000, 1100)])
 def test_bound_kernel_matches_its_plain_version(dev, n, f):
     """Kernel `abs_bound`: S the same bits as `abs_bound_plain` (its order
     of sums) with NaN and +-inf skipped, within float64 rounding of
@@ -1137,6 +1182,33 @@ def test_bound_kernel_matches_its_plain_version(dev, n, f):
     torch.testing.assert_close(s, grid._abs_bound(v), rtol=1e-12, atol=0)
     if (n, f) == (8, 2):
         assert s.tolist() == [4.0, 4.0] and k.tolist() == [60, 60]
+
+
+@pytest.mark.parametrize("n,f", [(655_360, 40), (1 << 20, 16), (33_331, 6),
+                                 (3001, 1100)])
+def test_bound_kernel_is_one_launch(dev, n, f):
+    """A call of `grid.bound_exponents` runs one kernel on the card (its
+    last block sums the blocks' partials), also on a view off 16 bytes
+    (copied first); S the plain version's bits on both."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    v = torch.randn(n * f + 1, device=dev)
+    for x in (v[:-1].reshape(n, f), v[1:].reshape(n, f)):
+        grid.bound_exponents(x)
+        torch.cuda.synchronize()
+        for _ in range(3):  # the tracer now and then records nothing
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                s, _ = grid.bound_exponents(x)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        copied = x.data_ptr() % 16 != 0 and f % 4 == 0
+        assert len(names) == 1 + copied, names
+        assert "abs_bound" in names[-1], names
+        assert torch.equal(s, grid.abs_bound_plain(x))
 
 
 def test_det_kernels_leave_their_sums_zero(dev):

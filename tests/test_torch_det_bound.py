@@ -45,6 +45,27 @@ def test_plain_bound_against_torch_sum(n, f):
     assert torch.equal(s, got) and torch.equal(k, grid.fixed_exponents(got))
 
 
+@pytest.mark.parametrize("f", [1, 2, 4, 6, 8, 40, 257])
+def test_plain_bound_at_the_path_widths(f):
+    """abs_bound_plain at every vector width of the plan (one value or four
+    channels a load), N not a multiple of its chunk nor of Q, NaN and
+    +-inf in the first and last columns: within float64 rounding of
+    _abs_bound, the same exponents, and the non-finite entries skipped."""
+    n = 33_331
+    _, q, p, chunk = grid._bound_plan(n, f)
+    assert n % chunk and (q == 1 or (n % chunk) % q)
+    v = _seeded(f, n, f)
+    v[n - 1, 0], v[n // 2, f - 1] = float("-inf"), float("nan")
+    got = grid.abs_bound_plain(v)
+    want = grid._abs_bound(v)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    assert torch.equal(grid.fixed_exponents(got), grid.fixed_exponents(want))
+    finite = v.clone()
+    finite[~torch.isfinite(finite)] = 0.0
+    torch.testing.assert_close(got, finite.abs().double().sum(0),
+                               rtol=1e-12, atol=0)
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_exponents_equal_torch_on_seeded_data(seed):
     """k of the kernel's order equals fixed_exponents(_abs_bound(v)) on
@@ -72,11 +93,17 @@ def test_exponents_at_a_power_of_two(n, f):
 
 
 def test_plan_depends_on_the_shape_alone():
+    """The plan (V, Q, P, chunk): 16-byte vectors of 4 channels where F %
+    4 == 0, Q threads a vector (a power of two; 1 above 256 vectors a
+    row), at most 256 vectors a block's row and 256 blocks covering every
+    row."""
     for n, f in ((0, 4), (1, 1), (655_360, 40), (14_995_560, 4),
-                 (1 << 22, 16), (5000, 300)):
-        q, p, chunk = grid._bound_plan(n, f)
-        assert q & (q - 1) == 0 and 1 <= p <= 1024 and p * chunk >= n
-        assert q == 1 if f > 256 else q * f <= 256
+                 (1 << 22, 16), (5000, 300), (5000, 1100), (1000, 6)):
+        v, q, p, chunk = grid._bound_plan(n, f)
+        w = f // v
+        assert v == (4 if f % 4 == 0 else 1)
+        assert q & (q - 1) == 0 and 1 <= p <= 256 and p * chunk >= n
+        assert q == 1 if w > 256 else q * w <= 256 < 2 * q * w
 
 
 def _k3_case(seed, c):

@@ -13,6 +13,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from nerf_lidar_tpu import cli as jcli
@@ -27,6 +28,7 @@ from nerf_lidar_tpu.train import losses as jlosses
 from nerf_lidar_tpu.train import train_step as jtrain
 from nerf_lidar_tpu_torch import cli, convert
 from nerf_lidar_tpu_torch.models import posenet as pn
+from nerf_lidar_tpu_torch.ops import grid
 from nerf_lidar_tpu_torch.train import losses, train_step
 from test_torch_objects import (_batch, _jax_params, _np, _port_model, _t,
                                 _tracks, shared)  # noqa: F401 (fixture)
@@ -134,17 +136,20 @@ def test_losses_and_gradients_match_jax(shared):
         assert (~near).sum() <= max(1, near.size // 500), k
 
 
-def test_two_train_steps_with_track_and_pose_refinement_match_jax(shared):
-    """Two steps of the port's train_step against JAX make_train_step with
-    track_refine (track_start_opt = 0) and pose_refine (start_step = 0),
-    no warm-up, so that both refiners move in the second step; each
-    group has its own rate, clip and Adam state."""
+REFINE_KW = dict(pose_refine=True, start_step=0, end_step=10,
+                 track_start_opt=0, lr_delay_steps=0, max_steps=20,
+                 grad_max_norm=0.05)
+
+
+@pytest.fixture(scope="module")
+def refine_jax(shared):
+    """Two steps of the JAX make_train_step with track_refine
+    (track_start_opt = 0) and pose_refine (start_step = 0), no warm-up:
+    (port cfg, JAX params, [(stats, flat params) per step]), shared by the
+    tests of the port's steps in both modes."""
     jcfg, cfg, params, _ = shared
-    kw = dict(pose_refine=True, start_step=0, end_step=10, track_start_opt=0,
-              lr_delay_steps=0, max_steps=20, grad_max_norm=0.05)
-    jcfg, cfg = (dataclasses.replace(c, **kw) for c in (jcfg, cfg))
+    jcfg, cfg = (dataclasses.replace(c, **REFINE_KW) for c in (jcfg, cfg))
     tracks, mask = _tracks()
-    batch = _batch(labels=True)
     posenet = jpn.LearnPose(num_cams=3, num_lidars=1)
     tracknet = jpn.TrackOpt(num_objects=2, num_timestamps=4)
     zeros = lambda *s: np.zeros(s, np.float32)
@@ -155,15 +160,48 @@ def test_two_train_steps_with_track_and_pose_refinement_match_jax(shared):
     step_fn = jtrain.make_train_step(JaxModel(jcfg.model), tx, jcfg,
                                      donate=False, posenet_model=posenet,
                                      tracknet_model=tracknet)
+    jb = {k: jnp.asarray(v) for k, v in _batch(labels=True).items()}
+    steps = []
+    for _ in range(2):
+        state, jstats = step_fn(state, jb, None, jnp.asarray(tracks),
+                                jnp.asarray(mask))
+        steps.append(({k: np.asarray(v) for k, v in jstats.items()},
+                      convert.flatten_params(jax.tree_util.tree_map(
+                          np.asarray, state.params))))
+    return cfg, params, steps
+
+
+def _port_refine_steps(cfg, params, steps):
+    """The port's model, posenet, tracknet and optimizer from the shared
+    params, after `steps` train steps on the refine batch: (model, posenet,
+    tracknet, optimizer, [stats per step])."""
+    tracks, mask = _tracks()
+    batch = _batch(labels=True)
+    model = _port_model(cfg, params)
+    pnet, tnet = pn.LearnPose(3, 1), pn.TrackOpt(2, 4)
+    opt = train_step.make_optimizer(model, cfg, pnet, tnet)
+    stats = [train_step.train_step(
+        model, opt, cfg, {k: _t(v) for k, v in batch.items()}, step,
+        posenet=pnet, tracknet=tnet, tracks=_t(tracks), track_mask=_t(mask))
+        for step in range(steps)]
+    return model, pnet, tnet, opt, stats
+
+
+def test_two_train_steps_with_track_and_pose_refinement_match_jax(
+        refine_jax):
+    """Two steps of the port's train_step against JAX make_train_step with
+    track_refine (track_start_opt = 0) and pose_refine (start_step = 0),
+    no warm-up, so that both refiners move in the second step; each
+    group has its own rate, clip and Adam state."""
+    cfg, params, jsteps = refine_jax
     model = _port_model(cfg, params)
     pnet, tnet = pn.LearnPose(3, 1), pn.TrackOpt(2, 4)
     opt = train_step.make_optimizer(model, cfg, pnet, tnet)
     assert [g["name"] for g in opt.param_groups] == ["model", "posenet",
                                                      "tracknet"]
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    for step in range(2):
-        state, jstats = step_fn(state, jb, None, jnp.asarray(tracks),
-                                jnp.asarray(mask))
+    tracks, mask = _tracks()
+    batch = _batch(labels=True)
+    for step, (jstats, want) in enumerate(jsteps):
         stats = train_step.train_step(
             model, opt, cfg, {k: _t(v) for k, v in batch.items()}, step,
             posenet=pnet, tracknet=tnet, tracks=_t(tracks),
@@ -175,8 +213,6 @@ def test_two_train_steps_with_track_and_pose_refinement_match_jax(shared):
                                    float(jstats["obj_hit_frac"]), rtol=1e-6)
         got = convert.flatten_params(convert.train_params_to_flax(
             model, pnet, tnet))
-        want = convert.flatten_params(jax.tree_util.tree_map(
-            np.asarray, state.params))
         assert set(got) == set(want)
         for k in want:
             atol = 1e-5 if k.startswith("model") else 1e-7
@@ -185,6 +221,54 @@ def test_two_train_steps_with_track_and_pose_refinement_match_jax(shared):
     moved = {k: float(np.abs(v).max()) for k, v in got.items()
              if not k.startswith("model")}
     assert min(moved.values()) > 1e-6, moved
+
+
+def test_deterministic_refinement_steps_are_bit_identical_and_match_jax(
+        refine_jax, monkeypatch):
+    """The refinement recipe under torch's deterministic switch (pose
+    refinement moves every ray, so every grid's encode backward takes
+    d_x01 and d_stds; track refinement on): two runs of two steps give the
+    same bits in every parameter, buffer and Adam moment of the model,
+    posenet and tracknet, and the same stats; the losses match the JAX
+    steps at rtol 1e-4."""
+    cfg, params, jsteps = refine_jax
+    asked = {}
+    det = grid.hash_encode_multisample_bwd_det
+
+    def recording(table, x01, stds, g_out, spec, needs, *a, **kw):
+        asked[spec] = asked.get(spec, False) or bool(needs[1])
+        return det(table, x01, stds, g_out, spec, needs, *a, **kw)
+
+    monkeypatch.setattr(grid, "hash_encode_multisample_bwd_det", recording)
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            runs.append(_port_refine_steps(cfg, params, len(jsteps)))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    specs = {m.spec for m in (runs[0][0].nerf_mlp, *runs[0][0].prop_mlps,
+                              runs[0][0].obj_mlp)}
+    assert all(m.spec.diff_inputs for m in (runs[0][0].nerf_mlp,
+                                            *runs[0][0].prop_mlps,
+                                            runs[0][0].obj_mlp))
+    assert set(asked) == specs and all(asked.values()), asked
+    (m0, p0, t0, o0, s0), (m1, p1, t1, o1, s1) = runs
+    for a, b in ((m0, m1), (p0, p1), (t0, t1)):
+        for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+            assert torch.equal(x, y), k
+    for q0, q1 in zip((q for g in o0.param_groups for q in g["params"]),
+                      (q for g in o1.param_groups for q in g["params"])):
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(o0.state[q0][key], o1.state[q1][key])
+    for a, b, (jstats, _) in zip(s0, s1, jsteps):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+        np.testing.assert_allclose(float(a["loss"]), float(jstats["loss"]),
+                                   rtol=1e-4)
+    assert float(p0.r.detach().abs().max()) > 0
+    assert float(t0.opt_t.detach().abs().max()) > 0
 
 
 def test_resume_from_a_jax_refinement_checkpoint(shared, tmp_path):
