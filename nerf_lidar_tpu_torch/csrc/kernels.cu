@@ -191,10 +191,9 @@
 //     each pass's 32 MB of sums stay in L2 (each pass walks every point
 //     again: 1.8 ms a level against 1.3);
 //   - d_x01 / d_stds are a gather, not a scatter: one thread per sample
-//     walks the levels in order, reads each point's corner rows (a group
-//     of lanes a row for C >= 8), and sums its n points' gradients in
-//     shared-memory slots of its own, written once; float sums in a fixed
-//     order, no atomics;
+//     walks the levels in order, reads the corner rows as H1 does, and
+//     sums its n points' gradients in shared-memory slots of its own,
+//     written once; float sums in a fixed order, no atomics;
 //   - K3 keeps its chunks and tiling, with each value rounded as it is
 //     loaded, the runs summed in int64 registers, shuffles and shared
 //     memory, and every finished run added by its warp lane-transposed;
@@ -1474,95 +1473,6 @@ __device__ __forceinline__ void add_mean_segments(bool act, int ix, int iy,
   __syncwarp();  // the slots are read before the next flush writes them
 }
 
-// The cube corners whose rows a point's position gradient reads: the 8 of
-// its cell, or the 4 vertices of its simplex (by rank: a vertex of weight
-// 0 still has a weight gradient).
-template <bool kTetra>
-__device__ __forceinline__ unsigned grad_corners(const Cell& p) {
-  if constexpr (!kTetra) return 0xffu;
-  const Simplex t = simplex_of(p);
-  unsigned m = 0u;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) m |= 1u << vertex_corner(t, k);
-  return m;
-}
-
-// corner_row's value without its integer division where the value needs
-// none: a corner of a cell of an in-range point is on the grid, so a
-// tiled level's index is below its rows, and a hashed level's rows are a
-// power of two.
-__device__ __forceinline__ uint32_t grad_row(int ix, int iy, int iz, int c,
-                                             const Level& v) {
-  const uint32_t ux = (uint32_t)(ix + (c & 1));
-  const uint32_t uy = (uint32_t)(iy + ((c >> 1) & 1));
-  const uint32_t uz = (uint32_t)(iz + ((c >> 2) & 1));
-  if (v.tiled) {
-    const uint32_t idx = ux + uy * v.res + uz * v.res * v.res;
-    return idx < v.rows ? idx : idx % v.rows;
-  }
-  const uint32_t idx = (ux * 1u) ^ (uy * 2654435761u) ^ (uz * 805459861u);
-  return v.mask != 0u ? idx & v.mask : idx % v.rows;
-}
-
-// <g, feature> (fdot) and <g, d feature / d frac> (df[3]) of a point in
-// cell p, from dots[c] = <g, row of corner c> of its cell: the derivative
-// of the trilinear weights, or of the simplex weights (the sorted
-// fractions' gradients with JAX's rule at ties, as the plain version takes
-// them).
-template <bool kTetra>
-__device__ __forceinline__ void grads_from_dots(const Cell& p,
-                                                const float* dots,
-                                                float& fdot, float* df) {
-  fdot = 0.f;
-  df[0] = df[1] = df[2] = 0.f;
-  if constexpr (kTetra) {
-    const Simplex t = simplex_of(p);
-    float d1[3], d3[3];
-    sorted_grad<true>(p, d1);
-    sorted_grad<false>(p, d3);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int c = vertex_corner(t, k);
-      float dot = 0.f;
-#pragma unroll
-      for (int cc = 0; cc < 8; ++cc) dot = c == cc ? dots[cc] : dot;
-      fdot += t.w[k] * dot;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float d2 = 1.f - d1[d] - d3[d];
-        const float dw = k == 0   ? -d1[d]
-                         : k == 1 ? d1[d] - d2
-                         : k == 2 ? d2 - d3[d]
-                                  : d3[d];
-        df[d] += dw * dot;
-      }
-    }
-  } else {
-    // The trilinear weights' sums, factored along x, then y, then z:
-    // a[yz] interpolates the corner dots in x and b[yz] is their x
-    // difference; the same with y, then z, gives fdot and each axis'
-    // derivative (about a quarter of the products of the 8 corners' sums).
-    float a[4], b[4];
-#pragma unroll
-    for (int yz = 0; yz < 4; ++yz) {
-      const float d0 = dots[2 * yz], d1 = dots[2 * yz + 1];
-      b[yz] = d1 - d0;
-      a[yz] = fmaf(p.rx, b[yz], d0);
-    }
-    float az[2], ayz[2], bz[2];
-#pragma unroll
-    for (int z = 0; z < 2; ++z) {
-      ayz[z] = a[2 * z + 1] - a[2 * z];
-      az[z] = fmaf(p.ry, ayz[z], a[2 * z]);
-      bz[z] = fmaf(p.ry, b[2 * z + 1] - b[2 * z], b[2 * z]);
-    }
-    df[2] = az[1] - az[0];
-    fdot = fmaf(p.rz, df[2], az[0]);
-    df[1] = fmaf(p.rz, ayz[1] - ayz[0], ayz[0]);
-    df[0] = fmaf(p.rz, bz[1] - bz[0], bz[0]);
-  }
-}
-
 // <g, feature> (fdot) and <g, d feature / d frac> (df[3]) of a point in
 // cell p, from the rows of its interpolation corners: the derivative of
 // the trilinear weights, or of the simplex weights (the sorted fractions'
@@ -1811,197 +1721,12 @@ __global__ void hash_encode_ms_bwd_fixed_kernel(
                             v);
 }
 
-// The deterministic d_x01 / d_stds, a gather with no atomics. One thread
-// a sample walks the levels in order; its points' gradients, (dx, dy, dz,
-// ds) a point, are summed in shared-memory slots of its own, level after
-// level, and written once, so no sum depends on the block order. The terms
-// are backward_one's / backward_mean's float expressions. C < 8
-// (pos_grads_kernel): a point reads its corner rows itself (point_grads).
-// C >= 8 (pos_grads_wide_kernel): the warp steps through its samples'
-// points together and a group of C / 4 lanes reads each row (as H1's
-// gather_wide), the partial dots summed in the group by shuffles, so a
-// load instruction covers 32 / (C / 4) whole rows in full sectors where a
-// lane a row issued C / 4 half-sector loads over 32 rows; a point's
-// corner rows (grad_row: no integer division) give dots, from which its
-// fdot and df follow. Measured and dropped (PERF.md, on an NVIDIA H100
-// 80GB HBM3), at C < 8 and at C16: blocks per (tile, level) in H1's order
-// with per-level partials summed over the levels in a second pass (the
-// partials' traffic and the tile's reads at every level cost more than
-// the level-major order saved); the corner-run merge (a run's points
-// revisited after its rows are read: divergent, and the tile staged
-// beside the slots halved the blocks an SM holds); at C < 8, each point's
-// dots read first and its gradients from them (factored trilinear sums,
-// one erf for the weight and its derivative, division-free rows): 3-4%
-// faster on the NeRF and prop0 calls, 1% slower on prop1 and 60-80% on
-// the object grid's.
-//
-// A sample's slots: float4 j of the thread's column of the block's [n,
-// threads] slots.
-struct Slots {
-  float4* p;
-  int stride;
-  __device__ __forceinline__ void add(int j, float4 v) const {
-    float4& s = p[j * stride];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-};
-
-// The erf weight of a point with std s at one level and its derivative
-// in s (0 where the weight's argument is clamped): erf_weight's and
-// erf_weight_grad's values, from one u.
-struct ErfWeight {
-  float w, dw;
-};
-
-__device__ __forceinline__ ErfWeight erf_weight_and_grad(float s,
-                                                         const Level& v) {
-  const float u = 8.0f * (s * s) * v.g2;
-  const float vs = 1.0f / sqrtf(fmaxf(u, 1e-10f));
-  const float w = erff(vs);
-  if (!(u > 1e-10f)) return ErfWeight{w, 0.f};
-  return ErfWeight{w, 1.1283791671f * expf(-vs * vs) * (-0.5f * vs / u) *
-                          (16.0f * s * v.g2)};
-}
-
-// The partial (dx, dy, dz, ds) of a point at a non-mean level.
-__device__ __forceinline__ float4 point_partial(float s, float fdot,
-                                                const float* df, float inv_n,
-                                                const Level& v) {
-  const ErfWeight e = erf_weight_and_grad(s, v);
-  const float k = e.w * inv_n * v.scale;
-  return make_float4(k * df[0], k * df[1], k * df[2], inv_n * e.dw * fdot);
-}
-
-// A mean-point level: 1 / n of the mean point's position gradient to each
-// point, and each point's std gradient against the mean's fdot.
-template <bool kTetra>
-__device__ __forceinline__ void mean_partials(const Cell& p,
-                                              const MeanPoint& m, Points pt,
-                                              int n, const float* dots,
-                                              const Level& v,
-                                              const Slots& out) {
-  float fdot, df[3];
-  grads_from_dots<kTetra>(p, dots, fdot, df);
-  const float k = m.w / (float)n * v.scale;
-  const float fd = fdot / (float)n;
-  for (int j = 0; j < n; ++j)
-    out.add(j, make_float4(k * df[0], k * df[1], k * df[2],
-                           erf_weight_grad(pt.s[j], v) * fd));
-}
-
-// <g, row> of one corner of every lane's point for C >= 8, warp-collective
-// (as gather_corner reads rows): on / row are this lane's; gp[m] holds
-// float4 p of g of sample base + m. In round m the lanes of a group read
-// float4 p of the row of sample base + m, each takes the dot of its four
-// channels, and the group sums them by shuffles; lane base + m keeps the
-// sum, its own sample's dot.
-template <int C>
-__device__ __forceinline__ float dot_corner(bool on, uint32_t row,
-                                            const float4* gp,
-                                            const float4* part) {
-  constexpr int kG = C / 4;
-  const Group gr = group_of<C>();
-  const unsigned ons = __ballot_sync(kFullMask, on);
-  float mine = 0.f;
-#pragma unroll
-  for (int m = 0; m < kG; ++m) {
-    const int src = gr.base + m;
-    const uint32_t r = __shfl_sync(kFullMask, row, src);
-    float s = 0.f;
-    if ((ons >> src) & 1u) {
-      const float4 t = __ldg(part + (int64_t)r * kG);
-      s = gp[m].x * t.x + gp[m].y * t.y + gp[m].z * t.z + gp[m].w * t.w;
-    }
-#pragma unroll
-    for (int o = kG / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFullMask, s, o);
-    if (gr.p == m) mine = s;
-  }
-  return mine;
-}
-
-// corner_dots for C >= 8, warp-collective (act: this lane has a point):
-// the corners of mask of every acting lane, read by the lanes of its group
-// together; with tetra the warp steps through each lane's corners, the
-// i-th of every lane at step i, as gather_wide does.
-template <int C, bool kTetra>
-__device__ __forceinline__ void corner_dots_wide(bool act, int ix, int iy,
-                                                 int iz, unsigned mask,
-                                                 const float4* gp,
-                                                 const Level& v,
-                                                 const float* tbl,
-                                                 float* dots) {
-  const float4* part =
-      reinterpret_cast<const float4*>(tbl) + group_of<C>().p;
-  if constexpr (kTetra) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dots[c] = 0.f;
-    unsigned left = act ? mask : 0u;
-    const int steps = (int)__reduce_max_sync(kFullMask, __popc(left));
-    for (int i = 0; i < steps; ++i) {
-      const bool on = left != 0u;
-      const int c = on ? __ffs(left) - 1 : 0;
-      left &= left - 1u;
-      const float d =
-          dot_corner<C>(on, on ? grad_row(ix, iy, iz, c, v) : 0u, gp, part);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) dots[k] = on && c == k ? d : dots[k];
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      dots[c] = dot_corner<C>(act, act ? grad_row(ix, iy, iz, c, v) : 0u,
-                              gp, part);
-  }
-}
-
-// pos_one for C >= 8, warp-collective (active: this lane holds a sample):
-// the warp steps through the points together, each lane's rows read by
-// corner_dots_wide.
-template <int C, bool kTetra>
-__device__ __forceinline__ void pos_one_wide(bool active, const float* tbl,
-                                             Points pt, const float4* gp,
-                                             int n, const Level& v,
-                                             const Slots& out) {
-  float dots[8];
-  if (v.mean) {
-    MeanPoint m{0.f, 0.f, 0.f, 0.f};
-    if (active) m = mean_of(pt, n, v);
-    const bool in = active && in_unit_cube(m.x, m.y, m.z);
-    const Cell p = cell_of(m.x, m.y, m.z, v.scale);
-    if (!__any_sync(kFullMask, in)) return;
-    corner_dots_wide<C, kTetra>(in, p.ix, p.iy, p.iz,
-                                in ? grad_corners<kTetra>(p) : 0u, gp, v, tbl,
-                                dots);
-    if (in) mean_partials<kTetra>(p, m, pt, n, dots, v, out);
-    return;
-  }
-  const float inv_n = 1.0f / (float)n;
-  for (int j = 0; j < n; ++j) {
-    float x = 0.f, y = 0.f, z = 0.f;
-    if (active) {
-      x = pt.x[3 * j];
-      y = pt.x[3 * j + 1];
-      z = pt.x[3 * j + 2];
-    }
-    const bool in = active && in_unit_cube(x, y, z);
-    if (!__any_sync(kFullMask, in)) continue;
-    const Cell p = cell_of(x, y, z, v.scale);
-    corner_dots_wide<C, kTetra>(in, p.ix, p.iy, p.iz,
-                                in ? grad_corners<kTetra>(p) : 0u, gp, v, tbl,
-                                dots);
-    if (!in) continue;
-    float fdot, df[3];
-    grads_from_dots<kTetra>(p, dots, fdot, df);
-    out.add(j, point_partial(pt.s[j], fdot, df, inv_n, v));
-  }
-}
-
-// C < 8, a lane a sample: slots [4n][blockDim.x] floats (dx, dy, dz, ds
-// of point j at (4j + q) * blockDim.x + t). d_x01 / d_stds: nullptr when
-// not wanted.
+// d_x01 / d_stds without atomics: one thread per sample walks the levels in
+// order, reads its corner rows as H1 does, and sums each point's gradient
+// (the terms of backward_one / backward_mean, the same float expressions)
+// in shared-memory slots of its own, [4n][blockDim.x] (dx, dy, dz, ds of
+// point j at (4j + q) * blockDim.x + t), written once. d_x01 / d_stds:
+// nullptr when not wanted.
 template <int C, bool kTetra>
 __global__ void pos_grads_kernel(const float* __restrict__ table,
                                  const float* __restrict__ x01,
@@ -2058,62 +1783,6 @@ __global__ void pos_grads_kernel(const float* __restrict__ table,
       for (int d = 0; d < 3; ++d) d_x01[(b * n + j) * 3 + d] = sum[(4 * j + d) * nt];
     }
     if (d_stds != nullptr) d_stds[b * n + j] = sum[(4 * j + 3) * nt];
-  }
-}
-
-// C >= 8, warp-collective. Block: `blockDim.x` consecutive samples; shared
-// memory: the slots, [n, threads] float4. d_x01 / d_stds (each nullptr
-// when not wanted) are written from the slots by consecutive threads on
-// consecutive points.
-template <int C, bool kTetra>
-__global__ void pos_grads_wide_kernel(const float* __restrict__ table,
-                                 const float* __restrict__ x01,
-                                 const float* __restrict__ stds,
-                                 const float* __restrict__ g_out,
-                                 float* __restrict__ d_x01,
-                                 float* __restrict__ d_stds, int64_t B, int n,
-                                 int L, GridLevels lv) {
-  extern __shared__ __align__(16) float smem[];
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int64_t b0 = (int64_t)blockIdx.x * nt;
-  const int cnt = tile_count(B, b0);
-  float4* slots = reinterpret_cast<float4*>(smem);
-  for (int j = 0; j < n; ++j)
-    slots[j * nt + t] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const Slots out{slots + t, nt};
-  const Points pt = points_of(x01, stds, b0, cnt, n, nullptr);
-  // Lane = sample; a group's lanes read its rows together, so a warp with
-  // any sample keeps all its lanes. Lane base + p holds float4 p of g of
-  // each sample of its group.
-  if ((t & ~31) < cnt) {
-    const bool active = t < cnt;
-    constexpr int kG = C / 4;
-    const Group gr = group_of<C>();
-    const int t0 = (t & ~31) + gr.base;
-    for (int l = 0; l < L; ++l) {
-      const Level v = level_of(lv, l);
-      float4 gp[kG];
-#pragma unroll
-      for (int m = 0; m < kG; ++m)
-        gp[m] = t0 + m < cnt
-                    ? __ldg(reinterpret_cast<const float4*>(
-                                g_out + ((b0 + t0 + m) * L + l) * C) +
-                            gr.p)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      pos_one_wide<C, kTetra>(active, table + (int64_t)lv.offset[l] * C, pt,
-                              gp, n, v, out);
-    }
-  }
-  __syncthreads();
-  for (int i = t; i < cnt * n; i += nt) {
-    const float4 s = slots[(i % n) * nt + i / n];
-    const int64_t e = b0 * n + i;
-    if (d_x01 != nullptr) {
-      d_x01[3 * e] = s.x;
-      d_x01[3 * e + 1] = s.y;
-      d_x01[3 * e + 2] = s.z;
-    }
-    if (d_stds != nullptr) d_stds[e] = s.w;
   }
 }
 
@@ -2216,9 +1885,8 @@ cudaError_t backward_fixed(const float* x01, const float* stds,
   return cudaGetLastError();
 }
 
-// d_x01 / d_stds by pos_grads_kernel (C < 8) or pos_grads_wide_kernel:
-// the largest block (up to kThreads) whose slots, 16 n bytes a sample, fit
-// kStageBytes.
+// d_x01 / d_stds by pos_grads_kernel: the largest block (up to kThreads)
+// whose slots, 16 n bytes a sample, fit kStageBytes.
 template <int C>
 cudaError_t pos_grads(const float* table, const float* x01, const float* stds,
                       const float* g_out, float* d_x01, float* d_stds,
@@ -2230,22 +1898,12 @@ cudaError_t pos_grads(const float* table, const float* x01, const float* stds,
   if (smem > kStageBytes) return cudaErrorInvalidValue;
   const int64_t blocks = (B + threads - 1) / threads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  const unsigned grid = (unsigned)blocks;
-  if constexpr (C >= 8) {
-    if (tetra)
-      pos_grads_wide_kernel<C, true><<<grid, threads, smem, s>>>(
-          table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
-    else
-      pos_grads_wide_kernel<C, false><<<grid, threads, smem, s>>>(
-          table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
-  } else {
-    if (tetra)
-      pos_grads_kernel<C, true><<<grid, threads, smem, s>>>(
-          table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
-    else
-      pos_grads_kernel<C, false><<<grid, threads, smem, s>>>(
-          table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
-  }
+  if (tetra)
+    pos_grads_kernel<C, true><<<(unsigned)blocks, threads, smem, s>>>(
+        table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
+  else
+    pos_grads_kernel<C, false><<<(unsigned)blocks, threads, smem, s>>>(
+        table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
   return cudaGetLastError();
 }
 
@@ -2395,8 +2053,10 @@ __global__ void fixed_to_float_kernel(long long* __restrict__ acc,
 // [b chunk, (b + 1) chunk) and the vectors [256 y, 256 y + W) of a row
 // (W = min(F / V - 256 y, 256)); thread t < W Q takes vector t % W of the
 // rows q, q + Q, ... (q = t / W; Q a power of two, 1 for F / V > 256),
-// each channel summed in that order, kBoundUnroll loads in flight, so a
-// step of the block reads W Q V consecutive floats; the block then adds
+// each channel summed in that order, kU loads in flight (8 float4s or 16
+// floats, 128 or 64 bytes a thread; the thread's last fewer than kU rows
+// loaded together too), so a step of the block reads W Q V consecutive
+// floats; the block then adds
 // its Q row sums by a tree in shared memory (h = Q / 2, ..., 1: sum[q] +=
 // sum[q + h] for q < h) into part[b, f]. The block that finishes last (a
 // ticket, left 0 for the next call) sums each column's P partials: a warp
@@ -2405,7 +2065,6 @@ __global__ void fixed_to_float_kernel(long long* __restrict__ acc,
 // S[f]) (0 where S is 0), as ops/grid.py:fixed_exponents computes it.
 // Bound by bytes: v read once.
 constexpr int kBoundThreads = 256;
-constexpr int kBoundUnroll = 8;
 constexpr int kFixedBits = 62;
 
 __device__ __forceinline__ void add_abs(double* s, float x) {
@@ -2435,19 +2094,27 @@ __global__ void __launch_bounds__(kBoundThreads)
   const int64_t r0 = (int64_t)blockIdx.x * chunk;
   const int64_t r1 = min(r0 + chunk, N);
   double s[V] = {};
+  constexpr int kU = V == 4 ? 8 : 16;
   if (q < Q) {
     const Vec* col = reinterpret_cast<const Vec*>(v) + c0 + c;
+    const int64_t step = (int64_t)Q;
     int64_t r = r0 + q;
-    for (; r + (kBoundUnroll - 1) * (int64_t)Q < r1;
-         r += kBoundUnroll * (int64_t)Q) {
-      Vec x[kBoundUnroll];
+    for (; r + (kU - 1) * step < r1; r += kU * step) {
+      Vec x[kU];
 #pragma unroll
-      for (int u = 0; u < kBoundUnroll; ++u)
-        x[u] = __ldcs(col + (r + u * (int64_t)Q) * nv);
+      for (int u = 0; u < kU; ++u) x[u] = __ldcs(col + (r + u * step) * nv);
 #pragma unroll
-      for (int u = 0; u < kBoundUnroll; ++u) add_abs(s, x[u]);
+      for (int u = 0; u < kU; ++u) add_abs(s, x[u]);
     }
-    for (; r < r1; r += Q) add_abs(s, __ldcs(col + r * nv));
+    if (r < r1) {  // the thread's last rows, fewer than kU
+      Vec x[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        x[u] = r + u * step < r1 ? __ldcs(col + (r + u * step) * nv) : Vec{};
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (r + u * step < r1) add_abs(s, x[u]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < V; ++i) sm[i * nt + t] = s[i];

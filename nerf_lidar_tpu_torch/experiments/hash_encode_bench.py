@@ -713,8 +713,8 @@ def refine_grid(root, name, rec):
 def posenet_gathers(cams, n_cams):
     """The posenet's per-ray gathers of a refinement step, forward and
     backward (an upstream gradient of ones), by CUDA events: advanced
-    indexing (r[cam_id]) against `grid.select_rows`, outside and under
-    torch's deterministic switch."""
+    indexing (r[cam_id]), index_select (the posenet's) and
+    `grid.select_rows`, outside and under torch's deterministic switch."""
     from nerf_lidar_tpu_torch import cli
     from nerf_lidar_tpu_torch.ops import grid
     dev = torch.device("cuda", 0)
@@ -722,6 +722,7 @@ def posenet_gathers(cams, n_cams):
     r = torch.zeros(n_cams, 3, device=dev, requires_grad=True)
     up = torch.ones(cam.shape[0], 3, device=dev)
     forms = dict(index=lambda: r[cam].backward(up),
+                 index_select=lambda: r.index_select(0, cam).backward(up),
                  select_rows=lambda: grid.select_rows(r, cam).backward(up))
     out = {}
     for mode in ("default", "deterministic"):

@@ -41,6 +41,15 @@ measurement, after nvidia-smi's name and power limit of the card. Fails
   dtype=torch.float64)` (the same S on finite values, one call); its
   kernels a call; S against `abs_bound_plain` (bit-equal) and the
   yardstick.
+--bound_steps: kernel `abs_bound` on every input one train step hands
+  it (`bench_bound_steps`): one step under torch's deterministic switch,
+  after one step of `train --deterministic`, of the refinement recipe and
+  of the object recipe (hash_encode_bench.REFINE_RECIPES, on a synth_nusc
+  scene), each input recorded as it is called; the step's calls summed,
+  by device time in turns with the --root checkout's (root, here, here,
+  root), and each distinct shape with its count a step; and the posenet's
+  per-ray gathers on the refinement step's batch
+  (hash_encode_bench.posenet_gathers).
 --sink: the micro-benchmark of the deterministic kernels' int64 row sink
   (`bench_sinks`, this file's own checkout's kernel `fixed_sink`): the same
   rows and int64 terms added one lane a row with C scalar atomics (the
@@ -52,9 +61,11 @@ measurement, after nvidia-smi's name and power limit of the card. Fails
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -377,6 +388,116 @@ def bench_det_bound(root, dev):
         del plain, lib_s
 
 
+@contextlib.contextmanager
+def recording_bound(grid):
+    """Within the block, every call of grid.bound_exponents appends a clone
+    of its input to the list it yields. The wrapper carries the function's
+    launch count, and gives it back."""
+    orig, calls = grid.bound_exponents, []
+
+    def wrapper(v):
+        calls.append(v.detach().clone())
+        return orig(v)
+
+    wrapper.launches = orig.launches
+    grid.bound_exponents = wrapper
+    try:
+        yield calls
+    finally:
+        orig.launches = wrapper.launches
+        grid.bound_exponents = orig
+
+
+def step_bound_inputs(recipes=("refine", "objects")):
+    """({recipe: [v, ...]}, (camera indices, images)): every input of
+    kernel `abs_bound` in one train step under torch's deterministic switch
+    (after one step of `train --deterministic`) of each recipe of
+    hash_encode_bench.REFINE_RECIPES named, on a synth_nusc scene it writes
+    and removes; and the refinement step's batch's camera indices and the
+    posenet's image count."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import hash_encode_bench as heb
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.data import synth_nusc
+    from nerf_lidar_tpu_torch.ops import grid
+    from nerf_lidar_tpu_torch.train import train_step
+    tag = f"row_kernels_bench_{os.getpid()}"
+    scene = os.path.join("exp", tag + "_scene")
+    synth_nusc.write_scene_dir(scene, sensor_num=1)
+    out, cams = {}, None
+    try:
+        for recipe in recipes:
+            args = heb.REFINE_RECIPES[recipe][0]
+            argv = ["train", *(scene if a == "<scene>" else a for a in args),
+                    "--steps", "1", "--device", "cuda", "--exp_name", tag,
+                    "--deterministic"]
+            out_dir = cli.exp_dir(cli.build_config(cli.parse_args(argv)))
+            shutil.rmtree(out_dir, ignore_errors=True)
+            try:
+                run = cli.main(argv)
+                dev = next(run.model.parameters()).device
+                batch = cli.to_device(run.batcher.next(), dev)
+                with cli.deterministic_mode(), recording_bound(grid) as calls:
+                    stats = train_step.train_step(
+                        run.model, run.optimizer, run.cfg, batch, 1,
+                        run.batcher.num_patch_rays, run.generator,
+                        posenet=run.posenet, tracknet=run.tracknet,
+                        tracks=run.tracks, track_mask=run.track_mask)
+                    float(stats["loss"])
+                out[recipe] = calls
+                if run.posenet is not None:
+                    cams = (batch["cam_idx"][..., 0].cpu().numpy(),
+                            run.posenet.r.shape[0])
+                del run, batch
+            finally:
+                shutil.rmtree(out_dir, ignore_errors=True)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(scene, ignore_errors=True)
+    return out, cams
+
+
+def bench_bound_steps(root, dev):
+    """--bound_steps: the module docstring's."""
+    from nerf_lidar_tpu_torch.ops import grid
+    here = here_grid()
+    other = os.path.abspath(root) != os.path.abspath(HERE)
+    order = ("root", "here", "here", "root") if other else ("here", "here")
+    steps, cams = step_bound_inputs()
+    for recipe, calls in steps.items():
+        for v in calls:
+            if not torch.equal(here.bound_exponents(v)[0],
+                               here.abs_bound_plain(v)):
+                raise SystemExit(f"abs_bound {recipe} {list(v.shape)}: S "
+                                 "differs from its plain version")
+        fns = {"here": lambda: [here.bound_exponents(v) for v in calls],
+               "root": lambda: [grid.bound_exponents(v) for v in calls]}
+        turns = {k: [] for k in dict.fromkeys(order)}
+        for turn in order:
+            turns[turn].append(device_ms(fns[turn], iters=20))
+        emit(root=root, kernel="abs_bound", recipe=recipe, what="step",
+             calls=len(calls), turns_device_ms=turns,
+             bound_ms=sum(v.numel() for v in calls) * 4 / HBM_BYTES_PER_MS)
+        shapes = {}
+        for v in calls:
+            shapes.setdefault(tuple(v.shape), []).append(v)
+        for shape, vs in shapes.items():
+            v = vs[0]
+            fns = {"here": lambda: here.bound_exponents(v),
+                   "root": lambda: grid.bound_exponents(v)}
+            turns = {k: [] for k in dict.fromkeys(order)}
+            for turn in order:
+                turns[turn].append(device_ms(fns[turn], iters=20))
+            emit(root=root, kernel="abs_bound", recipe=recipe, what="shape",
+                 size=list(shape), per_step=len(vs),
+                 plan=list(here._bound_plan(*shape)), turns_device_ms=turns,
+                 bound_ms=v.numel() * 4 / HBM_BYTES_PER_MS)
+        del calls, shapes
+    del steps
+    import hash_encode_bench
+    hash_encode_bench.posenet_gathers(*cams)
+
+
 # K3's shape for the sink micro-benchmark: rows and updates of C16.
 SINK_ROWS, SINK_UPDATES = 1 << 17, 1 << 22
 
@@ -494,6 +615,7 @@ def main(argv=None):
     p.add_argument("--sass", action="store_true")
     p.add_argument("--det", action="store_true")
     p.add_argument("--sink", action="store_true")
+    p.add_argument("--bound_steps", action="store_true")
     p.add_argument("--inputs")
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
@@ -515,7 +637,9 @@ def main(argv=None):
     _build.library()
     if args.sass:
         sass_summary(root, _build.library_path())
-    if args.det or args.sink:
+    if args.det or args.sink or args.bound_steps:
+        if args.bound_steps:
+            bench_bound_steps(root, dev)
         if args.sink:
             bench_sinks(root, dev, args.inputs)
         if args.det:

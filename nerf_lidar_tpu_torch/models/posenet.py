@@ -16,8 +16,6 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from ..ops import grid as gridlib
-
 
 def vec2skew(v: torch.Tensor) -> torch.Tensor:
     """[..., 3] -> [..., 3, 3] skew-symmetric matrices."""
@@ -60,15 +58,12 @@ class LearnPose(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """cam_id: [N] int. Returns (R [N, 3, 3], t [N, 3]).
 
-        The deltas are gathered by `grid.select_rows` (index_select): the
-        backward of advanced indexing sorts the ray indices and adds each
-        image's thousands of duplicates in turn on CUDA, and under torch's
-        deterministic switch select_rows sums them with K3's deterministic
-        variant."""
+        The deltas are gathered by index_select, whose backward is one
+        `index_add_` (torch's deterministic one under its switch)."""
         cam_id = cam_id.long().reshape(-1)
         zeros = self.r.new_zeros((cam_id.shape[0], 3))
-        r = gridlib.select_rows(self.r, cam_id) if self.learn_R else zeros
-        t = (gridlib.select_rows(self.t, cam_id) * self.t_ratio
+        r = self.r.index_select(0, cam_id) if self.learn_R else zeros
+        t = (self.t.index_select(0, cam_id) * self.t_ratio
              if self.learn_t else zeros)
         return so3_exp(r), t
 

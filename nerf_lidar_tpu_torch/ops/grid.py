@@ -697,7 +697,7 @@ def _abs_bound(v: torch.Tensor) -> torch.Tensor:
 # a block takes at least.
 _BOUND_VECTORS = 256
 _BOUND_BLOCKS = 256
-_BOUND_BLOCK_VALUES = 16384
+_BOUND_BLOCK_VALUES = 4096
 
 
 def _bound_plan(n: int, f: int):
@@ -705,12 +705,13 @@ def _bound_plan(n: int, f: int):
     `abs_bound_plain` sum the columns of an [n, f] matrix. A vector is V
     = 4 channels of a row where f % 4 == 0 (one 16-byte load), else one
     value; P blocks of `chunk` rows (at least _BOUND_BLOCK_VALUES values a
-    block, at most _BOUND_BLOCKS blocks: two a streaming multiprocessor of
-    an H100, few ticket atomics, and a short sum over the blocks in the
-    last one); in a block, Q (a power of two, 1 for more than
-    _BOUND_VECTORS vectors a row) threads a vector, each summing every
-    Q-th row. It depends on the shape alone, never on the card or the
-    data's address."""
+    block, so that a small matrix still spreads over the streaming
+    multiprocessors; at most _BOUND_BLOCKS blocks: about two a streaming
+    multiprocessor of an H100, few ticket atomics, and a short sum over
+    the blocks in the last one); in a block, Q (a power of two, 1 for more
+    than _BOUND_VECTORS vectors a row) threads a vector, each summing
+    every Q-th row. It depends on the shape alone, never on the card or
+    the data's address."""
     v = 4 if f % 4 == 0 else 1
     w = min(f // v, _BOUND_VECTORS)
     q = 1 if f // v > _BOUND_VECTORS else 1 << (
