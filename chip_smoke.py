@@ -225,18 +225,24 @@ Phases (each raises on failure, so the script exits non-zero):
    hash-decay level sums and at K3's own shape (rows 2^17, N 2^22, C16)
    bit-identical to its plain twin at the kernel's exponents and within
    half a quantum a term (and
-   the sum's rounding to float32) of float64; the d_x01 / d_stds gather
-   pass (`hash_encode_ms_pos_grads`) on [12]'s recorded object-grid call
-   and [15]'s `_fast` NeRF call (mean-point levels): the same bits on 3
-   copies, against the plain version and the atomic kernel at [6]'s
-   tolerance; device times beside the atomic kernels (on the NeRF grid and
+   the sum's rounding to float32) of float64; the position gradients
+   (H1's residual mode and the contraction `hash_encode_ms_pos_grads`,
+   `pos_grads_check`) on [12]'s recorded object-grid call, [15]'s `_fast`
+   NeRF call (mean-point levels) and every grid's call of the refinement
+   recipe: each the same bits on 3 copies, against its plain version at
+   [6]'s tolerance, d_x01 / d_stds the same bits in both modes, device
+   times in turns with H1 and `torch.einsum`; device times beside the
+   atomic kernels (on the NeRF grid and
    K3's shape in turns, by kernel, and under the switch with and without
    torch's fill of uninitialized memory), the bound and (K3) `index_add_`
    under the switch; then `train --deterministic` twice from one seed on
    `nuscenes_single` (DET_STEPS steps, 20,480 rays a step; once more
    without the fill), on [12]'s object scene with the tracknet live
-   (DET_OBJ_STEPS; the d_x01 pass) and on `nuscenes_single_fast`
-   (DET_FAST_STEPS; tetrahedral, mean-point and C16 modes): every
+   (DET_OBJ_STEPS; the d_x01 pass), on `nuscenes_single_fast`
+   (DET_FAST_STEPS; tetrahedral, mean-point and C16 modes) and on the
+   refinement recipe (DET_REFINE_STEPS; pose and track refinement, d_x01 /
+   d_stds on every grid, by H1's residual mode and the contraction in both
+   modes, the default mode's atomic H1-bwd taking d_table alone): every
    parameter, buffer, Adam moment and logged stat equal to the bit, no
    atomic kernel launched and `abs_bound` launched;
    `raydrop_train --deterministic` twice on [13]'s
@@ -250,6 +256,10 @@ Phases (each raises on failure, so the script exits non-zero):
    the deterministic d_table against its twins as [19] holds them;
    `train --deterministic` twice (the same bits); a `render_lidar` sweep
    of its weights with every K1 and H1 call held against its plain version.
+Every entry the script runs through `cli.main` is watched: H1's residual
+mode may run only in a train entry with a live posenet or tracknet, where
+x01 / stds take a gradient; a render, eval or extract entry or a static
+train step that launches it fails the script.
 The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17, 18,
 12-profiled, 15-profiled, 16-profiled, 18-profiled, 8-profiled, 6, 7, 9,
 10, 11, 20, 19 ([19] last: it turns torch's process-wide switch on and off): [4]
@@ -644,18 +654,20 @@ def phase_slice(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     render_fused.fused_composite.launches = 0
     grid.hash_encode_multisample.launches = 0
+    pos = pos_counters()
     t0 = time.perf_counter()
     run = cli.main(SLICE_ARGV)
     torch.cuda.synchronize()
     entry_s = time.perf_counter() - t0
     launches = dict(composite=render_fused.fused_composite.launches,
-                    hash_encode_ms=grid.hash_encode_multisample.launches)
+                    hash_encode_ms=grid.hash_encode_multisample.launches,
+                    **pos_launches(pos))
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"[5] render_lidar (2 sweeps, cold, weights init included): "
           f"{entry_s:.2f} s; launches {launches}; peak memory "
           f"{peak / 2**30:.2f} GiB")
     for name, count in launches.items():
-        if count == 0:
+        if count == 0 and name not in POS_KERNELS:
             fail(f"kernel {name} was not launched on the main path")
 
     n_rays = 32 * 1100
@@ -1295,7 +1307,7 @@ def phase_train(dev):
 
     counters = dict(hash_encode_ms=grid.hash_encode_multisample,
                     hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
-                    scatter_add_rows=grid.scatter_add_rows)
+                    scatter_add_rows=grid.scatter_add_rows, **pos_counters())
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1306,7 +1318,7 @@ def phase_train(dev):
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     for name, count in launches.items():
-        if count == 0:
+        if count == 0 and name not in POS_KERNELS:
             fail(f"kernel {name} was not launched on the train path")
     hist = run.history
     if len(hist) != TRAIN_STEPS or not all(
@@ -1875,14 +1887,16 @@ def phase_train_to_render(dev, params):
 
     render_fused.fused_composite.launches = 0
     grid.hash_encode_multisample.launches = 0
+    pos = pos_counters()
     run = cli.main(["render_lidar", "--config", "nuscenes_single",
                     "--set", "dataset_loader=synthetic", "--mode", "simu",
                     "--num_sweeps", "1", "--params", params,
                     "--device", "cuda", "--exp_name", "chip_smoke_train"])
     launches = dict(composite=render_fused.fused_composite.launches,
-                    hash_encode_ms=grid.hash_encode_multisample.launches)
+                    hash_encode_ms=grid.hash_encode_multisample.launches,
+                    **pos_launches(pos))
     for name, count in launches.items():
-        if count == 0:
+        if count == 0 and name not in POS_KERNELS:
             fail(f"render from trained params: {name} was not launched")
     pts = np.load(run.paths[0])
     origin = run.sweeps[0].origins
@@ -2068,7 +2082,7 @@ def phase_objects(dev):
     # The train entry, kernels on.
     counters = dict(hash_encode_ms=grid.hash_encode_multisample,
                     hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
-                    scatter_add_rows=grid.scatter_add_rows)
+                    scatter_add_rows=grid.scatter_add_rows, **pos_counters())
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2080,7 +2094,7 @@ def phase_objects(dev):
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     for name, count in launches.items():
-        if count == 0:
+        if count == 0:  # the tracknet's d_x01 runs the residual path
             fail(f"kernel {name} was not launched on the objects train path")
     for name in ("hash_encode_ms", "hash_encode_ms_bwd"):
         if obj_launches[name] == 0:
@@ -2198,14 +2212,16 @@ def phase_objects(dev):
     for mode in ("replay", "removal"):
         render_fused.fused_composite.launches = 0
         grid.hash_encode_multisample.launches = 0
+        pos = pos_counters()
         with kernels_checked() as rec, box_hits() as hits, \
                 obj_grid_launches(spec) as obj_counts:
             rr = cli.main([*OBJ_RENDER_ARGV, "--obj_mode", mode,
                            "--params", params])
         counts = dict(composite=render_fused.fused_composite.launches,
-                      hash_encode_ms=grid.hash_encode_multisample.launches)
+                      hash_encode_ms=grid.hash_encode_multisample.launches,
+                      **pos_launches(pos))
         for name, count in counts.items():
-            if count == 0:
+            if count == 0 and name not in POS_KERNELS:
                 fail(f"render_lidar --obj_mode {mode}: {name} was not "
                      "launched")
         renders[mode] = dict(run=rr, files=sweep_files(rr), launches=counts,
@@ -2381,7 +2397,7 @@ def phase_raydrop(dev):
     counters = dict(composite=render_fused.fused_composite,
                     hash_encode_ms=grid.hash_encode_multisample,
                     hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
-                    scatter_add_rows=grid.scatter_add_rows)
+                    scatter_add_rows=grid.scatter_add_rows, **pos_counters())
     for fn in counters.values():
         fn.launches = 0
     feats_path = os.path.join("exp", RD_EXP, "features.npy")
@@ -2738,7 +2754,7 @@ def phase_eval(dev):
     counters = dict(composite=render_fused.fused_composite,
                     hash_encode_ms=grid.hash_encode_multisample,
                     hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
-                    scatter_add_rows=grid.scatter_add_rows)
+                    scatter_add_rows=grid.scatter_add_rows, **pos_counters())
     rng = np.random.RandomState(14)
     for path in sorted(os.listdir(os.path.join(RD_SCENE, "lidar_points"))):
         if path.endswith(".bin"):
@@ -2986,7 +3002,7 @@ def counted_launches():
     fns = dict(composite=render_fused.fused_composite,
                hash_encode_ms=grid.hash_encode_multisample,
                hash_encode_ms_bwd=grid.hash_encode_multisample_bwd,
-               scatter_add_rows=grid.scatter_add_rows)
+               scatter_add_rows=grid.scatter_add_rows, **pos_counters())
     for fn in fns.values():
         fn.launches = 0
     out = {}
@@ -2994,6 +3010,56 @@ def counted_launches():
         yield out
     finally:
         out.update({k: fn.launches for k, fn in fns.items()})
+
+
+# The position gradients' kernels: H1's residual mode (its launches count
+# under H1 too) and the contraction `hash_encode_ms_pos_grads`. Paths that
+# ask no position gradient launch neither.
+POS_KERNELS = ("hash_encode_ms_residuals", "hash_encode_ms_pos_grads")
+
+
+def pos_counters():
+    """{kernel: wrapper} of POS_KERNELS, their counts set to 0."""
+    from nerf_lidar_tpu_torch.ops import grid
+    fns = dict(hash_encode_ms_residuals=grid.hash_encode_ms_residuals,
+               hash_encode_ms_pos_grads=grid.pos_grads_from_residuals)
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def pos_launches(fns):
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def watch_residuals(cli):
+    """From here on, every entry run through `cli.main` is watched: H1's
+    residual mode may run only in a train entry with a live posenet or
+    tracknet (x01 / stds take a gradient there); render, eval, extract,
+    the static train steps and every other entry that launches it fail.
+    Returns {entry (", refining" where it may): residual launches}, filled
+    as entries run."""
+    from nerf_lidar_tpu_torch.ops import grid
+    orig = cli.main
+    seen = {}
+
+    def main(argv=None):
+        before = grid.hash_encode_ms_residuals.launches
+        run = orig(argv)
+        n = grid.hash_encode_ms_residuals.launches - before
+        cmd = argv[0] if argv else "?"
+        refining = cmd == "train" and (
+            getattr(run, "posenet", None) is not None
+            or getattr(run, "tracknet", None) is not None)
+        if n and not refining:
+            fail(f"{' '.join(map(str, argv))}: H1's residual mode launched "
+                 f"{n} times where no position gradient is asked")
+        key = cmd + (", refining" if refining else "")
+        seen[key] = seen.get(key, 0) + n
+        return run
+
+    cli.main = main
+    return seen
 
 
 def need_launches(what, launches, names, absent=()):
@@ -4566,19 +4632,21 @@ def det_bwd_grid(dev, name, args, cutoff, full):
     return out
 
 
-def det_pos_grads(dev, name, rec):
-    """[19] The deterministic d_x01 / d_stds pass (`hash_encode_ms_pos_grads`:
-    a thread a sample sums its levels in order, no atomics) on a train
-    step's recorded call `rec`: the same bits on 3 fresh copies, against
-    the plain version and
-    the atomic kernel at [6]'s BWD_TOL of max (an all-zero gradient
-    exactly); device ms in turns with the atomic kernel asked for the same
-    gradients, then the atomic kernel at the call's own needs (d_table too,
-    what the default mode runs) and H1 on the same points
-    (`hb.queued_ms`: torch.profiler records no activity of these calls
-    late in the script); the bounds (d_x01 / d_stds: the encode's bytes,
-    d_x01 and d_stds written, a multiply-add per corner channel; the
-    atomic call: H1-bwd's, d_x01 and d_stds written)."""
+def pos_grads_check(dev, name, rec):
+    """[19] The position gradients on a train step's recorded encode
+    backward call `rec`: H1's residual mode (R) the same bits on 3 fresh
+    copies, its features H1's bits, R against its plain version at [6]'s
+    BWD_TOL of max; the contraction (`hash_encode_ms_pos_grads`) the same
+    bits on 3 fresh copies and against its plain version on the same R
+    (BWD_TOL; whether the bits are equal, as designed, is reported); d_x01 /
+    d_stds the same bits in both modes. Device ms in turns (CUDA events,
+    calls queued behind a device sleep, `hb.queued_ms`): H1, its residual
+    mode, the contraction and its library yardstick (one `torch.einsum`
+    over R), the atomic H1-bwd's d_table beside; the plain versions' ms
+    (CUDA events, once); the bounds (residual mode: H1's bytes and R
+    written; the contraction: R, g_out and the outputs moved once, a
+    multiply-add per R value). Returns {"residuals": ..., "pos_grads":
+    ...}."""
     import torch
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
     from nerf_lidar_tpu_torch.ops import grid
@@ -4587,64 +4655,92 @@ def det_pos_grads(dev, name, rec):
     needs = tuple(rec[5]) if len(rec) > 5 else (True, True, True)
     cutoff = rec[6] if len(rec) > 6 else 0
     table, x01, stds, g_out = args
-    asked = (False, True, True)
-    runs = [grid.hash_encode_multisample_bwd_det(
-        *(t.clone() for t in args), spec, asked, cutoff)[1:]
-        for _ in range(3)]
+    runs = [grid.hash_encode_ms_residuals(
+        *(t.clone() for t in args[:3]), spec, cutoff) for _ in range(3)]
+    same_bits(f"hash_encode_ms_residuals {name} (3 copies)", runs)
+    out, res = runs[0]
+    del runs
+    if not torch.equal(out, grid.hash_encode_multisample(table, x01, stds,
+                                                         spec, cutoff)):
+        fail(f"hash_encode_ms_residuals {name}: features differ from H1's")
+    res_plain_ms, res_plain = cuda_ms_once(
+        lambda: grid.hash_encode_ms_residuals_plain(table, x01, stds, spec,
+                                                    cutoff))
+    res_err = rel_err(f"hash_encode_ms_residuals {name} vs plain", res,
+                      res_plain, BWD_TOL)[1]
+    del res_plain
+    runs = [grid.pos_grads_from_residuals(res.clone(), g_out.clone())
+            for _ in range(3)]
     same_bits(f"hash_encode_ms_pos_grads {name} (3 copies)", runs)
     got = runs[0]
+    del runs
     plain_ms, plain = cuda_ms_once(
-        lambda: grid.hash_encode_multisample_bwd_plain(
-            *args, spec, asked, cutoff)[1:])
-    atomic = grid.hash_encode_multisample_bwd(*args, spec, asked, cutoff)[1:]
+        lambda: grid.pos_grads_from_residuals_plain(res, g_out))
     errs = {}
     for i, key in enumerate(GRADS[1:]):
-        for what, want in (("plain", plain[i]), ("atomic", atomic[i])):
-            label = f"hash_encode_ms_pos_grads {name} {key} vs {what}"
-            if not bool(want.any()):
-                same_values(label, got[i], want)
-                errs[f"{key} vs {what}"] = 0.0
-            else:
-                errs[f"{key} vs {what}"] = rel_err(label, got[i], want,
-                                                   BWD_TOL)[1]
-    del runs, got, plain, atomic
+        label = f"hash_encode_ms_pos_grads {name} {key} vs plain"
+        if not bool(plain[i].any()):
+            same_values(label, got[i], plain[i])
+            errs[key] = 0.0
+        else:
+            errs[key] = rel_err(label, got[i], plain[i], BWD_TOL)[1]
+    plain_bits = all(torch.equal(a, b) for a, b in zip(got, plain))
+    del plain
+    lib = hb.residual_einsum(res, g_out)
+    rel_err(f"torch.einsum {name} vs hash_encode_ms_pos_grads",
+            torch.cat([got[0], got[1][..., None]], -1), lib, BWD_TOL)
+    del lib
+    asked = (False, True, True)
+    default = grid.hash_encode_multisample_bwd(*args, spec, asked, cutoff)
+    with det_switch(True):
+        det = grid.hash_encode_multisample_bwd(*args, spec, asked, cutoff)
+    for i, key in ((1, "x01"), (2, "stds")):
+        if not torch.equal(default[i], det[i]):
+            fail(f"{name}: d_{key} differs between the modes")
+        if not torch.equal(default[i].reshape(got[i - 1].shape), got[i - 1]):
+            fail(f"{name}: d_{key} of the wrapper is not the contraction's")
+    del default, det, got
     fns = dict(
-        det=lambda: grid.hash_encode_multisample_bwd_det(*args, spec, asked,
-                                                         cutoff),
-        atomic=lambda: grid.hash_encode_multisample_bwd(*args, spec, asked,
-                                                        cutoff),
-        atomic_full=lambda: grid.hash_encode_multisample_bwd(
-            *args, spec, needs, cutoff),
         h1=lambda: grid.hash_encode_multisample(table, x01, stds, spec,
-                                                cutoff))
+                                                cutoff),
+        h1_resid=lambda: grid.hash_encode_ms_residuals(table, x01, stds,
+                                                       spec, cutoff),
+        pos_grads=lambda: grid.pos_grads_from_residuals(res, g_out),
+        einsum=lambda: hb.residual_einsum(res, g_out),
+        atomic_table=lambda: grid.hash_encode_multisample_bwd(
+            *args, spec, (True, False, False), cutoff))
     turns = {k: [] for k in fns}
-    for turn in ("det", "atomic", "atomic", "det", "atomic_full",
-                 "atomic_full", "h1", "h1"):
-        turns[turn].append(hb.queued_ms(fns[turn]))
+    for _ in range(2):
+        for k, fn in fns.items():
+            turns[k].append(hb.queued_ms(fn))
     n_bytes, flops = hb.fwd_bound(spec, x01, stds, cutoff)
-    written = nbytes(x01, stds)
-    lim = bound(n_bytes + written, flops)
-    full = bound(hb.bwd_bound(spec, x01, stds, g_out, cutoff)[0] + written,
-                 2 * flops)
-    n = stds.shape[-1]
+    r_bytes = nbytes(res)
     mean = lambda v: None if None in v else statistics.fmean(v)
-    out = dict(max_abs_err=max(errs.values()), ms=mean(turns["det"]),
-               plain_ms=plain_ms, atomic_ms=mean(turns["atomic"]),
-               atomic_full_ms=mean(turns["atomic_full"]),
-               atomic_full_bound_ms=full["bound_ms"],
-               h1_ms=mean(turns["h1"]), library_ms=None, **lim, errs=errs,
-               turns=turns, needs=list(needs), mode=encode_mode(spec, cutoff),
-               B=stds.numel() // n, n=n)
-    print(f"[19] hash_encode_ms_pos_grads {name} ({out['mode']}; "
-          f"B={out['B']} n={n}): same bits on 3 copies; "
-          f"errors (of max) {errs}; device ms in turns (CUDA events, calls "
-          f"queued behind a device sleep): det {turns['det']}, atomic "
-          f"{turns['atomic']}; the atomic H1-bwd at the call's needs "
-          f"{list(needs)} {turns['atomic_full']} (bound "
-          f"{full['bound_ms']:.5f}); H1 on the same points {turns['h1']}; "
-          f"plain {plain_ms:.1f} ms (CUDA events); bound "
-          f"{lim['bound_ms']:.5f} ({lim['bound_by']})")
-    return out
+    n = stds.shape[-1]
+    common = dict(mode=encode_mode(spec, cutoff), B=stds.numel() // n, n=n,
+                  needs=list(needs))
+    resid = dict(max_abs_err=res_err, ms=mean(turns["h1_resid"]),
+                 plain_ms=res_plain_ms, h1_ms=mean(turns["h1"]),
+                 library_ms=None, r_gib=r_bytes / 2**30,
+                 h1_bound_ms=bound(n_bytes, flops)["bound_ms"],
+                 **bound(n_bytes + r_bytes, flops), **common)
+    pos = dict(max_abs_err=max(errs.values()), errs=errs,
+               same_bits_as_plain=plain_bits, ms=mean(turns["pos_grads"]),
+               plain_ms=plain_ms, library_ms=mean(turns["einsum"]),
+               atomic_table_ms=mean(turns["atomic_table"]),
+               **bound(r_bytes + nbytes(g_out, x01, stds), 2 * res.numel()),
+               **common)
+    del res
+    print(f"[19] position gradients {name} ({common['mode']}; B="
+          f"{common['B']} n={n}): R same bits on 3 copies, features H1's, R "
+          f"vs plain {res_err:.2e} of max; the contraction same bits on 3 "
+          f"copies, vs plain {errs} of max (same bits: {plain_bits}); d_x01 "
+          f"/ d_stds the same bits in both modes; device ms in turns: {turns}"
+          f"; bounds residual mode {resid['bound_ms']:.4f} (H1 "
+          f"{resid['h1_bound_ms']:.4f}), contraction {pos['bound_ms']:.4f}; "
+          f"plain R {res_plain_ms:.1f} ms, plain contraction {plain_ms:.1f} "
+          f"ms (CUDA events); R {resid['r_gib']:.3f} GiB")
+    return dict(residuals=resid, pos_grads=pos)
 
 
 def det_scatter(dev, name, idx, vals, rows, full):
@@ -4788,13 +4884,15 @@ def _two_run_diff(a, b):
 
 def _det_counters():
     from nerf_lidar_tpu_torch.ops import grid
-    return dict(hash_encode_ms_bwd=(grid.hash_encode_multisample_bwd,
+    return dict(hash_encode_ms=(grid.hash_encode_multisample, "launches"),
+                hash_encode_ms_bwd=(grid.hash_encode_multisample_bwd,
                                     "launches"),
                 hash_encode_ms_bwd_det=(grid.hash_encode_multisample_bwd_det,
                                         "launches"),
-                hash_encode_ms_pos_grads=(
-                    grid.hash_encode_multisample_bwd_det,
-                    "position_launches"),
+                hash_encode_ms_residuals=(grid.hash_encode_ms_residuals,
+                                          "launches"),
+                hash_encode_ms_pos_grads=(grid.pos_grads_from_residuals,
+                                          "launches"),
                 scatter_add_rows=(grid.scatter_add_rows, "launches"),
                 scatter_add_rows_det=(grid.scatter_add_rows_det, "launches"),
                 abs_bound=(grid.bound_exponents, "launches"))
@@ -4802,46 +4900,47 @@ def _det_counters():
 
 @contextlib.contextmanager
 def pos_grads_by_spec():
-    """Within the block, counts the d_x01 / d_stds launches
-    (`hash_encode_ms_pos_grads`) per hash-grid spec: yields {spec: count}.
-    Its wrapper takes the deterministic wrapper's counts (as
-    `obj_grid_launches` does) and gives them back."""
+    """Within the block, counts the contraction's launches
+    (`hash_encode_ms_pos_grads`) per hash-grid spec, through the encode
+    backward's entry `grid.hash_encode_multisample_bwd` (both modes pass
+    there): yields {spec: count}."""
     from nerf_lidar_tpu_torch.ops import grid
-    orig = grid.hash_encode_multisample_bwd_det
+    orig = grid.hash_encode_multisample_bwd
     counts = {}
 
     def wrapper(*a, **kw):
-        before = wrapper.position_launches
+        before = grid.pos_grads_from_residuals.launches
         out = orig(*a, **kw)
-        counts[a[4]] = (counts.get(a[4], 0) + wrapper.position_launches
-                        - before)
+        counts[a[4]] = (counts.get(a[4], 0)
+                        + grid.pos_grads_from_residuals.launches - before)
         return out
 
     wrapper.launches = orig.launches
-    wrapper.position_launches = orig.position_launches
-    grid.hash_encode_multisample_bwd_det = wrapper
+    grid.hash_encode_multisample_bwd = wrapper
     try:
         yield counts
     finally:
         orig.launches = wrapper.launches
-        orig.position_launches = wrapper.position_launches
-        grid.hash_encode_multisample_bwd_det = orig
+        grid.hash_encode_multisample_bwd = orig
 
 
-def refine_inspect(by_spec, step):
+def refine_inspect(by_spec, step, deterministic=True):
     """The check of the refinement recipe's first deterministic run, given
     its `run`: a non-zero last-step gradient on every parameter of the
-    posenet and the tracknet and on every hash table; the d_x01 / d_stds
+    posenet and the tracknet and on every hash table; the contraction's
     launches per grid so far (`by_spec`: `pos_grads_by_spec`'s counts);
     then what one more step under the switch hands the encode backward per
     grid (`hb.record_train_inputs`). Returns ({grid: launches}, {grid:
-    recorded call})."""
+    recorded call}); without `deterministic` (the default mode's run),
+    {grid: launches} alone."""
     from nerf_lidar_tpu_torch import cli
     from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
 
     def inspect(run):
         per_grid = {name: by_spec.get(mlp.spec, 0)
                     for name, mlp in hb.grid_names(run.model)}
+        if not deterministic:
+            return per_grid
         if run.posenet is None or run.tracknet is None:
             fail("train refine: no posenet or tracknet")
         _table_grads_nonzero(run.model, "train refine --deterministic")
@@ -5028,17 +5127,21 @@ def phase_c8(dev):
 
 def phase_determinism(dev, train_inputs, pos_inputs):
     """[19] The deterministic mode: H1-bwd's and K3's deterministic kernels
-    on [8]'s recorded train inputs (and K3's own shape), the d_x01 / d_stds
-    pass on `pos_inputs` ({name: a train step's recorded encode backward
-    call}: [12]'s object grid, [15]'s `_fast` NeRF grid with its
-    mean-point levels), then `train --deterministic` twice per path (static
-    nuscenes_single, [12]'s object scene with track refinement,
-    nuscenes_single_fast; the static path once more without torch's fill
-    of uninitialized memory) and `raydrop_train --deterministic` twice,
-    each beside the default mode's two runs (the evidence that the check
-    sees a difference; not a failure condition). Returns the
-    "deterministic" numbers of the kernels line and the launches by
-    path."""
+    on [8]'s recorded train inputs (and K3's own shape), the position
+    gradients (`pos_grads_check`: H1's residual mode and the contraction,
+    in both modes) on `pos_inputs` ({name: a train step's recorded encode
+    backward call}: [12]'s object grid, [15]'s `_fast` NeRF grid with its
+    mean-point levels) and on the refinement recipe's calls, then `train
+    --deterministic` twice per path (static nuscenes_single, [12]'s object
+    scene with track refinement, nuscenes_single_fast, the refinement
+    recipe; the static path once more without torch's fill of
+    uninitialized memory) and `raydrop_train --deterministic` twice, each
+    beside the default mode's two runs (the evidence that the check sees a
+    difference; not a failure condition; the refinement recipe's default
+    runs must take d_x01 / d_stds by the same two kernels on every grid,
+    its atomic H1-bwd d_table alone). Returns the "deterministic" numbers
+    of the kernels line, the position gradients' two entries and the
+    launches by path."""
     import torch
     from torch.utils import deterministic as torch_det
     from nerf_lidar_tpu_torch.ops import grid
@@ -5059,7 +5162,7 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                                      spec.num_levels, full=name == "nerf")
         torch.cuda.empty_cache()
     for name, rec in pos_inputs.items():
-        pos[name] = det_pos_grads(dev, name, rec)
+        pos[name] = pos_grads_check(dev, name, rec)
         torch.cuda.empty_cache()
     g = torch.Generator(device=dev).manual_seed(19)
     rows, n = 1 << 17, 1 << 22
@@ -5075,12 +5178,13 @@ def phase_determinism(dev, train_inputs, pos_inputs):
     for key, argv in DET_TRAIN.items():
         res = {}
         for det in (True, False):
-            refining = key == "refine" and det
+            refining = key == "refine"
             with (pos_grads_by_spec() if refining
                   else contextlib.nullcontext()) as by_spec:
                 same, diff, ms, peak, launches, first, extra = \
                     det_train_pair(dev, key, argv, det, refine_inspect(
-                        by_spec, DET_REFINE_STEPS) if refining else None)
+                        by_spec, DET_REFINE_STEPS, det) if refining
+                        else None)
             res["det" if det else "default"] = dict(
                 bit_identical=same, max_diff=diff, ms_per_step=ms,
                 peak_gib=peak)
@@ -5095,7 +5199,7 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                 need = ["hash_encode_ms_bwd_det", "scatter_add_rows_det",
                         "abs_bound"]
                 if key in ("objects", "refine"):
-                    need.append("hash_encode_ms_pos_grads")
+                    need += POS_KERNELS
                 need_launches(f"train --deterministic ({key})", launches,
                               need)
                 if key == "refine":
@@ -5121,6 +5225,19 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                     launches["scatter_add_rows_det"] or launches["abs_bound"]:
                 fail(f"train ({key}) without the switch launched a "
                      f"deterministic kernel: {launches}")
+            elif key == "refine":
+                # The default mode: the atomic H1-bwd (its d_table alone:
+                # the kernel takes no position gradient) and d_x01 /
+                # d_stds by the residual mode and the contraction, on
+                # every grid.
+                need_launches("train refine (default mode)", launches,
+                              ("hash_encode_ms_bwd", *POS_KERNELS))
+                refine["default_launches_by_grid"] = extra
+                need_launches(
+                    "train refine (default mode), d_x01 / d_stds by grid",
+                    {g: sum(c for k, c in extra.items() if k.startswith(g))
+                     for g in REFINE_GRIDS}, REFINE_GRIDS)
+                paths["train_refine"] = launches
             del first
         train[key] = res
         print(f"[19] train {key}: --deterministic twice: bit-identical "
@@ -5132,8 +5249,10 @@ def phase_determinism(dev, train_inputs, pos_inputs):
               f"{res['default']['ms_per_step']:.1f} ms/step, peak "
               f"{res['default']['peak_gib']:.2f} GiB; launches "
               f"{paths[f'train_{key}_deterministic']}"
-              + (f"; d_x01 / d_stds launches by grid "
-                 f"{refine['launches_by_grid']}" if key == "refine" else ""))
+              + (f"; contraction launches by grid, deterministic "
+                 f"{refine['launches_by_grid']}, default "
+                 f"{refine['default_launches_by_grid']}"
+                 if key == "refine" else ""))
         if "det_no_fill" in res:
             nf = res["det_no_fill"]
             print(f"[19] train {key} --deterministic without torch's fill of "
@@ -5141,9 +5260,9 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                   f"peak {nf['peak_gib']:.2f} GiB, the same bits as with it: "
                   f"{nf['same_as_filled']}")
 
-    # The refinement recipe's own d_x01 / d_stds calls.
+    # The refinement recipe's own encode-backward calls.
     for name, rec in refine.pop("inputs").items():
-        pos[f"refine {name}"] = det_pos_grads(dev, f"refine {name}", rec)
+        pos[f"refine {name}"] = pos_grads_check(dev, f"refine {name}", rec)
         torch.cuda.empty_cache()
 
     feats = os.path.join("exp", RD_EXP, "features.npy")
@@ -5167,16 +5286,21 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                launches=sum(by_path("hash_encode_ms_bwd_det").values()),
                launches_by_path=by_path("hash_encode_ms_bwd_det"),
                source=KERNEL_SOURCE, train=train, raydrop=rd)
-    # The d_x01 / d_stds pass: its top-level numbers on the refinement
-    # recipe's NeRF grid call, every call under "grids".
-    pos_kernel = dict(
-        pos["refine nerf"], name="hash_encode_ms_pos_grads", route="cuda",
-        source=KERNEL_SOURCE, replaces="nerf_lidar_tpu/ops/grid.py:366",
-        inputs="the refinement recipe's train step, NeRF grid (d_x01 and "
-        "d_stds)", grids=pos,
-        launches=sum(by_path("hash_encode_ms_pos_grads").values()),
-        launches_by_path=by_path("hash_encode_ms_pos_grads"),
-        refine_launches_by_grid=refine["launches_by_grid"])
+    # The position gradients' two kernels: top-level numbers on the
+    # refinement recipe's NeRF grid call, every call under "grids".
+    pos_entries = {}
+    for key, name in (("residuals", "hash_encode_ms_residuals"),
+                      ("pos_grads", "hash_encode_ms_pos_grads")):
+        pos_entries[key] = dict(
+            pos["refine nerf"][key], name=name, route="cuda",
+            source=KERNEL_SOURCE, replaces="nerf_lidar_tpu/ops/grid.py:366",
+            inputs="the refinement recipe's train step, NeRF grid (d_x01 "
+            "and d_stds)", grids={g: v[key] for g, v in pos.items()},
+            launches=sum(by_path(name).values()),
+            launches_by_path=by_path(name),
+            refine_launches_by_grid=dict(
+                deterministic=refine["launches_by_grid"],
+                default=refine["default_launches_by_grid"]))
     k3 = dict(k3_grids["nerf"], grids=k3_grids,
               launches=sum(by_path("scatter_add_rows_det").values()),
               launches_by_path=by_path("scatter_add_rows_det"),
@@ -5192,7 +5316,7 @@ def phase_determinism(dev, train_inputs, pos_inputs):
                     launches=sum(by_path("abs_bound").values()),
                     launches_by_path=by_path("abs_bound"))
     return dict(hash_encode_ms_bwd=bwd, scatter_add_rows=k3,
-                pos_grads=pos_kernel, abs_bound=s_kernel)
+                abs_bound=s_kernel, **pos_entries)
 
 
 def main():
@@ -5201,6 +5325,7 @@ def main():
         dp_rank(int(args["--dp_rank"]), int(args["--dp_world"]),
                 int(args["--dp_port"]))
         return
+    started = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -5214,6 +5339,7 @@ def main():
     sys.path.insert(0, HERE)
     from nerf_lidar_tpu_torch import cli
     from nerf_lidar_tpu_torch.ops import _build
+    residuals_by_entry = watch_residuals(cli)
 
     # [1] device
     dev = torch.device("cuda", 0)
@@ -5353,11 +5479,19 @@ def main():
               "experiments/gather_bench.py:327",
               "seeded indices, tbl [8, 128], idx [1024, 8, 128]",
               gathers["K5"]),
-        # The deterministic mode's own kernels ([19]): the d_x01 / d_stds
-        # pass and the bound S of every deterministic sum.
-        det["pos_grads"],
+        # The position gradients' kernels ([19]'s checks and times, the
+        # launches of every path) and the deterministic mode's bound S.
+        *(dict(det[key], launches_by_entry=residuals_by_entry,
+               launches_by_path=dict(det[key]["launches_by_path"], **{
+                   p: c[det[key]["name"]] for p, c in paths
+                   if det[key]["name"] in c}))
+          for key in ("residuals", "pos_grads")),
         det["abs_bound"],
     ]
+    for k in kernels[-3:-1]:
+        k["launches"] = sum(k["launches_by_path"].values())
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - started:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

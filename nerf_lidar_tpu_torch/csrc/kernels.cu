@@ -82,6 +82,28 @@
 //   Measured and dropped: a shared-memory copy of the coarse levels' slices
 //   in persistent blocks, slower than these reads on the render's and the
 //   train step's points (PERF.md).
+//   Residual mode (the forward of a grid whose x01 / stds take a gradient:
+//   pose and track refinement): the position gradient is a contraction of
+//   per-point terms with g_out, and the terms need the corner rows of the
+//   point's cell, which this thread reads anyway. So a run reads its 8 rows
+//   when it starts and keeps them in registers (its weighted sum is taken
+//   from them when it ends: the features are the same bits as without the
+//   mode), and every point writes, in its own step of the loop, its 4 rows
+//   of C floats (rows 0-2: erf_w / n * scale * d f / d frac_d, row 3:
+//   d erf_w / ds / n * f; a mean-point level: the mean point's terms with
+//   w_mean / n, and each point's own d erf_w / ds), zeros out of range,
+//   with streaming stores (evict-first: R should not push the level's rows
+//   out of the L2). R is [L, n, 4, B, C]: the lanes of a warp, which step
+//   through their points together, store a row of point j as 32 C
+//   contiguous floats. Measured and dropped (PERF.md): R [L, B, n, 4, C]
+//   written when a run ends, walking its points again (each lane's rows
+//   448 bytes from its neighbour's, and the walks diverging): NeRF 5.07 ms
+//   against H1's 2.07 on the refinement step. The backward then reads R
+//   instead of the table: where the earlier position-gradient pass and every
+//   redesign of it re-gathered the corner rows of every point and level
+//   (PERF.md), this adds R's write to H1 and one read.
+//   C >= 8 (no configuration asks it): each lane reads its point's corner
+//   rows anew, float4 by float4, after the warp's encode.
 //
 // K3 scatter_add_rows: replaces the Pallas kernel
 //   experiments/scatter_variants.py:pallas_mxu_scatter (out[r] += sum of
@@ -111,17 +133,13 @@
 //   vals and idx must start on 16 bytes (the wrapper refuses others).
 //   Indices outside [0, rows) are dropped, as the one-hot drops them.
 //
-// H1 backward hash_encode_ms_bwd: the gradient of hash_encode_ms, which JAX
-//   gets by autodiff through the gathers of _ms_encode_impl
-//   (diff_inputs=True) or from _ms_encode_nodiff_bwd (diff_inputs=False:
-//   d_table alone). d_table: every in-range corner adds
-//   w_corner * erf_w / n * g_out[b, l] to its row (a mean-point level:
-//   w_corner * w_mean * g_out[b, l] at the mean point). d_x01 / d_stds
-//   (only when asked for): the derivative of the trilinear or simplex
-//   weights (the sorted fractions' gradients with JAX's rule at ties)
-//   times scale_l, and of the erf weight, each against <g_out, corner
-//   row>, per point (a mean-point level: 1 / n of the mean's to each
-//   point), summed over the levels with atomics. Bound by table atomics, and at the
+// H1 backward hash_encode_ms_bwd: the d_table gradient of hash_encode_ms,
+//   which JAX gets by autodiff through the gathers of _ms_encode_impl
+//   (diff_inputs=True) or from _ms_encode_nodiff_bwd (diff_inputs=False).
+//   Every in-range corner adds w_corner * erf_w / n * g_out[b, l] to its
+//   row (a mean-point level: w_corner * w_mean * g_out[b, l] at the mean
+//   point). d_x01 / d_stds come from H1's residuals (hash_encode_ms_pos_grads
+//   below), in both modes. Bound by table atomics, and at the
 //   coarse levels by same-row serialisation: training points cluster along
 //   rays, so millions of updates land on a few thousand rows. Design, with
 //   the forward's threads, block order and staging (level-major, a level's
@@ -152,15 +170,14 @@
 //
 // Deterministic variants (torch.are_deterministic_algorithms_enabled(); the
 //   JAX package's scatter-adds are XLA's, whose sums do not depend on the
-//   run): hash_encode_ms_bwd_fixed (d_table), hash_encode_ms_pos_grads
-//   (d_x01 / d_stds) and scatter_add_rows_fixed (K3), with abs_bound before
-//   and fixed_to_float after. A float sum depends on its order; an integer
-//   sum does not. So every term is rounded once, by its own lane and before
-//   any cross-lane sum, to a fixed-point int64, u * 2^k[g, c] to the
-//   nearest integer, and all sums after that are exact: where terms are
-//   merged (a thread's run, a warp's segmented scan, L2 atomics) and in
-//   what order cannot move a bit, so neither can the block order, the
-//   block size or the sinks' layout. k[g, c] = 62 - ceil(log2
+//   run): hash_encode_ms_bwd_fixed (d_table) and scatter_add_rows_fixed
+//   (K3), with abs_bound before and fixed_to_float after. A float sum depends
+//   on its order; an integer sum does not. So every term is rounded once, by
+//   its own lane and before any cross-lane sum, to a fixed-point int64, u *
+//   2^k[g, c] to the nearest integer, and all sums after that are exact: where
+//   terms are merged (a thread's run, a warp's segmented scan, L2 atomics) and
+//   in what order cannot move a bit, so neither can the block order, the block
+//   size or the sinks' layout. k[g, c] = 62 - ceil(log2
 //   S[g, c]), S = the sum of |g_out| (H1-bwd, per level g and channel c) or
 //   of |vals| (K3, per channel) over the finite entries: each term of an
 //   entry of group g is at most |that g_out| (the corner weights of a point
@@ -190,10 +207,6 @@
 //     atomics they saved), and cutting a hashed level's rows into passes so
 //     each pass's 32 MB of sums stay in L2 (each pass walks every point
 //     again: 1.8 ms a level against 1.3);
-//   - d_x01 / d_stds are a gather, not a scatter: one thread per sample
-//     walks the levels in order, reads the corner rows as H1 does, and
-//     sums its n points' gradients in shared-memory slots of its own,
-//     written once; float sums in a fixed order, no atomics;
 //   - K3 keeps its chunks and tiling, with each value rounded as it is
 //     loaded, the runs summed in int64 registers, shuffles and shared
 //     memory, and every finished run added by its warp lane-transposed;
@@ -204,6 +217,18 @@
 //   accumulator (8 bytes an entry) read and cleared once by fixed_to_float;
 //   on the card the sums are held back by the L2's int64 atomics, C a row
 //   where the float kernels' vector atomic is one (PERF.md).
+//
+// hash_encode_ms_pos_grads: d_x01 / d_stds of hash_encode_ms in both modes,
+//   from H1's residuals R [L, n, 4, B, C]: d_x01[b, j, d] = sum_l sum_c
+//   R[l, j, d, b, c] g_out[b, l, c], d_stds[b, j] the same over row 3. It
+//   replaces, with H1's residual mode, what JAX's autodiff of
+//   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl does with the intermediates
+//   it saves (diff_inputs=True). Bound by bytes: R read once, g_out read
+//   once, the outputs written once (3.11 GB, 0.93 ms at 3.35 TB/s, for the
+//   refinement step's NeRF grid). Design: a thread a point, a warp 32
+//   neighbouring samples' point j, so each of its loads of a row covers 32
+//   C contiguous floats; sums in a fixed order (levels, then channels), each
+//   output written once: no atomics, the same bits in every run and mode.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -218,6 +243,10 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 // Samples (threads) of a block of H1 and its backward.
 constexpr int kThreads = 128;
+// Threads of a block of hash_encode_ms_pos_grads, and the samples it takes
+// (a warp's; its other threads take more points of them).
+constexpr int kPosThreads = 256;
+constexpr int kPosSamples = 32;
 // Staged x01 / stds of a block's tile: at most the dynamic shared memory a
 // block gets without opting in (16 * kThreads * n bytes; n <= 24).
 constexpr int kStageBytes = 48 * 1024;
@@ -683,23 +712,212 @@ __device__ __forceinline__ float erf_weight(float s, const Level& v) {
   return erff(1.0f / sqrtf(fmaxf(8.0f * (s * s) * v.g2, 1e-10f)));
 }
 
+// d erf_weight / ds at std s (0 where the weight's argument is clamped).
+__device__ __forceinline__ float erf_weight_grad(float s, const Level& v) {
+  const float u = 8.0f * (s * s) * v.g2;
+  if (!(u > 1e-10f)) return 0.f;
+  // v = u^-1/2, u = 8 s^2 g^2.
+  const float vs = 1.0f / sqrtf(u);
+  return 1.1283791671f * expf(-vs * vs) * (-0.5f * vs / u) *
+         (16.0f * s * v.g2);
+}
+
+// H1's residual mode. R [L, n, 4, B, C] holds, per level, point j, row q
+// and sample b, the C floats that d_x01 / d_stds contract with g_out
+// (hash_encode_ms_pos_grads): rows 0-2 kx * d f / d frac_d, row 3 ks * f,
+// with f the point's interpolated row, kx = erf_w / n * scale (a mean-point
+// level: w_mean / n * scale, d frac / d x = scale) and ks = d erf_w / ds / n;
+// zeros for a point out of range. Samples are the fastest axis after the
+// channels, so the lanes of a warp (neighbouring samples) writing their
+// point j store one contiguous run of 32 C floats a row.
+struct ResOut {
+  float* p;       // R[l, 0, 0, b]: this sample's rows at this level
+  int64_t plane;  // B * C: from one (point, row) plane to the next
+  __device__ __forceinline__ float* row(int j, int q) const {
+    return p + (4 * j + q) * plane;
+  }
+};
+
+// Bits of a corner's offsets: the simplex vertex it is, if any.
+__host__ __device__ constexpr int corner_bits(int c) {
+  return (c & 1) + ((c >> 1) & 1) + ((c >> 2) & 1);
+}
+
+// The corners of the point's simplex (tetra) or all 8, as a mask.
+template <bool kTetra>
+__device__ __forceinline__ unsigned reached_corners(const Cell& p) {
+  if constexpr (kTetra) {
+    const Simplex t = simplex_of(p);
+    return 1u | (1u << vertex_corner(t, 1)) | (1u << vertex_corner(t, 2)) |
+           0x80u;
+  } else {
+    return 0xffu;
+  }
+}
+
+// f[k] = sum_c w_c row_c[k] and df[d][k] = sum_c (d w_c / d frac_d)
+// row_c[k] of a point in cell p, from its corner rows[c] (the derivative of
+// the trilinear weights, or of the simplex weights with the sorted
+// fractions' gradients by JAX's rule at ties; corners off the simplex are
+// not read). c is a constant in each unrolled step, so rows stay in
+// registers.
+template <int C, bool kTetra>
+__device__ __forceinline__ void point_terms(const Cell& p,
+                                            const float (*rows)[C],
+                                            float* f, float (*df)[C]) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) f[k] = df[0][k] = df[1][k] = df[2][k] = 0.f;
+  if constexpr (kTetra) {
+    const Simplex t = simplex_of(p);
+    float d1[3], d3[3];
+    sorted_grad<true>(p, d1);
+    sorted_grad<false>(p, d3);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int k = corner_bits(c);
+      if (vertex_corner(t, k) != c) continue;
+      float dw[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const float d2 = 1.f - d1[d] - d3[d];
+        dw[d] = k == 0   ? -d1[d]
+                : k == 1 ? d1[d] - d2
+                : k == 2 ? d2 - d3[d]
+                         : d3[d];
+      }
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        f[q] += t.w[k] * rows[c][q];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) df[d][q] += dw[d] * rows[c][q];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float wx = (c & 1) ? p.rx : 1.f - p.rx;
+      const float wy = (c & 2) ? p.ry : 1.f - p.ry;
+      const float wz = (c & 4) ? p.rz : 1.f - p.rz;
+      const float w = wx * wy * wz;
+      const float dw[3] = {((c & 1) ? 1.f : -1.f) * wy * wz,
+                           wx * ((c & 2) ? 1.f : -1.f) * wz,
+                           wx * wy * ((c & 4) ? 1.f : -1.f)};
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        f[q] += w * rows[c][q];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) df[d][q] += dw[d] * rows[c][q];
+      }
+    }
+  }
+}
+
+// p[0..kW) = v[0..kW) with streaming stores (R is read once, by the
+// backward, and should not push the level's table rows out of the L2); p
+// is 4 min(kW, 4)-byte aligned (a row of R, C floats at a multiple of C).
+template <int kW>
+__device__ __forceinline__ void store_streaming(float* p, const float* v) {
+  if constexpr (kW % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kW / 4; ++i)
+      __stcs(reinterpret_cast<float4*>(p) + i,
+             make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]));
+  } else if constexpr (kW == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < kW; ++i) __stcs(p + i, v[i]);
+  }
+}
+
+// Point j's residual rows, kW channels of each at `at` (the first channel
+// of the part; C >= 8 writes its rows a float4 part at a time): kx * df[d]
+// and ks * f.
+template <int kW>
+__device__ __forceinline__ void store_residual(const ResOut& r, int j,
+                                               int at, float kx, float ks,
+                                               const float* f,
+                                               const float (*df)[kW]) {
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float v[kW];
+#pragma unroll
+    for (int q = 0; q < kW; ++q) v[q] = kx * df[d][q];
+    store_streaming<kW>(r.row(j, d) + at, v);
+  }
+  float v[kW];
+#pragma unroll
+  for (int q = 0; q < kW; ++q) v[q] = ks * f[q];
+  store_streaming<kW>(r.row(j, 3) + at, v);
+}
+
+// Point j's zero residual rows.
+template <int C>
+__device__ __forceinline__ void store_zero_residual(const ResOut& r, int j) {
+  const float z[C] = {};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) store_streaming<C>(r.row(j, q), z);
+}
+
+// The corner rows of cell (ix, iy, iz) a mask `reach` names into rows[8][C]
+// (the others are left as they are and not read).
+template <int C, bool kTetra>
+__device__ __forceinline__ void load_corners(const float* tbl, int ix, int iy,
+                                             int iz, unsigned reach,
+                                             const Level& v,
+                                             float (*rows)[C]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (!((reach >> c) & 1u)) continue;
+    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C,
+                rows[c]);
+  }
+}
+
+// acc += sum_c W[c] rows[c], in gather_run's order and with its skips (so
+// with the same bits).
+template <int C, bool kTetra>
+__device__ __forceinline__ void add_run(const float* W, const float (*rows)[C],
+                                        float* acc) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (kTetra && W[c] == 0.f) continue;
+#pragma unroll
+    for (int k = 0; k < C; ++k) acc[k] += W[c] * rows[c][k];
+  }
+}
+
 // The encode of one sample at one level, before the division by n:
 // acc[k] = sum over in-range points j of erf_w_j sum_c w_jc row_c[k], each
 // corner row read once per run of same-cell points. tbl: the level's slice
-// of the table.
-template <int C, bool kTetra>
+// of the table. kResid: also every point's residual, written in the
+// point's own step (the lanes of a warp step through the points together,
+// so their stores of point j are one contiguous run): a run's corner rows
+// are read when it starts and kept in registers (with tetra all 8: which
+// of them the run's points reach is not known yet), and its weighted sum
+// is taken from them when it ends.
+template <int C, bool kTetra, bool kResid>
 __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
-                                           const Level& v, float* acc) {
+                                           const Level& v, float* acc,
+                                           const ResOut& r) {
   float W[8];
+  float rows[8][C];
   int cx = 0, cy = 0, cz = 0;
   bool have = false;
+  const float inv_n = 1.0f / (float)n;
   for (int j = 0; j < n; ++j) {
     const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
-    if (!in_unit_cube(x, y, z)) continue;  // encodes to 0, breaks no run
+    if (!in_unit_cube(x, y, z)) {  // encodes to 0, breaks no run
+      if constexpr (kResid) store_zero_residual<C>(r, j);
+      continue;
+    }
     const float wl = erf_weight(pt.s[j], v);
     const Cell p = cell_of(x, y, z, v.scale);
     if (have && !same_cell(p, cx, cy, cz)) {
-      gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
+      if constexpr (kResid)
+        add_run<C, kTetra>(W, rows, acc);
+      else
+        gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
       have = false;
     }
     if (!have) {
@@ -709,10 +927,22 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
       have = true;
 #pragma unroll
       for (int c = 0; c < 8; ++c) W[c] = 0.f;
+      if constexpr (kResid)
+        load_corners<C, kTetra>(tbl, cx, cy, cz, 0xffu, v, rows);
     }
     add_weights<kTetra>(p, wl, W);
+    if constexpr (kResid) {
+      float f[C], df[3][C];
+      point_terms<C, kTetra>(p, rows, f, df);
+      store_residual<C>(r, j, 0, wl * inv_n * v.scale,
+                        inv_n * erf_weight_grad(pt.s[j], v), f, df);
+    }
   }
-  if (have) gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
+  if (!have) return;
+  if constexpr (kResid)
+    add_run<C, kTetra>(W, rows, acc);
+  else
+    gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
 }
 
 // A sample's mean point (its n points, out-of-range ones included, summed
@@ -738,16 +968,86 @@ __device__ __forceinline__ MeanPoint mean_of(Points pt, int n,
 
 // A mean-point level (resolution at or below the coarse cutoff): the mean
 // point encoded once with the mean erf weight; 0 when it is out of range.
-template <int C, bool kTetra>
+// kResid: each point j gets the mean point's terms, kx = w_mean / n *
+// scale (x_mean = sum_j x_j / n) and ks = d erf_w(s_j) / ds / n (w_mean =
+// sum_j erf_w_j / n).
+template <int C, bool kTetra, bool kResid>
 __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
                                             int n, const Level& v,
-                                            float* acc) {
+                                            float* acc, const ResOut& r) {
   const MeanPoint m = mean_of(pt, n, v);
-  if (!in_unit_cube(m.x, m.y, m.z)) return;
+  if (!in_unit_cube(m.x, m.y, m.z)) {
+    if constexpr (kResid)
+      for (int j = 0; j < n; ++j) store_zero_residual<C>(r, j);
+    return;
+  }
   const Cell p = cell_of(m.x, m.y, m.z, v.scale);
   float W[8] = {};
   add_weights<kTetra>(p, m.w, W);
-  gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc);
+  if constexpr (kResid) {
+    float rows[8][C], f[C], df[3][C];
+    load_corners<C, kTetra>(tbl, p.ix, p.iy, p.iz, reached_corners<kTetra>(p),
+                            v, rows);
+    add_run<C, kTetra>(W, rows, acc);
+    point_terms<C, kTetra>(p, rows, f, df);
+    const float inv_n = 1.0f / (float)n, kx = m.w / (float)n * v.scale;
+    for (int j = 0; j < n; ++j)
+      store_residual<C>(r, j, 0, kx, inv_n * erf_weight_grad(pt.s[j], v), f,
+                        df);
+  } else {
+    gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc);
+  }
+}
+
+// The residuals of one sample at one level for C >= 8, by its own lane
+// (after the warp's encode, which keeps no rows in registers): per float4
+// part of the rows, each point's (or the mean point's) corner parts read
+// anew and its residual's parts written. No configuration takes position
+// gradients on a C >= 8 grid; this keeps the contract at those widths.
+template <int C, bool kTetra>
+__device__ __forceinline__ void residuals_wide(const float* tbl, Points pt,
+                                               int n, const Level& v,
+                                               const ResOut& r) {
+  const float inv_n = 1.0f / (float)n;
+  const auto one = [&](const Cell& p, int j, float kx, float ks) {
+    const unsigned reach = reached_corners<kTetra>(p);
+#pragma unroll 1
+    for (int q = 0; q < C / 4; ++q) {
+      float rows[8][4], f[4], df[3][4];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (!((reach >> c) & 1u)) continue;
+        load_row<4>(tbl + (int64_t)corner_row<true>(p.ix, p.iy, p.iz, c, v) *
+                              C + 4 * q,
+                    rows[c]);
+      }
+      point_terms<4, kTetra>(p, rows, f, df);
+      store_residual<4>(r, j, 4 * q, kx, ks, f, df);
+    }
+  };
+  if (v.mean) {
+    const MeanPoint m = mean_of(pt, n, v);
+    const bool in = in_unit_cube(m.x, m.y, m.z);
+    const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+    for (int j = 0; j < n; ++j) {
+      if (in)
+        one(p, j, m.w / (float)n * v.scale,
+            inv_n * erf_weight_grad(pt.s[j], v));
+      else
+        store_zero_residual<C>(r, j);
+    }
+    return;
+  }
+  for (int j = 0; j < n; ++j) {
+    const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
+    if (!in_unit_cube(x, y, z)) {
+      store_zero_residual<C>(r, j);
+      continue;
+    }
+    const float s = pt.s[j];
+    one(cell_of(x, y, z, v.scale), j, erf_weight(s, v) * inv_n * v.scale,
+        inv_n * erf_weight_grad(s, v));
+  }
 }
 
 // encode_one for C >= 8, warp-collective (active: this lane holds a
@@ -805,11 +1105,14 @@ __device__ __forceinline__ void encode_mean_wide(bool active,
     gather_wide<C, kTetra>(in, p.ix, p.iy, p.iz, W, v, tbl, acc);
 }
 
-template <int C, bool kTetra>
+// out: nullptr where only the residuals are wanted. kResid: resid [L, n,
+// 4, B, C] gets every point's residual (see encode_one).
+template <int C, bool kTetra, bool kResid>
 __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
                                       const float* __restrict__ x01,
                                       const float* __restrict__ stds,
-                                      float* __restrict__ out, int64_t B,
+                                      float* __restrict__ out,
+                                      float* __restrict__ resid, int64_t B,
                                       int n, int L, int64_t tiles,
                                       int level_major, int stage,
                                       GridLevels lv) {
@@ -848,24 +1151,34 @@ __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
     const int t0 = (int)(threadIdx.x & ~31u) + gr.base;
 #pragma unroll
     for (int m = 0; m < kG; ++m) {
-      if (t0 + m >= cnt) break;
+      if (out == nullptr || t0 + m >= cnt) break;
       const int64_t b = w.b0 + t0 + m;
       reinterpret_cast<float4*>(out + (b * L + w.l) * C)[gr.p] = acc[m];
+    }
+    if constexpr (kResid) {
+      if (active)
+        residuals_wide<C, kTetra>(
+            tbl, pt, n, v,
+            ResOut{resid + ((int64_t)w.l * n * 4 * B + w.b0 + threadIdx.x) *
+                               C,
+                   B * C});
     }
     return;
   }
   if ((int)threadIdx.x >= cnt) return;
   float acc[C] = {};
+  const int64_t b = w.b0 + threadIdx.x;
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+  const ResOut res{
+      kResid ? resid + ((int64_t)w.l * n * 4 * B + b) * C : nullptr, B * C};
   if (v.mean) {
-    encode_mean<C, kTetra>(tbl, pt, n, v, acc);
+    encode_mean<C, kTetra, kResid>(tbl, pt, n, v, acc, res);
   } else {
-    encode_one<C, kTetra>(tbl, pt, n, v, acc);
+    encode_one<C, kTetra, kResid>(tbl, pt, n, v, acc, res);
 #pragma unroll
     for (int k = 0; k < C; ++k) acc[k] = acc[k] / (float)n;
   }
-  const int64_t b = w.b0 + threadIdx.x;
-  store_row<C>(out + (b * L + w.l) * C, acc);
+  if (out != nullptr) store_row<C>(out + (b * L + w.l) * C, acc);
 }
 
 // dst[0..C) += v[0..C) in device memory. sm_90 adds a 2- or 4-float row in
@@ -983,8 +1296,7 @@ template <int C>
 struct FloatRows {
   using T = float;
   static constexpr bool kSegments = false;  // mean levels: add_runs
-  float* dst;  // the level's d_table slice; nullptr: d_table not wanted
-  __device__ __forceinline__ bool on() const { return dst != nullptr; }
+  float* dst;  // the level's d_table slice
   template <class Row>
   __device__ __forceinline__ T term(float w, float g, bool, int,
                                     Row) const {
@@ -1017,9 +1329,8 @@ template <int C>
 struct WideRows {
   using T = float;
   static constexpr bool kSegments = true;
-  float* dst;   // the level's d_table slice; nullptr: d_table not wanted
+  float* dst;   // the level's d_table slice
   float4* buf;  // this warp's staging slots
-  __device__ __forceinline__ bool on() const { return dst != nullptr; }
   template <class Row>
   __device__ __forceinline__ T term(float w, float g, bool, int,
                                     Row) const {
@@ -1065,7 +1376,6 @@ struct FixedRows {
   unsigned* flags;          // the whole table's flags
   int64_t base;             // the level's first entry, offset * C
   FixedScale q[C];          // the level's exponent per channel
-  __device__ __forceinline__ bool on() const { return true; }
   // With tetra a weight of 0 is a corner that no point of the run reaches
   // (or a simplex vertex of weight 0): it adds nothing, also against a
   // non-finite g. Trilinear corners are all terms, as in JAX.
@@ -1473,81 +1783,14 @@ __device__ __forceinline__ void add_mean_segments(bool act, int ix, int iy,
   __syncwarp();  // the slots are read before the next flush writes them
 }
 
-// <g, feature> (fdot) and <g, d feature / d frac> (df[3]) of a point in
-// cell p, from the rows of its interpolation corners: the derivative of
-// the trilinear weights, or of the simplex weights (the sorted fractions'
-// gradients with JAX's rule at ties, as the plain version takes them).
-template <int C, bool kTetra>
-__device__ __forceinline__ void point_grads(const float* tbl, const Cell& p,
-                                            const float* g, const Level& v,
-                                            float& fdot, float* df) {
-  fdot = 0.f;
-  df[0] = df[1] = df[2] = 0.f;
-  if constexpr (kTetra) {
-    const Simplex t = simplex_of(p);
-    float d1[3], d3[3];
-    sorted_grad<true>(p, d1);
-    sorted_grad<false>(p, d3);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float row[C];
-      load_row<C>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz,
-                                            vertex_corner(t, k), v) * C,
-                  row);
-      float dot = 0.f;
-#pragma unroll
-      for (int q = 0; q < C; ++q) dot += g[q] * row[q];
-      fdot += t.w[k] * dot;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float d2 = 1.f - d1[d] - d3[d];
-        const float dw = k == 0   ? -d1[d]
-                         : k == 1 ? d1[d] - d2
-                         : k == 2 ? d2 - d3[d]
-                                  : d3[d];
-        df[d] += dw * dot;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float wx = (c & 1) ? p.rx : 1.f - p.rx;
-      const float wy = (c & 2) ? p.ry : 1.f - p.ry;
-      const float wz = (c & 4) ? p.rz : 1.f - p.rz;
-      float row[C];
-      load_row<C>(tbl + (int64_t)corner_row(p.ix, p.iy, p.iz, c, v) * C, row);
-      float dot = 0.f;
-#pragma unroll
-      for (int q = 0; q < C; ++q) dot += g[q] * row[q];
-      fdot += (wx * wy * wz) * dot;
-      df[0] += ((c & 1) ? 1.f : -1.f) * wy * wz * dot;
-      df[1] += wx * ((c & 2) ? 1.f : -1.f) * wz * dot;
-      df[2] += wx * wy * ((c & 4) ? 1.f : -1.f) * dot;
-    }
-  }
-}
-
-// d erf_weight / ds at std s (0 where the weight's argument is clamped).
-__device__ __forceinline__ float erf_weight_grad(float s, const Level& v) {
-  const float u = 8.0f * (s * s) * v.g2;
-  if (!(u > 1e-10f)) return 0.f;
-  // v = u^-1/2, u = 8 s^2 g^2.
-  const float vs = 1.0f / sqrtf(u);
-  return 1.1283791671f * expf(-vs * vs) * (-0.5f * vs / u) *
-         (16.0f * s * v.g2);
-}
-
-// The backward of one sample at one level. Every lane of the warp calls
-// (`active`: this lane holds a sample), because add_runs shuffles.
-// g: g_out[b, l]; tbl: the level's table slice; rows: where its d_table
-// updates go (rows.on() false when d_table is not wanted); dx / ds: this
-// sample's d_x01 / d_stds, nullptr when not wanted.
+// The backward of one sample at one level: d_table alone (d_x01 / d_stds
+// come from H1's residuals, hash_encode_ms_pos_grads). Every lane of the
+// warp calls (`active`: this lane holds a sample), because add_runs
+// shuffles. g: g_out[b, l]; rows: where its d_table updates go.
 template <int C, bool kTetra, class Rows>
 __device__ __forceinline__ void backward_one(bool active, Points pt,
                                              const float* g,
-                                             const float* tbl,
-                                             const Rows& rows, float* dx,
-                                             float* ds, int n,
+                                             const Rows& rows, int n,
                                              const Level& v) {
   const float inv_n = 1.0f / (float)n;
   float W[8] = {};
@@ -1565,85 +1808,52 @@ __device__ __forceinline__ void backward_one(bool active, Points pt,
     const bool in = active && in_unit_cube(x, y, z);
     const float coef = erf_weight(s, v) * inv_n;  // d out / d feat of j
     const Cell p = cell_of(x, y, z, v.scale);
-    if (rows.on()) {
-      const bool ends = in && have && !same_cell(p, cx, cy, cz);
-      if (__any_sync(kFullMask, ends))
-        add_runs<C, kTetra>(ends, cx, cy, cz, W, g, rows, v);
-      if (ends) have = false;
-      if (in) {
-        if (!have) {
-          cx = p.ix;
-          cy = p.iy;
-          cz = p.iz;
-          have = true;
+    const bool ends = in && have && !same_cell(p, cx, cy, cz);
+    if (__any_sync(kFullMask, ends))
+      add_runs<C, kTetra>(ends, cx, cy, cz, W, g, rows, v);
+    if (ends) have = false;
+    if (in) {
+      if (!have) {
+        cx = p.ix;
+        cy = p.iy;
+        cz = p.iz;
+        have = true;
 #pragma unroll
-          for (int c = 0; c < 8; ++c) W[c] = 0.f;
-        }
-        add_weights<kTetra>(p, coef, W);
+        for (int c = 0; c < 8; ++c) W[c] = 0.f;
       }
-    }
-    if ((dx != nullptr || ds != nullptr) && in) {
-      float fdot, df[3];
-      point_grads<C, kTetra>(tbl, p, g, v, fdot, df);
-      if (dx != nullptr) {
-        const float k = coef * v.scale;  // d frac / d x = scale (floor: 0)
-        atomicAdd(dx + 3 * j, k * df[0]);
-        atomicAdd(dx + 3 * j + 1, k * df[1]);
-        atomicAdd(dx + 3 * j + 2, k * df[2]);
-      }
-      if (ds != nullptr) atomicAdd(ds + j, inv_n * erf_weight_grad(s, v) * fdot);
+      add_weights<kTetra>(p, coef, W);
     }
   }
-  if (rows.on() && __any_sync(kFullMask, have))
+  if (__any_sync(kFullMask, have))
     add_runs<C, kTetra>(have, cx, cy, cz, W, g, rows, v);
 }
 
 // The backward of a mean-point level: the mean point's corners get
 // w_mean * weight * g (one run; neighbouring lanes in the same cell are
-// merged by add_runs), and each of the n points 1/n of the mean's position
-// and weight gradients. Warp-uniform, as backward_one.
+// merged by add_runs). Warp-uniform, as backward_one.
 template <int C, bool kTetra, class Rows>
 __device__ __forceinline__ void backward_mean(bool active, Points pt,
                                               const float* g,
-                                              const float* tbl,
-                                              const Rows& rows, float* dx,
-                                              float* ds, int n,
+                                              const Rows& rows, int n,
                                               const Level& v) {
   MeanPoint m{0.f, 0.f, 0.f, 0.f};
   if (active) m = mean_of(pt, n, v);
   const bool in = active && in_unit_cube(m.x, m.y, m.z);
   const Cell p = cell_of(m.x, m.y, m.z, v.scale);
-  if (rows.on() && __any_sync(kFullMask, in)) {
-    float W[8] = {};
-    if (in) add_weights<kTetra>(p, m.w, W);
-    if constexpr (Rows::kSegments)
-      add_mean_segments<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
-    else
-      add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
-  }
-  if ((dx == nullptr && ds == nullptr) || !in) return;
-  const float fn = (float)n;
-  float fdot, df[3];
-  point_grads<C, kTetra>(tbl, p, g, v, fdot, df);
-  const float k = m.w / fn * v.scale;
-  const float fd = fdot / fn;
-  for (int j = 0; j < n; ++j) {
-    if (dx != nullptr) {
-      atomicAdd(dx + 3 * j, k * df[0]);
-      atomicAdd(dx + 3 * j + 1, k * df[1]);
-      atomicAdd(dx + 3 * j + 2, k * df[2]);
-    }
-    if (ds != nullptr) atomicAdd(ds + j, erf_weight_grad(pt.s[j], v) * fd);
-  }
+  if (!__any_sync(kFullMask, in)) return;
+  float W[8] = {};
+  if (in) add_weights<kTetra>(p, m.w, W);
+  if constexpr (Rows::kSegments)
+    add_mean_segments<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
+  else
+    add_runs<C, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
 }
 
 template <int C, bool kTetra>
 __global__ void hash_encode_ms_bwd_kernel(
-    const float* __restrict__ table, const float* __restrict__ x01,
-    const float* __restrict__ stds, const float* __restrict__ g_out,
-    float* __restrict__ d_table, float* __restrict__ d_x01,
-    float* __restrict__ d_stds, int64_t B, int n, int L, int64_t tiles,
-    int level_major, int stage, GridLevels lv) {
+    const float* __restrict__ x01, const float* __restrict__ stds,
+    const float* __restrict__ g_out, float* __restrict__ d_table, int64_t B,
+    int n, int L, int64_t tiles, int level_major, int stage, GridLevels lv) {
   extern __shared__ __align__(16) float smem[];
   const Work w = work_of(tiles, L, level_major != 0);
   const int cnt = tile_count(B, w.b0);
@@ -1655,20 +1865,15 @@ __global__ void hash_encode_ms_bwd_kernel(
   // No early return: the lanes past B join the warp's shuffles.
   const bool active = (int)threadIdx.x < cnt;
   const int64_t b = w.b0 + threadIdx.x;
-  const int64_t off = (int64_t)lv.offset[w.l] * C;
   float g[C] = {};
   if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  float* dx = d_x01 != nullptr ? d_x01 + b * n * 3 : nullptr;
-  float* ds = d_stds != nullptr ? d_stds + b * n : nullptr;
-  float* dst = d_table != nullptr ? d_table + off : nullptr;
+  float* dst = d_table + (int64_t)lv.offset[w.l] * C;
   const auto run = [&](const auto& rows) {
     if (v.mean)
-      backward_mean<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n,
-                               v);
+      backward_mean<C, kTetra>(active, pt, g, rows, n, v);
     else
-      backward_one<C, kTetra>(active, pt, g, table + off, rows, dx, ds, n,
-                              v);
+      backward_one<C, kTetra>(active, pt, g, rows, n, v);
   };
   if constexpr (C >= 8) {
     __shared__ float4 slots[kThreads / 32][32 * wide_slot<C>()];
@@ -1688,7 +1893,6 @@ constexpr int bwd_static_smem() {
 // order and run merge, with each lane's merged corner values rounded to
 // fixed point (k: [L, C] exponents) and summed into acc ([rows, C] int64)
 // and flags (the non-finite terms) by the warp's transposed atomics.
-// d_x01 / d_stds: pos_grads_kernel.
 template <int C, bool kTetra>
 __global__ void hash_encode_ms_bwd_fixed_kernel(
     const float* __restrict__ x01, const float* __restrict__ stds,
@@ -1714,75 +1918,55 @@ __global__ void hash_encode_ms_bwd_fixed_kernel(
 #pragma unroll
   for (int c = 0; c < C; ++c) rows.q[c] = fixed_scale(__ldg(k + w.l * C + c));
   if (v.mean)
-    backward_mean<C, kTetra>(active, pt, g, nullptr, rows, nullptr, nullptr,
-                             n, v);
+    backward_mean<C, kTetra>(active, pt, g, rows, n, v);
   else
-    backward_one<C, kTetra>(active, pt, g, nullptr, rows, nullptr, nullptr, n,
-                            v);
+    backward_one<C, kTetra>(active, pt, g, rows, n, v);
 }
 
-// d_x01 / d_stds without atomics: one thread per sample walks the levels in
-// order, reads its corner rows as H1 does, and sums each point's gradient
-// (the terms of backward_one / backward_mean, the same float expressions)
-// in shared-memory slots of its own, [4n][blockDim.x] (dx, dy, dz, ds of
-// point j at (4j + q) * blockDim.x + t), written once. d_x01 / d_stds:
-// nullptr when not wanted.
-template <int C, bool kTetra>
-__global__ void pos_grads_kernel(const float* __restrict__ table,
-                                 const float* __restrict__ x01,
-                                 const float* __restrict__ stds,
-                                 const float* __restrict__ g_out,
-                                 float* __restrict__ d_x01,
-                                 float* __restrict__ d_stds, int64_t B, int n,
-                                 int L, GridLevels lv) {
-  extern __shared__ float slots[];
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int64_t b = (int64_t)blockIdx.x * nt + t;
-  if (b >= B) return;  // no shuffles below
-  float* sum = slots + t;  // slot i of this thread: sum[i * nt]
-  for (int i = 0; i < 4 * n; ++i) sum[i * nt] = 0.f;
-  const Points pt{x01 + b * n * 3, stds + b * n};
-  const float inv_n = 1.0f / (float)n;
-  for (int l = 0; l < L; ++l) {
-    const Level v = level_of(lv, l);
-    const float* tbl = table + (int64_t)lv.offset[l] * C;
-    float g[C];
-    load_row<C>(g_out + (b * L + l) * C, g);
-    if (v.mean) {
-      const MeanPoint m = mean_of(pt, n, v);
-      if (!in_unit_cube(m.x, m.y, m.z)) continue;
-      const Cell p = cell_of(m.x, m.y, m.z, v.scale);
-      float fdot, df[3];
-      point_grads<C, kTetra>(tbl, p, g, v, fdot, df);
-      const float k = m.w / (float)n * v.scale;
-      const float fd = fdot / (float)n;
-      for (int j = 0; j < n; ++j) {
+// d_x01 / d_stds from H1's residuals R [L, n, 4, B, C]: a block takes a
+// tile of kPosSamples samples (threadIdx.x) and their points (threadIdx.y,
+// striding over the n); a thread sums R[l, j, q, b, c] * g_out[b, l, c]
+// over the levels in order and, within a level, the channels in order
+// (each product and sum rounded on its own, as the plain version's torch
+// ops round them), then writes its 3 + 1 outputs once. A warp reads a row
+// of 32 neighbouring samples, 32 C contiguous floats (the layout H1's
+// residual mode writes for this); the warps of a block read the same
+// g_out rows, which the first brings into L1. Measured and dropped
+// (PERF.md): a thread taking 4 / C samples at C < 4, a float4 a row, was
+// slower (prop1 0.79 ms against 0.56 on the refinement step). d_x01 /
+// d_stds: nullptr when not wanted.
+template <int C>
+__global__ void __launch_bounds__(kPosThreads)
+    pos_grads_kernel(const float* __restrict__ resid,
+                     const float* __restrict__ g_out,
+                     float* __restrict__ d_x01, float* __restrict__ d_stds,
+                     int64_t B, int n, int L) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int64_t plane = B * C;
+  for (int j = threadIdx.y; j < n; j += blockDim.y) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int l = 0; l < L; ++l) {
+      float g[C];
+      load_row<C>(g_out + (b * L + l) * C, g);
+      const float* r = resid + ((int64_t)(l * n + j) * 4 * B + b) * C;
 #pragma unroll
-        for (int d = 0; d < 3; ++d) sum[(4 * j + d) * nt] += k * df[d];
-        sum[(4 * j + 3) * nt] += erf_weight_grad(pt.s[j], v) * fd;
-      }
-    } else {
-      for (int j = 0; j < n; ++j) {
-        const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
-        if (!in_unit_cube(x, y, z)) continue;
-        const float s = pt.s[j];
-        const float coef = erf_weight(s, v) * inv_n;
-        float fdot, df[3];
-        point_grads<C, kTetra>(tbl, cell_of(x, y, z, v.scale), g, v, fdot,
-                               df);
-        const float k = coef * v.scale;
+      for (int q = 0; q < 4; ++q) {
+        float v[C];
+        load_row<C>(r + q * plane, v);
 #pragma unroll
-        for (int d = 0; d < 3; ++d) sum[(4 * j + d) * nt] += k * df[d];
-        sum[(4 * j + 3) * nt] += inv_n * erf_weight_grad(s, v) * fdot;
+        for (int c = 0; c < C; ++c)
+          a[q] = __fadd_rn(a[q], __fmul_rn(v[c], g[c]));
       }
     }
-  }
-  for (int j = 0; j < n; ++j) {
+    const int64_t t = b * n + j;
     if (d_x01 != nullptr) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) d_x01[(b * n + j) * 3 + d] = sum[(4 * j + d) * nt];
+      d_x01[3 * t] = a[0];
+      d_x01[3 * t + 1] = a[1];
+      d_x01[3 * t + 2] = a[2];
     }
-    if (d_stds != nullptr) d_stds[b * n + j] = sum[(4 * j + 3) * nt];
+    if (d_stds != nullptr) d_stds[t] = a[3];
   }
 }
 
@@ -1824,24 +2008,29 @@ cudaError_t launch_of(int64_t B, int n, int L, int level_major, Launch* g,
 
 template <int C>
 cudaError_t encode(const float* table, const float* x01, const float* stds,
-                   float* out, int64_t B, int n, int L, const GridLevels& lv,
-                   int tetra, int level_major, cudaStream_t s) {
+                   float* out, float* resid, int64_t B, int n, int L,
+                   const GridLevels& lv, int tetra, int level_major,
+                   cudaStream_t s) {
   Launch g;
   const cudaError_t err = launch_of(B, n, L, level_major, &g);
   if (err != cudaSuccess) return err;
-  if (tetra)
-    hash_encode_ms_kernel<C, true><<<g.blocks, kThreads, g.smem, s>>>(
-        table, x01, stds, out, B, n, L, g.tiles, level_major, g.smem > 0, lv);
+  const auto go = [&](auto kernel) {
+    kernel<<<g.blocks, kThreads, g.smem, s>>>(table, x01, stds, out, resid, B,
+                                              n, L, g.tiles, level_major,
+                                              g.smem > 0, lv);
+  };
+  if (resid != nullptr)
+    tetra ? go(hash_encode_ms_kernel<C, true, true>)
+          : go(hash_encode_ms_kernel<C, false, true>);
   else
-    hash_encode_ms_kernel<C, false><<<g.blocks, kThreads, g.smem, s>>>(
-        table, x01, stds, out, B, n, L, g.tiles, level_major, g.smem > 0, lv);
+    tetra ? go(hash_encode_ms_kernel<C, true, false>)
+          : go(hash_encode_ms_kernel<C, false, false>);
   return cudaGetLastError();
 }
 
 template <int C>
-cudaError_t backward(const float* table, const float* x01, const float* stds,
-                     const float* g_out, float* d_table, float* d_x01,
-                     float* d_stds, int64_t B, int n, int L,
+cudaError_t backward(const float* x01, const float* stds, const float* g_out,
+                     float* d_table, int64_t B, int n, int L,
                      const GridLevels& lv, int tetra, int level_major,
                      cudaStream_t s) {
   Launch g;
@@ -1850,12 +2039,12 @@ cudaError_t backward(const float* table, const float* x01, const float* stds,
   if (err != cudaSuccess) return err;
   if (tetra)
     hash_encode_ms_bwd_kernel<C, true><<<g.blocks, kThreads, g.smem, s>>>(
-        table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, g.tiles,
-        level_major, g.smem > 0, lv);
+        x01, stds, g_out, d_table, B, n, L, g.tiles, level_major, g.smem > 0,
+        lv);
   else
     hash_encode_ms_bwd_kernel<C, false><<<g.blocks, kThreads, g.smem, s>>>(
-        table, x01, stds, g_out, d_table, d_x01, d_stds, B, n, L, g.tiles,
-        level_major, g.smem > 0, lv);
+        x01, stds, g_out, d_table, B, n, L, g.tiles, level_major, g.smem > 0,
+        lv);
   return cudaGetLastError();
 }
 
@@ -1885,25 +2074,19 @@ cudaError_t backward_fixed(const float* x01, const float* stds,
   return cudaGetLastError();
 }
 
-// d_x01 / d_stds by pos_grads_kernel: the largest block (up to kThreads)
-// whose slots, 16 n bytes a sample, fit kStageBytes.
+// d_x01 / d_stds by pos_grads_kernel: blocks of kPosSamples samples x
+// min(n, kPosThreads / kPosSamples) points.
 template <int C>
-cudaError_t pos_grads(const float* table, const float* x01, const float* stds,
-                      const float* g_out, float* d_x01, float* d_stds,
-                      int64_t B, int n, int L, const GridLevels& lv, int tetra,
+cudaError_t pos_grads(const float* resid, const float* g_out, float* d_x01,
+                      float* d_stds, int64_t B, int n, int L,
                       cudaStream_t s) {
-  int threads = kThreads;
-  while (threads > 32 && 16LL * threads * n > kStageBytes) threads >>= 1;
-  const int64_t smem = 16LL * threads * n;
-  if (smem > kStageBytes) return cudaErrorInvalidValue;
-  const int64_t blocks = (B + threads - 1) / threads;
+  const int64_t blocks = (B + kPosSamples - 1) / kPosSamples;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  if (tetra)
-    pos_grads_kernel<C, true><<<(unsigned)blocks, threads, smem, s>>>(
-        table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
-  else
-    pos_grads_kernel<C, false><<<(unsigned)blocks, threads, smem, s>>>(
-        table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv);
+  const dim3 block(kPosSamples, n < kPosThreads / kPosSamples
+                                    ? n
+                                    : kPosThreads / kPosSamples);
+  pos_grads_kernel<C><<<(unsigned)blocks, block, 0, s>>>(resid, g_out, d_x01,
+                                                         d_stds, B, n, L);
   return cudaGetLastError();
 }
 
@@ -2227,15 +2410,19 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
 
 // mean: per level, 1 where it encodes the multisample mean point (the
 // coarse cutoff); tetra: tetrahedral interpolation (else trilinear);
-// level_major: the block order (ops/grid.py:level_major).
+// level_major: the block order (ops/grid.py:level_major). out: nullptr
+// where only the residuals are wanted; resid: nullptr, or the residual
+// mode's [L, n, 4, B, C] output (16-byte aligned).
 int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
-                      float* out, long long B, int n, int L, int C,
-                      const float* scale, const float* grid_size,
+                      float* out, float* resid, long long B, int n, int L,
+                      int C, const float* scale, const float* grid_size,
                       const unsigned int* res, const unsigned int* rows,
                       const unsigned int* offset, const int* tiled,
                       const int* mean, int tetra, int level_major, int device,
                       void* stream) {
-  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  if (L <= 0 || L > kMaxLevels || n <= 0 || (uintptr_t)resid % 16 != 0 ||
+      (out == nullptr && resid == nullptr))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
@@ -2246,37 +2433,37 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
   // (objects, tiny_debug); and C = 8, which the JAX package takes too.
   switch (C) {
     case 1:
-      return encode<1>(table, x01, stds, out, B, n, L, lv, tetra,
+      return encode<1>(table, x01, stds, out, resid, B, n, L, lv, tetra,
                        level_major, s);
     case 2:
-      return encode<2>(table, x01, stds, out, B, n, L, lv, tetra,
+      return encode<2>(table, x01, stds, out, resid, B, n, L, lv, tetra,
                        level_major, s);
     case 4:
-      return encode<4>(table, x01, stds, out, B, n, L, lv, tetra,
+      return encode<4>(table, x01, stds, out, resid, B, n, L, lv, tetra,
                        level_major, s);
     case 8:
-      return encode<8>(table, x01, stds, out, B, n, L, lv, tetra,
+      return encode<8>(table, x01, stds, out, resid, B, n, L, lv, tetra,
                        level_major, s);
     case 16:
-      return encode<16>(table, x01, stds, out, B, n, L, lv, tetra,
+      return encode<16>(table, x01, stds, out, resid, B, n, L, lv, tetra,
                         level_major, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// d_table, d_x01, d_stds: zero-filled by the caller, each nullptr when not
-// wanted. mean, tetra, level_major: as the forward's.
-int nl_hash_encode_ms_bwd(const float* table, const float* x01,
-                          const float* stds, const float* g_out,
-                          float* d_table, float* d_x01, float* d_stds,
-                          long long B, int n, int L, int C, const float* scale,
+// d_table: zero-filled (or holding a sum to add to) by the caller. mean,
+// tetra, level_major: as the forward's.
+int nl_hash_encode_ms_bwd(const float* x01, const float* stds,
+                          const float* g_out, float* d_table, long long B,
+                          int n, int L, int C, const float* scale,
                           const float* grid_size, const unsigned int* res,
                           const unsigned int* rows,
                           const unsigned int* offset, const int* tiled,
                           const int* mean, int tetra, int level_major,
                           int device, void* stream) {
-  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  if (L <= 0 || L > kMaxLevels || n <= 0 || d_table == nullptr)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
@@ -2285,20 +2472,20 @@ int nl_hash_encode_ms_bwd(const float* table, const float* x01,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
-      return backward<1>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, tetra, level_major, s);
+      return backward<1>(x01, stds, g_out, d_table, B, n, L, lv, tetra,
+                         level_major, s);
     case 2:
-      return backward<2>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, tetra, level_major, s);
+      return backward<2>(x01, stds, g_out, d_table, B, n, L, lv, tetra,
+                         level_major, s);
     case 4:
-      return backward<4>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, tetra, level_major, s);
+      return backward<4>(x01, stds, g_out, d_table, B, n, L, lv, tetra,
+                         level_major, s);
     case 8:
-      return backward<8>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                         n, L, lv, tetra, level_major, s);
+      return backward<8>(x01, stds, g_out, d_table, B, n, L, lv, tetra,
+                         level_major, s);
     case 16:
-      return backward<16>(table, x01, stds, g_out, d_table, d_x01, d_stds, B,
-                          n, L, lv, tetra, level_major, s);
+      return backward<16>(x01, stds, g_out, d_table, B, n, L, lv, tetra,
+                          level_major, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2392,43 +2579,27 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
   }
 }
 
-// d_x01 / d_stds of hash_encode_ms without atomics (each nullptr when not
-// wanted; written, not added to). Arguments as nl_hash_encode_ms_bwd's.
-int nl_hash_encode_ms_pos_grads(const float* table, const float* x01,
-                                const float* stds, const float* g_out,
+// d_x01 [B, n, 3] / d_stds [B, n] (each nullptr when not wanted; written,
+// not added to) from H1's residuals resid [L, n, 4, B, C] and g_out
+// [B, L, C], both 16-byte aligned.
+int nl_hash_encode_ms_pos_grads(const float* resid, const float* g_out,
                                 float* d_x01, float* d_stds, long long B,
-                                int n, int L, int C, const float* scale,
-                                const float* grid_size,
-                                const unsigned int* res,
-                                const unsigned int* rows,
-                                const unsigned int* offset, const int* tiled,
-                                const int* mean, int tetra, int device,
+                                int n, int L, int C, int device,
                                 void* stream) {
-  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  if (B < 0 || L <= 0 || n <= 0 ||
+      ((uintptr_t)resid | (uintptr_t)g_out) % 16 != 0)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  GridLevels lv;
-  fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, mean);
-  if (B == 0) return cudaSuccess;
+  if (B == 0 || (d_x01 == nullptr && d_stds == nullptr)) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 1:
-      return pos_grads<1>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
-                          tetra, s);
-    case 2:
-      return pos_grads<2>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
-                          tetra, s);
-    case 4:
-      return pos_grads<4>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
-                          tetra, s);
-    case 8:
-      return pos_grads<8>(table, x01, stds, g_out, d_x01, d_stds, B, n, L, lv,
-                          tetra, s);
-    case 16:
-      return pos_grads<16>(table, x01, stds, g_out, d_x01, d_stds, B, n, L,
-                           lv, tetra, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return pos_grads<1>(resid, g_out, d_x01, d_stds, B, n, L, s);
+    case 2: return pos_grads<2>(resid, g_out, d_x01, d_stds, B, n, L, s);
+    case 4: return pos_grads<4>(resid, g_out, d_x01, d_stds, B, n, L, s);
+    case 8: return pos_grads<8>(resid, g_out, d_x01, d_stds, B, n, L, s);
+    case 16: return pos_grads<16>(resid, g_out, d_x01, d_stds, B, n, L, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 

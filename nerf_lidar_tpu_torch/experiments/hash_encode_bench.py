@@ -37,23 +37,26 @@ and power limit of the card.
   exponents, which must be bit-equal. With --root the package is still
   imported from DIR (the other checkout), and this file's own checkout's
   `ops` beside it (`here_grid`).
---det --refine: the deterministic d_x01 / d_stds pass
-  (`hash_encode_ms_pos_grads`, `refine_grid`) instead, on the calls train
-  steps hand it, each recorded under torch's deterministic switch after
-  --steps steps of `train --deterministic`: the shipped refinement recipe's
-  (nuscenes_single with pose and track refinement from the first step, on
-  a synth_nusc scene with one moving car: its NeRF, proposal and object
-  grids), the object recipe's object grid (track refinement alone) and
+--det --refine: the position gradients (d_x01 / d_stds, `refine_grid`)
+  instead, on the calls train steps hand the encode backward, each
+  recorded under torch's deterministic switch after --steps steps of
+  `train --deterministic`: the shipped refinement recipe's (nuscenes_single
+  with pose and track refinement from the first step, on a synth_nusc
+  scene with one moving car: its NeRF, proposal and object grids), the
+  object recipe's object grid (track refinement alone) and
   nuscenes_single_fast's NeRF grid (C16, tetrahedral, mean-point levels).
-  Per call: the whole call and each level alone in turns with the --root
-  checkout's (root, here, here, root), both against the plain version at
-  BWD_TOL; this checkout's the same bits on fresh copies; the atomic
-  backward asked for the same gradients and at the
-  call's needs, and H1, on the same points; the bounds. Beside them: the
-  posenet's gather (advanced indexing against `grid.select_rows`, forward
-  and backward, with and without the switch, `posenet_gathers`) and the
-  int64 atomic sums that fixed-point d_x01 / d_stds would take
-  (`fixed_pos_sums`).
+  Per call, this checkout's H1 in its residual mode and H1, the
+  contraction `hash_encode_ms_pos_grads` and its library yardstick (one
+  `torch.einsum` over the same R), the atomic backward's d_table; with
+  --root, that checkout's kernels beside them in turns (root, here, here,
+  root): H1, its d_x01 / d_stds as both its modes compute them (the
+  deterministic call asked for d_x01 / d_stds alone, the atomic backward at
+  the call's needs and at d_table alone). Checks: R against its plain
+  version at BWD_TOL, the contraction the same bits as its plain version
+  and on fresh copies, d_x01 / d_stds against the --root checkout's. The
+  bounds. Beside them: the posenet's gather (advanced indexing against
+  `grid.select_rows`, forward and backward, with and without the switch,
+  `posenet_gathers`).
 --save_inputs FILE / --inputs FILE: write the recorded train inputs to
   FILE, or read them from FILE instead of training (with --det only; with
   --refine, its calls and camera indices).
@@ -201,13 +204,13 @@ def recording(module, name, model):
     names = grid_tables(model)
     calls = {}
 
-    def wrapper(*args):
+    def wrapper(*args, **kw):
         grid_name = names.get(args[0].data_ptr())
         if grid_name is not None and grid_name not in calls:
             calls[grid_name] = tuple(
                 a.detach().clone() if isinstance(a, torch.Tensor) else a
                 for a in args)
-        return orig(*args)
+        return orig(*args, **kw)
 
     wrapper.launches = orig.launches
     setattr(module, name, wrapper)
@@ -418,14 +421,16 @@ def call_fixed(lib, x, s, g, k, acc, flags, arrays, levels, c, tetra,
 def call_float(lib, table, x, s, g, d_table, arrays, levels, c, tetra,
                level_major_order):
     """One launch of the atomic H1 backward (`nl_hash_encode_ms_bwd`),
-    d_table only, adding into d_table."""
+    d_table only, adding into d_table; checkouts older than the residual
+    mode take the table and two null gradient pointers besides."""
     from nerf_lidar_tpu_torch.ops import _build
     b, n_ms = s.shape
+    ptrs = [x.data_ptr(), s.data_ptr(), g.data_ptr(), d_table.data_ptr()]
+    if len(lib.nl_hash_encode_ms_bwd.argtypes) > 19:
+        ptrs = [table.data_ptr(), *ptrs, None, None]
     rc = lib.nl_hash_encode_ms_bwd(
-        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
-        d_table.data_ptr(), None, None, b, n_ms, levels, c,
-        *(a.ctypes.data for a in arrays), tetra, bool(level_major_order),
-        x.device.index, _build.stream_of(x))
+        *ptrs, b, n_ms, levels, c, *(a.ctypes.data for a in arrays), tetra,
+        bool(level_major_order), x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms_bwd")
 
 
@@ -602,112 +607,103 @@ def record_refine_inputs(steps):
 POS_ASKED = (False, True, True)
 
 
-def call_pos(lib, table, x, s, g, d_x, d_s, arrays, levels, c, tetra):
-    """One launch of `lib`'s `nl_hash_encode_ms_pos_grads` (the same
-    interface in this checkout and its parent)."""
-    from nerf_lidar_tpu_torch.ops import _build
-    b, n_ms = s.shape
-    rc = lib.nl_hash_encode_ms_pos_grads(
-        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
-        d_x.data_ptr(), d_s.data_ptr(), b, n_ms, levels, c,
-        *(a.ctypes.data for a in arrays), tetra, x.device.index,
-        _build.stream_of(x))
-    _build.check(lib, rc, "hash_encode_ms_pos_grads")
-
-
-def pos_errs(name, got, plain):
-    """{"d_x01", "d_stds": error of max} of got against plain; where the
-    plain gradient is all zero (the object grid's stds are 0), the same
-    zeros. Raises above BWD_TOL."""
+def pos_errs(name, got, want):
+    """{"d_x01", "d_stds": error of max} of got against want; where want is
+    all zero (the object grid's stds are 0), the same zeros. Raises above
+    BWD_TOL."""
     out = {}
     for i, key in ((1, "d_x01"), (2, "d_stds")):
-        if not bool(plain[i].any()):
+        if not bool(want[i].any()):
             if bool(got[i].any()):
-                raise AssertionError(f"{name} {key}: not the plain zeros")
+                raise AssertionError(f"{name} {key}: not the zeros")
             out[key] = 0.0
             continue
-        out[key] = max_rel_err(got[i], plain[i])
+        out[key] = max_rel_err(got[i], want[i])
         if not out[key] <= BWD_TOL:
             raise AssertionError(f"{name} {key}: error {out[key]} of max")
     return out
 
 
+def residual_einsum(res, g_out):
+    """The contraction's library yardstick: one `torch.einsum` over R [L, n,
+    4, B, C] and g_out viewed as [B, L, C] ([B, n, 4]: d_x01 and d_stds)."""
+    levels, _, _, b, c = res.shape
+    return torch.einsum("ljqbc,blc->bjq", res, g_out.reshape(b, levels, c))
+
+
 def refine_grid(root, name, rec):
     """--det --refine on one recorded call `rec` (table, x01, stds, g_out,
-    spec, needs, cutoff): emits each level alone and the whole call, in
-    turns with the --root checkout's where it is another, with the checks
-    and yardsticks of the module docstring."""
-    from nerf_lidar_tpu_torch.ops import _build, grid
+    spec, needs, cutoff): emits the call's times in turns with the --root
+    checkout's where it is another, with the checks and yardsticks of the
+    module docstring."""
+    from nerf_lidar_tpu_torch.ops import grid
     here = here_grid()
     other = os.path.abspath(root) != HERE
     table, x01, stds, g_out, spec, needs = rec[:6]
     cutoff = rec[6] if len(rec) > 6 else 0
-    c, levels, tetra = spec.level_dim, spec.num_levels, spec.interp == "tetra"
     n_ms = x01.shape[-2]
-    x = x01.reshape(-1, n_ms, 3).contiguous()
-    s = stds.reshape(-1, n_ms).contiguous()
-    b = s.shape[0]
-    g = g_out.reshape(b, spec.output_dim).contiguous()
-    arrays = here._kernel_levels(spec, cutoff)
-    libs = dict(here=here._build.library(),
-                **(dict(root=_build.library()) if other else {}))
+    b = stds.numel() // n_ms
     common = dict(root=root, what="pos_grads", grid=name,
-                  mode=f"{spec.interp} C{c} cutoff {cutoff}", B=b, n=n_ms)
-    # The whole call: both checkouts against the plain version.
-    plain = grid.hash_encode_multisample_bwd_plain(
-        table, x01, stds, g_out, spec, POS_ASKED, cutoff)
-    mods = dict(here=here, **(dict(root=grid) if other else {}))
-    fns, errs = {}, {}
-    for k, mod in mods.items():
-        fns[k] = lambda mod=mod: mod.hash_encode_multisample_bwd_det(
-            table, x01, stds, g_out, spec, POS_ASKED, cutoff)
-        errs[k] = pos_errs(name, fns[k](), plain)
-    runs = [here.hash_encode_multisample_bwd_det(
-        *(t.clone() for t in (table, x01, stds, g_out)), spec, POS_ASKED,
-        cutoff)[1:] for _ in range(COPIES)]
-    same = all(torch.equal(a, b_) for run in runs[1:]
-               for a, b_ in zip(run, runs[0]))
-    del runs, plain
-    if not same:
+                  mode=f"{spec.interp} C{spec.level_dim} cutoff {cutoff}",
+                  B=b, n=n_ms, needs=list(needs))
+    out, res = here.hash_encode_ms_residuals(table, x01, stds, spec, cutoff)
+    if not torch.equal(out, here.hash_encode_multisample(table, x01, stds,
+                                                          spec, cutoff)):
+        raise SystemExit(f"{name}: residual-mode features are not H1's")
+    res_err = max_rel_err(res, here.hash_encode_ms_residuals_plain(
+        table, x01, stds, spec, cutoff))
+    if not res_err <= BWD_TOL:
+        raise SystemExit(f"{name}: R error {res_err} of max")
+    got = here.pos_grads_from_residuals(res, g_out)
+    runs = [here.pos_grads_from_residuals(res.clone(), g_out.clone())
+            for _ in range(COPIES)]
+    same = all(torch.equal(a, b_) for run in runs for a, b_ in zip(run, got))
+    plain_same = all(torch.equal(a, b_) for a, b_ in zip(
+        got, here.pos_grads_from_residuals_plain(res, g_out)))
+    del runs
+    if not (same and plain_same):
         raise SystemExit(f"hash_encode_ms_pos_grads {name}: not the same "
-                         "bits on fresh copies")
-    yard = dict(
-        atomic=lambda: here.hash_encode_multisample_bwd(
-            table, x01, stds, g_out, spec, POS_ASKED, cutoff),
-        atomic_needs=lambda: here.hash_encode_multisample_bwd(
-            table, x01, stds, g_out, spec, needs, cutoff),
+                         f"bits on copies ({same}) or as plain ({plain_same})")
+    got = (None, got[0].reshape(x01.shape), got[1].reshape(stds.shape))
+    fns = dict(
         h1=lambda: here.hash_encode_multisample(table, x01, stds, spec,
-                                                cutoff))
+                                                cutoff),
+        h1_resid=lambda: here.hash_encode_ms_residuals(table, x01, stds,
+                                                       spec, cutoff),
+        pos_grads=lambda: here.pos_grads_from_residuals(res, g_out),
+        einsum=lambda: residual_einsum(res, g_out),
+        atomic_table=lambda: here.hash_encode_multisample_bwd(
+            table, x01, stds, g_out, spec, (True, False, False), cutoff))
+    errs = {}
+    if other:
+        root_det = grid.hash_encode_multisample_bwd_det(
+            table, x01, stds, g_out, spec, POS_ASKED, cutoff)
+        errs["vs root det"] = pos_errs(name, got, root_det)
+        del root_det
+        root_fns = dict(
+            h1=lambda: grid.hash_encode_multisample(table, x01, stds, spec,
+                                                    cutoff),
+            pos_det=lambda: grid.hash_encode_multisample_bwd_det(
+                table, x01, stds, g_out, spec, POS_ASKED, cutoff),
+            atomic_needs=lambda: grid.hash_encode_multisample_bwd(
+                table, x01, stds, g_out, spec, needs, cutoff),
+            atomic_table=lambda: grid.hash_encode_multisample_bwd(
+                table, x01, stds, g_out, spec, (True, False, False), cutoff))
+    turns = {}
+    for tree in ("root", "here", "here", "root") if other else ("here",):
+        for k, fn in (root_fns if tree == "root" else fns).items():
+            turns.setdefault(f"{tree} {k}", []).append(
+                queued_ms(fn, iters=10) or cuda_ms(fn))
     n_bytes, flops = fwd_bound(spec, x01, stds, cutoff)
-    emit(**common, kernel="hash_encode_ms_pos_grads", level="call",
-         needs=list(needs), ms=in_turns(fns, other), max_rel_err=errs,
-         same_bits_on_copies=same,
-         yardsticks_ms={k: queued_ms(f, iters=10) for k, f in yard.items()},
-         bound_ms=bound_ms(n_bytes + nbytes(x01, stds), flops),
-         atomic_needs_bound_ms=bound_ms(
-             bwd_bound(spec, x01, stds, g_out, cutoff)[0] + nbytes(x01, stds),
-             2 * flops))
-    # Each level alone: slices of g and of the level constants.
-    d_x, d_s = torch.empty_like(x), torch.empty_like(s)
-    pts = level_points(spec, x01, cutoff)
-    for l in range(levels):
-        al = tuple(np.ascontiguousarray(a[l:l + 1]) for a in arrays)
-        gl = g[:, l * c:(l + 1) * c].contiguous()
-        fns = {k: lambda lib=lib: call_pos(lib, table, x, s, gl, d_x, d_s, al,
-                                           1, c, tetra)
-               for k, lib in libs.items()}
-        read = torch.zeros(spec.rows_per_level[l], dtype=torch.bool,
-                           device=x.device)
-        for idx, _, _ in grid._corners(spec, l, pts[l]):
-            read[idx] = True
-        lb = (nbytes(x, s, gl, d_x, d_s) + int(read.sum()) * c * 4)
-        emit(**common, kernel="hash_encode_ms_pos_grads", level=l,
-             kind=level_kind(spec, cutoff, l),
-             resolution=spec.resolutions[l], rows=spec.rows_per_level[l],
-             rows_read=int(read.sum()), ms=in_turns(fns, other),
-             bound_ms=bound_ms(lb, 2 * pts[l].shape[0]
-                               * _corners_per_point(spec) * c))
-    del d_x, d_s
+    r_bytes = nbytes(res)
+    emit(**common, ms=turns, max_rel_err=dict(errs, R=res_err),
+         same_bits_on_copies=same, same_bits_as_plain=plain_same,
+         r_gib=r_bytes / 2**30,
+         h1_bound_ms=bound_ms(n_bytes, flops),
+         h1_resid_bound_ms=bound_ms(n_bytes + r_bytes, flops),
+         pos_grads_bound_ms=bound_ms(
+             r_bytes + nbytes(g_out, x01, stds), 2 * res.numel()))
+    del res
 
 
 def posenet_gathers(cams, n_cams):
@@ -732,29 +728,6 @@ def posenet_gathers(cams, n_cams):
                 out[f"{mode} {k}"] = cuda_ms(f, iters=5, warmup=1)
     emit(what="posenet_gathers", rays=int(cam.shape[0]), images=n_cams,
          distinct=int(torch.unique(cam).numel()), ms=out)
-
-
-def fixed_pos_sums(name, rec):
-    """What fixed-point d_x01 / d_stds would take at their sums alone: the
-    int64 row sink (`row_kernels_bench.fixed_sink`, lane-transposed) adding
-    one [C4] term per point and level, level by level, into B n rows; by
-    CUDA events, with the bytes of its terms (read from device memory
-    here, where a kernel would hold them in registers) beside."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import row_kernels_bench as rkb
-    x01, spec = rec[1], rec[4]
-    points = x01.numel() // 3
-    dev = x01.device
-    rows = torch.arange(points, dtype=torch.int32, device=dev).repeat(
-        spec.num_levels)
-    g = torch.Generator(device=dev).manual_seed(17)
-    terms = torch.randint(-2**40, 2**40, (rows.numel(), 4), device=dev,
-                          generator=g, dtype=torch.int64)
-    acc = torch.zeros((points, 4), dtype=torch.int64, device=dev)
-    ms = cuda_ms(lambda: rkb.fixed_sink(rows, terms, acc, True), iters=3,
-                 warmup=1)
-    emit(what="fixed_pos_sums", grid=name, updates=int(rows.numel()),
-         rows=points, ms=ms, terms_read_ms=bound_ms(nbytes(rows, terms), 0))
 
 
 def queued_ms(fn, iters=20):
@@ -894,9 +867,11 @@ def call_encode(lib, table, x, s, out, arrays, levels, c, tetra,
     of them)."""
     from nerf_lidar_tpu_torch.ops import _build
     b, n_ms = s.shape
+    ptrs = [table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr()]
+    if len(lib.nl_hash_encode_ms.argtypes) > 19:  # the residual pointer
+        ptrs.append(None)
     rc = lib.nl_hash_encode_ms(
-        table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(), b, n_ms,
-        levels, c, *(a.ctypes.data for a in arrays), tetra,
+        *ptrs, b, n_ms, levels, c, *(a.ctypes.data for a in arrays), tetra,
         bool(level_major_order), x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
 
@@ -1227,7 +1202,6 @@ def main(argv=None):
             if args.save_inputs:
                 torch.save((calls, cams), args.save_inputs)
         posenet_gathers(*cams)
-        fixed_pos_sums("refine nerf", calls["refine nerf"])
         for name in list(calls):
             refine_grid(root, name, calls.pop(name))
             torch.cuda.empty_cache()

@@ -13,6 +13,17 @@ The multisample encode exists twice:
   tensors launch kernel H1 (`csrc/kernels.cu`, `hash_encode_ms`) and in
   backward `hash_encode_ms_bwd`, or raise.
 
+Position gradients (d_x01 / d_stds, which pose and track refinement ask)
+come, in both modes, from residuals the forward writes: where x01 or stds
+take a gradient, the forward also gives R [L, n, 4, B, C], per level and
+point the terms that the gradient contracts with g_out
+(`hash_encode_ms_residuals`: H1's residual mode on CUDA tensors,
+`hash_encode_ms_residuals_plain` on CPU ones), and the backward contracts
+them (`pos_grads_from_residuals`: kernel `hash_encode_ms_pos_grads`, or
+`pos_grads_from_residuals_plain`), sums in a fixed order with no atomics.
+Direct callers of the backward that pass no R get it from one residual
+launch.
+
 The JAX `hash_encode` (no erf weights, the object MLPs' encode) is the
 multisample encode at n = 1 and stds = 0, whose erf weight
 erf(1 / sqrt(max(0, 1e-10))) = erf(1e5) is exactly 1 in float32; the
@@ -23,17 +34,16 @@ d_table and d_x01).
 scatter-add that K3's Pallas version did with a one-hot matmul; the
 hash-decay loss sums its levels with it.
 
-Deterministic sums: with `torch.are_deterministic_algorithms_enabled()`
-the backward and K3 take `hash_encode_multisample_bwd_det` and
+Deterministic sums: with `torch.are_deterministic_algorithms_enabled()` the
+backward and K3 take `hash_encode_multisample_bwd_det` and
 `scatter_add_rows_det`, whose results do not depend on the order of their
 sums, as the JAX package's XLA scatter-adds do not: each term is rounded
-once to a fixed-point int64 (`fixed_exponents`) and summed exactly, on
-CUDA by the kernels `hash_encode_ms_bwd_fixed` / `scatter_add_rows_fixed`
-(d_x01 / d_stds by the atomic-free `hash_encode_ms_pos_grads`), their
+once to a fixed-point int64 (`fixed_exponents`) and summed exactly, on CUDA
+by the kernels `hash_encode_ms_bwd_fixed` / `scatter_add_rows_fixed`, their
 exponents from kernel `abs_bound` (`bound_exponents`), on the CPU by their
 plain twins (`..._det_plain`: the same terms and rounding, `index_add_` on
-int64). A non-finite term flags its entry NaN / +inf / -inf, as a float
-sum of the same terms ends.
+int64). A non-finite term flags its entry NaN / +inf / -inf, as a float sum
+of the same terms ends.
 """
 
 from __future__ import annotations
@@ -275,6 +285,15 @@ def _erf_weight(s: torch.Tensor, grid_size: float):
     return torch.erf(v), u, v
 
 
+def _erf_weight_grad(s: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     grid_size: float) -> torch.Tensor:
+    """d erf(v) / ds with v = u^-1/2, u = 8 s^2 g^2 (`_erf_weight`'s); 0
+    where u is clamped."""
+    dwl = (2.0 / np.sqrt(np.pi)) * torch.exp(-v * v) * (-0.5 * v / u) * (
+        16.0 * s * float(grid_size) ** 2)
+    return torch.where(u > 1e-10, dwl, 0.0)
+
+
 def erf_weights(stds: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
     """[..., n, L] erf weights of every point and level at stds [..., n]
     (the second output of the JAX `hash_encode_multisample`; no gradient
@@ -395,14 +414,76 @@ def hash_encode_multisample_bwd_plain(table: torch.Tensor, x01: torch.Tensor,
             if d_x is not None:
                 d_x += (coef * spec.scales[l])[:, None] * dfrac
         if d_s is not None:
-            # d erf(v)/ds with v = u^-1/2, u = 8 s^2 g^2; 0 where u is
-            # clamped.
-            dwl = (2.0 / np.sqrt(np.pi)) * torch.exp(-v * v) * (
-                -0.5 * v / u) * (16.0 * s * float(grid_sizes[l]) ** 2)
-            d_s += torch.where(u > 1e-10, dwl, 0.0) * fdot
+            d_s += _erf_weight_grad(s, u, v, grid_sizes[l]) * fdot
     return (d_table,
             None if d_x is None else d_x.reshape(x01.shape),
             None if d_s is None else d_s.reshape(stds.shape))
+
+
+def hash_encode_ms_residuals_plain(table: torch.Tensor, x01: torch.Tensor,
+                                   stds: torch.Tensor, spec: HashGridSpec,
+                                   coarse_res_cutoff: int = 0) -> torch.Tensor:
+    """R [L, n, 4, B, C]: per level, point, row and sample, the terms the
+    position gradient contracts with g_out (the plain twin of H1's residual
+    mode; samples after points, so that a warp of neighbouring samples
+    writes and reads contiguous rows), from the terms of
+    `hash_encode_multisample_bwd_plain`: rows 0-2
+    erf_w / n * scale * d f / d frac_d, row 3 d erf_w / ds / n * f, f the
+    point's interpolated row; a mean-point level gives every point the mean
+    point's terms with w_mean / n * scale and the point's own d erf_w / ds;
+    zeros out of range. `pos_grads_from_residuals_plain(R, g_out)` is then
+    (d_x01, d_stds)."""
+    _check_ported(spec)
+    n_ms = x01.shape[-2]
+    c = spec.level_dim
+    x, oob = _in_range(x01.reshape(-1, 3))
+    s = stds.reshape(-1)
+    b = s.shape[0] // n_ms
+    inv_n = float(np.float32(1.0) / np.float32(n_ms))
+    grid_sizes = spec.grid_sizes()
+    out = table.new_zeros((spec.num_levels, n_ms, 4, b, c))
+    mean = None
+    for l, at_mean in enumerate(mean_levels(spec, coarse_res_cutoff)):
+        tbl = table[spec.offsets[l]:spec.offsets[l + 1]]
+        erf_w, u, v = _erf_weight(s, grid_sizes[l])
+        ks = inv_n * _erf_weight_grad(s, u, v, grid_sizes[l])
+        if at_mean:
+            if mean is None:
+                mean = _in_range(_seq_mean(x01.reshape(-1, n_ms, 3)))
+            pts, keep = mean[0], (~mean[1]).to(x.dtype)
+            kx = keep * _seq_mean(erf_w.reshape(-1, n_ms)) / n_ms
+        else:
+            pts, keep = x, (~oob).to(x.dtype)
+            kx = keep * erf_w * inv_n
+        f = 0.0
+        df = 0.0
+        for idx, w, dw in _corners(spec, l, pts, grads=True):
+            row = tbl[idx]
+            f = f + w[:, None] * row
+            df = df + dw[:, :, None] * row[:, None, :]
+        rows = torch.cat([(kx * spec.scales[l])[:, None, None] * df,
+                          (keep[:, None] * f)[:, None]], dim=1)  # [N, 4, C]
+        if at_mean:
+            rows = rows.repeat_interleave(n_ms, dim=0)
+        rows[:, 3] = rows[:, 3] * ks[:, None]
+        out[l] = rows.reshape(b, n_ms, 4, c).permute(1, 2, 0, 3)
+    return out
+
+
+def pos_grads_from_residuals_plain(res: torch.Tensor, g_out: torch.Tensor):
+    """(d_x01 [B, n, 3], d_stds [B, n]) from residuals R [L, n, 4, B, C]
+    and g_out [..., L*C]: sum_l sum_c R[l, j, q, b, c] g_out[b, l, c],
+    summed over the levels in order and within a level over the channels,
+    each product and sum rounded on its own (the order and roundings of
+    kernel `hash_encode_ms_pos_grads`)."""
+    levels, n_ms, _, b, c = res.shape
+    g = g_out.reshape(b, levels, c)
+    acc = res.new_zeros((n_ms, 4, b))
+    for l in range(levels):
+        for k in range(c):
+            acc = acc + res[l, :, :, :, k] * g[:, l, k]
+    acc = acc.permute(2, 0, 1)
+    return acc[..., :3], acc[..., 3]
 
 
 def _on_cpu(*tensors) -> bool:
@@ -472,23 +553,116 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
 
 
 def _encode_kernel(table, x01, stds, spec: HashGridSpec,
-                   coarse_res_cutoff: int = 0) -> torch.Tensor:
-    """Launch kernel H1 (`hash_encode_ms`): [..., L*C] features."""
+                   coarse_res_cutoff: int = 0, features: bool = True,
+                   residuals: bool = False):
+    """Launch kernel H1 (`hash_encode_ms`): ([..., L*C] features or None,
+    R [L, n, 4, B, C] or None), R from its residual mode."""
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
-    out = torch.empty((b, spec.output_dim), dtype=torch.float32,
-                      device=x.device)
+    out = (torch.empty((b, spec.output_dim), dtype=torch.float32,
+                       device=x.device) if features else None)
+    res = (torch.empty((spec.num_levels, n_ms, 4, b, spec.level_dim),
+                       dtype=torch.float32, device=x.device)
+           if residuals else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
     lib = _build.library()
     rc = lib.nl_hash_encode_ms(
-        table.data_ptr(), x.data_ptr(), s.data_ptr(), out.data_ptr(),
+        table.data_ptr(), x.data_ptr(), s.data_ptr(), ptr(out), ptr(res),
         b, n_ms, spec.num_levels, spec.level_dim,
         *(a.ctypes.data for a in arrays), spec.interp == "tetra",
         level_major(spec, _l2_bytes(x.device.index)),
         x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
-    hash_encode_multisample.launches += 1
-    return out.reshape(x01.shape[:-2] + (spec.output_dim,))
+    hash_encode_multisample.launches += 1  # every launch of H1
+    if residuals:
+        hash_encode_ms_residuals.launches += 1
+    if out is not None:
+        out = out.reshape(x01.shape[:-2] + (spec.output_dim,))
+    return out, res
+
+
+def hash_encode_ms_residuals(table: torch.Tensor, x01: torch.Tensor,
+                             stds: torch.Tensor, spec: HashGridSpec,
+                             coarse_res_cutoff: int = 0,
+                             features: bool = True):
+    """([..., L*C] features, or None without `features`; R [L, n, 4, B, C],
+    `hash_encode_ms_residuals_plain`'s terms). CPU tensors take the plain
+    versions; CUDA tensors launch kernel H1 once in its residual mode
+    (the features the same bits as `hash_encode_multisample`'s), or raise.
+    `.calls` counts calls on either device, `.launches` the kernel's in
+    this mode (which `hash_encode_multisample.launches` counts too)."""
+    hash_encode_ms_residuals.calls += 1
+    if _on_cpu(table, x01, stds):
+        out = (hash_encode_multisample_plain(table, x01, stds, spec,
+                                             coarse_res_cutoff)[0]
+               if features else None)
+        return out, hash_encode_ms_residuals_plain(table, x01, stds, spec,
+                                                   coarse_res_cutoff)
+    return _encode_kernel(table, x01, stds, spec, coarse_res_cutoff,
+                          features, residuals=True)
+
+
+hash_encode_ms_residuals.calls = 0
+hash_encode_ms_residuals.launches = 0
+
+
+def pos_grads_from_residuals(res: torch.Tensor, g_out: torch.Tensor,
+                             needs=(True, True)):
+    """(d_x01 [B, n, 3], d_stds [B, n]) from residuals R [L, n, 4, B, C]
+    and g_out [..., L*C], each None where `needs` is False: CPU tensors
+    take `pos_grads_from_residuals_plain`; CUDA tensors launch kernel
+    `hash_encode_ms_pos_grads` (the plain version's order of sums, no
+    atomics), or raise."""
+    levels, n_ms, _, b, c = res.shape
+    if _on_cpu(res, g_out):
+        d_x, d_s = pos_grads_from_residuals_plain(res, g_out)
+        return d_x if needs[0] else None, d_s if needs[1] else None
+    g = g_out.contiguous()
+    _build.require_cuda("residuals", res, (levels, n_ms, 4, b, c))
+    _build.require_cuda("g_out", g, g.shape[:-1] + (levels * c,))
+    if g.numel() != b * levels * c:
+        raise ValueError(f"g_out: expected {b} rows of {levels * c}, got "
+                         f"{tuple(g.shape)}")
+    _aligned("residuals", res, 4)
+    if g.data_ptr() % 16:
+        g = g.clone()  # a fresh allocation starts on 16 bytes
+    d_x = (torch.empty((b, n_ms, 3), dtype=torch.float32, device=res.device)
+           if needs[0] else None)
+    d_s = (torch.empty((b, n_ms), dtype=torch.float32, device=res.device)
+           if needs[1] else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.library()
+    rc = lib.nl_hash_encode_ms_pos_grads(
+        res.data_ptr(), g.data_ptr(), ptr(d_x), ptr(d_s), b, n_ms, levels, c,
+        res.device.index, _build.stream_of(res))
+    _build.check(lib, rc, "hash_encode_ms_pos_grads")
+    pos_grads_from_residuals.launches += 1
+    return d_x, d_s
+
+
+pos_grads_from_residuals.launches = 0
+
+
+def _position_grads(table, x01, stds, g_out, spec: HashGridSpec, needs,
+                    coarse_res_cutoff: int, residuals=None, plain=False):
+    """(d_x01, d_stds) shaped as x01 / stds, each None where `needs` (table,
+    x01, stds) is False: the contraction of `residuals` (R of this call's
+    inputs, or None: one residual launch builds it) with g_out; `plain`:
+    the plain versions on any device."""
+    if not (needs[1] or needs[2]):
+        return None, None
+    if residuals is None:
+        residuals = (hash_encode_ms_residuals_plain(
+            table, x01, stds, spec, coarse_res_cutoff) if plain else
+            hash_encode_ms_residuals(table, x01, stds, spec,
+                                     coarse_res_cutoff, features=False)[1])
+    if plain:
+        d_x, d_s = pos_grads_from_residuals_plain(residuals, g_out)
+    else:
+        d_x, d_s = pos_grads_from_residuals(residuals, g_out, needs[1:])
+    return (d_x.reshape(x01.shape) if needs[1] else None,
+            d_s.reshape(stds.shape) if needs[2] else None)
 
 
 def _bwd_kernel_inputs(table, x01, stds, g_out, spec: HashGridSpec):
@@ -504,37 +678,39 @@ def _bwd_kernel_inputs(table, x01, stds, g_out, spec: HashGridSpec):
 def hash_encode_multisample_bwd(table: torch.Tensor, x01: torch.Tensor,
                                 stds: torch.Tensor, g_out: torch.Tensor,
                                 spec: HashGridSpec, needs=(True, True, True),
-                                coarse_res_cutoff: int = 0):
-    """Same contract as `hash_encode_multisample_bwd_plain`; CUDA tensors
-    launch the H1 backward kernel (`hash_encode_ms_bwd`) or raise. With
-    torch's deterministic algorithms on: `hash_encode_multisample_bwd_det`
-    (its kernels on CUDA tensors, its plain twin on CPU ones)."""
+                                coarse_res_cutoff: int = 0, residuals=None):
+    """Same contract as `hash_encode_multisample_bwd_plain`: d_table by the
+    H1 backward kernel (`hash_encode_ms_bwd`) on CUDA tensors, by the
+    written-out twin on CPU ones; d_x01 / d_stds from the residuals
+    (`residuals`, R of these inputs, or one residual launch) by
+    `pos_grads_from_residuals`. With torch's deterministic algorithms on:
+    `hash_encode_multisample_bwd_det` (its kernels on CUDA tensors, its
+    plain twin on CPU ones)."""
     if torch.are_deterministic_algorithms_enabled():
         return hash_encode_multisample_bwd_det(
-            table, x01, stds, g_out, spec, needs, coarse_res_cutoff)
-    if _on_cpu(table, x01, stds, g_out):
-        return hash_encode_multisample_bwd_plain(table, x01, stds, g_out,
-                                                 spec, needs,
-                                                 coarse_res_cutoff)
-    table, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
-    b, n_ms = s.shape
-    outs = [torch.zeros_like(t) if need else None
-            for t, need in zip((table, x, s), needs)]
-    ptr = lambda t: None if t is None else t.data_ptr()
-    arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
-    lib = _build.library()
-    rc = lib.nl_hash_encode_ms_bwd(
-        table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
-        *(ptr(t) for t in outs), b, n_ms, spec.num_levels, spec.level_dim,
-        *(a.ctypes.data for a in arrays), spec.interp == "tetra",
-        level_major(spec, _l2_bytes(x.device.index)),
-        x.device.index, _build.stream_of(x))
-    _build.check(lib, rc, "hash_encode_ms_bwd")
-    hash_encode_multisample_bwd.launches += 1
-    d_table, d_x, d_s = outs
-    return (d_table,
-            None if d_x is None else d_x.reshape(x01.shape),
-            None if d_s is None else d_s.reshape(stds.shape))
+            table, x01, stds, g_out, spec, needs, coarse_res_cutoff,
+            residuals=residuals)
+    d_table = None
+    if needs[0] and _on_cpu(table, x01, stds, g_out):
+        d_table = hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out, spec, (True, False, False),
+            coarse_res_cutoff)[0]
+    elif needs[0]:
+        tbl, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
+        b, n_ms = s.shape
+        d_table = torch.zeros_like(tbl)
+        arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive in the call
+        lib = _build.library()
+        rc = lib.nl_hash_encode_ms_bwd(
+            x.data_ptr(), s.data_ptr(), g.data_ptr(), d_table.data_ptr(), b,
+            n_ms, spec.num_levels, spec.level_dim,
+            *(a.ctypes.data for a in arrays), spec.interp == "tetra",
+            level_major(spec, _l2_bytes(x.device.index)),
+            x.device.index, _build.stream_of(x))
+        _build.check(lib, rc, "hash_encode_ms_bwd")
+        hash_encode_multisample_bwd.launches += 1
+    return (d_table, *_position_grads(table, x01, stds, g_out, spec, needs,
+                                      coarse_res_cutoff, residuals))
 
 
 hash_encode_multisample_bwd.launches = 0
@@ -543,29 +719,39 @@ hash_encode_multisample_bwd.launches = 0
 class HashEncodeMS(torch.autograd.Function):
     """The multisample encode with its written-out backward: kernel H1 and
     its backward on CUDA tensors, the plain twins on CPU tensors. With
+    `residuals` the forward also keeps R (`hash_encode_ms_residuals`) for
+    the position gradients, which the backward contracts. With
     `spec.diff_inputs` False x01 and stds get no gradient (zero), whatever
     autograd asks: the JAX `_ms_encode_nodiff_bwd`."""
 
     @staticmethod
     def forward(ctx, table, x01, stds, spec: HashGridSpec,
-                coarse_res_cutoff: int):
+                coarse_res_cutoff: int, residuals: bool):
         ctx.spec = spec
         ctx.cutoff = coarse_res_cutoff
-        ctx.save_for_backward(table, x01, stds)
-        if _on_cpu(table, x01, stds):
-            return hash_encode_multisample_plain(
+        res = None
+        if residuals:
+            out, res = hash_encode_ms_residuals(table, x01, stds, spec,
+                                                coarse_res_cutoff)
+        elif _on_cpu(table, x01, stds):
+            out = hash_encode_multisample_plain(
                 table, x01, stds, spec, coarse_res_cutoff)[0]
-        return _encode_kernel(table, x01, stds, spec, coarse_res_cutoff)
+        else:
+            out = _encode_kernel(table, x01, stds, spec,
+                                 coarse_res_cutoff)[0]
+        ctx.save_for_backward(table, x01, stds, res)
+        return out
 
     @staticmethod
     def backward(ctx, g_out):
-        table, x01, stds = ctx.saved_tensors
+        table, x01, stds, res = ctx.saved_tensors
         needs = ctx.needs_input_grad[:3]
         if not ctx.spec.diff_inputs:
             needs = (needs[0], False, False)
         grads = hash_encode_multisample_bwd(
-            table, x01, stds, g_out, ctx.spec, needs, ctx.cutoff)
-        return (*grads, None, None)
+            table, x01, stds, g_out, ctx.spec, needs, ctx.cutoff,
+            residuals=res)
+        return (*grads, None, None, None)
 
 
 def hash_encode_multisample(table: torch.Tensor, x01: torch.Tensor,
@@ -577,9 +763,16 @@ def hash_encode_multisample(table: torch.Tensor, x01: torch.Tensor,
 
     CPU tensors take `hash_encode_multisample_plain` and its written-out
     backward; CUDA tensors launch kernel H1 (`hash_encode_ms`) and, in
-    backward, `hash_encode_ms_bwd`; a build or launch failure raises.
+    backward, `hash_encode_ms_bwd`; a build or launch failure raises. Where
+    x01 or stds take a gradient (autograd on, `spec.diff_inputs`), the
+    forward keeps the residuals (H1's residual mode) and the backward
+    contracts them; elsewhere (render, eval, the static train step) no R
+    is made.
     """
-    return HashEncodeMS.apply(table, x01, stds, spec, coarse_res_cutoff)
+    residuals = (torch.is_grad_enabled() and spec.diff_inputs
+                 and (x01.requires_grad or stds.requires_grad))
+    return HashEncodeMS.apply(table, x01, stds, spec, coarse_res_cutoff,
+                              residuals)
 
 
 hash_encode_multisample.launches = 0
@@ -960,18 +1153,18 @@ def hash_encode_multisample_bwd_det_plain(
         coarse_res_cutoff: int = 0, k=None):
     """The plain twin of `hash_encode_multisample_bwd_det`: d_table from
     fixed-point terms summed in int64 (bit-identical under any order of
-    the samples), d_x01 / d_stds as `hash_encode_multisample_bwd_plain`
-    (sums in a fixed order, no scatter). k: the [L, C] exponents to round
-    at (default: `fixed_exponents` of `_abs_bound`; give the kernel's,
-    `bound_exponents`, to hold the two at the same k)."""
+    the samples), d_x01 / d_stds from the plain residuals and contraction
+    (`hash_encode_ms_residuals_plain`, `pos_grads_from_residuals_plain`:
+    sums in a fixed order, no scatter), as in the default mode. k: the
+    [L, C] exponents to round at (default: `fixed_exponents` of
+    `_abs_bound`; give the kernel's, `bound_exponents`, to hold the two at
+    the same k)."""
     _check_ported(spec)
-    _, d_x, d_s = hash_encode_multisample_bwd_plain(
-        table, x01, stds, g_out, spec, (False, needs[1], needs[2]),
-        coarse_res_cutoff)
     d_table = (_table_fixed_plain(x01, stds, g_out, spec, coarse_res_cutoff,
                                   k)
                if needs[0] else None)
-    return d_table, d_x, d_s
+    return (d_table, *_position_grads(table, x01, stds, g_out, spec, needs,
+                                      coarse_res_cutoff, plain=True))
 
 
 def table_grad_terms(x01: torch.Tensor, stds: torch.Tensor,
@@ -1115,27 +1308,33 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
                                     spec: HashGridSpec,
                                     needs=(True, True, True),
                                     coarse_res_cutoff: int = 0,
-                                    level_major_order=None, threads=128):
+                                    level_major_order=None, threads=128,
+                                    residuals=None):
     """Same contract as `hash_encode_multisample_bwd_plain`, with sums that
     do not depend on their order: CPU tensors take the plain twin
-    (`hash_encode_multisample_bwd_det_plain`); CUDA tensors launch
-    `abs_bound` (the exponents), `hash_encode_ms_bwd_fixed` then
-    `fixed_to_float` (d_table) and `hash_encode_ms_pos_grads` (d_x01 /
-    d_stds: a thread a sample sums its levels in order), or raise. The
-    d_table's block order (level_major_order, default
-    `fixed_level_major`) and block size (threads, a multiple of 32) change
-    the launch, never the result."""
+    (`hash_encode_multisample_bwd_det_plain`, or the contraction of
+    `residuals` where given); CUDA tensors launch `abs_bound` (the
+    exponents), `hash_encode_ms_bwd_fixed` then `fixed_to_float` (d_table),
+    and d_x01 / d_stds come from the residuals as in the default mode
+    (`hash_encode_multisample_bwd`: the same bits), or raise. The d_table's
+    block order (level_major_order, default `fixed_level_major`) and block
+    size (threads, a multiple of 32) change the launch, never the
+    result."""
     if _on_cpu(table, x01, stds, g_out):
-        return hash_encode_multisample_bwd_det_plain(
-            table, x01, stds, g_out, spec, needs, coarse_res_cutoff)
-    table, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
-    b, n_ms = s.shape
-    c, levels = spec.level_dim, spec.num_levels
-    arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
-    lib = _build.library()
-    dev, stream = x.device.index, _build.stream_of(x)
-    d_table = d_x = d_s = None
+        d_table = hash_encode_multisample_bwd_det_plain(
+            table, x01, stds, g_out, spec, (needs[0], False, False),
+            coarse_res_cutoff)[0]
+        return (d_table, *_position_grads(
+            table, x01, stds, g_out, spec, needs, coarse_res_cutoff,
+            residuals, plain=True))
+    d_table = None
     if needs[0]:
+        table, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
+        b, n_ms = s.shape
+        c, levels = spec.level_dim, spec.num_levels
+        arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive in the call
+        lib = _build.library()
+        dev, stream = x.device.index, _build.stream_of(x)
         if level_major_order is None:
             level_major_order = fixed_level_major(spec, _l2_bytes(dev))
         k = bound_exponents(g)[1]
@@ -1150,24 +1349,11 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
         d_table = torch.empty_like(table)
         _fixed_to_float(lib, acc, flags, k, spec.offsets, d_table)
         _give_fixed_buffers(key, (acc, flags))
-    if needs[1] or needs[2]:
-        d_x = torch.empty_like(x) if needs[1] else None
-        d_s = torch.empty_like(s) if needs[2] else None
-        ptr = lambda t: None if t is None else t.data_ptr()
-        rc = lib.nl_hash_encode_ms_pos_grads(
-            table.data_ptr(), x.data_ptr(), s.data_ptr(), g.data_ptr(),
-            ptr(d_x), ptr(d_s), b, n_ms, levels, c,
-            *(a.ctypes.data for a in arrays), spec.interp == "tetra", dev,
-            stream)
-        _build.check(lib, rc, "hash_encode_ms_pos_grads")
-        hash_encode_multisample_bwd_det.position_launches += 1
-    return (d_table,
-            None if d_x is None else d_x.reshape(x01.shape),
-            None if d_s is None else d_s.reshape(stds.shape))
+    return (d_table, *_position_grads(table, x01, stds, g_out, spec, needs,
+                                      coarse_res_cutoff, residuals))
 
 
 hash_encode_multisample_bwd_det.launches = 0
-hash_encode_multisample_bwd_det.position_launches = 0
 
 
 def scatter_add_rows_det_plain(idx: torch.Tensor, vals: torch.Tensor,

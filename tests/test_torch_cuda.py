@@ -14,9 +14,12 @@ version's roundings, so both pick the same corners); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
-The deterministic d_x01 / d_stds (a thread a sample sums its levels in
-order): the same bits on fresh copies, against the plain version and the
-atomic kernel at the backward's tolerance.
+The position gradients, in both modes: H1's residual mode (R, the terms
+d_x01 / d_stds contract with g_out) against its plain version at the
+backward's tolerance, its features the same bits as H1's; the contraction
+(`hash_encode_ms_pos_grads`: a thread a point sums the levels, then the
+channels, in order, each product and sum rounded as torch rounds them) the
+same bits as its plain version; both the same bits on fresh copies.
 The deterministic H1 backward and K3 (fixed-point terms summed in int64):
 the same bits on fresh copies of their inputs, in both block orders and
 at block sizes 64, 128 and 256; against the atomic kernels at the
@@ -484,8 +487,12 @@ def test_hash_encode_bwd_kernel_table_only(dev):
                        generator=g).requires_grad_(True)
     x01 = torch.rand(64, 3, 3, device=dev, generator=g)
     stds = torch.rand(64, 3, device=dev, generator=g) * 0.01
+    before = (grid.hash_encode_ms_residuals.calls,
+              grid.pos_grads_from_residuals.launches)
     grid.hash_encode_multisample(table, x01, stds, spec).square().sum() \
         .backward()
+    assert (grid.hash_encode_ms_residuals.calls,
+            grid.pos_grads_from_residuals.launches) == before
     want = torch.autograd.grad(
         grid.hash_encode_multisample_plain(table, x01, stds, spec)[0]
         .square().sum(), table)[0]
@@ -921,7 +928,7 @@ def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                               cutoff, case, 80 + level_dim)
     args = (table, x01, stds, g_out, spec)
     before = (grid.hash_encode_multisample_bwd_det.launches,
-              grid.hash_encode_multisample_bwd_det.position_launches,
+              grid.pos_grads_from_residuals.launches,
               grid.hash_encode_multisample_bwd.launches)
     first = grid.hash_encode_multisample_bwd_det(
         *args, coarse_res_cutoff=cutoff)
@@ -934,7 +941,7 @@ def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
         for a, b in zip(got, first):
             assert torch.equal(a, b), (lm, th)
     assert (grid.hash_encode_multisample_bwd_det.launches,
-            grid.hash_encode_multisample_bwd_det.position_launches,
+            grid.pos_grads_from_residuals.launches,
             grid.hash_encode_multisample_bwd.launches) == (
         before[0] + 9, before[1] + 9, before[2])
     terms, counts = grid.table_grad_terms(x01, stds, g_out, spec, cutoff)
@@ -1122,37 +1129,60 @@ def test_det_row_sinks_add_exactly(dev, case, c):
 @pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
 def test_pos_grads_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                                      cutoff, n):
-    """The deterministic d_x01 / d_stds (`hash_encode_ms_pos_grads`: a
-    thread a sample sums its levels in order) on the ties, rays and
-    out-of-range-mean cases at n points a sample: the same bits on 3 fresh
-    copies of the inputs, and against the plain version and the atomic
-    kernel at the backward's tolerance; one count a call, the atomic
-    kernel's unchanged."""
+    """The position gradients on the ties, rays and out-of-range-mean cases
+    at n points a sample: H1's residual mode (R) against its plain version
+    at the backward's tolerance, its features the same bits as H1's; the
+    contraction (`hash_encode_ms_pos_grads`) the same bits as its plain
+    version on the same R; each the same bits on 3 fresh copies; d_x01 /
+    d_stds the same bits in both modes and against the written-out twin at
+    the backward's tolerance; one launch of each a call, no atomic
+    H1-bwd without d_table."""
     for case in ("ties", "rays", "oob_mean"):
         spec, table, x01, stds, g_out = _det_case(
             dev, level_dim, interp, cutoff, case, 70 + level_dim + n)
         x01, stds = x01[:, :n].contiguous(), stds[:, :n].contiguous()
-        asked = (False, True, True)
-        before = (grid.hash_encode_multisample_bwd_det.position_launches,
-                  grid.hash_encode_multisample_bwd.launches)
-        runs = [grid.hash_encode_multisample_bwd_det(
-            *(t.clone() for t in (table, x01, stds, g_out)), spec, asked,
-            cutoff) for _ in range(3)]
-        plain = grid.hash_encode_multisample_bwd_plain(
-            table, x01, stds, g_out, spec, asked, cutoff)
-        atomic = grid.hash_encode_multisample_bwd(table, x01, stds, g_out,
-                                                  spec, asked, cutoff)
-        torch.cuda.synchronize()
-        assert (grid.hash_encode_multisample_bwd_det.position_launches,
-                grid.hash_encode_multisample_bwd.launches) == (
-            before[0] + 3, before[1] + 1)
+        res = [grid.hash_encode_ms_residuals(
+            *(t.clone() for t in (table, x01, stds)), spec, cutoff)
+            for _ in range(3)]
+        features = grid.hash_encode_multisample(table, x01, stds, spec,
+                                                cutoff)
+        res_plain = grid.hash_encode_ms_residuals_plain(table, x01, stds,
+                                                        spec, cutoff)
+        r = res[0][1]
+        for out, rr in res[1:]:
+            assert torch.equal(out, res[0][0]) and torch.equal(rr, r), case
+        assert torch.equal(res[0][0], features), case
+        _close_to_max(r, res_plain, f"{case} R vs plain")
+        del res, res_plain
+        runs = [grid.pos_grads_from_residuals(r.clone(), g_out.clone())
+                for _ in range(3)]
         for run in runs[1:]:
-            assert run[0] is None
-            assert torch.equal(run[1], runs[0][1]), case
-            assert torch.equal(run[2], runs[0][2]), case
+            assert all(torch.equal(a, b) for a, b in zip(run, runs[0])), case
+        plain = grid.pos_grads_from_residuals_plain(r, g_out)
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], plain)), case
+        asked = (False, True, True)
+        counts = lambda: (grid.hash_encode_ms_residuals.launches,
+                          grid.pos_grads_from_residuals.launches,
+                          grid.hash_encode_multisample_bwd.launches)
+        before = counts()
+        default = grid.hash_encode_multisample_bwd(table, x01, stds, g_out,
+                                                   spec, asked, cutoff)
+        with _deterministic():
+            det = grid.hash_encode_multisample_bwd(table, x01, stds, g_out,
+                                                   spec, asked, cutoff)
+        assert counts() == (before[0] + 2, before[1] + 2, before[2])
+        written = grid.hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out, spec, asked, cutoff)
+        torch.cuda.synchronize()
         for i, name in ((1, "x01"), (2, "stds")):
-            _close_to_max(runs[0][i], plain[i], f"{case} {name} vs plain")
-            _close_to_max(runs[0][i], atomic[i], f"{case} {name} vs atomic")
+            assert torch.equal(default[i], det[i]), f"{case} {name}"
+            assert torch.equal(default[i].reshape(runs[0][i - 1].shape),
+                               runs[0][i - 1]), f"{case} {name}"
+            if bool(written[i].any()):
+                _close_to_max(default[i], written[i],
+                              f"{case} {name} vs written-out twin")
+            else:  # the object grid's stds gradient at stds 0
+                assert not bool(default[i].any()), f"{case} {name}"
 
 
 @pytest.mark.parametrize("n,f", [(0, 4), (1, 1), (1000, 3), (70_001, 40),
@@ -1238,7 +1268,8 @@ def test_wrappers_launch_the_det_kernels_under_the_switch(dev):
                                               95)
     leaves = [t.clone().requires_grad_(True) for t in (table, x01, stds)]
     counts = lambda: (grid.hash_encode_multisample_bwd_det.launches,
-                      grid.hash_encode_multisample_bwd_det.position_launches,
+                      grid.hash_encode_ms_residuals.launches,
+                      grid.pos_grads_from_residuals.launches,
                       grid.hash_encode_multisample_bwd.launches,
                       grid.scatter_add_rows_det.launches,
                       grid.scatter_add_rows.launches)
@@ -1249,5 +1280,5 @@ def test_wrappers_launch_the_det_kernels_under_the_switch(dev):
                                      leaves[0]**2, spec.num_levels)
         sums.sum().backward()
     assert not torch.are_deterministic_algorithms_enabled()
-    assert counts() == (before[0] + 1, before[1] + 1, before[2],
-                        before[3] + 1, before[4])
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                        before[3], before[4] + 1, before[5])

@@ -62,6 +62,18 @@ EPS_MULT = 64
 PERMUTATIONS = 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads while this module runs: the tier runs several
+    test files at once, and torch's CPU ops on every core of each worker
+    oversubscribe the machine (as tests/test_torch_raydrop_train.py
+    found)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture
 def deterministic():
     """torch's deterministic algorithms on for the test, restored after."""

@@ -48,6 +48,18 @@ PORT = [*SCENE_ARGS, "--device", "cpu", "--exp_name", "p"]
 JAX = [*SCENE_ARGS, "--exp_name", "j"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads while this module runs: the tier runs several
+    test files at once, and torch's CPU ops on every core of each worker
+    oversubscribe the machine (as tests/test_torch_raydrop_train.py
+    found)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope="module")
 def field(tmp_path_factory):
     """A directory holding the scene, exp/j/ (the JAX run: its
@@ -80,6 +92,26 @@ def _jax_model(port_cfg):
     return JaxModel(jcfg.model), jcfg
 
 
+# The JAX renderers the tests compare with, one per model config and
+# options: a renderer's jitted chunk program is traced and compiled once
+# and then serves every test that renders with the same field.
+_RENDERERS = {}
+
+
+def _jax_renderer(port_cfg, **options):
+    """The JAX ChunkRenderer of the port's resolved config (its model and
+    chunk size, the only parts of the config its program reads off a TPU)
+    with `options` (fused, compute_extras), built once for this module."""
+    model, jcfg = _jax_model(port_cfg)
+    key = (json.dumps(json.loads(port_cfg.to_json())["model"],
+                      sort_keys=True), jcfg.render_chunk_size,
+           tuple(sorted(options.items())))
+    if key not in _RENDERERS:
+        _RENDERERS[key] = jrenderer.ChunkRenderer(
+            model, jcfg, jcfg.render_chunk_size, **options)
+    return _RENDERERS[key]
+
+
 def _np(t):
     return None if t is None else t.cpu().numpy()
 
@@ -97,13 +129,11 @@ def test_jax_checkpoint_renders_the_same_in_the_port(field):
     assert run.steps == [2] and run.cfg.model.num_objects == 1
     params, step = jcheckpoints.restore_model_params("exp/j")
     assert step == 2 and "obj_latents" in params["params"]
-    model, jcfg = _jax_model(run.cfg)
     rays = cli._view_rays(run.data, 0)
     np.testing.assert_array_equal(rays["origins"],
                                   jcli._view_rays(run.data, 0)["origins"])
     want = jrenderer.render_view(
-        jrenderer.ChunkRenderer(model, jcfg, jcfg.render_chunk_size,
-                                fused=False), params, rays,
+        _jax_renderer(run.cfg, fused=False), params, rays,
         jnp.asarray(_np(run.tracks)), jnp.asarray(_np(run.track_mask)))
     got = render_view(run.renderer, rays, run.tracks, run.track_mask)
     assert set(got) == set(want) and "obj_mask" in got
@@ -195,9 +225,7 @@ def test_render_entry_panels_and_frames(field, path):
         b = imageio.imread(f"exp/j/render_{path}/color_{i:03d}.png")
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
     params, _ = jcheckpoints.restore_model_params("exp/j")
-    model, jcfg = _jax_model(run.cfg)
-    rend = jrenderer.ChunkRenderer(model, jcfg, jcfg.render_chunk_size,
-                                   compute_extras=True)
+    rend = _jax_renderer(run.cfg, compute_extras=True)
     poses = (jcamera.generate_ellipse_path(scene.data.camtoworlds,
                                            n_frames=2)
              if path == "ellipse" else scene.data.camtoworlds)
@@ -284,10 +312,8 @@ def test_in_train_render_view_and_psnr(field):
     assert any("render_s" in r for r in recs)
     assert [r["step"] for r in recs if "loss" in r] == [1, 2]
     assert {"psnr", "rays_per_sec", "data"} <= set(recs[-1])
-    model, jcfg = _jax_model(run.cfg)
     img = jrenderer.render_view(
-        jrenderer.ChunkRenderer(model, jcfg, jcfg.render_chunk_size,
-                                fused=False),
+        _jax_renderer(run.cfg, fused=False),
         convert.load_npz_params(run.params),
         jcli._view_rays(scene.data, want_view),
         jnp.asarray(_np(run.tracks)), jnp.asarray(_np(run.track_mask)))

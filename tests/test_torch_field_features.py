@@ -74,6 +74,18 @@ LOSSES = dict(orientation_loss_mult=0.1, orientation_coarse_loss_mult=0.01,
               normal_supervision=True, data_loss_type="rawnerf")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """Two intra-op threads while this module runs: the tier runs several
+    test files at once, and torch's CPU ops on every core of each worker
+    oversubscribe the machine (as tests/test_torch_raydrop_train.py
+    found)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(2, before))
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfg(cfgs, mlp_flags=REF_NERF, **top):
     """tiny_debug with the NeRF MLP's `mlp_flags`, GLO (4 features),
     learned exposure scaling, a background range and `top` overrides."""
