@@ -256,13 +256,33 @@ Phases (each raises on failure, so the script exits non-zero):
    the deterministic d_table against its twins as [19] holds them;
    `train --deterministic` twice (the same bits); a `render_lidar` sweep
    of its weights with every K1 and H1 call held against its plain version.
+21. grids of any width (the kernels' general path: a row read as slices
+   of gcd(C, 4) floats), at full width: (a) `nuscenes_single` with a C3
+   NeRF grid (14,995,560 rows) and C6 proposal grids, through the train
+   entry 3 steps (launches, a gradient on every table, ms/step, peak GiB),
+   3 steps kernels on vs off under [8]'s rules, on one more step's
+   recorded NeRF and first proposal call H1 against its plain version
+   ([4]'s tolerances), H1-bwd against its written-out twin ([6]'s), the
+   deterministic d_table against its twins as [19] holds them, K3 at the
+   grid's hash-decay level sums against float64 and its deterministic
+   variant against its twin, device times in turns (K3 beside
+   `index_add_`) and bounds; `train --deterministic` twice (the same bits);
+   a `render_lidar` sweep of its weights with every K1 and H1 call held
+   against its plain version; (b) the refinement recipe ([19]'s, pose and
+   track refinement from step 0 on [12]'s scene) with a C12 NeRF grid and
+   a C3 object grid, 3 steps in the default mode (H1's residual mode, the
+   contraction and the atomic H1-bwd on every grid), `--deterministic`
+   twice (the same bits), then [19]'s `pos_grads_check` on every grid's
+   recorded call (R and the contraction against their plain versions and
+   on 3 copies, d_x01 / d_stds the same bits in both modes).
 Every entry the script runs through `cli.main` is watched: H1's residual
 mode may run only in a train entry with a live posenet or tracknet, where
 x01 / stds take a gradient; a render, eval or extract entry or a static
 train step that launches it fails the script.
 The phases run in the order 1, 2, 3, 5, 4, 8, 12, 13, 14, 15, 16, 17, 18,
 12-profiled, 15-profiled, 16-profiled, 18-profiled, 8-profiled, 6, 7, 9,
-10, 11, 20, 19 ([19] last: it turns torch's process-wide switch on and off): [4]
+10, 11, 20, 21, 19 ([19] last: it turns torch's process-wide switch on and
+off; [21] needs [12]'s scene): [4]
 and [6] time the encode on the inputs that [5] and [8] record, and what
 times with torch.profiler ([3]'s timing, [7], [9], [10], [11], [12]'s
 kernel times and profile) runs after the timed entries, [3]'s timing after
@@ -277,8 +297,10 @@ JSON line (every kernel's launches on each path, the object paths
 [16]'s `extract`, `render_video`, `render_video_hq`, `render_instance`,
 `train_obj_ckpt`, [17]'s `train_dp_rank<r>`, `render_lidar_dp_rank<r>`
 and `train_objects_dp_rank<r>`, [18]'s `train_refnerf`,
-`eval_refnerf`, `render_refnerf`, `train_rawnerf`, `eval_rawnerf` and
-[20]'s `train_c8`, `render_lidar_c8` included, times,
+`eval_refnerf`, `render_refnerf`, `train_rawnerf`, `eval_rawnerf`,
+[20]'s `train_c8`, `render_lidar_c8` and [21]'s `train_c3`,
+`train_c3_deterministic`, `render_lidar_c3`, `train_refine_c12`,
+`train_refine_c12_deterministic` included, times,
 and its bound:
 the larger of its bytes over the card's memory rate and its operations
 over its float32 rate; H1 and its backward per grid too, and H1, H1-bwd
@@ -287,7 +309,9 @@ and grid under "preset_modes", H1 on [16]'s lattice chunk under
 "lattice_chunk", [18]'s numbers of each kernel on its path under
 "refnerf", [19]'s under "deterministic" of H1-bwd and K3, with their
 launches on [19]'s paths `train_static_deterministic`,
-`train_objects_deterministic`, `train_fast_deterministic`), the
+`train_objects_deterministic`, `train_fast_deterministic` and [21]'s
+deterministic ones), [21]'s numbers of each kernel on its calls under
+"any_width", the
 nvidia-smi line,
 then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4988,6 +5012,10 @@ def det_train_run(dev, key, argv, deterministic, tag, inspect=None):
     out = (state, run.history, ms, peak, launches, extra)
     del run
     torch.cuda.empty_cache()
+    # Nothing reads the run's files again: freeing them lets the next runs'
+    # checkpoints take the same disk blocks (the card's machine counts the
+    # blocks its disk ever held).
+    fresh_exp_dir(full)
     return out
 
 
@@ -5117,12 +5145,284 @@ def phase_c8(dev):
                   ("hash_encode_ms", "composite"))
     check_sweep_files("render_lidar_c8", rendered,
                       rendered.cfg.model.nerf_mlp.class_num)
+    fresh_exp_dir(argv)  # the weights and the sweep: not read again
     print(f"[20] render_lidar_c8 (1 sweep): launches {render_launches}; "
           f"every call vs its plain version, max abs err K1 "
           f"{max(checked['k1'])} ({len(checked['k1'])} calls), H1 "
           f"{max(checked['h1']):.3e} ({len(checked['h1'])} calls), per mode "
           f"{ {m: f'{e:.2e}' for m, e in checked['h1_modes'].items()} }")
     return {"train_c8": launches, "render_lidar_c8": render_launches}
+
+
+# [21]: hash grids of the widths the kernels take by their general path (a
+# row read as slices of gcd(C, 4) floats): the static field with a C3 NeRF
+# grid and C6 proposal grids, and the refinement recipe with a C12 NeRF grid
+# and a C3 object grid, whose position gradients put H1's residual mode and
+# the contraction on every grid.
+ANY_STEPS = 3
+ANY_DET_STEPS = 2
+ANY_ARGS = ["--config", "nuscenes_single", "--set", "dataset_loader=synthetic",
+            "--set", "model.nerf_mlp.grid.level_dim=3", "--set",
+            "model.prop_mlp.grid.level_dim=6"]
+ANY_WIDTHS = {"nerf": 3, "prop0": 6, "prop1": 6}
+ANY_REFINE = [*DET_TRAIN["refine"][:-2], "--set",
+              "model.nerf_mlp.grid.level_dim=12", "--set",
+              "model.obj_mlp.grid.level_dim=3"]
+ANY_REFINE_WIDTHS = {"nerf": 12, "obj": 3}
+
+
+def any_width_grid(dev, name, rec):
+    """[21] The general path on one grid's recorded train call `rec`: H1
+    against its plain version ([4]'s tolerances), H1-bwd against its
+    written-out twin ([6]'s BWD_TOL of max, every gradient the call asks),
+    the deterministic d_table against its float and plain deterministic
+    twins (`det_bwd_grid`), K3 at the grid's hash-decay level sums against
+    float64 ([7]'s PATH_SCATTER_TOL) and its deterministic variant against
+    its twin and float64 (`det_scatter`); device ms of H1, H1-bwd's d_table
+    and K3 (CUDA events around calls queued behind a device sleep, K3 in
+    turns with `index_add_`, its library yardstick), the plain versions' ms
+    (CUDA events, once) and the bounds. Returns {kernel: numbers}."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    from nerf_lidar_tpu_torch.ops import grid
+    table, x01, stds, g_out, spec, needs, cutoff = rec
+    c, mode = spec.level_dim, encode_mode(spec, cutoff)
+    h1 = lambda: grid.hash_encode_multisample(table, x01, stds, spec, cutoff)
+    h1_plain_ms, want = cuda_ms_once(lambda: grid.hash_encode_multisample_plain(
+        table, x01, stds, spec, cutoff)[0])
+    fwd_err = close(f"[21] C{c} {name} H1", h1(), want, 1e-5, 1e-6)
+    del want
+    bwd_plain_ms, want = cuda_ms_once(
+        lambda: grid.hash_encode_multisample_bwd_plain(
+            table, x01, stds, g_out, spec, needs, cutoff))
+    got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
+                                           needs, cutoff)
+    bwd_err = max(rel_err(f"[21] C{c} {name} H1-bwd {key}", got[i], want[i],
+                          BWD_TOL)[1]
+                  for i, key in enumerate(GRADS) if needs[i])
+    del got, want
+    det = det_bwd_grid(dev, f"C{c} {name}", (table, x01, stds, g_out, spec),
+                       cutoff, full=True)
+    idx, vals, rows = grid.level_ids(spec, dev), table.detach()**2, \
+        spec.num_levels
+    k3 = lambda: grid.scatter_add_rows(idx, vals, rows)
+    k3_plain_ms, _ = cuda_ms_once(
+        lambda: grid.scatter_add_rows_plain(idx, vals, rows))
+    k3_err = rel_err(f"[21] C{c} {name} K3 hash decay", k3().double(),
+                     grid.scatter_add_rows_plain(idx, vals.double(), rows),
+                     PATH_SCATTER_TOL)[1]
+    idx64 = idx.long()
+    library = lambda: vals.new_zeros(rows, c).index_add_(0, idx64, vals)
+    bwd = lambda: grid.hash_encode_multisample_bwd(
+        table, x01, stds, g_out, spec, (True, False, False), cutoff)
+    turns = {k: [] for k in ("h1", "bwd", "k3", "library")}
+    for k, fn in (("h1", h1), ("bwd", bwd), ("k3", k3), ("library", library),
+                  ("library", library), ("k3", k3), ("bwd", bwd),
+                  ("h1", h1)):
+        turns[k].append(hb.queued_ms(fn) or cuda_ms(fn))
+    det_k3 = det_scatter(dev, f"hash decay C{c} {name}", idx, vals, rows,
+                         full=False)
+    common = dict(C=c, mode=mode, B=stds.numel() // stds.shape[-1],
+                  n=stds.shape[-1], rows=spec.total_rows)
+    out = dict(
+        hash_encode_ms=dict(max_abs_err=fwd_err,
+                            ms=statistics.fmean(turns["h1"]),
+                            plain_ms=h1_plain_ms, library_ms=None,
+                            turns=turns["h1"],
+                            **bound(*hb.fwd_bound(spec, x01, stds, cutoff)),
+                            **common),
+        hash_encode_ms_bwd=dict(max_rel_err=bwd_err,
+                                ms=statistics.fmean(turns["bwd"]),
+                                plain_ms=bwd_plain_ms, library_ms=None,
+                                turns=turns["bwd"], needs=list(needs),
+                                **bound(*hb.bwd_bound(spec, x01, stds, g_out,
+                                                      cutoff)),
+                                deterministic=det, **common),
+        scatter_add_rows=dict(max_rel_err=k3_err,
+                              ms=statistics.fmean(turns["k3"]),
+                              plain_ms=k3_plain_ms,
+                              library_ms=statistics.fmean(turns["library"]),
+                              turns=turns["k3"],
+                              library_turns=turns["library"],
+                              **bound(nbytes(idx, vals) + rows * c * 4,
+                                      vals.numel()),
+                              deterministic=det_k3, C=c, N=vals.shape[0],
+                              rows=rows))
+    print(f"[21] C{c} {name} ({mode}, B={common['B']}, n={common['n']}, "
+          f"needs {needs}): H1 max abs err {fwd_err:.2e}, H1-bwd "
+          f"{bwd_err:.2e} of max, K3 hash decay {k3_err:.2e} of max; device "
+          f"ms in turns {turns}; bounds H1 "
+          f"{out['hash_encode_ms']['bound_ms']:.4f}, H1-bwd "
+          f"{out['hash_encode_ms_bwd']['bound_ms']:.4f}, K3 "
+          f"{out['scatter_add_rows']['bound_ms']:.4f}; plain ms (CUDA "
+          f"events) H1 {h1_plain_ms:.1f}, H1-bwd {bwd_plain_ms:.1f}, K3 "
+          f"{k3_plain_ms:.2f}; deterministic d_table and K3 as [19] above")
+    return out
+
+
+def with_widths(inspect=None):
+    """An inspect hook for `det_train_run` that returns ({grid: level_dim}
+    of the run's model, inspect(run) or None)."""
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+
+    def wrapped(run):
+        widths = {n: m.spec.level_dim for n, m in hb.grid_names(run.model)}
+        return widths, inspect(run) if inspect is not None else None
+    return wrapped
+
+
+def check_widths(what, widths, want):
+    if any(widths.get(k) != v for k, v in want.items()):
+        fail(f"{what}: grid widths {widths}, expected {want}")
+
+
+def phase_any_width(dev):
+    """[21] Hash grids of the general path's widths at full width. (a) The
+    train entry on nuscenes_single with a C3 NeRF grid and C6 proposal
+    grids for ANY_STEPS steps (finite losses, a gradient on every table,
+    H1, H1-bwd and K3 launched, ms/step, peak GiB), ON_OFF_STEPS steps
+    kernels on vs off under [8]'s rules, then on one more step's recorded
+    calls of the NeRF and first proposal grid `any_width_grid`; `train
+    --deterministic` twice for ANY_DET_STEPS steps (the same bits, no atomic
+    kernel); a `render_lidar` sweep of its weights with every H1 and K1 call
+    held against its plain version. (b) The refinement recipe (pose and
+    track refinement from the first step, [19]'s `DET_TRAIN["refine"]` on
+    [12]'s scene) with a C12 NeRF grid and a C3 object grid: ANY_STEPS
+    steps in the default mode (H1's residual mode, the contraction and the
+    atomic H1-bwd on every grid), then `--deterministic` twice for
+    ANY_DET_STEPS steps (the same bits), and on every grid's recorded call
+    of one more deterministic step [19]'s `pos_grads_check` (R and the
+    contraction against their plain versions, each the same bits on 3
+    copies, d_x01 / d_stds the same bits in both modes). Returns {"paths":
+    {path: launches}, "kernels": {kernel: {call: numbers}}, "steps": {path:
+    ms/step and peak GiB}}."""
+    import numpy as np
+    import torch
+    from nerf_lidar_tpu_torch import cli
+    from nerf_lidar_tpu_torch.experiments import hash_encode_bench as hb
+    paths, kernels, steps = {}, {}, {}
+    exp = ["--device", "cuda", "--exp_name", "chip_smoke_c3"]
+    argv = ["train", *ANY_ARGS, *exp, "--set", "print_every=1", "--steps",
+            str(ANY_STEPS)]
+    fresh_exp_dir(argv)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with counted_launches() as launches:
+        run = cli.main(argv)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    need_launches("train_c3", launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd", "scatter_add_rows"))
+    paths["train_c3"] = launches
+    hist = run.history
+    check_widths("train_c3", with_widths()(run)[0], ANY_WIDTHS)
+    if len(hist) != ANY_STEPS or not all(np.isfinite(h["loss"])
+                                         for h in hist):
+        fail(f"train_c3: {len(hist)} steps, or a loss is not finite")
+    _table_grads_nonzero(run.model, "train_c3")
+    ms = 1e3 * statistics.median(h["step_s"] for h in hist[1:])
+    on_off = train_on_vs_off(dev, run, ANY_STEPS + 1, "train_c3 step")
+    print(f"[21] train_c3 (C3 NeRF {run.model.nerf_mlp.spec.total_rows} "
+          f"rows, C6 proposals; {ANY_STEPS} steps): launches {launches}; "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; "
+          f"{ms:.1f} ms/step after the first, peak {peak:.2f} GiB; "
+          f"{ON_OFF_STEPS} steps kernels on vs off: {on_off}")
+    recs = hb.record_train_inputs(run, ANY_STEPS + 1 + ON_OFF_STEPS)
+    for name in ("nerf", "prop0"):
+        for kernel, nums in any_width_grid(dev, name, recs.pop(name)).items():
+            kernels.setdefault(kernel, {})[f"train_c3 {name}"] = nums
+        torch.cuda.empty_cache()
+    del recs
+    steps["train_c3"] = dict(ms_per_step=ms, peak_gib=peak)
+    same, diff, det_ms, det_peak, det_launches, _, _ = det_train_pair(
+        dev, "c3", ["train", *ANY_ARGS, "--steps", str(ANY_DET_STEPS)], True)
+    if not same or det_launches["hash_encode_ms_bwd"] or \
+            det_launches["scatter_add_rows"]:
+        fail(f"train_c3 --deterministic: bit-identical {same} (max diff "
+             f"{diff}), launches {det_launches}")
+    need_launches("train_c3 --deterministic", det_launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd_det",
+                   "scatter_add_rows_det", "abs_bound"))
+    paths["train_c3_deterministic"] = det_launches
+    print(f"[21] train_c3 --deterministic, twice ({ANY_DET_STEPS} steps): "
+          f"bit-identical, launches {det_launches}, {det_ms:.1f} ms/step, "
+          f"peak {det_peak:.2f} GiB")
+    render_argv = ["render_lidar", *ANY_ARGS, *exp, "--mode", "simu",
+                   "--num_sweeps", "1", "--params", run.params]
+    del run
+    torch.cuda.empty_cache()
+    with counted_launches() as render_launches, kernels_checked() as checked:
+        rendered = cli.main(render_argv)
+        torch.cuda.synchronize()
+    need_launches("render_lidar_c3", render_launches,
+                  ("hash_encode_ms", "composite"))
+    check_sweep_files("render_lidar_c3", rendered,
+                      rendered.cfg.model.nerf_mlp.class_num)
+    fresh_exp_dir(argv)  # the weights and the sweep: not read again
+    paths["render_lidar_c3"] = render_launches
+    print(f"[21] render_lidar_c3 (1 sweep): launches {render_launches}; "
+          f"every call vs its plain version, max abs err K1 "
+          f"{max(checked['k1'])} ({len(checked['k1'])} calls), H1 "
+          f"{max(checked['h1']):.3e} ({len(checked['h1'])} calls), per mode "
+          f"{ {m: f'{e:.2e}' for m, e in checked['h1_modes'].items()} }")
+    del rendered
+    torch.cuda.empty_cache()
+
+    # (b) The refinement recipe, C12 NeRF and C3 object grids.
+    with pos_grads_by_spec() as by_spec:
+        state, hist, ms, peak, launches, extra = det_train_run(
+            dev, "refine_c12", [*ANY_REFINE, "--steps", str(ANY_STEPS)],
+            False, "def0", with_widths(refine_inspect(by_spec, ANY_STEPS,
+                                                      False)))
+    del state
+    widths, per_grid = extra
+    check_widths("train_refine_c12", widths, ANY_REFINE_WIDTHS)
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail("train_refine_c12: a loss is not finite")
+    need_launches("train_refine_c12", launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd", "scatter_add_rows",
+                   *POS_KERNELS))
+    if launches["hash_encode_ms_bwd_det"] or launches["scatter_add_rows_det"]:
+        fail(f"train_refine_c12 without the switch launched a deterministic "
+             f"kernel: {launches}")
+    need_launches("train_refine_c12, d_x01 / d_stds by grid",
+                  {g: sum(c for k, c in per_grid.items() if k.startswith(g))
+                   for g in REFINE_GRIDS}, REFINE_GRIDS)
+    paths["train_refine_c12"] = launches
+    steps["train_refine_c12"] = dict(ms_per_step=ms, peak_gib=peak)
+    with pos_grads_by_spec() as by_spec:
+        same, diff, det_ms, det_peak, det_launches, _, extra = \
+            det_train_pair(dev, "refine_c12",
+                           [*ANY_REFINE, "--steps", str(ANY_DET_STEPS)],
+                           True, with_widths(refine_inspect(
+                               by_spec, ANY_DET_STEPS, True)))
+    widths, (det_grid, rec) = extra
+    check_widths("train_refine_c12 --deterministic", widths,
+                 ANY_REFINE_WIDTHS)
+    if not same or det_launches["hash_encode_ms_bwd"] or \
+            det_launches["scatter_add_rows"]:
+        fail(f"train_refine_c12 --deterministic: bit-identical {same} (max "
+             f"diff {diff}), launches {det_launches}")
+    need_launches("train_refine_c12 --deterministic", det_launches,
+                  ("hash_encode_ms", "hash_encode_ms_bwd_det",
+                   "scatter_add_rows_det", "abs_bound", *POS_KERNELS))
+    need_launches("train_refine_c12 --deterministic, d_x01 / d_stds by grid",
+                  {g: sum(c for k, c in det_grid.items() if k.startswith(g))
+                   for g in REFINE_GRIDS}, REFINE_GRIDS)
+    paths["train_refine_c12_deterministic"] = det_launches
+    steps["train_refine_c12_deterministic"] = dict(ms_per_step=det_ms,
+                                                   peak_gib=det_peak)
+    print(f"[21] train_refine_c12 (C12 NeRF, C3 object grid; {ANY_STEPS} "
+          f"steps): launches {launches}, contraction launches by grid "
+          f"{per_grid}, {ms:.1f} ms/step, peak {peak:.2f} GiB; "
+          f"--deterministic twice ({ANY_DET_STEPS} steps): bit-identical, "
+          f"launches {det_launches}, by grid {det_grid}, {det_ms:.1f} "
+          f"ms/step, peak {det_peak:.2f} GiB")
+    for name in list(rec):
+        checked = pos_grads_check(dev, f"C{rec[name][4].level_dim} refine "
+                                  f"{name}", rec.pop(name))
+        for key, nums in checked.items():
+            kernels.setdefault(key, {})[f"train_refine_c12 {name}"] = nums
+        torch.cuda.empty_cache()
+    return dict(paths=paths, kernels=kernels, steps=steps)
 
 
 def phase_determinism(dev, train_inputs, pos_inputs):
@@ -5365,7 +5665,11 @@ def main():
     def timed(name, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
-        print(f"    ({name}: {time.perf_counter() - t:.1f} s)")
+        # The disk in use after the phase: the card's machine ends a command
+        # whose disk ever held more than 45 GiB (freed blocks are reused).
+        used = shutil.disk_usage(HERE).used / 2**30
+        print(f"    ({name}: {time.perf_counter() - t:.1f} s; disk in use "
+              f"{used:.1f} GiB)")
         return out
 
     k1_err = timed("[3]", phase_composite, dev)
@@ -5394,6 +5698,7 @@ def main():
     gathers = timed("[10]", phase_gathers, dev)
     bench_launches = timed("[11]", phase_gather_bench, dev)
     c8_launches = timed("[20]", phase_c8, dev)
+    any_width = timed("[21]", phase_any_width, dev)
     det = timed("[19]", phase_determinism, dev, train_inputs,
                 {"object grid": objects.pop("det_rec"),
                  "_fast nerf": presets.pop("det_rec")})
@@ -5410,15 +5715,25 @@ def main():
     # entries, [15]'s preset paths, [16]'s extract, render_video (and
     # --hq), render_instance and train --obj_ckpt, [17]'s train and
     # sweep on each rank, [18]'s Ref-NeRF train, eval and render and
-    # RawNeRF train and eval, and [20]'s C8 train and sweep; `launches` is
-    # their sum.
+    # RawNeRF train and eval, [20]'s C8 train and sweep, and [21]'s train
+    # and sweep of C3 / C6 grids and refinement train of C12 / C3 grids
+    # (their deterministic runs too); `launches` is their sum.
     paths = (("render_lidar", render_launches), ("train", train_launches),
              ("gather_bench", bench_launches),
              *objects["paths"].items(), ("raydrop", raydrop_launches),
              *eval_launches.items(), *presets["paths"].items(),
              ("extract", mesh["launches"]), *obj_entries.items(),
              *dp_launches.items(), *refnerf["paths"].items(),
-             *c8_launches.items())
+             *c8_launches.items(), *any_width["paths"].items())
+    # [21]'s deterministic runs under the deterministic kernels' entries.
+    for key, name in (("hash_encode_ms_bwd", "hash_encode_ms_bwd_det"),
+                      ("scatter_add_rows", "scatter_add_rows_det"),
+                      ("abs_bound", "abs_bound")):
+        by_path = det[key]["launches_by_path"]
+        by_path.update({p: c[name] for p, c in any_width["paths"].items()
+                        if p.endswith("_deterministic")})
+        det[key]["launches"] = sum(by_path.values())
+    any_kernels = any_width["kernels"]
 
     def entry(name, source, replaces, inputs, nums, **extra):
         """`inputs`: what the top-level numbers were measured on."""
@@ -5445,7 +5760,8 @@ def main():
               "(uniform_*: uniform points of the same shape)", h1,
               obj_grid=obj_grid["hash_encode_ms"],
               preset_modes=presets["h1"], lattice_chunk=lattice_chunk,
-              refnerf=ref_kernels["h1"]),
+              refnerf=ref_kernels["h1"],
+              any_width=any_kernels["hash_encode_ms"]),
         # Against the written-out twin; prop0 also vs autograd; obj_grid
         # d_table and d_x01 vs both.
         entry("hash_encode_ms_bwd", KERNEL_SOURCE,
@@ -5454,7 +5770,8 @@ def main():
               "uniform points of the same shape)", h1_bwd,
               obj_grid=obj_grid["hash_encode_ms_bwd"],
               preset_modes=presets["h1_bwd"], refnerf=ref_kernels["h1_bwd"],
-              deterministic=det["hash_encode_ms_bwd"]),
+              deterministic=det["hash_encode_ms_bwd"],
+              any_width=any_kernels["hash_encode_ms_bwd"]),
         # Every grid's hash-decay level sums under "grids", every own
         # shape under "own_shapes".
         entry("scatter_add_rows", KERNEL_SOURCE,
@@ -5464,7 +5781,8 @@ def main():
               k3_shape_rows131072_n4194304_c16=k3_own,
               obj_grid=obj_grid["scatter_add_rows"],
               refnerf=ref_kernels["k3"],
-              deterministic=det["scatter_add_rows"]),
+              deterministic=det["scatter_add_rows"],
+              any_width=any_kernels["scatter_add_rows"]),
         # K2, on the bench's path as K4's form 1 (which computes the same).
         entry("tile_lane_gather", GATHER_SOURCE,
               "nerf_lidar_tpu/ops/grid_pallas.py:51",
@@ -5484,12 +5802,14 @@ def main():
         *(dict(det[key], launches_by_entry=residuals_by_entry,
                launches_by_path=dict(det[key]["launches_by_path"], **{
                    p: c[det[key]["name"]] for p, c in paths
-                   if det[key]["name"] in c}))
+                   if det[key]["name"] in c}),
+               any_width=any_kernels[key])
           for key in ("residuals", "pos_grads")),
         det["abs_bound"],
     ]
     for k in kernels[-3:-1]:
         k["launches"] = sum(k["launches_by_path"].values())
+    print(f"[21] ms/step and peak GiB by path: {any_width['steps']}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - started:.1f} s, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -42,9 +42,10 @@
 // H1 hash_encode_ms: replaces the XLA gathers of
 //   nerf_lidar_tpu/ops/grid.py:_ms_encode_impl (hash_encode_multisample):
 //   trilinear (8 corners) or tetrahedral (the 4 vertices of the point's
-//   Kuhn simplex) interpolation, C = 1, 2, 4, 8 or 16 channels, and levels at
-//   or below the coarse cutoff that encode each sample's mean point once
-//   with the mean erf weight (the presets'). Bound by table reads: up to 8
+//   Kuhn simplex) interpolation, C = 1, 2, 4, 8 or 16 channels (any other
+//   C: the general path below), and levels at or below the coarse cutoff
+//   that encode each sample's mean point once with the mean erf weight (the
+//   presets'). Bound by table reads: up to 8
 //   corners x n multisamples x L levels per sample, at random rows of
 //   tables up to 240 MB (larger than the 50 MB L2). Design, one thread per
 //   (sample, level):
@@ -118,6 +119,7 @@
 //   - a grid of a few blocks per SM (as many as fit at once), each walking
 //     one contiguous chunk of the flattened [N, C] vals, so a sorted
 //     segment is split across few blocks;
+//   - (C a power of two up to 32; any other C: the general path below)
 //   - 16-byte loads: a float4 of vals is 4 channels of one row for C >= 4
 //     (the C / 4 threads of a row read its index in one transaction of
 //     their warp), or 2 / 4 whole rows for C = 2 / 1, whose indices come as
@@ -229,6 +231,34 @@
 //   neighbouring samples' point j, so each of its loads of a row covers 32
 //   C contiguous floats; sums in a fixed order (levels, then channels), each
 //   output written once: no atomics, the same bits in every run and mode.
+//
+// The general path: every width C that the kernels above are not
+// instantiated for (H1 and its backward: 1, 2, 4, 8, 16; K3: powers of two
+// up to 32), so any level_dim the JAX package takes (C3, C5, C6, C12, C24,
+// C32, ...). A row of C floats is S = C / V slices of V = gcd(C, 4) floats:
+// one float, float2 or float4 load, the widest every row start allows (the
+// wrappers check the tensors' start for that width). Design, simple and
+// right first (its register counts and times: PERF.md):
+//   - H1, H1-bwd and its deterministic variant take one (level, slice) a
+//     block, L S of them a tile in the tuned kernels' block orders; a thread
+//     runs the tuned code at width V on rows of stride C (encode_one /
+//     encode_mean, backward_one / backward_mean through FloatRows /
+//     FixedRows at a row stride of C), so each channel's runs, weights,
+//     warp merges and order of sums are those of a C-wide instantiation:
+//     the features and R the same bits in both forward modes, the
+//     deterministic d_table the plain twin's bits. The residual mode keeps
+//     a run's 8 corner slices, 8 V floats, in registers (not 8 C), and
+//     writes R's slice with streaming stores. A sample's cells and erf
+//     weights are computed once a slice;
+//   - the contraction (pos_grads_slices_kernel) reads a row of R and g_out as
+//     C / V slices, in the plain version's order of sums;
+//   - K3 and its deterministic variant (scatter_add_slices_kernel) cut the
+//     flattened values into slices, a block's working threads a multiple of
+//     S, so every thread's run stays on one slice of one row (the hash decay's
+//     level sums: a few atomics a block); the int64 sums leave by the warp's
+//     transposed atomics on the [rows S, V] view;
+//   - fixed_to_float_any_kernel finds each entry's row, channel and exponent
+//     group on its own (groups may start on any entry).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -614,15 +644,19 @@ __device__ __forceinline__ Points points_of(const float* x01,
 // Adds sum_c W[c] * row_c of cell (ix, iy, iz) into acc. With tetra only
 // the corners of some point's simplex carry a weight: the others are not
 // read.
+// stride: floats from one row to the next (C; the general path's slices of
+// V channels read rows of the full width).
 template <int C, bool kTetra>
 __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
                                            int iz, const float* W,
-                                           const Level& v, float* acc) {
+                                           const Level& v, float* acc,
+                                           int stride = C) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (kTetra && W[c] == 0.f) continue;
     float row[C];
-    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C, row);
+    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * stride,
+                row);
 #pragma unroll
     for (int k = 0; k < C; ++k) acc[k] += W[c] * row[k];
   }
@@ -860,16 +894,17 @@ __device__ __forceinline__ void store_zero_residual(const ResOut& r, int j) {
 }
 
 // The corner rows of cell (ix, iy, iz) a mask `reach` names into rows[8][C]
-// (the others are left as they are and not read).
+// (the others are left as they are and not read); stride as gather_run's.
 template <int C, bool kTetra>
 __device__ __forceinline__ void load_corners(const float* tbl, int ix, int iy,
                                              int iz, unsigned reach,
                                              const Level& v,
-                                             float (*rows)[C]) {
+                                             float (*rows)[C],
+                                             int stride = C) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (!((reach >> c) & 1u)) continue;
-    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C,
+    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * stride,
                 rows[c]);
   }
 }
@@ -895,11 +930,11 @@ __device__ __forceinline__ void add_run(const float* W, const float (*rows)[C],
 // so their stores of point j are one contiguous run): a run's corner rows
 // are read when it starts and kept in registers (with tetra all 8: which
 // of them the run's points reach is not known yet), and its weighted sum
-// is taken from them when it ends.
+// is taken from them when it ends. stride: as gather_run's.
 template <int C, bool kTetra, bool kResid>
 __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
                                            const Level& v, float* acc,
-                                           const ResOut& r) {
+                                           const ResOut& r, int stride = C) {
   float W[8];
   float rows[8][C];
   int cx = 0, cy = 0, cz = 0;
@@ -917,7 +952,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
       if constexpr (kResid)
         add_run<C, kTetra>(W, rows, acc);
       else
-        gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
+        gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc, stride);
       have = false;
     }
     if (!have) {
@@ -928,7 +963,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
 #pragma unroll
       for (int c = 0; c < 8; ++c) W[c] = 0.f;
       if constexpr (kResid)
-        load_corners<C, kTetra>(tbl, cx, cy, cz, 0xffu, v, rows);
+        load_corners<C, kTetra>(tbl, cx, cy, cz, 0xffu, v, rows, stride);
     }
     add_weights<kTetra>(p, wl, W);
     if constexpr (kResid) {
@@ -942,7 +977,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
   if constexpr (kResid)
     add_run<C, kTetra>(W, rows, acc);
   else
-    gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
+    gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc, stride);
 }
 
 // A sample's mean point (its n points, out-of-range ones included, summed
@@ -974,7 +1009,8 @@ __device__ __forceinline__ MeanPoint mean_of(Points pt, int n,
 template <int C, bool kTetra, bool kResid>
 __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
                                             int n, const Level& v,
-                                            float* acc, const ResOut& r) {
+                                            float* acc, const ResOut& r,
+                                            int stride = C) {
   const MeanPoint m = mean_of(pt, n, v);
   if (!in_unit_cube(m.x, m.y, m.z)) {
     if constexpr (kResid)
@@ -987,7 +1023,7 @@ __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
   if constexpr (kResid) {
     float rows[8][C], f[C], df[3][C];
     load_corners<C, kTetra>(tbl, p.ix, p.iy, p.iz, reached_corners<kTetra>(p),
-                            v, rows);
+                            v, rows, stride);
     add_run<C, kTetra>(W, rows, acc);
     point_terms<C, kTetra>(p, rows, f, df);
     const float inv_n = 1.0f / (float)n, kx = m.w / (float)n * v.scale;
@@ -995,7 +1031,7 @@ __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
       store_residual<C>(r, j, 0, kx, inv_n * erf_weight_grad(pt.s[j], v), f,
                         df);
   } else {
-    gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc);
+    gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc, stride);
   }
 }
 
@@ -1181,6 +1217,54 @@ __global__ void hash_encode_ms_kernel(const float* __restrict__ table,
   if (out != nullptr) store_row<C>(out + (b * L + w.l) * C, acc);
 }
 
+// V = gcd(C, 4): the channels the general path takes a slice at a time.
+__host__ __device__ constexpr int slice_width(int C) {
+  return C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
+}
+
+// H1 at a width C that hash_encode_ms_kernel is not instantiated for (the
+// general path): a row of C floats is S = C / V slices of V = gcd(C, 4)
+// floats, and a block takes one (level, slice) of a tile, L S of them per
+// tile in work_of's order (level-major: a level's slices in turn, so its
+// table slice stays in L2 across them). A thread runs encode_one /
+// encode_mean at width V on rows of stride C: the same runs, weights and
+// order of sums for each channel as a C-wide instantiation, so the
+// features (and, with kResid, R's V columns of the slice, the run's 8
+// corner slices held in registers: 8 V floats, not 8 C) are its bits.
+template <int V, bool kTetra, bool kResid>
+__global__ void hash_encode_ms_slices_kernel(
+    const float* __restrict__ table, const float* __restrict__ x01,
+    const float* __restrict__ stds, float* __restrict__ out,
+    float* __restrict__ resid, int64_t B, int n, int L, int C, int64_t tiles,
+    int level_major, int stage, GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = C / V;
+  const Work w = work_of(tiles, L * S, level_major != 0);
+  const int l = w.l / S, q = w.l % S;
+  const int cnt = tile_count(B, w.b0);
+  const Level v = level_of(lv, l);
+  if (stage) {
+    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
+    __syncthreads();
+  }
+  if ((int)threadIdx.x >= cnt) return;
+  float acc[V] = {};
+  const int64_t b = w.b0 + threadIdx.x;
+  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+  const float* tbl = table + (int64_t)lv.offset[l] * C + q * V;
+  const ResOut res{
+      kResid ? resid + ((int64_t)l * n * 4 * B + b) * C + q * V : nullptr,
+      B * C};
+  if (v.mean) {
+    encode_mean<V, kTetra, kResid>(tbl, pt, n, v, acc, res, C);
+  } else {
+    encode_one<V, kTetra, kResid>(tbl, pt, n, v, acc, res, C);
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = acc[k] / (float)n;
+  }
+  if (out != nullptr) store_row<V>(out + (b * L + l) * C + q * V, acc);
+}
+
 // dst[0..C) += v[0..C) in device memory. sm_90 adds a 2- or 4-float row in
 // one vector atomic (dst must then be 8- or 16-byte aligned, which rows of
 // a contiguous [rows, C] float tensor are).
@@ -1255,13 +1339,17 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
 // fetched by shuffles): one atomic instruction covers 32 / C whole rows,
 // each row's C values contiguous (C4: 32 bytes, one sector), where a lane
 // per row spends C instructions, each touching a sector of every row. A
-// zero sum adds nothing. C = 1: each lane adds its own.
+// zero sum adds nothing. C = 1: each lane adds its own. stride: entries
+// from one row of dst to the next (C; the general path's slices of a wider
+// row pass its width).
 template <int C, int kW>
 __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
                                                     bool has, uint32_t row,
-                                                    const long long* v) {
+                                                    const long long* v,
+                                                    int stride = C) {
   if constexpr (C == 1) {
-    if (has && v[0] != 0) atomicAdd(dst + row, (unsigned long long)v[0]);
+    if (has && v[0] != 0)
+      atomicAdd(dst + (int64_t)row * stride, (unsigned long long)v[0]);
   } else {
     constexpr int kG = C / kW, kRows = 32 / C;
     const int lane = threadIdx.x & 31;
@@ -1279,7 +1367,7 @@ __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
       }
       const uint32_t to = __shfl_sync(kFullMask, row, src);
       if (mine && s != 0)
-        atomicAdd(dst + (int64_t)to * C + ch, (unsigned long long)s);
+        atomicAdd(dst + (int64_t)to * stride + ch, (unsigned long long)s);
       heads = cnt > kRows
                   ? heads & ~((2u << nth_set_bit(heads, kRows - 1)) - 1u)
                   : 0u;
@@ -1291,12 +1379,15 @@ __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
 // d_table (the default kernel), or exact int64 atomics on an accumulator of
 // fixed-point terms (the deterministic one). term() and flush() are called
 // by every lane of the warp; `act` says its run ends here, `add` that it
-// holds a segment's sum.
+// holds a segment's sum. A sink takes C channels of a row at dst + row *
+// stride: stride = C, or the full width of a row whose slice of C = V
+// channels a block of the general path takes.
 template <int C>
 struct FloatRows {
   using T = float;
   static constexpr bool kSegments = false;  // mean levels: add_runs
-  float* dst;  // the level's d_table slice
+  float* dst;  // the level's d_table slice (its first row's first channel)
+  int stride;  // floats from one row to the next
   template <class Row>
   __device__ __forceinline__ T term(float w, float g, bool, int,
                                     Row) const {
@@ -1305,7 +1396,7 @@ struct FloatRows {
   template <class Row>
   __device__ __forceinline__ void flush(bool add, Row row,
                                         const T* u) const {
-    if (add) add_row<C>(dst + (int64_t)row() * C, u);
+    if (add) add_row<C>(dst + (int64_t)row() * stride, u);
   }
 };
 
@@ -1374,7 +1465,8 @@ struct FixedRows {
   static constexpr bool kSegments = false;  // mean levels: add_runs
   unsigned long long* acc;  // the level's slice of the [rows, C] sums
   unsigned* flags;          // the whole table's flags
-  int64_t base;             // the level's first entry, offset * C
+  int64_t base;             // the level's first entry, offset * C (+ V q)
+  int stride;               // entries from one row to the next
   FixedScale q[C];          // the level's exponent per channel
   // With tetra a weight of 0 is a corner that no point of the run reaches
   // (or a simplex vertex of weight 0): it adds nothing, also against a
@@ -1385,14 +1477,15 @@ struct FixedRows {
     if (kTetra && w == 0.f) return 0;
     const float u = w * g;
     if (isfinite(u)) return to_fixed(u, q[ch]);
-    if (act) mark_nonfinite(flags, base + (int64_t)row() * C + ch, u);
+    if (act) mark_nonfinite(flags, base + (int64_t)row() * stride + ch, u);
     return 0;
   }
-  // The segment sums leave by the warp's transposed atomics.
+  // The segment sums leave by the warp's transposed atomics (C = V divides
+  // 32: a warp's lanes add 32 / V whole slices an instruction).
   template <class Row>
   __device__ __forceinline__ void flush(bool add, Row row,
                                         const T* u) const {
-    add_rows_transposed<C, C>(acc, add, add ? row() : 0u, u);
+    add_rows_transposed<C, C>(acc, add, add ? row() : 0u, u, stride);
   }
 };
 
@@ -1656,6 +1749,123 @@ __global__ void __launch_bounds__(kScatterThreads)
   }
 }
 
+// V floats of a slice of vals, streamed (read once).
+template <int V>
+__device__ __forceinline__ void load_slice(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+// K3 and its deterministic variant (kFixed) at a width C that they are not
+// instantiated for (the general path). The flattened [N, C] vals are U = N
+// S slices of V = gcd(C, 4) floats (S = C / V a row): slice u is channels
+// [V (u % S), V (u % S) + V) of row idx[u / S]. A block has `active` = S
+// max(1, 256 / S) working threads (a multiple of S; the block rounded up to
+// whole warps, whose extra lanes take no slice but join the warp's
+// collectives) and walks its chunk (a multiple of `active` slices), thread t
+// the slices t, t + active, ..., all of channel slice t % S, so a thread's
+// loads of a step are neighbouring 4 V-byte slices and its run sums one
+// slice of one row in registers, as scatter_add_rows_kernel's threads do.
+// A finished run is added at once: one V-wide float atomic, or (kFixed,
+// each value rounded to fixed point as it is loaded, channel c at 2^k[c])
+// the warp's lane-transposed int64 atomics, the [rows, C] sums seen as
+// [rows S, V] rows. At the chunk's end the runs still open on its last row
+// are summed per slice in shared memory and added once; any other adds its
+// own. Indices outside [0, rows) are dropped. out / acc: the float output
+// or the int64 sums and flags.
+template <int V, bool kFixed>
+__global__ void __launch_bounds__(1024) scatter_add_slices_kernel(
+    const int32_t* __restrict__ idx, const float* __restrict__ vals,
+    const int* __restrict__ k, float* __restrict__ out,
+    unsigned long long* __restrict__ acc, unsigned* __restrict__ flags,
+    int64_t U, int S, int active, int64_t chunk, int64_t rows) {
+  using T = typename std::conditional<kFixed, long long, float>::type;
+  extern __shared__ __align__(16) unsigned char slice_smem[];
+  T* part = reinterpret_cast<T*>(slice_smem);  // [blockDim.x][V]
+  const int t = threadIdx.x;
+  const bool on = t < active;
+  const int q = on ? t % S : 0;
+  const int64_t C = (int64_t)S * V;
+  const int64_t u0 = (int64_t)blockIdx.x * chunk;
+  const int64_t u1 = u0 + chunk < U ? u0 + chunk : U;
+  if (u1 <= u0) return;  // the whole block: no slice in its chunk
+  const auto in_rows = [&](int r) { return r >= 0 && r < rows; };
+  // A run's sums s at channel slice `slice` of row r; every lane calls.
+  const auto add = [&](bool has, int r, int slice, const T* s) {
+    if constexpr (kFixed)
+      add_rows_transposed<V, V>(
+          acc, has, has ? (uint32_t)((int64_t)r * S + slice) : 0u, s);
+    else if (has)
+      add_row<V>(out + (int64_t)r * C + slice * V, s);
+  };
+  FixedScale sc[V];
+  if constexpr (kFixed) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) sc[i] = fixed_scale(__ldg(k + q * V + i));
+  }
+  int cur = -1;  // the row being summed; -1 is dropped like any other
+  T run[V] = {};
+  for (int64_t tile = u0; tile < u1;
+       tile += (int64_t)kScatterUnroll * active) {
+    float x[kScatterUnroll][V];
+    int r[kScatterUnroll];
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const int64_t s = tile + t + (int64_t)u * active;
+      if (on && s < u1) {
+        load_slice<V>(vals + s * V, x[u]);
+        r[u] = __ldcs(idx + s / S);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterUnroll; ++u) {
+      const bool valid = on && tile + t + (int64_t)u * active < u1;
+      const int rr = valid ? r[u] : cur;
+      const bool ends = rr != cur;
+      add(ends && in_rows(cur), cur, q, run);
+      if (ends) {
+        cur = rr;
+#pragma unroll
+        for (int i = 0; i < V; ++i) run[i] = 0;
+      }
+      if (!valid) continue;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float val = x[u][i];
+        if constexpr (kFixed) {
+          if (isfinite(val))
+            run[i] += to_fixed(val, sc[i]);
+          else if (in_rows(rr))
+            mark_nonfinite(flags, (int64_t)rr * C + q * V + i, val);
+        } else {
+          run[i] += val;
+        }
+      }
+    }
+  }
+  const int last = __ldg(idx + (u1 - 1) / S);
+  const bool mine = on && cur == last;
+  add(!mine && in_rows(cur), cur, q, run);
+#pragma unroll
+  for (int i = 0; i < V; ++i) part[t * V + i] = mine ? run[i] : T(0);
+  __syncthreads();
+  T sum[V] = {};
+  if (t < S) {
+    for (int m = t; m < active; m += S) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) sum[i] += part[m * V + i];
+    }
+  }
+  add(t < S && in_rows(last), last, t, sum);
+}
+
 // The row updates of a run that ends: corner c of cell (ix, iy, iz) gets
 // W[c] * g, where `act` says this lane has a run. All 32 lanes call
 // (warp-uniform): a lane whose run is in the same cell as its left
@@ -1879,7 +2089,7 @@ __global__ void hash_encode_ms_bwd_kernel(
     __shared__ float4 slots[kThreads / 32][32 * wide_slot<C>()];
     run(WideRows<C>{dst, slots[threadIdx.x >> 5]});
   } else {
-    run(FloatRows<C>{dst});
+    run(FloatRows<C>{dst, C});
   }
 }
 
@@ -1914,13 +2124,64 @@ __global__ void hash_encode_ms_bwd_fixed_kernel(
   float g[C] = {};
   if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  FixedRows<C, kTetra> rows{acc + off, flags, off, {}};
+  FixedRows<C, kTetra> rows{acc + off, flags, off, C, {}};
 #pragma unroll
   for (int c = 0; c < C; ++c) rows.q[c] = fixed_scale(__ldg(k + w.l * C + c));
   if (v.mean)
     backward_mean<C, kTetra>(active, pt, g, rows, n, v);
   else
     backward_one<C, kTetra>(active, pt, g, rows, n, v);
+}
+
+// H1-bwd's d_table at a width C that hash_encode_ms_bwd_kernel and
+// hash_encode_ms_bwd_fixed_kernel are not instantiated for (the general
+// path): blocks as hash_encode_ms_slices_kernel's, one (level, slice of V
+// = gcd(C, 4) channels) of a tile each; a thread runs backward_one /
+// backward_mean at width V with g_out's slice, its updates going to the
+// slice's channels of each row (FloatRows: float atomics; kFixed:
+// FixedRows, k [L, C] exponents, acc / flags the [rows, C] sums), both at
+// a row stride of C.
+// The runs, warp merge and terms are a V-wide instantiation's, so the
+// deterministic sums are the plain twin's bits.
+template <int V, bool kTetra, bool kFixed>
+__global__ void hash_encode_ms_bwd_slices_kernel(
+    const float* __restrict__ x01, const float* __restrict__ stds,
+    const float* __restrict__ g_out, float* __restrict__ d_table,
+    const int* __restrict__ k, unsigned long long* __restrict__ acc,
+    unsigned* __restrict__ flags, int64_t B, int n, int L, int C,
+    int64_t tiles, int level_major, int stage, GridLevels lv) {
+  extern __shared__ __align__(16) float smem[];
+  const int S = C / V;
+  const Work w = work_of(tiles, L * S, level_major != 0);
+  const int l = w.l / S, q = w.l % S;
+  const int cnt = tile_count(B, w.b0);
+  const Level v = level_of(lv, l);
+  if (stage) {
+    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
+    __syncthreads();
+  }
+  // No early return: the lanes past B join the warp's shuffles.
+  const bool active = (int)threadIdx.x < cnt;
+  const int64_t b = w.b0 + threadIdx.x;
+  float g[V] = {};
+  if (active) load_row<V>(g_out + (b * L + l) * C + q * V, g);
+  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
+  const int64_t at = (int64_t)lv.offset[l] * C + q * V;
+  const auto run = [&](const auto& rows) {
+    if (v.mean)
+      backward_mean<V, kTetra>(active, pt, g, rows, n, v);
+    else
+      backward_one<V, kTetra>(active, pt, g, rows, n, v);
+  };
+  if constexpr (kFixed) {
+    FixedRows<V, kTetra> rows{acc + at, flags, at, C, {}};
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      rows.q[c] = fixed_scale(__ldg(k + l * C + q * V + c));
+    run(rows);
+  } else {
+    run(FloatRows<V>{d_table + at, C});
+  }
 }
 
 // d_x01 / d_stds from H1's residuals R [L, n, 4, B, C]: a block takes a
@@ -1958,6 +2219,49 @@ __global__ void __launch_bounds__(kPosThreads)
 #pragma unroll
         for (int c = 0; c < C; ++c)
           a[q] = __fadd_rn(a[q], __fmul_rn(v[c], g[c]));
+      }
+    }
+    const int64_t t = b * n + j;
+    if (d_x01 != nullptr) {
+      d_x01[3 * t] = a[0];
+      d_x01[3 * t + 1] = a[1];
+      d_x01[3 * t + 2] = a[2];
+    }
+    if (d_stds != nullptr) d_stds[t] = a[3];
+  }
+}
+
+// pos_grads_kernel at a width C it is not instantiated for (the general
+// path): the same threads and order of sums (levels, then channels, each
+// product and sum rounded on its own), a row of R and of g_out read as C /
+// V loads of V = gcd(C, 4) floats, so the outputs are the plain version's
+// bits.
+template <int V>
+__global__ void __launch_bounds__(kPosThreads)
+    pos_grads_slices_kernel(const float* __restrict__ resid,
+                            const float* __restrict__ g_out,
+                            float* __restrict__ d_x01,
+                            float* __restrict__ d_stds, int64_t B, int n,
+                            int L, int C) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int64_t plane = B * C;
+  for (int j = threadIdx.y; j < n; j += blockDim.y) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int l = 0; l < L; ++l) {
+      const float* gl = g_out + (b * L + l) * C;
+      const float* r = resid + ((int64_t)(l * n + j) * 4 * B + b) * C;
+      for (int c0 = 0; c0 < C; c0 += V) {
+        float g[V];
+        load_row<V>(gl + c0, g);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float v[V];
+          load_row<V>(r + q * plane + c0, v);
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            a[q] = __fadd_rn(a[q], __fmul_rn(v[c], g[c]));
+        }
       }
     }
     const int64_t t = b * n + j;
@@ -2090,24 +2394,128 @@ cudaError_t pos_grads(const float* resid, const float* g_out, float* d_x01,
   return cudaGetLastError();
 }
 
-// K3's cut of V float4s: one chunk of whole tiles per block, with as many
-// blocks as the card holds at once of `kernel`.
+// The general path (a width C that the kernels are not instantiated for):
+// f(std::integral_constant<int, V>{}) for V = gcd(C, 4).
+template <class F>
+cudaError_t by_slice_width(int C, F f) {
+  switch (slice_width(C)) {
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    default: return f(std::integral_constant<int, 1>{});
+  }
+}
+
+// H1 by hash_encode_ms_slices_kernel: L C / V (level, slice) blocks a tile.
+template <int V>
+cudaError_t encode_slices(const float* table, const float* x01,
+                          const float* stds, float* out, float* resid,
+                          int64_t B, int n, int L, int C,
+                          const GridLevels& lv, int tetra, int level_major,
+                          cudaStream_t s) {
+  Launch g;
+  const cudaError_t err = launch_of(B, n, L * (C / V), level_major, &g);
+  if (err != cudaSuccess) return err;
+  const auto go = [&](auto kernel) {
+    kernel<<<g.blocks, kThreads, g.smem, s>>>(table, x01, stds, out, resid, B,
+                                              n, L, C, g.tiles, level_major,
+                                              g.smem > 0, lv);
+  };
+  if (resid != nullptr)
+    tetra ? go(hash_encode_ms_slices_kernel<V, true, true>)
+          : go(hash_encode_ms_slices_kernel<V, false, true>);
+  else
+    tetra ? go(hash_encode_ms_slices_kernel<V, true, false>)
+          : go(hash_encode_ms_slices_kernel<V, false, false>);
+  return cudaGetLastError();
+}
+
+// H1-bwd's d_table by hash_encode_ms_bwd_slices_kernel, in blocks of
+// `threads` samples: float atomics into d_table, or (kFixed) int64 sums
+// into acc / flags at the exponents k.
+template <int V, bool kFixed>
+cudaError_t backward_slices(const float* x01, const float* stds,
+                            const float* g_out, float* d_table, const int* k,
+                            unsigned long long* acc, unsigned* flags,
+                            int64_t B, int n, int L, int C,
+                            const GridLevels& lv, int tetra, int level_major,
+                            int threads, cudaStream_t s) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  Launch g;
+  const cudaError_t err =
+      launch_of(B, n, L * (C / V), level_major, &g, threads);
+  if (err != cudaSuccess) return err;
+  const auto go = [&](auto kernel) {
+    kernel<<<g.blocks, threads, g.smem, s>>>(
+        x01, stds, g_out, d_table, k, acc, flags, B, n, L, C, g.tiles,
+        level_major, g.smem > 0, lv);
+  };
+  tetra ? go(hash_encode_ms_bwd_slices_kernel<V, true, kFixed>)
+        : go(hash_encode_ms_bwd_slices_kernel<V, false, kFixed>);
+  return cudaGetLastError();
+}
+
+// d_x01 / d_stds by pos_grads_slices_kernel, in pos_grads' blocks.
+template <int V>
+cudaError_t pos_grads_slices(const float* resid, const float* g_out,
+                             float* d_x01, float* d_stds, int64_t B, int n,
+                             int L, int C, cudaStream_t s) {
+  const int64_t blocks = (B + kPosSamples - 1) / kPosSamples;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const dim3 block(kPosSamples, n < kPosThreads / kPosSamples
+                                    ? n
+                                    : kPosThreads / kPosSamples);
+  pos_grads_slices_kernel<V><<<(unsigned)blocks, block, 0, s>>>(
+      resid, g_out, d_x01, d_stds, B, n, L, C);
+  return cudaGetLastError();
+}
+
+// K3's cut of V float4s (or, for the general path, slices): one chunk of
+// whole tiles of `step` per block, with as many blocks as the card holds at
+// once of `kernel` in blocks of `threads` with `smem` bytes of dynamic
+// shared memory.
 template <class Kernel>
 cudaError_t scatter_plan(Kernel kernel, int64_t V, int device, int64_t* chunk,
-                         int64_t* blocks) {
+                         int64_t* blocks, int threads = kScatterThreads,
+                         size_t smem = 0, int step = kScatterThreads) {
   int sms = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kScatterThreads, 0);
+                                                      threads, smem);
   if (err != cudaSuccess) return err;
   const int64_t most = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   const int64_t per_block = (V + most - 1) / most;
-  const int64_t tiles = (per_block + kScatterThreads - 1) / kScatterThreads;
-  *chunk = (tiles > 0 ? tiles : 1) * kScatterThreads;
+  const int64_t tiles = (per_block + step - 1) / step;
+  *chunk = (tiles > 0 ? tiles : 1) * step;
   *blocks = V > 0 ? (V + *chunk - 1) / *chunk : 1;
   return cudaSuccess;
+}
+
+// K3 (kFixed: its deterministic variant) by scatter_add_slices_kernel on
+// N x C values: N C / V slices, S = C / V of them a row, at most 1024 (C
+// <= 1024 V) and rows S < 2^32 (the int64 sums' [rows S, V] view).
+template <int V, bool kFixed>
+cudaError_t scatter_slices(const int32_t* idx, const float* vals,
+                           const int* k, float* out, unsigned long long* acc,
+                           unsigned* flags, int64_t N, int C, int64_t rows,
+                           int device, cudaStream_t s) {
+  using T = typename std::conditional<kFixed, long long, float>::type;
+  const int S = C / V;
+  if (S > 1024 || rows * S > 0xffffffffLL) return cudaErrorInvalidValue;
+  const int active = S * (S < kScatterThreads ? kScatterThreads / S : 1);
+  const int threads = (active + 31) / 32 * 32;
+  const size_t smem = (size_t)threads * V * sizeof(T);
+  const int64_t U = N * S;
+  int64_t chunk, blocks;
+  const cudaError_t err =
+      scatter_plan(scatter_add_slices_kernel<V, kFixed>, U, device, &chunk,
+                   &blocks, threads, smem, active);
+  if (err != cudaSuccess) return err;
+  scatter_add_slices_kernel<V, kFixed><<<(unsigned)blocks, threads, smem, s>>>(
+      idx, vals, k, out, acc, flags, U, S, active, chunk, rows);
+  return cudaGetLastError();
 }
 
 // K3 on N x C values, summed by FloatSums.
@@ -2221,6 +2629,46 @@ __global__ void fixed_to_float_kernel(long long* __restrict__ acc,
     for (int64_t e = e0; e < total; ++e) {
       out[e] = fixed_value(acc[e], (f4 >> (4 * (e - e0))) & 0xfu,
                            __ldg(kg + (e & mask)));
+      acc[e] = 0;
+    }
+  }
+}
+
+// fixed_to_float_kernel at any C and with groups that start on any row
+// (the general path's widths): the same threads and loads, each entry's
+// row (e / C), channel and group found on its own.
+__global__ void fixed_to_float_any_kernel(long long* __restrict__ acc,
+                                          unsigned* __restrict__ flags,
+                                          const int* __restrict__ k,
+                                          float* __restrict__ out,
+                                          int64_t total, int C, Groups gr) {
+  const int64_t e0 = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
+  const bool on = e0 < total;
+  const unsigned word = on ? flags[e0 >> 3] : 0u;
+  __syncwarp();  // both threads of a word have read it
+  if (on && (e0 & 7) == 0 && word != 0u) flags[e0 >> 3] = 0u;
+  if (!on) return;
+  const unsigned f4 = word >> (4 * (e0 & 7));
+  int g = 0;
+  const auto value = [&](int64_t e, long long a) {
+    const int64_t r = e / C;
+    while (g + 1 < gr.count && r >= gr.start[g + 1]) ++g;
+    return fixed_value(a, (f4 >> (4 * (e - e0))) & 0xfu,
+                       __ldg(k + (int64_t)g * C + (e - r * C)));
+  };
+  if (e0 + 4 <= total) {
+    longlong2* a2 = reinterpret_cast<longlong2*>(acc + e0);
+    const longlong2 a = a2[0], b = a2[1];
+    const long long v[4] = {a.x, a.y, b.x, b.y};
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = value(e0 + j, v[j]);
+    *reinterpret_cast<float4*>(out + e0) = make_float4(o[0], o[1], o[2], o[3]);
+    if ((a.x | a.y) != 0) a2[0] = make_longlong2(0, 0);
+    if ((b.x | b.y) != 0) a2[1] = make_longlong2(0, 0);
+  } else {
+    for (int64_t e = e0; e < total; ++e) {
+      out[e] = value(e, acc[e]);
       acc[e] = 0;
     }
   }
@@ -2420,8 +2868,8 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                       const unsigned int* offset, const int* tiled,
                       const int* mean, int tetra, int level_major, int device,
                       void* stream) {
-  if (L <= 0 || L > kMaxLevels || n <= 0 || (uintptr_t)resid % 16 != 0 ||
-      (out == nullptr && resid == nullptr))
+  if (L <= 0 || L > kMaxLevels || n <= 0 || C <= 0 ||
+      (uintptr_t)resid % 16 != 0 || (out == nullptr && resid == nullptr))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -2430,7 +2878,7 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
   if (B == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The presets' grids: C = 1 and 4 (proposal), 4 and 16 (NeRF), 2
-  // (objects, tiny_debug); and C = 8, which the JAX package takes too.
+  // (objects, tiny_debug); and C = 8. Any other width: the general path.
   switch (C) {
     case 1:
       return encode<1>(table, x01, stds, out, resid, B, n, L, lv, tetra,
@@ -2448,7 +2896,11 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
       return encode<16>(table, x01, stds, out, resid, B, n, L, lv, tetra,
                         level_major, s);
     default:
-      return cudaErrorInvalidValue;
+      return by_slice_width(C, [&](auto w) {
+        return encode_slices<decltype(w)::value>(table, x01, stds, out, resid,
+                                                 B, n, L, C, lv, tetra,
+                                                 level_major, s);
+      });
   }
 }
 
@@ -2462,7 +2914,7 @@ int nl_hash_encode_ms_bwd(const float* x01, const float* stds,
                           const unsigned int* offset, const int* tiled,
                           const int* mean, int tetra, int level_major,
                           int device, void* stream) {
-  if (L <= 0 || L > kMaxLevels || n <= 0 || d_table == nullptr)
+  if (L <= 0 || L > kMaxLevels || n <= 0 || C <= 0 || d_table == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -2487,30 +2939,40 @@ int nl_hash_encode_ms_bwd(const float* x01, const float* stds,
       return backward<16>(x01, stds, g_out, d_table, B, n, L, lv, tetra,
                           level_major, s);
     default:
-      return cudaErrorInvalidValue;
+      return by_slice_width(C, [&](auto w) {
+        return backward_slices<decltype(w)::value, false>(
+            x01, stds, g_out, d_table, nullptr, nullptr, nullptr, B, n, L, C,
+            lv, tetra, level_major, kThreads, s);
+      });
   }
 }
 
 // out: [rows, C], zero-filled (or holding a sum to add to) by the caller.
-// C must be a power of two up to 32; idx and vals start on 16 bytes, out
-// on 4 min(C, 4) bytes.
+// C a power of two up to 32 (the tuned instantiations) or any other width
+// (the general path, C <= 1024 gcd(C, 4)); idx and vals start on 16 bytes,
+// out on 4 gcd(C, 4) bytes.
 int nl_scatter_add_rows(const int* idx, const float* vals, float* out,
                         long long N, int C, long long rows, int device,
                         void* stream) {
-  const uintptr_t row_bytes = 4 * (C < 4 ? C : 4);
   if (N < 0 || C <= 0 || ((uintptr_t)idx | (uintptr_t)vals) % 16 != 0 ||
-      (uintptr_t)out % row_bytes != 0)
+      (uintptr_t)out % (4 * slice_width(C)) != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (N == 0) return cudaSuccess;
-  return scatter_any<FloatSums>(C, idx, vals, N, rows, device,
-                                static_cast<cudaStream_t>(stream), out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 32 && (C & (C - 1)) == 0)
+    return scatter_any<FloatSums>(C, idx, vals, N, rows, device, s, out);
+  return by_slice_width(C, [&](auto w) {
+    return scatter_slices<decltype(w)::value, false>(
+        idx, vals, nullptr, out, nullptr, nullptr, N, C, rows, device, s);
+  });
 }
 
 // The deterministic K3: acc [rows, C] int64 and flags (4 bits an entry)
 // zero-filled (or holding sums to add to) by the caller; k: [C] exponents
 // on the device. Then nl_fixed_to_float. idx and vals start on 16 bytes.
+// C as nl_scatter_add_rows takes it.
 int nl_scatter_add_rows_fixed(const int* idx, const float* vals, const int* k,
                               long long* acc, unsigned* flags, long long N,
                               int C, long long rows, int device,
@@ -2531,7 +2993,11 @@ int nl_scatter_add_rows_fixed(const int* idx, const float* vals, const int* k,
       return scatter_fixed<16>(idx, vals, k, a, flags, N, rows, device, s);
     case 32:
       return scatter_fixed<32>(idx, vals, k, a, flags, N, rows, device, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      return by_slice_width(C, [&](auto w) {
+        return scatter_slices<decltype(w)::value, true>(
+            idx, vals, k, nullptr, a, flags, N, C, rows, device, s);
+      });
   }
 }
 
@@ -2550,7 +3016,8 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
                                 const int* mean, int tetra,
                                 int level_major, int threads, int device,
                                 void* stream) {
-  if (L <= 0 || L > kMaxLevels || n <= 0) return cudaErrorInvalidValue;
+  if (L <= 0 || L > kMaxLevels || n <= 0 || C <= 0)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
@@ -2575,7 +3042,11 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
       return backward_fixed<16>(x01, stds, g_out, k, a, flags, B, n, L, lv,
                                 tetra, level_major, threads, s);
     default:
-      return cudaErrorInvalidValue;
+      return by_slice_width(C, [&](auto w) {
+        return backward_slices<decltype(w)::value, true>(
+            x01, stds, g_out, nullptr, k, a, flags, B, n, L, C, lv, tetra,
+            level_major, threads, s);
+      });
   }
 }
 
@@ -2586,7 +3057,7 @@ int nl_hash_encode_ms_pos_grads(const float* resid, const float* g_out,
                                 float* d_x01, float* d_stds, long long B,
                                 int n, int L, int C, int device,
                                 void* stream) {
-  if (B < 0 || L <= 0 || n <= 0 ||
+  if (B < 0 || L <= 0 || n <= 0 || C <= 0 ||
       ((uintptr_t)resid | (uintptr_t)g_out) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -2599,27 +3070,34 @@ int nl_hash_encode_ms_pos_grads(const float* resid, const float* g_out,
     case 4: return pos_grads<4>(resid, g_out, d_x01, d_stds, B, n, L, s);
     case 8: return pos_grads<8>(resid, g_out, d_x01, d_stds, B, n, L, s);
     case 16: return pos_grads<16>(resid, g_out, d_x01, d_stds, B, n, L, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      return by_slice_width(C, [&](auto w) {
+        return pos_grads_slices<decltype(w)::value>(resid, g_out, d_x01,
+                                                    d_stds, B, n, L, C, s);
+      });
   }
 }
 
 // out [rows, C] float32 from the deterministic kernels' acc, flags and k
 // ([G, C] on the device), leaving acc and flags zero; starts: G + 1 row
-// starts on the host (the groups' row ranges, starts[G] = rows), each group
-// starting on a multiple of 4 entries. C a power of two; acc and out start
-// on 16 bytes.
+// starts on the host (the groups' row ranges, starts[G] = rows). C a power
+// of two with every group starting on a multiple of 4 entries takes
+// fixed_to_float_kernel, any other C or start fixed_to_float_any_kernel.
+// acc and out start on 16 bytes.
 int nl_fixed_to_float(long long* acc, unsigned* flags, const int* k,
                       const long long* starts, int G, float* out,
                       long long rows, int C, int device, void* stream) {
-  if (G <= 0 || G > kMaxLevels || C <= 0 || (C & (C - 1)) != 0 || rows < 0 ||
+  if (G <= 0 || G > kMaxLevels || C <= 0 || rows < 0 ||
       ((uintptr_t)acc | (uintptr_t)out) % 16 != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Groups gr{};
+  // fixed_to_float_kernel: C a power of two, every group on whole float4s.
+  bool tuned = (C & (C - 1)) == 0;
   for (int g = 0; g <= G; ++g) {
     gr.start[g] = starts[g];
-    if (g < G && starts[g] * C % 4 != 0) return cudaErrorInvalidValue;
+    if (g < G && starts[g] * C % 4 != 0) tuned = false;
   }
   gr.count = G;
   const int64_t total = rows * C;
@@ -2627,9 +3105,13 @@ int nl_fixed_to_float(long long* acc, unsigned* flags, const int* k,
   constexpr int kBlock = 256;
   const int64_t blocks = ((total + 3) / 4 + kBlock - 1) / kBlock;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  fixed_to_float_kernel<<<(unsigned)blocks, kBlock, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      acc, flags, k, out, total, __builtin_ctz(C), gr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tuned)
+    fixed_to_float_kernel<<<(unsigned)blocks, kBlock, 0, s>>>(
+        acc, flags, k, out, total, __builtin_ctz(C), gr);
+  else
+    fixed_to_float_any_kernel<<<(unsigned)blocks, kBlock, 0, s>>>(
+        acc, flags, k, out, total, C, gr);
   return cudaGetLastError();
 }
 

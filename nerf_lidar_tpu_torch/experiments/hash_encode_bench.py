@@ -898,7 +898,8 @@ def config_grid(root, name, train, render):
     c, levels, tetra = spec.level_dim, spec.num_levels, spec.interp == "tetra"
     dev = x01.device.index
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
-    if other and c not in getattr(grid, "_KERNEL_LEVEL_DIMS", ()):
+    widths = getattr(grid, "_KERNEL_LEVEL_DIMS", None)
+    if other and widths is not None and c not in widths:
         other = False  # the --root checkout's kernels do not take this C
     libs = dict(here=here._build.library(),
                 **(dict(root=_build.library()) if other else {}))

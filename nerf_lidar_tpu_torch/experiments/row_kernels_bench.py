@@ -2,7 +2,7 @@
 shapes the port gives them, on one GPU.
 
     python nerf_lidar_tpu_torch/experiments/row_kernels_bench.py \
-        [--root DIR] [--sass]
+        [--root DIR] [--sass] [--set KEY=VALUE ...]
 
 K3 at the hash-decay level sums of every `nuscenes_single` grid (every row
 of a level onto one output row; table seeded uniform(-1, 1)) and at its own
@@ -22,6 +22,9 @@ measurement, after nvidia-smi's name and power limit of the card. Fails
   example an earlier commit unpacked with `git archive`) to time its
   kernels the same way; they build into DIR. Run this file by its path, not
   with -m, for that.
+--set KEY=VALUE: a config override of `nuscenes_single` (as the entries'
+  `--set`) for the grids whose hash-decay level sums K3 takes, e.g.
+  `--set model.nerf_mlp.grid.level_dim=3` (repeatable).
 --sass: also print, per kernel function of the built library whose name
   holds `scatter_add_rows` or `take_rows`, its SASS instruction count and
   the subroutine calls in it (`cuobjdump -sass`, from nvcc's directory).
@@ -143,11 +146,19 @@ def rel_err(name, got, want, tol):
     return err / scale
 
 
-def bench_scatter(root, dev):
-    from nerf_lidar_tpu_torch import configs
+def bench_model(sets=()):
+    """`nuscenes_single`'s model config with the `--set` overrides."""
+    from nerf_lidar_tpu_torch import cli
+    argv = ["train", "--config", "nuscenes_single"]
+    for kv in sets:
+        argv += ["--set", kv]
+    return cli.build_config(cli.parse_args(argv)).model
+
+
+def bench_scatter(root, dev, sets=()):
     from nerf_lidar_tpu_torch.ops import grid
     g = torch.Generator(device=dev).manual_seed(7)
-    m = configs.nuscenes_single().model
+    m = bench_model(sets)
     grids = [("nerf", m.nerf_mlp.grid)] + [
         (f"prop{i}", m.prop_mlp_for_level(i).grid)
         for i in range(len(m.num_prop_samples))]
@@ -156,7 +167,8 @@ def bench_scatter(root, dev):
         spec = grid.spec_for(grid_cfg)
         table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
                            generator=g) * 2 - 1
-        cases.append((f"hash decay {name}", grid.level_ids(spec, dev),
+        cases.append((f"hash decay {name} C{spec.level_dim}",
+                      grid.level_ids(spec, dev),
                       table**2, spec.num_levels, PATH_TOL))
     for rows in (4096, 1 << 17):
         for n in (1 << 20, 1 << 22):
@@ -239,13 +251,13 @@ def fixed_scatter_sums(lib, idx, vals, k, rows):
     return acc, flags
 
 
-def det_cases(dev):
+def det_cases(dev, sets=()):
     """[(shape, idx, vals, rows)]: the hash-decay level sums of every
-    `nuscenes_single` grid (table seeded uniform(-1, 1)) and K3's shape."""
-    from nerf_lidar_tpu_torch import configs
+    `nuscenes_single` grid (with the `--set` overrides; table seeded
+    uniform(-1, 1)) and K3's shape."""
     from nerf_lidar_tpu_torch.ops import grid
     g = torch.Generator(device=dev).manual_seed(19)
-    m = configs.nuscenes_single().model
+    m = bench_model(sets)
     out = []
     for name, grid_cfg in [("nerf", m.nerf_mlp.grid)] + [
             (f"prop{i}", m.prop_mlp_for_level(i).grid)
@@ -253,7 +265,8 @@ def det_cases(dev):
         spec = grid.spec_for(grid_cfg)
         table = torch.rand(spec.total_rows, spec.level_dim, device=dev,
                            generator=g) * 2 - 1
-        out.append((f"hash decay {name}", grid.level_ids(spec, dev),
+        out.append((f"hash decay {name} C{spec.level_dim}",
+                    grid.level_ids(spec, dev),
                     table**2, spec.num_levels))
     rows, n = 1 << 17, 1 << 22
     out.append((f"rows={rows} N={n} C=16", torch.randint(
@@ -262,11 +275,11 @@ def det_cases(dev):
     return out
 
 
-def bench_det_scatter(root, dev):
+def bench_det_scatter(root, dev, sets=()):
     from nerf_lidar_tpu_torch.ops import _build, grid
     here = here_grid()
     other = os.path.abspath(root) != os.path.abspath(HERE)
-    for shape, idx, vals, rows in det_cases(dev):
+    for shape, idx, vals, rows in det_cases(dev, sets):
         k_torch = grid.fixed_exponents(grid._abs_bound(vals))
         _, k_here = here.bound_exponents(vals)
         rec = dict(root=root, kernel="scatter_add_rows_det", shape=shape,
@@ -617,6 +630,7 @@ def main(argv=None):
     p.add_argument("--sink", action="store_true")
     p.add_argument("--bound_steps", action="store_true")
     p.add_argument("--inputs")
+    p.add_argument("--set", action="append", default=[])
     args = p.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -644,9 +658,9 @@ def main(argv=None):
             bench_sinks(root, dev, args.inputs)
         if args.det:
             bench_det_bound(root, dev)
-            bench_det_scatter(root, dev)
+            bench_det_scatter(root, dev, args.set)
         return
-    bench_scatter(root, dev)
+    bench_scatter(root, dev, args.set)
     bench_take_rows(root, dev)
 
 

@@ -51,6 +51,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import math
 import threading
 from typing import Tuple
 
@@ -61,11 +62,8 @@ from . import _build
 
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
-# Channel widths kernel H1 is instantiated for: those of the presets' grids
-# (proposal 1 and 4, NeRF 4 and 16, object and tiny_debug's NeRF 2), and 8,
-# which the JAX package's grid takes as well.
-_KERNEL_LEVEL_DIMS = (1, 2, 4, 8, 16)
-# Channel widths kernel K3 takes: the powers of two that divide a warp.
+# Channel widths K3 has tuned kernels for (the powers of two that divide a
+# warp); it takes any other width by its general path.
 _SCATTER_WIDTHS = (1, 2, 4, 8, 16, 32)
 # The 8 unit-cube corner offsets, corner c = (c & 1, c >> 1 & 1, c >> 2 & 1).
 _CORNERS3 = [[(c >> d) & 1 for d in range(3)] for c in range(8)]
@@ -522,9 +520,10 @@ def _l2_bytes(device_index: int) -> int:
 
 
 def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
-    """Raise unless t starts on a 4c-byte boundary: kernel H1 reads rows of
-    C floats as 4C-byte vectors of up to 16 bytes (c = min(C, 4)), K3 reads
-    16 bytes (c = 4) at a time."""
+    """Raise unless t starts on a 4c-byte boundary: kernel H1 and its
+    backward read rows of C floats as vectors of c = gcd(C, 4) floats (the
+    widest load every row start allows), K3 reads 16 bytes (c = 4) at a
+    time."""
     if t.data_ptr() % (4 * c):
         raise ValueError(f"{name}: expected a {4 * c}-byte aligned tensor")
     return t
@@ -532,13 +531,9 @@ def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
 
 def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
     """Checked, contiguous [rows, C], [B, n, 3], [B, n] views for H1 and its
-    backward; raises on what the kernels do not take."""
+    backward (any C: the tuned kernels for 1, 2, 4, 8 and 16, the general
+    path for the others); raises on what the kernels do not take."""
     _check_ported(spec)
-    if spec.level_dim not in _KERNEL_LEVEL_DIMS:
-        raise NotImplementedError(
-            f"kernel hash_encode_ms takes level_dim "
-            f"{', '.join(map(str, _KERNEL_LEVEL_DIMS))}, not "
-            f"{spec.level_dim}")
     if spec.total_rows > _U32:
         raise ValueError("table rows exceed the kernel's uint32 offsets")
     n_ms = x01.shape[-2]
@@ -549,7 +544,7 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
     _build.require_cuda("table", table, (spec.total_rows, spec.level_dim))
     _build.require_cuda("x01", x, (b, n_ms, 3))
     _build.require_cuda("stds", s, (b, n_ms))
-    return _aligned("table", table, min(spec.level_dim, 4)), x, s
+    return _aligned("table", table, math.gcd(spec.level_dim, 4)), x, s
 
 
 def _encode_kernel(table, x01, stds, spec: HashGridSpec,
@@ -671,7 +666,7 @@ def _bwd_kernel_inputs(table, x01, stds, g_out, spec: HashGridSpec):
     g = g_out.contiguous()
     _build.require_cuda("g_out", g, x01.shape[:-2] + (spec.output_dim,))
     g = _aligned("g_out", g.reshape(s.shape[0], spec.output_dim),
-                 min(spec.level_dim, 4))
+                 math.gcd(spec.level_dim, 4))
     return table, x, s, g
 
 
@@ -810,13 +805,11 @@ def scatter_add_rows_plain(idx: torch.Tensor, vals: torch.Tensor,
 
 
 def _scatter_inputs(idx: torch.Tensor, vals: torch.Tensor):
-    """Checked, contiguous idx [N] int32 and vals [N, C] for K3; raises on
-    what the kernels do not take."""
+    """Checked, contiguous idx [N] int32 and vals [N, C] for K3 (any C: the
+    tuned kernels for the powers of two up to 32, the general path for the
+    others); raises on what the kernels do not take."""
     idx, vals = idx.contiguous(), vals.contiguous()
     n, c = vals.shape
-    if c not in _SCATTER_WIDTHS:
-        raise NotImplementedError(f"kernel scatter_add_rows takes C in "
-                                  f"{_SCATTER_WIDTHS}, not {c}")
     _build.require_cuda("idx", idx, (n,), torch.int32)
     _build.require_cuda("vals", vals, (n, c))
     return _aligned("idx", idx, 4), _aligned("vals", vals, 4)
@@ -1405,7 +1398,7 @@ scatter_add_rows_det.launches = 0
 def _scatter_rows_det_any(idx: torch.Tensor, g: torch.Tensor,
                           rows: int) -> torch.Tensor:
     """scatter_add_rows_det at any width F of g [N, F]: column blocks of up
-    to 32, each padded with zeros to a width K3 takes."""
+    to 32, each padded with zeros to a width K3 has a tuned kernel for."""
     idx = idx.to(torch.int32)
     g32 = g.to(torch.float32)
     outs = []

@@ -14,6 +14,9 @@ version's roundings, so both pick the same corners); the
 H1 backward and K3 sum with atomics, in an order that changes from run to
 run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
+Widths: the tuned kernels' (H1 and its backward C = 1, 2, 4, 8, 16; K3 the
+powers of two up to 32) and the general path's (GENERAL_WIDTHS: a row read
+as slices of gcd(C, 4) floats), each at the same tolerances.
 The position gradients, in both modes: H1's residual mode (R, the terms
 d_x01 / d_stds contract with g_out) against its plain version at the
 backward's tolerance, its features the same bits as H1's; the contraction
@@ -49,6 +52,9 @@ pytestmark = pytest.mark.cuda
 
 TOL = dict(weights=(1e-5, 1e-6), depth=(1e-4, 1e-5), acc=(1e-5, 1e-6),
            rgb=(1e-5, 1e-5), semantic=(1e-5, 1e-5), intensity=(1e-5, 1e-5))
+# Channel widths of the kernels' general path: slices of 1 (C3, C5), 2 (C6)
+# and 4 (C12, C24, C32) floats; K3 takes C32 by a tuned kernel.
+GENERAL_WIDTHS = [3, 5, 6, 12, 24, 32]
 
 
 @pytest.fixture
@@ -171,7 +177,7 @@ def test_composite_kernel_takes_strided_inputs(dev):
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("level_dim", [1, 2, 4])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, *GENERAL_WIDTHS])
 def test_hash_encode_kernel_matches_plain(dev, level_dim):
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=96,
@@ -197,7 +203,7 @@ def _close_to_max(got, want, name):
                                msg=name)
 
 
-@pytest.mark.parametrize("level_dim", [1, 2, 4])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, *GENERAL_WIDTHS])
 def test_hash_encode_bwd_kernel_matches_plain(dev, level_dim):
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=96,
@@ -301,7 +307,7 @@ def _check_encode_kernels(dev, spec, x01, stds, g, cutoff=0):
 
 @pytest.mark.parametrize("case", ["one_cell", "rays", "oob_breaks", "faces",
                                   "n1"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4, 8])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, *GENERAL_WIDTHS])
 def test_hash_encode_kernels_on_merge_cases(dev, level_dim, case):
     """Tiled coarse levels (merged runs, aggregated updates on shared cells)
     and hashed fine ones."""
@@ -339,14 +345,15 @@ def _mode_points(dev, spec, case, g):
 @pytest.mark.parametrize("case", ["ties", "faces", "rays", "oob_mean"])
 @pytest.mark.parametrize("cutoff", [0, 40])
 @pytest.mark.parametrize("interp", ["linear", "tetra"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16, *GENERAL_WIDTHS])
 def test_hash_encode_kernels_in_the_preset_modes(dev, level_dim, interp,
                                                  cutoff, case):
     """The presets' modes of H1 and its backward: tetrahedral
     interpolation, mean-point levels (cutoff 40: levels 5, 9, 17 and 33 at
-    the mean; d_x01 / d_stds through the mean too) and C8 / C16 rows (read
-    and added a group of lanes a row), on tiled and hashed levels, against
-    the plain versions."""
+    the mean; d_x01 / d_stds through the mean too), C8 / C16 rows (read
+    and added a group of lanes a row) and the general path's widths (a row
+    a slice at a time), on tiled and hashed levels, against the plain
+    versions."""
     spec = grid.spec_for(configs.GridConfig(
         level_dim=level_dim, base_resolution=4, desired_resolution=128,
         log2_hashmap_size=16, interp=interp))
@@ -501,7 +508,9 @@ def test_hash_encode_bwd_kernel_table_only(dev):
 
 @pytest.mark.parametrize("rows,n,c", [(4096, 1 << 16, 16), (1 << 17, 5000, 1),
                                       (10, 100_000, 4), (7, 3, 2),
-                                      (3, 100_003, 32)])
+                                      (3, 100_003, 32), (4096, 1 << 16, 3),
+                                      (10, 100_001, 5), (7, 3, 6),
+                                      (1 << 17, 5000, 12), (3, 100_003, 24)])
 def test_scatter_add_rows_kernel_matches_index_add(dev, rows, n, c):
     g = torch.Generator(device=dev).manual_seed(rows)
     idx = torch.randint(-2, rows + 2, (n,), device=dev, generator=g,
@@ -530,13 +539,21 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         grid.hash_encode_multisample(table.double(), x01, stds, spec)
     with pytest.raises(ValueError, match="shape"):
         grid.hash_encode_multisample(table[:-8], x01, stds, spec)
-    # The kernel takes C = 1, 2, 4, 8 and 16; a width of 3 is refused.
+    # A width of 3 runs (the general path); its dtype, shape and device are
+    # checked as any width's, and a table view off its 4-byte rows' start
+    # is refused.
     wide = grid.spec_for(configs.GridConfig(level_dim=3, base_resolution=4,
                                             desired_resolution=96,
                                             log2_hashmap_size=9))
-    with pytest.raises(NotImplementedError, match="level_dim 1, 2, 4, 8, 16"):
-        grid.hash_encode_multisample(
-            torch.zeros(wide.total_rows, 3, device=dev), x01, stds, wide)
+    wide_table = torch.zeros(wide.total_rows, 3, device=dev)
+    assert grid.hash_encode_multisample(wide_table, x01, stds, wide).shape \
+        == (4, wide.output_dim)
+    with pytest.raises(ValueError, match="float32"):
+        grid.hash_encode_multisample(wide_table.double(), x01, stds, wide)
+    with pytest.raises(ValueError, match="shape"):
+        grid.hash_encode_multisample(wide_table[:-8], x01, stds, wide)
+    with pytest.raises(ValueError, match="CUDA"):
+        grid.hash_encode_multisample(wide_table, x01, stds.cpu(), wide)
     args = _composite_args(dev, 8, 4, 2, False, True)
     with pytest.raises(ValueError, match="shape"):
         render_fused.fused_composite(**dict(args, tdist=args["tdist"][:, 1:]))
@@ -552,10 +569,15 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
                                          spec)
     with pytest.raises(ValueError, match="CUDA"):
         grid.hash_encode_multisample_bwd(table, x01.cpu(), stds, g_out, spec)
-    with pytest.raises(NotImplementedError, match="level_dim"):
-        grid.hash_encode_multisample_bwd(
-            torch.zeros(wide.total_rows, 3, device=dev), x01, stds,
-            torch.rand(4, wide.output_dim, device=dev), wide)
+    wide_g = torch.rand(4, wide.output_dim, device=dev)
+    assert grid.hash_encode_multisample_bwd(
+        wide_table, x01, stds, wide_g, wide)[0].shape == wide_table.shape
+    with pytest.raises(ValueError, match="g_out"):
+        grid.hash_encode_multisample_bwd(wide_table, x01, stds,
+                                         wide_g[:, 1:], wide)
+    with pytest.raises(ValueError, match="CUDA"):
+        grid.hash_encode_multisample_bwd(wide_table, x01, stds, wide_g.cpu(),
+                                         wide)
 
     # K3.
     idx = torch.zeros(5, dtype=torch.int32, device=dev)
@@ -568,8 +590,9 @@ def test_kernel_wrappers_reject_what_they_do_not_take(dev):
         grid.scatter_add_rows(idx, vals.cpu(), 8)
     with pytest.raises(ValueError, match="idx"):
         grid.scatter_add_rows(idx[:4], vals, 8)
-    with pytest.raises(NotImplementedError, match="C in"):
-        grid.scatter_add_rows(idx, vals[:, :3], 8)
+    # Any width runs: C3 by the general path.
+    assert grid.scatter_add_rows(idx, vals[:, :3].contiguous(), 8).shape \
+        == (8, 3)
 
 
 def _sorted_case(dev, case, c, g):
@@ -597,7 +620,7 @@ def _sorted_case(dev, case, c, g):
     return idx, torch.randn(n, c, device=dev, generator=g), rows
 
 
-@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 3, 5, 6, 12, 24])
 @pytest.mark.parametrize("case", ["levels", "long", "ones", "oob"])
 def test_scatter_add_rows_kernel_sums_sorted_segments(dev, case, c):
     """Sorted runs, which K3 sums per thread, per block and then with one
@@ -915,7 +938,7 @@ def _det_case(dev, level_dim, interp, cutoff, case, seed):
 @pytest.mark.parametrize("case", ["ties", "rays", "oob_mean"])
 @pytest.mark.parametrize("cutoff", [0, 40])
 @pytest.mark.parametrize("interp", ["linear", "tetra"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16, *GENERAL_WIDTHS])
 def test_det_bwd_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                                    cutoff, case):
     """The deterministic backward: d_table, d_x01 and d_stds the same bits
@@ -1041,7 +1064,7 @@ def test_det_kernels_at_the_int64_bound(dev, scale):
     assert torch.equal(out, vals)
 
 
-@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 3, 5, 6, 12, 24])
 @pytest.mark.parametrize("case", ["levels", "long", "ones", "oob"])
 def test_det_scatter_kernel_is_bit_identical_and_close(dev, case, c):
     """The deterministic K3 on K3's sorted-run cases: the same bits on 3
@@ -1075,7 +1098,9 @@ def test_det_scatter_kernel_is_bit_identical_and_close(dev, case, c):
 
 
 @pytest.mark.parametrize("rows,n,c", [(1 << 17, 1 << 22, 16),
-                                      (3, 100_003, 32)])
+                                      (3, 100_003, 32), (1 << 17, 1 << 20, 3),
+                                      (3, 100_003, 6), (4099, 1 << 18, 12),
+                                      (5, 100_003, 24), (77, 50_001, 5)])
 def test_det_scatter_kernel_at_its_own_shape(dev, rows, n, c):
     g = torch.Generator(device=dev).manual_seed(rows)
     idx = torch.randint(-2, rows + 2, (n,), device=dev, generator=g,
@@ -1126,7 +1151,7 @@ def test_det_row_sinks_add_exactly(dev, case, c):
 @pytest.mark.parametrize("n", [1, 7])
 @pytest.mark.parametrize("cutoff", [0, 40])
 @pytest.mark.parametrize("interp", ["linear", "tetra"])
-@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("level_dim", [1, 2, 4, 8, 16, *GENERAL_WIDTHS])
 def test_pos_grads_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                                      cutoff, n):
     """The position gradients on the ties, rays and out-of-range-mean cases
@@ -1189,7 +1214,9 @@ def test_pos_grads_kernel_is_bit_identical_and_close(dev, level_dim, interp,
                                  (4099, 300), (1 << 20, 16), (8, 2),
                                  (33_331, 1), (33_331, 2), (33_331, 4),
                                  (33_331, 6), (33_331, 8), (33_331, 257),
-                                 (5000, 1100)])
+                                 (5000, 1100), (20_480, 30), (20_480, 50),
+                                 (20_480, 60), (20_480, 120), (4099, 240),
+                                 (4099, 320)])
 def test_bound_kernel_matches_its_plain_version(dev, n, f):
     """Kernel `abs_bound`: S the same bits as `abs_bound_plain` (its order
     of sums) with NaN and +-inf skipped, within float64 rounding of

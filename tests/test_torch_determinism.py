@@ -294,7 +294,7 @@ def _segment_tolerance(idx, vals, rows):
     return terms, counts, torch.exp2(-k.double())
 
 
-@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16, 32, 3, 6, 12])
 def test_det_scatter_is_bit_identical_under_permutation(c):
     idx, vals, rows = (torch.from_numpy(a) if isinstance(a, np.ndarray)
                        else a for a in _segment_inputs(c, c))
@@ -306,7 +306,7 @@ def test_det_scatter_is_bit_identical_under_permutation(c):
             idx[p], vals[p], rows), want)
 
 
-@pytest.mark.parametrize("c", [1, 4, 16])
+@pytest.mark.parametrize("c", [1, 4, 16, 3, 6, 12])
 def test_det_scatter_matches_segment_sum(c):
     """Values over 16 binary orders of magnitude, indices out of range
     dropped (K3's one-hot drops them; segment_sum drops ids >= rows, so

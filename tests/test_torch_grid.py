@@ -2,8 +2,9 @@
 `ops/grid.py` (the CUDA kernel H1 is held against the plain encode on the
 card by chip_smoke.py and tests/test_torch_cuda.py): the presets' grids
 (the spectral encoder's dense band too), trilinear and tetrahedral
-interpolation, mean-point coarse levels, C in {1, 2, 4, 16}, on points
-with ties of their fractional parts and on cell faces.
+interpolation, mean-point coarse levels, C in {1, 2, 4, 8, 16} and the
+kernels' general widths C in {3, 6, 12}, on points with ties of their
+fractional parts and on cell faces.
 
 Tolerance: features rtol 1e-5 / atol 1e-6; erf weights rtol 1e-6.
 """
@@ -153,9 +154,11 @@ def mode_inputs(spec, seed, b=40, n=5):
 
 
 # A small hashmap hashes the fine levels while the coarse ones stay tiled;
-# cutoff 20 puts levels 5 and 9 (and 17 at C = 16's spec) at the mean.
+# cutoff 20 puts levels 5 and 9 (and 17 at C = 16's spec) at the mean. C 3,
+# 6 and 12: widths the kernels take by their general path (a row read as
+# slices of gcd(C, 4) floats).
 MODES = [(interp, cutoff, c) for interp in ("linear", "tetra")
-         for cutoff in (0, 20) for c in (1, 2, 4, 8, 16)]
+         for cutoff in (0, 20) for c in (1, 2, 4, 8, 16, 3, 6, 12)]
 
 
 def mode_specs(interp, c, diff_inputs=True):

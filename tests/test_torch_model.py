@@ -118,6 +118,71 @@ def test_model_levels_match_jax(tiny, fused_final):
                                        atol=1e-5, err_msg=f"{k} {level}")
 
 
+def _nerf_level_dim(cfg, c):
+    """cfg with its NeRF grid's level_dim set to c (either package's)."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, nerf_mlp=dataclasses.replace(m.nerf_mlp, grid=dataclasses.replace(
+            m.nerf_mlp.grid, level_dim=c))))
+
+
+def test_c3_nerf_grid_forward_and_gradients_match_jax():
+    """tiny_debug with a 3-channel NeRF grid (`model.nerf_mlp.grid.level_dim
+    =3`, a width the port's kernels take by their general path): JAX
+    weights carried over by convert.py; the model's levels at
+    test_model_levels_match_jax's tolerances, and the gradient of every
+    parameter of a seeded weighting of every level's outputs at
+    tests/test_torch_train.py's (rtol 2e-3 / atol 1e-6 of the parameter's
+    largest gradient)."""
+    jcfg = _nerf_level_dim(configs.tiny_debug(), 3)
+    cfg = _nerf_level_dim(tconfigs.tiny_debug(), 3)
+    rays = _rays(64, 5)
+    jrays = {k: jnp.asarray(v) for k, v in rays.items()}
+    jmodel = JaxModel(jcfg.model)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), None, jrays)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    assert params["params"]["nerf_mlp"]["table"].shape[1] == 3
+    rng = np.random.RandomState(6)
+    for sub in params["params"].values():
+        sub["table"] = rng.uniform(-1, 1, sub["table"].shape).astype(
+            np.float32)
+    levels, _ = jax.jit(lambda p: jmodel.apply(p, None, jrays))(params)
+    weights = [{k: rng.randn(*np.shape(v)).astype(np.float32)
+                for k, v in sorted(lv.items())} for lv in levels]
+
+    def weighted(outs, w, xp):
+        return sum(xp.sum(o[k] * w_l[k]) for o, w_l in zip(outs, w)
+                   for k in sorted(w_l))
+
+    want_grads = convert.flatten_params(jax.tree_util.tree_map(
+        np.asarray, jax.jit(jax.grad(lambda p: weighted(
+            jmodel.apply(p, None, jrays)[0], weights, jnp)))(params)))
+    model = Model(cfg.model)
+    model.load_state_dict(convert.flax_to_state_dict(params, cfg.model))
+    assert model.nerf_mlp.table.shape[1] == 3
+    got, _ = model({k: torch.from_numpy(v) for k, v in rays.items()})
+    for level, (g, w) in enumerate(zip(got, levels)):
+        assert set(g) == set(w), level
+        np.testing.assert_allclose(g["depth"].detach().numpy(),
+                                   np.asarray(w["depth"]), rtol=1e-4,
+                                   err_msg=f"depth {level}")
+        for k in set(g) - {"depth"}:
+            np.testing.assert_allclose(g[k].detach().numpy(),
+                                       np.asarray(w[k]), atol=1e-5,
+                                       err_msg=f"{k} {level}")
+    tw = [{k: torch.from_numpy(v) for k, v in w_l.items()} for w_l in weights]
+    weighted(got, tw, torch).backward()
+    grads = convert.flatten_params(convert.state_dict_to_flax(
+        {k: p.grad for k, p in model.named_parameters()}))
+    assert set(grads) == set(want_grads)
+    for k, g in grads.items():
+        w = want_grads[k]
+        scale = float(np.abs(w).max())
+        assert scale > 0, k
+        np.testing.assert_allclose(g, w, rtol=2e-3, atol=1e-6 * scale,
+                                   err_msg=k)
+
+
 def _small_sweeps(sensor_mod=sensor, frame=SceneFrame):
     """Two sweeps of 4 elevations x 64 azimuths on a straight drive, from
     the JAX sensor model or the port's."""

@@ -9,7 +9,8 @@ in both modes. Here:
   `hash_encode_multisample` in x01 and stds, on test_torch_grid.py's
   points (ties, faces, clusters, out-of-range points and means): trilinear
   C1 / C2 / C4, tetrahedral C2 (the spectral object grid), mean-point
-  levels, and n = 1 at stds 0 (the object grid's encode);
+  levels, n = 1 at stds 0 (the object grid's encode), and the kernels'
+  general widths C3 / C6 / C12 in both interpolations;
 - the CPU autograd path's d_x01 / d_stds the same bits with torch's
   deterministic switch on and off;
 - no residuals where x01 and stds take no gradient (render, eval, the
@@ -42,7 +43,9 @@ RTOL, ATOL = 1e-4, 1e-5
 CASES = [("linear", 0, 1, 5, False), ("linear", 0, 2, 5, False),
          ("linear", 0, 4, 5, False), ("tetra", 0, 2, 5, False),
          ("linear", 20, 4, 5, False), ("tetra", 20, 2, 5, False),
-         ("linear", 0, 2, 1, True)]
+         ("linear", 0, 2, 1, True), ("linear", 0, 3, 5, False),
+         ("tetra", 20, 6, 5, False), ("linear", 20, 12, 5, False),
+         ("tetra", 0, 3, 1, True)]
 
 
 @pytest.fixture(autouse=True, scope="module")
