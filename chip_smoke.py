@@ -257,12 +257,16 @@ Phases (each raises on failure, so the script exits non-zero):
    `train --deterministic` twice (the same bits); a `render_lidar` sweep
    of its weights with every K1 and H1 call held against its plain version.
 21. grids of any width (the kernels' general path: a row read as slices
-   of gcd(C, 4) floats), at full width: (a) `nuscenes_single` with a C3
+   of gcd(C, 4) floats, a sample's points walked once a level: H1 a float4
+   of a row a lane, a sample's lanes together, H1-bwd up to 4 slices a
+   lane), at full width: (a) `nuscenes_single` with a C3
    NeRF grid (14,995,560 rows) and C6 proposal grids, through the train
    entry 3 steps (launches, a gradient on every table, ms/step, peak GiB),
    3 steps kernels on vs off under [8]'s rules, on one more step's
-   recorded NeRF and first proposal call H1 against its plain version
-   ([4]'s tolerances), H1-bwd against its written-out twin ([6]'s), the
+   recorded call of every grid (each H1 and H1-bwd one walk a level; the
+   walks and blocks printed) H1 against its plain version
+   ([4]'s tolerances), H1-bwd against its written-out twin's terms summed
+   in float64 ([6]'s tolerance), the
    deterministic d_table against its twins as [19] holds them, K3 at the
    grid's hash-decay level sums against float64 and its deterministic
    variant against its twin, device times in turns (K3 beside
@@ -5169,12 +5173,52 @@ ANY_REFINE = [*DET_TRAIN["refine"][:-2], "--set",
               "model.nerf_mlp.grid.level_dim=12", "--set",
               "model.obj_mlp.grid.level_dim=3"]
 ANY_REFINE_WIDTHS = {"nerf": 12, "obj": 3}
+# Samples a block of H1 and H1-bwd takes (csrc/kernels.cu kThreads; a
+# general-path block, a warp's 32 / lanes samples a warp).
+BLOCK_THREADS = 128
+
+
+def walk_report(spec, b, n):
+    """[21] How the general path takes a call of B samples of n points on a
+    grid: per kernel (H1 in both modes, H1-bwd, its deterministic variant)
+    its plan (`grid.walk_plan`; the backward's `padded` 0 where the call
+    sums into d_table itself, `grid.pad_rows`), the walks a level, and a
+    launch's blocks (levels x walks x tiles); {} at the tuned widths."""
+    import dataclasses
+    from nerf_lidar_tpu_torch.ops import grid
+    out = {}
+    for name, kernel in (("hash_encode_ms", "encode"),
+                         ("hash_encode_ms_bwd", "backward"),
+                         ("hash_encode_ms_bwd_det", "deterministic")):
+        plan = grid.walk_plan(spec.level_dim, kernel)
+        if plan is None:
+            continue
+        if kernel == "backward" and not grid.pad_rows(spec, b * n, plan):
+            plan = dataclasses.replace(plan, padded=0)
+        tiles = -(-b // (BLOCK_THREADS // 32 * (32 // plan.lanes)))
+        out[name] = dict(dataclasses.asdict(plan), tiles=tiles,
+                         blocks=spec.num_levels * plan.walks * tiles)
+    return out
+
+
+def walks_line(name, spec, report):
+    """One printable line of `walk_report`'s numbers."""
+    parts = []
+    for kernel, r in report.items():
+        pad = f", rows padded to {r['padded']}" if r["padded"] else ""
+        parts.append(f"{kernel} {r['walks']} walk(s) a level ({r['lanes']} "
+                     f"lane(s) a sample x {r['slices']} slice(s) of "
+                     f"{r['width']} float(s){pad}), {r['blocks']} blocks = "
+                     f"{spec.num_levels} levels x {r['walks']} x "
+                     f"{r['tiles']} tiles")
+    return f"[21] C{spec.level_dim} {name}: " + "; ".join(parts)
 
 
 def any_width_grid(dev, name, rec):
     """[21] The general path on one grid's recorded train call `rec`: H1
     against its plain version ([4]'s tolerances), H1-bwd against its
-    written-out twin ([6]'s BWD_TOL of max, every gradient the call asks),
+    written-out twin's terms summed in float64 ([6]'s BWD_TOL of max, every
+    gradient the call asks; the float32 twin's own error reported),
     the deterministic d_table against its float and plain deterministic
     twins (`det_bwd_grid`), K3 at the grid's hash-decay level sums against
     float64 ([7]'s PATH_SCATTER_TOL) and its deterministic variant against
@@ -5191,15 +5235,23 @@ def any_width_grid(dev, name, rec):
         table, x01, stds, spec, cutoff)[0])
     fwd_err = close(f"[21] C{c} {name} H1", h1(), want, 1e-5, 1e-6)
     del want
-    bwd_plain_ms, want = cuda_ms_once(
+    bwd_plain_ms, twin = cuda_ms_once(
         lambda: grid.hash_encode_multisample_bwd_plain(
             table, x01, stds, g_out, spec, needs, cutoff))
+    # The same terms (weights from the float32 points) summed in float64:
+    # the twin's float32 atomic sums cancel on the coarse rows of a C6
+    # proposal grid to 1e-4 of the largest entry on their own.
+    want = grid.hash_encode_multisample_bwd_plain(
+        table.double(), x01, stds, g_out.double(), spec, needs, cutoff)
     got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
                                            needs, cutoff)
     bwd_err = max(rel_err(f"[21] C{c} {name} H1-bwd {key}", got[i], want[i],
                           BWD_TOL)[1]
                   for i, key in enumerate(GRADS) if needs[i])
-    del got, want
+    twin_err = max(float((twin[i] - want[i]).abs().max()
+                         / want[i].abs().max())
+                   for i in range(3) if needs[i])
+    del got, want, twin
     det = det_bwd_grid(dev, f"C{c} {name}", (table, x01, stds, g_out, spec),
                        cutoff, full=True)
     idx, vals, rows = grid.level_ids(spec, dev), table.detach()**2, \
@@ -5221,8 +5273,10 @@ def any_width_grid(dev, name, rec):
         turns[k].append(hb.queued_ms(fn) or cuda_ms(fn))
     det_k3 = det_scatter(dev, f"hash decay C{c} {name}", idx, vals, rows,
                          full=False)
-    common = dict(C=c, mode=mode, B=stds.numel() // stds.shape[-1],
-                  n=stds.shape[-1], rows=spec.total_rows)
+    b = stds.numel() // stds.shape[-1]
+    common = dict(C=c, mode=mode, B=b, n=stds.shape[-1],
+                  rows=spec.total_rows,
+                  walks=walk_report(spec, b, stds.shape[-1]))
     out = dict(
         hash_encode_ms=dict(max_abs_err=fwd_err,
                             ms=statistics.fmean(turns["h1"]),
@@ -5230,7 +5284,7 @@ def any_width_grid(dev, name, rec):
                             turns=turns["h1"],
                             **bound(*hb.fwd_bound(spec, x01, stds, cutoff)),
                             **common),
-        hash_encode_ms_bwd=dict(max_rel_err=bwd_err,
+        hash_encode_ms_bwd=dict(max_rel_err=bwd_err, twin_rel_err=twin_err,
                                 ms=statistics.fmean(turns["bwd"]),
                                 plain_ms=bwd_plain_ms, library_ms=None,
                                 turns=turns["bwd"], needs=list(needs),
@@ -5249,13 +5303,15 @@ def any_width_grid(dev, name, rec):
                               rows=rows))
     print(f"[21] C{c} {name} ({mode}, B={common['B']}, n={common['n']}, "
           f"needs {needs}): H1 max abs err {fwd_err:.2e}, H1-bwd "
-          f"{bwd_err:.2e} of max, K3 hash decay {k3_err:.2e} of max; device "
+          f"{bwd_err:.2e} of max against float64 sums (the float32 twin's "
+          f"own {twin_err:.2e}), K3 hash decay {k3_err:.2e} of max; device "
           f"ms in turns {turns}; bounds H1 "
           f"{out['hash_encode_ms']['bound_ms']:.4f}, H1-bwd "
           f"{out['hash_encode_ms_bwd']['bound_ms']:.4f}, K3 "
           f"{out['scatter_add_rows']['bound_ms']:.4f}; plain ms (CUDA "
           f"events) H1 {h1_plain_ms:.1f}, H1-bwd {bwd_plain_ms:.1f}, K3 "
           f"{k3_plain_ms:.2f}; deterministic d_table and K3 as [19] above")
+    print(walks_line(name, spec, common["walks"]))
     return out
 
 
@@ -5281,7 +5337,8 @@ def phase_any_width(dev):
     grids for ANY_STEPS steps (finite losses, a gradient on every table,
     H1, H1-bwd and K3 launched, ms/step, peak GiB), ON_OFF_STEPS steps
     kernels on vs off under [8]'s rules, then on one more step's recorded
-    calls of the NeRF and first proposal grid `any_width_grid`; `train
+    calls of every grid `any_width_grid` (each C3 / C6 grid's H1 and
+    H1-bwd one walk a level, `walk_report`, or the phase fails); `train
     --deterministic` twice for ANY_DET_STEPS steps (the same bits, no atomic
     kernel); a `render_lidar` sweep of its weights with every H1 and K1 call
     held against its plain version. (b) The refinement recipe (pose and
@@ -5292,7 +5349,8 @@ def phase_any_width(dev):
     ANY_DET_STEPS steps (the same bits), and on every grid's recorded call
     of one more deterministic step [19]'s `pos_grads_check` (R and the
     contraction against their plain versions, each the same bits on 3
-    copies, d_x01 / d_stds the same bits in both modes). Returns {"paths":
+    copies, d_x01 / d_stds the same bits in both modes), with each
+    general-path grid's walks and blocks. Returns {"paths":
     {path: launches}, "kernels": {kernel: {call: numbers}}, "steps": {path:
     ms/step and peak GiB}}."""
     import numpy as np
@@ -5326,9 +5384,14 @@ def phase_any_width(dev):
           f"{ms:.1f} ms/step after the first, peak {peak:.2f} GiB; "
           f"{ON_OFF_STEPS} steps kernels on vs off: {on_off}")
     recs = hb.record_train_inputs(run, ANY_STEPS + 1 + ON_OFF_STEPS)
-    for name in ("nerf", "prop0"):
+    for name in ("nerf", "prop0", "prop1"):
         for kernel, nums in any_width_grid(dev, name, recs.pop(name)).items():
             kernels.setdefault(kernel, {})[f"train_c3 {name}"] = nums
+            walks = nums.get("walks", {})
+            if any(walks[k]["walks"] != 1 for k in
+                   ("hash_encode_ms", "hash_encode_ms_bwd") if k in walks):
+                fail(f"[21] C{nums['C']} {name}: {kernel} takes more than "
+                     f"one walk a level: {walks}")
         torch.cuda.empty_cache()
     del recs
     steps["train_c3"] = dict(ms_per_step=ms, peak_gib=peak)
@@ -5417,8 +5480,15 @@ def phase_any_width(dev):
           f"launches {det_launches}, by grid {det_grid}, {det_ms:.1f} "
           f"ms/step, peak {det_peak:.2f} GiB")
     for name in list(rec):
+        spec, stds = rec[name][4], rec[name][2]
+        report = walk_report(spec, stds.numel() // stds.shape[-1],
+                             stds.shape[-1])
+        if report:
+            print(walks_line(f"refine {name}", spec, report))
         checked = pos_grads_check(dev, f"C{rec[name][4].level_dim} refine "
                                   f"{name}", rec.pop(name))
+        if report:
+            checked["residuals"]["walks"] = report
         for key, nums in checked.items():
             kernels.setdefault(key, {})[f"train_refine_c12 {name}"] = nums
         torch.cuda.empty_cache()

@@ -237,19 +237,51 @@
 // up to 32), so any level_dim the JAX package takes (C3, C5, C6, C12, C24,
 // C32, ...). A row of C floats is S = C / V slices of V = gcd(C, 4) floats:
 // one float, float2 or float4 load, the widest every row start allows (the
-// wrappers check the tensors' start for that width). Design, simple and
-// right first (its register counts and times: PERF.md):
-//   - H1, H1-bwd and its deterministic variant take one (level, slice) a
-//     block, L S of them a tile in the tuned kernels' block orders; a thread
-//     runs the tuned code at width V on rows of stride C (encode_one /
-//     encode_mean, backward_one / backward_mean through FloatRows /
-//     FixedRows at a row stride of C), so each channel's runs, weights,
-//     warp merges and order of sums are those of a C-wide instantiation:
-//     the features and R the same bits in both forward modes, the
-//     deterministic d_table the plain twin's bits. The residual mode keeps
-//     a run's 8 corner slices, 8 V floats, in registers (not 8 C), and
-//     writes R's slice with streaming stores. A sample's cells and erf
-//     weights are computed once a slice;
+// wrappers check the tensors' start for that width). Bound as the tuned
+// kernels (table reads; atomics), and held back where a sample's points
+// are walked again for each part of its rows: each walk recomputes the
+// cells, erf weights, corner weights, runs and warp merges, and fetches
+// the corner rows' sectors again. Design (ops/grid.py:walk_plan picks the
+// plan; its register counts and times: PERF.md):
+//   - H1 (both modes): a sample takes as many neighbouring lanes as its
+//     row needs at kLaneFloats = 4 floats a lane (C3: one lane, C6: two,
+//     C12: three; 32 / lanes samples a warp), so a level is one walk of
+//     its points for C <= 128 (blocks: levels x tiles); a lane computes
+//     each point's cell, erf and corner weights once for its span, reads a
+//     run's corner rows as its slices' loads (gather_span), the group's
+//     lanes a row's neighbouring spans together; the residual mode keeps
+//     the run's 8 corner spans in registers (32 floats, the tuned C4
+//     residual kernel's) and the group stores R's neighbouring spans
+//     together. (The tuned C >= 8 residual pass is slow for another
+//     reason: each lane reads every point's corner rows anew, a float4
+//     part at a time, after the warp's encode; here a run's rows are read
+//     once, when it starts.) Measured and dropped (PERF.md): a lane a
+//     sample with a 16-float span (72-90 registers), and with 4 slices
+//     (C6 and C12 slower on the train calls);
+//   - H1-bwd: a lane a sample (the warp's segment merge), holding g_out's
+//     span of up to kSpanSlices = 4 slices (C3, C6, C12 in one walk a
+//     level; ceil(S / 4) walks, a block a (level, walk) of a tile), the
+//     segment ends adding the span at once (add_runs_span); its
+//     deterministic variant takes 4 floats a walk at V = 1 (C3 one walk)
+//     and one slice above (C6 and C12 three walks: wider int64 spans held
+//     more registers and were slower there, PERF.md);
+//   - each channel keeps the runs, weights, warp merges and order of sums
+//     of a C-wide instantiation: the features and R are the tuned V-wide
+//     kernels' bits on the same columns, the deterministic d_table the
+//     plain twin's;
+//   - the atomic backward adds a run's row as float4 atomics on 16-byte
+//     rows: d_table itself where C % 4 == 0, else, on a call dense enough
+//     (ops/grid.py:pad_rows), a zeroed scratch of rows padded to Cp = 4
+//     ceil(C / 4) floats (C3: one `red` a row where a lane a slice issued
+//     three scalar ones; the L2 takes atomics at a rate of operations, not
+//     of bytes: PERF.md), whose sums unpad_rows_kernel then writes into
+//     d_table (read once, Cp / C of d_table's bytes); a sparse call adds
+//     V-float atomics a slice into d_table;
+//   - the deterministic backward keeps the [rows, C] int64 sums (no 64-bit
+//     vector atomic): a segment's span of w channels leaves by
+//     add_span_transposed, lane j adding channel j % w of the (j / w)-th
+//     row, so one instruction covers 32 / w whole rows; its exponents are
+//     read from the L1 when a term is rounded, not held in registers;
 //   - the contraction (pos_grads_slices_kernel) reads a row of R and g_out as
 //     C / V slices, in the plain version's order of sums;
 //   - K3 and its deterministic variant (scatter_add_slices_kernel) cut the
@@ -644,19 +676,15 @@ __device__ __forceinline__ Points points_of(const float* x01,
 // Adds sum_c W[c] * row_c of cell (ix, iy, iz) into acc. With tetra only
 // the corners of some point's simplex carry a weight: the others are not
 // read.
-// stride: floats from one row to the next (C; the general path's slices of
-// V channels read rows of the full width).
 template <int C, bool kTetra>
 __device__ __forceinline__ void gather_run(const float* tbl, int ix, int iy,
                                            int iz, const float* W,
-                                           const Level& v, float* acc,
-                                           int stride = C) {
+                                           const Level& v, float* acc) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (kTetra && W[c] == 0.f) continue;
     float row[C];
-    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * stride,
-                row);
+    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C, row);
 #pragma unroll
     for (int k = 0; k < C; ++k) acc[k] += W[c] * row[k];
   }
@@ -894,17 +922,16 @@ __device__ __forceinline__ void store_zero_residual(const ResOut& r, int j) {
 }
 
 // The corner rows of cell (ix, iy, iz) a mask `reach` names into rows[8][C]
-// (the others are left as they are and not read); stride as gather_run's.
+// (the others are left as they are and not read).
 template <int C, bool kTetra>
 __device__ __forceinline__ void load_corners(const float* tbl, int ix, int iy,
                                              int iz, unsigned reach,
                                              const Level& v,
-                                             float (*rows)[C],
-                                             int stride = C) {
+                                             float (*rows)[C]) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (!((reach >> c) & 1u)) continue;
-    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * stride,
+    load_row<C>(tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C,
                 rows[c]);
   }
 }
@@ -930,11 +957,11 @@ __device__ __forceinline__ void add_run(const float* W, const float (*rows)[C],
 // so their stores of point j are one contiguous run): a run's corner rows
 // are read when it starts and kept in registers (with tetra all 8: which
 // of them the run's points reach is not known yet), and its weighted sum
-// is taken from them when it ends. stride: as gather_run's.
+// is taken from them when it ends.
 template <int C, bool kTetra, bool kResid>
 __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
                                            const Level& v, float* acc,
-                                           const ResOut& r, int stride = C) {
+                                           const ResOut& r) {
   float W[8];
   float rows[8][C];
   int cx = 0, cy = 0, cz = 0;
@@ -952,7 +979,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
       if constexpr (kResid)
         add_run<C, kTetra>(W, rows, acc);
       else
-        gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc, stride);
+        gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
       have = false;
     }
     if (!have) {
@@ -963,7 +990,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
 #pragma unroll
       for (int c = 0; c < 8; ++c) W[c] = 0.f;
       if constexpr (kResid)
-        load_corners<C, kTetra>(tbl, cx, cy, cz, 0xffu, v, rows, stride);
+        load_corners<C, kTetra>(tbl, cx, cy, cz, 0xffu, v, rows);
     }
     add_weights<kTetra>(p, wl, W);
     if constexpr (kResid) {
@@ -977,7 +1004,7 @@ __device__ __forceinline__ void encode_one(const float* tbl, Points pt, int n,
   if constexpr (kResid)
     add_run<C, kTetra>(W, rows, acc);
   else
-    gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc, stride);
+    gather_run<C, kTetra>(tbl, cx, cy, cz, W, v, acc);
 }
 
 // A sample's mean point (its n points, out-of-range ones included, summed
@@ -1009,8 +1036,7 @@ __device__ __forceinline__ MeanPoint mean_of(Points pt, int n,
 template <int C, bool kTetra, bool kResid>
 __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
                                             int n, const Level& v,
-                                            float* acc, const ResOut& r,
-                                            int stride = C) {
+                                            float* acc, const ResOut& r) {
   const MeanPoint m = mean_of(pt, n, v);
   if (!in_unit_cube(m.x, m.y, m.z)) {
     if constexpr (kResid)
@@ -1023,7 +1049,7 @@ __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
   if constexpr (kResid) {
     float rows[8][C], f[C], df[3][C];
     load_corners<C, kTetra>(tbl, p.ix, p.iy, p.iz, reached_corners<kTetra>(p),
-                            v, rows, stride);
+                            v, rows);
     add_run<C, kTetra>(W, rows, acc);
     point_terms<C, kTetra>(p, rows, f, df);
     const float inv_n = 1.0f / (float)n, kx = m.w / (float)n * v.scale;
@@ -1031,7 +1057,7 @@ __device__ __forceinline__ void encode_mean(const float* tbl, Points pt,
       store_residual<C>(r, j, 0, kx, inv_n * erf_weight_grad(pt.s[j], v), f,
                         df);
   } else {
-    gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc, stride);
+    gather_run<C, kTetra>(tbl, p.ix, p.iy, p.iz, W, v, acc);
   }
 }
 
@@ -1222,47 +1248,292 @@ __host__ __device__ constexpr int slice_width(int C) {
   return C % 4 == 0 ? 4 : (C % 2 == 0 ? 2 : 1);
 }
 
+// The general path's walks. A lane takes `ns` consecutive slices of V
+// floats of every row (its span: channels [c0, c0 + ns V)), at most kS of
+// them, so its sums stay in registers: in H1 (both modes) kLaneFloats
+// floats (its residual mode keeps a run's 8 corner spans: 32 floats, the
+// tuned C4 residual kernel's), a sample taking as many lanes as its row
+// needs; in H1-bwd, whose warp merges need a lane a sample, kSpanSlices
+// slices (g_out and the terms of 4 V floats: C3, C6, C12 in one walk),
+// and in its deterministic variant (int64 terms) fixed_slices<V>().
+// ops/grid.py:walk_plan picks the slices a lane takes, the lanes a sample
+// and so the walks a level.
+constexpr int kLaneFloats = 4;
+constexpr int kSpanSlices = 4;
+
+// Slices a walk of the deterministic backward: 4 floats at V = 1 (C3 in
+// one walk), one slice above, so the warp's transposed int64 adds take a
+// width known at compile time (C6 and C12 in S walks, as a block a slice
+// took them; 2-slice and 4-slice walks were slower there: PERF.md).
+template <int V>
+__host__ __device__ constexpr int fixed_slices() {
+  return V == 1 ? kLaneFloats : 1;
+}
+
+// A block of the general path: level l, walk `walk` of it, and a tile of
+// `tile` samples from b0 (cnt of them present). A warp takes 32 / lanes
+// samples, `lanes` neighbouring lanes each; blocks in work_of's orders over
+// the L walks (level, walk) pairs.
+struct WalkWork {
+  int l, walk;
+  int64_t b0;
+  int cnt;
+};
+
+__device__ __forceinline__ WalkWork walk_work(int64_t tiles, int L, int walks,
+                                              int lanes, int64_t B,
+                                              bool level_major) {
+  const int tile = (int)(blockDim.x >> 5) * (32 / lanes);
+  const int64_t i = blockIdx.x, pairs = (int64_t)L * walks;
+  const int64_t lw = level_major ? i / tiles : i % pairs;
+  const int64_t t = level_major ? i % tiles : i / pairs;
+  const int64_t b0 = t * tile, rem = B - b0;
+  return WalkWork{(int)(lw / walks), (int)(lw % walks), b0,
+                  rem < tile ? (int)rem : tile};
+}
+
+// Sample t's points in a tile of cnt samples from b0: staged or in device
+// memory, as points_of.
+__device__ __forceinline__ Points span_points(const float* x01,
+                                              const float* stds, int64_t b0,
+                                              int t, int cnt, int n,
+                                              const float* stage) {
+  if (stage != nullptr)
+    return Points{stage + t * n * 3, stage + cnt * n * 3 + t * n};
+  return Points{x01 + (b0 + t) * n * 3, stds + (b0 + t) * n};
+}
+
+// gather_run over a span: acc[0..ns V) += sum_c W[c] * the span of corner
+// row c (tbl: the level's table at the span's first channel; rows C floats
+// apart). Per channel the corners, weights, skips and order of adds are
+// gather_run's, so each channel's sum is a C-wide instantiation's bits. A
+// corner's slices load together, from the same sectors.
+template <int V, int kS, bool kTetra>
+__device__ __forceinline__ void gather_span(const float* tbl, int C, int ns,
+                                            int ix, int iy, int iz,
+                                            const float* W, const Level& v,
+                                            float* acc) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (kTetra && W[c] == 0.f) continue;
+    const float* p = tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C;
+#pragma unroll
+    for (int q = 0; q < kS; ++q) {
+      if (q >= ns) continue;
+      float row[V];
+      load_row<V>(p + q * V, row);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[q * V + k] += W[c] * row[k];
+    }
+  }
+}
+
+// load_corners over a span: the span of each corner row that `reach`
+// names into rows[c], zeros past the ns slices.
+template <int V, int kS, bool kTetra>
+__device__ __forceinline__ void load_corner_spans(const float* tbl, int C,
+                                                  int ns, int ix, int iy,
+                                                  int iz, unsigned reach,
+                                                  const Level& v,
+                                                  float (*rows)[kS * V]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (!((reach >> c) & 1u)) continue;
+    const float* p = tbl + (int64_t)corner_row<kTetra>(ix, iy, iz, c, v) * C;
+#pragma unroll
+    for (int q = 0; q < kS; ++q) {
+      if (q < ns) {
+        load_row<V>(p + q * V, rows[c] + q * V);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) rows[c][q * V + k] = 0.f;
+      }
+    }
+  }
+}
+
+// store_residual over a span: point j's rows kx * df[d] and ks * f, the ns
+// slices of the span (R's rows at the span's first channel).
+template <int V, int kS>
+__device__ __forceinline__ void store_residual_span(const ResOut& r, int j,
+                                                    float kx, float ks,
+                                                    const float* f,
+                                                    const float (*df)[kS * V],
+                                                    int ns) {
+#pragma unroll
+  for (int q = 0; q < kS; ++q) {
+    if (q >= ns) continue;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float u[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) u[k] = kx * df[d][q * V + k];
+      store_streaming<V>(r.row(j, d) + q * V, u);
+    }
+    float u[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) u[k] = ks * f[q * V + k];
+    store_streaming<V>(r.row(j, 3) + q * V, u);
+  }
+}
+
+template <int V, int kS>
+__device__ __forceinline__ void store_zero_residual_span(const ResOut& r,
+                                                         int j, int ns) {
+  const float z[V] = {};
+#pragma unroll
+  for (int q = 0; q < kS; ++q) {
+    if (q >= ns) continue;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) store_streaming<V>(r.row(j, d) + q * V, z);
+  }
+}
+
+// encode_one over a span of ns slices (the general path): the sample's
+// points walked once, each point's cell, erf weight and corner weights
+// computed once for every slice of the span; a run's corner rows read
+// whole span by span when it ends (gather_span) or, with kResid, when it
+// starts (8 spans kept in registers, taken from them when it ends), and
+// every point's residual rows written in its own step.
+template <int V, int kS, bool kTetra, bool kResid>
+__device__ __forceinline__ void encode_span(const float* tbl, int C, int ns,
+                                            Points pt, int n, const Level& v,
+                                            float* acc, const ResOut& r) {
+  constexpr int kW = kS * V;
+  float W[8];
+  float rows[kResid ? 8 : 1][kW];
+  int cx = 0, cy = 0, cz = 0;
+  bool have = false;
+  const float inv_n = 1.0f / (float)n;
+  for (int j = 0; j < n; ++j) {
+    const float x = pt.x[3 * j], y = pt.x[3 * j + 1], z = pt.x[3 * j + 2];
+    if (!in_unit_cube(x, y, z)) {  // encodes to 0, breaks no run
+      if constexpr (kResid) store_zero_residual_span<V, kS>(r, j, ns);
+      continue;
+    }
+    const float wl = erf_weight(pt.s[j], v);
+    const Cell p = cell_of(x, y, z, v.scale);
+    if (have && !same_cell(p, cx, cy, cz)) {
+      if constexpr (kResid)
+        add_run<kW, kTetra>(W, rows, acc);
+      else
+        gather_span<V, kS, kTetra>(tbl, C, ns, cx, cy, cz, W, v, acc);
+      have = false;
+    }
+    if (!have) {
+      cx = p.ix;
+      cy = p.iy;
+      cz = p.iz;
+      have = true;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) W[c] = 0.f;
+      if constexpr (kResid)
+        load_corner_spans<V, kS, kTetra>(tbl, C, ns, cx, cy, cz, 0xffu, v,
+                                         rows);
+    }
+    add_weights<kTetra>(p, wl, W);
+    if constexpr (kResid) {
+      float f[kW], df[3][kW];
+      point_terms<kW, kTetra>(p, rows, f, df);
+      store_residual_span<V, kS>(r, j, wl * inv_n * v.scale,
+                                 inv_n * erf_weight_grad(pt.s[j], v), f, df,
+                                 ns);
+    }
+  }
+  if (!have) return;
+  if constexpr (kResid)
+    add_run<kW, kTetra>(W, rows, acc);
+  else
+    gather_span<V, kS, kTetra>(tbl, C, ns, cx, cy, cz, W, v, acc);
+}
+
+// encode_mean over a span.
+template <int V, int kS, bool kTetra, bool kResid>
+__device__ __forceinline__ void encode_mean_span(const float* tbl, int C,
+                                                 int ns, Points pt, int n,
+                                                 const Level& v, float* acc,
+                                                 const ResOut& r) {
+  constexpr int kW = kS * V;
+  const MeanPoint m = mean_of(pt, n, v);
+  if (!in_unit_cube(m.x, m.y, m.z)) {
+    if constexpr (kResid)
+      for (int j = 0; j < n; ++j) store_zero_residual_span<V, kS>(r, j, ns);
+    return;
+  }
+  const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+  float W[8] = {};
+  add_weights<kTetra>(p, m.w, W);
+  if constexpr (kResid) {
+    float rows[8][kW], f[kW], df[3][kW];
+    load_corner_spans<V, kS, kTetra>(tbl, C, ns, p.ix, p.iy, p.iz,
+                                     reached_corners<kTetra>(p), v, rows);
+    add_run<kW, kTetra>(W, rows, acc);
+    point_terms<kW, kTetra>(p, rows, f, df);
+    const float inv_n = 1.0f / (float)n, kx = m.w / (float)n * v.scale;
+    for (int j = 0; j < n; ++j)
+      store_residual_span<V, kS>(r, j, kx,
+                                 inv_n * erf_weight_grad(pt.s[j], v), f, df,
+                                 ns);
+  } else {
+    gather_span<V, kS, kTetra>(tbl, C, ns, p.ix, p.iy, p.iz, W, v, acc);
+  }
+}
+
 // H1 at a width C that hash_encode_ms_kernel is not instantiated for (the
 // general path): a row of C floats is S = C / V slices of V = gcd(C, 4)
-// floats, and a block takes one (level, slice) of a tile, L S of them per
-// tile in work_of's order (level-major: a level's slices in turn, so its
-// table slice stays in L2 across them). A thread runs encode_one /
-// encode_mean at width V on rows of stride C: the same runs, weights and
-// order of sums for each channel as a C-wide instantiation, so the
-// features (and, with kResid, R's V columns of the slice, the run's 8
-// corner slices held in registers: 8 V floats, not 8 C) are its bits.
+// floats. A sample takes `lanes` neighbouring lanes of a warp, lane p of
+// them `slices` slices of each row, so a walk of its points covers
+// lanes * slices slices; a block takes one (level, walk) of a tile, `walks`
+// = ceil(S / (lanes slices)) of them a level (walk_work). A lane runs
+// encode_one's runs over its span (encode_span / encode_mean_span): the
+// same runs, weights and order of sums for each channel as a C-wide
+// instantiation, so the features (and with kResid R) are its bits.
+// A lane takes up to kLaneFloats floats (with kResid it keeps a run's 8
+// corner spans in registers), and a sample as many lanes as its row needs
+// (C3: one, C6: two, C12: three, each a float4 of the 8 corners), which
+// read and write the row's neighbouring spans together: one walk a level
+// for C <= 128. (One lane a sample and 4 slices, C6 and C12 in one lane,
+// took 90 registers and was slower on the train calls: PERF.md.)
 template <int V, bool kTetra, bool kResid>
-__global__ void hash_encode_ms_slices_kernel(
+__global__ void hash_encode_ms_any_kernel(
     const float* __restrict__ table, const float* __restrict__ x01,
     const float* __restrict__ stds, float* __restrict__ out,
-    float* __restrict__ resid, int64_t B, int n, int L, int C, int64_t tiles,
-    int level_major, int stage, GridLevels lv) {
+    float* __restrict__ resid, int64_t B, int n, int L, int C, int slices,
+    int lanes, int walks, int64_t tiles, int level_major, int stage,
+    GridLevels lv) {
+  constexpr int kS = kLaneFloats / V;
   extern __shared__ __align__(16) float smem[];
-  const int S = C / V;
-  const Work w = work_of(tiles, L * S, level_major != 0);
-  const int l = w.l / S, q = w.l % S;
-  const int cnt = tile_count(B, w.b0);
-  const Level v = level_of(lv, l);
+  const WalkWork w = walk_work(tiles, L, walks, lanes, B, level_major != 0);
+  const Level v = level_of(lv, w.l);
   if (stage) {
-    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
+    stage_tile(x01, stds, w.b0, w.cnt, n, smem, smem + w.cnt * n * 3);
     __syncthreads();
   }
-  if ((int)threadIdx.x >= cnt) return;
-  float acc[V] = {};
-  const int64_t b = w.b0 + threadIdx.x;
-  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  const float* tbl = table + (int64_t)lv.offset[l] * C + q * V;
+  const int lane = threadIdx.x & 31, per = 32 / lanes;
+  const int t = (int)(threadIdx.x >> 5) * per + lane / lanes;
+  const int q0 = (w.walk * lanes + lane % lanes) * slices;
+  const int ns = min(slices, C / V - q0);
+  if (lane >= per * lanes || t >= w.cnt || ns <= 0) return;
+  const int64_t b = w.b0 + t;
+  const Points pt =
+      span_points(x01, stds, w.b0, t, w.cnt, n, stage ? smem : nullptr);
+  const float* tbl = table + (int64_t)lv.offset[w.l] * C + q0 * V;
   const ResOut res{
-      kResid ? resid + ((int64_t)l * n * 4 * B + b) * C + q * V : nullptr,
+      kResid ? resid + ((int64_t)w.l * n * 4 * B + b) * C + q0 * V : nullptr,
       B * C};
+  float acc[kS * V] = {};
   if (v.mean) {
-    encode_mean<V, kTetra, kResid>(tbl, pt, n, v, acc, res, C);
+    encode_mean_span<V, kS, kTetra, kResid>(tbl, C, ns, pt, n, v, acc, res);
   } else {
-    encode_one<V, kTetra, kResid>(tbl, pt, n, v, acc, res, C);
+    encode_span<V, kS, kTetra, kResid>(tbl, C, ns, pt, n, v, acc, res);
 #pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = acc[k] / (float)n;
+    for (int k = 0; k < kS * V; ++k) acc[k] = acc[k] / (float)n;
   }
-  if (out != nullptr) store_row<V>(out + (b * L + l) * C + q * V, acc);
+  if (out == nullptr) return;
+  float* o = out + (b * L + w.l) * C + q0 * V;
+#pragma unroll
+  for (int q = 0; q < kS; ++q)
+    if (q < ns) store_row<V>(o + q * V, acc + q * V);
 }
 
 // dst[0..C) += v[0..C) in device memory. sm_90 adds a 2- or 4-float row in
@@ -1339,17 +1610,13 @@ __device__ __forceinline__ int nth_set_bit(unsigned m, int k) {
 // fetched by shuffles): one atomic instruction covers 32 / C whole rows,
 // each row's C values contiguous (C4: 32 bytes, one sector), where a lane
 // per row spends C instructions, each touching a sector of every row. A
-// zero sum adds nothing. C = 1: each lane adds its own. stride: entries
-// from one row of dst to the next (C; the general path's slices of a wider
-// row pass its width).
+// zero sum adds nothing. C = 1: each lane adds its own.
 template <int C, int kW>
 __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
                                                     bool has, uint32_t row,
-                                                    const long long* v,
-                                                    int stride = C) {
+                                                    const long long* v) {
   if constexpr (C == 1) {
-    if (has && v[0] != 0)
-      atomicAdd(dst + (int64_t)row * stride, (unsigned long long)v[0]);
+    if (has && v[0] != 0) atomicAdd(dst + row, (unsigned long long)v[0]);
   } else {
     constexpr int kG = C / kW, kRows = 32 / C;
     const int lane = threadIdx.x & 31;
@@ -1367,7 +1634,7 @@ __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
       }
       const uint32_t to = __shfl_sync(kFullMask, row, src);
       if (mine && s != 0)
-        atomicAdd(dst + (int64_t)to * stride + ch, (unsigned long long)s);
+        atomicAdd(dst + (int64_t)to * C + ch, (unsigned long long)s);
       heads = cnt > kRows
                   ? heads & ~((2u << nth_set_bit(heads, kRows - 1)) - 1u)
                   : 0u;
@@ -1379,15 +1646,12 @@ __device__ __forceinline__ void add_rows_transposed(unsigned long long* dst,
 // d_table (the default kernel), or exact int64 atomics on an accumulator of
 // fixed-point terms (the deterministic one). term() and flush() are called
 // by every lane of the warp; `act` says its run ends here, `add` that it
-// holds a segment's sum. A sink takes C channels of a row at dst + row *
-// stride: stride = C, or the full width of a row whose slice of C = V
-// channels a block of the general path takes.
+// holds a segment's sum.
 template <int C>
 struct FloatRows {
   using T = float;
   static constexpr bool kSegments = false;  // mean levels: add_runs
-  float* dst;  // the level's d_table slice (its first row's first channel)
-  int stride;  // floats from one row to the next
+  float* dst;  // the level's d_table slice
   template <class Row>
   __device__ __forceinline__ T term(float w, float g, bool, int,
                                     Row) const {
@@ -1396,7 +1660,7 @@ struct FloatRows {
   template <class Row>
   __device__ __forceinline__ void flush(bool add, Row row,
                                         const T* u) const {
-    if (add) add_row<C>(dst + (int64_t)row() * stride, u);
+    if (add) add_row<C>(dst + (int64_t)row() * C, u);
   }
 };
 
@@ -1465,8 +1729,7 @@ struct FixedRows {
   static constexpr bool kSegments = false;  // mean levels: add_runs
   unsigned long long* acc;  // the level's slice of the [rows, C] sums
   unsigned* flags;          // the whole table's flags
-  int64_t base;             // the level's first entry, offset * C (+ V q)
-  int stride;               // entries from one row to the next
+  int64_t base;             // the level's first entry, offset * C
   FixedScale q[C];          // the level's exponent per channel
   // With tetra a weight of 0 is a corner that no point of the run reaches
   // (or a simplex vertex of weight 0): it adds nothing, also against a
@@ -1477,15 +1740,14 @@ struct FixedRows {
     if (kTetra && w == 0.f) return 0;
     const float u = w * g;
     if (isfinite(u)) return to_fixed(u, q[ch]);
-    if (act) mark_nonfinite(flags, base + (int64_t)row() * stride + ch, u);
+    if (act) mark_nonfinite(flags, base + (int64_t)row() * C + ch, u);
     return 0;
   }
-  // The segment sums leave by the warp's transposed atomics (C = V divides
-  // 32: a warp's lanes add 32 / V whole slices an instruction).
+  // The segment sums leave by the warp's transposed atomics.
   template <class Row>
   __device__ __forceinline__ void flush(bool add, Row row,
                                         const T* u) const {
-    add_rows_transposed<C, C>(acc, add, add ? row() : 0u, u, stride);
+    add_rows_transposed<C, C>(acc, add, add ? row() : 0u, u);
   }
 };
 
@@ -2089,7 +2351,7 @@ __global__ void hash_encode_ms_bwd_kernel(
     __shared__ float4 slots[kThreads / 32][32 * wide_slot<C>()];
     run(WideRows<C>{dst, slots[threadIdx.x >> 5]});
   } else {
-    run(FloatRows<C>{dst, C});
+    run(FloatRows<C>{dst});
   }
 }
 
@@ -2124,7 +2386,7 @@ __global__ void hash_encode_ms_bwd_fixed_kernel(
   float g[C] = {};
   if (active) load_row<C>(g_out + (b * L + w.l) * C, g);
   const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  FixedRows<C, kTetra> rows{acc + off, flags, off, C, {}};
+  FixedRows<C, kTetra> rows{acc + off, flags, off, {}};
 #pragma unroll
   for (int c = 0; c < C; ++c) rows.q[c] = fixed_scale(__ldg(k + w.l * C + c));
   if (v.mean)
@@ -2133,54 +2395,282 @@ __global__ void hash_encode_ms_bwd_fixed_kernel(
     backward_one<C, kTetra>(active, pt, g, rows, n, v);
 }
 
+// add_rows_transposed at a runtime width: every lane of the warp calls, and
+// a lane whose `has` is set holds a row's sums of w <= kW channels in v
+// (their row `row`). Round by round, lane j adds channel j % w of the
+// (j / w)-th row still to add (its value and row fetched by shuffles), so
+// one atomic instruction covers 32 / w whole rows, each row's channels
+// contiguous. A zero sum adds nothing. dst: the rows' first channel,
+// `stride` entries from one row to the next.
+template <int kW>
+__device__ __forceinline__ void add_span_transposed(unsigned long long* dst,
+                                                    bool has, uint32_t row,
+                                                    const long long* v, int w,
+                                                    int stride) {
+  const int lane = threadIdx.x & 31;
+  const int per = 32 / w, slot = lane / w, ch = lane % w;
+  unsigned heads = __ballot_sync(kFullMask, has);
+  while (heads != 0u) {
+    const int cnt = __popc(heads);
+    const bool mine = slot < per && slot < cnt;
+    const int src = mine ? nth_set_bit(heads, slot) : 0;
+    long long s = 0;
+#pragma unroll
+    for (int r = 0; r < kW; ++r) {
+      if (r >= w) continue;  // w is the same on every lane
+      const long long t = __shfl_sync(kFullMask, v[r], src);
+      if (r == ch) s = t;
+    }
+    const uint32_t to = __shfl_sync(kFullMask, row, src);
+    if (mine && s != 0)
+      atomicAdd(dst + (int64_t)to * stride + ch, (unsigned long long)s);
+    heads = cnt > per ? heads & ~((2u << nth_set_bit(heads, per - 1)) - 1u)
+                      : 0u;
+  }
+}
+
+// Where the general path's backward puts a segment's sums for one corner
+// row, a span of w = ns V channels: float4 atomics on rows of a multiple of
+// 4 floats (d_table where C % 4 == 0, or a zeroed scratch of rows padded to
+// 4 ceil(C / 4) floats: one float4 where a C3 row takes 3 scalar atomics),
+// V-float atomics a slice on d_table's rows otherwise, or (kFixed)
+// FixedRows' int64 terms, summed into the [rows, C] sums by
+// add_span_transposed. term() and flush() as FloatRows' / FixedRows'; the
+// exponents are read when a term is rounded (held in registers, a C6
+// span's took 128-141 of them).
+template <int V, int kS, bool kTetra, bool kFixed>
+struct SpanRows {
+  static constexpr int kW = kS * V;
+  using T = typename std::conditional<kFixed, long long, float>::type;
+  float* dst;               // float: the level's row 0 at the span's channel
+  unsigned long long* acc;  // kFixed: the level's int64 sums, the same
+  unsigned* flags;          // kFixed: the whole table's flags
+  int64_t base;             // kFixed: the entry of acc[0] in the table
+  const int* k;             // kFixed: the span's exponents (read when used)
+  int stride;               // floats (entries) from one row to the next
+  int w;                    // channels of the span (a multiple of V)
+  template <class Row>
+  __device__ __forceinline__ T term(float wt, float g, bool act, int ch,
+                                    Row row) const {
+    if constexpr (kFixed) {
+      if (kTetra && wt == 0.f) return 0;
+      const float u = wt * g;
+      if (isfinite(u)) return to_fixed(u, fixed_scale(__ldg(k + ch)));
+      if (act) mark_nonfinite(flags, base + (int64_t)row() * stride + ch, u);
+      return 0;
+    } else {
+      return wt * g;
+    }
+  }
+  // u[w..kW) are 0.
+  template <class Row>
+  __device__ __forceinline__ void flush(bool add, Row row,
+                                        const T* u) const {
+    if constexpr (kFixed) {
+      add_span_transposed<kW>(acc, add, add ? row() : 0u, u,
+                              kS == 1 ? kW : w, stride);
+    } else if (add && stride % 4 == 0) {  // the same on every lane
+      float4* d = reinterpret_cast<float4*>(dst + (int64_t)row() * stride);
+#pragma unroll
+      for (int i = 0; i < (kW + 3) / 4; ++i) {
+        if (4 * i >= w) continue;
+        float t[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) t[k] = 4 * i + k < kW ? u[4 * i + k] : 0.f;
+        if (t[0] != 0.f || t[1] != 0.f || t[2] != 0.f || t[3] != 0.f)
+          atomicAdd(d + i, make_float4(t[0], t[1], t[2], t[3]));
+      }
+    } else if (add) {
+      float* d = dst + (int64_t)row() * stride;
+#pragma unroll
+      for (int q = 0; q < kS; ++q)
+        if (q * V < w) add_row<V>(d + q * V, u + q * V);
+    }
+  }
+};
+
+// add_runs over a span of rows.w channels: the same segments (a lane whose
+// run ends in its left neighbour's cell joins that lane's segment), terms
+// and segmented scan per channel, no deeper than the longest segment (the
+// steps past it add nothing anywhere), and the segment's last lane flushes
+// the whole span of the row at once.
+template <int kW, bool kTetra, class Rows>
+__device__ __forceinline__ void add_runs_span(bool act, int ix, int iy, int iz,
+                                              const float* W, const float* g,
+                                              const Rows& rows,
+                                              const Level& v) {
+  using T = typename Rows::T;
+  const int lane = threadIdx.x & 31;
+  const int px = __shfl_up_sync(kFullMask, ix, 1);
+  const int py = __shfl_up_sync(kFullMask, iy, 1);
+  const int pz = __shfl_up_sync(kFullMask, iz, 1);
+  const bool pact = __shfl_up_sync(kFullMask, (int)act, 1) != 0;
+  const bool head =
+      lane == 0 || !act || !pact || px != ix || py != iy || pz != iz;
+  const unsigned heads = __ballot_sync(kFullMask, head);
+  const int start = 31 - __clz(heads & (kFullMask >> (31 - lane)));
+  const bool last = act && (lane == 31 || ((heads >> (lane + 1)) & 1u));
+  const int depth =
+      heads == kFullMask
+          ? 1
+          : (int)__reduce_max_sync(kFullMask, (unsigned)(lane - start + 1));
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (kTetra && !__any_sync(kFullMask, act && W[c] != 0.f)) continue;
+    const auto row = [&] { return corner_row<true>(ix, iy, iz, c, v); };
+    T u[kW];
+#pragma unroll
+    for (int k = 0; k < kW; ++k)
+      u[k] = k < rows.w ? rows.term(W[c], g[k], act, k, row) : T(0);
+    for (int off = 1; off < depth; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < kW; ++k) {
+        if (k >= rows.w) continue;  // the same on every lane
+        const T t = __shfl_up_sync(kFullMask, u[k], off);
+        if (lane - off >= start) u[k] += t;
+      }
+    }
+    bool add = last;
+    if (kTetra && add) {
+      add = false;
+#pragma unroll
+      for (int k = 0; k < kW; ++k) add |= u[k] != T(0);
+    }
+    rows.flush(add, row, u);
+  }
+}
+
+// backward_one over a span (the general path): the sample's points walked
+// once a level, each run's updates added for the whole span.
+template <int kW, bool kTetra, class Rows>
+__device__ __forceinline__ void backward_span(bool active, Points pt,
+                                              const float* g,
+                                              const Rows& rows, int n,
+                                              const Level& v) {
+  const float inv_n = 1.0f / (float)n;
+  float W[8] = {};
+  int cx = 0, cy = 0, cz = 0;
+  bool have = false;
+  for (int j = 0; j < n; ++j) {
+    float x = 0.f, y = 0.f, z = 0.f, s = 0.f;
+    if (active) {
+      x = pt.x[3 * j];
+      y = pt.x[3 * j + 1];
+      z = pt.x[3 * j + 2];
+      s = pt.s[j];
+    }
+    const bool in = active && in_unit_cube(x, y, z);
+    const float coef = erf_weight(s, v) * inv_n;
+    const Cell p = cell_of(x, y, z, v.scale);
+    const bool ends = in && have && !same_cell(p, cx, cy, cz);
+    if (__any_sync(kFullMask, ends))
+      add_runs_span<kW, kTetra>(ends, cx, cy, cz, W, g, rows, v);
+    if (ends) have = false;
+    if (in) {
+      if (!have) {
+        cx = p.ix;
+        cy = p.iy;
+        cz = p.iz;
+        have = true;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) W[c] = 0.f;
+      }
+      add_weights<kTetra>(p, coef, W);
+    }
+  }
+  if (__any_sync(kFullMask, have))
+    add_runs_span<kW, kTetra>(have, cx, cy, cz, W, g, rows, v);
+}
+
+// backward_mean over a span.
+template <int kW, bool kTetra, class Rows>
+__device__ __forceinline__ void backward_mean_span(bool active, Points pt,
+                                                   const float* g,
+                                                   const Rows& rows, int n,
+                                                   const Level& v) {
+  MeanPoint m{0.f, 0.f, 0.f, 0.f};
+  if (active) m = mean_of(pt, n, v);
+  const bool in = active && in_unit_cube(m.x, m.y, m.z);
+  const Cell p = cell_of(m.x, m.y, m.z, v.scale);
+  if (!__any_sync(kFullMask, in)) return;
+  float W[8] = {};
+  if (in) add_weights<kTetra>(p, m.w, W);
+  add_runs_span<kW, kTetra>(in, p.ix, p.iy, p.iz, W, g, rows, v);
+}
+
 // H1-bwd's d_table at a width C that hash_encode_ms_bwd_kernel and
 // hash_encode_ms_bwd_fixed_kernel are not instantiated for (the general
-// path): blocks as hash_encode_ms_slices_kernel's, one (level, slice of V
-// = gcd(C, 4) channels) of a tile each; a thread runs backward_one /
-// backward_mean at width V with g_out's slice, its updates going to the
-// slice's channels of each row (FloatRows: float atomics; kFixed:
-// FixedRows, k [L, C] exponents, acc / flags the [rows, C] sums), both at
-// a row stride of C.
-// The runs, warp merge and terms are a V-wide instantiation's, so the
-// deterministic sums are the plain twin's bits.
+// path): a thread a sample (lane = sample, for the warp's segment merge),
+// holding g_out's span of `slices` slices of V = gcd(C, 4) floats (up to
+// kSpanSlices: C3, C6 and C12 in one walk a level; kFixed:
+// fixed_slices<V>(); a block takes one (level, walk) of a tile,
+// walk_work's order). Each run's updates leave for
+// the whole span at once (SpanRows: float4 atomics into `sums`, d_table or
+// its padded scratch, rows `stride` floats apart, or V-float ones where
+// the rows are not 16 bytes; kFixed: int64 terms at the exponents k [L, C]
+// into acc / flags [rows, C]). The runs, segments and terms are a C-wide
+// instantiation's, so the deterministic sums are the plain twin's.
 template <int V, bool kTetra, bool kFixed>
-__global__ void hash_encode_ms_bwd_slices_kernel(
+__global__ void hash_encode_ms_bwd_any_kernel(
     const float* __restrict__ x01, const float* __restrict__ stds,
-    const float* __restrict__ g_out, float* __restrict__ d_table,
+    const float* __restrict__ g_out, float* __restrict__ sums, int stride,
     const int* __restrict__ k, unsigned long long* __restrict__ acc,
-    unsigned* __restrict__ flags, int64_t B, int n, int L, int C,
-    int64_t tiles, int level_major, int stage, GridLevels lv) {
+    unsigned* __restrict__ flags, int64_t B, int n, int L, int C, int slices,
+    int walks, int64_t tiles, int level_major, int stage, GridLevels lv) {
+  constexpr int kS = kFixed ? fixed_slices<V>() : kSpanSlices, kW = kS * V;
   extern __shared__ __align__(16) float smem[];
-  const int S = C / V;
-  const Work w = work_of(tiles, L * S, level_major != 0);
-  const int l = w.l / S, q = w.l % S;
-  const int cnt = tile_count(B, w.b0);
-  const Level v = level_of(lv, l);
+  const WalkWork w = walk_work(tiles, L, walks, 1, B, level_major != 0);
+  const Level v = level_of(lv, w.l);
   if (stage) {
-    stage_tile(x01, stds, w.b0, cnt, n, smem, smem + cnt * n * 3);
+    stage_tile(x01, stds, w.b0, w.cnt, n, smem, smem + w.cnt * n * 3);
     __syncthreads();
   }
   // No early return: the lanes past B join the warp's shuffles.
-  const bool active = (int)threadIdx.x < cnt;
+  const bool active = (int)threadIdx.x < w.cnt;
   const int64_t b = w.b0 + threadIdx.x;
-  float g[V] = {};
-  if (active) load_row<V>(g_out + (b * L + l) * C + q * V, g);
-  const Points pt = points_of(x01, stds, w.b0, cnt, n, stage ? smem : nullptr);
-  const int64_t at = (int64_t)lv.offset[l] * C + q * V;
-  const auto run = [&](const auto& rows) {
-    if (v.mean)
-      backward_mean<V, kTetra>(active, pt, g, rows, n, v);
-    else
-      backward_one<V, kTetra>(active, pt, g, rows, n, v);
-  };
-  if constexpr (kFixed) {
-    FixedRows<V, kTetra> rows{acc + at, flags, at, C, {}};
+  const int q0 = w.walk * slices, ns = min(slices, C / V - q0), c0 = q0 * V;
+  float g[kW] = {};
+  if (active) {
 #pragma unroll
-    for (int c = 0; c < V; ++c)
-      rows.q[c] = fixed_scale(__ldg(k + l * C + q * V + c));
-    run(rows);
+    for (int q = 0; q < kS; ++q)
+      if (q < ns) load_row<V>(g_out + (b * L + w.l) * C + c0 + q * V, g + q * V);
+  }
+  const Points pt = span_points(x01, stds, w.b0, threadIdx.x, w.cnt, n,
+                                stage ? smem : nullptr);
+  SpanRows<V, kS, kTetra, kFixed> rows{};
+  rows.w = ns * V;
+  if constexpr (kFixed) {
+    rows.base = (int64_t)lv.offset[w.l] * C + c0;
+    rows.acc = acc + rows.base;
+    rows.flags = flags;
+    rows.k = k + w.l * C + c0;
+    rows.stride = C;
   } else {
-    run(FloatRows<V>{d_table + at, C});
+    rows.dst = sums + (int64_t)lv.offset[w.l] * stride + c0;
+    rows.stride = stride;
+  }
+  if (v.mean)
+    backward_mean_span<kW, kTetra>(active, pt, g, rows, n, v);
+  else
+    backward_span<kW, kTetra>(active, pt, g, rows, n, v);
+}
+
+// d_table [rows, C] = padded [rows, Cp] (the general path's float sums at
+// C % 4 != 0): a thread a row, its Cp / 4 float4s read once (streamed).
+__global__ void unpad_rows_kernel(const float* __restrict__ padded,
+                                  float* __restrict__ out, int64_t rows,
+                                  int C, int Cp) {
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
+       r += (int64_t)gridDim.x * blockDim.x) {
+    const float4* src = reinterpret_cast<const float4*>(padded + r * Cp);
+    float* dst = out + r * C;
+    for (int i = 0; i < Cp / 4; ++i) {
+      const float4 t = __ldcs(src + i);
+      const float u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * i + k < C) dst[4 * i + k] = u[k];
+    }
   }
 }
 
@@ -2405,53 +2895,96 @@ cudaError_t by_slice_width(int C, F f) {
   }
 }
 
-// H1 by hash_encode_ms_slices_kernel: L C / V (level, slice) blocks a tile.
+// The walks a level of a general-path plan (a sample's `lanes` lanes, each
+// `slices` slices of V floats, at most `most`), or 0 for a plan the kernels
+// do not take.
+int walks_of(int C, int V, int slices, int lanes, int most) {
+  if (slices < 1 || slices > most || lanes < 1 || lanes > 32) return 0;
+  const int cover = lanes * slices;
+  return (C / V + cover - 1) / cover;
+}
+
+// H1 by hash_encode_ms_any_kernel: L walks (level, walk) blocks a tile of
+// 32 / lanes samples a warp.
 template <int V>
-cudaError_t encode_slices(const float* table, const float* x01,
-                          const float* stds, float* out, float* resid,
-                          int64_t B, int n, int L, int C,
-                          const GridLevels& lv, int tetra, int level_major,
-                          cudaStream_t s) {
+cudaError_t encode_any(const float* table, const float* x01,
+                       const float* stds, float* out, float* resid, int64_t B,
+                       int n, int L, int C, int slices, int lanes,
+                       const GridLevels& lv, int tetra, int level_major,
+                       cudaStream_t s) {
+  const bool res = resid != nullptr;
+  const int walks = walks_of(C, V, slices, lanes, kLaneFloats / V);
+  if (walks == 0) return cudaErrorInvalidValue;
   Launch g;
-  const cudaError_t err = launch_of(B, n, L * (C / V), level_major, &g);
+  const cudaError_t err = launch_of(B, n, L * walks, level_major, &g,
+                                    kThreads / 32 * (32 / lanes));
   if (err != cudaSuccess) return err;
   const auto go = [&](auto kernel) {
-    kernel<<<g.blocks, kThreads, g.smem, s>>>(table, x01, stds, out, resid, B,
-                                              n, L, C, g.tiles, level_major,
-                                              g.smem > 0, lv);
+    kernel<<<g.blocks, kThreads, g.smem, s>>>(
+        table, x01, stds, out, resid, B, n, L, C, slices, lanes, walks,
+        g.tiles, level_major, g.smem > 0, lv);
   };
-  if (resid != nullptr)
-    tetra ? go(hash_encode_ms_slices_kernel<V, true, true>)
-          : go(hash_encode_ms_slices_kernel<V, false, true>);
+  if (res)
+    tetra ? go(hash_encode_ms_any_kernel<V, true, true>)
+          : go(hash_encode_ms_any_kernel<V, false, true>);
   else
-    tetra ? go(hash_encode_ms_slices_kernel<V, true, false>)
-          : go(hash_encode_ms_slices_kernel<V, false, false>);
+    tetra ? go(hash_encode_ms_any_kernel<V, true, false>)
+          : go(hash_encode_ms_any_kernel<V, false, false>);
   return cudaGetLastError();
 }
 
-// H1-bwd's d_table by hash_encode_ms_bwd_slices_kernel, in blocks of
-// `threads` samples: float atomics into d_table, or (kFixed) int64 sums
-// into acc / flags at the exponents k.
+// H1-bwd's d_table by hash_encode_ms_bwd_any_kernel, in blocks of `threads`
+// samples, `slices` slices a walk (the float sums: every walk but the last
+// a multiple of 4 floats, so each span starts on 16 bytes): float4 atomics
+// into d_table
+// (C % 4 == 0) or, given `scratch` at C % 4 != 0, into that [rows, Cp = 4
+// ceil(C / 4)] zero-filled buffer, whose sums unpad_rows_kernel then
+// writes into the L levels' rows of d_table; V-float atomics into d_table
+// without it; or (kFixed) int64 sums into acc / flags at the exponents k.
+// B may be 0.
 template <int V, bool kFixed>
-cudaError_t backward_slices(const float* x01, const float* stds,
-                            const float* g_out, float* d_table, const int* k,
-                            unsigned long long* acc, unsigned* flags,
-                            int64_t B, int n, int L, int C,
-                            const GridLevels& lv, int tetra, int level_major,
-                            int threads, cudaStream_t s) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0)
+cudaError_t backward_any(const float* x01, const float* stds,
+                         const float* g_out, float* d_table, float* scratch,
+                         const int* k, unsigned long long* acc,
+                         unsigned* flags, int64_t B, int n, int L, int C,
+                         int slices, const GridLevels& lv, int tetra,
+                         int level_major, int threads, cudaStream_t s) {
+  const int walks =
+      walks_of(C, V, slices, 1, kFixed ? fixed_slices<V>() : kSpanSlices);
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || walks == 0 ||
+      (!kFixed && walks > 1 && slices * V % 4 != 0) ||
+      (scratch != nullptr && (kFixed || C % 4 == 0)))
     return cudaErrorInvalidValue;
-  Launch g;
-  const cudaError_t err =
-      launch_of(B, n, L * (C / V), level_major, &g, threads);
-  if (err != cudaSuccess) return err;
-  const auto go = [&](auto kernel) {
-    kernel<<<g.blocks, threads, g.smem, s>>>(
-        x01, stds, g_out, d_table, k, acc, flags, B, n, L, C, g.tiles,
-        level_major, g.smem > 0, lv);
-  };
-  tetra ? go(hash_encode_ms_bwd_slices_kernel<V, true, kFixed>)
-        : go(hash_encode_ms_bwd_slices_kernel<V, false, kFixed>);
+  const bool padded = scratch != nullptr;
+  const int stride = padded ? (C + 3) / 4 * 4 : C;
+  float* sums = padded ? scratch : d_table;
+  if (!kFixed && (sums == nullptr ||
+                  (uintptr_t)sums % (stride % 4 == 0 ? 16 : 4 * V) != 0))
+    return cudaErrorInvalidValue;
+  if (B > 0) {
+    Launch g;
+    const cudaError_t err =
+        launch_of(B, n, L * walks, level_major, &g, threads);
+    if (err != cudaSuccess) return err;
+    const auto go = [&](auto kernel) {
+      kernel<<<g.blocks, threads, g.smem, s>>>(
+          x01, stds, g_out, sums, stride, k, acc, flags, B, n, L, C, slices,
+          walks, g.tiles, level_major, g.smem > 0, lv);
+    };
+    tetra ? go(hash_encode_ms_bwd_any_kernel<V, true, kFixed>)
+          : go(hash_encode_ms_bwd_any_kernel<V, false, kFixed>);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return launched;
+  }
+  if (padded) {
+    const int64_t first = lv.offset[0];
+    const int64_t rows = (int64_t)lv.offset[L - 1] + lv.rows[L - 1] - first;
+    const int64_t blocks = (rows + 255) / 256;
+    if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+    if (blocks > 0)
+      unpad_rows_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+          scratch + first * stride, d_table + first * C, rows, C, stride);
+  }
   return cudaGetLastError();
 }
 
@@ -2860,14 +3393,15 @@ int nl_composite(const float* density, const float* tdist, const float* dirs,
 // coarse cutoff); tetra: tetrahedral interpolation (else trilinear);
 // level_major: the block order (ops/grid.py:level_major). out: nullptr
 // where only the residuals are wanted; resid: nullptr, or the residual
-// mode's [L, n, 4, B, C] output (16-byte aligned).
+// mode's [L, n, 4, B, C] output (16-byte aligned). slices, lanes: the
+// general path's plan (ops/grid.py:walk_plan; the tuned widths ignore it).
 int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                       float* out, float* resid, long long B, int n, int L,
                       int C, const float* scale, const float* grid_size,
                       const unsigned int* res, const unsigned int* rows,
                       const unsigned int* offset, const int* tiled,
-                      const int* mean, int tetra, int level_major, int device,
-                      void* stream) {
+                      const int* mean, int tetra, int level_major,
+                      int slices, int lanes, int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0 || C <= 0 ||
       (uintptr_t)resid % 16 != 0 || (out == nullptr && resid == nullptr))
     return cudaErrorInvalidValue;
@@ -2897,30 +3431,34 @@ int nl_hash_encode_ms(const float* table, const float* x01, const float* stds,
                         level_major, s);
     default:
       return by_slice_width(C, [&](auto w) {
-        return encode_slices<decltype(w)::value>(table, x01, stds, out, resid,
-                                                 B, n, L, C, lv, tetra,
-                                                 level_major, s);
+        return encode_any<decltype(w)::value>(table, x01, stds, out, resid,
+                                              B, n, L, C, slices, lanes, lv,
+                                              tetra, level_major, s);
       });
   }
 }
 
-// d_table: zero-filled (or holding a sum to add to) by the caller. mean,
-// tetra, level_major: as the forward's.
+// d_table: zero-filled (or holding a sum to add to) by the caller; at a
+// general-path width C % 4 != 0, scratch may be a zero-filled [rows, 4
+// ceil(C / 4)] float buffer that takes the sums as float4 atomics, and the
+// levels' rows of d_table are then written from it (their contents before
+// are not read); else nullptr. mean, tetra, level_major:
+// as the forward's; slices: the general path's plan (ops/grid.py:walk_plan).
 int nl_hash_encode_ms_bwd(const float* x01, const float* stds,
-                          const float* g_out, float* d_table, long long B,
-                          int n, int L, int C, const float* scale,
-                          const float* grid_size, const unsigned int* res,
-                          const unsigned int* rows,
+                          const float* g_out, float* d_table, float* scratch,
+                          long long B, int n, int L, int C,
+                          const float* scale, const float* grid_size,
+                          const unsigned int* res, const unsigned int* rows,
                           const unsigned int* offset, const int* tiled,
                           const int* mean, int tetra, int level_major,
-                          int device, void* stream) {
+                          int slices, int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0 || C <= 0 || d_table == nullptr)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   GridLevels lv;
   fill_levels(&lv, L, scale, grid_size, res, rows, offset, tiled, mean);
-  if (B == 0) return cudaSuccess;
+  if (B == 0 && scratch == nullptr) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 1:
@@ -2940,9 +3478,9 @@ int nl_hash_encode_ms_bwd(const float* x01, const float* stds,
                           level_major, s);
     default:
       return by_slice_width(C, [&](auto w) {
-        return backward_slices<decltype(w)::value, false>(
-            x01, stds, g_out, d_table, nullptr, nullptr, nullptr, B, n, L, C,
-            lv, tetra, level_major, kThreads, s);
+        return backward_any<decltype(w)::value, false>(
+            x01, stds, g_out, d_table, scratch, nullptr, nullptr, nullptr, B,
+            n, L, C, slices, lv, tetra, level_major, kThreads, s);
       });
   }
 }
@@ -3014,8 +3552,8 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
                                 const unsigned int* rows,
                                 const unsigned int* offset, const int* tiled,
                                 const int* mean, int tetra,
-                                int level_major, int threads, int device,
-                                void* stream) {
+                                int level_major, int threads, int slices,
+                                int device, void* stream) {
   if (L <= 0 || L > kMaxLevels || n <= 0 || C <= 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -3043,9 +3581,9 @@ int nl_hash_encode_ms_bwd_fixed(const float* x01, const float* stds,
                                 tetra, level_major, threads, s);
     default:
       return by_slice_width(C, [&](auto w) {
-        return backward_slices<decltype(w)::value, true>(
-            x01, stds, g_out, nullptr, k, a, flags, B, n, L, C, lv, tetra,
-            level_major, threads, s);
+        return backward_any<decltype(w)::value, true>(
+            x01, stds, g_out, nullptr, nullptr, k, a, flags, B, n, L, C,
+            slices, lv, tetra, level_major, threads, s);
       });
   }
 }

@@ -49,12 +49,15 @@ and power limit of the card.
   contraction `hash_encode_ms_pos_grads` and its library yardstick (one
   `torch.einsum` over the same R), the atomic backward's d_table; with
   --root, that checkout's kernels beside them in turns (root, here, here,
-  root): H1, its d_x01 / d_stds as both its modes compute them (the
-  deterministic call asked for d_x01 / d_stds alone, the atomic backward at
-  the call's needs and at d_table alone). Checks: R against its plain
-  version at BWD_TOL, the contraction the same bits as its plain version
-  and on fresh copies, d_x01 / d_stds against the --root checkout's. The
-  bounds. Beside them: the posenet's gather (advanced indexing against
+  root): H1, its residual mode, its d_x01 / d_stds as both its modes
+  compute them (the deterministic call asked for d_x01 / d_stds alone, the
+  atomic backward at the call's needs and at d_table alone, the
+  deterministic d_table alone). Checks: R
+  against its plain version at BWD_TOL, the contraction the same bits as
+  its plain version and on fresh copies, d_x01 / d_stds against the --root
+  checkout's, and whether R, the features and the deterministic d_table
+  are its bits. `--set
+  KEY=VALUE` goes to every recipe's train entry. The bounds. Beside them: the posenet's gather (advanced indexing against
   `grid.select_rows`, forward and backward, with and without the switch,
   `posenet_gathers`).
 --save_inputs FILE / --inputs FILE: write the recorded train inputs to
@@ -65,9 +68,12 @@ and power limit of the card.
   width), then per grid H1 (render chunk) and H1-bwd (train step, d_table)
   each level alone, and the whole calls, all on the same recorded inputs;
   with --root, the --root checkout's kernels and this file's checkout's
-  (`here_grid`) in turns (root, here, here, root). Beside each level's
-  bound: the row updates its backward issues after merging, counted on the
-  recorded inputs (`row_updates`).
+  (`here_grid`) in turns (root, here, here, root), and whether H1's
+  features and the deterministic d_table (whose whole call is timed too)
+  are the same bits in both. Beside each level's bound: the row updates
+  its backward issues after merging, counted on the recorded inputs
+  (`row_updates`). Where the general path's atomic backward may sum into
+  rows padded to 16 bytes, the call both ways in turns (`pad_turns`).
 """
 
 from __future__ import annotations
@@ -404,8 +410,23 @@ def fixed_sums(lib, x, s, g, k, arrays, levels, c, tetra, level_major_order,
     return acc, flags
 
 
+def plan_slices(lib, fn, c, walk_plan=None, kernel="encode"):
+    """The general path's plan arguments that `lib`'s C function `fn` takes
+    after its block order / size: (slices[, lanes]) of `walk_plan` (the
+    library's own checkout's; default this checkout's) where the library
+    takes them (checkouts before the walks take none)."""
+    base = dict(nl_hash_encode_ms=20, nl_hash_encode_ms_bwd=20,
+                nl_hash_encode_ms_bwd_fixed=22)[fn]
+    extra = len(getattr(lib, fn).argtypes) - base
+    if extra <= 0:
+        return ()
+    plan = (walk_plan or here_grid().walk_plan)(c, kernel)
+    args = (plan.slices, plan.lanes) if plan is not None else (0, 0)
+    return args[:extra]
+
+
 def call_fixed(lib, x, s, g, k, acc, flags, arrays, levels, c, tetra,
-               level_major_order, threads=128):
+               level_major_order, threads=128, walk_plan=None):
     """One launch of `lib`'s `nl_hash_encode_ms_bwd_fixed` (see
     `fixed_sums`), adding into acc and flags."""
     from nerf_lidar_tpu_torch.ops import _build
@@ -414,23 +435,33 @@ def call_fixed(lib, x, s, g, k, acc, flags, arrays, levels, c, tetra,
         x.data_ptr(), s.data_ptr(), g.data_ptr(), k.data_ptr(),
         acc.data_ptr(), flags.data_ptr(), b, n_ms, levels, c,
         *(a.ctypes.data for a in arrays), tetra, bool(level_major_order),
-        threads, x.device.index, _build.stream_of(x))
+        threads, *plan_slices(lib, "nl_hash_encode_ms_bwd_fixed", c,
+                              walk_plan, "deterministic"),
+        x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms_bwd_fixed")
 
 
 def call_float(lib, table, x, s, g, d_table, arrays, levels, c, tetra,
-               level_major_order):
+               level_major_order, scratch=None, walk_plan=None):
     """One launch of the atomic H1 backward (`nl_hash_encode_ms_bwd`),
-    d_table only, adding into d_table; checkouts older than the residual
-    mode take the table and two null gradient pointers besides."""
+    d_table only, adding into d_table (or, where the library takes a
+    padded scratch, `scratch` at a general-path C % 4 != 0: summed there,
+    d_table written from it); checkouts older than the residual mode take
+    the table and two null gradient pointers besides."""
     from nerf_lidar_tpu_torch.ops import _build
     b, n_ms = s.shape
     ptrs = [x.data_ptr(), s.data_ptr(), g.data_ptr(), d_table.data_ptr()]
-    if len(lib.nl_hash_encode_ms_bwd.argtypes) > 19:
+    argc = len(lib.nl_hash_encode_ms_bwd.argtypes)
+    if argc == 21:  # the padded scratch and the plan
+        ptrs.append(None if scratch is None else scratch.data_ptr())
+    elif argc > 19:
         ptrs = [table.data_ptr(), *ptrs, None, None]
     rc = lib.nl_hash_encode_ms_bwd(
         *ptrs, b, n_ms, levels, c, *(a.ctypes.data for a in arrays), tetra,
-        bool(level_major_order), x.device.index, _build.stream_of(x))
+        bool(level_major_order),
+        *plan_slices(lib, "nl_hash_encode_ms_bwd", c, walk_plan,
+                     "backward")[:1],
+        x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms_bwd")
 
 
@@ -566,11 +597,12 @@ REFINE_RECIPES = {
 }
 
 
-def record_refine_inputs(steps):
+def record_refine_inputs(steps, sets=()):
     """{"<recipe> <grid>": recorded encode-backward call} of every recipe
     of REFINE_RECIPES (one step under the switch after `steps` steps of
-    `train --deterministic`), and the refinement recipe's ray batch's
-    camera indices (for `posenet_gathers`)."""
+    `train --deterministic`, `sets` passed on as --set arguments), and the
+    refinement recipe's ray batch's camera indices (for
+    `posenet_gathers`)."""
     from nerf_lidar_tpu_torch import cli
     from nerf_lidar_tpu_torch.data import synth_nusc
     tag = f"hash_encode_bench_{os.getpid()}"
@@ -580,6 +612,7 @@ def record_refine_inputs(steps):
     try:
         for recipe, (args, keep) in REFINE_RECIPES.items():
             argv = ["train", *(scene if a == "<scene>" else a for a in args),
+                    *(a for kv in sets for a in ("--set", kv)),
                     "--steps", str(steps), "--device", "cuda",
                     "--exp_name", tag, "--deterministic"]
             out_dir = cli.exp_dir(cli.build_config(cli.parse_args(argv)))
@@ -673,31 +706,48 @@ def refine_grid(root, name, rec):
         pos_grads=lambda: here.pos_grads_from_residuals(res, g_out),
         einsum=lambda: residual_einsum(res, g_out),
         atomic_table=lambda: here.hash_encode_multisample_bwd(
+            table, x01, stds, g_out, spec, (True, False, False), cutoff),
+        det_table=lambda: here.hash_encode_multisample_bwd_det(
             table, x01, stds, g_out, spec, (True, False, False), cutoff))
-    errs = {}
+    errs, bits = {}, {}
     if other:
         root_det = grid.hash_encode_multisample_bwd_det(
             table, x01, stds, g_out, spec, POS_ASKED, cutoff)
         errs["vs root det"] = pos_errs(name, got, root_det)
         del root_det
+        root_out, root_res = grid.hash_encode_ms_residuals(table, x01, stds,
+                                                           spec, cutoff)
+        bits = dict(features_as_root=torch.equal(out, root_out),
+                    R_as_root=torch.equal(res, root_res),
+                    det_table_as_root=torch.equal(
+                        fns["det_table"]()[0],
+                        grid.hash_encode_multisample_bwd_det(
+                            table, x01, stds, g_out, spec,
+                            (True, False, False), cutoff)[0]))
+        del root_out, root_res
         root_fns = dict(
             h1=lambda: grid.hash_encode_multisample(table, x01, stds, spec,
                                                     cutoff),
+            h1_resid=lambda: grid.hash_encode_ms_residuals(
+                table, x01, stds, spec, cutoff),
             pos_det=lambda: grid.hash_encode_multisample_bwd_det(
                 table, x01, stds, g_out, spec, POS_ASKED, cutoff),
             atomic_needs=lambda: grid.hash_encode_multisample_bwd(
                 table, x01, stds, g_out, spec, needs, cutoff),
             atomic_table=lambda: grid.hash_encode_multisample_bwd(
+                table, x01, stds, g_out, spec, (True, False, False), cutoff),
+            det_table=lambda: grid.hash_encode_multisample_bwd_det(
                 table, x01, stds, g_out, spec, (True, False, False), cutoff))
     turns = {}
     for tree in ("root", "here", "here", "root") if other else ("here",):
         for k, fn in (root_fns if tree == "root" else fns).items():
             turns.setdefault(f"{tree} {k}", []).append(
                 queued_ms(fn, iters=10) or cuda_ms(fn))
+    pad_turns(here, name, spec, stds.numel(), fns["atomic_table"])
     n_bytes, flops = fwd_bound(spec, x01, stds, cutoff)
     r_bytes = nbytes(res)
     emit(**common, ms=turns, max_rel_err=dict(errs, R=res_err),
-         same_bits_on_copies=same, same_bits_as_plain=plain_same,
+         same_bits_on_copies=same, same_bits_as_plain=plain_same, **bits,
          r_gib=r_bytes / 2**30,
          h1_bound_ms=bound_ms(n_bytes, flops),
          h1_resid_bound_ms=bound_ms(n_bytes + r_bytes, flops),
@@ -861,7 +911,7 @@ def call_row_updates(spec, x01, cutoff=0):
 
 
 def call_encode(lib, table, x, s, out, arrays, levels, c, tetra,
-                level_major_order):
+                level_major_order, walk_plan=None):
     """One launch of `lib`'s H1 (`nl_hash_encode_ms`) into out [B, levels
     * C]; arrays: the levels' constants (`grid._kernel_levels`, or a slice
     of them)."""
@@ -872,7 +922,9 @@ def call_encode(lib, table, x, s, out, arrays, levels, c, tetra,
         ptrs.append(None)
     rc = lib.nl_hash_encode_ms(
         *ptrs, b, n_ms, levels, c, *(a.ctypes.data for a in arrays), tetra,
-        bool(level_major_order), x.device.index, _build.stream_of(x))
+        bool(level_major_order),
+        *plan_slices(lib, "nl_hash_encode_ms", c, walk_plan),
+        x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
 
 
@@ -884,6 +936,28 @@ def in_turns(fns, other):
     for k in order:
         times[k].append(queued_ms(fns[k], iters=10) or cuda_ms(fns[k]))
     return times
+
+
+def pad_turns(here, name, spec, points, fn):
+    """Where this checkout's atomic backward may sum into padded rows (a
+    general-path C % 4 != 0, `grid.pad_rows`): fn's (a call of `points`
+    multisamples) device ms with the padded rows and without, in turns
+    (pad, d_table, d_table, pad), and which the wrapper picks."""
+    plan = here.walk_plan(spec.level_dim, "backward")
+    if plan is None or not plan.padded:
+        return
+    real = here.pad_rows
+    times = {}
+    try:
+        for mode in ("padded", "d_table", "d_table", "padded"):
+            here.pad_rows = lambda *a, on=mode == "padded": on
+            times.setdefault(mode, []).append(queued_ms(fn, iters=10)
+                                              or cuda_ms(fn))
+    finally:
+        here.pad_rows = real
+    emit(what="pad_rows", grid=name, C=spec.level_dim, rows=spec.total_rows,
+         points=points, padded_by_the_wrapper=bool(real(spec, points, plan)),
+         ms=times)
 
 
 def config_grid(root, name, train, render):
@@ -903,6 +977,8 @@ def config_grid(root, name, train, render):
         other = False  # the --root checkout's kernels do not take this C
     libs = dict(here=here._build.library(),
                 **(dict(root=_build.library()) if other else {}))
+    walks = dict(here=here.walk_plan,
+                 root=getattr(grid, "walk_plan", None))
     order = here.level_major(spec, l2)
     arrays = here._kernel_levels(spec, cutoff)
     common = dict(root=root, grid=name, interp=spec.interp, C=c,
@@ -918,21 +994,28 @@ def config_grid(root, name, train, render):
             if kernel == "hash_encode_ms_bwd" else None
         sink = (torch.zeros_like(table) if g is not None
                 else torch.empty((b, c), device=x.device))
+        plan = here.walk_plan(c, "backward")
+        scratch = (torch.zeros((table.shape[0], plan.padded),
+                               device=x.device)
+                   if g is not None and here.pad_rows(spec, b * n_ms, plan)
+                   else None)
         pts = level_points(spec, x01, cutoff)
         for l in range(levels):
             al = tuple(np.ascontiguousarray(a[l:l + 1]) for a in arrays)
             flops = 2 * pts[l].shape[0] * _corners_per_point(spec) * c
             if g is not None:
                 gl = g[:, l * c:(l + 1) * c].contiguous()
-                fns = {k: lambda lib=lib: call_float(
-                    lib, table, x, s, gl, sink, al, 1, c, tetra, order)
+                fns = {k: lambda lib=lib, k=k: call_float(
+                    lib, table, x, s, gl, sink, al, 1, c, tetra, order,
+                    scratch if k == "here" else None, walks[k])
                     for k, lib in libs.items()}
                 n_bytes = (nbytes(x, s, gl)
                            + spec.rows_per_level[l] * c * 4)
                 extra = dict(row_updates=row_updates(spec, x01, cutoff, l))
             else:
-                fns = {k: lambda lib=lib: call_encode(
-                    lib, table, x, s, sink, al, 1, c, tetra, order)
+                fns = {k: lambda lib=lib, k=k: call_encode(
+                    lib, table, x, s, sink, al, 1, c, tetra, order,
+                    walks[k])
                     for k, lib in libs.items()}
                 read = torch.zeros(spec.rows_per_level[l], dtype=torch.bool,
                                    device=x.device)
@@ -946,7 +1029,7 @@ def config_grid(root, name, train, render):
                  rows=spec.rows_per_level[l], B=b, n=n_ms,
                  ms=in_turns(fns, other), bound_ms=bound_ms(n_bytes, flops),
                  bytes=n_bytes, flops=flops, **extra)
-        del sink
+        del sink, scratch
         torch.cuda.empty_cache()
     # The whole calls through each checkout's wrapper, against the plain
     # versions.
@@ -963,19 +1046,40 @@ def config_grid(root, name, train, render):
     emit(**common, what="call", kernel="hash_encode_ms_bwd", inputs="train",
          needs=list(needs), ms=in_turns(fns, other), max_rel_err=errs,
          bound_ms=bound_ms(*bwd_bound(spec, x01, stds, g_out, cutoff)))
+    pad_turns(here, name, spec, stds.numel(),
+              lambda: here.hash_encode_multisample_bwd(
+        table, x01, stds, g_out, spec, (True, False, False), cutoff))
+    # The deterministic d_table through each checkout's wrapper: the same
+    # bits in both (its int64 sums do not depend on their order).
+    fns, dets = {}, {}
+    for k, mod in mods.items():
+        fns[k] = lambda mod=mod: mod.hash_encode_multisample_bwd_det(
+            table, x01, stds, g_out, spec, (True, False, False), cutoff)[0]
+        dets[k] = fns[k]()
+    bits = (dict(d_table_as_root=torch.equal(dets["here"], dets["root"]))
+            if other else {})
+    del dets
+    emit(**common, what="call", kernel="hash_encode_ms_bwd_det",
+         inputs="train", ms=in_turns(fns, other), **bits,
+         bound_ms=bound_ms(*bwd_bound(spec, x01, stds, g_out, cutoff)))
     for inputs, (rt, rx, rs) in (("render", render[:3]),
                                  ("train", (table, x01, stds))):
         want = grid.hash_encode_multisample_plain(rt, rx, rs, spec,
                                                   cutoff)[0]
-        fns, errs = {}, {}
+        fns, errs, outs = {}, {}, {}
         for k, mod in mods.items():
             fns[k] = lambda mod=mod: mod.hash_encode_multisample(
                 rt, rx, rs, spec, cutoff)
+            outs[k] = fns[k]()
             errs[k] = check_fwd(f"hash_encode_ms {name} {inputs} {k}",
-                                fns[k](), want)
+                                outs[k], want)
+        bits = (dict(features_as_root=torch.equal(outs["here"],
+                                                  outs["root"]))
+                if other else {})
+        del outs
         emit(**common, what="call", kernel="hash_encode_ms", inputs=inputs,
              B=rs.numel() // rs.shape[-1], ms=in_turns(fns, other),
-             max_abs_err=errs,
+             max_abs_err=errs, **bits,
              bound_ms=bound_ms(*fwd_bound(spec, rx, rs, cutoff)))
         del want
 
@@ -1199,7 +1303,7 @@ def main(argv=None):
         if args.inputs:
             calls, cams = torch.load(args.inputs, weights_only=False)
         else:
-            calls, cams = record_refine_inputs(args.steps)
+            calls, cams = record_refine_inputs(args.steps, args.set)
             if args.save_inputs:
                 torch.save((calls, cams), args.save_inputs)
         posenet_gathers(*cams)

@@ -38,17 +38,20 @@ _SIGNATURES = {
     # inten_out, depth_out, acc_out, R, S, K, opaque, bg, device, stream
     "nl_composite": [_P] * 12 + [_LL, _I, _I, _I, _F, _I, _P],
     # table, x01, stds, out, resid, B, n, L, C, scale, grid_size, res,
-    # rows, offset, tiled, mean, tetra, level_major, device, stream
+    # rows, offset, tiled, mean, tetra, level_major, slices, lanes, device,
+    # stream
     "nl_hash_encode_ms": [_P] * 5 + [_LL, _I, _I, _I] + [_P] * 7
-                         + [_I, _I, _I, _P],
-    # x01, stds, g_out, d_table, B, n, L, C, scale, grid_size, res, rows,
-    # offset, tiled, mean, tetra, level_major, device, stream
-    "nl_hash_encode_ms_bwd": [_P] * 4 + [_LL, _I, _I, _I] + [_P] * 7
-                             + [_I, _I, _I, _P],
+                         + [_I, _I, _I, _I, _I, _P],
+    # x01, stds, g_out, d_table, scratch, B, n, L, C, scale, grid_size,
+    # res, rows, offset, tiled, mean, tetra, level_major, slices, device,
+    # stream
+    "nl_hash_encode_ms_bwd": [_P] * 5 + [_LL, _I, _I, _I] + [_P] * 7
+                             + [_I, _I, _I, _I, _P],
     # x01, stds, g_out, k, acc, flags, B, n, L, C, scale, grid_size, res,
-    # rows, offset, tiled, mean, tetra, level_major, threads, device, stream
+    # rows, offset, tiled, mean, tetra, level_major, threads, slices,
+    # device, stream
     "nl_hash_encode_ms_bwd_fixed": [_P] * 6 + [_LL, _I, _I, _I] + [_P] * 7
-                                   + [_I, _I, _I, _I, _P],
+                                   + [_I, _I, _I, _I, _I, _P],
     # resid, g_out, d_x01, d_stds, B, n, L, C, device, stream
     "nl_hash_encode_ms_pos_grads": [_P] * 4 + [_LL, _I, _I, _I, _I, _P],
     # idx, vals, out, N, C, rows, device, stream

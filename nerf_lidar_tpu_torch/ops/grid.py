@@ -519,11 +519,92 @@ def _l2_bytes(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).L2_cache_size
 
 
+# The widths kernel H1 and its backward are instantiated for; any other
+# width takes their general path (`walk_plan`).
+_TUNED_WIDTHS = (1, 2, 4, 8, 16)
+# What a lane of the general path takes of a row in one walk of a sample's
+# points: in H1 (both modes) up to 4 floats (its residual mode keeps a
+# run's 8 corner rows: the register budget of the tuned C4 residual
+# kernel), in H1-bwd up to 4 slices of gcd(C, 4) floats (its g_out and
+# terms), in its deterministic variant (int64 terms) up to 4 floats at
+# gcd(C, 4) = 1 and one slice otherwise. `csrc/kernels.cu` holds the same
+# numbers (kLaneFloats, kSpanSlices, fixed_slices) and refuses a plan
+# beyond them.
+_LANE_FLOATS = 4
+_SPAN_SLICES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """How the general path of H1 / H1-bwd takes a [rows, C] table: a row
+    is C / width slices of `width` = gcd(C, 4) floats (one vector load
+    each); a lane takes `slices` consecutive slices of every row, a sample
+    `lanes` neighbouring lanes of a warp, so one walk of the sample's
+    points covers lanes * slices slices, and a level takes `walks` walks
+    (blocks of (level, walk, tile)). `padded`: the row width (4 ceil(C /
+    4)) of the atomic backward's float scratch where C % 4 != 0 (float4
+    atomics on 16-byte rows), else 0."""
+    width: int
+    slices: int
+    lanes: int
+    walks: int
+    padded: int
+
+
+def walk_plan(level_dim: int, kernel: str = "encode"):
+    """The general path's `WalkPlan` of a C-wide table for `kernel`
+    ("encode": H1 in both modes, "backward": H1-bwd, "deterministic": its
+    deterministic variant), None for the tuned widths 1, 2, 4, 8, 16. H1:
+    up to `_LANE_FLOATS` floats a lane and as many lanes a sample (up to a
+    warp) as its row needs, C3 one, C6 two, C12 three, so a level is one
+    walk of a sample's points for C <= 128. H1-bwd (a lane a sample, for
+    the warp's segment merge): up to `_SPAN_SLICES` slices a walk, so C3,
+    C6 and C12 take one walk a level and a row of S > 4 slices ceil(S /
+    4); its deterministic variant up to `_LANE_FLOATS` floats a walk at
+    gcd(C, 4) = 1 (C3: one walk) and one slice otherwise (C6, C12: three
+    walks; fewer, wider walks were slower there, PERF.md). A walk
+    that leaves slices to another covers a multiple of 4 floats, so the
+    backward's float4 atomics stay aligned."""
+    if level_dim in _TUNED_WIDTHS:
+        return None
+    width = math.gcd(level_dim, 4)
+    n_slices = level_dim // width
+    most = {"encode": _LANE_FLOATS // width, "backward": _SPAN_SLICES,
+            "deterministic": _LANE_FLOATS if width == 1 else 1}[kernel]
+    slices = min(n_slices, most)
+    lanes = min(32, -(-n_slices // slices)) if kernel == "encode" else 1
+    walks = -(-n_slices // (lanes * slices))
+    padded = (-(-level_dim // 4) * 4
+              if kernel == "backward" and level_dim % 4 else 0)
+    return WalkPlan(width, slices, lanes, walks, padded)
+
+
+def pad_rows(spec: HashGridSpec, points: int, plan) -> bool:
+    """Whether the atomic backward of a call of `points` multisamples sums
+    into rows padded to 16 bytes (`plan.padded` floats: a row's update as
+    float4 atomics, then one pass writes d_table from them) rather than
+    into d_table (a V-float atomic a slice): where the call's point-levels
+    (points x L) are at least the table's rows, so that the scratch's
+    zero fill and pass (3 Cp / C of d_table's bytes) cost less than the
+    atomics they save (PERF.md, on an H100: the C3 NeRF train call, 46 M
+    point-levels on 15 M rows, 4.44 ms padded against 9.58; C6 proposal
+    calls 55-73 M on 6.6-10.8 M, 6.23 / 11.97 against 7.80 / 14.44; the C3
+    object grid's, 0.57 M on 8.7 M, 0.155 against 0.076)."""
+    return (plan is not None and plan.padded > 0
+            and points * spec.num_levels >= spec.total_rows)
+
+
+def _plan_args(plan) -> Tuple[int, int]:
+    """(slices, lanes) of a plan as the C functions take them; the tuned
+    widths ignore them."""
+    return (plan.slices, plan.lanes) if plan is not None else (0, 0)
+
+
 def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
     """Raise unless t starts on a 4c-byte boundary: kernel H1 and its
     backward read rows of C floats as vectors of c = gcd(C, 4) floats (the
-    widest load every row start allows), K3 reads 16 bytes (c = 4) at a
-    time."""
+    widest load every row start allows; the general path's slices,
+    `walk_plan`), K3 reads 16 bytes (c = 4) at a time."""
     if t.data_ptr() % (4 * c):
         raise ValueError(f"{name}: expected a {4 * c}-byte aligned tensor")
     return t
@@ -532,7 +613,8 @@ def _aligned(name: str, t: torch.Tensor, c: int) -> torch.Tensor:
 def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
     """Checked, contiguous [rows, C], [B, n, 3], [B, n] views for H1 and its
     backward (any C: the tuned kernels for 1, 2, 4, 8 and 16, the general
-    path for the others); raises on what the kernels do not take."""
+    path for the others, `walk_plan`); raises on what the kernels do not
+    take."""
     _check_ported(spec)
     if spec.total_rows > _U32:
         raise ValueError("table rows exceed the kernel's uint32 offsets")
@@ -549,9 +631,11 @@ def _kernel_inputs(table, x01, stds, spec: HashGridSpec):
 
 def _encode_kernel(table, x01, stds, spec: HashGridSpec,
                    coarse_res_cutoff: int = 0, features: bool = True,
-                   residuals: bool = False):
+                   residuals: bool = False, plan=None):
     """Launch kernel H1 (`hash_encode_ms`): ([..., L*C] features or None,
-    R [L, n, 4, B, C] or None), R from its residual mode."""
+    R [L, n, 4, B, C] or None), R from its residual mode. plan: the general
+    path's `WalkPlan` (default `walk_plan`; another changes the launch,
+    never the result)."""
     table, x, s = _kernel_inputs(table, x01, stds, spec)
     b, n_ms = s.shape
     out = (torch.empty((b, spec.output_dim), dtype=torch.float32,
@@ -561,12 +645,14 @@ def _encode_kernel(table, x01, stds, spec: HashGridSpec,
            if residuals else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive through the call
+    if plan is None:
+        plan = walk_plan(spec.level_dim)
     lib = _build.library()
     rc = lib.nl_hash_encode_ms(
         table.data_ptr(), x.data_ptr(), s.data_ptr(), ptr(out), ptr(res),
         b, n_ms, spec.num_levels, spec.level_dim,
         *(a.ctypes.data for a in arrays), spec.interp == "tetra",
-        level_major(spec, _l2_bytes(x.device.index)),
+        level_major(spec, _l2_bytes(x.device.index)), *_plan_args(plan),
         x.device.index, _build.stream_of(x))
     _build.check(lib, rc, "hash_encode_ms")
     hash_encode_multisample.launches += 1  # every launch of H1
@@ -693,15 +779,22 @@ def hash_encode_multisample_bwd(table: torch.Tensor, x01: torch.Tensor,
     elif needs[0]:
         tbl, x, s, g = _bwd_kernel_inputs(table, x01, stds, g_out, spec)
         b, n_ms = s.shape
-        d_table = torch.zeros_like(tbl)
+        plan = walk_plan(spec.level_dim, "backward")
+        scratch = None
+        if pad_rows(spec, b * n_ms, plan):
+            scratch = torch.zeros((spec.total_rows, plan.padded),
+                                  dtype=torch.float32, device=x.device)
+        d_table = (torch.empty_like(tbl) if scratch is not None
+                   else torch.zeros_like(tbl))
         arrays = _kernel_levels(spec, coarse_res_cutoff)  # alive in the call
         lib = _build.library()
         rc = lib.nl_hash_encode_ms_bwd(
-            x.data_ptr(), s.data_ptr(), g.data_ptr(), d_table.data_ptr(), b,
-            n_ms, spec.num_levels, spec.level_dim,
+            x.data_ptr(), s.data_ptr(), g.data_ptr(), d_table.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, n_ms,
+            spec.num_levels, spec.level_dim,
             *(a.ctypes.data for a in arrays), spec.interp == "tetra",
             level_major(spec, _l2_bytes(x.device.index)),
-            x.device.index, _build.stream_of(x))
+            _plan_args(plan)[0], x.device.index, _build.stream_of(x))
         _build.check(lib, rc, "hash_encode_ms_bwd")
         hash_encode_multisample_bwd.launches += 1
     return (d_table, *_position_grads(table, x01, stds, g_out, spec, needs,
@@ -1336,7 +1429,8 @@ def hash_encode_multisample_bwd_det(table: torch.Tensor, x01: torch.Tensor,
             x.data_ptr(), s.data_ptr(), g.data_ptr(), k.data_ptr(),
             acc.data_ptr(), flags.data_ptr(), b, n_ms, levels, c,
             *(a.ctypes.data for a in arrays), spec.interp == "tetra",
-            bool(level_major_order), threads, dev, stream)
+            bool(level_major_order), threads,
+            _plan_args(walk_plan(c, "deterministic"))[0], dev, stream)
         _build.check(lib, rc, "hash_encode_ms_bwd_fixed")
         hash_encode_multisample_bwd_det.launches += 1
         d_table = torch.empty_like(table)

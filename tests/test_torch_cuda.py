@@ -16,7 +16,10 @@ run: gradients and scatter sums rtol 1e-4 / atol 1e-5 of the largest value.
 The in-tile gathers copy values: exactly equal, NaN positions included.
 Widths: the tuned kernels' (H1 and its backward C = 1, 2, 4, 8, 16; K3 the
 powers of two up to 32) and the general path's (GENERAL_WIDTHS: a row read
-as slices of gcd(C, 4) floats), each at the same tolerances.
+as slices of gcd(C, 4) floats), each at the same tolerances. The general
+path's H1, R and deterministic int64 sums are, channel by channel, the
+tuned gcd(C, 4)-wide kernels' bits on the same columns, under its own walk
+plan (`grid.walk_plan`) and under others.
 The position gradients, in both modes: H1's residual mode (R, the terms
 d_x01 / d_stds contract with g_out) against its plain version at the
 backward's tolerance, its features the same bits as H1's; the contraction
@@ -52,9 +55,10 @@ pytestmark = pytest.mark.cuda
 
 TOL = dict(weights=(1e-5, 1e-6), depth=(1e-4, 1e-5), acc=(1e-5, 1e-6),
            rgb=(1e-5, 1e-5), semantic=(1e-5, 1e-5), intensity=(1e-5, 1e-5))
-# Channel widths of the kernels' general path: slices of 1 (C3, C5), 2 (C6)
-# and 4 (C12, C24, C32) floats; K3 takes C32 by a tuned kernel.
-GENERAL_WIDTHS = [3, 5, 6, 12, 24, 32]
+# Channel widths of the kernels' general path: slices of 1 (C3, C5, C7: S >
+# 4, two residual lanes), 2 (C6, C10: odd S) and 4 (C12, C20, C24, C32,
+# C36: wider than one 16-float walk) floats; K3 takes C32 by a tuned kernel.
+GENERAL_WIDTHS = [3, 5, 6, 7, 10, 12, 20, 24, 32, 36]
 
 
 @pytest.fixture
@@ -1309,3 +1313,125 @@ def test_wrappers_launch_the_det_kernels_under_the_switch(dev):
     assert not torch.are_deterministic_algorithms_enabled()
     assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
                         before[3], before[4] + 1, before[5])
+
+
+def _columns(t, spec, q0, w):
+    """Channels [q0, q0 + w) of every level of a [B, L*C] tensor."""
+    b = t.shape[0]
+    return t.reshape(b, spec.num_levels, spec.level_dim)[..., q0:q0 + w] \
+        .reshape(b, spec.num_levels * w).contiguous()
+
+
+def _fixed_sums(spec, x01, stds, g, k, cutoff, slices, level_major=False,
+                threads=128):
+    """(int64 sums, flags) of one `nl_hash_encode_ms_bwd_fixed` call at
+    exponents k [L, C] and `slices` a walk (the general path's plan)."""
+    from nerf_lidar_tpu_torch.ops import _build
+    lib = _build.library()
+    arrays = grid._kernel_levels(spec, cutoff)
+    c = spec.level_dim
+    acc = torch.zeros((spec.total_rows, c), dtype=torch.int64,
+                      device=x01.device)
+    flags = torch.zeros(((spec.total_rows * c + 7) // 8,), dtype=torch.int32,
+                        device=x01.device)
+    _build.check(lib, lib.nl_hash_encode_ms_bwd_fixed(
+        x01.data_ptr(), stds.data_ptr(), g.data_ptr(), k.data_ptr(),
+        acc.data_ptr(), flags.data_ptr(), x01.shape[0], x01.shape[1],
+        spec.num_levels, c, *(a.ctypes.data for a in arrays),
+        spec.interp == "tetra", level_major, threads, slices,
+        x01.device.index, _build.stream_of(x01)), "hash_encode_ms_bwd_fixed")
+    return acc, flags
+
+
+@pytest.mark.parametrize("cutoff", [0, 40])
+@pytest.mark.parametrize("interp", ["linear", "tetra"])
+@pytest.mark.parametrize("level_dim", GENERAL_WIDTHS)
+def test_general_path_is_the_tuned_kernels_bits(dev, level_dim, interp,
+                                                cutoff):
+    """The general path walks a sample's points once a level for every
+    slice of its span, so each channel keeps the runs, weights and order of
+    sums of a C-wide instantiation: H1's features, its residual mode's R
+    and the deterministic backward's int64 sums and flags (NaN / inf in
+    g_out) are, slice by slice, the tuned V = gcd(C, 4) kernels' bits on
+    that slice's columns (the same exponents); and the same bits under
+    other plans (a slice a walk, two and three lanes a sample), in both
+    block orders."""
+    spec, table, x01, stds, g_out = _det_case(dev, level_dim, interp,
+                                              cutoff, "rays", 100 + level_dim)
+    x01, stds = x01.contiguous(), stds.contiguous()
+    g_out[3, 1], g_out[9, 2] = float("nan"), float("inf")
+    plan = grid.walk_plan(level_dim)
+    v = plan.width
+    tuned = dataclasses.replace(spec, level_dim=v)
+    feats = grid._encode_kernel(table, x01, stds, spec, cutoff)[0]
+    res_feats, r = grid._encode_kernel(table, x01, stds, spec, cutoff,
+                                       residuals=True)
+    assert torch.equal(res_feats, feats)
+    k = grid.bound_exponents(g_out)[1].reshape(spec.num_levels, level_dim)
+    bwd_plan = grid.walk_plan(level_dim, "deterministic")
+    sums = _fixed_sums(spec, x01, stds, g_out, k, cutoff, bwd_plan.slices)
+    for q0 in range(0, level_dim, v):
+        cols = table[:, q0:q0 + v].contiguous()
+        want = grid._encode_kernel(cols, x01, stds, tuned, cutoff)[0]
+        assert torch.equal(_columns(feats, spec, q0, v), want), q0
+        want_r = grid._encode_kernel(cols, x01, stds, tuned, cutoff,
+                                     residuals=True)[1]
+        assert torch.equal(r[..., q0:q0 + v], want_r), q0
+        acc, flags = _fixed_sums(tuned, x01, stds,
+                                 _columns(g_out, spec, q0, v),
+                                 k[:, q0:q0 + v].contiguous(), cutoff, 0)
+        assert torch.equal(sums[0][:, q0:q0 + v], acc), q0
+    for slices, lanes in ((1, 1), (1, 2), (1, 3)):
+        other = grid.WalkPlan(v, slices, lanes, 0, 0)
+        assert torch.equal(grid._encode_kernel(table, x01, stds, spec, cutoff,
+                                               plan=other)[0], feats)
+        assert torch.equal(grid._encode_kernel(
+            table, x01, stds, spec, cutoff, residuals=True, plan=other)[1], r)
+    for lm, threads in ((True, 64), (False, 256)):
+        again = _fixed_sums(spec, x01, stds, g_out, k, cutoff,
+                            bwd_plan.slices, lm, threads)
+        assert all(torch.equal(a, b) for a, b in zip(again, sums))
+    again = _fixed_sums(spec, x01, stds, g_out, k, cutoff, 1)  # S walks
+    assert all(torch.equal(a, b) for a, b in zip(again, sums))
+
+
+@pytest.mark.parametrize("level_dim", [3, 5, 6, 7, 10])
+def test_general_path_padded_rows_stay_in_their_table(dev, level_dim):
+    """At C % 4 != 0 the atomic backward sums into a zeroed scratch of rows
+    padded to 4 ceil(C / 4) floats and writes d_table from it: through the
+    C function into views at a row offset of larger buffers, it writes
+    exactly the [rows, C] view (the wrapper's d_table, within BWD_TOL of
+    the written-out twin) and nothing of the buffers around it, and leaves
+    the scratch view's neighbours as they were."""
+    from nerf_lidar_tpu_torch.ops import _build
+    spec, table, x01, stds, g_out = _det_case(dev, level_dim, "linear", 0,
+                                              "rays", 120 + level_dim)
+    x01, stds = x01.contiguous(), stds.contiguous()
+    rows, c = spec.total_rows, level_dim
+    plan = grid.walk_plan(c, "backward")
+    assert plan.padded == -(-c // 4) * 4
+    pad = 64  # rows of sentinels on each side; 16-byte aligned offsets
+    d_buf = torch.full((rows + 2 * pad, c), 7.0, device=dev)
+    s_buf = torch.full((rows + 2 * pad, plan.padded), 5.0, device=dev)
+    s_buf[pad:pad + rows] = 0.0
+    d_view, s_view = d_buf[pad:pad + rows], s_buf[pad:pad + rows]
+    arrays = grid._kernel_levels(spec, 0)
+    lib = _build.library()
+    _build.check(lib, lib.nl_hash_encode_ms_bwd(
+        x01.data_ptr(), stds.data_ptr(), g_out.data_ptr(), d_view.data_ptr(),
+        s_view.data_ptr(), x01.shape[0], x01.shape[1], spec.num_levels, c,
+        *(a.ctypes.data for a in arrays), False, False, plan.slices,
+        dev.index, _build.stream_of(x01)), "hash_encode_ms_bwd")
+    got = grid.hash_encode_multisample_bwd(table, x01, stds, g_out, spec,
+                                           (True, False, False))[0]
+    twin = grid.hash_encode_multisample_bwd_plain(
+        table, x01, stds, g_out, spec, (True, False, False))[0]
+    torch.cuda.synchronize()
+    assert bool((d_buf[:pad] == 7.0).all()) and \
+        bool((d_buf[pad + rows:] == 7.0).all())
+    assert bool((s_buf[:pad] == 5.0).all()) and \
+        bool((s_buf[pad + rows:] == 5.0).all())
+    _close_to_max(d_view, twin, "d_table view")
+    _close_to_max(got, twin, "d_table")
+    assert bool((s_view[:, c:] == 0.0).all())  # the pad channels add 0
+

@@ -4,12 +4,15 @@ card by chip_smoke.py and tests/test_torch_cuda.py): the presets' grids
 (the spectral encoder's dense band too), trilinear and tetrahedral
 interpolation, mean-point coarse levels, C in {1, 2, 4, 8, 16} and the
 kernels' general widths C in {3, 6, 12}, on points with ties of their
-fractional parts and on cell faces.
+fractional parts and on cell faces; and the general path's walk plans
+(`grid.walk_plan`: slices a lane, lanes a sample, walks a level, the
+backward's padded rows), which the kernels take as given.
 
 Tolerance: features rtol 1e-5 / atol 1e-6; erf weights rtol 1e-6.
 """
 
 import dataclasses
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -188,3 +191,79 @@ def test_plain_encode_modes_match_jax(interp, cutoff, c):
         torch.from_numpy(table), torch.from_numpy(x01),
         torch.from_numpy(stds), spec, cutoff)
     np.testing.assert_array_equal(wrapped.numpy(), feats.numpy())
+
+
+# (width, slices, lanes, walks, padded) of the general path's plans: H1
+# (both modes), H1-bwd, its deterministic variant.
+WALK_PLANS = {
+    3: ((1, 3, 1, 1, 0), (1, 3, 1, 1, 4), (1, 3, 1, 1, 0)),
+    5: ((1, 4, 2, 1, 0), (1, 4, 1, 2, 8), (1, 4, 1, 2, 0)),
+    6: ((2, 2, 2, 1, 0), (2, 3, 1, 1, 8), (2, 1, 1, 3, 0)),
+    7: ((1, 4, 2, 1, 0), (1, 4, 1, 2, 8), (1, 4, 1, 2, 0)),
+    10: ((2, 2, 3, 1, 0), (2, 4, 1, 2, 12), (2, 1, 1, 5, 0)),
+    12: ((4, 1, 3, 1, 0), (4, 3, 1, 1, 0), (4, 1, 1, 3, 0)),
+    20: ((4, 1, 5, 1, 0), (4, 4, 1, 2, 0), (4, 1, 1, 5, 0)),
+    36: ((4, 1, 9, 1, 0), (4, 4, 1, 3, 0), (4, 1, 1, 9, 0)),
+}
+KERNELS = ("encode", "backward", "deterministic")
+
+
+@pytest.mark.parametrize("c", sorted(WALK_PLANS))
+def test_walk_plan_of_the_general_widths(c):
+    """The general path's plans at the card tests' widths: H1 a float4 of
+    a row a lane (C6: two lanes a sample, C12 three), one walk a level;
+    H1-bwd a lane a sample, C3, C6 and C12 (the grids of chip_smoke.py
+    [21]) one walk a level, its padded rows 16 bytes where C % 4; the
+    deterministic variant 4 floats a walk at gcd(C, 4) = 1, a slice
+    otherwise."""
+    got = [grid.walk_plan(c, k) for k in KERNELS]
+    assert [dataclasses.astuple(p) for p in got] == list(WALK_PLANS[c])
+
+
+@pytest.mark.parametrize("c", range(1, 161))
+def test_walk_plan_covers_every_row(c):
+    """Any width: None for the tuned ones; else the slices are gcd(C, 4)
+    floats, a lane takes at most the kernels' span (H1: 4 floats, H1-bwd:
+    4 slices, its deterministic variant 4 floats at gcd(C, 4) = 1 and a
+    slice otherwise), a sample at most
+    a warp (the backward: one lane), and the walks cover the S slices with
+    no walk to spare; H1 takes one walk for C <= 128, H1-bwd for S <= 4;
+    an atomic backward walk that leaves slices to another covers a
+    multiple of 4 floats (its float4 spans start on 16 bytes)."""
+    if c in (1, 2, 4, 8, 16):
+        assert all(grid.walk_plan(c, k) is None for k in KERNELS)
+        return
+    v = math.gcd(c, 4)
+    s = c // v
+    for kernel, most in zip(KERNELS, (4 // v, 4, 4 if v == 1 else 1)):
+        p = grid.walk_plan(c, kernel)
+        assert p.width == v and 1 <= p.slices <= most
+        assert 1 <= p.lanes <= (32 if kernel == "encode" else 1)
+        cover = p.lanes * p.slices
+        assert cover * p.walks >= s > cover * (p.walks - 1)
+        if kernel == "backward" and p.walks > 1:
+            assert p.slices * p.width % 4 == 0
+        if (c <= 128 and kernel == "encode") or (
+                s <= 4 and kernel == "backward"):
+            assert p.walks == 1
+        assert p.padded == (-(-c // 4) * 4
+                            if kernel == "backward" and c % 4 else 0)
+
+
+def test_backward_pads_rows_where_the_call_is_dense():
+    """The atomic backward sums into 16-byte rows where a call's
+    point-levels reach the table's rows (the C3 NeRF train call), into
+    d_table where they do not (the C3 object grid's), never at C % 4 ==
+    0 or a tuned width."""
+    nerf = grid.spec_for(dataclasses.replace(
+        tconfigs.nuscenes_single().model.nerf_mlp.grid, level_dim=3))
+    obj = grid.spec_for(dataclasses.replace(
+        tconfigs.nuscenes_single().model.obj_mlp.grid, level_dim=3))
+    plan = grid.walk_plan(3, "backward")
+    assert grid.pad_rows(nerf, 655_360 * 7, plan)
+    assert not grid.pad_rows(obj, 81_920, plan)
+    for c in (4, 12):
+        spec = grid.spec_for(dataclasses.replace(
+            tconfigs.nuscenes_single().model.nerf_mlp.grid, level_dim=c))
+        assert not grid.pad_rows(spec, 10**9,
+                                 grid.walk_plan(c, "backward"))
